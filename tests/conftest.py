@@ -29,3 +29,10 @@ if not os.environ.get("RTEN_TPU_TESTS"):
         "tests must run on the CPU backend; TPU backend was already initialized"
     )
     assert len(jax.devices()) == 8, "expected 8 virtual CPU devices"
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs an NVIDIA CUDA card (the rten_tpu_torch kernels); skipped without one",
+    )
