@@ -4,20 +4,32 @@ Run from the repository root:  python3 chip_smoke.py
 
 1. Builds every CUDA kernel of the port from ``rten_tpu_torch/csrc`` (one
    nvcc per source, in parallel) and prints the build time.
-2. Kernel phases at the serving headline's shapes (slots 120, cap 256,
-   prompt 128, GPT-2 124M: E 768, H 12, D 64, vocab 50257): each kernel
-   against its plain PyTorch version on the same inputs on the card, then
-   CUDA-event times of the kernel, the plain version and one PyTorch
-   library call computing the same function (a yardstick only; the port
-   never calls it), beside the least time the card could take.
-3. Serve phase: GPT-2 124M at full width (12 layers, random weights from
-   seed 0, int8 weights, int8 cat KV) behind ContinuousBatchingEngine
-   (16 slots, cap 256, prefill bucket 128, 8 steps per dispatch) answering
-   24 requests of 128 seeded tokens. The kernels' launch counters are zeroed
-   just before and read just after: every kernel must have run.
-4. Reference phase: the card against the CPU (the plain versions): a small
-   GPT-2 behind the engine gives the same tokens, and GPT-2 at full width cut
-   to 2 layers gives finite logits close to the CPU's (see phase_reference).
+2. Kernel phases: each kernel against its plain PyTorch version on the same
+   inputs on the card, then the times of the kernel, the plain version and
+   one PyTorch library call computing the same function (a yardstick only;
+   the port never calls it), beside the least time the card could take.
+   Each time is the card's busy time from torch.profiler; the CUDA-event
+   time of back-to-back calls, which includes the host's launch overhead,
+   is printed beside it as "wall" (see ``timed``). GPT-2 124M's kernels at the serving headline's shapes
+   (slots 120, cap 256, prompt 128: E 768, H 12, D 64, vocab 50257); the
+   int8 matmul and the argmax also at the TinyLlama serve phase's shapes;
+   decode_mha's two forms at TinyLlama's attention shape (H 32 over 4 KV
+   heads, D 64, slots 16, cap 256; S 1 and S 128; s8 and f32 caches; a
+   window).
+3. Serve phases, each through the user's entry points (builder,
+   quantize_dynamic, Model, ContinuousBatchingEngine) with every launch
+   counter zeroed just before and read just after (each kernel of the path
+   must have run, as often as the path's forwards say):
+   - TinyLlama-1.1B's shape at full width (22 layers, random weights from
+     seed 0), int8 weights, int8 head-major KV caches;
+   - GPT-2 124M at full width (12 layers), int8 weights, int8 cat KV;
+   both behind the engine with 16 slots, cap 256, prefill bucket 128, 8
+   steps per dispatch, answering 24 requests of 128 seeded tokens with
+   16-48 new tokens each; then a profiled wave of 16 more requests.
+4. Reference phases, the card against the CPU (the plain versions): small
+   GPT-2 and Llama models behind the engine give the same tokens (Llama for
+   each supported cache layout), and the full widths cut to 2 layers give
+   finite logits close to the CPU's (see logits_card_vs_cpu).
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Exits nonzero, printing
@@ -53,8 +65,18 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def timed(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds of fn() over iters, by CUDA events."""
+def timed(fn, iters: int = 20, warmup: int = 3):
+    """Mean milliseconds of one fn() over iters, two ways: (device, wall).
+
+    device: the summed duration of every kernel (and copy) that fn()
+    launched on the card, from torch.profiler; the host's time between
+    launches is left out. wall: CUDA events around iters back-to-back
+    calls; where the card finishes a call before the host has launched the
+    next, this is the host's launch rate, not the kernel's time. Where the
+    profiler records no device time, device is None."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -65,7 +87,32 @@ def timed(fn, iters: int = 20, warmup: int = 3) -> float:
         fn()
     t1.record()
     torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
+    wall = t0.elapsed_time(t1) / iters
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+    return (busy / iters / 1e3 if busy > 0 else None), wall
+
+
+def ms_of(t):
+    """The reported time of a ``timed`` pair: the device time, or the wall
+    time where the profiler recorded none."""
+    return t[1] if t[0] is None else t[0]
+
+
+def fmt(t, scale: float = 1.0) -> str:
+    return f"{scale * ms_of(t):.4f} ms (wall {scale * t[1]:.4f})"
+
+
+def time_keys(kernel, plain, library, scale: float = 1.0):
+    """A kernel row's times from three ``timed`` pairs, each times scale."""
+    def both(t, key):
+        return {key: None if t is None else scale * ms_of(t),
+                key.replace("ms", "wall_ms"): None if t is None else scale * t[1]}
+    return {**both(kernel, "ms"), **both(plain, "plain_ms"), **both(library, "library_ms")}
 
 
 def bound_ms(nbytes: float, ops: float, peak_ops: float):
@@ -77,30 +124,39 @@ def bound_ms(nbytes: float, ops: float, peak_ops: float):
 
 
 def int_mm_ms(a, b):
-    """Time of torch._int_mm on the same operands (the s8 view of a), the
-    library yardstick; None where cuBLAS refuses the layout."""
+    """``timed`` torch._int_mm on the same operands (the s8 view of a), the
+    library yardstick; None where cuBLAS refuses the shape or layout."""
     a_s8 = (a ^ 0x80).view(torch.int8)
+    refusal = ""
     for bb in (b, b.t().contiguous().t()):
         try:
             torch._int_mm(a_s8, bb)
         except RuntimeError as e:
-            print(f"  _int_mm refused {tuple(a.shape)} x {tuple(b.shape)}: {e}".splitlines()[0])
+            refusal = str(e).splitlines()[0]
             continue
         return timed(lambda: torch._int_mm(a_s8, bb), iters=10)
+    print(f"  _int_mm refused {tuple(a.shape)} x {tuple(b.shape)}: {refusal}", flush=True)
     return None
 
 
-def phase_int8_matmul(gen, dev):
+# One decode step's int8 matmuls, (K, N, calls): GPT-2 at slots 120 (four
+# projections per layer plus the padded lm_head) and the Llama serve
+# phase's TinyLlama at slots 16 (q, k, v, o, gate, up, down per layer plus
+# the lm_head padded to 32768). Admission adds the per-layer shapes at
+# M = slots * 128.
+GPT2_INT8 = [(768, 2304, 12), (768, 768, 12), (768, 3072, 12), (3072, 768, 12),
+             (768, NP, 1)]
+LLAMA_INT8 = [(2048, 2048, 44), (2048, 256, 44), (2048, 5632, 44), (5632, 2048, 22),
+              (2048, 32768, 1)]
+
+
+def phase_int8_matmul(gen, dev, decode=GPT2_INT8, slots=SLOTS, tag="GPT-2"):
     from rten_tpu_torch.kernels.int8_matmul import (
         int8_matmul_dequant, int8_matmul_dequant_plain,
     )
 
-    # One decode step at slots 120: four projections per layer plus the
-    # padded lm_head; admission adds the same four at M = 120 * 128.
-    decode = [(768, 2304, 12), (768, 768, 12), (768, 3072, 12), (3072, 768, 12),
-              (768, NP, 1)]
-    calls = [(SLOTS, K, N, n) for K, N, n in decode]
-    calls += [(SLOTS * PROMPT, K, N, 1) for K, N, _ in decode[:4]]
+    calls = [(slots, K, N, n) for K, N, n in decode]
+    calls += [(slots * PROMPT, K, N, 1) for K, N, _ in decode[:-1]]
     max_err = 0.0
     per_shape = []
     for M, K, N, _ in calls:
@@ -125,25 +181,33 @@ def phase_int8_matmul(gen, dev):
         nbytes = M * K + K * N + 8 * N + 4 * M * N
         bms, by = bound_ms(nbytes, 2.0 * M * N * K, INT8_OPS_PER_S)
         per_shape.append((M, K, N, k_ms, p_ms, lib, bms, by))
-        print(f"  int8_matmul M={M} K={K} N={N}: kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms, _int_mm {lib if lib is None else round(lib, 4)} ms, "
+        print(f"  int8_matmul [{tag}] M={M} K={K} N={N}: kernel {fmt(k_ms)}, plain "
+              f"{fmt(p_ms)}, _int_mm {'refused' if lib is None else fmt(lib)}, "
               f"bound {bms:.4f} ms ({by})", flush=True)
         del a, b, got, want
-    # The reported unit: one decode step at slots 120 (49 calls).
-    step = [(s, n) for s, (_, _, _, n) in zip(per_shape, calls) if s[0] == SLOTS]
-    tot = lambda i: sum(s[i] * n for s, n in step)
-    lib_tot = None if any(s[5] is None for s, _ in step) else tot(5)
+    # The reported unit: one decode step.
+    step = [(s, n) for s, (_, _, _, n) in zip(per_shape, calls) if s[0] == slots]
+
+    def tot(i, wall=False):
+        return sum((s[i][1] if wall else ms_of(s[i])) * n for s, n in step)
+
+    lib_tot = None if any(s[5] is None for s, _ in step) else (tot(5), tot(5, True))
     bytes_bound = sum(s[6] * n for s, n in step if s[7] == "bytes")
     return {
         "name": "int8_matmul_dequant", "route": "cuda",
         "source": "rten_tpu_torch/csrc/int8_matmul.cu",
         "replaces": "rten_tpu/kernels/int8_matmul.py:121",
-        "unit": "one decode step at slots 120: 49 calls (12 x 4 projections + lm_head)",
+        "unit": f"one {tag} decode step at slots {slots}: "
+                f"{sum(n for _, _, n in decode)} calls",
         "max_abs_err": max_err, "ms": tot(3), "plain_ms": tot(4),
-        "bound_ms": tot(6),
-        "bound_by": "bytes" if bytes_bound >= tot(6) / 2 else "operations",
-        "library_ms": lib_tot,
-        "library_call": "torch._int_mm (integer product only, no epilogue)",
+        "bound_ms": sum(s[6] * n for s, n in step),
+        "bound_by": "bytes" if 2 * bytes_bound >= sum(s[6] * n for s, n in step)
+        else "operations",
+        "library_ms": None if lib_tot is None else lib_tot[0],
+        "library_call": "torch._int_mm (integer product only, no epilogue; cuBLAS refuses "
+                        "M <= 16)",
+        "wall_ms": tot(3, True), "plain_wall_ms": tot(4, True),
+        "library_wall_ms": None if lib_tot is None else lib_tot[1],
     }
 
 
@@ -210,15 +274,14 @@ def phase_decode_attention(gen, dev):
                       + 2 * read * H * (D + 4) + 2 * B * H * (D + 4))
     per_call_ops = 4.0 * (read + B) * H * D
     bms, by = bound_ms(12 * per_call_bytes, 12 * per_call_ops, F32_FLOPS_PER_S)
-    print(f"  decode_mha_append_cat x12: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-          f"sdpa {lib:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+    print(f"  decode_mha_append_cat x12: kernel {fmt(k_ms)}, plain {fmt(p_ms)}, "
+          f"sdpa {fmt(lib)}, bound {bms:.4f} ms ({by})", flush=True)
     return {
         "name": "decode_mha_append_cat", "route": "cuda",
         "source": "rten_tpu_torch/csrc/flash_attention.cu",
         "replaces": "rten_tpu/kernels/flash_attention.py:2597",
         "unit": "one decode step at slots 120, cap 256: 12 calls (one per layer)",
-        "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bms,
-        "bound_by": by, "library_ms": lib,
+        "max_abs_err": err, **time_keys(k_ms, p_ms, lib), "bound_ms": bms, "bound_by": by,
         "library_call": "scaled_dot_product_attention on pre-dequantized f32 K/V (no quantize, no append)",
     }
 
@@ -253,26 +316,142 @@ def phase_prefill_attention(gen, dev):
     pairs = B * H * PROMPT * (PROMPT + 1) / 2  # causal (row, column) pairs
     nbytes = 4 * B * H * PROMPT * D * 2 + 2 * B * PROMPT * H * (D + 4) + 4 * B
     bms, by = bound_ms(12 * nbytes, 12 * 4.0 * pairs * D, F32_FLOPS_PER_S)
-    print(f"  prefill_mha_cat x12: kernel {12 * k_ms:.4f} ms, plain {12 * p_ms:.4f} ms, "
-          f"sdpa {12 * lib:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+    print(f"  prefill_mha_cat x12: kernel {fmt(k_ms, 12)}, plain {fmt(p_ms, 12)}, "
+          f"sdpa {fmt(lib, 12)}, bound {bms:.4f} ms ({by})", flush=True)
     return {
         "name": "prefill_mha_cat", "route": "cuda",
         "source": "rten_tpu_torch/csrc/flash_attention.cu",
         "replaces": "rten_tpu/kernels/flash_attention.py:3301",
         "unit": "one admission of 120 x 128 tokens: 12 calls (one per layer)",
-        "max_abs_err": max(err, err2), "ms": 12 * k_ms, "plain_ms": 12 * p_ms,
-        "bound_ms": bms, "bound_by": by, "library_ms": 12 * lib,
+        "max_abs_err": max(err, err2), **time_keys(k_ms, p_ms, lib, 12),
+        "bound_ms": bms, "bound_by": by,
         "library_call": "scaled_dot_product_attention on pre-dequantized f32 K/V with a mask",
     }
 
 
-def phase_argmax(gen, dev):
+# TinyLlama-1.1B's published shape (rten_tpu_torch.models.llama defaults)
+# and the Llama serve phase's slots.
+L_LAYERS, L_H, L_HKV, L_D, L_VOCAB, L_SLOTS = 22, 32, 4, 64, 32000, 16
+
+
+def _head_major_caches(gen, dev, B, quant):
+    shape = (B, L_HKV, CAP, L_D)
+    if quant:
+        k = torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8).to(dev)
+        v = torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8).to(dev)
+        ks = (torch.rand(B, L_HKV, CAP, generator=gen) * 0.015 + 0.005).to(dev)
+        vs = (torch.rand(B, L_HKV, CAP, generator=gen) * 0.015 + 0.005).to(dev)
+        return k, v, ks, vs
+    return torch.randn(shape, generator=gen).to(dev), torch.randn(shape, generator=gen).to(dev), \
+        None, None
+
+
+def _mask(lens, S, window=0):
+    """[B, 1, S, cap] columns row s of slot b attends."""
+    j = torch.arange(CAP, device=lens.device)
+    qpos = lens.long()[:, None, None, None] + torch.arange(S, device=lens.device)[None, None, :, None]
+    m = j <= qpos
+    if window:
+        m &= j > qpos - window
+    return m
+
+
+def phase_decode_mha(gen, dev):
+    """decode_mha at TinyLlama's attention shape (H 32 over Hkv 4, D 64)
+    on head-major caches at slots 16, cap 256: the fold at S 1 (a decode
+    step) and the per-head form at S 128 (an admission), s8 and f32
+    caches, and a window. Each against decode_mha_plain on the same
+    inputs, within 1e-4 (f32 accumulation on both sides, other summation
+    order). A row with no column to attend (a window wholly past cap)
+    gives 0 from the kernel, as on the TPU, and the mean of V from the
+    plain version; such rows are checked apart. Then times over 22 layers'
+    s8 caches."""
+    from rten_tpu_torch.kernels.flash_attention import (
+        decode_mha, decode_mha_folded, decode_mha_heads, decode_mha_plain,
+    )
+
+    B, tol = L_SLOTS, 1e-4
+    edges = torch.tensor([0, CAP - 1, CAP + 5], dtype=torch.int32)
+    lens_by_S = {
+        # Mid-decode lengths, plus an empty cache, the last row and past cap.
+        1: torch.cat([edges, torch.randint(128, 192, (B - 3,), generator=gen,
+                                            dtype=torch.int32)]).to(dev),
+        # An admission chunk at offsets that keep it inside the cache, plus
+        # the same edges (rows past cap attend every column).
+        PROMPT: torch.cat([edges, torch.randint(0, CAP - PROMPT + 1, (B - 3,), generator=gen,
+                                                 dtype=torch.int32)]).to(dev),
+    }
+    forms = {1: decode_mha_folded, PROMPT: decode_mha_heads}
+    errs = {1: 0.0, PROMPT: 0.0}
+    for S, quant, window in ((1, True, 0), (1, False, 0), (1, True, 64),
+                             (PROMPT, True, 0), (PROMPT, False, 0), (PROMPT, True, 64)):
+        q = torch.randn(B, L_H, S, L_D, generator=gen).to(dev)
+        k, v, ks, vs = _head_major_caches(gen, dev, B, quant)
+        lens = lens_by_S[S]
+        before = {s: f.launches for s, f in forms.items()}
+        got = decode_mha(q, k, v, lens, ks, vs, window=window)
+        want = decode_mha_plain(q, k, v, lens, ks, vs, window=window)
+        torch.cuda.synchronize()
+        if {s: f.launches - before[s] for s, f in forms.items()} != \
+                {s: int(s == S) for s in forms}:
+            fail(f"decode_mha S={S}: routed to the wrong form")
+        live = _mask(lens, S, window).any(-1, keepdim=True).expand(B, L_H, S, L_D)
+        err = (got - want)[live].abs().max().item()
+        tag = f"decode_mha S={S} {'s8' if quant else 'f32'} window={window}"
+        if not err <= tol or not (got[~live] == 0).all() or not torch.isfinite(got).all():
+            fail(f"{tag}: max err {err} > {tol}, or a row with no column is not 0")
+        print(f"  {tag}: max abs err {err:.3e} (bound {tol})", flush=True)
+        errs[S] = max(errs[S], err)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for S, name, line in ((1, "decode_mha_folded", 772), (PROMPT, "decode_mha_heads", 935)):
+        lens, fn = lens_by_S[S], forms[S]
+        q = torch.randn(B, L_H, S, L_D, generator=gen).to(dev)
+        times = {}
+        for quant in (True, False):
+            layers = [_head_major_caches(gen, dev, B, quant) for _ in range(L_LAYERS)]
+            times[quant] = timed(lambda: [fn(q, *c[:2], lens, *c[2:]) for c in layers], iters=10)
+            if quant:
+                p_ms = timed(lambda: [decode_mha_plain(q, *c[:2], lens, *c[2:]) for c in layers],
+                             iters=3, warmup=1)
+                m = _mask(lens, S)
+                deq = [(c[0].float() * c[2][..., None], c[1].float() * c[3][..., None])
+                       for c in layers]
+                lib = timed(lambda: [sdpa(q, kf, vf, attn_mask=m, enable_gqa=True)
+                                     for kf, vf in deq], iters=10)
+            del layers
+        # This run's work: every (row, column) pair the mask admits, and
+        # each live K/V row (s8 plus its scale) read once.
+        pairs = _mask(lens, S).sum().item()
+        kv_rows = (lens.long() + S).clamp(max=CAP).sum().item()
+        nbytes = 2 * 4 * B * L_H * S * L_D + 4 * B + 2 * kv_rows * L_HKV * (L_D + 4)
+        bms, by = bound_ms(L_LAYERS * nbytes, L_LAYERS * 4.0 * pairs * L_H * L_D,
+                           F32_FLOPS_PER_S)
+        print(f"  {name} x{L_LAYERS}: kernel {fmt(times[True])} (f32 caches "
+              f"{fmt(times[False])}), plain {fmt(p_ms)}, sdpa {fmt(lib)}, "
+              f"bound {bms:.4f} ms ({by})", flush=True)
+        rows.append({
+            "name": name, "route": "cuda", "source": "rten_tpu_torch/csrc/decode_mha.cu",
+            "replaces": f"rten_tpu/kernels/flash_attention.py:{line}",
+            "unit": (f"one TinyLlama {'decode step' if S == 1 else 'admission'} at slots "
+                     f"{B}, cap {CAP}{'' if S == 1 else f', {S} tokens'}: {L_LAYERS} calls "
+                     f"(one per layer), s8 caches"),
+            "max_abs_err": errs[S], **time_keys(times[True], p_ms, lib), "bound_ms": bms,
+            "bound_by": by, "f32_cache_ms": ms_of(times[False]),
+            "library_call": "scaled_dot_product_attention(enable_gqa=True) on "
+                            "pre-dequantized f32 K/V with the same mask",
+        })
+    return rows
+
+
+def phase_argmax(gen, dev, slots=SLOTS, vocab=VOCAB, padded=NP):
     from rten_tpu_torch.kernels.argmax import argmax_lastdim, argmax_plain
 
-    logits = torch.randn(SLOTS, NP, generator=gen).to(dev)
-    x = logits[:, :VOCAB]                       # the engine's strided view
+    logits = torch.randn(slots, padded, generator=gen).to(dev)
+    x = logits[:, :vocab]                       # the engine's strided view
     x[0, 7] = x[0, 9] = 1e4                     # a tie: the lower index wins
-    x[1, VOCAB - 1] = 1e4                       # the last column
+    x[1, vocab - 1] = 1e4                       # the last column
     got = argmax_lastdim(x)
     want = argmax_plain(x)
     torch.cuda.synchronize()
@@ -282,16 +461,16 @@ def phase_argmax(gen, dev):
     k_ms = timed(lambda: argmax_lastdim(x))
     p_ms = timed(lambda: argmax_plain(x))
     lib = timed(lambda: torch.argmax(x, dim=-1))
-    bms, by = bound_ms(4.0 * SLOTS * VOCAB + 4 * SLOTS, float(SLOTS * VOCAB), F32_FLOPS_PER_S)
-    print(f"  argmax_lastdim: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-          f"torch.argmax {lib:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+    bms, by = bound_ms(4.0 * slots * vocab + 4 * slots, float(slots * vocab), F32_FLOPS_PER_S)
+    print(f"  argmax_lastdim [{slots}, {vocab}]: kernel {fmt(k_ms)}, plain {fmt(p_ms)}, "
+          f"torch.argmax {fmt(lib)}, bound {bms:.4f} ms ({by})", flush=True)
     return {
         "name": "argmax_lastdim", "route": "cuda",
         "source": "rten_tpu_torch/csrc/argmax.cu",
         "replaces": "rten_tpu/kernels/argmax.py:60",
-        "unit": "one call on [120, 50257] logits (row stride 51200)",
-        "max_abs_err": float(err), "ms": k_ms, "plain_ms": p_ms, "bound_ms": bms,
-        "bound_by": by, "library_ms": lib, "library_call": "torch.argmax",
+        "unit": f"one call on [{slots}, {vocab}] logits (row stride {padded})",
+        "max_abs_err": float(err), **time_keys(k_ms, p_ms, lib), "bound_ms": bms,
+        "bound_by": by, "library_call": "torch.argmax",
     }
 
 
@@ -321,10 +500,63 @@ def counters():
         "decode_mha_append_cat": flash_attention.decode_mha_append_cat,
         "prefill_mha_cat": flash_attention.prefill_mha_cat,
         "argmax_lastdim": argmax.argmax_lastdim,
+        "decode_mha_folded": flash_attention.decode_mha_folded,
+        "decode_mha_heads": flash_attention.decode_mha_heads,
     }
 
 
-def phase_serve(dev, name):
+def serve(engine, prompts, budgets, vocab, want_per_forward, tag):
+    """Serve one warm-up request (the first forward uploads the weights),
+    then zero every launch counter, serve the requests, read the counters:
+    each must equal ``want_per_forward(decode steps, admissions)`` (0 for
+    the kernels this path does not run), and every kernel the path runs
+    must have launched. Returns (requests, wall seconds, forwards,
+    launches)."""
+    t0 = time.perf_counter()
+    engine.submit(prompts[0], max_new_tokens=2)
+    engine.run()
+    torch.cuda.synchronize()
+    print(f"  warm-up [{tag}]: one request in {time.perf_counter() - t0:.3f} s "
+          f"(weights uploaded)", flush=True)
+    steps0 = engine.steps
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters().values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [engine.submit(p, max_new_tokens=n) for p, n in zip(prompts, budgets)]
+    engine.run()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    steps = engine.steps - steps0
+    launches = {k: fn.launches for k, fn in counters().items()}
+    for r, n in zip(reqs, budgets):
+        if not r.done or len(r.generated) != n or r.error:
+            fail(f"{tag} request {r.request_id}: {len(r.generated)} of {n} tokens")
+        if not all(0 <= t < vocab for t in r.generated):
+            fail(f"{tag} request {r.request_id}: token out of range")
+    # One admission stamps the first token of all its requests at once.
+    admissions = len({r.first_token_at for r in reqs})
+    want = want_per_forward(steps, admissions)
+    for k, n in launches.items():
+        if n != want.get(k, 0):
+            fail(f"{tag}: {k} launched {n} times on the served path, expected "
+                 f"{want.get(k, 0)}")
+        if k in want and n == 0:
+            fail(f"{tag}: {k} never launched on the served path")
+    toks = sum(len(r.generated) for r in reqs)
+    forwards = steps + admissions
+    print(f"  serve [{tag}]: {len(reqs)} requests, {toks} tokens in {elapsed:.3f} s = "
+          f"{toks / elapsed:.1f} tok/s, TTFT p50 "
+          f"{statistics.median(r.ttft_s for r in reqs) * 1e3:.1f} ms, {admissions} "
+          f"admissions, {steps} decode steps, host wall per forward "
+          f"{elapsed / forwards * 1e3:.3f} ms, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    print(f"  serve launches [{tag}]: {json.dumps(launches)}", flush=True)
+    return reqs, elapsed, forwards, launches
+
+
+def phase_serve(dev):
     from rten_tpu_torch.serving import ContinuousBatchingEngine
 
     model = build_model(12, CAP, dev)
@@ -335,38 +567,83 @@ def phase_serve(dev, name):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, VOCAB, PROMPT).tolist() for _ in range(24)]
     budgets = [int(rng.integers(16, 49)) for _ in range(24)]
-    for fn in counters().values():
-        fn.launches = 0
-    torch.cuda.synchronize()
+    _, elapsed, forwards, launches = serve(
+        engine, prompts, budgets, VOCAB, lambda steps, adm: {
+            "int8_matmul_dequant": 49 * (steps + adm),
+            "decode_mha_append_cat": 12 * steps,
+            "prefill_mha_cat": 12 * adm,
+            "argmax_lastdim": steps + adm,
+        }, "GPT-2")
+    profile_wave(engine, prompts[:16], elapsed / forwards)
+    return launches
+
+
+def build_llama(n_layer, capacity, device, sharpen=1.0, **options):
+    """A Llama-family model through the user's entry points: random weights
+    from seed 0 (the projections scaled by ``sharpen``), the serving graph,
+    int8 weights, and ``Model``. ``options``: LlamaConfig fields and builder
+    options (the default: int8 head-major KV caches). Returns the model and
+    the seconds each step took."""
+    from rten_tpu_torch.model import Model
+    from rten_tpu_torch.models import llama
+    from rten_tpu_torch.quantize_pass import quantize_dynamic
+
+    fields = set(llama.LlamaConfig.__dataclass_fields__)
+    cfg = llama.LlamaConfig(num_hidden_layers=n_layer,
+                            **{k: v for k, v in options.items() if k in fields})
+    build = {"kv_quant": True, **{k: v for k, v in options.items() if k not in fields}}
+    secs = {}
     t0 = time.perf_counter()
-    reqs = [engine.submit(p, max_new_tokens=n) for p, n in zip(prompts, budgets)]
-    engine.run()
+    weights = llama.random_weights(cfg, seed=0)
+    if sharpen != 1.0:
+        for name in weights:
+            if "_proj." in name:
+                weights[name] *= np.float32(sharpen)
+    secs["weights"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graph = llama.build_graph_static_cache(cfg, weights, capacity=capacity,
+                                           gather_last=True, **build)
+    del weights  # the graph holds its own (transposed) copies
+    secs["graph"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    quantize_dynamic(graph)
+    secs["quantize"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = Model(graph, device=device)
+    secs["Model (optimize, upload)"] = time.perf_counter() - t0
+    return model, secs
+
+
+def phase_serve_llama(dev):
+    """TinyLlama-1.1B's shape at full width (22 layers, random weights from
+    seed 0), int8 weights, int8 head-major KV caches, behind the engine:
+    16 slots, cap 256, bucket 128, 8 steps per dispatch, 24 requests of 128
+    seeded tokens with 16-48 new tokens each."""
+    import resource
+
+    from rten_tpu_torch.serving import ContinuousBatchingEngine
+
+    model, secs = build_llama(L_LAYERS, CAP, dev)
     torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters().items()}
-    for r, n in zip(reqs, budgets):
-        if not r.done or len(r.generated) != n or r.error:
-            fail(f"request {r.request_id}: {len(r.generated)} of {n} tokens")
-        if not all(0 <= t < VOCAB for t in r.generated):
-            fail(f"request {r.request_id}: token out of range")
-    # One admission stamps the first token of all its requests at once.
-    admissions = len({r.first_token_at for r in reqs})
-    forwards = engine.steps + admissions
-    want = {
-        "int8_matmul_dequant": 49 * forwards,
-        "decode_mha_append_cat": 12 * engine.steps,
-        "prefill_mha_cat": 12 * admissions,
-        "argmax_lastdim": forwards,
-    }
-    for k, n in launches.items():
-        if n == 0 or n != want[k]:
-            fail(f"{k}: {n} launches on the served path, expected {want[k]}")
-    toks = sum(len(r.generated) for r in reqs)
-    ttft = statistics.median(r.ttft_s for r in reqs)
-    print(f"  serve: {len(reqs)} requests, {toks} tokens in {elapsed:.3f} s = "
-          f"{toks / elapsed:.1f} tok/s, TTFT p50 {ttft * 1e3:.1f} ms, "
-          f"{admissions} admissions, {engine.steps} decode steps [{name}]", flush=True)
-    print(f"  serve launches: {json.dumps(launches)}", flush=True)
+    n_ops = sum(1 for _ in model.graph.operators())
+    print(f"  build [TinyLlama]: {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())}; "
+          f"{n_ops} graph operators after optimize; peak host RSS "
+          f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f} GiB "
+          f"(the whole process so far)", flush=True)
+    engine = ContinuousBatchingEngine(
+        model, n_layer=L_LAYERS, n_head=L_H, head_dim=L_D, slots=L_SLOTS, capacity=CAP,
+        prefill_bucket=128, greedy_on_device=True, steps_per_dispatch=8,
+    )
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, L_VOCAB, PROMPT).tolist() for _ in range(24)]
+    budgets = [int(rng.integers(16, 49)) for _ in range(24)]
+    _, elapsed, forwards, launches = serve(
+        engine, prompts, budgets, L_VOCAB, lambda steps, adm: {
+            "int8_matmul_dequant": (7 * L_LAYERS + 1) * (steps + adm),
+            "decode_mha_folded": L_LAYERS * steps,
+            "decode_mha_heads": L_LAYERS * adm,
+            "argmax_lastdim": steps + adm,
+        }, "TinyLlama")
     profile_wave(engine, prompts[:16], elapsed / forwards)
     return launches
 
@@ -401,7 +678,14 @@ def profile_wave(engine, prompts, wall_per_forward):
           f"busy per forward {busy_ms / forwards:.3f} ms vs unprofiled wall per "
           f"forward {wall_per_forward * 1e3:.3f} ms "
           f"({busy_ms / forwards / (wall_per_forward * 1e3):.3f} busy)", flush=True)
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+    # The port's own kernels live in an anonymous namespace; PyTorch's
+    # (the plain ops between the kernels) under at::.
+    ours = [e for e in events if "(anonymous namespace)::" in e.key and "at::" not in e.key]
+    ours_ms = sum(e.self_device_time_total for e in ours) / 1e3
+    print(f"  profile: the port's CUDA kernels {ours_ms:.3f} ms, PyTorch's own kernels "
+          f"and copies {busy_ms - ours_ms:.3f} ms", flush=True)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    for e in top + [e for e in ours if e not in top]:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} x  {e.key[:90]}",
               flush=True)
 
@@ -437,17 +721,28 @@ def phase_reference(dev):
     if toks["cuda"] != toks["cpu"]:
         fail(f"reference: small engine tokens differ: {toks['cuda']} vs {toks['cpu']}")
 
+    worst, equal = logits_card_vs_cpu(dev, lambda device: build_model(2, 64, device), VOCAB,
+                                      "GPT-2")
+    print(f"  reference [GPT-2]: small engine tokens equal on card and CPU; full width, "
+          f"2 layers: logits max err {worst:.3e} of max|logit|, tokens "
+          f"{'equal' if equal else 'differ only at near ties'}", flush=True)
+
+
+def logits_card_vs_cpu(dev, make_model, vocab, tag, tol=5e-2):
+    """One admission of 16 seeded tokens on 4 slots and 3 decode steps, on
+    the card and on the CPU from the same inputs: finite logits of the
+    right shape, within ``tol`` of max|logit|, and the same greedy tokens
+    unless the CPU's top two are within that tolerance. Returns (worst
+    error, whether every token was equal)."""
     outs = {}
     slots, T = 4, 16
     for device in (dev, torch.device("cpu")):
-        model = build_model(2, 64, device)
+        model = make_model(device)
         rng = np.random.default_rng(1)
-        ids = rng.integers(0, VOCAB, (slots, T)).astype(np.int32)
-        caches = {}
-        for name, _, shape in model.input_info():
-            if name.startswith("past_key_values."):
-                dt = np.int8 if name.endswith(("key", "value")) else np.float32
-                caches[name] = np.zeros((slots,) + tuple(shape[1:]), dt)
+        ids = rng.integers(0, vocab, (slots, T)).astype(np.int32)
+        caches = {name: np.zeros((slots,) + tuple(shape[1:]), dt.np_dtype)
+                  for name, dt, shape in model.input_info()
+                  if name.startswith("past_key_values.")}
         names = [n for n in model.output_names() if n.startswith("present.")]
         feed = dict(caches, input_ids=ids, past_lens=np.zeros(slots, np.int32),
                     position_ids=np.tile(np.arange(T, dtype=np.int32), (slots, 1)),
@@ -457,8 +752,8 @@ def phase_reference(dev):
         for step in range(4):
             got = model.run(feed, ["logits", "next_token"] + names)
             logits, tok = got[0][:, 0].cpu().numpy(), got[1][:, 0].cpu().numpy()
-            if logits.shape != (slots, VOCAB) or not np.isfinite(logits).all():
-                fail(f"reference: logits {logits.shape} on {device}, finite: "
+            if logits.shape != (slots, vocab) or not np.isfinite(logits).all():
+                fail(f"reference [{tag}]: logits {logits.shape} on {device}, finite: "
                      f"{np.isfinite(logits).all()}")
             res.append((logits, tok))
             feed = {"past_key_values." + n[len("present."):]: t
@@ -467,20 +762,61 @@ def phase_reference(dev):
                         position_ids=lens[:, None], last_pos=np.zeros(slots, np.int32))
             lens = lens + 1
         outs[device.type] = res
-    worst, tol = 0.0, 5e-2
+        del model
+    worst = 0.0
     for (lg, tg), (lc, tc) in zip(outs["cuda"], outs["cpu"]):
         scale = np.abs(lc).max()
         err = np.abs(lg - lc).max() / scale
         worst = max(worst, err)
         if err > tol:
-            fail(f"reference: logits differ by {err:.2e} of max|logit|")
+            fail(f"reference [{tag}]: logits differ by {err:.2e} of max|logit|")
         for s in np.nonzero(tg != tc)[0]:
             top2 = np.sort(lc[s])[-2:]
             if top2[1] - top2[0] > tol * scale:
-                fail(f"reference: slot {s} token {tg[s]} vs CPU {tc[s]}")
-    print(f"  reference: small engine tokens equal on card and CPU; full width, "
-          f"2 layers: logits max err {worst:.3e} of max|logit|, tokens "
-          f"{'equal' if all((a[1] == b[1]).all() for a, b in zip(outs['cuda'], outs['cpu'])) else 'differ only at near ties'}",
+                fail(f"reference [{tag}]: slot {s} token {tg[s]} vs CPU {tc[s]}")
+    return worst, all((a[1] == b[1]).all() for a, b in zip(outs["cuda"], outs["cpu"]))
+
+
+def phase_reference_llama(dev):
+    """The card against the CPU (the plain versions) for the Llama family.
+
+    1. A small Llama (2 layers, E 256, 4 query heads over 2 KV heads, D 64,
+       vocab 512; the projections sharpened 2x, so that greedy tokens depend
+       on the context) behind the engine, 5 requests on 3 slots, cap 64,
+       4 steps per dispatch: the same tokens for each supported cache
+       layout (s8 head-major, f32 head-major, s8 cat).
+    2. TinyLlama's width cut to 2 layers (s8 head-major caches): logits as
+       in the GPT-2 reference phase, within 5e-2 of max|logit|.
+    """
+    from rten_tpu_torch.serving import ContinuousBatchingEngine
+
+    small = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
+                 num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=128)
+    layouts = {"s8 head-major": dict(kv_quant=True), "f32 head-major": dict(kv_quant=False),
+               "s8 cat": dict(kv_quant=True, kernel_append=True)}
+    for layout, opts in layouts.items():
+        toks = {}
+        for device in (dev, torch.device("cpu")):
+            model, _ = build_llama(2, 64, device, sharpen=2.0, **small, **opts)
+            eng = ContinuousBatchingEngine(
+                model, n_layer=2, n_head=4, head_dim=64, slots=3, capacity=64,
+                prefill_bucket=8, greedy_on_device=True, steps_per_dispatch=4,
+            )
+            rng = np.random.default_rng(0)
+            reqs = [eng.submit(rng.integers(0, 512, int(rng.integers(3, 12))).tolist(),
+                               max_new_tokens=int(rng.integers(3, 14))) for _ in range(5)]
+            eng.run()
+            toks[device.type] = [r.generated for r in reqs]
+        if toks["cuda"] != toks["cpu"]:
+            fail(f"reference [Llama, {layout}]: small engine tokens differ: "
+                 f"{toks['cuda']} vs {toks['cpu']}")
+        if len({t for g in toks["cuda"] for t in g}) <= len(toks["cuda"]):
+            fail(f"reference [Llama, {layout}]: the tokens do not depend on the context")
+    worst, equal = logits_card_vs_cpu(dev, lambda device: build_llama(2, 64, device)[0],
+                                      L_VOCAB, "TinyLlama")
+    print(f"  reference [Llama]: small engine tokens equal on card and CPU for "
+          f"{', '.join(layouts)}; TinyLlama width, 2 layers: logits max err "
+          f"{worst:.3e} of max|logit|, tokens {'equal' if equal else 'differ only at near ties'}",
           flush=True)
 
 
@@ -520,13 +856,26 @@ def main() -> int:
         phase_prefill_attention(gen, dev),
         phase_argmax(gen, dev),
     ]
+    # The kernels both serve paths run, at the TinyLlama path's shapes too.
+    nested = ("unit", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+              "wall_ms", "plain_wall_ms", "library_wall_ms")
+    for row, llama_row in ((kernels[0], phase_int8_matmul(gen, dev, LLAMA_INT8, L_SLOTS,
+                                                          "TinyLlama")),
+                           (kernels[3], phase_argmax(gen, dev, L_SLOTS, L_VOCAB, 32768))):
+        row["llama"] = {k: llama_row[k] for k in nested}
+        row["max_abs_err"] = max(row["max_abs_err"], llama_row["max_abs_err"])
+    kernels += phase_decode_mha(gen, dev)
     torch.cuda.empty_cache()
-    print("serve phase:", flush=True)
-    launches = phase_serve(dev, name)
+    print("serve phases:", flush=True)
+    by_path = {"tinyllama_serve": phase_serve_llama(dev)}
+    torch.cuda.empty_cache()
+    by_path["gpt2_serve"] = phase_serve(dev)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
-    print("reference phase:", flush=True)
+        k["launches_by_path"] = {path: n[k["name"]] for path, n in by_path.items()}
+        k["launches"] = sum(k["launches_by_path"].values())
+    print("reference phases:", flush=True)
     phase_reference(dev)
+    phase_reference_llama(dev)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,6 +1,12 @@
-"""Attention over int8 cat-layout KV caches: the wrappers of the CUDA
-kernels in ``csrc/flash_attention.cu`` and their plain PyTorch versions.
+"""Attention over serving KV caches: the wrappers of the CUDA kernels in
+``csrc/flash_attention.cu`` and ``csrc/decode_mha.cu`` and their plain
+PyTorch versions.
 
+* ``decode_mha`` replaces ``rten_tpu/kernels/flash_attention.py:decode_mha``
+  and its ``_decode_mha_folded``: S query rows per slot over head-major
+  caches ``[B, Hkv, cap, D]``, s8 with scales ``[B, Hkv, cap]`` or f32.
+  Two launch forms, each with its own launch counter: ``decode_mha_folded``
+  (every decode step) and ``decode_mha_heads`` (every admission).
 * ``decode_mha_append_cat`` replaces
   ``rten_tpu/kernels/flash_attention.py:decode_mha_append_cat``: one decode
   step that quantizes the new K/V row, writes it in place at row
@@ -9,9 +15,10 @@ kernels in ``csrc/flash_attention.cu`` and their plain PyTorch versions.
   ``rten_tpu/kernels/flash_attention.py:prefill_mha_cat``: prefill off
   caches that already hold the chunk's rows; row r attends ``<= lens[b]+r``.
 
-Caches are ``[B, cap, Hkv*D]`` s8 with scales ``[B, Hkv, cap, 1]`` f32
-(the engine's canonical shape). Only s8 caches are covered; f32/bf16
-caches and paged block pools raise (ROADMAP.md queue 1 items 7 and 8).
+The cat-layout caches are ``[B, cap, Hkv*D]`` s8 with scales
+``[B, Hkv, cap, 1]`` f32 (the engine's canonical shape). Only s8 cat
+caches are covered; f32/bf16 cat caches and paged block pools raise
+(ROADMAP.md queue 1 items 7 and 8).
 
 The plain versions repeat the JAX package's CPU path
 (``decode_attention_append_cat``'s fallback and ``decode_mha_xla``):
@@ -73,15 +80,20 @@ def mha_plain(q, k, v, mask=None, *, scale=None):
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float())
 
 
-def decode_mha_plain(q, k, v, lens, k_scale, v_scale, *, scale=None,
-                     window: int = 0):
-    """The JAX package's ``decode_mha_xla`` for s8 caches: q [B,H,S,D],
-    k/v [B,Hkv,cap,D] s8, scales [B,Hkv,cap]; row r of slot b attends
-    cache columns <= lens[b] + r (and > lens[b] + r - window)."""
+def decode_mha_plain(q, k, v, lens, k_scale=None, v_scale=None, *,
+                     scale=None, window: int = 0):
+    """The JAX package's ``decode_mha_xla``: q [B,H,S,D], k/v [B,Hkv,cap,D]
+    f32, or s8 with scales [B,Hkv,cap]; row r of slot b attends cache
+    columns <= lens[b] + r (and > lens[b] + r - window). A row with no such
+    column gets the mean of V, as the reference's additive -1e30 mask
+    gives it (the kernels give 0 there, as the TPU kernel does)."""
     B, H, S, D = q.shape
     Hkv, cap = k.shape[1], k.shape[2]
-    kf = k.to(torch.float32) * k_scale.reshape(B, Hkv, cap, 1)
-    vf = v.to(torch.float32) * v_scale.reshape(B, Hkv, cap, 1)
+    kf = k.to(torch.float32)
+    vf = v.to(torch.float32)
+    if k_scale is not None:
+        kf = kf * k_scale.reshape(B, Hkv, cap, 1)
+        vf = vf * v_scale.reshape(B, Hkv, cap, 1)
     lens = lens.reshape(B).to(torch.int64)
     j = torch.arange(cap, device=q.device)[None, None, None, :]
     qpos = lens[:, None, None, None] + torch.arange(S, device=q.device)[None, None, :, None]
@@ -241,6 +253,131 @@ def prefill_mha_cat(q, kc, vc, lens, k_scale=None, v_scale=None, *,
 
 
 prefill_mha_cat.launches = 0
+
+
+FOLD_MAX_ROWS = 16  # group * S query rows one fold block holds
+
+
+def decode_mha(q, k, v, lens, k_scale=None, v_scale=None, *,
+               scale: Optional[float] = None, window: int = 0):
+    """Per-slot attention over head-major caches (the serving hot path of
+    Llama-family graphs): q [B,H,S,D] f32; k/v [B,Hkv,cap,D] f32, or s8
+    with per-position scales k_scale/v_scale [B,Hkv,cap] f32; lens [B]
+    int32 past lengths. Row r of slot b attends columns <= lens[b] + r (and
+    > lens[b] + r - window when window > 0) -> [B,H,S,D] f32.
+
+    Routing (the port's own): the fold (one block per slot and kv head,
+    ``decode_mha_folded``) when its group * S query rows fit one block
+    (``FOLD_MAX_ROWS``), which covers every decode step of a model with
+    group <= 16 (TinyLlama: 8); per head (``decode_mha_heads``) otherwise,
+    which covers every admission."""
+    group = q.shape[1] // k.shape[1]
+    if group * q.shape[2] <= FOLD_MAX_ROWS:
+        return decode_mha_folded(q, k, v, lens, k_scale, v_scale,
+                                 scale=scale, window=window)
+    return decode_mha_heads(q, k, v, lens, k_scale, v_scale,
+                            scale=scale, window=window)
+
+
+def _decode_mha_launch(fn, q, k, v, lens, k_scale, v_scale, scale, window):
+    """Check what the kernels take, then launch ``fn`` (one of the two C
+    entry points). Returns [B,H,S,D] f32, a head-major view of a
+    [B,S,H*D] buffer, so merging heads afterwards is free."""
+    device = q.device
+    B, H, S, D = q.shape
+    if q.dtype != torch.float32 or q.stride(-1) != 1:
+        raise ValueError("q: float32 with a unit-stride last axis required")
+    quant = k_scale is not None
+    if quant != (v_scale is not None):
+        raise ValueError("k_scale and v_scale: both or neither")
+    cache_dtype = torch.int8 if quant else torch.float32
+    if k.dim() != 4 or k.shape != v.shape or k.stride() != v.stride():
+        raise ValueError(f"caches: expected two [B, Hkv, cap, D] tensors with one "
+                         f"layout, got {tuple(k.shape)} / {tuple(v.shape)}")
+    _, Hkv, cap, Dk = k.shape
+    if k.shape[0] != B or Dk != D or H % Hkv or D not in (64, 128):
+        raise ValueError(f"head dim {D} (caches {Dk}), heads {H}/{Hkv}, "
+                         f"slots {B}/{k.shape[0]} not supported")
+    for name, t in (("k", k), ("v", v)):
+        check_cuda_tensor(name, t, cache_dtype, device, contiguous=False)
+        row_bytes = [s * t.element_size() for s in t.stride()[:3]]
+        if t.stride(-1) != 1 or t.data_ptr() % 16 or any(s % 16 for s in row_bytes):
+            raise ValueError(f"{name}: rows must be unit-stride and 16-byte aligned")
+    if quant:
+        ks = k_scale.reshape(B, Hkv, cap)
+        vs = v_scale.reshape(B, Hkv, cap)
+        check_cuda_tensor("k_scale", ks, torch.float32, device, contiguous=False)
+        check_cuda_tensor("v_scale", vs, torch.float32, device, contiguous=False)
+        if ks.stride() != vs.stride():
+            raise ValueError("k_scale and v_scale: one layout required")
+        sc_ptrs, sc_strides = (ks.data_ptr(), vs.data_ptr()), ks.stride()
+    else:
+        sc_ptrs, sc_strides = (None, None), (0, 0, 0)
+    check_cuda_tensor("lens", lens, torch.int32, device)
+    if lens.numel() != B:
+        raise ValueError(f"lens: expected {B} values, got {tuple(lens.shape)}")
+    if scale is None:
+        scale = 1.0 / float(np.sqrt(D))
+    out_cat = torch.empty((B, S, H * D), dtype=torch.float32, device=device)
+    err = fn(
+        int(quant), q.data_ptr(), *q.stride()[:3],
+        k.data_ptr(), v.data_ptr(), *k.stride()[:3],
+        *sc_ptrs, *sc_strides, lens.data_ptr(), out_cat.data_ptr(),
+        S * H * D, D, H * D, B, H, Hkv, S, D, cap, int(window), float(scale),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
+    return out_cat.reshape(B, S, H, D).permute(0, 2, 1, 3)
+
+
+def decode_mha_folded(q, k, v, lens, k_scale=None, v_scale=None, *,
+                      scale: Optional[float] = None, window: int = 0):
+    """``decode_mha``'s fold form (replaces
+    ``rten_tpu/kernels/flash_attention.py:_decode_mha_folded``): one block
+    per (slot, kv head) holding its group * S <= ``FOLD_MAX_ROWS`` rows."""
+    if kernel_device(q, k, v, lens, k_scale, v_scale) == "cpu":
+        return decode_mha_plain(q, k, v, lens, k_scale, v_scale,
+                                scale=scale, window=window)
+    group = q.shape[1] // k.shape[1]
+    if group * q.shape[2] > FOLD_MAX_ROWS:
+        raise ValueError(f"the fold holds {FOLD_MAX_ROWS} rows per kv head, "
+                         f"got group {group} x S {q.shape[2]}")
+    out = _decode_mha_launch(_mha_lib().rten_decode_mha_folded, q, k, v, lens,
+                             k_scale, v_scale, scale, window)
+    decode_mha_folded.launches += 1
+    return out
+
+
+decode_mha_folded.launches = 0
+
+
+def decode_mha_heads(q, k, v, lens, k_scale=None, v_scale=None, *,
+                     scale: Optional[float] = None, window: int = 0):
+    """``decode_mha``'s per-head form (replaces
+    ``rten_tpu/kernels/flash_attention.py:decode_mha``'s per-head grid):
+    one block per (32-row query tile, head, slot)."""
+    if kernel_device(q, k, v, lens, k_scale, v_scale) == "cpu":
+        return decode_mha_plain(q, k, v, lens, k_scale, v_scale,
+                                scale=scale, window=window)
+    out = _decode_mha_launch(_mha_lib().rten_decode_mha_heads, q, k, v, lens,
+                             k_scale, v_scale, scale, window)
+    decode_mha_heads.launches += 1
+    return out
+
+
+decode_mha_heads.launches = 0
+
+
+def _mha_lib():
+    lib = load_library("decode_mha")
+    P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    for fn in (lib.rten_decode_mha_folded, lib.rten_decode_mha_heads):
+        if fn.argtypes is None:
+            fn.argtypes = [I, P, L, L, L, P, P, L, L, L, P, P, L, L, L, P, P,
+                           L, L, L, I, I, I, I, I, I, I, F, P]
+            fn.restype = I
+    return lib
 
 
 def _lib():

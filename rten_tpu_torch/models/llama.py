@@ -1,0 +1,309 @@
+"""Llama-family causal LM (RMSNorm, rotary, GQA, SwiGLU) built in engine IR
+for the serving engine (the port of ``rten_tpu/models/llama.py``).
+
+The serving graph keeps preallocated per-slot KV caches that the attention
+op writes at each slot's offset, with rotary applied inside the op at
+positions ``past_lens + s``. The supported branches:
+
+* ``kv_quant=True, kv_bits=8``: QuantizedKVAttention on int8 caches,
+  head-major ``[slots, Hkv, cap, D]`` (``kernel_append=False``, attended
+  by ``decode_mha``) or cat layout ``[slots, cap, Hkv*D]``
+  (``kernel_append=True``, ``decode_mha_append_cat`` / ``prefill_mha_cat``),
+  with scales ``[slots, Hkv, cap, 1]``;
+* ``kv_quant=False``: GroupQueryAttention on f32 head-major caches;
+* ``attention_bias`` (Qwen2) and ``sliding_window`` (Mistral) on each;
+* ``gather_last=True``: the lm_head runs on one gathered row per slot.
+
+The builder issues the same sequence of builder calls as the JAX package's
+``build_graph_static_cache`` on each of those branches, so both graphs have
+the same node ids, names and constants for the same weights. Every other
+option raises ``NotImplementedError`` naming the ROADMAP.md item.
+
+Weight naming follows HF ``LlamaForCausalLM.state_dict()``:
+``model.embed_tokens.weight``, ``model.layers.N.self_attn.{q,k,v,o}_proj``,
+``model.layers.N.{input_layernorm,post_attention_layernorm}.weight``,
+``model.layers.N.mlp.{gate,up,down}_proj.weight``, ``model.norm.weight``,
+``lm_head.weight``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import numpy as np
+
+from ..dtypes import DataType
+from ..ir.builder import GraphBuilder
+from ..ir.graph import Graph
+
+
+@dataclasses.dataclass
+class LlamaConfig:
+    """Defaults: TinyLlama-1.1B's published shape."""
+
+    vocab_size: int = 32000
+    hidden_size: int = 2048
+    intermediate_size: int = 5632
+    num_hidden_layers: int = 22
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 4
+    max_position_embeddings: int = 2048
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    tie_word_embeddings: bool = False
+    # Qwen2-style q/k/v projection biases.
+    attention_bias: bool = False
+    # Mistral-style sliding-window attention (0 = full attention).
+    sliding_window: int = 0
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+
+def rope_tables(cfg: LlamaConfig):
+    """Rotary angles [max_pos, D/2] (the builder stores their cos and sin)."""
+    D = cfg.head_dim
+    inv = 1.0 / (cfg.rope_theta ** (np.arange(0, D, 2, dtype=np.float64) / D))
+    t = np.arange(cfg.max_position_embeddings, dtype=np.float64)
+    freqs = np.outer(t, inv)
+    return freqs.astype(np.float32), freqs.astype(np.float32)
+
+
+def _refuse_off_the_slice(deferred_kv, recent_dtype, kv_dtype, kv_quant, kv_bits,
+                          paged_blocks, kernel_append, gather_last):
+    def todo(what, item):
+        raise NotImplementedError(f"{what}: ROADMAP.md queue 1 item {item}")
+
+    if paged_blocks:
+        todo("paged KV caches", 8)
+    if deferred_kv or recent_dtype is not None:
+        todo("deferred KV", 9)
+    if kv_quant and kv_bits != 8:
+        todo("int4 KV caches", 11)
+    if kv_dtype is not None and kv_dtype != DataType.Float:
+        todo(f"{kv_dtype.name} KV caches", 7)
+    if not kv_quant and kernel_append:
+        todo("f32 cat-layout KV caches (decode_mha_append_cat without scales)", 7)
+    if not gather_last:
+        todo("full-bucket lm_head (gather_last=False)", 10)
+
+
+def build_graph_static_cache(
+    cfg: LlamaConfig, weights: Dict[str, np.ndarray], capacity: int,
+    deferred_kv: bool = False, recent_dtype: DataType = None,
+    kv_dtype: DataType = None, kv_quant: bool = False, kv_bits: int = 8,
+    paged_blocks: int = 0, block_size: int = 64,
+    kernel_append: bool = False, gather_last: bool = False,
+) -> Graph:
+    """Serving graph. Inputs: input_ids [slots, seq], past_lens [slots],
+    position_ids [slots, seq] (unused: rotary positions come from
+    past_lens; kept for the engine's IO), the caches
+    past_key_values.N.{key,value}[_scale], last_pos [slots]. Outputs:
+    logits [slots, 1, V], present.N.*, next_token [slots, 1] (on-device
+    argmax)."""
+    _refuse_off_the_slice(deferred_kv, recent_dtype, kv_dtype, kv_quant, kv_bits,
+                          paged_blocks, kernel_append, gather_last)
+    b = GraphBuilder()
+    Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+
+    def w_t(name):
+        # torch Linear stores [out, in]; matmul wants [in, out].
+        return b.constant(
+            name + ".T", np.ascontiguousarray(weights[name].T, np.float32)
+        )
+
+    def w(name):
+        return b.constant(name, np.ascontiguousarray(weights[name], np.float32))
+
+    ka_attr = {"rten_kernel_append": 1} if kernel_append else {}
+    window_attr = (
+        {"local_window_size": cfg.sliding_window} if cfg.sliding_window else {}
+    )
+
+    ids = b.input("input_ids", DataType.Int32, ("slots", "seq"))
+    past_lens = b.input("past_lens", DataType.Int32, ("slots",))
+    b.input("position_ids", DataType.Int32, ("slots", "seq"))
+
+    cos_np, sin_np = rope_tables(cfg)
+    cos_c = b.constant("rope.cos", np.cos(cos_np))
+    sin_c = b.constant("rope.sin", np.sin(sin_np))
+
+    x = b.op("Gather", [w("model.embed_tokens.weight"), ids])
+
+    def rms(h, name):
+        return b.op(
+            "RMSNormalization", [h, w(name)], {"epsilon": cfg.rms_norm_eps}
+        )
+
+    def block_tail(x, attn, p):
+        """o_proj residual + RMSNorm + SwiGLU MLP."""
+        x = x + b.op("MatMul", [attn, w_t(f"{p}.self_attn.o_proj.weight")],
+                     name=f"{p}.self_attn.o_proj")
+        h2 = rms(x, f"{p}.post_attention_layernorm.weight")
+        gate = b.op("MatMul", [h2, w_t(f"{p}.mlp.gate_proj.weight")],
+                    name=f"{p}.mlp.gate_proj")
+        up = b.op("MatMul", [h2, w_t(f"{p}.mlp.up_proj.weight")],
+                  name=f"{p}.mlp.up_proj")
+        act = b.op("Mul", [b.op("Silu", [gate]), up])
+        return x + b.op("MatMul", [act, w_t(f"{p}.mlp.down_proj.weight")],
+                        name=f"{p}.mlp.down_proj")
+
+    def proj(h, name):
+        if cfg.attention_bias:
+            return b.op(
+                "MatMulAdd", [h, w_t(f"{name}.weight"), w(f"{name}.bias")],
+                name=name,
+            )
+        return b.op("MatMul", [h, w_t(f"{name}.weight")], name=name)
+
+    presents = []
+    for i in range(cfg.num_hidden_layers):
+        p = f"model.layers.{i}"
+        h = rms(x, f"{p}.input_layernorm.weight")
+        q = proj(h, f"{p}.self_attn.q_proj")
+        k = proj(h, f"{p}.self_attn.k_proj")
+        v = proj(h, f"{p}.self_attn.v_proj")
+        if kv_quant:
+            kv_shape = (
+                ("slots", capacity, Hkv * D) if kernel_append
+                else ("slots", Hkv, capacity, D)
+            )
+            past_k = b.input(f"past_key_values.{i}.key", DataType.Int8, kv_shape)
+            k_sc = b.input(
+                f"past_key_values.{i}.key_scale", DataType.Float,
+                ("slots", Hkv, capacity, 1),
+            )
+            past_v = b.input(f"past_key_values.{i}.value", DataType.Int8, kv_shape)
+            v_sc = b.input(
+                f"past_key_values.{i}.value_scale", DataType.Float,
+                ("slots", Hkv, capacity, 1),
+            )
+            qattrs = {
+                "num_heads": Hq, "kv_num_heads": Hkv, "bits": kv_bits,
+                "do_rotary": 1, **window_attr,
+            }
+            outs = b.op(
+                "QuantizedKVAttention",
+                [q, k, v, past_k, k_sc, past_v, v_sc, past_lens, cos_c, sin_c],
+                {**qattrs, **ka_attr},
+                n_outputs=5,
+                output_names=[
+                    f"attn_out_{i}", f"present.{i}.key",
+                    f"present.{i}.key_scale", f"present.{i}.value",
+                    f"present.{i}.value_scale",
+                ],
+            )
+            presents.extend(outs[1:])
+            x = block_tail(x, outs[0], p)
+            continue
+        kv_shape = ("slots", Hkv, capacity, D)
+        past_k = b.input(f"past_key_values.{i}.key", DataType.Float, kv_shape)
+        past_v = b.input(f"past_key_values.{i}.value", DataType.Float, kv_shape)
+        attn, pk, pv = b.op(
+            "GroupQueryAttention",
+            [q, k, v, past_k, past_v, past_lens, None, cos_c, sin_c],
+            {
+                "num_heads": Hq, "kv_num_heads": Hkv, "rten_past_lens": 1,
+                "do_rotary": 1, **window_attr,
+            },
+            n_outputs=3,
+            output_names=[
+                f"attn_out_{i}", f"present.{i}.key", f"present.{i}.value",
+            ],
+        )
+        presents.extend([pk, pv])
+        x = block_tail(x, attn, p)
+
+    x = rms(x, "model.norm.weight")
+    # Only the prompt-final row's logits are consumed at admission; gather
+    # it before the lm_head (decode steps feed last_pos = 0).
+    last_pos = b.input("last_pos", DataType.Int32, ("slots",))
+    idx3 = b.op(
+        "Reshape",
+        [last_pos, b.constant("last_pos_shape", np.array([0, 1, 1], np.int64))],
+    )
+    x = b.op("GatherND", [x, idx3], {"batch_dims": 1})
+    lm_name = (
+        "model.embed_tokens.weight" if cfg.tie_word_embeddings else "lm_head.weight"
+    )
+    logits = b.op("MatMul", [x, w_t(lm_name)], name="lm_head",
+                  output_names=["logits"])
+    next_tok = b.op(
+        "ArgMax", [logits], {"axis": -1, "keepdims": 0},
+        output_names=["next_token"],
+    )
+    b.output(logits, *presents)
+    b.graph.output_ids.append(next_tok.node_id)
+    return b.finish()
+
+
+def random_weights(cfg: LlamaConfig, seed: int = 0) -> Dict[str, np.ndarray]:
+    """Random weights from a seed, with HF ``LlamaForCausalLM`` names and
+    shapes; the same arrays as ``rten_tpu.models.llama.random_weights`` for
+    the same seed."""
+    rng = np.random.default_rng(seed)
+    E, F, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+
+    def nrm(*shape, std=0.02):
+        return (rng.standard_normal(shape) * std).astype(np.float32)
+
+    wd = {"model.embed_tokens.weight": nrm(V, E), "model.norm.weight": np.ones(E, np.float32)}
+    if not cfg.tie_word_embeddings:
+        wd["lm_head.weight"] = nrm(V, E)
+    for i in range(cfg.num_hidden_layers):
+        p = f"model.layers.{i}"
+        wd[f"{p}.self_attn.q_proj.weight"] = nrm(Hq * D, E)
+        wd[f"{p}.self_attn.k_proj.weight"] = nrm(Hkv * D, E)
+        wd[f"{p}.self_attn.v_proj.weight"] = nrm(Hkv * D, E)
+        if cfg.attention_bias:
+            wd[f"{p}.self_attn.q_proj.bias"] = nrm(Hq * D)
+            wd[f"{p}.self_attn.k_proj.bias"] = nrm(Hkv * D)
+            wd[f"{p}.self_attn.v_proj.bias"] = nrm(Hkv * D)
+        wd[f"{p}.self_attn.o_proj.weight"] = nrm(E, Hq * D)
+        wd[f"{p}.mlp.gate_proj.weight"] = nrm(F, E)
+        wd[f"{p}.mlp.up_proj.weight"] = nrm(F, E)
+        wd[f"{p}.mlp.down_proj.weight"] = nrm(E, F)
+        wd[f"{p}.input_layernorm.weight"] = np.ones(E, np.float32)
+        wd[f"{p}.post_attention_layernorm.weight"] = np.ones(E, np.float32)
+    return wd
+
+
+_LLAMA_LIKE_NAMES = {
+    "q_proj.weight": "self_attn.q_proj.weight",
+    "k_proj.weight": "self_attn.k_proj.weight",
+    "v_proj.weight": "self_attn.v_proj.weight",
+    "q_proj.bias": "self_attn.q_proj.bias",
+    "k_proj.bias": "self_attn.k_proj.bias",
+    "v_proj.bias": "self_attn.v_proj.bias",
+    "o_proj.weight": "self_attn.o_proj.weight",
+    "gate_proj.weight": "mlp.gate_proj.weight",
+    "up_proj.weight": "mlp.up_proj.weight",
+    "down_proj.weight": "mlp.down_proj.weight",
+    "input_norm.weight": "input_layernorm.weight",
+    "post_norm.weight": "post_attention_layernorm.weight",
+}
+
+
+def weights_from_torch(module) -> Dict[str, np.ndarray]:
+    """Numpy weights with HF names from an HF ``LlamaForCausalLM`` or a
+    module with the flat naming (``embed_tokens``, ``layers.N.q_proj``,
+    ``layers.N.input_norm``, ``norm``, ``lm_head``)."""
+    sd = {k: v.detach().cpu().numpy() for k, v in module.state_dict().items()}
+    if "model.embed_tokens.weight" in sd:
+        return sd
+    top = {
+        "embed_tokens.weight": "model.embed_tokens.weight",
+        "norm.weight": "model.norm.weight",
+        "lm_head.weight": "lm_head.weight",
+    }
+    out = {}
+    for k, v in sd.items():
+        if k in top:
+            out[top[k]] = v
+        elif k.startswith("layers."):
+            _, i, rest = k.split(".", 2)
+            out[f"model.layers.{i}.{_LLAMA_LIKE_NAMES.get(rest, rest)}"] = v
+    return out

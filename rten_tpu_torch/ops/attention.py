@@ -1,18 +1,30 @@
-"""QuantizedKVAttention on int8 cat-layout caches (the port of the two
-cat-layout branches of ``rten_tpu/ops/attention.py``).
+"""QuantizedKVAttention and GroupQueryAttention on serving KV caches (the
+port of the serving branches of ``rten_tpu/ops/attention.py``).
 
-inputs: q, k, v [B,S,H*D] f32; past_k_q8 [B,cap,Hkv*D] s8;
-        k_scales [B,Hkv,cap,1] f32; past_v_q8; v_scales; past_lens [B] i32
+QuantizedKVAttention (int8 caches):
+
+inputs: q, k, v [B,S,H*D] f32; past_k_q8; k_scales [B,Hkv,cap,1] f32;
+        past_v_q8; v_scales; past_lens [B] i32; with ``do_rotary`` the
+        cos/sin tables [max_pos, rot/2] as the last two inputs
 outputs: out [B,S,H*D], new_k_q8, new_k_scales, new_v_q8, new_v_scales
 
-* S == 1 with ``rten_kernel_append``: ``decode_mha_append_cat`` quantizes
-  the new row, appends it and attends (``attention.py:880-893``).
-* otherwise: quantize the chunk's rows, write them at each slot's offset
-  (``_slot_kv_update_cat`` / ``_slot_kv_update``), then
-  ``prefill_mha_cat`` (``attention.py:903-932``).
+* with ``do_rotary``, q and k rotate first, at positions past_lens + s
+  (``attention.py:757-768``);
+* cat caches [B,cap,Hkv*D], S == 1 with ``rten_kernel_append``:
+  ``decode_mha_append_cat`` quantizes the new row, appends it and attends
+  (``attention.py:880-893``);
+* cat caches otherwise: quantize the chunk's rows, write them at each
+  slot's offset, then ``prefill_mha_cat`` (``attention.py:903-932``);
+* head-major caches [B,Hkv,cap,D]: quantize the rows, write them at each
+  slot's clamped offset, then ``decode_mha`` (``attention.py:934-953``).
+
+GroupQueryAttention (f32 head-major caches [B,Hkv,cap,D], the
+``rten_past_lens`` serving form, ``attention.py:380-468`` and ``641-676``):
+rotary, write the rows at each slot's clamped offset, ``decode_mha``.
 
 The caches are updated in place and returned as the present outputs (the
-executor copies them first unless the caller donated them).
+executor copies them first unless the caller donated them). Every other
+branch raises ``NotImplementedError`` naming the ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -20,10 +32,51 @@ from __future__ import annotations
 import torch
 
 from ..kernels.flash_attention import (
-    cat_to_heads, decode_mha_append_cat, heads_to_cat, prefill_mha_cat,
-    quantize_rows,
+    cat_to_heads, decode_mha, decode_mha_append_cat, heads_to_cat,
+    prefill_mha_cat, quantize_rows,
 )
-from .registry import OpError, get_input, register
+from .registry import OpError, get_input, opt_input, register
+
+
+def _todo(what: str, item: int):
+    raise NotImplementedError(f"{what}: ROADMAP.md queue 1 item {item}")
+
+
+def rotary(x, cos_cache, sin_cache, position_ids, interleaved: bool):
+    """Rotary embedding of x [B,H,S,D] at positions [B,S] (rotates the
+    first 2 * cos_cache.shape[-1] dims), the JAX package's ``_rotary``.
+
+    The tables are read as ``jnp.asarray(table)[position_ids]`` reads them:
+    a negative position counts from the end and the result is clamped to
+    [0, max_pos - 1], so an idle slot whose length ran past the table
+    reads its last row (not NaN, and no device assert)."""
+    n = cos_cache.shape[0]
+    pos = position_ids.to(torch.int64)
+    pos = torch.where(pos < 0, pos + n, pos).clamp(0, n - 1)
+    cos = cos_cache[pos][:, None]  # [B,1,S,rot/2]
+    sin = sin_cache[pos][:, None]
+    rot = cos.shape[-1] * 2
+    x_rot, x_pass = x[..., :rot], x[..., rot:]
+    if interleaved:
+        x1, x2 = x_rot[..., 0::2], x_rot[..., 1::2]
+        rotated = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                              dim=-1).reshape(x_rot.shape)
+    else:
+        half = rot // 2
+        x1, x2 = x_rot[..., :half], x_rot[..., half:]
+        rotated = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return torch.cat([rotated, x_pass], dim=-1) if x_pass.shape[-1] else rotated
+
+
+def _rotate_qk(q4, k4, cos_cache, sin_cache, lens, attrs):
+    """Rotate q and k [B,H,S,D] at positions lens[b] + s."""
+    if cos_cache is None or sin_cache is None:
+        raise OpError("do_rotary requires cos/sin caches")
+    S = q4.shape[2]
+    pos = lens.to(torch.int64)[:, None] + torch.arange(S, device=lens.device)[None]
+    interleaved = bool(attrs.get("rotary_interleaved", 0))
+    return (rotary(q4, cos_cache, sin_cache, pos, interleaved),
+            rotary(k4, cos_cache, sin_cache, pos, interleaved))
 
 
 def _rows(starts: torch.Tensor, S: int, cap: int) -> torch.Tensor:
@@ -69,17 +122,11 @@ def _quantized_kv_attention(ctx, inputs, attrs):
     lws = int(attrs.get("local_window_size", -1))
     window = lws if lws > 0 else 0
     if int(attrs.get("bits", 8)) != 8:
-        raise NotImplementedError("int4 KV caches: ROADMAP.md queue 1 item 11")
-    if attrs.get("do_rotary", 0):
-        raise NotImplementedError("rotary QuantizedKVAttention: ROADMAP.md queue 1 item 7")
+        _todo("int4 KV caches", 11)
     if attrs.get("rten_recent_kv", 0):
-        raise NotImplementedError("deferred KV: ROADMAP.md queue 1 item 9")
+        _todo("deferred KV", 9)
     if attrs.get("rten_paged", 0):
-        raise NotImplementedError("paged KV caches: ROADMAP.md queue 1 item 8")
-    if past_k_q8.ndim != 3:
-        raise NotImplementedError(
-            "head-major [B,H,cap,D] int8 caches: ROADMAP.md queue 1 item 7"
-        )
+        _todo("paged KV caches", 8)
     if past_lens.dtype != torch.int32:
         raise OpError("past_lens must be int32")
 
@@ -89,6 +136,25 @@ def _quantized_kv_attention(ctx, inputs, attrs):
     q4 = cat_to_heads(q, n_heads)
     k4 = cat_to_heads(k, kv_heads)
     v4 = cat_to_heads(v, kv_heads)
+    if attrs.get("do_rotary", 0):
+        q4, k4 = _rotate_qk(q4, k4, inputs[-2], inputs[-1], lens, attrs)
+
+    if past_k_q8.ndim == 4:
+        # Head-major caches [B, Hkv, cap, D].
+        if S == 1 and attrs.get("rten_kernel_append", 0):
+            _todo("in-kernel append on head-major caches (decode_mha_append)", 7)
+        k_q8, k_s = quantize_rows(k4)
+        v_q8, v_s = quantize_rows(v4)
+        new_k_q8 = slot_kv_update(past_k_q8, k_q8, lens)
+        new_k_s = slot_kv_update(k_scales, k_s, lens)
+        new_v_q8 = slot_kv_update(past_v_q8, v_q8, lens)
+        new_v_s = slot_kv_update(v_scales, v_s, lens)
+        cap = past_k_q8.shape[2]
+        out = decode_mha(
+            q4, new_k_q8, new_v_q8, lens, new_k_s.reshape(B, kv_heads, cap),
+            new_v_s.reshape(B, kv_heads, cap), scale=scale, window=window,
+        )
+        return (heads_to_cat(out), new_k_q8, new_k_s, new_v_q8, new_v_s)
 
     if S == 1 and attrs.get("rten_kernel_append", 0):
         # out arrives in cat layout [B, 1, H*D] == merged heads.
@@ -108,3 +174,55 @@ def _quantized_kv_attention(ctx, inputs, attrs):
         q4, new_kc, new_vc, lens, new_k_s, new_v_s, scale=scale, window=window,
     )
     return (heads_to_cat(out), new_kc, new_k_s, new_vc, new_v_s)
+
+
+@register("GroupQueryAttention", inplace=(3, 4))
+def _group_query_attention(ctx, inputs, attrs):
+    """The ``rten_past_lens`` serving form on f32 head-major caches:
+    query/key/value [B,S,H*D] f32, past_key/past_value [B,Hkv,cap,D] f32,
+    seqlens_k [B] per-slot PAST lengths, cos/sin tables (inputs 7, 8) with
+    ``do_rotary``. Outputs: out [B,S,H*D] and the updated caches."""
+    query = get_input(inputs, 0, "query")
+    key = opt_input(inputs, 1)
+    value = opt_input(inputs, 2)
+    past_k = opt_input(inputs, 3)
+    past_v = opt_input(inputs, 4)
+    seqlens_k = opt_input(inputs, 5)
+    n_heads = attrs.get("num_heads")
+    kv_heads = attrs.get("kv_num_heads")
+    if n_heads is None or kv_heads is None:
+        raise OpError("GroupQueryAttention requires num_heads and kv_num_heads")
+    if attrs.get("rten_paged", 0):
+        _todo("paged KV caches", 8)
+    if attrs.get("rten_recent_kv", 0):
+        _todo("deferred KV", 9)
+    if not attrs.get("rten_past_lens", 0):
+        _todo("ONNX (ORT-compatible) GroupQueryAttention", 12)
+    if attrs.get("softcap", 0.0) or any(
+            opt_input(inputs, i) is not None for i in (9, 10, 11)):
+        _todo("GroupQueryAttention with softcap, position ids, bias or sinks", 12)
+    if key is None or value is None:
+        _todo("packed QKV GroupQueryAttention", 12)
+    if seqlens_k is None or past_k is None or past_v is None:
+        raise OpError("rten_past_lens requires seqlens_k and the caches")
+    if past_k.ndim != 4 or past_k.dtype != torch.float32:
+        _todo(f"{past_k.dtype} {'cat' if past_k.ndim == 3 else 'head-major'} "
+              "caches in GroupQueryAttention", 7)
+    lws = int(attrs.get("local_window_size", -1))
+    window = lws if lws > 0 else 0
+
+    B = query.shape[0]
+    lens = seqlens_k.to(torch.int32).reshape(B)
+    q4 = cat_to_heads(query, n_heads)
+    k4 = cat_to_heads(key, kv_heads)
+    v4 = cat_to_heads(value, kv_heads)
+    if attrs.get("do_rotary", 0):
+        q4, k4 = _rotate_qk(q4, k4, opt_input(inputs, 7), opt_input(inputs, 8),
+                            lens, attrs)
+    k_all = slot_kv_update(past_k, k4, lens)
+    v_all = slot_kv_update(past_v, v4, lens)
+    out = heads_to_cat(decode_mha(q4, k_all, v_all, lens, scale=attrs.get("scale"),
+                                  window=window))
+    if attrs.get("__n_outputs__", 1) >= 3:
+        return (out, k_all, v_all)
+    return out

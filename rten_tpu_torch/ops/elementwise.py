@@ -1,5 +1,5 @@
-"""Elementwise ops of the serving graph (the port of
-``rten_tpu/ops/elementwise.py``: Add and Gelu).
+"""Elementwise ops of the serving graphs (the port of
+``rten_tpu/ops/elementwise.py``: Add, Mul, Gelu and Silu).
 
 The JAX package lowers these to jnp expressions that XLA fuses into the
 neighbouring matmuls; here each is a plain PyTorch expression, written in
@@ -27,6 +27,13 @@ def _add(ctx, inputs, attrs):
     return a + b
 
 
+@register("Mul")
+def _mul(ctx, inputs, attrs):
+    a = as_tensor(ctx, get_input(inputs, 0))
+    b = as_tensor(ctx, get_input(inputs, 1))
+    return a * b
+
+
 def gelu(x: torch.Tensor, approximate: bool) -> torch.Tensor:
     """jax.nn.gelu: ``x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 x^3)))``
     with ``approximate``, else ``0.5 * x * erfc(-x / sqrt(2))``."""
@@ -40,3 +47,10 @@ def gelu(x: torch.Tensor, approximate: bool) -> torch.Tensor:
 def _gelu(ctx, inputs, attrs):
     x = as_tensor(ctx, get_input(inputs, 0))
     return gelu(x, attrs.get("approximate", "none") == "tanh")
+
+
+@register("Silu")
+def _silu(ctx, inputs, attrs):
+    """``x * sigmoid(x)``, as ``x * jax.nn.sigmoid(x)``."""
+    x = as_tensor(ctx, get_input(inputs, 0))
+    return x * torch.sigmoid(x)

@@ -282,3 +282,92 @@ def test_wrappers_refuse_mixed_devices():
         tmm.int8_matmul_dequant(a, b, 1.0, 1.0)
     with pytest.raises(ValueError):
         targmax.argmax_lastdim(torch.zeros((2, 4), device="meta"))
+
+
+# --- decode_mha on head-major caches ------------------------------------------
+
+
+def _head_major_inputs(seed, S, H_, Hkv, lens, quant, cap=CAP):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H_, S, D)).astype(np.float32)
+    if quant:
+        k = rng.integers(-127, 128, (B, Hkv, cap, D)).astype(np.int8)
+        v = rng.integers(-127, 128, (B, Hkv, cap, D)).astype(np.int8)
+        ks = rng.uniform(0.005, 0.02, (B, Hkv, cap)).astype(np.float32)
+        vs = rng.uniform(0.005, 0.02, (B, Hkv, cap)).astype(np.float32)
+    else:
+        k = rng.standard_normal((B, Hkv, cap, D)).astype(np.float32)
+        v = rng.standard_normal((B, Hkv, cap, D)).astype(np.float32)
+        ks = vs = None
+    return q, k, v, np.asarray(lens, np.int32), ks, vs
+
+
+def _both(args, window):
+    """(port decode_mha on the CPU, JAX decode_mha_xla) on the same inputs."""
+    got = tfa.decode_mha(*(None if a is None else _t(a) for a in args),
+                         window=window).numpy()
+    want = np.asarray(jfa.decode_mha_xla(
+        *(None if a is None else jnp.asarray(a) for a in args), window=window))
+    return got, want
+
+
+@pytest.mark.parametrize("quant", [True, False])
+@pytest.mark.parametrize("S,H_,Hkv,window,lens", [
+    (1, 2, 2, 0, [0, 31, CAP - 1]),           # decode, group 1
+    (1, 8, 2, 0, [CAP - 1, CAP, CAP + 7]),    # group 4; rows past cap see every column
+    (1, 8, 2, 16, [5, 40, CAP - 1]),          # sliding window
+    (16, 2, 2, 0, [0, 10, CAP - 16]),         # admission-sized chunk
+    (16, 8, 2, 12, [0, 7, 30]),
+    (16, 8, 2, 0, [CAP - 16, CAP - 1, CAP + 3]),
+])
+def test_decode_mha_plain_matches_xla(quant, S, H_, Hkv, window, lens):
+    """Against the JAX engine's CPU path (decode_mha_xla): the same math,
+    another summation order: atol 1e-5."""
+    args = _head_major_inputs(S * 10 + H_, S, H_, Hkv, lens, quant)
+    got, want = _both(args, window)
+    assert got.shape == (B, H_, S, D)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("quant", [True, False])
+@pytest.mark.parametrize("S,H_,Hkv,window", [
+    (1, 2, 2, 0), (1, 8, 2, 16), (16, 2, 2, 0), (16, 8, 2, 12),
+])
+def test_decode_mha_plain_matches_pallas_interpret(quant, S, H_, Hkv, window):
+    """Against the Pallas decode_mha in interpret mode (S 1 takes its
+    head-folded body, S 16 its per-head grid), at cap 128 (the Pallas
+    kernel tiles keys in blocks of 128). The reference's own tolerances
+    (tests/test_kernels.py:156-158): s8 rtol/atol 5e-3 (its s8 dots round
+    q and p to bf16), f32 rtol 2e-4, atol 2e-5. Those were set at D 32; at
+    D 64 q's rounding alone can exceed them, so q lies on the bf16 grid
+    here and only p's rounding remains."""
+    cap = 128
+    lens = [0, 50, cap - S]
+    q, k, v, lens_, ks, vs = _head_major_inputs(S + H_ + window, S, H_, Hkv, lens,
+                                                quant, cap=cap)
+    q = np.asarray(jnp.asarray(q).astype(jnp.bfloat16).astype(jnp.float32))
+    got = tfa.decode_mha(_t(q), _t(k), _t(v), _t(lens_),
+                         *((_t(ks), _t(vs)) if quant else ()), window=window).numpy()
+    want = np.asarray(jfa.decode_mha(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lens_),
+        *((jnp.asarray(ks), jnp.asarray(vs)) if quant else ()),
+        window=window, interpret=True))
+    tol = dict(rtol=5e-3, atol=5e-3) if quant else dict(rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(got, want, **tol)
+
+
+def test_decode_mha_reads_kv_head_h_over_group():
+    """Query head h reads kv head h // group (kv-major grouping): with every
+    kv head but one zeroed, only that head's group sees its values."""
+    q, k, v, lens, _, _ = _head_major_inputs(9, 1, 8, 2, [20, 20, 20], False)
+    v[:, 0] = 0.0
+    out = tfa.decode_mha(_t(q), _t(k), _t(v), _t(lens)).numpy()
+    assert np.abs(out[:, :4]).max() == 0.0
+    assert np.abs(out[:, 4:]).min(axis=-1).max() > 0.0
+
+
+def test_decode_mha_refuses_mixed_devices():
+    q = torch.zeros((1, 2, 1, 64), device="meta")
+    k = torch.zeros((1, 2, 8, 64))
+    with pytest.raises(ValueError):
+        tfa.decode_mha(q, k, k, torch.zeros(1, dtype=torch.int32))

@@ -137,6 +137,78 @@ def test_prefill_kernel(card, H, Hkv, D, S, window):
     assert (got - want).abs().max().item() <= 1e-4
 
 
+def _head_major_inputs(card, B, H, Hkv, S, D, cap, quant, seed):
+    g = _gen(seed)
+    q = torch.randn(B, H, S, D, generator=g)
+    if quant:
+        k = torch.randint(-127, 128, (B, Hkv, cap, D), generator=g, dtype=torch.int8)
+        v = torch.randint(-127, 128, (B, Hkv, cap, D), generator=g, dtype=torch.int8)
+        ks = torch.rand(B, Hkv, cap, generator=g) * 0.015 + 0.005
+        vs = torch.rand(B, Hkv, cap, generator=g) * 0.015 + 0.005
+    else:
+        k = torch.randn(B, Hkv, cap, D, generator=g)
+        v = torch.randn(B, Hkv, cap, D, generator=g)
+        ks = vs = None
+    return [t if t is None else t.to(card) for t in (q, k, v, ks, vs)]
+
+
+@pytest.mark.parametrize("quant", [True, False])
+@pytest.mark.parametrize("H,Hkv,S,D,window", [
+    (32, 4, 1, 64, 0),     # TinyLlama's decode step: the fold, 8 rows per kv head
+    (4, 2, 1, 64, 0),
+    (8, 8, 1, 128, 0),     # group 1, D 128
+    (8, 2, 4, 128, 0),     # the fold with 16 rows per kv head
+    (4, 4, 1, 64, 24),     # window
+    (32, 4, 40, 64, 0),    # admission: per head, a ragged 32-row tile
+    (8, 2, 16, 128, 0),    # per head (group 4 x S 16 > 16 rows), D 128
+    (4, 2, 33, 64, 20),    # per head with a window
+])
+def test_decode_mha_kernel(card, quant, H, Hkv, S, D, window):
+    """Both launch forms against decode_mha_plain: atol 1e-4 (f32
+    accumulation on both sides, other summation order). lens cover an
+    empty cache, the last row, a clamped chunk and slots past cap. A row
+    with no column to attend (a window wholly past cap) gives 0 from the
+    kernel, as on the TPU; the plain version, like the JAX package's XLA
+    path, gives the mean of V there, so such rows are checked apart."""
+    cap, B = 96, 6
+    lens = torch.tensor([0, 17, cap - S, cap - 1, cap, cap + 40], dtype=torch.int32,
+                        device=card)
+    q, k, v, ks, vs = _head_major_inputs(card, B, H, Hkv, S, D, cap, quant, H * S + D)
+    form = tfa.decode_mha_folded if (H // Hkv) * S <= tfa.FOLD_MAX_ROWS else tfa.decode_mha_heads
+    other = tfa.decode_mha_heads if form is tfa.decode_mha_folded else tfa.decode_mha_folded
+    before, before_other = form.launches, other.launches
+    got = tfa.decode_mha(q, k, v, lens, ks, vs, window=window)
+    want = tfa.decode_mha_plain(q, k, v, lens, ks, vs, window=window)
+    torch.cuda.synchronize()
+    assert form.launches == before + 1 and other.launches == before_other
+    assert got.shape == (B, H, S, D) and torch.isfinite(got).all()
+    qpos = lens.long()[:, None] + torch.arange(S, device=card)[None]   # [B, S]
+    live = (qpos - window < cap - 1) if window else torch.ones_like(qpos, dtype=torch.bool)
+    live = live[:, None, :, None].expand_as(got)
+    assert (got - want)[live].abs().max().item() <= 1e-4
+    assert (got[~live] == 0).all()
+
+
+def test_decode_mha_kernel_reads_strided_caches(card):
+    """K/V and scales are addressed through strides: head-major views of
+    cat-layout [B, cap, Hkv*D] caches give the same result as contiguous
+    copies."""
+    B, H, Hkv, D, cap = 3, 8, 2, 64, 64
+    g = _gen(5)
+    q = torch.randn(B, H, 1, D, generator=g).to(card)
+    kc = torch.randint(-127, 128, (B, cap, Hkv * D), generator=g, dtype=torch.int8).to(card)
+    vc = torch.randint(-127, 128, (B, cap, Hkv * D), generator=g, dtype=torch.int8).to(card)
+    ks = (torch.rand(B, cap, Hkv, generator=g) * 0.01 + 0.005).to(card).permute(0, 2, 1)
+    vs = (torch.rand(B, cap, Hkv, generator=g) * 0.01 + 0.005).to(card).permute(0, 2, 1)
+    lens = torch.tensor([3, 40, 63], dtype=torch.int32, device=card)
+    kh, vh = tfa.cat_to_heads(kc, Hkv), tfa.cat_to_heads(vc, Hkv)
+    got = tfa.decode_mha(q, kh, vh, lens, ks, vs)
+    want = tfa.decode_mha(q, kh.contiguous(), vh.contiguous(), lens, ks.contiguous(),
+                          vs.contiguous())
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-6
+
+
 @pytest.mark.parametrize("k", [1, 4])
 def test_engine_on_card_matches_cpu(card, k):
     """The small GPT-2 served on the card and on the CPU (the plain
@@ -156,6 +228,38 @@ def test_engine_on_card_matches_cpu(card, k):
         eng = ContinuousBatchingEngine(
             Model(graph, device=dev), n_layer=2, n_head=2, head_dim=64, slots=3,
             capacity=64, prefill_bucket=8, greedy_on_device=True, steps_per_dispatch=k)
+        rng = np.random.default_rng(0)
+        reqs = [eng.submit(rng.integers(0, 512, int(rng.integers(3, 12))).tolist(),
+                           max_new_tokens=int(rng.integers(3, 14))) for _ in range(5)]
+        eng.run()
+        out[dev.type] = [r.generated for r in reqs]
+    assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.parametrize("kv", ["s8_head_major", "f32_head_major", "s8_cat"])
+def test_llama_engine_on_card_matches_cpu(card, kv):
+    """A small Llama (GQA 4 over 2 heads, rotary) served on the card and on
+    the CPU from the same weights, for each supported cache layout: the
+    same tokens."""
+    from rten_tpu_torch.model import Model
+    from rten_tpu_torch.models import llama
+    from rten_tpu_torch.quantize_pass import quantize_dynamic
+    from rten_tpu_torch.serving import ContinuousBatchingEngine
+
+    cfg = llama.LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                            num_hidden_layers=2, num_attention_heads=4,
+                            num_key_value_heads=2, max_position_embeddings=128)
+    weights = llama.random_weights(cfg, seed=0)
+    opts = {"s8_head_major": dict(kv_quant=True), "f32_head_major": dict(kv_quant=False),
+            "s8_cat": dict(kv_quant=True, kernel_append=True)}[kv]
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        graph = llama.build_graph_static_cache(cfg, weights, capacity=64, gather_last=True,
+                                               **opts)
+        quantize_dynamic(graph)
+        eng = ContinuousBatchingEngine(
+            Model(graph, device=dev), n_layer=2, n_head=4, head_dim=64, slots=3,
+            capacity=64, prefill_bucket=8, greedy_on_device=True, steps_per_dispatch=4)
         rng = np.random.default_rng(0)
         reqs = [eng.submit(rng.integers(0, 512, int(rng.integers(3, 12))).tolist(),
                            max_new_tokens=int(rng.integers(3, 14))) for _ in range(5)]

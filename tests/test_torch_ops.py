@@ -134,6 +134,41 @@ def test_gather_nd_batch_dims_1():
     np.testing.assert_array_equal(got[0], want[0])
 
 
+def test_rms_normalization():
+    """x * rsqrt(mean(x^2) + eps) * scale; the mean sums in a different
+    order: rtol 1e-5, atol 1e-6."""
+    rng = _rng()
+    x = (rng.standard_normal((3, 5, 128)) * 3 + 1).astype(np.float32)
+    w = rng.standard_normal(128).astype(np.float32)
+    got, want = _run_both(
+        _single_op("RMSNormalization", [("x", "Float")], [("w", w)], {"epsilon": 1e-5}),
+        {"x": x}, ["y0"],
+    )
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-6)
+
+
+def test_silu():
+    """x * sigmoid(x); the libraries' sigmoid may differ by an ulp: rtol
+    1e-6, atol 1e-7."""
+    x = np.linspace(-12, 12, 301, dtype=np.float32).reshape(7, 43)
+    got, want = _run_both(_single_op("Silu", [("x", "Float")]), {"x": x}, ["y0"])
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("shape_b", [(3, 4, 8), (8,), (4, 1)])
+def test_mul_broadcast(shape_b):
+    """SwiGLU's gate * up, and broadcasting as Add does. One f32 multiply:
+    exact."""
+    rng = _rng()
+    a = rng.standard_normal((3, 4, 8)).astype(np.float32)
+    bb = rng.standard_normal(shape_b).astype(np.float32)
+    got, want = _run_both(
+        _single_op("Mul", [("a", "Float"), ("b", "Float")]), {"a": a, "b": bb}, ["y0"]
+    )
+    assert got[0].shape == np.broadcast_shapes(a.shape, bb.shape)
+    np.testing.assert_array_equal(got[0], want[0])
+
+
 def test_reshape_with_zero_dims():
     x = np.arange(3 * 4 * 6, dtype=np.float32).reshape(3, 4, 6)
     got, want = _run_both(
@@ -332,8 +367,9 @@ def test_attention_leaves_undonated_caches_unchanged():
 
 
 def test_unported_attention_branches_raise():
-    """Head-major caches are not on the slice's path: NotImplementedError
-    naming the ROADMAP item, never a silent fallback."""
+    """The in-kernel append on head-major caches (``decode_mha_append``) is
+    not ported: NotImplementedError naming the ROADMAP item, never a silent
+    fallback."""
     feed = _attn_feed(1, [0, 0, 0], seed=1)
     feed["kc"] = feed["kc"].reshape(B, CAP, H, D).transpose(0, 2, 1, 3).copy()
     feed["vc"] = feed["vc"].reshape(B, CAP, H, D).transpose(0, 2, 1, 3).copy()
@@ -353,3 +389,167 @@ def test_argmax_sampler_matches_jax():
     assert got.dtype == np.int32
     np.testing.assert_array_equal(got, want)
     assert got[1] == 3
+
+
+# --- rotary, and attention on head-major caches (the Llama serving ops) -----
+
+HQ, HKV = 4, 2  # GQA: two query heads per kv head
+
+
+def _rope(max_pos, rot_half, seed=3):
+    """cos/sin tables [max_pos, rot_half] of random angles."""
+    ang = np.random.default_rng(seed).uniform(0, 6.3, (max_pos, rot_half))
+    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+
+
+@pytest.mark.parametrize("interleaved", [False, True])
+@pytest.mark.parametrize("rot_half", [D // 2, D // 4])
+def test_rotary_forms(interleaved, rot_half):
+    """Both rotary forms, rotating all of D (rot_half D/2) or half of it
+    (the rest passes through). Two products and a sum in f32, which XLA
+    may fuse into one rounding: atol 1e-6."""
+    import jax.numpy as jnp
+    from rten_tpu.ops.attention import _rotary as jrotary
+    from rten_tpu_torch.ops.attention import rotary
+
+    rng = _rng()
+    x = rng.standard_normal((B, HQ, 5, D)).astype(np.float32)
+    cos, sin = _rope(96, rot_half)
+    pos = rng.integers(0, 96, (B, 5)).astype(np.int32)
+    got = rotary(torch.from_numpy(x), torch.from_numpy(cos), torch.from_numpy(sin),
+                 torch.from_numpy(pos), interleaved).numpy()
+    want = np.asarray(jrotary(jnp.asarray(x), cos, sin, jnp.asarray(pos), interleaved))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(got[..., 2 * rot_half:], x[..., 2 * rot_half:])
+
+
+def _head_major_build(op, window, interleaved, rope):
+    """One GroupQueryAttention (f32 caches) or QuantizedKVAttention (s8
+    caches) node on head-major caches [B, HKV, CAP, D] with rotary."""
+
+    def build(GB, DT):
+        b = GB()
+        q, k, v = (b.input(n, DT.Float) for n in ("q", "k", "v"))
+        attrs = {"num_heads": HQ, "kv_num_heads": HKV, "do_rotary": 1,
+                 "rotary_interleaved": int(interleaved)}
+        if window:
+            attrs["local_window_size"] = window
+        cos, sin = b.constant("cos", rope[0]), b.constant("sin", rope[1])
+        if op == "GroupQueryAttention":
+            pk, pv = b.input("kc", DT.Float), b.input("vc", DT.Float)
+            outs = b.op(op, [q, k, v, pk, pv, b.input("lens", DT.Int32), None, cos, sin],
+                        {**attrs, "rten_past_lens": 1}, n_outputs=3,
+                        output_names=["out", "nkc", "nvc"])
+        else:
+            kc, ks = b.input("kc", DT.Int8), b.input("ks", DT.Float)
+            vc, vs = b.input("vc", DT.Int8), b.input("vs", DT.Float)
+            outs = b.op(op, [q, k, v, kc, ks, vc, vs, b.input("lens", DT.Int32), cos, sin],
+                        {**attrs, "bits": 8}, n_outputs=5,
+                        output_names=["out", "nkc", "nks", "nvc", "nvs"])
+        b.output(*outs)
+        return b.finish()
+
+    return build
+
+
+def _head_major_feed(S, lens, quant, seed):
+    rng = np.random.default_rng(seed)
+    feed = {n: rng.standard_normal((B, S, h * D)).astype(np.float32)
+            for n, h in (("q", HQ), ("k", HKV), ("v", HKV))}
+    if quant:
+        for n in ("kc", "vc"):
+            feed[n] = rng.integers(-127, 128, (B, HKV, CAP, D)).astype(np.int8)
+        for n in ("ks", "vs"):
+            feed[n] = rng.uniform(0.005, 0.02, (B, HKV, CAP, 1)).astype(np.float32)
+    else:
+        for n in ("kc", "vc"):
+            feed[n] = rng.standard_normal((B, HKV, CAP, D)).astype(np.float32)
+    feed["lens"] = np.asarray(lens, np.int32)
+    return feed
+
+
+HEAD_MAJOR_CASES = [
+    # S, lens, window, interleaved
+    (1, [0, 31, CAP - 1], 0, False),   # decode: empty cache, mid, last row
+    (1, [CAP, CAP + 9, 5], 0, True),   # past the end: the write clamps to cap-1
+    (1, [5, 40, CAP - 1], 16, False),  # sliding window
+    (8, [0, 0, 0], 0, False),          # admission from empty caches
+    (8, [0, 20, CAP - 3], 12, True),   # a chunk whose start clamps to cap - S
+]
+
+
+@pytest.mark.parametrize("S,lens,window,interleaved", HEAD_MAJOR_CASES)
+def test_group_query_attention_head_major(S, lens, window, interleaved):
+    """The rten_past_lens serving form on f32 caches: rotary at positions
+    lens + s (tables of 48 rows, so the clamp is crossed), the rows written
+    at each slot's clamped start, decode attention. Output atol 1e-5 and
+    caches atol 1e-6 (same math, other rounding of the rotary and the
+    sums)."""
+    feed = _head_major_feed(S, lens, False, seed=S + lens[1])
+    build = _head_major_build("GroupQueryAttention", window, interleaved, _rope(48, D // 2))
+    got, want = _run_both(build, feed, ["out", "nkc", "nvc"])
+    assert got[0].shape == (B, S, HQ * D)
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-5)
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("S,lens,window,interleaved", HEAD_MAJOR_CASES)
+def test_quantized_kv_attention_head_major_rotary(S, lens, window, interleaved):
+    """QuantizedKVAttention on head-major s8 caches with rotary: quantize
+    the rotated rows, write them at each slot's clamped start, decode
+    attention. The rotary rounds differently by an ulp where XLA fuses a
+    multiply-add, which can move x / s across a .5 boundary: s8 rows
+    equal but for at most one code in at most 1 % of the written entries;
+    scales rtol 1e-6; output atol 1e-5."""
+    feed = _head_major_feed(S, lens, True, seed=S + lens[1])
+    build = _head_major_build("QuantizedKVAttention", window, interleaved, _rope(48, D // 2))
+    names = ["out", "nkc", "nks", "nvc", "nvs"]
+    got, want = _run_both(build, feed, names)
+    assert got[0].shape == (B, S, HQ * D)
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-5)
+    for i in (1, 3):
+        diff = np.abs(got[i].astype(np.int32) - want[i].astype(np.int32))
+        assert diff.max() <= 1 and (diff > 0).sum() <= 0.01 * B * HKV * S * D
+    for i in (2, 4):
+        np.testing.assert_allclose(got[i], want[i], rtol=1e-6, atol=0)
+    # Only the written rows moved.
+    starts = np.clip(np.asarray(lens), 0, CAP - S)
+    for bb in range(B):
+        keep = np.ones(CAP, bool)
+        keep[starts[bb]: starts[bb] + S] = False
+        np.testing.assert_array_equal(got[1][bb, :, keep], feed["kc"][bb, :, keep])
+
+
+@pytest.mark.parametrize("op,attrs,feed_change,item", [
+    ("GroupQueryAttention", {"rten_past_lens": 0}, None, 12),     # ORT-compatible form
+    ("GroupQueryAttention", {"softcap": 30.0}, None, 12),
+    ("GroupQueryAttention", {"rten_paged": 1}, None, 8),
+    ("GroupQueryAttention", {"rten_recent_kv": 1}, None, 9),
+    ("GroupQueryAttention", {}, "bf16", 7),                       # bf16 head-major caches
+    ("GroupQueryAttention", {}, "cat", 7),                        # f32 cat-layout caches
+    ("QuantizedKVAttention", {"bits": 4}, None, 11),
+    ("QuantizedKVAttention", {"rten_paged": 1}, None, 8),
+    ("QuantizedKVAttention", {"rten_recent_kv": 1}, None, 9),
+])
+def test_unported_serving_attention_branches_raise(op, attrs, feed_change, item):
+    """Each branch of the serving attention ops that the port does not
+    cover raises NotImplementedError naming its ROADMAP.md item."""
+    base = _head_major_build(op, 0, False, _rope(48, D // 2))
+
+    def build(GB, DT):
+        g = base(GB, DT)
+        for _, node in g.operators():
+            node.attrs = {**node.attrs, **attrs}
+        return g
+
+    feed = _head_major_feed(1, [3, 4, 5], op == "QuantizedKVAttention", seed=1)
+    if feed_change == "bf16":
+        feed["kc"], feed["vc"] = (torch.from_numpy(feed[n]).to(torch.bfloat16)
+                                  for n in ("kc", "vc"))
+    elif feed_change == "cat":
+        for n in ("kc", "vc"):
+            feed[n] = feed[n].transpose(0, 2, 1, 3).reshape(B, CAP, HKV * D).copy()
+    tm = TModel(build(TBuilder, TDataType), TOptions(optimize=False), device="cpu")
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 item {item}"):
+        tm.run(feed, ["out"])
