@@ -15,21 +15,32 @@ Run from the repository root:  python3 chip_smoke.py
    int8 matmul and the argmax also at the TinyLlama serve phase's shapes;
    decode_mha's two forms at TinyLlama's attention shape (H 32 over 4 KV
    heads, D 64, slots 16, cap 256; S 1 and S 128; s8 and f32 caches; a
-   window).
+   window); paged_decode_mha at the same shape on block pools (block size
+   64, a shuffled table); decode_mha_append_cat through a block table at
+   the GPT-2 headline shape (a pool of 1 + 480 blocks of 64 rows, idle
+   slots colliding in block 0).
 3. Serve phases, each through the user's entry points (builder,
    quantize_dynamic, Model, ContinuousBatchingEngine) with every launch
    counter zeroed just before and read just after (each kernel of the path
    must have run, as often as the path's forwards say):
    - TinyLlama-1.1B's shape at full width (22 layers, random weights from
      seed 0), int8 weights, int8 head-major KV caches;
+   - the same TinyLlama weights on paged int8 head-major pools (41 blocks
+     of 64 rows: 40 usable, 3 per request, so at most 13 requests run and
+     admissions wait for blocks);
    - GPT-2 124M at full width (12 layers), int8 weights, int8 cat KV;
-   both behind the engine with 16 slots, cap 256, prefill bucket 128, 8
+   - GPT-2 on paged int8 cat pools (``bench.py``'s RTEN_BENCH_PAGED graph,
+     the same 41-block pool);
+   each behind the engine with 16 slots, cap 256, prefill bucket 128, 8
    steps per dispatch, answering 24 requests of 128 seeded tokens with
-   16-48 new tokens each; then a profiled wave of 16 more requests.
+   16-48 new tokens each; then a profiled wave of 16 more requests. The
+   paged phases end with every block back in the pool.
 4. Reference phases, the card against the CPU (the plain versions): small
    GPT-2 and Llama models behind the engine give the same tokens (Llama for
-   each supported cache layout), and the full widths cut to 2 layers give
-   finite logits close to the CPU's (see logits_card_vs_cpu).
+   each supported cache layout; both also paged, on a pool small enough
+   that admissions wait), and the full widths cut to 2 layers (TinyLlama's
+   also paged) give finite logits close to the CPU's (see
+   logits_card_vs_cpu).
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Exits nonzero, printing
@@ -123,10 +134,17 @@ def bound_ms(nbytes: float, ops: float, peak_ops: float):
 # --- kernel phases ------------------------------------------------------------
 
 
+INT_MM_MIN_ROWS = 32  # cuBLAS's _int_mm refuses M <= 16; smaller M is padded to this
+
+
 def int_mm_ms(a, b):
     """``timed`` torch._int_mm on the same operands (the s8 view of a), the
-    library yardstick; None where cuBLAS refuses the shape or layout."""
+    library yardstick; a with at most 16 rows, which cuBLAS refuses, is
+    padded with zero rows to INT_MM_MIN_ROWS (the printout says so). None
+    where cuBLAS refuses the shape or layout anyway."""
     a_s8 = (a ^ 0x80).view(torch.int8)
+    if a_s8.shape[0] <= 16:
+        a_s8 = torch.cat([a_s8, a_s8.new_zeros(INT_MM_MIN_ROWS - a_s8.shape[0], a_s8.shape[1])])
     refusal = ""
     for bb in (b, b.t().contiguous().t()):
         try:
@@ -135,7 +153,7 @@ def int_mm_ms(a, b):
             refusal = str(e).splitlines()[0]
             continue
         return timed(lambda: torch._int_mm(a_s8, bb), iters=10)
-    print(f"  _int_mm refused {tuple(a.shape)} x {tuple(b.shape)}: {refusal}", flush=True)
+    print(f"  _int_mm refused {tuple(a_s8.shape)} x {tuple(b.shape)}: {refusal}", flush=True)
     return None
 
 
@@ -181,8 +199,9 @@ def phase_int8_matmul(gen, dev, decode=GPT2_INT8, slots=SLOTS, tag="GPT-2"):
         nbytes = M * K + K * N + 8 * N + 4 * M * N
         bms, by = bound_ms(nbytes, 2.0 * M * N * K, INT8_OPS_PER_S)
         per_shape.append((M, K, N, k_ms, p_ms, lib, bms, by))
+        pad = f" (M padded to {INT_MM_MIN_ROWS})" if M <= 16 else ""
         print(f"  int8_matmul [{tag}] M={M} K={K} N={N}: kernel {fmt(k_ms)}, plain "
-              f"{fmt(p_ms)}, _int_mm {'refused' if lib is None else fmt(lib)}, "
+              f"{fmt(p_ms)}, _int_mm{pad} {'refused' if lib is None else fmt(lib)}, "
               f"bound {bms:.4f} ms ({by})", flush=True)
         del a, b, got, want
     # The reported unit: one decode step.
@@ -205,7 +224,7 @@ def phase_int8_matmul(gen, dev, decode=GPT2_INT8, slots=SLOTS, tag="GPT-2"):
         else "operations",
         "library_ms": None if lib_tot is None else lib_tot[0],
         "library_call": "torch._int_mm (integer product only, no epilogue; cuBLAS refuses "
-                        "M <= 16)",
+                        f"M <= 16, so M <= 16 is padded to {INT_MM_MIN_ROWS} rows)",
         "wall_ms": tot(3, True), "plain_wall_ms": tot(4, True),
         "library_wall_ms": None if lib_tot is None else lib_tot[1],
     }
@@ -445,6 +464,178 @@ def phase_decode_mha(gen, dev):
     return rows
 
 
+# Paged pools: blocks of 64 rows, cap 256 (4 table entries a slot).
+BLOCK = 64
+MAXB = CAP // BLOCK
+
+
+def _shuffled_table(gen, dev, B, owners):
+    """[B, MAXB] int32: slots < owners hold shuffled distinct blocks of a
+    pool of 1 + owners * MAXB; the others are idle (rows of 0, the garbage
+    sink)."""
+    bt = torch.zeros(B, MAXB, dtype=torch.int32)
+    bt[:owners] = (torch.randperm(owners * MAXB, generator=gen) + 1).reshape(owners, MAXB)
+    return bt.to(dev)
+
+
+def _pools(gen, dev, NB, Hkv, quant, cat=False):
+    shape = (NB, BLOCK, Hkv * L_D) if cat else (NB, Hkv, BLOCK, L_D)
+    if not quant:
+        return torch.randn(shape, generator=gen).to(dev), torch.randn(shape, generator=gen).to(dev), \
+            None, None
+    return (torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8).to(dev),
+            torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8).to(dev),
+            (torch.rand(NB, Hkv, 1, BLOCK, generator=gen) * 0.015 + 0.005).to(dev),
+            (torch.rand(NB, Hkv, 1, BLOCK, generator=gen) * 0.015 + 0.005).to(dev))
+
+
+def phase_paged_decode_mha(gen, dev):
+    """paged_decode_mha at TinyLlama's attention shape (slots 16, H 32 over
+    4 KV heads, D 64) on pools of 1 + 64 blocks of 64 rows through a
+    shuffled table: lens 128-191 plus 0, 63, 64, 255 and 261; s8 and f32
+    pools; a window of 64. Against its plain version (gather, then
+    decode_mha_plain) within 1e-4, and the same bits on a second call. Then
+    times over 22 layers' s8 pools beside the bound (live bytes / 3.35
+    TB/s), with two yardsticks on the gathered contiguous caches: the flat
+    fold decode_mha_folded and SDPA (enable_gqa) on dequantized K/V."""
+    from rten_tpu_torch.kernels.flash_attention import (
+        decode_mha_folded, paged_decode_mha, paged_decode_mha_plain, paged_gather_kv,
+        paged_gather_scales,
+    )
+
+    B, tol = L_SLOTS, 1e-4
+    NB = 1 + B * MAXB
+    lens = torch.cat([torch.tensor([0, 63, 64, CAP - 1, CAP + 5], dtype=torch.int32),
+                      torch.randint(128, 192, (B - 5,), generator=gen, dtype=torch.int32)]).to(dev)
+    bt = _shuffled_table(gen, dev, B, B)
+    err = 0.0
+    for quant, window in ((True, 0), (False, 0), (True, 64)):
+        q = torch.randn(B, L_H, 1, L_D, generator=gen).to(dev)
+        pk, pv, ks, vs = _pools(gen, dev, NB, L_HKV, quant)
+        got = paged_decode_mha(q, pk, pv, lens, bt, ks, vs, window=window)
+        again = paged_decode_mha(q, pk, pv, lens, bt, ks, vs, window=window)
+        want = paged_decode_mha_plain(q, pk, pv, lens, bt, ks, vs, window=window)
+        torch.cuda.synchronize()
+        e = (got - want).abs().max().item()
+        tag = f"paged_decode_mha {'s8' if quant else 'f32'} window={window}"
+        if not e <= tol or not torch.equal(got, again):
+            fail(f"{tag}: max err {e} > {tol}, or two calls differ")
+        print(f"  {tag}: max abs err {e:.3e} (bound {tol}), two calls bit-identical", flush=True)
+        err = max(err, e)
+
+    q = torch.randn(B, L_H, 1, L_D, generator=gen).to(dev)
+    layers = [_pools(gen, dev, NB, L_HKV, True) for _ in range(L_LAYERS)]
+    k_ms = timed(lambda: [paged_decode_mha(q, c[0], c[1], lens, bt, c[2], c[3]) for c in layers],
+                 iters=10)
+    p_ms = timed(lambda: [paged_decode_mha_plain(q, c[0], c[1], lens, bt, c[2], c[3])
+                          for c in layers], iters=3, warmup=1)
+    flat = [(paged_gather_kv(c[0], bt), paged_gather_kv(c[1], bt), paged_gather_scales(c[2], bt),
+             paged_gather_scales(c[3], bt)) for c in layers]
+    f_ms = timed(lambda: [decode_mha_folded(q, *c[:2], lens, *c[2:]) for c in flat], iters=10)
+    m = _mask(lens, 1)
+    deq = [(c[0].float() * c[2][..., None], c[1].float() * c[3][..., None]) for c in flat]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = timed(lambda: [sdpa(q, kf, vf, attn_mask=m, enable_gqa=True) for kf, vf in deq],
+                iters=10)
+    del layers, flat, deq
+    # This run's work: each slot's live rows (columns <= lens, at most cap)
+    # read once, s8 plus a scale, K and V; q read and out written once.
+    rows = (lens.long().clamp(max=CAP - 1) + 1).sum().item()
+    nbytes = 2 * 4 * B * L_H * L_D + 4 * B + 4 * B * MAXB + 2 * rows * L_HKV * (L_D + 4)
+    bms, by = bound_ms(L_LAYERS * nbytes, L_LAYERS * 4.0 * rows * L_H * L_D, F32_FLOPS_PER_S)
+    print(f"  paged_decode_mha x{L_LAYERS}: kernel {fmt(k_ms)}, plain {fmt(p_ms)}, flat fold "
+          f"on gathered caches {fmt(f_ms)}, sdpa {fmt(lib)}, bound {bms:.4f} ms ({by})",
+          flush=True)
+    return {
+        "name": "paged_decode_mha", "route": "cuda",
+        "source": "rten_tpu_torch/csrc/paged_decode_mha.cu",
+        "replaces": "rten_tpu/kernels/flash_attention.py:3425",
+        "unit": (f"one TinyLlama decode step at slots {B}, cap {CAP}, blocks of {BLOCK}: "
+                 f"{L_LAYERS} calls (one per layer), s8 pools"),
+        "max_abs_err": err, **time_keys(k_ms, p_ms, lib), "bound_ms": bms, "bound_by": by,
+        "flat_fold_ms": ms_of(f_ms), "flat_fold_wall_ms": f_ms[1],
+        "library_call": "scaled_dot_product_attention(enable_gqa=True) on gathered, "
+                        "pre-dequantized f32 K/V with the same mask",
+    }
+
+
+def phase_paged_append(gen, dev):
+    """decode_mha_append_cat through a block table at the GPT-2 headline
+    shape: slots 120, cap 256, pools of 1 + 480 blocks of 64 rows, a
+    shuffled table for 112 slots and 8 idle slots (rows of 0) whose new
+    rows collide in block 0. Against its plain version: output within
+    1e-4, s8 pools bit-exact, scale pools rtol 5e-6, and two runs from the
+    same inputs bit-identical. Then times over 12 layers' pools."""
+    from rten_tpu_torch.kernels.flash_attention import (
+        decode_mha_append_cat, decode_mha_append_cat_paged_plain, paged_gather_scales,
+    )
+    from rten_tpu_torch.ops.attention import paged_gather_cat
+
+    B, owners, NB = SLOTS, SLOTS - 8, 1 + 480
+    bt = _shuffled_table(gen, dev, B, owners)
+    lens = torch.randint(128, 192, (B,), generator=gen, dtype=torch.int32)
+    lens[:6] = torch.tensor([0, 31, 63, 64, CAP - 1, CAP + 5], dtype=torch.int32)
+    lens[owners:] = torch.tensor([5, 5, 70, 5, 200, 300, 261, 0], dtype=torch.int32)
+    lens = lens.to(dev)
+    q = torch.randn(B, H, 1, D, generator=gen).to(dev)
+    kn = torch.randn(B, H, 1, D, generator=gen).to(dev)
+    vn = torch.randn(B, H, 1, D, generator=gen).to(dev)
+    pools = _pools(gen, dev, NB, H, True, cat=True)
+    runs = []
+    for _ in range(2):
+        c = [t.clone() for t in pools]
+        runs.append(decode_mha_append_cat(q, c[0], c[1], lens, c[2], c[3], k_new=kn, v_new=vn,
+                                          block_table=bt))
+    c = [t.clone() for t in pools]
+    want = decode_mha_append_cat_paged_plain(q, c[0], c[1], lens, c[2], c[3], k_new=kn,
+                                             v_new=vn, block_table=bt)
+    torch.cuda.synchronize()
+    got = runs[0]
+    err = (got[0] - want[0]).abs().max().item()
+    if not err <= 1e-4:
+        fail(f"decode_mha_append_cat (block table) out: max err {err} > 1e-4")
+    if not (torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])):
+        fail("decode_mha_append_cat (block table): s8 pools differ from the plain version")
+    if not all(torch.allclose(got[i], want[i], rtol=5e-6, atol=0) for i in (3, 4)):
+        fail("decode_mha_append_cat (block table): scale pools differ")
+    if not all(torch.equal(a, b) for a, b in zip(runs[0], runs[1])):
+        fail("decode_mha_append_cat (block table): two runs from the same inputs differ")
+    print(f"  decode_mha_append_cat (block table): max abs err {err:.3e} (bound 1e-4), pools "
+          f"bit-exact, two runs bit-identical", flush=True)
+    del runs, want, c
+    layers = [_pools(gen, dev, NB, H, True, cat=True) for _ in range(12)]
+    k_ms = timed(lambda: [decode_mha_append_cat(q, c[0], c[1], lens, c[2], c[3], k_new=kn,
+                                                v_new=vn, block_table=bt) for c in layers],
+                 iters=10)
+    p_ms = timed(lambda: [decode_mha_append_cat_paged_plain(q, c[0], c[1], lens, c[2], c[3],
+                                                            k_new=kn, v_new=vn, block_table=bt)
+                          for c in layers], iters=3, warmup=1)
+    sd = [_sdpa_inputs(q, paged_gather_cat(c[0], bt), paged_gather_cat(c[1], bt),
+                       paged_gather_scales(c[2], bt)[..., None],
+                       paged_gather_scales(c[3], bt)[..., None], lens, 1) for c in layers]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = timed(lambda: [sdpa(q, kf, vf, attn_mask=m) for kf, vf, m in sd], iters=10)
+    del layers, sd
+    # The flat row's count on this run's lens: rows read back (the new row
+    # is read too, from the pool), the new rows and scales written.
+    read = (lens.long().clamp(max=CAP - 1) + 1).sum().item()
+    per_call_bytes = (4 * B * H * D * 2 + 4 * B * H * D * 2 + 4 * B + 4 * B * MAXB
+                      + 2 * read * H * (D + 4) + 2 * B * H * (D + 4))
+    bms, by = bound_ms(12 * per_call_bytes, 12 * 4.0 * read * H * D, F32_FLOPS_PER_S)
+    print(f"  decode_mha_append_cat (block table) x12: kernel {fmt(k_ms)}, plain {fmt(p_ms)}, "
+          f"sdpa {fmt(lib)}, bound {bms:.4f} ms ({by})", flush=True)
+    return {
+        "name": "decode_mha_append_cat_paged", "route": "cuda",
+        "source": "rten_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "rten_tpu/kernels/flash_attention.py:2597",
+        "unit": (f"block_table= mode: one GPT-2 decode step at slots {B}, cap {CAP}, pools of "
+                 f"{NB} blocks of {BLOCK}: 12 calls (one per layer), two launches each"),
+        "max_abs_err": err, **time_keys(k_ms, p_ms, lib), "bound_ms": bms, "bound_by": by,
+        "library_call": "scaled_dot_product_attention on gathered, pre-dequantized f32 K/V "
+                        "(no quantize, no append)",
+    }
+
+
 def phase_argmax(gen, dev, slots=SLOTS, vocab=VOCAB, padded=NP):
     from rten_tpu_torch.kernels.argmax import argmax_lastdim, argmax_plain
 
@@ -477,7 +668,9 @@ def phase_argmax(gen, dev, slots=SLOTS, vocab=VOCAB, padded=NP):
 # --- serve and reference phases -----------------------------------------------
 
 
-def build_model(n_layer, capacity, device, vocab=VOCAB, n_embd=E, n_head=H):
+def build_model(n_layer, capacity, device, vocab=VOCAB, n_embd=E, n_head=H, **paged):
+    """GPT-2 through the user's entry points; ``paged``: paged_blocks and
+    block_size for the paged cat pools."""
     from rten_tpu_torch.model import Model
     from rten_tpu_torch.models import gpt2
     from rten_tpu_torch.quantize_pass import quantize_dynamic
@@ -486,7 +679,7 @@ def build_model(n_layer, capacity, device, vocab=VOCAB, n_embd=E, n_head=H):
     weights = gpt2.random_weights(cfg, seed=0)
     graph = gpt2.build_graph_static_cache(
         cfg, weights, capacity=capacity, kv_quant=True, kernel_append=True,
-        gather_last=True,
+        gather_last=True, **paged,
     )
     quantize_dynamic(graph)
     return Model(graph, device=device)
@@ -502,6 +695,8 @@ def counters():
         "argmax_lastdim": argmax.argmax_lastdim,
         "decode_mha_folded": flash_attention.decode_mha_folded,
         "decode_mha_heads": flash_attention.decode_mha_heads,
+        "paged_decode_mha": flash_attention.paged_decode_mha,
+        "decode_mha_append_cat_paged": flash_attention.decode_mha_append_cat_paged,
     }
 
 
@@ -553,13 +748,33 @@ def serve(engine, prompts, budgets, vocab, want_per_forward, tag):
           f"{elapsed / forwards * 1e3:.3f} ms, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     print(f"  serve launches [{tag}]: {json.dumps(launches)}", flush=True)
+    check_pool(engine, tag)
     return reqs, elapsed, forwards, launches
 
 
-def phase_serve(dev):
+def check_pool(engine, tag):
+    """A paged engine with no work left holds no block: all but block 0
+    are back in the free list and the table is all 0."""
+    if not engine.paged:
+        return
+    if sorted(engine._free_blocks) != list(range(1, engine.n_blocks)) or engine.block_table.any():
+        fail(f"{tag}: {len(engine._free_blocks)} of {engine.n_blocks - 1} blocks free at the end")
+    print(f"  pool [{tag}]: all {engine.n_blocks - 1} usable blocks free at the end", flush=True)
+
+
+# The paged serve phases' pool: 40 usable blocks of 64 rows. A request of
+# 128 prompt tokens and up to 48 new ones reserves ceil((128 + 48 + 2 * 8)
+# / 64) = 3 blocks, so at most 13 of the 16 slots run at once.
+PAGED = dict(paged_blocks=41, block_size=BLOCK)
+
+
+def phase_serve(dev, paged=False):
+    """GPT-2 124M at full width, int8 weights, behind the engine: int8 cat
+    KV caches, or (``paged``) paged int8 cat pools with the block-table
+    append."""
     from rten_tpu_torch.serving import ContinuousBatchingEngine
 
-    model = build_model(12, CAP, dev)
+    model = build_model(12, CAP, dev, **(PAGED if paged else {}))
     engine = ContinuousBatchingEngine(
         model, n_layer=12, n_head=H, head_dim=D, slots=16, capacity=CAP,
         prefill_bucket=128, greedy_on_device=True, steps_per_dispatch=8,
@@ -567,23 +782,33 @@ def phase_serve(dev):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, VOCAB, PROMPT).tolist() for _ in range(24)]
     budgets = [int(rng.integers(16, 49)) for _ in range(24)]
-    _, elapsed, forwards, launches = serve(
-        engine, prompts, budgets, VOCAB, lambda steps, adm: {
+    if paged:  # admissions gather the pools, then decode_mha (per head)
+        want = lambda steps, adm: {  # noqa: E731
+            "int8_matmul_dequant": 49 * (steps + adm),
+            "decode_mha_append_cat_paged": 12 * steps,
+            "decode_mha_heads": 12 * adm,
+            "argmax_lastdim": steps + adm,
+        }
+    else:
+        want = lambda steps, adm: {  # noqa: E731
             "int8_matmul_dequant": 49 * (steps + adm),
             "decode_mha_append_cat": 12 * steps,
             "prefill_mha_cat": 12 * adm,
             "argmax_lastdim": steps + adm,
-        }, "GPT-2")
+        }
+    tag = "GPT-2 paged" if paged else "GPT-2"
+    _, elapsed, forwards, launches = serve(engine, prompts, budgets, VOCAB, want, tag)
     profile_wave(engine, prompts[:16], elapsed / forwards)
+    check_pool(engine, tag)
     return launches
 
 
-def build_llama(n_layer, capacity, device, sharpen=1.0, **options):
-    """A Llama-family model through the user's entry points: random weights
-    from seed 0 (the projections scaled by ``sharpen``), the serving graph,
-    int8 weights, and ``Model``. ``options``: LlamaConfig fields and builder
-    options (the default: int8 head-major KV caches). Returns the model and
-    the seconds each step took."""
+def build_llama(n_layer, capacity, device, sharpen=1.0, weights=None, **options):
+    """A Llama-family model through the user's entry points: ``weights``, or
+    random weights from seed 0 (the projections scaled by ``sharpen``), the
+    serving graph, int8 weights, and ``Model``. ``options``: LlamaConfig
+    fields and builder options (the default: int8 head-major KV caches).
+    Returns the model and the seconds each step took."""
     from rten_tpu_torch.model import Model
     from rten_tpu_torch.models import llama
     from rten_tpu_torch.quantize_pass import quantize_dynamic
@@ -593,17 +818,17 @@ def build_llama(n_layer, capacity, device, sharpen=1.0, **options):
                             **{k: v for k, v in options.items() if k in fields})
     build = {"kv_quant": True, **{k: v for k, v in options.items() if k not in fields}}
     secs = {}
-    t0 = time.perf_counter()
-    weights = llama.random_weights(cfg, seed=0)
-    if sharpen != 1.0:
-        for name in weights:
-            if "_proj." in name:
-                weights[name] *= np.float32(sharpen)
-    secs["weights"] = time.perf_counter() - t0
+    if weights is None:
+        t0 = time.perf_counter()
+        weights = llama.random_weights(cfg, seed=0)
+        if sharpen != 1.0:
+            for name in weights:
+                if "_proj." in name:
+                    weights[name] *= np.float32(sharpen)
+        secs["weights"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     graph = llama.build_graph_static_cache(cfg, weights, capacity=capacity,
                                            gather_last=True, **build)
-    del weights  # the graph holds its own (transposed) copies
     secs["graph"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     quantize_dynamic(graph)
@@ -614,19 +839,31 @@ def build_llama(n_layer, capacity, device, sharpen=1.0, **options):
     return model, secs
 
 
-def phase_serve_llama(dev):
-    """TinyLlama-1.1B's shape at full width (22 layers, random weights from
-    seed 0), int8 weights, int8 head-major KV caches, behind the engine:
-    16 slots, cap 256, bucket 128, 8 steps per dispatch, 24 requests of 128
-    seeded tokens with 16-48 new tokens each."""
+def tinyllama_weights():
+    """TinyLlama-1.1B's shape at full width: random weights from seed 0 (one
+    dict for both TinyLlama serve phases)."""
+    from rten_tpu_torch.models import llama
+
+    t0 = time.perf_counter()
+    weights = llama.random_weights(llama.LlamaConfig(num_hidden_layers=L_LAYERS), seed=0)
+    print(f"  TinyLlama random weights (seed 0): {time.perf_counter() - t0:.1f} s", flush=True)
+    return weights
+
+
+def phase_serve_llama(dev, weights, paged=False):
+    """TinyLlama-1.1B's shape at full width (22 layers, ``weights``), int8
+    weights, int8 head-major KV caches or (``paged``) paged int8 head-major
+    pools, behind the engine: 16 slots, cap 256, bucket 128, 8 steps per
+    dispatch, 24 requests of 128 seeded tokens with 16-48 new tokens each."""
     import resource
 
     from rten_tpu_torch.serving import ContinuousBatchingEngine
 
-    model, secs = build_llama(L_LAYERS, CAP, dev)
+    tag = "TinyLlama paged" if paged else "TinyLlama"
+    model, secs = build_llama(L_LAYERS, CAP, dev, weights=weights, **(PAGED if paged else {}))
     torch.cuda.synchronize()
     n_ops = sum(1 for _ in model.graph.operators())
-    print(f"  build [TinyLlama]: {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())}; "
+    print(f"  build [{tag}]: {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())}; "
           f"{n_ops} graph operators after optimize; peak host RSS "
           f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f} GiB "
           f"(the whole process so far)", flush=True)
@@ -637,28 +874,31 @@ def phase_serve_llama(dev):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, L_VOCAB, PROMPT).tolist() for _ in range(24)]
     budgets = [int(rng.integers(16, 49)) for _ in range(24)]
+    decode = "paged_decode_mha" if paged else "decode_mha_folded"
     _, elapsed, forwards, launches = serve(
         engine, prompts, budgets, L_VOCAB, lambda steps, adm: {
             "int8_matmul_dequant": (7 * L_LAYERS + 1) * (steps + adm),
-            "decode_mha_folded": L_LAYERS * steps,
+            decode: L_LAYERS * steps,
             "decode_mha_heads": L_LAYERS * adm,
             "argmax_lastdim": steps + adm,
-        }, "TinyLlama")
+        }, tag)
     profile_wave(engine, prompts[:16], elapsed / forwards)
+    check_pool(engine, tag)
     return launches
 
 
 def profile_wave(engine, prompts, wall_per_forward):
     """One more full wave (16 requests of 17 tokens: an admission and two
-    dispatches of 8 steps) under torch.profiler: the card's busy time, by
-    kernel, against the host's wall time. The profiler slows the host, so
-    the idle share is stated against the unprofiled wall time per forward
-    of the serve run as well."""
+    dispatches of 8 steps; a paged pool that holds 13 admits the rest once
+    blocks free) under torch.profiler: the card's busy time, by kernel,
+    against the host's wall time. The profiler slows the host, so the idle
+    share is stated against the unprofiled wall time per forward of the
+    serve run as well."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     reqs = [engine.submit(p, max_new_tokens=17) for p in prompts]
-    forwards = 1 + 16
+    steps0 = engine.steps
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -667,6 +907,7 @@ def profile_wave(engine, prompts, wall_per_forward):
         wall = time.perf_counter() - t0
     if not all(r.done and len(r.generated) == 17 for r in reqs):
         fail("profiled wave: a request did not finish with its tokens")
+    forwards = engine.steps - steps0 + len({r.first_token_at for r in reqs})
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
@@ -694,7 +935,9 @@ def phase_reference(dev):
     """The card against the CPU (the kernels' plain versions), two ways.
 
     1. A small GPT-2 (2 layers, E 128, H 2, vocab 512, cap 64) behind the
-       engine, 5 requests on 3 slots, 4 steps per dispatch: the same tokens.
+       engine, 5 requests on 3 slots, 4 steps per dispatch: the same tokens,
+       on int8 cat caches and on paged int8 cat pools (SMALL_PAGED: 3
+       usable blocks of 16 rows, so admissions wait for blocks).
     2. GPT-2 at full width cut to 2 layers: one admission and 3 decode
        steps from the same inputs: finite logits of the right shape, the
        same greedy tokens unless the CPU's top two are within the logit
@@ -704,35 +947,54 @@ def phase_reference(dev):
        ~1.5e-2 of their maximum (measured on the CPU against the JAX
        package); a kernel fault moves them by far more.
     """
+    for paged in ({}, SMALL_PAGED):
+        toks = small_engine_tokens(dev, lambda device: build_model(
+            2, 64, device, vocab=512, n_embd=128, n_head=2, **paged), 2, "GPT-2")
+        if toks["cuda"] != toks["cpu"]:
+            fail(f"reference [GPT-2{' paged' if paged else ''}]: small engine tokens differ: "
+                 f"{toks['cuda']} vs {toks['cpu']}")
+
+    worst, equal = logits_card_vs_cpu(dev, lambda device: build_model(2, 64, device), VOCAB,
+                                      "GPT-2")
+    print(f"  reference [GPT-2]: small engine tokens equal on card and CPU (cat caches and "
+          f"paged pools); full width, "
+          f"2 layers: logits max err {worst:.3e} of max|logit|, tokens "
+          f"{'equal' if equal else 'differ only at near ties'}", flush=True)
+
+
+# The small reference engines' pool: 3 usable blocks of 16 rows for
+# requests of 1 or 2 blocks, so admissions wait for blocks.
+SMALL_PAGED = dict(paged_blocks=4, block_size=16)
+
+
+def small_engine_tokens(dev, make_model, n_head, tag):
+    """A small model behind the engine on the card and on the CPU: 5 seeded
+    requests on 3 slots, cap 64, 4 steps per dispatch. Returns the tokens by
+    device type; a paged engine must end with every block free."""
     from rten_tpu_torch.serving import ContinuousBatchingEngine
 
     toks = {}
     for device in (dev, torch.device("cpu")):
-        model = build_model(2, 64, device, vocab=512, n_embd=128, n_head=2)
         eng = ContinuousBatchingEngine(
-            model, n_layer=2, n_head=2, head_dim=64, slots=3, capacity=64,
+            make_model(device), n_layer=2, n_head=n_head, head_dim=64, slots=3, capacity=64,
             prefill_bucket=8, greedy_on_device=True, steps_per_dispatch=4,
         )
         rng = np.random.default_rng(0)
         reqs = [eng.submit(rng.integers(0, 512, int(rng.integers(3, 12))).tolist(),
                            max_new_tokens=int(rng.integers(3, 14))) for _ in range(5)]
         eng.run()
+        if eng.paged and sorted(eng._free_blocks) != list(range(1, eng.n_blocks)):
+            fail(f"reference [{tag}]: blocks not returned on {device}")
         toks[device.type] = [r.generated for r in reqs]
-    if toks["cuda"] != toks["cpu"]:
-        fail(f"reference: small engine tokens differ: {toks['cuda']} vs {toks['cpu']}")
-
-    worst, equal = logits_card_vs_cpu(dev, lambda device: build_model(2, 64, device), VOCAB,
-                                      "GPT-2")
-    print(f"  reference [GPT-2]: small engine tokens equal on card and CPU; full width, "
-          f"2 layers: logits max err {worst:.3e} of max|logit|, tokens "
-          f"{'equal' if equal else 'differ only at near ties'}", flush=True)
+    return toks
 
 
 def logits_card_vs_cpu(dev, make_model, vocab, tag, tol=5e-2):
     """One admission of 16 seeded tokens on 4 slots and 3 decode steps, on
     the card and on the CPU from the same inputs: finite logits of the
     right shape, within ``tol`` of max|logit|, and the same greedy tokens
-    unless the CPU's top two are within that tolerance. Returns (worst
+    unless the CPU's top two are within that tolerance. A paged model gets
+    pools at their declared shape and a shuffled table. Returns (worst
     error, whether every token was equal)."""
     outs = {}
     slots, T = 4, 16
@@ -740,11 +1002,17 @@ def logits_card_vs_cpu(dev, make_model, vocab, tag, tol=5e-2):
         model = make_model(device)
         rng = np.random.default_rng(1)
         ids = rng.integers(0, vocab, (slots, T)).astype(np.int32)
-        caches = {name: np.zeros((slots,) + tuple(shape[1:]), dt.np_dtype)
-                  for name, dt, shape in model.input_info()
-                  if name.startswith("past_key_values.")}
+        info = {name: (dt, tuple(shape)) for name, dt, shape in model.input_info()}
+        paged = "block_table" in info
+        caches = {name: np.zeros(shape if paged else (slots,) + shape[1:], dt.np_dtype)
+                  for name, (dt, shape) in info.items() if name.startswith("past_key_values.")}
+        fixed = {}
+        if paged:
+            nb, mb = next(iter(caches.values())).shape[0], info["block_table"][1][1]
+            fixed["block_table"] = (rng.permutation(np.arange(1, nb))[: slots * mb]
+                                    .reshape(slots, mb).astype(np.int32))
         names = [n for n in model.output_names() if n.startswith("present.")]
-        feed = dict(caches, input_ids=ids, past_lens=np.zeros(slots, np.int32),
+        feed = dict(caches, **fixed, input_ids=ids, past_lens=np.zeros(slots, np.int32),
                     position_ids=np.tile(np.arange(T, dtype=np.int32), (slots, 1)),
                     last_pos=np.full(slots, T - 1, np.int32))
         res = []
@@ -758,7 +1026,7 @@ def logits_card_vs_cpu(dev, make_model, vocab, tag, tol=5e-2):
             res.append((logits, tok))
             feed = {"past_key_values." + n[len("present."):]: t
                     for n, t in zip(names, got[2:])}
-            feed.update(input_ids=tok.astype(np.int32)[:, None], past_lens=lens,
+            feed.update(fixed, input_ids=tok.astype(np.int32)[:, None], past_lens=lens,
                         position_ids=lens[:, None], last_pos=np.zeros(slots, np.int32))
             lens = lens + 1
         outs[device.type] = res
@@ -784,43 +1052,39 @@ def phase_reference_llama(dev):
        vocab 512; the projections sharpened 2x, so that greedy tokens depend
        on the context) behind the engine, 5 requests on 3 slots, cap 64,
        4 steps per dispatch: the same tokens for each supported cache
-       layout (s8 head-major, f32 head-major, s8 cat).
-    2. TinyLlama's width cut to 2 layers (s8 head-major caches): logits as
-       in the GPT-2 reference phase, within 5e-2 of max|logit|.
+       layout (s8 head-major, f32 head-major, s8 cat), flat and paged
+       (SMALL_PAGED).
+    2. TinyLlama's width cut to 2 layers (s8 head-major caches, and paged
+       s8 head-major pools): logits as in the GPT-2 reference phase, within
+       5e-2 of max|logit|.
     """
-    from rten_tpu_torch.serving import ContinuousBatchingEngine
-
     small = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
                  num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=128)
     layouts = {"s8 head-major": dict(kv_quant=True), "f32 head-major": dict(kv_quant=False),
                "s8 cat": dict(kv_quant=True, kernel_append=True)}
+    layouts.update({f"paged {k}": dict(v, **SMALL_PAGED) for k, v in list(layouts.items())})
     for layout, opts in layouts.items():
-        toks = {}
-        for device in (dev, torch.device("cpu")):
-            model, _ = build_llama(2, 64, device, sharpen=2.0, **small, **opts)
-            eng = ContinuousBatchingEngine(
-                model, n_layer=2, n_head=4, head_dim=64, slots=3, capacity=64,
-                prefill_bucket=8, greedy_on_device=True, steps_per_dispatch=4,
-            )
-            rng = np.random.default_rng(0)
-            reqs = [eng.submit(rng.integers(0, 512, int(rng.integers(3, 12))).tolist(),
-                               max_new_tokens=int(rng.integers(3, 14))) for _ in range(5)]
-            eng.run()
-            toks[device.type] = [r.generated for r in reqs]
+        toks = small_engine_tokens(dev, lambda device: build_llama(
+            2, 64, device, sharpen=2.0, **small, **opts)[0], 4, f"Llama, {layout}")
         if toks["cuda"] != toks["cpu"]:
             fail(f"reference [Llama, {layout}]: small engine tokens differ: "
                  f"{toks['cuda']} vs {toks['cpu']}")
         if len({t for g in toks["cuda"] for t in g}) <= len(toks["cuda"]):
             fail(f"reference [Llama, {layout}]: the tokens do not depend on the context")
-    worst, equal = logits_card_vs_cpu(dev, lambda device: build_llama(2, 64, device)[0],
-                                      L_VOCAB, "TinyLlama")
     print(f"  reference [Llama]: small engine tokens equal on card and CPU for "
-          f"{', '.join(layouts)}; TinyLlama width, 2 layers: logits max err "
-          f"{worst:.3e} of max|logit|, tokens {'equal' if equal else 'differ only at near ties'}",
-          flush=True)
+          f"{', '.join(layouts)}", flush=True)
+    # 4 slots x 4 blocks of 16 rows, plus the garbage block.
+    for tag, paged in (("TinyLlama", {}), ("TinyLlama paged", dict(paged_blocks=17,
+                                                                   block_size=16))):
+        worst, equal = logits_card_vs_cpu(
+            dev, lambda device: build_llama(2, 64, device, **paged)[0], L_VOCAB, tag)
+        print(f"  reference [{tag}]: width of TinyLlama, 2 layers: logits max err {worst:.3e} "
+              f"of max|logit|, tokens {'equal' if equal else 'differ only at near ties'}",
+              flush=True)
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test runs only on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -849,6 +1113,14 @@ def main() -> int:
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
+    secs = {"build and start": time.perf_counter() - t_start}
+    last = [time.perf_counter()]  # the end of the last phase
+
+    def lap(phase):
+        now = time.perf_counter()
+        secs[phase] = now - last[0]
+        last[0] = now
+
     print("kernel phases:", flush=True)
     kernels = [
         phase_int8_matmul(gen, dev),
@@ -865,18 +1137,35 @@ def main() -> int:
         row["llama"] = {k: llama_row[k] for k in nested}
         row["max_abs_err"] = max(row["max_abs_err"], llama_row["max_abs_err"])
     kernels += phase_decode_mha(gen, dev)
+    lap("kernels of PRs 1-2")
+    kernels.append(phase_paged_decode_mha(gen, dev))
+    kernels.append(phase_paged_append(gen, dev))
+    lap("paged kernels")
     torch.cuda.empty_cache()
     print("serve phases:", flush=True)
-    by_path = {"tinyllama_serve": phase_serve_llama(dev)}
+    weights = tinyllama_weights()
+    by_path = {"tinyllama_serve": phase_serve_llama(dev, weights)}
+    lap("TinyLlama serve (weights included)")
+    torch.cuda.empty_cache()
+    by_path["tinyllama_paged_serve"] = phase_serve_llama(dev, weights, paged=True)
+    lap("TinyLlama paged serve")
+    del weights
     torch.cuda.empty_cache()
     by_path["gpt2_serve"] = phase_serve(dev)
+    lap("GPT-2 serve")
+    torch.cuda.empty_cache()
+    by_path["gpt2_paged_serve"] = phase_serve(dev, paged=True)
+    lap("GPT-2 paged serve")
     for k in kernels:
         k["launches_by_path"] = {path: n[k["name"]] for path, n in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
     print("reference phases:", flush=True)
     phase_reference(dev)
     phase_reference_llama(dev)
+    lap("references (flat and paged)")
 
+    print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in secs.items()})}", flush=True)
+    print(f"total: {time.perf_counter() - t_start:.1f} s (build included)", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

@@ -25,6 +25,20 @@
 //    of its row and never reads it back from memory, so there is no race.
 //    Reads are not yet pipelined (cp.async/TMA) and the query heads of a
 //    GQA group each re-read the keys (from L2): later work.
+//    Block-table mode (the TPU kernel's block_table= form): the caches are
+//    pools [NB, BS, Hkv*D] shared by all slots, with scale pools
+//    [NB, Hkv, 1, BS], and row j of slot b lives at pool row
+//    bt[b, j / BS] * BS + j % BS; the new row goes to position
+//    min(lens[b], cap - 1), cap = MB * BS. Idle slots all point at block
+//    0, so several slots can write the same row, and the reference writes
+//    every slot's row, the last slot winning, before any slot reads. A
+//    block that wrote and attended at once would race with the other
+//    writers of its row, so this mode is two launches on one stream:
+//    append_cat_write_kernel (a block skips its write when a later slot
+//    targets the same row), then the attention, which reads every row, the
+//    new one included, from the pool through the table: decode_mha's fold
+//    (decode_fold.cuh) with table addressing, which reads each K/V row once
+//    for the whole GQA group. Same bound (bytes).
 //
 // 2. prefill_cat_kernel replaces rten_tpu/kernels/flash_attention.py,
 //    prefill_mha_cat (Pallas body _prefill_cat_kernel): S > 1 prefill off
@@ -42,25 +56,9 @@
 // quantizer, so this file is built without --use_fast_math (IEEE division,
 // rintf).
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "decode_fold.cuh"
 
 namespace {
-
-constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
-  return v;
-}
 
 __device__ __forceinline__ int8_t quantize_s8(float x, float s) {
   return (int8_t)fminf(fmaxf(rintf(x / s), -127.f), 127.f);
@@ -217,6 +215,66 @@ __global__ void __launch_bounds__(DEC_WARPS * 32) decode_append_cat_kernel(
   }
 }
 
+// The pool row (blk * BS + r) that slot c's decode row lands in: position
+// min(lens[c], cap - 1) through the block table (the reference clamps the
+// write row before it looks the block up).
+__device__ __forceinline__ long long append_row(const int32_t* __restrict__ bt,
+                                                const int32_t* __restrict__ lens,
+                                                int c, int MB, int BS) {
+  const int w = min(max(lens[c], 0), MB * BS - 1);
+  return (long long)bt[(long long)c * MB + w / BS] * BS + w % BS;
+}
+
+// Block-table mode, launch 1 of 2: quantize slot b's new K/V row of kv head
+// hk (thread d owns element d; the same arithmetic as the flat kernel) and
+// write it and its scales into the pools, unless a later slot targets the
+// same pool row: the reference's in-order writes leave the last slot's.
+template <int D>
+__global__ void __launch_bounds__(DEC_WARPS * 32) append_cat_write_kernel(
+    const float* __restrict__ kn, long long kn_sb, long long kn_sh,
+    const float* __restrict__ vn, long long vn_sb, long long vn_sh,
+    int8_t* kc, int8_t* vc, float* ks, float* vs, const int32_t* __restrict__ bt,
+    int MB, int BS, const int32_t* __restrict__ lens, int B, int Hkv) {
+  __shared__ float red_s[2][DEC_WARPS];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int b = blockIdx.x, hk = blockIdx.y;
+  const long long row = append_row(bt, lens, b, MB, BS);
+  int later = 0;
+  for (int c = b + 1 + tid; c < B; c += DEC_WARPS * 32)
+    later |= append_row(bt, lens, c, MB, BS) == row;
+  if (__syncthreads_or(later)) return;  // the same answer in every thread
+  float kx = 0.f, vx = 0.f;
+  if (tid < D) {
+    kx = kn[b * kn_sb + hk * kn_sh + tid];
+    vx = vn[b * vn_sb + hk * vn_sh + tid];
+  }
+  float kam = warp_max(fabsf(kx)), vam = warp_max(fabsf(vx));
+  if (lane == 0) {
+    red_s[0][warp] = kam;
+    red_s[1][warp] = vam;
+  }
+  __syncthreads();
+  kam = red_s[0][0];
+  vam = red_s[1][0];
+#pragma unroll
+  for (int w = 1; w < DEC_WARPS; ++w) {
+    kam = fmaxf(kam, red_s[0][w]);
+    vam = fmaxf(vam, red_s[1][w]);
+  }
+  const float ks_new = fmaxf(kam / 127.0f, 1e-8f);
+  const float vs_new = fmaxf(vam / 127.0f, 1e-8f);
+  if (tid < D) {
+    const long long off = row * Hkv * D + (long long)hk * D + tid;
+    kc[off] = quantize_s8(kx, ks_new);
+    vc[off] = quantize_s8(vx, vs_new);
+  }
+  if (tid == 0) {
+    const long long s = ((row / BS) * Hkv + hk) * BS + row % BS;
+    ks[s] = ks_new;
+    vs[s] = vs_new;
+  }
+}
+
 constexpr int PBQ = 32;  // query rows per block
 constexpr int PBK = 32;  // key columns per tile
 
@@ -344,6 +402,58 @@ extern "C" int rten_decode_append_cat(
     default: return (int)cudaErrorInvalidValue;
   }
 #undef RTEN_DECODE
+  return (int)cudaGetLastError();
+}
+
+// Block-table mode: kc/vc are pools [NB, BS, Hkv*D], ks/vs scale pools
+// [NB, Hkv, 1, BS], bt [B, MB]; out [B, 1, H*D]. Two launches on the
+// stream: every slot's row is written (the last slot winning a shared
+// row), then every slot attends through the table.
+extern "C" int rten_decode_append_cat_paged(
+    const void* q, long long q_sb, long long q_sh,
+    const void* kn, long long kn_sb, long long kn_sh,
+    const void* vn, long long vn_sb, long long vn_sh,
+    void* kc, void* vc, void* ks, void* vs, const void* bt, int MB, int BS,
+    const void* lens, void* out, int B, int H, int Hkv, int D, int window,
+    float scale, void* stream) {
+  const int rows = H / Hkv;
+  if (MB < 1 || BS < 1 || rows < 1 || rows > 16) return (int)cudaErrorInvalidValue;
+  const dim3 grid(B, Hkv);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int32_t* table = (const int32_t*)bt;
+#define RTEN_WRITE(DD)                                                         \
+  append_cat_write_kernel<DD><<<grid, DEC_WARPS * 32, 0, st>>>(                \
+      (const float*)kn, kn_sb, kn_sh, (const float*)vn, vn_sb, vn_sh,          \
+      (int8_t*)kc, (int8_t*)vc, (float*)ks, (float*)vs, table, MB, BS,         \
+      (const int32_t*)lens, B, Hkv)
+  switch (D) {
+    case 32: RTEN_WRITE(32); break;
+    case 64: RTEN_WRITE(64); break;
+    case 128: RTEN_WRITE(128); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef RTEN_WRITE
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  // Strides of the cat pools (rows of Hkv * D) and the scale pools.
+  const long long HkvD = (long long)Hkv * D;
+#define RTEN_ATTEND(DD, RR)                                                      \
+  decode_mha_fold_kernel<DD, int8_t, RR, true><<<grid, FOLD_WARPS * 32, 0, st>>>( \
+      (const float*)q, q_sb, q_sh, 0, (const int8_t*)kc, (const int8_t*)vc,     \
+      BS * HkvD, DD, HkvD, (const float*)ks, (const float*)vs,                 \
+      (long long)Hkv * BS, BS, 1, table, MB, BS, (const int32_t*)lens,         \
+      (float*)out, (long long)H * DD, DD, 0, H, Hkv, 1, MB * BS, window, scale)
+#define RTEN_ATTEND_R(DD)                                                        \
+  if (rows == 1) RTEN_ATTEND(DD, 1);                                             \
+  else if (rows <= 8) RTEN_ATTEND(DD, 8);                                        \
+  else RTEN_ATTEND(DD, 16)
+  switch (D) {
+    case 32: RTEN_ATTEND_R(32); break;
+    case 64: RTEN_ATTEND_R(64); break;
+    default: RTEN_ATTEND_R(128); break;
+  }
+#undef RTEN_ATTEND_R
+#undef RTEN_ATTEND
   return (int)cudaGetLastError();
 }
 

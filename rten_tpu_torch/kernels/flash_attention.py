@@ -11,14 +11,29 @@ PyTorch versions.
   ``rten_tpu/kernels/flash_attention.py:decode_mha_append_cat``: one decode
   step that quantizes the new K/V row, writes it in place at row
   ``min(lens[b], cap - 1)`` and attends rows ``<= lens[b]``.
+  With ``block_table`` (``decode_mha_append_cat_paged``, its own launch
+  counter) the caches are block pools read and written through the table.
 * ``prefill_mha_cat`` replaces
   ``rten_tpu/kernels/flash_attention.py:prefill_mha_cat``: prefill off
   caches that already hold the chunk's rows; row r attends ``<= lens[b]+r``.
+* ``paged_decode_mha`` (``csrc/paged_decode_mha.cu``) replaces
+  ``rten_tpu/kernels/flash_attention.py:paged_decode_mha``: a decode step
+  over head-major block pools ``[NB, Hkv, BS, D]`` through a block table;
+  ``paged_attention`` routes paged attention by shape.
 
 The cat-layout caches are ``[B, cap, Hkv*D]`` s8 with scales
 ``[B, Hkv, cap, 1]`` f32 (the engine's canonical shape). Only s8 cat
-caches are covered; f32/bf16 cat caches and paged block pools raise
-(ROADMAP.md queue 1 items 7 and 8).
+caches are covered; f32/bf16 cat caches raise (ROADMAP.md queue 1 item 7).
+
+Paged KV: block pools shared by all slots, ``[NB, Hkv, BS, D]``
+(head-major) or ``[NB, BS, Hkv*D]`` (cat), with scale pools
+``[NB, Hkv, 1, BS]`` (positions lane-major per block); slot b's logical
+position p lives in block ``bt[b, p // BS]``, row ``p % BS``. Block 0 is
+the engine's garbage sink: idle slots' table rows are all 0, so several
+slots can write one pool row in the same step. The reference writes the
+rows in slot order, the last one winning, before anything reads them;
+``paged_targets`` gives every writer of a row the last writer's data, so a
+single ``index_put_`` leaves the same pool on the CPU and on the card.
 
 The plain versions repeat the JAX package's CPU path
 (``decode_attention_append_cat``'s fallback and ``decode_mha_xla``):
@@ -104,6 +119,68 @@ def decode_mha_plain(q, k, v, lens, k_scale=None, v_scale=None, *,
     return mha_plain(q, kf, vf, mask, scale=scale)
 
 
+def paged_targets(starts, S: int, bt, n_blocks: int, block_size: int, *,
+                  clamp: bool = False):
+    """Where a per-slot write of S rows lands in a block pool, over the
+    write list flattened slot-major to N = B * S entries: (blk [N], off [N],
+    src [N]) int64, the pool block, the row in it, and the entry whose data
+    the row receives.
+
+    Position p = starts[b] + s of slot b lives at block bt[b, p // BS], row
+    p % BS. Past the table (p // BS >= MB) it goes to block 0, the garbage
+    sink (the head-major and scale pools' rule, ``_paged_kv_update``);
+    with ``clamp`` p is first clamped to cap - 1 (the cat-pool append's
+    rule, ``_append_cat_paged_fallback``). Entries that share a row resolve
+    as the reference's in-order writes do: the last one wins, so ``src``
+    points every entry at the last entry with its row."""
+    B, MB = bt.shape
+    BS = block_size
+    dev = bt.device
+    pos = starts.reshape(B).to(torch.int64)[:, None] + torch.arange(S, device=dev)[None]
+    if clamp:
+        pos = pos.clamp(max=MB * BS - 1)
+    jb = pos // BS
+    blk = torch.where(jb < MB, bt.to(torch.int64).gather(1, jb.clamp(max=MB - 1)), 0)
+    blk, off = blk.reshape(-1), (pos % BS).reshape(-1)
+    row = blk * BS + off
+    order = torch.arange(row.numel(), device=dev)
+    last = torch.full((n_blocks * BS,), -1, dtype=torch.int64, device=dev)
+    last.scatter_reduce_(0, row, order, "amax")
+    return blk, off, last[row]
+
+
+def paged_gather_kv(pool, bt):
+    """Head-major pool [NB, H, BS, D] gathered per slot -> contiguous
+    [B, H, MB*BS, D]."""
+    g = pool[bt.long()]  # [B, MB, H, BS, D]
+    B, MB, H, BS, D = g.shape
+    return g.permute(0, 2, 1, 3, 4).reshape(B, H, MB * BS, D)
+
+
+def paged_gather_scales(spool, bt):
+    """Scale pool [NB, Hkv, 1, BS] gathered per slot -> contiguous
+    [B, Hkv, MB*BS]."""
+    g = spool[bt.long()]  # [B, MB, Hkv, 1, BS]
+    B, MB, Hkv, _, BS = g.shape
+    return g.permute(0, 2, 1, 3, 4).reshape(B, Hkv, MB * BS)
+
+
+def paged_gather_cat(pool, bt):
+    """Cat pool [NB, BS, Hkv*D] gathered per slot -> contiguous
+    [B, MB*BS, Hkv*D]."""
+    B, MB = bt.shape
+    return pool[bt.long()].reshape(B, MB * pool.shape[1], pool.shape[2])
+
+
+def _paged_gather(pool_k, pool_v, pool_ks, pool_vs, bt):
+    """Head-major pools (and scale pools, or None) gathered per slot ->
+    (k, v, k_scale, v_scale) as ``decode_mha`` takes them."""
+    ks = vs = None
+    if pool_ks is not None:
+        ks, vs = paged_gather_scales(pool_ks, bt), paged_gather_scales(pool_vs, bt)
+    return paged_gather_kv(pool_k, bt), paged_gather_kv(pool_v, bt), ks, vs
+
+
 def _check_quant(k_scale, v_scale):
     if k_scale is None or v_scale is None:
         raise NotImplementedError(
@@ -161,14 +238,23 @@ def _check_common(q, kc, vc, lens, k_scale, v_scale, Hkv):
 
 def decode_mha_append_cat(q, kc, vc, lens, k_scale=None, v_scale=None, *,
                           k_new, v_new, scale: Optional[float] = None,
-                          window: int = 0):
+                          window: int = 0, block_table=None):
     """Decode attention + in-place append on cat-layout s8 caches (S == 1).
 
     q [B,H,1,D] f32; kc/vc [B,cap,Hkv*D] s8 holding rows < lens[b];
     k_new/v_new [B,Hkv,1,D] f32 rows for position lens[b]; scales
     [B,Hkv,cap,1] f32; lens [B] int32. The caches and scales are updated in
     place. Returns (out [B,1,H*D] in cat layout, kc, vc, k_scale, v_scale).
+
+    With ``block_table`` [B, MB] int32, kc/vc are block pools
+    [NB, BS, Hkv*D] and the scales pools [NB, Hkv, 1, BS]
+    (``decode_mha_append_cat_paged``).
     """
+    if block_table is not None:
+        return decode_mha_append_cat_paged(
+            q, kc, vc, lens, k_scale, v_scale, k_new=k_new, v_new=v_new,
+            block_table=block_table, scale=scale, window=window,
+        )
     _check_quant(k_scale, v_scale)
     if kernel_device(q, kc, vc, lens, k_scale, v_scale, k_new, v_new) == "cpu":
         return decode_mha_append_cat_plain(
@@ -203,6 +289,109 @@ def decode_mha_append_cat(q, kc, vc, lens, k_scale=None, v_scale=None, *,
 
 
 decode_mha_append_cat.launches = 0
+
+
+def decode_mha_append_cat_paged_plain(q, pool_kc, pool_vc, lens, k_scale_pool,
+                                      v_scale_pool, *, k_new, v_new, block_table,
+                                      scale=None, window: int = 0):
+    """Plain version of ``decode_mha_append_cat_paged`` (the JAX package's
+    ``_append_cat_paged_fallback``): quantize the new rows, write them into
+    the pools through the table at row min(lens, cap - 1), the last slot
+    winning a shared row, then attend over per-slot gathered views."""
+    _check_quant(k_scale_pool, v_scale_pool)
+    B, Hkv = k_new.shape[0], k_new.shape[1]
+    NB, BS, _ = pool_kc.shape
+    bt = block_table
+    lens = lens.reshape(B)
+    blk, off, src = paged_targets(lens, 1, bt, NB, BS, clamp=True)
+    k_q, ks_new = quantize_rows(k_new)
+    v_q, vs_new = quantize_rows(v_new)
+    pool_kc[blk, off] = heads_to_cat(k_q)[:, 0][src]
+    pool_vc[blk, off] = heads_to_cat(v_q)[:, 0][src]
+    k_scale_pool.select(2, 0)[blk, :, off] = ks_new.reshape(B, Hkv)[src]
+    v_scale_pool.select(2, 0)[blk, :, off] = vs_new.reshape(B, Hkv)[src]
+    out = decode_mha_plain(
+        q, cat_to_heads(paged_gather_cat(pool_kc, bt), Hkv),
+        cat_to_heads(paged_gather_cat(pool_vc, bt), Hkv), lens,
+        paged_gather_scales(k_scale_pool, bt), paged_gather_scales(v_scale_pool, bt),
+        scale=scale, window=window,
+    )
+    return heads_to_cat(out), pool_kc, pool_vc, k_scale_pool, v_scale_pool
+
+
+def _check_table(bt, lens, B, device):
+    check_cuda_tensor("block_table", bt, torch.int32, device)
+    if bt.dim() != 2 or bt.shape[0] != B or bt.shape[1] < 1:
+        raise ValueError(f"block_table: expected [{B}, MB], got {tuple(bt.shape)}")
+    check_cuda_tensor("lens", lens, torch.int32, device)
+    if lens.numel() != B:
+        raise ValueError(f"lens: expected {B} values, got {tuple(lens.shape)}")
+    return bt.shape[1]
+
+
+def decode_mha_append_cat_paged(q, pool_kc, pool_vc, lens, k_scale_pool=None,
+                                v_scale_pool=None, *, k_new, v_new, block_table,
+                                scale: Optional[float] = None, window: int = 0):
+    """``decode_mha_append_cat`` through a block table (replaces the TPU
+    kernel's ``block_table=`` form): q [B,H,1,D] f32; pools [NB,BS,Hkv*D]
+    s8 and scale pools [NB,Hkv,1,BS] f32, updated in place; block_table
+    [B,MB] int32; lens [B] int32. Slot b's new row lands at position
+    min(lens[b], cap - 1), cap = MB * BS. Two launches on the stream: the
+    rows are written (the last slot winning a shared row), then every slot
+    attends through the table (``decode_mha``'s fold, so group = H / Hkv <=
+    ``FOLD_MAX_ROWS``). Returns (out [B,1,H*D], pools, scale pools)."""
+    _check_quant(k_scale_pool, v_scale_pool)
+    if kernel_device(q, pool_kc, pool_vc, lens, k_scale_pool, v_scale_pool, k_new,
+                     v_new, block_table) == "cpu":
+        return decode_mha_append_cat_paged_plain(
+            q, pool_kc, pool_vc, lens, k_scale_pool, v_scale_pool, k_new=k_new,
+            v_new=v_new, block_table=block_table, scale=scale, window=window,
+        )
+    device = q.device
+    B, H, S, D = q.shape
+    Hkv = k_new.shape[1]
+    if S != 1:
+        raise ValueError("decode_mha_append_cat is a single-token decode kernel")
+    if q.dtype != torch.float32 or q.stride(-1) != 1:
+        raise ValueError("q: float32 with a unit-stride last axis required")
+    if pool_kc.dim() != 3 or pool_vc.shape != pool_kc.shape:
+        raise ValueError(f"pools: expected two [NB, BS, Hkv*D] tensors, got "
+                         f"{tuple(pool_kc.shape)} / {tuple(pool_vc.shape)}")
+    NB, BS, HkvD = pool_kc.shape
+    if (HkvD != Hkv * D or H % Hkv or H // Hkv > FOLD_MAX_ROWS
+            or D not in (32, 64, 128)):
+        raise ValueError(f"head dim {D}, heads {H}/{Hkv}, pool rows {HkvD} not supported")
+    for name, t in (("pool_kc", pool_kc), ("pool_vc", pool_vc)):
+        check_cuda_tensor(name, t, torch.int8, device)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: must be 16-byte aligned")
+    for name, t in (("k_scale_pool", k_scale_pool), ("v_scale_pool", v_scale_pool)):
+        check_cuda_tensor(name, t, torch.float32, device)
+        if t.shape != (NB, Hkv, 1, BS):
+            raise ValueError(f"{name}: expected {(NB, Hkv, 1, BS)}, got {tuple(t.shape)}")
+    for name, t in (("k_new", k_new), ("v_new", v_new)):
+        if t.shape != (B, Hkv, 1, D) or t.dtype != torch.float32 or t.stride(-1) != 1:
+            raise ValueError(f"{name}: expected float32 {(B, Hkv, 1, D)}")
+    MB = _check_table(block_table, lens, B, device)
+    if scale is None:
+        scale = 1.0 / float(np.sqrt(D))
+    out = torch.empty((B, 1, H * D), dtype=torch.float32, device=device)
+    err = _lib().rten_decode_append_cat_paged(
+        q.data_ptr(), q.stride(0), q.stride(1),
+        k_new.data_ptr(), k_new.stride(0), k_new.stride(1),
+        v_new.data_ptr(), v_new.stride(0), v_new.stride(1),
+        pool_kc.data_ptr(), pool_vc.data_ptr(), k_scale_pool.data_ptr(),
+        v_scale_pool.data_ptr(), block_table.data_ptr(), MB, BS, lens.data_ptr(),
+        out.data_ptr(), B, H, Hkv, D, int(window), float(scale),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"decode_mha_append_cat (block table) launch failed: CUDA error {err}")
+    decode_mha_append_cat_paged.launches += 1
+    return out, pool_kc, pool_vc, k_scale_pool, v_scale_pool
+
+
+decode_mha_append_cat_paged.launches = 0
 
 
 def prefill_mha_cat_plain(q, kc, vc, lens, k_scale, v_scale, *, scale=None,
@@ -369,6 +558,95 @@ def decode_mha_heads(q, k, v, lens, k_scale=None, v_scale=None, *,
 decode_mha_heads.launches = 0
 
 
+def paged_decode_mha_plain(q, pool_k, pool_v, lens, block_table, pool_ks=None,
+                           pool_vs=None, *, scale=None, window: int = 0):
+    """Plain version of ``paged_decode_mha`` (the JAX package's
+    ``paged_attention`` fallback): gather each slot's blocks into a
+    contiguous view, then ``decode_mha_plain``."""
+    k, v, ks, vs = _paged_gather(pool_k, pool_v, pool_ks, pool_vs, block_table)
+    return decode_mha_plain(q, k, v, lens, ks, vs, scale=scale, window=window)
+
+
+def paged_decode_mha(q, pool_k, pool_v, lens, block_table, pool_ks=None,
+                     pool_vs=None, *, scale: Optional[float] = None, window: int = 0):
+    """Paged decode attention (S == 1; replaces
+    ``rten_tpu/kernels/flash_attention.py:paged_decode_mha``): q [B,H,1,D]
+    f32 against pools [NB,Hkv,BS,D], s8 with scale pools [NB,Hkv,1,BS] f32
+    or f32 without, read through block_table [B,MB] int32 at lens [B]
+    int32. Slot b's query sits at position lens[b] (its row already
+    written) and attends columns <= lens[b] (all of them once lens >= cap,
+    cap = MB * BS), and > lens[b] - window with a window -> [B,H,1,D] f32,
+    a head-major view of a [B,1,H*D] buffer. group = H / Hkv <=
+    ``FOLD_MAX_ROWS``; D 64 or 128."""
+    if kernel_device(q, pool_k, pool_v, lens, block_table, pool_ks, pool_vs) == "cpu":
+        return paged_decode_mha_plain(q, pool_k, pool_v, lens, block_table, pool_ks,
+                                      pool_vs, scale=scale, window=window)
+    device = q.device
+    B, H, S, D = q.shape
+    if S != 1:
+        raise ValueError("paged_decode_mha is S == 1 (admissions gather, then decode_mha)")
+    if q.dtype != torch.float32 or q.stride(-1) != 1:
+        raise ValueError("q: float32 with a unit-stride last axis required")
+    quant = pool_ks is not None
+    if quant != (pool_vs is not None):
+        raise ValueError("pool_ks and pool_vs: both or neither")
+    if pool_k.dim() != 4 or pool_k.shape != pool_v.shape or pool_k.stride() != pool_v.stride():
+        raise ValueError(f"pools: expected two [NB, Hkv, BS, D] tensors with one layout, "
+                         f"got {tuple(pool_k.shape)} / {tuple(pool_v.shape)}")
+    NB, Hkv, BS, Dk = pool_k.shape
+    if Dk != D or H % Hkv or H // Hkv > FOLD_MAX_ROWS or D not in (64, 128):
+        raise ValueError(f"head dim {D} (pools {Dk}), heads {H}/{Hkv} not supported")
+    for name, t in (("pool_k", pool_k), ("pool_v", pool_v)):
+        check_cuda_tensor(name, t, torch.int8 if quant else torch.float32, device,
+                          contiguous=False)
+        row_bytes = [s * t.element_size() for s in t.stride()[:3]]
+        if t.stride(-1) != 1 or t.data_ptr() % 16 or any(s % 16 for s in row_bytes):
+            raise ValueError(f"{name}: rows must be unit-stride and 16-byte aligned")
+    if quant:
+        for name, t in (("pool_ks", pool_ks), ("pool_vs", pool_vs)):
+            check_cuda_tensor(name, t, torch.float32, device, contiguous=False)
+            if t.shape != (NB, Hkv, 1, BS) or t.stride() != pool_ks.stride():
+                raise ValueError(f"{name}: expected {(NB, Hkv, 1, BS)} in one layout, "
+                                 f"got {tuple(t.shape)}")
+        sc_ptrs = (pool_ks.data_ptr(), pool_vs.data_ptr())
+        sc_strides = (pool_ks.stride(0), pool_ks.stride(1), pool_ks.stride(3))
+    else:
+        sc_ptrs, sc_strides = (None, None), (0, 0, 0)
+    MB = _check_table(block_table, lens, B, device)
+    if scale is None:
+        scale = 1.0 / float(np.sqrt(D))
+    out_cat = torch.empty((B, 1, H * D), dtype=torch.float32, device=device)
+    err = _paged_lib().rten_paged_decode_mha(
+        int(quant), q.data_ptr(), q.stride(0), q.stride(1),
+        pool_k.data_ptr(), pool_v.data_ptr(), pool_k.stride(0), pool_k.stride(1),
+        pool_k.stride(2), *sc_ptrs, *sc_strides, block_table.data_ptr(), MB, BS,
+        lens.data_ptr(), out_cat.data_ptr(), H * D, D, B, H, Hkv, D, int(window),
+        float(scale), torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"paged_decode_mha launch failed: CUDA error {err}")
+    paged_decode_mha.launches += 1
+    return out_cat.reshape(B, 1, H, D).permute(0, 2, 1, 3)
+
+
+paged_decode_mha.launches = 0
+
+
+def paged_attention(q, pool_k, pool_v, lens, block_table, pool_ks=None, pool_vs=None, *,
+                    scale: Optional[float] = None, window: int = 0):
+    """Attention of q [B,H,S,D] over head-major block pools, routed by shape
+    alone (the JAX package's ``paged_attention``): a decode step (S == 1,
+    group <= ``FOLD_MAX_ROWS``) reads the pools through the table in
+    ``paged_decode_mha``; anything else (an admission) gathers each slot's
+    blocks into a contiguous view for ``decode_mha``."""
+    group = q.shape[1] // pool_k.shape[1]
+    if q.shape[2] == 1 and group <= FOLD_MAX_ROWS:
+        return paged_decode_mha(q, pool_k, pool_v, lens, block_table, pool_ks, pool_vs,
+                                scale=scale, window=window)
+    k, v, ks, vs = _paged_gather(pool_k, pool_v, pool_ks, pool_vs, block_table)
+    return decode_mha(q, k, v, lens, ks, vs, scale=scale, window=window)
+
+
 def _mha_lib():
     lib = load_library("decode_mha")
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -377,6 +655,17 @@ def _mha_lib():
             fn.argtypes = [I, P, L, L, L, P, P, L, L, L, P, P, L, L, L, P, P,
                            L, L, L, I, I, I, I, I, I, I, F, P]
             fn.restype = I
+    return lib
+
+
+def _paged_lib():
+    lib = load_library("paged_decode_mha")
+    P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    fn = lib.rten_paged_decode_mha
+    if fn.argtypes is None:
+        fn.argtypes = [I, P, L, L, P, P, L, L, L, P, P, L, L, L, P, I, I, P, P,
+                       L, L, I, I, I, I, I, F, P]
+        fn.restype = I
     return lib
 
 
@@ -394,4 +683,9 @@ def _lib():
             I, I, I, I, I, I, I, F, P,
         ]
         lib.rten_prefill_cat.restype = I
+        lib.rten_decode_append_cat_paged.argtypes = [
+            P, L, L, P, L, L, P, L, L, P, P, P, P, P, I, I, P, P,
+            I, I, I, I, I, F, P,
+        ]
+        lib.rten_decode_append_cat_paged.restype = I
     return lib

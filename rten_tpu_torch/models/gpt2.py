@@ -4,7 +4,10 @@
 Only the serving graph of the main path is built here: int8 KV caches in
 cat layout ``[slots, cap, H*D]`` with per-position scales
 ``[slots, H, cap, 1]``, the new KV row appended inside the decode attention
-kernel, and the lm_head run on one gathered row per slot. The builder
+kernel, and the lm_head run on one gathered row per slot; with
+``paged_blocks`` the same on block pools ``[paged_blocks, block_size, H*D]``
+with scale pools ``[paged_blocks, H, 1, block_size]`` and a ``block_table``
+input (``bench.py``'s ``RTEN_BENCH_PAGED`` graph). The builder
 issues the same sequence of builder calls as the JAX package's
 ``build_graph_static_cache`` on that branch, so both graphs have the same
 node ids, names and constants for the same weights. Every other option
@@ -63,10 +66,21 @@ def build_graph_static_cache(
     caches present.N.*, and next_token [slots, 1] (greedy, on device).
 
     Supported: ``kv_quant=True, kv_bits=8, kernel_append=True,
-    gather_last=True`` with everything else at its default.
+    gather_last=True``, with or without ``paged_blocks`` (then also the
+    input block_table [slots, capacity // block_size] int32), everything
+    else at its default.
     """
     if paged_blocks:
-        raise NotImplementedError("paged KV caches: ROADMAP.md queue 1 item 8")
+        if deferred_kv or (kv_quant and kv_bits != 8):
+            raise ValueError(
+                "paged_blocks is incompatible with deferred_kv and with "
+                "int4 (kv_bits=4) caches"
+            )
+        if capacity % block_size or block_size % 8:
+            raise ValueError(
+                "capacity must be a multiple of block_size, and block_size "
+                f"a multiple of 8 (got {capacity=}, {block_size=})"
+            )
     if deferred_kv or recent_dtype is not None:
         raise NotImplementedError("deferred KV: ROADMAP.md queue 1 item 9")
     if lora_rank or n_adapters:
@@ -96,6 +110,10 @@ def build_graph_static_cache(
     ids = b.input("input_ids", DataType.Int32, ("slots", "seq"))
     past_lens = b.input("past_lens", DataType.Int32, ("slots",))
     pos = b.input("position_ids", DataType.Int32, ("slots", "seq"))
+    block_table = (
+        b.input("block_table", DataType.Int32, ("slots", capacity // block_size))
+        if paged_blocks else None
+    )
 
     x = b.op("Gather", [w("transformer.wte.weight"), ids])
     x = x + b.op("Gather", [w("transformer.wpe.weight"), pos])
@@ -116,21 +134,22 @@ def build_graph_static_cache(
             name=f"{p}.attn.c_attn",
         )
         q, k, v = b.op("Split", [qkv], {"axis": -1, "num_outputs": 3}, n_outputs=3)
-        kv_shape = ("slots", capacity, H * D)
+        if paged_blocks:
+            kv_shape = (paged_blocks, block_size, H * D)
+            sc_shape = (paged_blocks, H, 1, block_size)
+            paged_in, attrs = [block_table], {"rten_paged": 1}
+        else:
+            kv_shape = ("slots", capacity, H * D)
+            sc_shape = ("slots", H, capacity, 1)
+            paged_in, attrs = [], {}
         past_k = b.input(f"past_key_values.{i}.key", DataType.Int8, kv_shape)
-        k_sc = b.input(
-            f"past_key_values.{i}.key_scale", DataType.Float,
-            ("slots", H, capacity, 1),
-        )
+        k_sc = b.input(f"past_key_values.{i}.key_scale", DataType.Float, sc_shape)
         past_v = b.input(f"past_key_values.{i}.value", DataType.Int8, kv_shape)
-        v_sc = b.input(
-            f"past_key_values.{i}.value_scale", DataType.Float,
-            ("slots", H, capacity, 1),
-        )
+        v_sc = b.input(f"past_key_values.{i}.value_scale", DataType.Float, sc_shape)
         attn, pk, pks, pv, pvs = b.op(
             "QuantizedKVAttention",
-            [q, k, v, past_k, k_sc, past_v, v_sc, past_lens],
-            {"num_heads": H, "bits": kv_bits, "rten_kernel_append": 1},
+            [q, k, v, past_k, k_sc, past_v, v_sc, past_lens] + paged_in,
+            {"num_heads": H, "bits": kv_bits, **attrs, "rten_kernel_append": 1},
             n_outputs=5,
             output_names=[
                 f"attn_out_{i}", f"present.{i}.key", f"present.{i}.key_scale",

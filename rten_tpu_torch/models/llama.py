@@ -11,6 +11,11 @@ positions ``past_lens + s``. The supported branches:
   (``kernel_append=True``, ``decode_mha_append_cat`` / ``prefill_mha_cat``),
   with scales ``[slots, Hkv, cap, 1]``;
 * ``kv_quant=False``: GroupQueryAttention on f32 head-major caches;
+* ``paged_blocks > 0``: the same three forms on block pools shared by all
+  slots (int8 head-major ``[paged_blocks, Hkv, block_size, D]``, int8 cat
+  ``[paged_blocks, block_size, Hkv*D]`` with ``kernel_append``, f32
+  head-major), scale pools ``[paged_blocks, Hkv, 1, block_size]``, and a
+  ``block_table`` input ``[slots, capacity // block_size]`` int32;
 * ``attention_bias`` (Qwen2) and ``sliding_window`` (Mistral) on each;
 * ``gather_last=True``: the lm_head runs on one gathered row per slot.
 
@@ -72,12 +77,10 @@ def rope_tables(cfg: LlamaConfig):
 
 
 def _refuse_off_the_slice(deferred_kv, recent_dtype, kv_dtype, kv_quant, kv_bits,
-                          paged_blocks, kernel_append, gather_last):
+                          kernel_append, gather_last):
     def todo(what, item):
         raise NotImplementedError(f"{what}: ROADMAP.md queue 1 item {item}")
 
-    if paged_blocks:
-        todo("paged KV caches", 8)
     if deferred_kv or recent_dtype is not None:
         todo("deferred KV", 9)
     if kv_quant and kv_bits != 8:
@@ -99,12 +102,24 @@ def build_graph_static_cache(
 ) -> Graph:
     """Serving graph. Inputs: input_ids [slots, seq], past_lens [slots],
     position_ids [slots, seq] (unused: rotary positions come from
-    past_lens; kept for the engine's IO), the caches
+    past_lens; kept for the engine's IO), block_table [slots,
+    capacity // block_size] (paged graphs), the caches
     past_key_values.N.{key,value}[_scale], last_pos [slots]. Outputs:
     logits [slots, 1, V], present.N.*, next_token [slots, 1] (on-device
     argmax)."""
+    if paged_blocks:
+        if deferred_kv or (kv_quant and kv_bits != 8):
+            raise ValueError(
+                "paged_blocks is incompatible with deferred_kv and with "
+                "int4 (kv_bits=4) caches"
+            )
+        if capacity % block_size or block_size % 8:
+            raise ValueError(
+                "capacity must be a multiple of block_size, and block_size "
+                f"a multiple of 8 (got {capacity=}, {block_size=})"
+            )
     _refuse_off_the_slice(deferred_kv, recent_dtype, kv_dtype, kv_quant, kv_bits,
-                          paged_blocks, kernel_append, gather_last)
+                          kernel_append, gather_last)
     b = GraphBuilder()
     Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
 
@@ -125,6 +140,10 @@ def build_graph_static_cache(
     ids = b.input("input_ids", DataType.Int32, ("slots", "seq"))
     past_lens = b.input("past_lens", DataType.Int32, ("slots",))
     b.input("position_ids", DataType.Int32, ("slots", "seq"))
+    block_table = (
+        b.input("block_table", DataType.Int32, ("slots", capacity // block_size))
+        if paged_blocks else None
+    )
 
     cos_np, sin_np = rope_tables(cfg)
     cos_c = b.constant("rope.cos", np.cos(cos_np))
@@ -165,6 +184,36 @@ def build_graph_static_cache(
         q = proj(h, f"{p}.self_attn.q_proj")
         k = proj(h, f"{p}.self_attn.k_proj")
         v = proj(h, f"{p}.self_attn.v_proj")
+        if paged_blocks:
+            pool_shape = (
+                (paged_blocks, block_size, Hkv * D) if kernel_append
+                else (paged_blocks, Hkv, block_size, D)
+            )
+        if kv_quant and paged_blocks:
+            scale_shape = (paged_blocks, Hkv, 1, block_size)
+            past_k = b.input(f"past_key_values.{i}.key", DataType.Int8, pool_shape)
+            k_sc = b.input(f"past_key_values.{i}.key_scale", DataType.Float, scale_shape)
+            past_v = b.input(f"past_key_values.{i}.value", DataType.Int8, pool_shape)
+            v_sc = b.input(f"past_key_values.{i}.value_scale", DataType.Float, scale_shape)
+            qattrs = {
+                "num_heads": Hq, "kv_num_heads": Hkv, "bits": kv_bits,
+                "do_rotary": 1, "rten_paged": 1, **ka_attr, **window_attr,
+            }
+            outs = b.op(
+                "QuantizedKVAttention",
+                [q, k, v, past_k, k_sc, past_v, v_sc, past_lens, block_table,
+                 cos_c, sin_c],
+                qattrs,
+                n_outputs=5,
+                output_names=[
+                    f"attn_out_{i}", f"present.{i}.key",
+                    f"present.{i}.key_scale", f"present.{i}.value",
+                    f"present.{i}.value_scale",
+                ],
+            )
+            presents.extend(outs[1:])
+            x = block_tail(x, outs[0], p)
+            continue
         if kv_quant:
             kv_shape = (
                 ("slots", capacity, Hkv * D) if kernel_append
@@ -198,16 +247,17 @@ def build_graph_static_cache(
             presents.extend(outs[1:])
             x = block_tail(x, outs[0], p)
             continue
-        kv_shape = ("slots", Hkv, capacity, D)
+        kv_shape = pool_shape if paged_blocks else ("slots", Hkv, capacity, D)
         past_k = b.input(f"past_key_values.{i}.key", DataType.Float, kv_shape)
         past_v = b.input(f"past_key_values.{i}.value", DataType.Float, kv_shape)
+        gqa_inputs = [q, k, v, past_k, past_v, past_lens, None, cos_c, sin_c]
+        gqa_attrs = {"num_heads": Hq, "kv_num_heads": Hkv, "rten_past_lens": 1,
+                     "do_rotary": 1}
+        if paged_blocks:
+            gqa_inputs.append(block_table)
+            gqa_attrs["rten_paged"] = 1
         attn, pk, pv = b.op(
-            "GroupQueryAttention",
-            [q, k, v, past_k, past_v, past_lens, None, cos_c, sin_c],
-            {
-                "num_heads": Hq, "kv_num_heads": Hkv, "rten_past_lens": 1,
-                "do_rotary": 1, **window_attr,
-            },
+            "GroupQueryAttention", gqa_inputs, {**gqa_attrs, **window_attr},
             n_outputs=3,
             output_names=[
                 f"attn_out_{i}", f"present.{i}.key", f"present.{i}.value",

@@ -16,11 +16,25 @@ outputs: out [B,S,H*D], new_k_q8, new_k_scales, new_v_q8, new_v_scales
 * cat caches otherwise: quantize the chunk's rows, write them at each
   slot's offset, then ``prefill_mha_cat`` (``attention.py:903-932``);
 * head-major caches [B,Hkv,cap,D]: quantize the rows, write them at each
-  slot's clamped offset, then ``decode_mha`` (``attention.py:934-953``).
+  slot's clamped offset, then ``decode_mha`` (``attention.py:934-953``);
+* ``rten_paged`` (``attention.py:824-878``): block pools addressed through
+  the block table (input 8), scale pools [NB,Hkv,1,BS]. Head-major s8 pools
+  [NB,Hkv,BS,D]: write the quantized rows, ``paged_attention``. Cat pools
+  [NB,BS,Hkv*D]: at S == 1 with ``rten_kernel_append`` the block-table
+  ``decode_mha_append_cat``; otherwise write the rows, gather each slot's
+  blocks, ``decode_mha``.
 
 GroupQueryAttention (f32 head-major caches [B,Hkv,cap,D], the
 ``rten_past_lens`` serving form, ``attention.py:380-468`` and ``641-676``):
-rotary, write the rows at each slot's clamped offset, ``decode_mha``.
+rotary, write the rows at each slot's clamped offset, ``decode_mha``. With
+``rten_paged`` (``attention.py:470-520``, f32 head-major pools, the block
+table as input 9): write the rows into the pools, ``paged_attention``.
+
+Paged writes follow the reference's two rules for a position past the
+table: the pool helpers below send it to block 0 (the garbage sink), the
+cat-pool append clamps it to cap - 1 first. Rows that several slots write
+(idle slots all point at block 0) resolve as the reference's in-order
+writes do, the last writer winning (``paged_targets``).
 
 The caches are updated in place and returned as the present outputs (the
 executor copies them first unless the caller donated them). Every other
@@ -33,6 +47,7 @@ import torch
 
 from ..kernels.flash_attention import (
     cat_to_heads, decode_mha, decode_mha_append_cat, heads_to_cat,
+    paged_attention, paged_gather_cat, paged_gather_scales, paged_targets,
     prefill_mha_cat, quantize_rows,
 )
 from .registry import OpError, get_input, opt_input, register
@@ -106,6 +121,90 @@ def slot_kv_update(buf, new, starts):
     return buf
 
 
+# --- paged KV pools (the JAX package's ``_paged_*`` helpers) -----------------
+# Each writes in place and returns the pool. ``targets`` takes the result of
+# ``paged_targets`` for these starts, so that the K, V and scale writes of
+# one op share it.
+
+
+def paged_kv_update(pool, new, starts, bt, targets=None):
+    """Write rows ``new`` [B, H, S, D] into a head-major pool [NB, H, BS, D]
+    at logical positions starts[b] + s (``_paged_kv_update``)."""
+    B, H, S, D = new.shape
+    blk, off, src = targets or paged_targets(starts, S, bt, pool.shape[0], pool.shape[2])
+    rows = new.permute(0, 2, 1, 3).reshape(B * S, H, D).to(pool.dtype)
+    pool[blk, :, off] = rows[src]
+    return pool
+
+
+def paged_kv_update_cat(pool, new_cat, starts, bt, targets=None):
+    """Cat-layout sibling: rows ``new_cat`` [B, S, Hkv*D] into a pool
+    [NB, BS, Hkv*D] (``_paged_kv_update_cat``)."""
+    B, S, HkvD = new_cat.shape
+    blk, off, src = targets or paged_targets(starts, S, bt, pool.shape[0], pool.shape[1])
+    pool[blk, off] = new_cat.reshape(B * S, HkvD).to(pool.dtype)[src]
+    return pool
+
+
+def paged_scale_update(spool, s_new, starts, bt, targets=None):
+    """Scales ``s_new`` [B, Hkv, S, 1] into a scale pool [NB, Hkv, 1, BS]
+    (positions lane-major per block; ``_paged_scale_update``)."""
+    B, Hkv, S, _ = s_new.shape
+    blk, off, src = targets or paged_targets(starts, S, bt, spool.shape[0], spool.shape[3])
+    rows = s_new[..., 0].permute(0, 2, 1).reshape(B * S, Hkv).to(spool.dtype)
+    spool.select(2, 0)[blk, :, off] = rows[src]
+    return spool
+
+
+# The JAX package's ``_paged_gather_cat`` and ``_paged_gather_scales_flat``
+# ([NB, Hkv, 1, BS] -> [B, Hkv, MB*BS], the same as ``paged_gather_scales``).
+paged_gather_scales_flat = paged_gather_scales
+
+
+def _block_table(inputs, i):
+    bt = get_input(inputs, i, "block_table")
+    if bt.dtype != torch.int32 or bt.dim() != 2:
+        raise OpError(f"block_table must be [slots, max_blocks] int32, got "
+                      f"{bt.dtype} {tuple(bt.shape)}")
+    return bt
+
+
+def _quantized_paged(q4, k4, v4, pk, ks, pv, vs, lens, bt, attrs, scale, window):
+    """QuantizedKVAttention's ``rten_paged`` branch (s8 pools)."""
+    B, S = q4.shape[0], q4.shape[2]
+    kv_heads = k4.shape[1]
+    if pk.ndim == 3:
+        if S == 1 and attrs.get("rten_kernel_append", 0):
+            out, nk, nv, nks, nvs = decode_mha_append_cat(
+                q4, pk, pv, lens, ks, vs, k_new=k4, v_new=v4, scale=scale,
+                window=window, block_table=bt,
+            )
+            return (out, nk, nks, nv, nvs)
+        k_q8, k_s = quantize_rows(k4)
+        v_q8, v_s = quantize_rows(v4)
+        t = paged_targets(lens, S, bt, pk.shape[0], pk.shape[1])
+        paged_kv_update_cat(pk, heads_to_cat(k_q8), lens, bt, t)
+        paged_kv_update_cat(pv, heads_to_cat(v_q8), lens, bt, t)
+        paged_scale_update(ks, k_s, lens, bt, t)
+        paged_scale_update(vs, v_s, lens, bt, t)
+        out = decode_mha(
+            q4, cat_to_heads(paged_gather_cat(pk, bt), kv_heads),
+            cat_to_heads(paged_gather_cat(pv, bt), kv_heads), lens,
+            paged_gather_scales_flat(ks, bt), paged_gather_scales_flat(vs, bt),
+            scale=scale, window=window,
+        )
+        return (heads_to_cat(out), pk, ks, pv, vs)
+    k_q8, k_s = quantize_rows(k4)
+    v_q8, v_s = quantize_rows(v4)
+    t = paged_targets(lens, S, bt, pk.shape[0], pk.shape[2])
+    paged_kv_update(pk, k_q8, lens, bt, t)
+    paged_scale_update(ks, k_s, lens, bt, t)
+    paged_kv_update(pv, v_q8, lens, bt, t)
+    paged_scale_update(vs, v_s, lens, bt, t)
+    out = paged_attention(q4, pk, pv, lens, bt, ks, vs, scale=scale, window=window)
+    return (heads_to_cat(out), pk, ks, pv, vs)
+
+
 @register("QuantizedKVAttention", inplace=(3, 4, 5, 6))
 def _quantized_kv_attention(ctx, inputs, attrs):
     q = get_input(inputs, 0, "query")
@@ -125,8 +224,6 @@ def _quantized_kv_attention(ctx, inputs, attrs):
         _todo("int4 KV caches", 11)
     if attrs.get("rten_recent_kv", 0):
         _todo("deferred KV", 9)
-    if attrs.get("rten_paged", 0):
-        _todo("paged KV caches", 8)
     if past_lens.dtype != torch.int32:
         raise OpError("past_lens must be int32")
 
@@ -138,6 +235,11 @@ def _quantized_kv_attention(ctx, inputs, attrs):
     v4 = cat_to_heads(v, kv_heads)
     if attrs.get("do_rotary", 0):
         q4, k4 = _rotate_qk(q4, k4, inputs[-2], inputs[-1], lens, attrs)
+
+    if attrs.get("rten_paged", 0):
+        bt = _block_table(inputs, 8)
+        return _quantized_paged(q4, k4, v4, past_k_q8, k_scales, past_v_q8, v_scales,
+                                lens, bt, attrs, scale, window)
 
     if past_k_q8.ndim == 4:
         # Head-major caches [B, Hkv, cap, D].
@@ -192,14 +294,13 @@ def _group_query_attention(ctx, inputs, attrs):
     kv_heads = attrs.get("kv_num_heads")
     if n_heads is None or kv_heads is None:
         raise OpError("GroupQueryAttention requires num_heads and kv_num_heads")
-    if attrs.get("rten_paged", 0):
-        _todo("paged KV caches", 8)
+    paged = bool(attrs.get("rten_paged", 0))
     if attrs.get("rten_recent_kv", 0):
         _todo("deferred KV", 9)
     if not attrs.get("rten_past_lens", 0):
         _todo("ONNX (ORT-compatible) GroupQueryAttention", 12)
-    if attrs.get("softcap", 0.0) or any(
-            opt_input(inputs, i) is not None for i in (9, 10, 11)):
+    if attrs.get("softcap", 0.0) or (not paged and any(
+            opt_input(inputs, i) is not None for i in (9, 10, 11))):
         _todo("GroupQueryAttention with softcap, position ids, bias or sinks", 12)
     if key is None or value is None:
         _todo("packed QKV GroupQueryAttention", 12)
@@ -207,7 +308,7 @@ def _group_query_attention(ctx, inputs, attrs):
         raise OpError("rten_past_lens requires seqlens_k and the caches")
     if past_k.ndim != 4 or past_k.dtype != torch.float32:
         _todo(f"{past_k.dtype} {'cat' if past_k.ndim == 3 else 'head-major'} "
-              "caches in GroupQueryAttention", 7)
+              f"{'pools' if paged else 'caches'} in GroupQueryAttention", 7)
     lws = int(attrs.get("local_window_size", -1))
     window = lws if lws > 0 else 0
 
@@ -219,10 +320,18 @@ def _group_query_attention(ctx, inputs, attrs):
     if attrs.get("do_rotary", 0):
         q4, k4 = _rotate_qk(q4, k4, opt_input(inputs, 7), opt_input(inputs, 8),
                             lens, attrs)
-    k_all = slot_kv_update(past_k, k4, lens)
-    v_all = slot_kv_update(past_v, v4, lens)
-    out = heads_to_cat(decode_mha(q4, k_all, v_all, lens, scale=attrs.get("scale"),
-                                  window=window))
+    scale = attrs.get("scale")
+    if paged:
+        bt = _block_table(inputs, 9)
+        t = paged_targets(lens, q4.shape[2], bt, past_k.shape[0], past_k.shape[2])
+        k_all = paged_kv_update(past_k, k4, lens, bt, t)
+        v_all = paged_kv_update(past_v, v4, lens, bt, t)
+        out = heads_to_cat(paged_attention(q4, k_all, v_all, lens, bt, scale=scale,
+                                           window=window))
+    else:
+        k_all = slot_kv_update(past_k, k4, lens)
+        v_all = slot_kv_update(past_v, v4, lens)
+        out = heads_to_cat(decode_mha(q4, k_all, v_all, lens, scale=scale, window=window))
     if attrs.get("__n_outputs__", 1) >= 3:
         return (out, k_all, v_all)
     return out

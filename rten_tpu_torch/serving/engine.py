@@ -5,22 +5,31 @@ greedy decoding on the device).
   from the graph's ``past_key_values.*`` inputs. The model writes new rows
   at each slot's offset in place (the executor's ``donate``), so there is no
   per-token reallocation.
+* Paged KV (graphs with a ``block_table`` input): the caches are block
+  pools shared by all slots, allocated at their declared shape. The engine
+  owns a free list of blocks (block 0 is reserved as the garbage sink) and
+  a block table [slots, max_blocks]; an admission reserves each request's
+  whole budget of blocks up front, FIFO (a request the pool cannot hold yet
+  waits at the head of the queue, and everything behind it with it), and a
+  finished, cancelled or timed-out request returns its blocks. The table
+  lives on the device and is pushed only when it changed.
 * Admission: every queued request that fits a free slot is prefilled in ONE
   forward over all slot rows at a bucketed prompt length. Rows that are not
   admitted carry zero prompts at ``past_lens = 0``; the forward writes into
   fresh zero caches and only admitted rows are copied into the live ones.
-  The per-tensor activation scale of DynamicQuantizeLinear sees every row,
-  so the rows fed are exactly the JAX engine's.
+  Paged pools are fed live instead, with a table whose rows for slots not
+  being admitted point at block 0. The per-tensor activation scale of
+  DynamicQuantizeLinear sees every row, so the rows fed are exactly the JAX
+  engine's.
 * Decode: ``steps_per_dispatch`` greedy steps per dispatch, a plain Python
   loop that keeps tokens and lengths on the device (every slot, live or
   idle, advances its length and writes its KV row, as in the JAX scan) and
   copies the [slots, k] tokens to the host once per dispatch. Tokens and
   lengths chain on the device across dispatches until the next admission.
 
-Not ported (raise ``NotImplementedError`` at construction, naming the
-ROADMAP.md item): paged KV, shared prefix, chunked prefill, LoRA, deferred
-KV, host or device sampling, ``pipeline_dispatch`` and
-``dispatches_per_drain > 1``.
+Not ported (raise ``NotImplementedError``, naming the ROADMAP.md item):
+shared prefix (flat and paged), chunked prefill, LoRA, deferred KV, host or
+device sampling, ``pipeline_dispatch`` and ``dispatches_per_drain > 1``.
 """
 
 from __future__ import annotations
@@ -104,8 +113,9 @@ class ContinuousBatchingEngine:
             _unsupported("host sampling from logits", 6)
         if self.g.find_node("next_token") is None:
             _unsupported("graphs without an on-device next_token", 10)
-        if self.g.find_node("block_table") is not None:
-            _unsupported("paged KV caches", 8)
+        # Paged KV: block pools plus a per-slot block_table input.
+        self._bt_nid = self.g.find_node("block_table")
+        self.paged = self._bt_nid is not None
         if chunked_prefill:
             _unsupported("chunked prefill", 9)
         if pipeline_dispatch:
@@ -120,7 +130,8 @@ class ContinuousBatchingEngine:
             _unsupported("graphs without last_pos (gather_last=False)", 10)
 
         # Cache buffers from graph IO: every past_key_values.* input, with
-        # its declared trailing shape and dtype.
+        # its declared trailing shape (slot-major caches) or whole shape
+        # (paged pools) and dtype.
         self.cache_names = []
         self._cache_alloc = []  # (full allocation shape, torch dtype)
         for nid in self.g.input_ids:
@@ -128,14 +139,17 @@ class ContinuousBatchingEngine:
             if not name.startswith("past_key_values."):
                 continue
             node = self.g.nodes[nid]
-            tail = tuple(node.shape[1:]) if node.shape else None
-            if tail is None or any(not isinstance(d, int) for d in tail):
+            dims = tuple(node.shape) if node.shape else None
+            if not self.paged and dims is not None:
+                dims = dims[1:]
+            if dims is None or any(not isinstance(d, int) for d in dims):
                 raise ValueError(
-                    f"cache input {name} needs concrete trailing dims, "
-                    f"got {node.shape}"
+                    f"cache input {name} needs a concrete "
+                    f"{'shape' if self.paged else 'trailing shape'}, got {node.shape}"
                 )
+            shape = dims if self.paged else (slots,) + dims
             self.cache_names.append(name)
-            self._cache_alloc.append(((slots,) + tail, node.dtype.torch_dtype))
+            self._cache_alloc.append((shape, node.dtype.torch_dtype))
         self.present_names = [
             "present." + n[len("past_key_values."):] for n in self.cache_names
         ]
@@ -147,6 +161,24 @@ class ContinuousBatchingEngine:
         self.out_ids = [self.g.find_node("next_token")] + [
             self.g.find_node(n) for n in self.present_names
         ]
+
+        if self.paged:
+            # max_blocks comes from the table's declared width; the logical
+            # per-slot capacity max_blocks * block_size must be ``capacity``.
+            self.max_blocks = int(self.g.nodes[self._bt_nid].shape[1])
+            shape0 = self._cache_alloc[0][0]
+            self.n_blocks = int(shape0[0])
+            # Head-major pools are [NB, H, BS, D], cat pools [NB, BS, H*D].
+            self.block_size = int(shape0[1] if len(shape0) == 3 else shape0[2])
+            if capacity != self.max_blocks * self.block_size:
+                raise ValueError(
+                    f"capacity {capacity} != block_table width "
+                    f"{self.max_blocks} * block_size {self.block_size}"
+                )
+            self._free_blocks = list(range(self.n_blocks - 1, 0, -1))
+            self._slot_blocks: List[List[int]] = [[] for _ in range(slots)]
+            self.block_table = np.zeros((slots, self.max_blocks), np.int32)
+            self._bt_dev: Optional[torch.Tensor] = None  # None: push at next use
 
         self.caches = self._zero_caches()
         self.slot_req: List[Optional[Request]] = [None] * slots
@@ -176,15 +208,18 @@ class ContinuousBatchingEngine:
         return [torch.zeros(shape, dtype=dtype, device=self.device)
                 for shape, dtype in self._cache_alloc]
 
-    def _forward(self, caches, ids, lens, pos, last_pos):
+    def _forward(self, caches, ids, lens, pos, last_pos, table=None):
         """One model run over all slot rows; the caches are updated in
-        place. Returns (next_token [slots, 1], presents)."""
+        place. Paged graphs read the block table ``table`` (the engine's
+        own by default). Returns (next_token [slots, 1], presents)."""
         feed = {
             self.in_ids["input_ids"]: ids,
             self.in_ids["past_lens"]: lens,
             self.in_ids["position_ids"]: pos,
             self.last_pos_id: last_pos,
         }
+        if self.paged:
+            feed[self._bt_nid] = self._bt_sync() if table is None else table
         feed.update(zip(self.cache_ids, caches))
         outs = self.executor.run(feed, self.out_ids, donate=self.cache_ids)
         return outs[0], list(outs[1:])
@@ -206,6 +241,46 @@ class ContinuousBatchingEngine:
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
+    # -- paged-KV block allocator --------------------------------------------
+
+    def _blocks_needed(self, prompt_len: int, max_new: int) -> int:
+        """Blocks a request must own to cover every position it can write:
+        prefill rows 0..P-1, decode rows up to P+max_new-2, plus the fused
+        dispatch's overrun (tokens past eos or the budget still write KV;
+        bounded by k per dispatch, counted twice as the reference does)."""
+        span = min(prompt_len + max_new + 2 * max(self.steps_per_dispatch, 1),
+                   self.capacity)
+        return -(-span // self.block_size)
+
+    def _reserve_blocks(self, slot: int, n: int) -> bool:
+        """Assign n pool blocks to ``slot``; False if the pool is short (the
+        caller re-queues the request)."""
+        if len(self._free_blocks) < n:
+            return False
+        blocks = [self._free_blocks.pop() for _ in range(n)]
+        self._slot_blocks[slot] = blocks
+        self.block_table[slot] = 0
+        self.block_table[slot, :n] = blocks
+        self._bt_dev = None
+        return True
+
+    def _release_blocks(self, slot: int):
+        """Return a finished slot's blocks to the pool and point its table
+        row at the garbage sink (block 0) before any block is reused: the
+        freed slot keeps writing rows in fused dispatches."""
+        if not self.paged or not self._slot_blocks[slot]:
+            return
+        self._free_blocks.extend(self._slot_blocks[slot])
+        self._slot_blocks[slot] = []
+        self.block_table[slot] = 0
+        self._bt_dev = None
+
+    def _bt_sync(self) -> torch.Tensor:
+        """The block table on the device, pushed once per change."""
+        if self._bt_dev is None:
+            self._bt_dev = self._to_device(self.block_table)
+        return self._bt_dev
+
     # -- public API ----------------------------------------------------------
 
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 64,
@@ -220,6 +295,14 @@ class ContinuousBatchingEngine:
                 f"prompt ({len(prompt)} tokens) + max_new_tokens "
                 f"({max_new_tokens}) exceeds KV capacity {self.capacity}"
             )
+        if self.paged:
+            need = self._blocks_needed(len(prompt), max_new_tokens)
+            if need > self.n_blocks - 1:
+                # Could never be admitted, even with an empty pool.
+                raise ValueError(
+                    f"request needs {need} KV blocks but the pool has "
+                    f"{self.n_blocks - 1}"
+                )
         if self.max_queue is not None and len(self.queue) >= self.max_queue:
             raise QueueFull(
                 f"admission queue at capacity ({self.max_queue}); retry later"
@@ -274,6 +357,7 @@ class ContinuousBatchingEngine:
                 self._finish(req)
                 self.slot_req[slot] = None
                 self.slot_len[slot] = 0
+                self._release_blocks(slot)
         for req in list(self.queue):
             if req.timeout_s is not None and now - req.submitted_at > req.timeout_s:
                 self.queue.remove(req)
@@ -302,6 +386,9 @@ class ContinuousBatchingEngine:
             "queued": len(self.queue),
             "last_step_s": self._last_step_s,
         }
+
+    def set_shared_prefix(self, prefix_tokens):
+        _unsupported("shared-prefix caching (flat and paged)", 9)
 
     def has_work(self) -> bool:
         return bool(self.queue) or any(r is not None for r in self.slot_req)
@@ -339,8 +426,25 @@ class ContinuousBatchingEngine:
 
     def _admit(self, admissions):
         """Prefill a batch of (slot, request) pairs in ONE forward over all
-        slot rows, then copy the admitted rows into the live caches."""
+        slot rows. Slot-major caches: the forward writes fresh zero caches
+        and the admitted rows are copied into the live ones. Paged pools:
+        each admission first reserves its blocks (FIFO: the first request
+        the pool cannot hold goes back to the head of the queue with every
+        one behind it), then the forward writes the live pools through a
+        table whose other rows point at block 0."""
         self._dev_state = None
+        if self.paged:
+            kept = []
+            for idx, (slot, req) in enumerate(admissions):
+                if not self._reserve_blocks(
+                        slot, self._blocks_needed(len(req.prompt), req.max_new_tokens)):
+                    for _, r2 in reversed(admissions[idx:]):
+                        self.queue.appendleft(r2)
+                    break
+                kept.append((slot, req))
+            admissions = kept
+            if not admissions:
+                return
         T = self._round_up(max(len(r.prompt) for _, r in admissions))
         ids = np.zeros((self.slots, T), np.int32)
         last_idx = np.zeros(self.slots, np.int32)
@@ -348,14 +452,18 @@ class ContinuousBatchingEngine:
             ids[slot, : len(req.prompt)] = req.prompt
             last_idx[slot] = len(req.prompt) - 1
         pos = np.broadcast_to(np.arange(T, dtype=np.int32)[None], (self.slots, T))
-        nt, fresh = self._forward(
-            self._zero_caches(), self._to_device(ids),
-            self._to_device(np.zeros(self.slots, np.int32)),
-            self._to_device(pos), self._to_device(last_idx),
-        )
-        rows = self._to_device(np.array([s for s, _ in admissions], np.int64))
-        for c, p in zip(self.caches, fresh):
-            c.index_copy_(0, rows, p.index_select(0, rows))
+        args = (self._to_device(ids), self._to_device(np.zeros(self.slots, np.int32)),
+                self._to_device(pos), self._to_device(last_idx))
+        if self.paged:
+            table = np.zeros_like(self.block_table)
+            for slot, _ in admissions:
+                table[slot] = self.block_table[slot]
+            nt, self.caches = self._forward(self.caches, *args, self._to_device(table))
+        else:
+            nt, fresh = self._forward(self._zero_caches(), *args)
+            rows = self._to_device(np.array([s for s, _ in admissions], np.int64))
+            for c, p in zip(self.caches, fresh):
+                c.index_copy_(0, rows, p.index_select(0, rows))
         sel = nt[:, 0].cpu().numpy()
         now = time.perf_counter()
         for slot, req in admissions:
@@ -379,6 +487,7 @@ class ContinuousBatchingEngine:
             self._finish(req)
             self.slot_req[slot] = None
             self.slot_len[slot] = 0
+            self._release_blocks(slot)
 
     def _dispatch(self, active):
         """One fused k-step dispatch, then the host bookkeeping of its

@@ -178,7 +178,7 @@ def test_load_numpy_constants_checks(bad):
     dict(kv_quant=False),
     dict(kv_bits=4),
     dict(deferred_kv=True),
-    dict(paged_blocks=8),
+    dict(paged_blocks=8, kernel_append=False),  # head-major s8 pools
     dict(lora_rank=4, n_adapters=2),
     dict(kernel_append=False),
     dict(gather_last=False),

@@ -32,6 +32,9 @@ def test_import_pulls_in_no_jax():
         "import rten_tpu_torch\n"
         "for m in pkgutil.walk_packages(rten_tpu_torch.__path__, 'rten_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "from rten_tpu_torch.kernels.flash_attention import (\n"
+        "    decode_mha_append_cat_paged, paged_attention, paged_decode_mha, paged_targets)\n"
+        "from rten_tpu_torch.ops.attention import paged_kv_update, paged_scale_update\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'rten_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok', len([m for m in sys.modules if m.startswith('rten_tpu_torch')]))\n"

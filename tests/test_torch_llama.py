@@ -340,7 +340,7 @@ def test_rotary_clamps_like_jax_indexing():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(paged_blocks=8), 8),
+    (dict(paged_blocks=8, kv_dtype=JDataType.BFloat16), 7),     # bf16 pools
     (dict(deferred_kv=True), 9),
     (dict(kv_quant=True, kv_bits=4), 11),
     (dict(kv_dtype=JDataType.BFloat16), 7),

@@ -266,3 +266,136 @@ def test_llama_engine_on_card_matches_cpu(card, kv):
         eng.run()
         out[dev.type] = [r.generated for r in reqs]
     assert out["cuda"] == out["cpu"]
+
+
+def _table(card, B, MB, NB, owners, seed):
+    """Slots < owners hold shuffled distinct blocks; the rest are idle (rows
+    of 0: they read and write block 0, the garbage sink)."""
+    bt = torch.zeros(B, MB, dtype=torch.int32)
+    bt[:owners] = (torch.randperm(NB - 1, generator=_gen(seed))[: owners * MB] + 1).reshape(
+        owners, MB).to(torch.int32)
+    return bt.to(card)
+
+
+@pytest.mark.parametrize("quant", [True, False])
+@pytest.mark.parametrize("H,Hkv,D,BS,window", [
+    (32, 4, 64, 64, 0),    # TinyLlama's decode step: 8 rows per kv head, a table entry per 64 rows
+    (4, 2, 64, 8, 0),      # BS 8: four table entries in a warp's 32 keys
+    (8, 8, 128, 16, 0),    # group 1, D 128
+    (16, 1, 64, 24, 20),   # 16 rows per kv head, BS not a power of two, a window
+])
+def test_paged_decode_mha_kernel(card, quant, H, Hkv, D, BS, window):
+    """paged_decode_mha against its plain version (gather, decode_mha_plain)
+    with a shuffled table, idle slots on block 0, and lens at 0, BS - 1, BS,
+    the last row and past cap: atol 1e-4, and the same bits on a second
+    call."""
+    B, MB = 6, 4
+    NB, cap = 4 * MB + 2, MB * BS
+    g = _gen(H * BS + D)
+    bt = _table(card, B, MB, NB, 4, H + BS)
+    lens = torch.tensor([0, BS - 1, BS, cap - 1, cap + 5, 3], dtype=torch.int32, device=card)
+    q = torch.randn(B, H, 1, D, generator=g).to(card)
+    if quant:
+        pk = torch.randint(-127, 128, (NB, Hkv, BS, D), generator=g, dtype=torch.int8).to(card)
+        pv = torch.randint(-127, 128, (NB, Hkv, BS, D), generator=g, dtype=torch.int8).to(card)
+        sc = [(torch.rand(NB, Hkv, 1, BS, generator=g) * 0.015 + 0.005).to(card)
+              for _ in range(2)]
+    else:
+        pk = torch.randn(NB, Hkv, BS, D, generator=g).to(card)
+        pv = torch.randn(NB, Hkv, BS, D, generator=g).to(card)
+        sc = []
+    before = tfa.paged_decode_mha.launches
+    got = tfa.paged_decode_mha(q, pk, pv, lens, bt, *sc, window=window)
+    again = tfa.paged_decode_mha(q, pk, pv, lens, bt, *sc, window=window)
+    want = tfa.paged_decode_mha_plain(q, pk, pv, lens, bt, *sc, window=window)
+    torch.cuda.synchronize()
+    assert tfa.paged_decode_mha.launches == before + 2
+    assert got.shape == (B, H, 1, D) and torch.equal(got, again)
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("H,Hkv,D,window", [(12, 12, 64, 0), (8, 2, 128, 0), (4, 4, 32, 0),
+                                            (8, 2, 64, 20)])
+def test_paged_append_kernel(card, H, Hkv, D, window):
+    """decode_mha_append_cat through a block table against its plain version
+    (the reference's write-all-then-attend fallback), with idle slots whose
+    rows collide in block 0: out atol 1e-4, s8 pools bit-exact, scale pools
+    rtol 5e-6, blocks no slot owns untouched, and the same bits on a second
+    run from the same inputs."""
+    B, BS, MB = 8, 16, 3
+    NB, cap = 5 * MB + 2, MB * BS
+    g = _gen(H + D + window)
+    bt = _table(card, B, MB, NB, 5, H + D)
+    # Slots 5 and 6 (idle) write row 5 of block 0; slot 7 row 4 of it.
+    lens = torch.tensor([0, BS - 1, BS, cap - 1, cap + 4, 5, 5, BS + 4], dtype=torch.int32,
+                        device=card)
+    q = torch.randn(B, H, 1, D, generator=g).to(card)
+    kn = torch.randn(B, Hkv, 1, D, generator=g).to(card)
+    vn = torch.randn(B, Hkv, 1, D, generator=g).to(card)
+    pools = [torch.randint(-127, 128, (NB, BS, Hkv * D), generator=g, dtype=torch.int8).to(card)
+             for _ in range(2)]
+    pools += [(torch.rand(NB, Hkv, 1, BS, generator=g) * 0.015 + 0.005).to(card)
+              for _ in range(2)]
+    runs = []
+    before = tfa.decode_mha_append_cat_paged.launches
+    for _ in range(2):
+        p = [t.clone() for t in pools]
+        runs.append(tfa.decode_mha_append_cat(q, p[0], p[1], lens, p[2], p[3], k_new=kn,
+                                              v_new=vn, window=window, block_table=bt))
+    p = [t.clone() for t in pools]
+    want = tfa.decode_mha_append_cat_paged_plain(q, p[0], p[1], lens, p[2], p[3], k_new=kn,
+                                                 v_new=vn, window=window, block_table=bt)
+    torch.cuda.synchronize()
+    assert tfa.decode_mha_append_cat_paged.launches == before + 2
+    got = runs[0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
+    assert (got[0] - want[0]).abs().max().item() <= 1e-4
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert torch.allclose(got[3], want[3], rtol=5e-6, atol=0)
+    assert torch.allclose(got[4], want[4], rtol=5e-6, atol=0)
+    owned = set(bt.flatten().tolist())
+    free = [b for b in range(1, NB) if b not in owned]
+    for i in range(4):
+        assert torch.equal(got[i + 1][free], pools[i][free])
+
+
+@pytest.mark.parametrize("form", ["gpt2_s8_cat", "llama_s8_head_major", "llama_s8_cat",
+                                  "llama_f32_head_major"])
+def test_paged_engine_on_card_matches_cpu(card, form):
+    """A small paged engine served on the card and on the CPU from the same
+    weights, with a pool of 3 usable blocks that makes admissions re-queue:
+    the same tokens, and every block but 0 free afterwards."""
+    from rten_tpu_torch.model import Model
+    from rten_tpu_torch.models import gpt2, llama
+    from rten_tpu_torch.quantize_pass import quantize_dynamic
+    from rten_tpu_torch.serving import ContinuousBatchingEngine
+
+    paged = dict(capacity=64, gather_last=True, paged_blocks=4, block_size=16)
+    if form.startswith("gpt2"):
+        cfg = gpt2.GPT2Config(vocab_size=512, n_positions=128, n_embd=128, n_layer=2, n_head=2)
+        weights, n_head = gpt2.random_weights(cfg, seed=0), 2
+        build = lambda: gpt2.build_graph_static_cache(  # noqa: E731
+            cfg, weights, kv_quant=True, kernel_append=True, **paged)
+    else:
+        cfg = llama.LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                                num_hidden_layers=2, num_attention_heads=4,
+                                num_key_value_heads=2, max_position_embeddings=128)
+        weights, n_head = llama.random_weights(cfg, seed=0), 4
+        opts = {"llama_s8_head_major": dict(kv_quant=True),
+                "llama_s8_cat": dict(kv_quant=True, kernel_append=True),
+                "llama_f32_head_major": dict(kv_quant=False)}[form]
+        build = lambda: llama.build_graph_static_cache(cfg, weights, **paged, **opts)  # noqa: E731
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        graph = build()
+        quantize_dynamic(graph)
+        eng = ContinuousBatchingEngine(
+            Model(graph, device=dev), n_layer=2, n_head=n_head, head_dim=64, slots=3,
+            capacity=64, prefill_bucket=8, greedy_on_device=True, steps_per_dispatch=4)
+        rng = np.random.default_rng(0)
+        reqs = [eng.submit(rng.integers(0, 512, int(rng.integers(3, 12))).tolist(),
+                           max_new_tokens=int(rng.integers(3, 14))) for _ in range(5)]
+        eng.run()
+        assert sorted(eng._free_blocks) == [1, 2, 3]
+        out[dev.type] = [r.generated for r in reqs]
+    assert out["cuda"] == out["cpu"]

@@ -524,12 +524,12 @@ def test_quantized_kv_attention_head_major_rotary(S, lens, window, interleaved):
 @pytest.mark.parametrize("op,attrs,feed_change,item", [
     ("GroupQueryAttention", {"rten_past_lens": 0}, None, 12),     # ORT-compatible form
     ("GroupQueryAttention", {"softcap": 30.0}, None, 12),
-    ("GroupQueryAttention", {"rten_paged": 1}, None, 8),
+    ("GroupQueryAttention", {"rten_paged": 1}, "cat", 7),         # f32 cat-layout pools
     ("GroupQueryAttention", {"rten_recent_kv": 1}, None, 9),
     ("GroupQueryAttention", {}, "bf16", 7),                       # bf16 head-major caches
     ("GroupQueryAttention", {}, "cat", 7),                        # f32 cat-layout caches
     ("QuantizedKVAttention", {"bits": 4}, None, 11),
-    ("QuantizedKVAttention", {"rten_paged": 1}, None, 8),
+    ("QuantizedKVAttention", {"rten_paged": 1, "bits": 4}, None, 11),  # int4 pools
     ("QuantizedKVAttention", {"rten_recent_kv": 1}, None, 9),
 ])
 def test_unported_serving_attention_branches_raise(op, attrs, feed_change, item):
