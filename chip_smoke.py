@@ -18,29 +18,42 @@ Run from the repository root:  python3 chip_smoke.py
    window); paged_decode_mha at the same shape on block pools (block size
    64, a shuffled table); decode_mha_append_cat through a block table at
    the GPT-2 headline shape (a pool of 1 + 480 blocks of 64 rows, idle
-   slots colliding in block 0).
+   slots colliding in block 0); mha at the Generator's prefill (B 1, H 12,
+   T 128, D 64, causal, 37 left-pad columns), at T 1024, and with GQA 32/4
+   and softcap 30 (B 2, Tq 256, Tk 512); int4_matmul over one GPT-2 124M
+   forward's 49 MatMulNBits calls at M 1, 16, 128 and a serve admission's
+   2048 (the lm_head there at 16), and with u8 zero points.
 3. Serve phases, each through the user's entry points (builder,
    quantize_dynamic, Model, ContinuousBatchingEngine) with every launch
    counter zeroed just before and read just after (each kernel of the path
    must have run, as often as the path's forwards say):
    - TinyLlama-1.1B's shape at full width (22 layers, random weights from
      seed 0), int8 weights, int8 head-major KV caches;
-   - the same TinyLlama weights on paged int8 head-major pools (41 blocks
-     of 64 rows: 40 usable, 3 per request, so at most 13 requests run and
-     admissions wait for blocks);
+   - the same TinyLlama weights cut to 8 layers on paged int8 head-major
+     pools (41 blocks of 64 rows: 40 usable, 3 per request, so at most 13
+     requests run and admissions wait for blocks);
    - GPT-2 124M at full width (12 layers), int8 weights, int8 cat KV;
    - GPT-2 on paged int8 cat pools (``bench.py``'s RTEN_BENCH_PAGED graph,
      the same 41-block pool);
+   - GPT-2 on the int4 weight-only graph (``bench.py``'s
+     RTEN_BENCH_QUANT=int4: int4 weights, int8 cat KV);
    each behind the engine with 16 slots, cap 256, prefill bucket 128, 8
    steps per dispatch, answering 24 requests of 128 seeded tokens with
    16-48 new tokens each; then a profiled wave of 16 more requests. The
    paged phases end with every block back in the pool.
-4. Reference phases, the card against the CPU (the plain versions): small
+4. Generate phases: GPT-2 124M at full width through ``gpt2.load`` and the
+   ``Generator`` (batch 1, a 91-token prompt in the bucket of 128, 64 new
+   greedy tokens), f32 and int4 weight-only: TTFT, decode tok/s, host wall
+   against the card's busy time per step, and the launches (mha 12 per
+   prefill, int4_matmul 49 per forward).
+5. Reference phases, the card against the CPU (the plain versions): small
    GPT-2 and Llama models behind the engine give the same tokens (Llama for
    each supported cache layout; both also paged, on a pool small enough
    that admissions wait), and the full widths cut to 2 layers (TinyLlama's
    also paged) give finite logits close to the CPU's (see
-   logits_card_vs_cpu).
+   logits_card_vs_cpu); small GPT-2 Generators (f32 and int4, batch 1 and
+   2) give the same tokens, and the full width cut to 2 layers gives
+   prefill logits within 1e-5 of max|logit| (phase_reference_generate).
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Exits nonzero, printing
@@ -351,6 +364,9 @@ def phase_prefill_attention(gen, dev):
 # TinyLlama-1.1B's published shape (rten_tpu_torch.models.llama defaults)
 # and the Llama serve phase's slots.
 L_LAYERS, L_H, L_HKV, L_D, L_VOCAB, L_SLOTS = 22, 32, 4, 64, 32000, 16
+# The paged TinyLlama serve phase's depth, cut to keep the whole run near
+# 540 s; the paged kernel phase keeps all 22 layers.
+L_PAGED_LAYERS = 8
 
 
 def _head_major_caches(gen, dev, B, quant):
@@ -665,6 +681,184 @@ def phase_argmax(gen, dev, slots=SLOTS, vocab=VOCAB, padded=NP):
     }
 
 
+# The Generator's shapes: GPT-2 124M at batch 1, a 91-token prompt left-padded
+# to the bucket of 128 (37 padding columns), 64 new tokens.
+GEN_PROMPT, GEN_BUCKET, GEN_NEW = 91, 128, 64
+
+
+def _mha_case(gen, dev, tag, B, Hq, Hkv, T_q, T_k, causal, softcap, pad, calls):
+    """One mha shape: against mha_plain within 1e-4 on the rows with a column
+    to attend, 0 on the others (the left padding under causal), the same bits
+    on a second call; then the times of ``calls`` calls (one per layer) of
+    the kernel, the plain version and SDPA with the mask and the causal band
+    folded into one float mask (enable_gqa), beside the bound from this
+    run's (row, column) pairs."""
+    from rten_tpu_torch.kernels.flash_attention import mha, mha_plain
+
+    q = torch.randn(B, Hq, T_q, D, generator=gen).to(dev)
+    k = torch.randn(B, Hkv, T_k, D, generator=gen).to(dev)
+    v = torch.randn(B, Hkv, T_k, D, generator=gen).to(dev)
+    # The Generator's folded [1, Tk] additive mask: -1e30 on the pad columns.
+    m = torch.where(torch.arange(T_k, device=dev) < pad, -1e30, 0.0)[None] if pad else None
+    kw = dict(causal=causal, softcap=softcap)
+    got = mha(q, k, v, m, **kw)
+    again = mha(q, k, v, m, **kw)
+    want = mha_plain(q, k, v, m, **kw)
+    torch.cuda.synchronize()
+    admitted = torch.ones(T_q, T_k, dtype=torch.bool, device=dev)
+    if causal:
+        admitted &= (torch.arange(T_k, device=dev)[None]
+                     <= torch.arange(T_q, device=dev)[:, None] + T_k - T_q)
+    if m is not None:
+        admitted &= m > -1e29
+    live = admitted.any(-1)[None, None, :, None].expand_as(got)
+    err = (got - want)[live].abs().max().item()
+    if not err <= 1e-4 or not (got[~live] == 0).all() or not torch.equal(got, again):
+        fail(f"mha [{tag}]: max err {err} > 1e-4, a fully masked row is not 0, or two "
+             f"calls differ")
+    layers = [(torch.randn_like(k), torch.randn_like(v)) for _ in range(calls)]
+    k_ms = timed(lambda: [mha(q, kk, vv, m, **kw) for kk, vv in layers], iters=10)
+    p_ms = timed(lambda: [mha_plain(q, kk, vv, m, **kw) for kk, vv in layers], iters=3, warmup=1)
+    fmask = torch.where(admitted, 0.0, float("-inf"))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sd = timed(lambda: [sdpa(q, kk, vv, attn_mask=fmask, enable_gqa=Hq != Hkv)
+                        for kk, vv in layers], iters=10)
+    # SDPA has no softcap: with one it is a yardstick only, not the library
+    # time of the same function.
+    lib = None if softcap else sd
+    pairs = admitted.sum().item() * B * Hq
+    nbytes = 4 * (2 * B * Hq * T_q * D + 2 * B * Hkv * T_k * D) + (4 * T_k if pad else 0)
+    bms, by = bound_ms(calls * nbytes, calls * 4.0 * pairs * D, F32_FLOPS_PER_S)
+    print(f"  mha [{tag}] x{calls}: max abs err {err:.3e} (bound 1e-4), {int((~live).sum()) // D} "
+          f"fully masked rows 0, two calls bit-identical; kernel {fmt(k_ms)}, plain {fmt(p_ms)}, "
+          f"sdpa{' without the softcap' if softcap else ''} {fmt(sd)}, bound {bms:.4f} ms ({by})",
+          flush=True)
+    return {"unit": f"{tag}: {calls} call{'s' if calls > 1 else ''}", "max_abs_err": err,
+            **time_keys(k_ms, p_ms, lib), "bound_ms": bms, "bound_by": by,
+            **({"sdpa_without_softcap_ms": ms_of(sd)} if softcap else {})}
+
+
+def phase_mha(gen, dev):
+    """mha (rten_tpu_torch/csrc/mha.cu) at the Generator's prefill (B 1, H 12,
+    Tq = Tk = 128, D 64, causal, a [1, 128] mask with 37 left-pad columns;
+    12 calls, one per layer), at GPT-2's longest prompt (the same at 1024),
+    and with GQA and softcap (B 2, 32 query heads over 4 KV heads, Tq 256,
+    Tk 512, softcap 30, causal and not, no mask)."""
+    rows = [
+        _mha_case(gen, dev, "Generator prefill, B 1, H 12, T 128, D 64, causal, 37 pad columns",
+                  1, H, H, GEN_BUCKET, GEN_BUCKET, True, 0.0, GEN_BUCKET - GEN_PROMPT, 12),
+        _mha_case(gen, dev, "GPT-2's longest prompt, T 1024, causal, 37 pad columns",
+                  1, H, H, 1024, 1024, True, 0.0, 37, 12),
+    ]
+    for causal in (True, False):
+        rows.append(_mha_case(gen, dev, f"GQA 32/4, B 2, Tq 256, Tk 512, softcap 30, "
+                                        f"{'causal' if causal else 'not causal'}",
+                              2, 32, 4, 256, 512, causal, 30.0, 0, 1))
+    head = rows[0]
+    return {
+        "name": "mha", "route": "cuda", "source": "rten_tpu_torch/csrc/mha.cu",
+        "replaces": "rten_tpu/kernels/flash_attention.py:139",
+        **head, "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "library_call": "scaled_dot_product_attention(enable_gqa) with the mask and the causal "
+                        "band folded into one float mask",
+        "other_shapes": rows[1:],
+    }
+
+
+# One GPT-2 124M forward's MatMulNBits calls, (K, N, calls): c_attn, attn
+# c_proj, c_fc, mlp c_proj per layer, and the lm_head.
+GPT2_INT4 = [(E, 3 * E, 12), (E, E, 12), (E, 4 * E, 12), (4 * E, E, 12), (E, VOCAB, 1)]
+# Rows per call: a Generator decode step, a serve decode step, a Generator
+# prefill, a serve admission.
+INT4_MS = (1, 16, 128, 2048)
+
+
+def _int4_weights(gen, dev, K, N, zp=False):
+    nb = K // 32
+    packed = torch.randint(0, 256, (N, nb, 16), generator=gen, dtype=torch.uint8).to(dev)
+    scales = (torch.rand(N, nb, generator=gen) * 0.002 + 0.001).to(dev)
+    zps = (torch.randint(0, 256, (N * ((nb + 1) // 2),), generator=gen, dtype=torch.uint8).to(dev)
+           if zp else None)
+    return packed, scales, zps
+
+
+def _int4_rows(M, N):
+    """The rows a MatMulNBits call gets on its path at M: a serve admission
+    (M = 16 slots x bucket 128 = 2048) runs its 48 projections at 2048 rows
+    and the lm_head at 16 (gather_last keeps one row per slot)."""
+    return 16 if M == 2048 and N == VOCAB else M
+
+
+def phase_int4_matmul(gen, dev):
+    """int4_matmul (rten_tpu_torch/csrc/int4_matmul.cu) over one GPT-2 124M
+    forward's 49 MatMulNBits calls (every layer its own weights, block 32,
+    no zero points, as quantize_weight_only_int4 packs them) at M = 1 (a
+    Generator decode step), 16 (a serve decode step), 128 (a Generator
+    prefill) and 2048 (a serve admission, the lm_head at 16), and one shape
+    with u8 zero points: within 1e-4 of max|out| of int4_matmul_plain, the
+    same bits on a second call. The yardstick, torch.matmul on the
+    pre-dequantized f32 weights, reads 8x the bytes and is not the same
+    function."""
+    from rten_tpu_torch.kernels.int4_matmul import (
+        dequant_nbits, int4_matmul, int4_matmul_plain, unpack_zero_points,
+    )
+
+    layers = [[_int4_weights(gen, dev, K, N) for _ in range(n)] for K, N, n in GPT2_INT4]
+    err = 0.0
+    for (K, N, _), ws in zip(GPT2_INT4 + [(E, 4 * E, 1)], layers + [
+            [_int4_weights(gen, dev, E, 4 * E, zp=True)]]):
+        for M in sorted({_int4_rows(M, N) for M in INT4_MS}):
+            a = torch.randn(M, K, generator=gen).to(dev)
+            packed, scales, zps = ws[0]
+            got = int4_matmul(a, packed, scales, zps, K=K, N=N, block_size=32)
+            again = int4_matmul(a, packed, scales, zps, K=K, N=N, block_size=32)
+            want = int4_matmul_plain(a, packed.reshape(N, -1), scales,
+                                     unpack_zero_points(zps, N, K // 32), K=K, N=N,
+                                     block_size=32)
+            torch.cuda.synchronize()
+            e = (got - want).abs().max().item() / want.abs().max().item()
+            if not e <= 1e-4 or not torch.equal(got, again):
+                fail(f"int4_matmul M={M} K={K} N={N} zp={zps is not None}: max err {e} of "
+                     f"max|out| > 1e-4, or two calls differ")
+            err = max(err, e)
+    print(f"  int4_matmul: every shape at M 1, 16, 128, 2048 (and u8 zero points) within "
+          f"{err:.3e} of max|out| (bound 1e-4), two calls bit-identical", flush=True)
+    deq = [[dequant_nbits(p, s, None, K=K, N=N, block_size=32).T.contiguous() for p, s, _ in ws]
+           for (K, N, _), ws in zip(GPT2_INT4, layers)]
+    calls = [(K, N, w, d) for (K, N, _), ws, ds in zip(GPT2_INT4, layers, deq)
+             for w, d in zip(ws, ds)]
+    per_m = {}
+    for M in INT4_MS:
+        xs = {(K, N): torch.randn(_int4_rows(M, N), K, generator=gen).to(dev)
+              for K, N, _ in GPT2_INT4}
+        k_ms = timed(lambda: [int4_matmul(xs[K, N], p, s, None, K=K, N=N, block_size=32)
+                              for K, N, (p, s, _), _ in calls], iters=10)
+        p_ms = timed(lambda: [int4_matmul_plain(xs[K, N], p.reshape(N, -1), s, None, K=K, N=N,
+                                                block_size=32)
+                              for K, N, (p, s, _), _ in calls], iters=3, warmup=1)
+        lib = timed(lambda: [torch.matmul(xs[K, N], d) for K, N, _, d in calls], iters=10)
+        rows = [(_int4_rows(M, N), K, N) for K, N, _, _ in calls]
+        nbytes = sum(K * N // 2 + 4 * N * (K // 32) + 4 * m * (K + N) for m, K, N in rows)
+        ops = sum(2.0 * m * K * N for m, K, N in rows)
+        bms, by = bound_ms(nbytes, ops, F32_FLOPS_PER_S)
+        print(f"  int4_matmul x49, M={M}: kernel {fmt(k_ms)}, plain {fmt(p_ms)}, torch.matmul "
+              f"on f32 weights {fmt(lib)}, bound {bms:.4f} ms ({by})", flush=True)
+        unit = (f"one GPT-2 124M forward at M = {M}: 49 calls" if M != 2048 else
+                "one GPT-2 124M serve admission (16 x 128 rows): 48 calls at M = 2048, "
+                "the lm_head at M = 16")
+        per_m[M] = {"unit": unit, "max_abs_err": err,
+                    **time_keys(k_ms, p_ms, lib), "bound_ms": bms, "bound_by": by}
+        del xs
+    del layers, deq, calls
+    return {
+        "name": "int4_matmul", "route": "cuda", "source": "rten_tpu_torch/csrc/int4_matmul.cu",
+        "replaces": "rten_tpu/kernels/int4_matmul.py:97", **per_m[1],
+        "library_call": "torch.matmul on the pre-dequantized f32 weights (8x the weight bytes; "
+                        "not the same function)",
+        "other_shapes": [per_m[M] for M in INT4_MS[1:]],
+    }
+
+
 # --- serve and reference phases -----------------------------------------------
 
 
@@ -686,9 +880,11 @@ def build_model(n_layer, capacity, device, vocab=VOCAB, n_embd=E, n_head=H, **pa
 
 
 def counters():
-    from rten_tpu_torch.kernels import argmax, flash_attention, int8_matmul
+    from rten_tpu_torch.kernels import argmax, flash_attention, int4_matmul, int8_matmul
 
     return {
+        "int4_matmul": int4_matmul.int4_matmul,
+        "mha": flash_attention.mha,
         "int8_matmul_dequant": int8_matmul.int8_matmul_dequant,
         "decode_mha_append_cat": flash_attention.decode_mha_append_cat,
         "prefill_mha_cat": flash_attention.prefill_mha_cat,
@@ -803,6 +999,99 @@ def phase_serve(dev, paged=False):
     return launches
 
 
+def phase_serve_int4(dev):
+    """GPT-2 124M at full width behind the engine as ``phase_serve`` runs it,
+    on the int4 weight-only graph (``bench.py``'s RTEN_BENCH_QUANT=int4:
+    the serving graph, then quantize_weight_only_int4): int8 cat KV caches,
+    49 MatMulNBits per forward."""
+    from rten_tpu_torch.model import Model
+    from rten_tpu_torch.models import gpt2
+    from rten_tpu_torch.quantize_pass import quantize_weight_only_int4
+    from rten_tpu_torch.serving import ContinuousBatchingEngine
+
+    cfg = gpt2.GPT2Config()
+    graph = gpt2.build_graph_static_cache(cfg, gpt2.random_weights(cfg, seed=0), capacity=CAP,
+                                          kv_quant=True, kernel_append=True, gather_last=True)
+    quantize_weight_only_int4(graph)
+    engine = ContinuousBatchingEngine(
+        Model(graph, device=dev), n_layer=12, n_head=H, head_dim=D, slots=16, capacity=CAP,
+        prefill_bucket=128, greedy_on_device=True, steps_per_dispatch=8,
+    )
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, VOCAB, PROMPT).tolist() for _ in range(24)]
+    budgets = [int(rng.integers(16, 49)) for _ in range(24)]
+    want = lambda steps, adm: {  # noqa: E731
+        "int4_matmul": 49 * (steps + adm),
+        "decode_mha_append_cat": 12 * steps,
+        "prefill_mha_cat": 12 * adm,
+        "argmax_lastdim": steps + adm,
+    }
+    _, elapsed, forwards, launches = serve(engine, prompts, budgets, VOCAB, want, "GPT-2 int4")
+    profile_wave(engine, prompts[:16], elapsed / forwards)
+    return launches
+
+
+def generator_prompt(vocab=VOCAB, T=GEN_PROMPT, B=1, seed=0):
+    return np.random.default_rng(seed).integers(0, vocab, (B, T))
+
+
+def phase_generate(dev, quantize):
+    """GPT-2 124M at full width (``random_weights(0)``) through the user's
+    entry points (``gpt2.load``, ``Generator``): batch 1, a 91-token prompt
+    in the bucket of 128, 64 new tokens, greedy; f32 or int4 weight-only
+    weights. After a warm-up generation (the first run uploads the weights),
+    every launch counter is zeroed, the 64 tokens generated and the
+    counters read: mha 12 per prefill, int4_matmul 49 per forward (int4),
+    nothing else. TTFT and decode tok/s from the Generator's Metrics; then
+    a profiled run of 16 tokens gives the card's busy time per step against
+    the host's wall time per step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rten_tpu_torch.generate import Generator, GeneratorConfig
+    from rten_tpu_torch.models import gpt2
+
+    tag = f"GPT-2 generate {quantize or 'f32'}"
+    t0 = time.perf_counter()
+    model = gpt2.load(gpt2.GPT2Config(), quantize=quantize, seed=0, device=dev)
+    prompt = generator_prompt()
+    cfg = GeneratorConfig(bucket_size=GEN_BUCKET)
+    Generator(model, prompt, cfg).generate(2)
+    torch.cuda.synchronize()
+    print(f"  build and warm-up [{tag}]: {time.perf_counter() - t0:.1f} s", flush=True)
+    for fn in counters().values():
+        fn.launches = 0
+    gen = Generator(model, prompt, cfg)
+    toks = gen.generate(GEN_NEW)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters().items()}
+    forwards = 1 + gen.metrics.generated_tokens  # the prefill, then a step per token
+    want = {"mha": 12, **({"int4_matmul": 49 * forwards} if quantize == "int4" else {})}
+    for k, n in launches.items():
+        if n != want.get(k, 0):
+            fail(f"{tag}: {k} launched {n} times, expected {want.get(k, 0)}")
+    if toks.shape != (1, GEN_NEW) or not ((toks >= 0) & (toks < VOCAB)).all():
+        fail(f"{tag}: tokens {toks.shape}, in range: {((toks >= 0) & (toks < VOCAB)).all()}")
+    m = gen.metrics
+    wall_step = sum(m.step_times_s[1:]) / len(m.step_times_s[1:])
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        Generator(model, prompt, cfg).generate(16)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    print(f"  generate [{tag}]: {GEN_NEW} tokens after a {GEN_PROMPT}-token prompt (bucket "
+          f"{GEN_BUCKET}), TTFT {m.ttft_s() * 1e3:.3f} ms, decode {m.tokens_per_sec():.1f} tok/s "
+          f"(host wall per step {wall_step * 1e3:.3f} ms); profiled 16 tokens: device busy "
+          f"{busy:.3f} ms in {prof_wall * 1e3:.3f} ms wall, busy per forward "
+          f"{busy / 17:.3f} ms over its 17 forwards, the prefill included ("
+          f"{busy / 17 / (wall_step * 1e3):.3f} of the unprofiled wall per step)", flush=True)
+    print(f"  generate launches [{tag}]: {json.dumps(launches)}", flush=True)
+    del model
+    return launches
+
+
 def build_llama(n_layer, capacity, device, sharpen=1.0, weights=None, **options):
     """A Llama-family model through the user's entry points: ``weights``, or
     random weights from seed 0 (the projections scaled by ``sharpen``), the
@@ -850,17 +1139,18 @@ def tinyllama_weights():
     return weights
 
 
-def phase_serve_llama(dev, weights, paged=False):
-    """TinyLlama-1.1B's shape at full width (22 layers, ``weights``), int8
-    weights, int8 head-major KV caches or (``paged``) paged int8 head-major
-    pools, behind the engine: 16 slots, cap 256, bucket 128, 8 steps per
-    dispatch, 24 requests of 128 seeded tokens with 16-48 new tokens each."""
+def phase_serve_llama(dev, weights, paged=False, n_layer=L_LAYERS):
+    """TinyLlama-1.1B's shape at full width (``n_layer`` of ``weights``'
+    22 layers), int8 weights, int8 head-major KV caches or (``paged``) paged
+    int8 head-major pools, behind the engine: 16 slots, cap 256, bucket 128,
+    8 steps per dispatch, 24 requests of 128 seeded tokens with 16-48 new
+    tokens each."""
     import resource
 
     from rten_tpu_torch.serving import ContinuousBatchingEngine
 
     tag = "TinyLlama paged" if paged else "TinyLlama"
-    model, secs = build_llama(L_LAYERS, CAP, dev, weights=weights, **(PAGED if paged else {}))
+    model, secs = build_llama(n_layer, CAP, dev, weights=weights, **(PAGED if paged else {}))
     torch.cuda.synchronize()
     n_ops = sum(1 for _ in model.graph.operators())
     print(f"  build [{tag}]: {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())}; "
@@ -868,7 +1158,7 @@ def phase_serve_llama(dev, weights, paged=False):
           f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f} GiB "
           f"(the whole process so far)", flush=True)
     engine = ContinuousBatchingEngine(
-        model, n_layer=L_LAYERS, n_head=L_H, head_dim=L_D, slots=L_SLOTS, capacity=CAP,
+        model, n_layer=n_layer, n_head=L_H, head_dim=L_D, slots=L_SLOTS, capacity=CAP,
         prefill_bucket=128, greedy_on_device=True, steps_per_dispatch=8,
     )
     rng = np.random.default_rng(0)
@@ -877,9 +1167,9 @@ def phase_serve_llama(dev, weights, paged=False):
     decode = "paged_decode_mha" if paged else "decode_mha_folded"
     _, elapsed, forwards, launches = serve(
         engine, prompts, budgets, L_VOCAB, lambda steps, adm: {
-            "int8_matmul_dequant": (7 * L_LAYERS + 1) * (steps + adm),
-            decode: L_LAYERS * steps,
-            "decode_mha_heads": L_LAYERS * adm,
+            "int8_matmul_dequant": (7 * n_layer + 1) * (steps + adm),
+            decode: n_layer * steps,
+            "decode_mha_heads": n_layer * adm,
             "argmax_lastdim": steps + adm,
         }, tag)
     profile_wave(engine, prompts[:16], elapsed / forwards)
@@ -905,12 +1195,15 @@ def profile_wave(engine, prompts, wall_per_forward):
         engine.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    t_trace = time.perf_counter()
     if not all(r.done and len(r.generated) == 17 for r in reqs):
         fail("profiled wave: a request did not finish with its tokens")
     forwards = engine.steps - steps0 + len({r.first_token_at for r in reqs})
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    print(f"  profile: the trace took {time.perf_counter() - t_trace:.1f} s to stop and "
+          f"summarize", flush=True)
     if busy_ms <= 0:
         print("  profile: the profiler recorded no device time (not measured)", flush=True)
         return
@@ -1083,6 +1376,58 @@ def phase_reference_llama(dev):
               flush=True)
 
 
+def phase_reference_generate(dev):
+    """The Generator on the card against the CPU (the plain versions).
+
+    1. A small GPT-2 (2 layers, E 128, H 2, vocab 512; attention and MLP
+       projections sharpened 4x so tokens follow the context) through
+       ``gpt2.load`` and ``Generator`` (bucket 8, 14 new tokens): the same
+       greedy tokens, f32 and int4 weights, batch 1 (a 5-token prompt: the
+       prefill's 8 rows go through the mha kernel with 3 padding rows) and
+       batch 2 (a per-batch mask: the plain version on both).
+    2. GPT-2 at full width cut to 2 layers, f32 and int4: the prefill's
+       last-position logits of a 91-token prompt (bucket 128) within 1e-5 of
+       max|logit| (f32 products on both sides, no quantized activations).
+       Attention moves these logits: scaling every attention output by
+       1 + 1e-4 moves them by 6.4e-5 of max|logit| on the CPU.
+    """
+    from rten_tpu_torch.generate import Generator, GeneratorConfig
+    from rten_tpu_torch.models import gpt2
+
+    small = gpt2.GPT2Config(vocab_size=512, n_positions=128, n_embd=128, n_layer=2, n_head=2)
+    w = gpt2.random_weights(small, 0)
+    for k in w:
+        if (".attn.c_" in k or ".mlp.c_" in k) and k.endswith(".weight"):
+            w[k] = w[k] * np.float32(4.0)
+    for quantize in (None, "int4"):
+        for B, T in ((1, 5), (2, 11)):
+            prompt = generator_prompt(512, T, B, seed=B)
+            card, cpu = (Generator(gpt2.load(small, w, quantize=quantize, device=device),
+                                   prompt, GeneratorConfig(bucket_size=8)).generate(14)
+                         for device in (dev, torch.device("cpu")))
+            if not np.array_equal(card, cpu):
+                fail(f"reference [Generator {quantize or 'f32'}, batch {B}]: tokens differ: "
+                     f"{card.tolist()} vs {cpu.tolist()}")
+    full = gpt2.GPT2Config(n_layer=2)
+    wf = gpt2.random_weights(full, 0)
+    worst = {}
+    for quantize in (None, "int4"):
+        lg, lc = (Generator(gpt2.load(full, wf, quantize=quantize, device=device),
+                            generator_prompt(), GeneratorConfig(bucket_size=GEN_BUCKET))
+                  ._pending_logits for device in (dev, torch.device("cpu")))
+        if lg.shape != (1, VOCAB) or not np.isfinite(lg).all():
+            fail(f"reference [GPT-2 {quantize or 'f32'} prefill]: logits {lg.shape}, finite: "
+                 f"{np.isfinite(lg).all()}")
+        worst[quantize or "f32"] = np.abs(lg - lc).max() / np.abs(lc).max()
+        if not worst[quantize or "f32"] <= 1e-5:
+            fail(f"reference [GPT-2 {quantize or 'f32'} prefill]: logits differ by "
+                 f"{worst[quantize or 'f32']:.2e} of max|logit| > 1e-5")
+    print(f"  reference [Generator]: small GPT-2 tokens equal on card and CPU (f32 and int4, "
+          f"batch 1 and 2); full width, 2 layers, prefill logits max err "
+          f"{json.dumps({k: float(v) for k, v in worst.items()})} of max|logit| (bound 1e-5)",
+          flush=True)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1141,14 +1486,18 @@ def main() -> int:
     kernels.append(phase_paged_decode_mha(gen, dev))
     kernels.append(phase_paged_append(gen, dev))
     lap("paged kernels")
+    kernels.append(phase_mha(gen, dev))
+    kernels.append(phase_int4_matmul(gen, dev))
+    lap("mha and int4_matmul kernels")
     torch.cuda.empty_cache()
     print("serve phases:", flush=True)
     weights = tinyllama_weights()
     by_path = {"tinyllama_serve": phase_serve_llama(dev, weights)}
     lap("TinyLlama serve (weights included)")
     torch.cuda.empty_cache()
-    by_path["tinyllama_paged_serve"] = phase_serve_llama(dev, weights, paged=True)
-    lap("TinyLlama paged serve")
+    by_path["tinyllama_paged_serve"] = phase_serve_llama(dev, weights, paged=True,
+                                                         n_layer=L_PAGED_LAYERS)
+    lap("TinyLlama paged serve (8 layers)")
     del weights
     torch.cuda.empty_cache()
     by_path["gpt2_serve"] = phase_serve(dev)
@@ -1156,13 +1505,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["gpt2_paged_serve"] = phase_serve(dev, paged=True)
     lap("GPT-2 paged serve")
+    torch.cuda.empty_cache()
+    by_path["gpt2_int4_serve"] = phase_serve_int4(dev)
+    lap("GPT-2 int4 serve")
+    print("generate phases:", flush=True)
+    for quantize in (None, "int4"):
+        torch.cuda.empty_cache()
+        by_path[f"gpt2_generate_{quantize or 'f32'}"] = phase_generate(dev, quantize)
+    lap("GPT-2 generate (f32, int4)")
     for k in kernels:
         k["launches_by_path"] = {path: n[k["name"]] for path, n in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
     print("reference phases:", flush=True)
     phase_reference(dev)
     phase_reference_llama(dev)
-    lap("references (flat and paged)")
+    phase_reference_generate(dev)
+    lap("references (flat, paged, Generator)")
 
     print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in secs.items()})}", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s (build included)", flush=True)

@@ -1,7 +1,13 @@
-"""Attention over serving KV caches: the wrappers of the CUDA kernels in
-``csrc/flash_attention.cu`` and ``csrc/decode_mha.cu`` and their plain
-PyTorch versions.
+"""Attention: the wrappers of the CUDA kernels in ``csrc/flash_attention.cu``,
+``csrc/decode_mha.cu``, ``csrc/paged_decode_mha.cu`` and ``csrc/mha.cu``
+and their plain PyTorch versions.
 
+* ``mha`` (``csrc/mha.cu``) replaces
+  ``rten_tpu/kernels/flash_attention.py:mha_pallas``: flash attention of
+  q [B,Hq,Tq,D] over whole K/V [B,Hkv,Tk,D] (f32 or bf16), an optional 2-D
+  additive mask, softcap, causal anchored at the KV end; ``mha_plain`` is
+  the reference's ``mha_xla``. The Attention ops route between the two
+  (``ops/attention.py:_attend``).
 * ``decode_mha`` replaces ``rten_tpu/kernels/flash_attention.py:decode_mha``
   and its ``_decode_mha_folded``: S query rows per slot over head-major
   caches ``[B, Hkv, cap, D]``, s8 with scales ``[B, Hkv, cap]`` or f32.
@@ -79,20 +85,89 @@ def quantize_rows(x: torch.Tensor):
     return q8, s
 
 
-def mha_plain(q, k, v, mask=None, *, scale=None):
-    """Materialized-score attention (the JAX package's ``mha_xla``)."""
+def mha_plain(q, k, v, mask=None, *, scale=None, causal: bool = False,
+              softcap: float = 0.0):
+    """Materialized-score attention, the JAX package's ``mha_xla``: q
+    [B,Hq,Tq,D], k/v [B,Hkv,Tk,D] (query head h reads KV head h // group),
+    an additive mask of any rank that broadcasts to [B,Hq,Tq,Tk], softcap,
+    and causal anchored at the KV end (column <= row + Tk - Tq). A row with
+    no column left gets the mean of V (the kernel gives 0 there). Returns
+    q's dtype."""
     B, Hq, Tq, D = q.shape
-    Hkv = k.shape[1]
+    Hkv, Tk = k.shape[1], k.shape[2]
     if scale is None:
         scale = 1.0 / float(np.sqrt(D))
     if Hq != Hkv:
         k = k.repeat_interleave(Hq // Hkv, dim=1)
         v = v.repeat_interleave(Hq // Hkv, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
     if mask is not None:
-        s = s + mask
+        s = s + mask.float()
+    if causal:
+        q_pos = torch.arange(Tq, device=q.device)[:, None]
+        k_pos = torch.arange(Tk, device=q.device)[None, :]
+        s = torch.where(k_pos <= q_pos + (Tk - Tq), s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+MHA_HEAD_DIMS = (32, 64, 128)
+_MHA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def mha(q, k, v, mask=None, *, scale: Optional[float] = None, causal: bool = False,
+        softcap: float = 0.0):
+    """Flash attention, the kernel of ``csrc/mha.cu`` (replaces
+    ``rten_tpu/kernels/flash_attention.py:mha_pallas``): q [B,Hq,Tq,D], k/v
+    [B,Hkv,Tk,D] in q's dtype (f32 or bf16), each with a unit-stride last
+    axis; ``mask`` an optional additive f32 mask of at most 2 dims that
+    broadcasts to [Tq, Tk] (the Attention op folds leading unit dims);
+    softcap; causal with offset Tk - Tq -> [B,Hq,Tq,D] in q's dtype. A row
+    whose every column is masked gives 0 (the plain version gives the mean
+    of V). For CPU tensors, ``mha_plain``."""
+    if mask is not None and mask.dim() > 2:
+        raise ValueError(f"mask: expected at most 2 dims broadcasting to [Tq, Tk], "
+                         f"got {tuple(mask.shape)}")
+    if kernel_device(q, k, v, mask) == "cpu":
+        return mha_plain(q, k, v, mask, scale=scale, causal=causal, softcap=softcap)
+    device = q.device
+    B, Hq, Tq, D = q.shape
+    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"k/v: expected [B, Hkv, Tk, {D}], got {tuple(k.shape)} / "
+                         f"{tuple(v.shape)}")
+    Hkv, Tk = k.shape[1], k.shape[2]
+    if D not in MHA_HEAD_DIMS or Hq % Hkv or Tq < 1 or Tk < 1:
+        raise ValueError(f"head dim {D} (supported: {MHA_HEAD_DIMS}), heads {Hq}/{Hkv}, "
+                         f"Tq {Tq}, Tk {Tk} not supported")
+    if q.dtype not in _MHA_DTYPES:
+        raise TypeError(f"q: dtype {q.dtype}, expected float32 or bfloat16")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        check_cuda_tensor(name, t, q.dtype, device, contiguous=False)
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: the last axis must be unit-stride")
+    m_ptr, m_sq, m_sk = None, 0, 0
+    if mask is not None:
+        mask = mask.to(torch.float32).expand(Tq, Tk)
+        check_cuda_tensor("mask", mask, torch.float32, device, contiguous=False)
+        m_ptr, m_sq, m_sk = mask.data_ptr(), mask.stride(0), mask.stride(1)
+    if scale is None:
+        scale = 1.0 / float(np.sqrt(D))
+    out = torch.empty((B, Hq, Tq, D), dtype=q.dtype, device=device)
+    err = _mha_kernel_lib().rten_mha(
+        _MHA_DTYPES[q.dtype], q.data_ptr(), *q.stride()[:3], k.data_ptr(), *k.stride()[:3],
+        v.data_ptr(), *v.stride()[:3], m_ptr, m_sq, m_sk, out.data_ptr(), *out.stride()[:3],
+        B, Hq, Hkv, Tq, Tk, D, int(bool(causal)), float(softcap or 0.0), float(scale),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"mha launch failed: CUDA error {err}")
+    mha.launches += 1
+    return out
+
+
+mha.launches = 0
 
 
 def decode_mha_plain(q, k, v, lens, k_scale=None, v_scale=None, *,
@@ -655,6 +730,17 @@ def _mha_lib():
             fn.argtypes = [I, P, L, L, L, P, P, L, L, L, P, P, L, L, L, P, P,
                            L, L, L, I, I, I, I, I, I, I, F, P]
             fn.restype = I
+    return lib
+
+
+def _mha_kernel_lib():
+    lib = load_library("mha")
+    fn = lib.rten_mha
+    if fn.argtypes is None:
+        P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        fn.argtypes = [I, P, L, L, L, P, L, L, L, P, L, L, L, P, L, L, P, L, L, L,
+                       I, I, I, I, I, I, I, F, F, P]
+        fn.restype = I
     return lib
 
 

@@ -45,6 +45,9 @@ class Model:
 
     # -- introspection ---------------------------------------------------
 
+    def input_names(self) -> List[str]:
+        return [self.graph.node_name(i) for i in self.graph.input_ids]
+
     def output_names(self) -> List[str]:
         return [self.graph.node_name(i) for i in self.graph.output_ids]
 
@@ -62,9 +65,13 @@ class Model:
         self,
         inputs: Dict[str, Any],
         outputs: Optional[Sequence[str]] = None,
+        static_inputs: Sequence[str] = (),
     ) -> List[torch.Tensor]:
         """Run with name-keyed inputs (numpy arrays or tensors); returns
-        tensors on the model's device. Tensor inputs are never modified."""
+        tensors on the model's device. Tensor inputs are never modified.
+        ``static_inputs`` (the names the JAX package specializes its
+        compiled trace on) is accepted and ignored: eager execution needs no
+        specialization."""
         feed = {}
         for name, val in inputs.items():
             nid = self.graph.find_node(name)

@@ -1,7 +1,14 @@
-"""GPT-2 built in engine IR for the serving engine (the port of
-``rten_tpu/models/gpt2.py``).
+"""GPT-2 built in engine IR (the port of ``rten_tpu/models/gpt2.py``).
 
-Only the serving graph of the main path is built here: int8 KV caches in
+``build_graph`` is the Optimum-style KV-cached causal-LM graph the
+Generator drives (inputs input_ids / attention_mask / position_ids /
+past_key_values.N.{key,value} [B, H, past, D], outputs logits /
+present.N.*); ``load`` builds it, optionally quantized (int8 dynamic or
+int4 weight-only), into a ``Model``; ``weights_from_torch`` reads a
+transformers GPT2LMHeadModel. The same builder calls as the JAX package's,
+so both graphs have the same node ids, names and constants.
+
+``build_graph_static_cache`` builds the serving graph: int8 KV caches in
 cat layout ``[slots, cap, H*D]`` with per-position scales
 ``[slots, H, cap, 1]``, the new KV row appended inside the decode attention
 kernel, and the lm_head run on one gathered row per slot; with
@@ -17,13 +24,15 @@ raises ``NotImplementedError`` naming the ROADMAP.md item that lifts it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
 from ..dtypes import DataType
 from ..ir.builder import GraphBuilder
 from ..ir.graph import Graph
+from ..model import Model, ModelOptions
+from ..quantize_pass import quantize_dynamic, quantize_weight_only_int4
 
 
 @dataclasses.dataclass
@@ -47,6 +56,89 @@ CONFIGS = {
     "gpt2-large": GPT2Config(n_embd=1280, n_layer=36, n_head=20),
     "gpt2-xl": GPT2Config(n_embd=1600, n_layer=48, n_head=25),
 }
+
+
+def build_graph(cfg: GPT2Config, weights: Dict[str, np.ndarray]) -> Graph:
+    """Build the KV-cached causal-LM graph (``rten_tpu/models/gpt2.py:49-148``)."""
+    b = GraphBuilder()
+    E, H, D = cfg.n_embd, cfg.n_head, cfg.head_dim
+
+    def w(name):
+        return b.constant(name, np.ascontiguousarray(weights[name], np.float32))
+
+    ids = b.input("input_ids", DataType.Int32, ("batch", "seq"))
+    mask = b.input("attention_mask", DataType.Int32, ("batch", "total_seq"))
+    pos = b.input("position_ids", DataType.Int32, ("batch", "seq"))
+
+    x = b.op("Gather", [w("transformer.wte.weight"), ids])
+    x = x + b.op("Gather", [w("transformer.wpe.weight"), pos])
+
+    # Additive attention mask [B,1,1,S]: 0 keep, -1e30 drop.
+    mask_f = b.op("Cast", [mask], {"to": DataType.Float})
+    neg = b.constant(None, np.float32(-1e30))
+    one = b.constant(None, np.float32(1.0))
+    add_mask = b.op("Mul", [b.op("Sub", [one, mask_f]), neg])
+    add_mask = b.op("Unsqueeze", [add_mask, b.constant(None, np.int32([1, 2]))])
+
+    def layer_norm(h, prefix):
+        return b.op(
+            "LayerNormalization",
+            [h, w(f"{prefix}.weight"), w(f"{prefix}.bias")],
+            {"epsilon": cfg.layer_norm_epsilon},
+        )
+
+    def to_heads(h):  # [B,T,E] -> [B,H,T,D]
+        r = b.op("Reshape", [h, b.constant(None, np.int32([0, 0, H, D]))])
+        return b.op("Transpose", [r], {"perm": [0, 2, 1, 3]})
+
+    def from_heads(h):
+        r = b.op("Transpose", [h], {"perm": [0, 2, 1, 3]})
+        return b.op("Reshape", [r, b.constant(None, np.int32([0, 0, E]))])
+
+    presents = []
+    for i in range(cfg.n_layer):
+        p = f"transformer.h.{i}"
+        past_k = b.input(f"past_key_values.{i}.key", DataType.Float, ("batch", H, "past_seq", D))
+        past_v = b.input(f"past_key_values.{i}.value", DataType.Float,
+                         ("batch", H, "past_seq", D))
+        h = layer_norm(x, f"{p}.ln_1")
+        qkv = b.op(
+            "MatMulAdd", [h, w(f"{p}.attn.c_attn.weight"), w(f"{p}.attn.c_attn.bias")],
+            name=f"{p}.attn.c_attn",
+        )
+        q, k, v = b.op("Split", [qkv], {"axis": -1, "num_outputs": 3}, n_outputs=3)
+        q, k, v = to_heads(q), to_heads(k), to_heads(v)
+        attn, pk, pv = b.op(
+            "Attention", [q, k, v, add_mask, past_k, past_v], {"is_causal": 1}, n_outputs=3,
+            output_names=[f"attn_out_{i}", f"present.{i}.key", f"present.{i}.value"],
+        )
+        presents.extend([pk, pv])
+        attn = from_heads(attn)
+        proj = b.op(
+            "MatMulAdd", [attn, w(f"{p}.attn.c_proj.weight"), w(f"{p}.attn.c_proj.bias")],
+            name=f"{p}.attn.c_proj",
+        )
+        x = x + proj
+        h2 = layer_norm(x, f"{p}.ln_2")
+        fc = b.op(
+            "MatMulAdd", [h2, w(f"{p}.mlp.c_fc.weight"), w(f"{p}.mlp.c_fc.bias")],
+            name=f"{p}.mlp.c_fc",
+        )
+        act = b.op("Gelu", [fc], {"approximate": "tanh"})
+        mlp = b.op(
+            "MatMulAdd", [act, w(f"{p}.mlp.c_proj.weight"), w(f"{p}.mlp.c_proj.bias")],
+            name=f"{p}.mlp.c_proj",
+        )
+        x = x + mlp
+
+    x = layer_norm(x, "transformer.ln_f")
+    lm_w = b.constant(
+        "lm_head.weight_t",
+        np.ascontiguousarray(weights["transformer.wte.weight"].T, np.float32),
+    )
+    logits = b.op("MatMul", [x, lm_w], name="lm_head", output_names=["logits"])
+    b.output(logits, *presents)
+    return b.finish()
 
 
 def build_graph_static_cache(
@@ -230,3 +322,40 @@ def random_weights(cfg: GPT2Config, seed: int = 0) -> Dict[str, np.ndarray]:
     wdict["transformer.ln_f.weight"] = np.ones(E, np.float32)
     wdict["transformer.ln_f.bias"] = np.zeros(E, np.float32)
     return wdict
+
+
+def weights_from_torch(module) -> Dict[str, np.ndarray]:
+    """Weights of a transformers GPT2LMHeadModel (its causal-mask buffers
+    and the tied lm_head left out)."""
+    sd = module.state_dict()
+    return {
+        k: v.detach().cpu().numpy()
+        for k, v in sd.items()
+        if not k.endswith(".attn.bias") and not k.endswith(".attn.masked_bias")
+        and k != "lm_head.weight"
+    }
+
+
+def load(
+    cfg: GPT2Config | str = "gpt2",
+    weights: Optional[Dict[str, np.ndarray]] = None,
+    quantize: Optional[str] = None,
+    options: Optional[ModelOptions] = None,
+    seed: int = 0,
+    device=None,
+) -> Model:
+    """A runnable GPT-2 ``Model`` of ``build_graph``: ``weights``, or random
+    weights from ``seed``; quantize None | 'int8' (dynamic) | 'int4'
+    (weight-only). Runs on the card unless ``device`` says otherwise."""
+    if isinstance(cfg, str):
+        cfg = CONFIGS[cfg]
+    if weights is None:
+        weights = random_weights(cfg, seed)
+    graph = build_graph(cfg, weights)
+    if quantize == "int8":
+        graph = quantize_dynamic(graph)
+    elif quantize == "int4":
+        graph = quantize_weight_only_int4(graph)
+    elif quantize is not None:
+        raise ValueError(f"unknown quantize mode {quantize}")
+    return Model(graph, options, device=device)

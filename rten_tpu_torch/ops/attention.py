@@ -1,5 +1,16 @@
-"""QuantizedKVAttention and GroupQueryAttention on serving KV caches (the
-port of the serving branches of ``rten_tpu/ops/attention.py``).
+"""Attention ops (the port of ``rten_tpu/ops/attention.py``): ONNX
+``Attention`` and MS contrib ``MultiHeadAttention`` over whole K/V (the
+Generator's graphs), and QuantizedKVAttention and GroupQueryAttention on
+serving KV caches.
+
+Attention / MultiHeadAttention (``attention.py:212-347``): 3-D or 4-D
+inputs, past K/V concatenated in front (returned as the presents), bool or
+additive masks. Routing follows the reference's ``mha`` rule
+(``kernels/flash_attention.py:3588-3593``): a mask that folds to 2-D and
+Tq >= 8 go to the flash-attention kernel wrapper ``mha`` (the CUDA kernel
+on the card; its plain version on the CPU); anything else (a decode step,
+a per-batch mask) to ``mha_plain``. The kernel gives 0 on a row with no
+column to attend (left padding), the plain version the mean of V.
 
 QuantizedKVAttention (int8 caches):
 
@@ -46,7 +57,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels.flash_attention import (
-    cat_to_heads, decode_mha, decode_mha_append_cat, heads_to_cat,
+    NEG_INF, cat_to_heads, decode_mha, decode_mha_append_cat, heads_to_cat, mha, mha_plain,
     paged_attention, paged_gather_cat, paged_gather_scales, paged_targets,
     prefill_mha_cat, quantize_rows,
 )
@@ -55,6 +66,118 @@ from .registry import OpError, get_input, opt_input, register
 
 def _todo(what: str, item: int):
     raise NotImplementedError(f"{what}: ROADMAP.md queue 1 item {item}")
+
+
+def _attend(q, k, v, mask=None, *, scale=None, causal=False, softcap=0.0):
+    """The reference's ``mha`` dispatch: the flash-attention kernel for
+    prefill-sized queries (Tq >= 8) with at most a 2-D mask, the
+    materialized-score plain version otherwise."""
+    if q.shape[2] >= 8 and (mask is None or mask.ndim <= 2):
+        return mha(q, k, v, mask, scale=scale, causal=causal, softcap=softcap)
+    return mha_plain(q, k, v, mask, scale=scale, causal=causal, softcap=softcap)
+
+
+@register("Attention")
+def _attention(ctx, inputs, attrs):
+    """ONNX opset-23 Attention (rten src/ops/attention.rs:645): Q
+    [B,Hq,Tq,D] or [B,Tq,Hq*D], K/V likewise; optional attn_mask (bool, True
+    keeps, or additive float); past_key/past_value in front of K/V. Outputs
+    Y (+ present_key, present_value)."""
+    q = get_input(inputs, 0, "query")
+    k = get_input(inputs, 1, "key")
+    v = get_input(inputs, 2, "value")
+    mask = opt_input(inputs, 3)
+    past_k = opt_input(inputs, 4)
+    past_v = opt_input(inputs, 5)
+
+    three_d = q.ndim == 3
+    if three_d:
+        q_heads = attrs.get("q_num_heads")
+        kv_heads = attrs.get("kv_num_heads", q_heads)
+        if q_heads is None:
+            raise OpError("Attention with 3D inputs requires q_num_heads")
+        q = cat_to_heads(q, q_heads)
+        k = cat_to_heads(k, kv_heads)
+        v = cat_to_heads(v, kv_heads)
+    if past_k is not None:
+        k = torch.cat([past_k, k], dim=2)
+        v = torch.cat([past_v, v], dim=2)
+
+    add_mask = None
+    if mask is not None:
+        add_mask = (torch.where(mask, 0.0, NEG_INF) if mask.dtype == torch.bool
+                    else mask.to(torch.float32))
+        # Fold leading unit dims: the kernel takes a 2-D mask.
+        while add_mask.ndim > 2 and add_mask.shape[0] == 1:
+            add_mask = add_mask[0]
+    out = _attend(q, k, v, add_mask, scale=attrs.get("scale"),
+                  causal=bool(attrs.get("is_causal", 0)), softcap=attrs.get("softcap", 0.0))
+    if three_d:
+        out = heads_to_cat(out)
+    if attrs.get("__n_outputs__", 1) >= 3:
+        return (out, k, v)
+    return out
+
+
+@register("MultiHeadAttention")
+def _multi_head_attention(ctx, inputs, attrs):
+    """MS contrib MultiHeadAttention (rten contrib.rs:48): query [B,Tq,H*D]
+    (or packed QKV [B,Tq,H,3,D] when key is absent), key/value [B,Tk,H*D]
+    or pre-split [B,H,Tk,D]; optional bias [3*H*D], key_padding_mask,
+    attention_bias, past_key/past_value."""
+    query = get_input(inputs, 0, "query")
+    key = opt_input(inputs, 1)
+    value = opt_input(inputs, 2)
+    bias = opt_input(inputs, 3)
+    key_padding_mask = opt_input(inputs, 4)
+    attention_bias = opt_input(inputs, 5)
+    past_k = opt_input(inputs, 6)
+    past_v = opt_input(inputs, 7)
+    n_heads = attrs.get("num_heads")
+    if n_heads is None:
+        raise OpError("MultiHeadAttention requires num_heads")
+    scale = attrs.get("scale")
+    causal = bool(attrs.get("unidirectional", 0))
+    mask_filter = attrs.get("mask_filter_value", -10000.0)
+
+    if query.ndim == 5:  # packed QKV [B,S,H,3,D]
+        q, k, v = (query[:, :, :, i].permute(0, 2, 1, 3) for i in range(3))
+    else:
+        hidden = query.shape[-1]
+        if bias is not None:
+            query = query + bias[:hidden]
+            if key is not None and key.ndim == 3:
+                key = key + bias[hidden:2 * hidden]
+            if value is not None and value.ndim == 3:
+                value = value + bias[2 * hidden:]
+        q = cat_to_heads(query, n_heads)
+        if key is not None and key.ndim == 4:
+            k, v = key, value  # already [B,H,Tk,D]
+        else:
+            k = cat_to_heads(key, n_heads)
+            v = cat_to_heads(value, n_heads)
+    if past_k is not None:
+        k = torch.cat([past_k, k], dim=2)
+        v = torch.cat([past_v, v], dim=2)
+
+    add_mask = None
+    if attention_bias is not None:
+        add_mask = attention_bias.to(torch.float32)
+    if key_padding_mask is not None:
+        keep = (key_padding_mask if key_padding_mask.dtype == torch.bool
+                else key_padding_mask.to(torch.int32) != 0)
+        pad = torch.where(keep, 0.0, float(mask_filter))[:, None, None, :]
+        add_mask = pad if add_mask is None else add_mask + pad
+    if add_mask is not None:
+        while add_mask.ndim < 4:
+            add_mask = add_mask[None]
+        out = mha_plain(q, k, v, add_mask, scale=scale, causal=causal)
+    else:
+        out = _attend(q, k, v, None, scale=scale, causal=causal)
+    out = heads_to_cat(out)
+    if attrs.get("__n_outputs__", 1) >= 3:
+        return (out, k, v)
+    return out
 
 
 def rotary(x, cos_cache, sin_cache, position_ids, interleaved: bool):

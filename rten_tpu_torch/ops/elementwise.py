@@ -1,5 +1,5 @@
-"""Elementwise ops of the serving graphs (the port of
-``rten_tpu/ops/elementwise.py``: Add, Mul, Gelu and Silu).
+"""Elementwise ops of the serving and generation graphs (the port of
+``rten_tpu/ops/elementwise.py``: Add, Sub, Mul, Gelu and Silu).
 
 The JAX package lowers these to jnp expressions that XLA fuses into the
 neighbouring matmuls; here each is a plain PyTorch expression, written in
@@ -25,6 +25,13 @@ def _add(ctx, inputs, attrs):
     a = as_tensor(ctx, get_input(inputs, 0))
     b = as_tensor(ctx, get_input(inputs, 1))
     return a + b
+
+
+@register("Sub")
+def _sub(ctx, inputs, attrs):
+    a = as_tensor(ctx, get_input(inputs, 0))
+    b = as_tensor(ctx, get_input(inputs, 1))
+    return a - b
 
 
 @register("Mul")

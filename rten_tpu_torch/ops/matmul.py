@@ -1,15 +1,42 @@
-"""MatMulIntegerToFloat (the port of ``rten_tpu/ops/matmul.py:132-178``).
+"""MatMul family (the port of ``rten_tpu/ops/matmul.py``): MatMul,
+MatMulAdd, MatMulIntegerToFloat and MatMulNBits.
 
-Inputs (a, b, a_scale, b_scale, a_zero_point, b_zero_point, bias,
-b_colsums): routed to the int8 kernel
-(``rten_tpu_torch/kernels/int8_matmul.py``), sliced back to the logical
-width ``rten_orig_n`` when the prepack padded N, then the bias is added.
+* MatMul / MatMulAdd: the JAX package leaves f32 products to XLA at HIGHEST
+  precision; here they are ``torch.matmul`` in full f32 (TF32 is off for
+  matmuls unless a caller turns it on).
+* MatMulIntegerToFloat (``matmul.py:132-178``), inputs (a, b, a_scale,
+  b_scale, a_zero_point, b_zero_point, bias, b_colsums): routed to the int8
+  kernel (``rten_tpu_torch/kernels/int8_matmul.py``), sliced back to the
+  logical width ``rten_orig_n`` when the prepack padded N, then the bias is
+  added.
+* MatMulNBits (``matmul.py:181-232``), inputs (a, packed nibbles
+  [N, nb, bs/2], scales, zero points): routed to the int4 kernel
+  (``rten_tpu_torch/kernels/int4_matmul.py``, where ``dequant_nbits``
+  is the reference's dequantization).
 """
 
 from __future__ import annotations
 
+import torch
+
+from ..kernels.int4_matmul import int4_matmul
 from ..kernels.int8_matmul import int8_matmul_dequant
-from .registry import as_tensor, get_input, opt_input, register
+from .registry import OpError, as_tensor, get_input, opt_input, register
+
+
+@register("MatMul")
+def _matmul(ctx, inputs, attrs):
+    a = as_tensor(ctx, get_input(inputs, 0, "a"))
+    return torch.matmul(a, as_tensor(ctx, get_input(inputs, 1, "b")))
+
+
+@register("MatMulAdd")
+def _matmul_add(ctx, inputs, attrs):
+    """Optimizer-produced MatMul + bias (rten fusions MatMulAdd)."""
+    a = as_tensor(ctx, get_input(inputs, 0, "a"))
+    b = as_tensor(ctx, get_input(inputs, 1, "b"))
+    bias = as_tensor(ctx, get_input(inputs, 2, "bias"))
+    return torch.matmul(a, b) + bias
 
 
 @register("MatMulIntegerToFloat")
@@ -40,3 +67,22 @@ def _matmul_integer_to_float(ctx, inputs, attrs):
     if bias is not None:
         out = out + as_tensor(ctx, bias)
     return out
+
+
+@register("MatMulNBits")
+def _matmul_nbits(ctx, inputs, attrs):
+    """int4 block-quantized matmul (MS contrib op; rten
+    ``src/ops/matmul/contrib.rs:123``): weights [N, K/block, block/2]
+    packed nibbles, per-block scales, optional zero points."""
+    a = as_tensor(ctx, get_input(inputs, 0, "a"))
+    b_packed = as_tensor(ctx, get_input(inputs, 1, "b"))
+    scales = as_tensor(ctx, get_input(inputs, 2, "scales"))
+    zero_points = opt_input(inputs, 3)
+    bits = attrs.get("bits", 4)
+    if bits != 4:
+        raise OpError(f"MatMulNBits: only bits=4 supported (got {bits})")
+    return int4_matmul(
+        a, b_packed, scales, None if zero_points is None else as_tensor(ctx, zero_points),
+        K=attrs["K"], N=attrs["N"], block_size=attrs.get("block_size", 32),
+    )
+

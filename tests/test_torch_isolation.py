@@ -35,6 +35,12 @@ def test_import_pulls_in_no_jax():
         "from rten_tpu_torch.kernels.flash_attention import (\n"
         "    decode_mha_append_cat_paged, paged_attention, paged_decode_mha, paged_targets)\n"
         "from rten_tpu_torch.ops.attention import paged_kv_update, paged_scale_update\n"
+        "from rten_tpu_torch.kernels.flash_attention import mha, mha_plain\n"
+        "from rten_tpu_torch.kernels.int4_matmul import dequant_nbits, int4_matmul\n"
+        "from rten_tpu_torch.generate import Generator, MultinomialSampler, TopP\n"
+        "from rten_tpu_torch.models.gpt2 import build_graph, load\n"
+        "from rten_tpu_torch.quantize_pass import quantize_weight_only_int4\n"
+        "from rten_tpu_torch.serialize import read_safetensors, write_safetensors\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'rten_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok', len([m for m in sys.modules if m.startswith('rten_tpu_torch')]))\n"

@@ -17,6 +17,7 @@ from rten_tpu.kernels import flash_attention as jfa
 from rten_tpu.kernels import int8_matmul as jmm
 from rten_tpu_torch.kernels import argmax as targmax
 from rten_tpu_torch.kernels import flash_attention as tfa
+from rten_tpu_torch.kernels import int4_matmul as t4
 from rten_tpu_torch.kernels import int8_matmul as tmm
 from rten_tpu_torch.kernels.common import u8_to_s8_shift
 
@@ -371,3 +372,139 @@ def test_decode_mha_refuses_mixed_devices():
     k = torch.zeros((1, 2, 8, 64))
     with pytest.raises(ValueError):
         tfa.decode_mha(q, k, k, torch.zeros(1, dtype=torch.int32))
+
+
+# --- flash attention (mha) -----------------------------------------------------
+
+
+def _mha_inputs(B, Hq, Hkv, Tq, Tk, D, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32)
+            for s in ((B, Hq, Tq, D), (B, Hkv, Tk, D), (B, Hkv, Tk, D))]
+
+
+def _live_rows(Tq, Tk, causal, mask):
+    """[Tq] rows with at least one column to attend (the kernels give 0 on
+    the others, the XLA fallback and the plain version the mean of V)."""
+    live = np.ones((Tq, Tk), bool)
+    if causal:
+        live &= np.arange(Tk)[None] <= np.arange(Tq)[:, None] + Tk - Tq
+    if mask is not None:
+        live &= np.broadcast_to(mask, (Tq, Tk)) > -1e29
+    return live.any(-1)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,causal,softcap,mask,bq", [
+    (1, 2, 2, 24, 40, 16, False, 0.0, "random", 8),     # test_kernels.py:73-87
+    (1, 2, 2, 24, 40, 16, False, 0.0, "random", 16),
+    (1, 2, 2, 12, 24, 8, True, 0.0, "row", 8),          # the [1, Tk] regression, :119-131
+    (1, 4, 2, 40, 56, 32, False, 0.0, None, 16),        # GQA, test_ops_extended.py:77-91
+    (1, 4, 2, 40, 56, 32, True, 0.0, None, 16),
+    (1, 4, 2, 40, 56, 32, False, 30.0, None, 16),
+    (1, 4, 2, 40, 56, 32, True, 30.0, None, 16),
+    (1, 2, 2, 16, 16, 64, True, 0.0, "left_pad", 8),    # a left-padded prefill
+    (2, 4, 1, 9, 30, 32, True, 5.0, "full", 8),         # group 4, Tq != Tk, a [Tq, Tk] mask
+])
+def test_mha_plain_matches_jax(B, Hq, Hkv, Tq, Tk, D, causal, softcap, mask, bq):
+    """mha_plain (the CPU path of the mha wrapper) against mha_xla on every
+    row, and against mha_pallas(interpret=True) on the rows that have a
+    column to attend: rtol 1e-4, atol 1e-5, the reference's own tolerance.
+    On rows with none the Pallas kernel gives 0, as the CUDA kernel does."""
+    from rten_tpu.kernels.flash_attention import mha_pallas, mha_xla
+
+    q, k, v = _mha_inputs(B, Hq, Hkv, Tq, Tk, D, Tq * Tk + D)
+    rng = np.random.default_rng(D)
+    m = {None: None,
+         "random": np.where(rng.random((Tq, Tk)) > 0.2, 0.0, -1e30),
+         "full": np.where(rng.random((Tq, Tk)) > 0.3, 0.0, -1e30),
+         "row": np.where(np.arange(Tk) < 5, -1e30, 0.0)[None],
+         "left_pad": np.where(np.arange(Tk) < 5, -1e30, 0.0)[None]}[mask]
+    m = None if m is None else m.astype(np.float32)
+    kw = dict(causal=causal, softcap=softcap)
+    got = tfa.mha(_t(q), _t(k), _t(v), None if m is None else _t(m), **kw).numpy()
+    want = np.asarray(mha_xla(q, k, v, m, **kw))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    pallas = np.asarray(mha_pallas(q, k, v, m, block_q=bq, block_k=128, interpret=True, **kw))
+    live = _live_rows(Tq, Tk, causal, m)
+    np.testing.assert_allclose(got[:, :, live], pallas[:, :, live], rtol=1e-4, atol=1e-5)
+    assert (pallas[:, :, ~live] == 0).all()
+
+
+def test_mha_plain_keeps_bf16_and_broadcasts_masks():
+    """q's dtype comes back (bf16 in, bf16 out) and masks of rank 1-4
+    broadcast as in mha_xla."""
+    from rten_tpu.kernels.flash_attention import mha_xla
+
+    q, k, v = _mha_inputs(2, 2, 2, 8, 8, 16, 1)
+    m4 = np.where(np.random.default_rng(2).random((2, 1, 1, 8)) > 0.3, 0.0, -1e30)
+    m4 = m4.astype(np.float32)
+    got = tfa.mha_plain(_t(q), _t(k), _t(v), _t(m4), causal=True).numpy()
+    np.testing.assert_allclose(got, np.asarray(mha_xla(q, k, v, m4, causal=True)),
+                               rtol=1e-4, atol=1e-5)
+    bf = tfa.mha_plain(_t(q).bfloat16(), _t(k).bfloat16(), _t(v).bfloat16())
+    assert bf.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("shape", [(1, 8, 8), (1, 1, 8, 8)])
+def test_mha_refuses_masks_above_two_dims(shape):
+    """The kernel wrapper takes a mask of at most 2 dims; folding leading
+    unit dims is the Attention op's job."""
+    q, k, v = (_t(a) for a in _mha_inputs(1, 2, 2, 8, 8, 16, 3))
+    with pytest.raises(ValueError, match="at most 2 dims"):
+        tfa.mha(q, k, v, torch.zeros(shape))
+
+
+# --- int4 matmul ----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m,k,n,bs", [(4, 256, 96, 32), (17, 512, 130, 64)])
+@pytest.mark.parametrize("with_zp", [False, True])
+def test_int4_matmul_plain_matches_jax(m, k, n, bs, with_zp):
+    """int4_matmul (the CPU path: unpack the zero points, int4_matmul_plain)
+    against the reference's int4_matmul_xla and int4_matmul_pallas in
+    interpret mode at the reference's shapes (test_kernels.py:99-116):
+    rtol 1e-4, atol 1e-4."""
+    from rten_tpu.kernels.int4_matmul import (
+        _unpack_zero_points, int4_matmul_pallas, int4_matmul_xla,
+    )
+
+    rng = np.random.default_rng(m * k + n)
+    nb = k // bs
+    a = rng.standard_normal((m, k)).astype(np.float32)
+    b = rng.integers(0, 255, (n, k // 2)).astype(np.uint8)
+    scales = rng.uniform(0.01, 0.1, (n, nb)).astype(np.float32)
+    zp = rng.integers(0, 255, (n * ((nb + 1) // 2),)).astype(np.uint8) if with_zp else None
+    zps = _unpack_zero_points(zp, n, nb)
+    got = t4.int4_matmul(_t(a), _t(b), _t(scales), None if zp is None else _t(zp),
+                         K=k, N=n, block_size=bs).numpy()
+    want = np.asarray(int4_matmul_xla(a, b, scales, zps, K=k, N=n, block_size=bs))
+    pallas = np.asarray(int4_matmul_pallas(a, b, scales, zps, K=k, N=n, block_size=bs,
+                                           block_m=32, block_n=64, block_k=256,
+                                           interpret=True))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got, pallas, rtol=1e-4, atol=1e-4)
+    tz = t4.unpack_zero_points(None if zp is None else _t(zp), n, nb)
+    assert (tz is None) == (zp is None)
+    if zp is not None:
+        np.testing.assert_array_equal(tz.numpy(), np.asarray(zps))
+
+
+@pytest.mark.parametrize("K,bs,zp", [(100, 32, "u8"), (96, 16, None), (80, 16, "u8"),
+                                     (64, 32, "i32")])
+def test_dequant_nbits_matches_jax(K, bs, zp):
+    """Dequantized weights bit-exact against the reference's dequant_nbits:
+    K not a multiple of the block (trimmed), an odd block count with u8
+    zero points (each column padded to a byte), int32 zero points."""
+    from rten_tpu.ops.matmul import dequant_nbits as jdequant
+
+    N = 6
+    nb = -(-K // bs)
+    rng = np.random.default_rng(K + bs)
+    packed = rng.integers(0, 256, (N, nb, bs // 2)).astype(np.uint8)
+    scales = rng.uniform(0.01, 0.1, (N, nb)).astype(np.float32)
+    zps = {None: None, "u8": rng.integers(0, 256, N * ((nb + 1) // 2)).astype(np.uint8),
+           "i32": rng.integers(0, 16, (N, nb)).astype(np.int32)}[zp]
+    got = t4.dequant_nbits(_t(packed), _t(scales), None if zps is None else _t(zps),
+                           K=K, N=N, block_size=bs).numpy()
+    want = np.asarray(jdequant(packed, scales, zps, K=K, N=N, block_size=bs))
+    np.testing.assert_array_equal(got, want)

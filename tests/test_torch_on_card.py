@@ -16,6 +16,7 @@ import torch
 
 from rten_tpu_torch.kernels import argmax as targmax
 from rten_tpu_torch.kernels import flash_attention as tfa
+from rten_tpu_torch.kernels import int4_matmul as t4
 from rten_tpu_torch.kernels import int8_matmul as tmm
 
 pytestmark = pytest.mark.gpu
@@ -397,5 +398,159 @@ def test_paged_engine_on_card_matches_cpu(card, form):
                            max_new_tokens=int(rng.integers(3, 14))) for _ in range(5)]
         eng.run()
         assert sorted(eng._free_blocks) == [1, 2, 3]
+        out[dev.type] = [r.generated for r in reqs]
+    assert out["cuda"] == out["cpu"]
+
+
+def _int4_operands(g, N, K, bs, zp):
+    """MatMulNBits operands for an [N, K] weight: packed nibbles
+    [N, nb, bs/2], scales [N, nb], and zero points (None, u8 packed two to a
+    byte per column, or int32)."""
+    nb = -(-K // bs)
+    packed = torch.randint(0, 256, (N, nb, bs // 2), generator=g, dtype=torch.uint8)
+    scales = torch.rand(N, nb, generator=g) * 0.09 + 0.01
+    zps = None
+    if zp == "u8":
+        zps = torch.randint(0, 256, (N * ((nb + 1) // 2),), generator=g, dtype=torch.uint8)
+    elif zp == "i32":
+        zps = torch.randint(0, 16, (N, nb), generator=g, dtype=torch.int32)
+    return packed, scales, zps
+
+
+@pytest.mark.parametrize("M,K,N,bs", [(1, 768, 2304, 32), (3, 100, 36, 32), (16, 3072, 768, 32),
+                                      (17, 768, 50257, 32), (130, 512, 130, 64),
+                                      (64, 48, 70, 16), (1, 768, 50257, 32),
+                                      (128, 768, 3072, 32), (128, 3072, 768, 32),
+                                      (2048, 768, 2304, 32), (2048, 3072, 768, 32)])
+@pytest.mark.parametrize("zp", ["none", "u8", "i32"])
+def test_int4_matmul_kernel(card, M, K, N, bs, zp):
+    """int4_matmul against int4_matmul_plain (dequantize, then an f32
+    product with TF32 off) on the same inputs: within 1e-4 of max|out|
+    (f32 accumulation on both sides, other summation order), K not a
+    multiple of the block (zero-padded activations), ragged M and N, and the
+    same bits on a second call."""
+    g = _gen(M * 31 + K + N)
+    packed, scales, zps = _int4_operands(g, N, K, bs, None if zp == "none" else zp)
+    a = torch.randn(M, K, generator=g)
+    args = [t if t is None else t.to(card) for t in (a, packed, scales, zps)]
+    before = t4.int4_matmul.launches
+    got = t4.int4_matmul(*args, K=K, N=N, block_size=bs)
+    again = t4.int4_matmul(*args, K=K, N=N, block_size=bs)
+    nb = -(-K // bs)
+    want = t4.int4_matmul_plain(args[0], args[1].reshape(N, -1), args[2],
+                                t4.unpack_zero_points(args[3], N, nb), K=K, N=N, block_size=bs)
+    torch.cuda.synchronize()
+    assert t4.int4_matmul.launches == before + 2
+    assert got.shape == (M, N) and torch.equal(got, again)
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,causal,softcap,mask", [
+    (1, 12, 12, 128, 128, 64, True, 0.0, "left_pad"),    # a Generator prefill, 37 pad columns
+    (1, 2, 2, 24, 40, 32, False, 0.0, "random"),         # the reference's mask test
+    (1, 4, 2, 40, 56, 32, True, 30.0, None),             # GQA, softcap, causal Tq != Tk
+    (2, 8, 2, 33, 70, 128, True, 0.0, None),             # D 128, ragged tiles
+    (2, 4, 4, 12, 24, 64, True, 0.0, "row"),             # a [1, Tk] mask on every row
+    (1, 4, 1, 64, 64, 64, False, 50.0, "full"),          # a [Tq, Tk] mask, group 4
+    (1, 12, 12, 1024, 1024, 64, True, 0.0, "left_pad"),  # GPT-2's longest prompt
+    (2, 32, 4, 256, 512, 64, True, 30.0, None),          # the smoke test's GQA and softcap
+    (2, 32, 4, 256, 512, 64, False, 30.0, None),
+])
+def test_mha_kernel(card, dtype, B, Hq, Hkv, Tq, Tk, D, causal, softcap, mask):
+    """mha against mha_plain on the same inputs: within 1e-4 (f32; bf16 in
+    and out: 2e-2, one bf16 rounding of the output) on rows that have a
+    column to attend; rows with none (left padding under causal) are 0 from
+    the kernel, as from the TPU kernel, where the plain version gives the
+    mean of V. Two calls give the same bits."""
+    g = _gen(Hq * Tq + Tk + D)
+    q = torch.randn(B, Hq, Tq, D, generator=g)
+    k = torch.randn(B, Hkv, Tk, D, generator=g)
+    v = torch.randn(B, Hkv, Tk, D, generator=g)
+    m = None
+    if mask == "left_pad":
+        m = torch.where(torch.arange(Tk) < 37, -1e30, 0.0)[None]
+    elif mask == "row":
+        m = torch.where(torch.arange(Tk) < 5, -1e30, 0.0)[None]
+    elif mask in ("random", "full"):
+        m = torch.where(torch.rand(Tq, Tk, generator=g) > 0.2, 0.0, -1e30)
+    q, k, v = (t.to(card, dtype) for t in (q, k, v))
+    m = None if m is None else m.to(card)
+    before = tfa.mha.launches
+    got = tfa.mha(q, k, v, m, causal=causal, softcap=softcap)
+    again = tfa.mha(q, k, v, m, causal=causal, softcap=softcap)
+    want = tfa.mha_plain(q, k, v, m, causal=causal, softcap=softcap)
+    torch.cuda.synchronize()
+    assert tfa.mha.launches == before + 2
+    assert got.shape == (B, Hq, Tq, D) and got.dtype == dtype and torch.equal(got, again)
+    rows = torch.arange(Tq, device=card)[:, None]
+    cols = torch.arange(Tk, device=card)[None, :]
+    live = torch.ones(Tq, Tk, dtype=torch.bool, device=card)
+    if causal:
+        live &= cols <= rows + Tk - Tq
+    if m is not None:
+        live &= m > -1e29
+    live = live.any(-1)[None, None, :, None].expand_as(got)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert (got.float() - want.float())[live].abs().max().item() <= tol
+    assert (got[~live] == 0).all()
+
+
+def _sharpened_small_gpt2():
+    from rten_tpu_torch.models import gpt2
+
+    cfg = gpt2.GPT2Config(vocab_size=512, n_positions=128, n_embd=128, n_layer=2, n_head=2)
+    w = gpt2.random_weights(cfg, seed=0)
+    for name in w:
+        if (".attn.c_" in name or ".mlp.c_" in name) and name.endswith(".weight"):
+            w[name] = w[name] * np.float32(4.0)
+    return cfg, w
+
+
+@pytest.mark.parametrize("quantize", [None, "int4"])
+@pytest.mark.parametrize("B,T", [(1, 5), (1, 8), (2, 11)])
+def test_generator_on_card_matches_cpu(card, quantize, B, T):
+    """The small GPT-2 Generator (bucket 8, projections sharpened 4x) on the
+    card and on the CPU: the same greedy tokens. At batch 1 the prefill
+    runs the mha kernel (8 query rows, a [1, 8] mask) and, with int4
+    weights, every projection the int4 kernel."""
+    from rten_tpu_torch.generate import Generator, GeneratorConfig
+    from rten_tpu_torch.models import gpt2
+
+    cfg, w = _sharpened_small_gpt2()
+    prompt = np.random.default_rng(B * 10 + T).integers(0, 512, (B, T))
+    before = (tfa.mha.launches, t4.int4_matmul.launches)
+    card_toks = Generator(gpt2.load(cfg, w, quantize=quantize, device=card), prompt,
+                          GeneratorConfig(bucket_size=8)).generate(14)
+    after = (tfa.mha.launches, t4.int4_matmul.launches)
+    cpu_toks = Generator(gpt2.load(cfg, w, quantize=quantize, device="cpu"), prompt,
+                         GeneratorConfig(bucket_size=8)).generate(14)
+    np.testing.assert_array_equal(card_toks, cpu_toks)
+    assert after[0] - before[0] == (2 if B == 1 else 0)          # one prefill, 2 layers
+    assert after[1] - before[1] == (9 * 15 if quantize else 0)   # 15 forwards
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_int4_engine_on_card_matches_cpu(card, k):
+    """The int4 weight-only serving graph behind the engine on the card and
+    on the CPU: the same tokens."""
+    from rten_tpu_torch.model import Model
+    from rten_tpu_torch.models import gpt2
+    from rten_tpu_torch.quantize_pass import quantize_weight_only_int4
+    from rten_tpu_torch.serving import ContinuousBatchingEngine
+
+    cfg, w = _sharpened_small_gpt2()
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        graph = gpt2.build_graph_static_cache(cfg, w, capacity=64, kv_quant=True,
+                                              kernel_append=True, gather_last=True)
+        quantize_weight_only_int4(graph)
+        eng = ContinuousBatchingEngine(
+            Model(graph, device=dev), n_layer=2, n_head=2, head_dim=64, slots=3,
+            capacity=64, prefill_bucket=8, greedy_on_device=True, steps_per_dispatch=k)
+        rng = np.random.default_rng(0)
+        reqs = [eng.submit(rng.integers(0, 512, int(rng.integers(3, 12))).tolist(),
+                           max_new_tokens=int(rng.integers(3, 14))) for _ in range(5)]
+        eng.run()
         out[dev.type] = [r.generated for r in reqs]
     assert out["cuda"] == out["cpu"]

@@ -553,3 +553,184 @@ def test_unported_serving_attention_branches_raise(op, attrs, feed_change, item)
     tm = TModel(build(TBuilder, TDataType), TOptions(optimize=False), device="cpu")
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 item {item}"):
         tm.run(feed, ["out"])
+
+
+# --- the Generator graph's ops ----------------------------------------------------
+
+
+def test_cast_sub_unsqueeze_transpose():
+    """The GPT-2 graph's mask chain, Cast(int32 -> f32), (1 - m) * -1e30 and
+    Unsqueeze(axes [1, 2]), and a head Transpose: exact."""
+    m = _rng().integers(0, 2, (2, 7)).astype(np.int32)
+    x = _rng().standard_normal((2, 5, 3, 4)).astype(np.float32)
+
+    def build(GB, DT):
+        b = GB()
+        mi = b.input("m", DT.Int32)
+        xi = b.input("x", DT.Float)
+        mf = b.op("Cast", [mi], {"to": DT.Float})
+        add = b.op("Mul", [b.op("Sub", [b.constant(None, np.float32(1.0)), mf]),
+                           b.constant(None, np.float32(-1e30))])
+        y0 = b.op("Unsqueeze", [add, b.constant(None, np.int32([1, 2]))], output_names=["y0"])
+        y1 = b.op("Transpose", [xi], {"perm": [0, 2, 1, 3]}, output_names=["y1"])
+        y2 = b.op("Transpose", [xi], output_names=["y2"])
+        y3 = b.op("Unsqueeze", [mf, b.constant(None, np.int32([-1]))], output_names=["y3"])
+        b.output(y0, y1, y2, y3)
+        return b.finish()
+
+    got, want = _run_both(build, {"m": m, "x": x}, ["y0", "y1", "y2", "y3"])
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g, w)
+    assert got[0].shape == (2, 1, 1, 7) and got[3].shape == (2, 7, 1)
+
+
+@pytest.mark.parametrize("op", ["MatMul", "MatMulAdd"])
+def test_matmul_f32(op):
+    """Full-f32 products ([B, T, K] x [K, N] + bias) in another summation
+    order than XLA's: rtol 1e-5, atol 1e-5."""
+    rng = _rng()
+    x = rng.standard_normal((2, 5, 96)).astype(np.float32)
+    w = rng.standard_normal((96, 40)).astype(np.float32)
+    bias = rng.standard_normal(40).astype(np.float32)
+    consts = [("w", w)] + ([("bias", bias)] if op == "MatMulAdd" else [])
+    got, want = _run_both(_single_op(op, [("x", "Float")], consts), {"x": x}, ["y0"])
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("K,bs,zp", [(128, 32, None), (100, 32, "u8"), (72, 16, None)])
+def test_matmul_nbits(K, bs, zp):
+    """MatMulNBits over packed nibbles [N, nb, bs/2], scales [N, nb] and
+    optional u8-packed zero points, K not a multiple of the block: rtol
+    1e-4, atol 1e-4 (the reference kernel test's tolerance)."""
+    rng = _rng()
+    N = 48
+    nb = -(-K // bs)
+    x = rng.standard_normal((3, 4, K)).astype(np.float32)
+    packed = rng.integers(0, 256, (N, nb, bs // 2)).astype(np.uint8)
+    scales = rng.uniform(0.01, 0.1, (N, nb)).astype(np.float32)
+    consts = [("b", packed), ("s", scales)]
+    if zp:
+        consts.append(("zp", rng.integers(0, 256, N * ((nb + 1) // 2)).astype(np.uint8)))
+    build = _single_op("MatMulNBits", [("x", "Float")], consts,
+                       {"K": K, "N": N, "bits": 4, "block_size": bs})
+    got, want = _run_both(build, {"x": x}, ["y0"])
+    assert got[0].shape == (3, 4, N)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-4, atol=1e-4)
+
+
+def _attention_graph(op_type, n_in, attrs, feed, n_out=3):
+    """One attention node over inputs i0..i{n_in-1}, None where ``feed``
+    leaves an input out."""
+    def build(GB, DT):
+        b = GB()
+        ins = [b.input(f"i{i}") if f"i{i}" in feed else None for i in range(n_in)]
+        outs = b.op(op_type, ins, attrs, n_outputs=n_out,
+                    output_names=[f"y{i}" for i in range(n_out)])
+        b.output(*(outs if n_out > 1 else (outs,)))
+        return b.finish()
+    return build
+
+
+@pytest.mark.parametrize("case", ["gpt2_prefill", "gpt2_decode", "gqa_3d_bool", "per_batch",
+                                  "softcap"])
+def test_attention(case):
+    """ONNX Attention against the JAX lowering (its XLA path on the CPU,
+    which is also the port's plain path): outputs and presents, rtol 1e-4,
+    atol 1e-5. GPT-2's prefill (4-D heads, an additive [B,1,1,S] mask with
+    left padding, causal, empty past) and decode step (Tq 1 over a past);
+    3-D inputs with q_num_heads over kv_num_heads and a bool mask; a
+    per-batch mask; softcap with a scale."""
+    rng = _rng()
+    B, H, D = 1, 2, 16
+    attrs = {"is_causal": 1}
+    if case == "gpt2_prefill":
+        Tq, P = 12, 0
+        mask = np.where(np.arange(Tq) < 3, -1e30, 0.0).astype(np.float32)[None, None, None]
+    elif case == "gpt2_decode":
+        Tq, P = 1, 9
+        mask = np.where(np.arange(P + 1) < 2, -1e30, 0.0).astype(np.float32)[None, None, None]
+    elif case == "per_batch":
+        B, Tq, P = 2, 10, 3
+        mask = np.where(rng.random((B, 1, 1, Tq + P)) > 0.3, 0.0, -1e30).astype(np.float32)
+    elif case == "softcap":
+        Tq, P, mask = 10, 4, None
+        attrs = {"is_causal": 1, "softcap": 2.0, "scale": 0.3}
+    else:
+        Tq, P = 9, 0
+        attrs = {"q_num_heads": 4, "kv_num_heads": 2}
+    if case == "gqa_3d_bool":
+        q = rng.standard_normal((B, Tq, 4 * D)).astype(np.float32)
+        k = rng.standard_normal((B, Tq, 2 * D)).astype(np.float32)
+        v = rng.standard_normal((B, Tq, 2 * D)).astype(np.float32)
+        feed = {"i0": q, "i1": k, "i2": v, "i3": rng.random((Tq, Tq)) > 0.3}
+        n_in = 4
+    else:
+        q = rng.standard_normal((B, H, Tq, D)).astype(np.float32)
+        k = rng.standard_normal((B, H, Tq, D)).astype(np.float32)
+        v = rng.standard_normal((B, H, Tq, D)).astype(np.float32)
+        pk = rng.standard_normal((B, H, P, D)).astype(np.float32)
+        pv = rng.standard_normal((B, H, P, D)).astype(np.float32)
+        feed = {"i0": q, "i1": k, "i2": v, "i4": pk, "i5": pv}
+        if mask is not None:
+            feed["i3"] = mask
+        n_in = 6
+    got, want = _run_both(_attention_graph("Attention", n_in, attrs, feed), feed, ["y0", "y1", "y2"])
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["packed_qkv", "bias_masks_past", "pre_split", "plain"])
+def test_multi_head_attention(case):
+    """MS contrib MultiHeadAttention against the JAX lowering: packed QKV
+    [B,S,H,3,D]; bias with a key-padding mask, an attention bias and past
+    K/V; pre-split [B,H,Tk,D] key/value; no mask (the flash path, causal).
+    rtol 1e-4, atol 1e-5."""
+    rng = _rng()
+    B, S, H, D = 2, 9, 2, 16
+    E = H * D
+    attrs = {"num_heads": H}
+    if case == "packed_qkv":
+        feed = {"i0": rng.standard_normal((B, S, H, 3, D)).astype(np.float32)}
+    elif case == "bias_masks_past":
+        P = 3
+        feed = {"i0": rng.standard_normal((B, S, E)).astype(np.float32),
+                "i1": rng.standard_normal((B, S, E)).astype(np.float32),
+                "i2": rng.standard_normal((B, S, E)).astype(np.float32),
+                "i3": rng.standard_normal(3 * E).astype(np.float32),
+                "i4": (rng.random((B, S + P)) > 0.2).astype(np.int32),
+                "i5": rng.standard_normal((1, H, S, S + P)).astype(np.float32),
+                "i6": rng.standard_normal((B, H, P, D)).astype(np.float32),
+                "i7": rng.standard_normal((B, H, P, D)).astype(np.float32)}
+    elif case == "pre_split":
+        feed = {"i0": rng.standard_normal((B, S, E)).astype(np.float32),
+                "i1": rng.standard_normal((B, H, 12, D)).astype(np.float32),
+                "i2": rng.standard_normal((B, H, 12, D)).astype(np.float32)}
+    else:
+        attrs["unidirectional"] = 1
+        feed = {"i0": rng.standard_normal((B, S, E)).astype(np.float32),
+                "i1": rng.standard_normal((B, S, E)).astype(np.float32),
+                "i2": rng.standard_normal((B, S, E)).astype(np.float32)}
+    got, want = _run_both(_attention_graph("MultiHeadAttention", 8, attrs, feed), feed,
+                          ["y0", "y1", "y2"])
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5)
+
+
+def test_attention_routes_by_the_reference_rule(monkeypatch):
+    """Tq >= 8 with a mask that folds to 2-D goes through the mha wrapper
+    (the kernel on the card); a decode step (Tq 1) and a per-batch mask go
+    to the plain version, as the reference's mha dispatch routes them."""
+    from rten_tpu_torch.ops import attention as tattn
+
+    calls = []
+    real = tattn.mha
+    monkeypatch.setattr(tattn, "mha", lambda *a, **k: calls.append(a[0].shape) or real(*a, **k))
+    q = torch.randn(1, 2, 8, 16)
+    tattn._attend(q, q, q, torch.zeros(1, 8), causal=True)
+    tattn._attend(q[:, :, :1], q, q, torch.zeros(1, 8))
+    tattn._attend(q.expand(2, 2, 8, 16), q.expand(2, 2, 8, 16), q.expand(2, 2, 8, 16),
+                  torch.zeros(2, 1, 1, 8))
+    assert calls == [(1, 2, 8, 16)]
