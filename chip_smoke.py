@@ -22,7 +22,13 @@ Run from the repository root:  python3 chip_smoke.py
    T 128, D 64, causal, 37 left-pad columns), at T 1024, and with GQA 32/4
    and softcap 30 (B 2, Tq 256, Tk 512); int4_matmul over one GPT-2 124M
    forward's 49 MatMulNBits calls at M 1, 16, 128 and a serve admission's
-   2048 (the lm_head there at 16), and with u8 zero points.
+   2048 (the lm_head there at 16), and with u8 zero points. The f32/bf16
+   modes (no scales) of the attention kernels: the flat append and
+   prefill_mha_cat at GPT-2's headline in bf16 and f32 and at
+   Qwen2.5-1.5B's attention (H 12 over 2 KV heads, D 128, slots 16, 28
+   calls) in bf16, the block-table append on bf16 pools of 1 + 480 blocks,
+   decode_mha's two forms and paged_decode_mha on bf16 at TinyLlama's
+   attention shape; the argmax also at [16, 151936] (Qwen's vocabulary).
 3. Serve phases, each through the user's entry points (builder,
    quantize_dynamic, Model, ContinuousBatchingEngine) with every launch
    counter zeroed just before and read just after (each kernel of the path
@@ -37,6 +43,13 @@ Run from the repository root:  python3 chip_smoke.py
      the same 41-block pool);
    - GPT-2 on the int4 weight-only graph (``bench.py``'s
      RTEN_BENCH_QUANT=int4: int4 weights, int8 cat KV);
+   - TinyLlama's shape again, 8 of the same layers, on bf16 head-major
+     caches, then on paged bf16 head-major pools;
+   - GPT-2 on bf16 cat caches (``bench.py``'s RTEN_BENCH_KV=bf16), then on
+     paged bf16 cat pools (the same 41-block pool);
+   - Qwen2.5-1.5B's published shape at full width and depth (28 layers,
+     random weights from seed 0, int8 weights) on bf16 cat caches: D 128,
+     group 6 through prefill_mha_cat and decode_mha_append_cat;
    each behind the engine with 16 slots, cap 256, prefill bucket 128, 8
    steps per dispatch, answering 24 requests of 128 seeded tokens with
    16-48 new tokens each; then a profiled wave of 16 more requests. The
@@ -47,11 +60,12 @@ Run from the repository root:  python3 chip_smoke.py
    against the card's busy time per step, and the launches (mha 12 per
    prefill, int4_matmul 49 per forward).
 5. Reference phases, the card against the CPU (the plain versions): small
-   GPT-2 and Llama models behind the engine give the same tokens (Llama for
-   each supported cache layout; both also paged, on a pool small enough
-   that admissions wait), and the full widths cut to 2 layers (TinyLlama's
-   also paged) give finite logits close to the CPU's (see
-   logits_card_vs_cpu); small GPT-2 Generators (f32 and int4, batch 1 and
+   GPT-2 and Llama models behind the engine give the same tokens (each
+   supported cache layout: s8, f32 and bf16, cat and head-major; paged too,
+   on a pool small enough that admissions wait; Llama also at D 128), and
+   the full widths cut to 2 layers (TinyLlama's s8, paged and bf16,
+   GPT-2's s8 and bf16, Qwen2.5-1.5B's bf16 cat) give finite logits close
+   to the CPU's (see logits_card_vs_cpu); small GPT-2 Generators (f32 and int4, batch 1 and
    2) give the same tokens, and the full width cut to 2 layers gives
    prefill logits within 1e-5 of max|logit| (phase_reference_generate).
 
@@ -309,7 +323,7 @@ def phase_decode_attention(gen, dev):
     print(f"  decode_mha_append_cat x12: kernel {fmt(k_ms)}, plain {fmt(p_ms)}, "
           f"sdpa {fmt(lib)}, bound {bms:.4f} ms ({by})", flush=True)
     return {
-        "name": "decode_mha_append_cat", "route": "cuda",
+        "name": "decode_mha_append_cat", "route": "cuda", "kv": "s8",
         "source": "rten_tpu_torch/csrc/flash_attention.cu",
         "replaces": "rten_tpu/kernels/flash_attention.py:2597",
         "unit": "one decode step at slots 120, cap 256: 12 calls (one per layer)",
@@ -351,7 +365,7 @@ def phase_prefill_attention(gen, dev):
     print(f"  prefill_mha_cat x12: kernel {fmt(k_ms, 12)}, plain {fmt(p_ms, 12)}, "
           f"sdpa {fmt(lib, 12)}, bound {bms:.4f} ms ({by})", flush=True)
     return {
-        "name": "prefill_mha_cat", "route": "cuda",
+        "name": "prefill_mha_cat", "route": "cuda", "kv": "s8",
         "source": "rten_tpu_torch/csrc/flash_attention.cu",
         "replaces": "rten_tpu/kernels/flash_attention.py:3301",
         "unit": "one admission of 120 x 128 tokens: 12 calls (one per layer)",
@@ -364,9 +378,10 @@ def phase_prefill_attention(gen, dev):
 # TinyLlama-1.1B's published shape (rten_tpu_torch.models.llama defaults)
 # and the Llama serve phase's slots.
 L_LAYERS, L_H, L_HKV, L_D, L_VOCAB, L_SLOTS = 22, 32, 4, 64, 32000, 16
-# The paged TinyLlama serve phase's depth, cut to keep the whole run near
-# 540 s; the paged kernel phase keeps all 22 layers.
-L_PAGED_LAYERS = 8
+# The depth of the TinyLlama serve phases after the first (paged, and the
+# bf16 ones), cut to keep the whole run near half its time limit; the
+# kernel phases keep all 22 layers.
+L_CUT_LAYERS = 8
 
 
 def _head_major_caches(gen, dev, B, quant):
@@ -467,7 +482,7 @@ def phase_decode_mha(gen, dev):
               f"{fmt(times[False])}), plain {fmt(p_ms)}, sdpa {fmt(lib)}, "
               f"bound {bms:.4f} ms ({by})", flush=True)
         rows.append({
-            "name": name, "route": "cuda", "source": "rten_tpu_torch/csrc/decode_mha.cu",
+            "name": name, "route": "cuda", "kv": "s8", "source": "rten_tpu_torch/csrc/decode_mha.cu",
             "replaces": f"rten_tpu/kernels/flash_attention.py:{line}",
             "unit": (f"one TinyLlama {'decode step' if S == 1 else 'admission'} at slots "
                      f"{B}, cap {CAP}{'' if S == 1 else f', {S} tokens'}: {L_LAYERS} calls "
@@ -494,26 +509,36 @@ def _shuffled_table(gen, dev, B, owners):
     return bt.to(dev)
 
 
-def _pools(gen, dev, NB, Hkv, quant, cat=False):
+def _pools(gen, dev, NB, Hkv, kv, cat=False):
+    """K and V pools of NB blocks (cat rows or head-major) and, for s8, their
+    scale pools (None otherwise); ``kv`` "s8", "f32" or "bf16"."""
     shape = (NB, BLOCK, Hkv * L_D) if cat else (NB, Hkv, BLOCK, L_D)
-    if not quant:
-        return torch.randn(shape, generator=gen).to(dev), torch.randn(shape, generator=gen).to(dev), \
-            None, None
+    if kv != "s8":
+        return (*_float_kv(gen, dev, shape, kv), None, None)
     return (torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8).to(dev),
             torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8).to(dev),
             (torch.rand(NB, Hkv, 1, BLOCK, generator=gen) * 0.015 + 0.005).to(dev),
             (torch.rand(NB, Hkv, 1, BLOCK, generator=gen) * 0.015 + 0.005).to(dev))
 
 
-def phase_paged_decode_mha(gen, dev):
+def _deq(k, v, ks, vs):
+    """Gathered K/V as SDPA's yardstick takes them: s8 dequantized to f32,
+    f32/bf16 as they are."""
+    if ks is None:
+        return k, v
+    return k.float() * ks[..., None], v.float() * vs[..., None]
+
+
+def phase_paged_decode_mha(gen, dev, kv="s8"):
     """paged_decode_mha at TinyLlama's attention shape (slots 16, H 32 over
     4 KV heads, D 64) on pools of 1 + 64 blocks of 64 rows through a
-    shuffled table: lens 128-191 plus 0, 63, 64, 255 and 261; s8 and f32
-    pools; a window of 64. Against its plain version (gather, then
-    decode_mha_plain) within 1e-4, and the same bits on a second call. Then
-    times over 22 layers' s8 pools beside the bound (live bytes / 3.35
-    TB/s), with two yardsticks on the gathered contiguous caches: the flat
-    fold decode_mha_folded and SDPA (enable_gqa) on dequantized K/V."""
+    shuffled table: lens 128-191 plus 0, 63, 64, 255 and 261; ``kv`` pools
+    (s8: also f32 pools) and a window of 64. Against its plain version
+    (gather, then decode_mha_plain) within 1e-4, and the same bits on a
+    second call. Then times over 22 layers' ``kv`` pools beside the bound
+    (live bytes / 3.35 TB/s), with two yardsticks on the gathered
+    contiguous caches: the flat fold decode_mha_folded and SDPA
+    (enable_gqa) on the dequantized (s8) or cache-dtype K/V."""
     from rten_tpu_torch.kernels.flash_attention import (
         decode_mha_folded, paged_decode_mha, paged_decode_mha_plain, paged_gather_kv,
         paged_gather_scales,
@@ -525,62 +550,69 @@ def phase_paged_decode_mha(gen, dev):
                       torch.randint(128, 192, (B - 5,), generator=gen, dtype=torch.int32)]).to(dev)
     bt = _shuffled_table(gen, dev, B, B)
     err = 0.0
-    for quant, window in ((True, 0), (False, 0), (True, 64)):
+    checks = ((kv, 0), ("f32", 0), (kv, 64)) if kv == "s8" else ((kv, 0), (kv, 64))
+    for ckv, window in checks:
         q = torch.randn(B, L_H, 1, L_D, generator=gen).to(dev)
-        pk, pv, ks, vs = _pools(gen, dev, NB, L_HKV, quant)
+        pk, pv, ks, vs = _pools(gen, dev, NB, L_HKV, ckv)
         got = paged_decode_mha(q, pk, pv, lens, bt, ks, vs, window=window)
         again = paged_decode_mha(q, pk, pv, lens, bt, ks, vs, window=window)
         want = paged_decode_mha_plain(q, pk, pv, lens, bt, ks, vs, window=window)
         torch.cuda.synchronize()
         e = (got - want).abs().max().item()
-        tag = f"paged_decode_mha {'s8' if quant else 'f32'} window={window}"
+        tag = f"paged_decode_mha {ckv} window={window}"
         if not e <= tol or not torch.equal(got, again):
             fail(f"{tag}: max err {e} > {tol}, or two calls differ")
         print(f"  {tag}: max abs err {e:.3e} (bound {tol}), two calls bit-identical", flush=True)
         err = max(err, e)
 
     q = torch.randn(B, L_H, 1, L_D, generator=gen).to(dev)
-    layers = [_pools(gen, dev, NB, L_HKV, True) for _ in range(L_LAYERS)]
+    layers = [_pools(gen, dev, NB, L_HKV, kv) for _ in range(L_LAYERS)]
     k_ms = timed(lambda: [paged_decode_mha(q, c[0], c[1], lens, bt, c[2], c[3]) for c in layers],
                  iters=10)
     p_ms = timed(lambda: [paged_decode_mha_plain(q, c[0], c[1], lens, bt, c[2], c[3])
                           for c in layers], iters=3, warmup=1)
-    flat = [(paged_gather_kv(c[0], bt), paged_gather_kv(c[1], bt), paged_gather_scales(c[2], bt),
-             paged_gather_scales(c[3], bt)) for c in layers]
+    flat = [(paged_gather_kv(c[0], bt), paged_gather_kv(c[1], bt),
+             None if c[2] is None else paged_gather_scales(c[2], bt),
+             None if c[3] is None else paged_gather_scales(c[3], bt)) for c in layers]
     f_ms = timed(lambda: [decode_mha_folded(q, *c[:2], lens, *c[2:]) for c in flat], iters=10)
     m = _mask(lens, 1)
-    deq = [(c[0].float() * c[2][..., None], c[1].float() * c[3][..., None]) for c in flat]
+    deq = [_deq(*c) for c in flat]
+    qd = q if kv == "s8" else q.to(FLOAT_KV[kv])
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = timed(lambda: [sdpa(q, kf, vf, attn_mask=m, enable_gqa=True) for kf, vf in deq],
+    lib = timed(lambda: [sdpa(qd, kf, vf, attn_mask=m, enable_gqa=True) for kf, vf in deq],
                 iters=10)
     del layers, flat, deq
     # This run's work: each slot's live rows (columns <= lens, at most cap)
-    # read once, s8 plus a scale, K and V; q read and out written once.
+    # read once (s8 plus a scale, or the f32/bf16 row), K and V; q read and
+    # out written once.
     rows = (lens.long().clamp(max=CAP - 1) + 1).sum().item()
-    nbytes = 2 * 4 * B * L_H * L_D + 4 * B + 4 * B * MAXB + 2 * rows * L_HKV * (L_D + 4)
+    row_bytes = L_D + 4 if kv == "s8" else L_D * FLOAT_KV[kv].itemsize
+    nbytes = 2 * 4 * B * L_H * L_D + 4 * B + 4 * B * MAXB + 2 * rows * L_HKV * row_bytes
     bms, by = bound_ms(L_LAYERS * nbytes, L_LAYERS * 4.0 * rows * L_H * L_D, F32_FLOPS_PER_S)
-    print(f"  paged_decode_mha x{L_LAYERS}: kernel {fmt(k_ms)}, plain {fmt(p_ms)}, flat fold "
+    print(f"  paged_decode_mha {kv} x{L_LAYERS}: kernel {fmt(k_ms)}, plain {fmt(p_ms)}, flat fold "
           f"on gathered caches {fmt(f_ms)}, sdpa {fmt(lib)}, bound {bms:.4f} ms ({by})",
           flush=True)
     return {
-        "name": "paged_decode_mha", "route": "cuda",
-        "source": "rten_tpu_torch/csrc/paged_decode_mha.cu",
+        "name": "paged_decode_mha" + ("" if kv == "s8" else f"[{kv}]"), "kv": kv,
+        "counter": "paged_decode_mha",
+        "source": f"rten_tpu_torch/csrc/paged_decode_mha{'_bf16' * (kv == 'bf16')}.cu",
         "replaces": "rten_tpu/kernels/flash_attention.py:3425",
         "unit": (f"one TinyLlama decode step at slots {B}, cap {CAP}, blocks of {BLOCK}: "
-                 f"{L_LAYERS} calls (one per layer), s8 pools"),
+                 f"{L_LAYERS} calls (one per layer), {kv} pools"),
         "max_abs_err": err, **time_keys(k_ms, p_ms, lib), "bound_ms": bms, "bound_by": by,
         "flat_fold_ms": ms_of(f_ms), "flat_fold_wall_ms": f_ms[1],
-        "library_call": "scaled_dot_product_attention(enable_gqa=True) on gathered, "
-                        "pre-dequantized f32 K/V with the same mask",
+        "library_call": "scaled_dot_product_attention(enable_gqa=True) on gathered "
+                        + ("pre-dequantized f32" if kv == "s8" else f"{kv}")
+                        + " K/V with the same mask",
     }
 
 
-def phase_paged_append(gen, dev):
+def phase_paged_append(gen, dev, kv="s8"):
     """decode_mha_append_cat through a block table at the GPT-2 headline
-    shape: slots 120, cap 256, pools of 1 + 480 blocks of 64 rows, a
+    shape: slots 120, cap 256, ``kv`` pools of 1 + 480 blocks of 64 rows, a
     shuffled table for 112 slots and 8 idle slots (rows of 0) whose new
     rows collide in block 0. Against its plain version: output within
-    1e-4, s8 pools bit-exact, scale pools rtol 5e-6, and two runs from the
+    1e-4, pools bit-exact, s8 scale pools rtol 5e-6, and two runs from the
     same inputs bit-identical. Then times over 12 layers' pools."""
     from rten_tpu_torch.kernels.flash_attention import (
         decode_mha_append_cat, decode_mha_append_cat_paged_plain, paged_gather_scales,
@@ -596,60 +628,309 @@ def phase_paged_append(gen, dev):
     q = torch.randn(B, H, 1, D, generator=gen).to(dev)
     kn = torch.randn(B, H, 1, D, generator=gen).to(dev)
     vn = torch.randn(B, H, 1, D, generator=gen).to(dev)
-    pools = _pools(gen, dev, NB, H, True, cat=True)
+    pools = _pools(gen, dev, NB, H, kv, cat=True)
+    n = 4 if kv == "s8" else 2  # pools, and s8 scale pools
+
+    def fresh():
+        return [t.clone() for t in pools[:n]] + [None] * (4 - n)
+
     runs = []
     for _ in range(2):
-        c = [t.clone() for t in pools]
+        c = fresh()
         runs.append(decode_mha_append_cat(q, c[0], c[1], lens, c[2], c[3], k_new=kn, v_new=vn,
                                           block_table=bt))
-    c = [t.clone() for t in pools]
+    c = fresh()
     want = decode_mha_append_cat_paged_plain(q, c[0], c[1], lens, c[2], c[3], k_new=kn,
                                              v_new=vn, block_table=bt)
     torch.cuda.synchronize()
     got = runs[0]
     err = (got[0] - want[0]).abs().max().item()
+    tag = f"decode_mha_append_cat (block table, {kv})"
     if not err <= 1e-4:
-        fail(f"decode_mha_append_cat (block table) out: max err {err} > 1e-4")
-    if not (torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])):
-        fail("decode_mha_append_cat (block table): s8 pools differ from the plain version")
-    if not all(torch.allclose(got[i], want[i], rtol=5e-6, atol=0) for i in (3, 4)):
-        fail("decode_mha_append_cat (block table): scale pools differ")
-    if not all(torch.equal(a, b) for a, b in zip(runs[0], runs[1])):
-        fail("decode_mha_append_cat (block table): two runs from the same inputs differ")
-    print(f"  decode_mha_append_cat (block table): max abs err {err:.3e} (bound 1e-4), pools "
-          f"bit-exact, two runs bit-identical", flush=True)
+        fail(f"{tag} out: max err {err} > 1e-4")
+    if not (torch.equal(_bits(got[1]), _bits(want[1])) and torch.equal(_bits(got[2]), _bits(want[2]))):
+        fail(f"{tag}: pools differ from the plain version")
+    if kv == "s8" and not all(torch.allclose(got[i], want[i], rtol=5e-6, atol=0) for i in (3, 4)):
+        fail(f"{tag}: scale pools differ")
+    if not all(torch.equal(_bits(a), _bits(b)) for a, b in zip(runs[0], runs[1])):
+        fail(f"{tag}: two runs from the same inputs differ")
+    print(f"  {tag}: max abs err {err:.3e} (bound 1e-4), pools bit-exact, two runs "
+          f"bit-identical", flush=True)
     del runs, want, c
-    layers = [_pools(gen, dev, NB, H, True, cat=True) for _ in range(12)]
+    layers = [_pools(gen, dev, NB, H, kv, cat=True) for _ in range(12)]
     k_ms = timed(lambda: [decode_mha_append_cat(q, c[0], c[1], lens, c[2], c[3], k_new=kn,
                                                 v_new=vn, block_table=bt) for c in layers],
                  iters=10)
     p_ms = timed(lambda: [decode_mha_append_cat_paged_plain(q, c[0], c[1], lens, c[2], c[3],
                                                             k_new=kn, v_new=vn, block_table=bt)
                           for c in layers], iters=3, warmup=1)
-    sd = [_sdpa_inputs(q, paged_gather_cat(c[0], bt), paged_gather_cat(c[1], bt),
-                       paged_gather_scales(c[2], bt)[..., None],
-                       paged_gather_scales(c[3], bt)[..., None], lens, 1) for c in layers]
+    if kv == "s8":
+        sd = [_sdpa_inputs(q, paged_gather_cat(c[0], bt), paged_gather_cat(c[1], bt),
+                           paged_gather_scales(c[2], bt)[..., None],
+                           paged_gather_scales(c[3], bt)[..., None], lens, 1) for c in layers]
+        qd = q
+    else:
+        from rten_tpu_torch.kernels.flash_attention import cat_to_heads
+
+        m = _mask(lens, 1)
+        sd = [(cat_to_heads(paged_gather_cat(c[0], bt), H),
+               cat_to_heads(paged_gather_cat(c[1], bt), H), m) for c in layers]
+        qd = q.to(FLOAT_KV[kv])
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = timed(lambda: [sdpa(q, kf, vf, attn_mask=m) for kf, vf, m in sd], iters=10)
+    lib = timed(lambda: [sdpa(qd, kf, vf, attn_mask=m) for kf, vf, m in sd], iters=10)
     del layers, sd
     # The flat row's count on this run's lens: rows read back (the new row
-    # is read too, from the pool), the new rows and scales written.
+    # is read too, from the pool), the new rows (and s8 scales) written.
     read = (lens.long().clamp(max=CAP - 1) + 1).sum().item()
+    row_bytes = D + 4 if kv == "s8" else D * FLOAT_KV[kv].itemsize
     per_call_bytes = (4 * B * H * D * 2 + 4 * B * H * D * 2 + 4 * B + 4 * B * MAXB
-                      + 2 * read * H * (D + 4) + 2 * B * H * (D + 4))
+                      + 2 * read * H * row_bytes + 2 * B * H * row_bytes)
     bms, by = bound_ms(12 * per_call_bytes, 12 * 4.0 * read * H * D, F32_FLOPS_PER_S)
-    print(f"  decode_mha_append_cat (block table) x12: kernel {fmt(k_ms)}, plain {fmt(p_ms)}, "
-          f"sdpa {fmt(lib)}, bound {bms:.4f} ms ({by})", flush=True)
+    print(f"  {tag} x12: kernel {fmt(k_ms)}, plain {fmt(p_ms)}, sdpa {fmt(lib)}, "
+          f"bound {bms:.4f} ms ({by})", flush=True)
     return {
-        "name": "decode_mha_append_cat_paged", "route": "cuda",
-        "source": "rten_tpu_torch/csrc/flash_attention.cu",
+        "name": "decode_mha_append_cat_paged" + ("" if kv == "s8" else f"[{kv}]"), "kv": kv,
+        "counter": "decode_mha_append_cat_paged",
+        "source": "rten_tpu_torch/csrc/flash_attention.cu" + (
+            "" if kv == "s8" else
+            f" (write) and rten_tpu_torch/csrc/paged_decode_mha{'_bf16' * (kv == 'bf16')}.cu (attend)"),
         "replaces": "rten_tpu/kernels/flash_attention.py:2597",
-        "unit": (f"block_table= mode: one GPT-2 decode step at slots {B}, cap {CAP}, pools of "
-                 f"{NB} blocks of {BLOCK}: 12 calls (one per layer), two launches each"),
+        "unit": (f"block_table= mode: one GPT-2 decode step at slots {B}, cap {CAP}, {kv} "
+                 f"pools of {NB} blocks of {BLOCK}: 12 calls (one per layer), two launches each"),
         "max_abs_err": err, **time_keys(k_ms, p_ms, lib), "bound_ms": bms, "bound_by": by,
-        "library_call": "scaled_dot_product_attention on gathered, pre-dequantized f32 K/V "
-                        "(no quantize, no append)",
+        "library_call": "scaled_dot_product_attention on gathered "
+                        + ("pre-dequantized f32" if kv == "s8" else kv)
+                        + " K/V (no append)",
     }
+
+
+# --- f32 and bf16 KV caches (no scales) ----------------------------------------
+
+FLOAT_KV = {"bf16": torch.bfloat16, "f32": torch.float32}
+# Qwen2.5-1.5B's published shape (Qwen/Qwen2.5-1.5B, config.json): hidden
+# 1536, intermediate 8960, 28 layers, 12 query heads over 2 KV heads (D 128,
+# group 6), vocab 151936, rope_theta 1e6, rms_norm_eps 1e-6, q/k/v biases,
+# tied embeddings, no sliding window; its serve phase's slots.
+Q_LAYERS, Q_H, Q_HKV, Q_D, Q_VOCAB, Q_SLOTS = 28, 12, 2, 128, 151936, 16
+QWEN = dict(vocab_size=Q_VOCAB, hidden_size=1536, intermediate_size=8960,
+            num_attention_heads=Q_H, num_key_value_heads=Q_HKV,
+            max_position_embeddings=131072, rms_norm_eps=1e-6, rope_theta=1e6,
+            attention_bias=True, tie_word_embeddings=True)
+
+
+def _float_kv(gen, dev, shape, dt):
+    """Two random f32/bf16 caches or pools (K and V) of ``shape``."""
+    return tuple(torch.randn(shape, generator=gen).to(FLOAT_KV[dt]).to(dev) for _ in range(2))
+
+
+def _bits(t):
+    """A tensor's bits, comparable with torch.equal (bf16 as int16)."""
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def _append_case(gen, dev, dt, B, Hq, Hkv, Dh, layers, tag):
+    """decode_mha_append_cat on f32/bf16 cat caches at one shape: against
+    its plain version (out within 1e-4, cache rows bit-exact), the same bits
+    on a second call from the same caches; then the times of ``layers``
+    calls (one per layer), the plain version's and SDPA's (enable_gqa where
+    grouped) on the cache-dtype K/V, beside the bound from this run's lens."""
+    from rten_tpu_torch.kernels.flash_attention import (
+        cat_to_heads, decode_mha_append_cat, decode_mha_append_cat_plain,
+    )
+
+    q = torch.randn(B, Hq, 1, Dh, generator=gen).to(dev)
+    kn = torch.randn(B, Hkv, 1, Dh, generator=gen).to(dev)
+    vn = torch.randn(B, Hkv, 1, Dh, generator=gen).to(dev)
+    lens = torch.randint(128, 192, (B,), generator=gen, dtype=torch.int32)
+    lens[:4] = torch.tensor([0, 31, CAP - 1, CAP + 5], dtype=torch.int32)
+    lens = lens.to(dev)
+    kc, vc = _float_kv(gen, dev, (B, CAP, Hkv * Dh), dt)
+    runs = [decode_mha_append_cat(q, kc.clone(), vc.clone(), lens, k_new=kn, v_new=vn)
+            for _ in range(2)]
+    want = decode_mha_append_cat_plain(q, kc.clone(), vc.clone(), lens, k_new=kn, v_new=vn)
+    torch.cuda.synchronize()
+    err = (runs[0][0] - want[0]).abs().max().item()
+    exact = all(torch.equal(_bits(runs[0][i]), _bits(want[i])) for i in (1, 2))
+    same = all(torch.equal(_bits(a), _bits(b)) for a, b in zip(*runs))
+    if not err <= 1e-4 or not exact or not same:
+        fail(f"decode_mha_append_cat [{tag}]: max err {err} > 1e-4, cache rows bit-exact "
+             f"{exact}, two calls bit-identical {same}")
+    del runs, want
+    layer_kv = [_float_kv(gen, dev, (B, CAP, Hkv * Dh), dt) for _ in range(layers)]
+    k_ms = timed(lambda: [decode_mha_append_cat(q, k, v, lens, k_new=kn, v_new=vn)
+                          for k, v in layer_kv], iters=10)
+    p_ms = timed(lambda: [decode_mha_append_cat_plain(q, k, v, lens, k_new=kn, v_new=vn)
+                          for k, v in layer_kv], iters=3, warmup=1)
+    qd, m = q.to(FLOAT_KV[dt]), _mask(lens, 1)
+    sd = [(cat_to_heads(k, Hkv), cat_to_heads(v, Hkv)) for k, v in layer_kv]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = timed(lambda: [sdpa(qd, k, v, attn_mask=m, enable_gqa=Hq != Hkv) for k, v in sd],
+                iters=10)
+    del layer_kv, sd
+    # Rows read back: lens (the new row is scored from shared memory); the
+    # new rows written; q, k_new, v_new read and out written in f32.
+    el = FLOAT_KV[dt].itemsize
+    read = lens.clamp(max=CAP - 1).long().sum().item()
+    nbytes = (4 * B * Hq * Dh * 2 + 4 * B * Hkv * Dh * 2 + 4 * B
+              + 2 * read * Hkv * Dh * el + 2 * B * Hkv * Dh * el)
+    bms, by = bound_ms(layers * nbytes, layers * 4.0 * (read + B) * Hq * Dh, F32_FLOPS_PER_S)
+    print(f"  decode_mha_append_cat [{tag}] x{layers}: max abs err {err:.3e} (bound 1e-4), "
+          f"rows bit-exact, two calls bit-identical; kernel {fmt(k_ms)}, plain {fmt(p_ms)}, "
+          f"sdpa {fmt(lib)}, bound {bms:.4f} ms ({by})", flush=True)
+    return {"unit": f"{tag}: {layers} calls (one per layer)", "max_abs_err": err,
+            **time_keys(k_ms, p_ms, lib), "bound_ms": bms, "bound_by": by}
+
+
+def _prefill_case(gen, dev, dt, B, Hq, Hkv, Dh, layers, tag):
+    """prefill_mha_cat on f32/bf16 cat caches for an admission of B x 128
+    tokens (q a head-major view of a [B, 128, (Hq + 2 Hkv) * D] qkv, as the
+    op hands it over): against its plain version within 1e-4 from empty
+    slots and at offsets, the same bits on a second call; then the times
+    of ``layers`` calls, the plain version's and SDPA's with the same mask."""
+    from rten_tpu_torch.kernels.flash_attention import (
+        cat_to_heads, prefill_mha_cat, prefill_mha_cat_plain,
+    )
+
+    qkv = torch.randn(B, PROMPT, (Hq + 2 * Hkv) * Dh, generator=gen).to(dev)
+    q = qkv[..., :Hq * Dh].reshape(B, PROMPT, Hq, Dh).permute(0, 2, 1, 3)
+    kc, vc = _float_kv(gen, dev, (B, CAP, Hkv * Dh), dt)
+    lens = torch.zeros(B, dtype=torch.int32, device=dev)
+    lens2 = torch.randint(0, CAP - PROMPT, (B,), generator=gen, dtype=torch.int32).to(dev)
+    err = 0.0
+    for ln in (lens, lens2):
+        got = prefill_mha_cat(q, kc, vc, ln)
+        again = prefill_mha_cat(q, kc, vc, ln)
+        want = prefill_mha_cat_plain(q, kc, vc, ln)
+        torch.cuda.synchronize()
+        e = (got - want).abs().max().item()
+        if not e <= 1e-4 or not torch.equal(got, again):
+            fail(f"prefill_mha_cat [{tag}]: max err {e} > 1e-4, or two calls differ")
+        err = max(err, e)
+    del got, again, want
+    layer_kv = [_float_kv(gen, dev, (B, CAP, Hkv * Dh), dt) for _ in range(layers)]
+    k_ms = timed(lambda: [prefill_mha_cat(q, k, v, lens) for k, v in layer_kv], iters=5)
+    p_ms = timed(lambda: [prefill_mha_cat_plain(q, k, v, lens) for k, v in layer_kv],
+                 iters=2, warmup=1)
+    qd, m = q.to(FLOAT_KV[dt]), _mask(lens, PROMPT)
+    sd = [(cat_to_heads(k, Hkv), cat_to_heads(v, Hkv)) for k, v in layer_kv]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = timed(lambda: [sdpa(qd, k, v, attn_mask=m, enable_gqa=Hq != Hkv) for k, v in sd],
+                iters=5)
+    del layer_kv, sd
+    pairs = B * Hq * PROMPT * (PROMPT + 1) / 2  # causal (row, column) pairs from empty slots
+    nbytes = 4 * B * Hq * PROMPT * Dh * 2 + 2 * B * PROMPT * Hkv * Dh * FLOAT_KV[dt].itemsize + 4 * B
+    bms, by = bound_ms(layers * nbytes, layers * 4.0 * pairs * Dh, F32_FLOPS_PER_S)
+    print(f"  prefill_mha_cat [{tag}] x{layers}: max abs err {err:.3e} (bound 1e-4), two calls "
+          f"bit-identical; kernel {fmt(k_ms)}, plain {fmt(p_ms)}, sdpa {fmt(lib)}, "
+          f"bound {bms:.4f} ms ({by})", flush=True)
+    return {"unit": f"{tag}: {layers} calls (one per layer)", "max_abs_err": err,
+            **time_keys(k_ms, p_ms, lib), "bound_ms": bms, "bound_by": by}
+
+
+def _head_major_bf16_case(gen, dev, S, window, layers):
+    """decode_mha on bf16 head-major caches at TinyLlama's attention shape
+    (slots 16, H 32 over 4, D 64, cap 256): the fold at S 1, the per-head
+    form at S 128. Against decode_mha_plain within 1e-4 on rows with a
+    column to attend (0 on the others), the same bits on a second call;
+    with ``layers``, the times over that many layers' caches."""
+    from rten_tpu_torch.kernels.flash_attention import (
+        decode_mha, decode_mha_folded, decode_mha_heads, decode_mha_plain,
+    )
+
+    B = L_SLOTS
+    edges = torch.tensor([0, CAP - 1, CAP + 5], dtype=torch.int32)
+    hi = 192 if S == 1 else CAP - PROMPT + 1
+    lo = 128 if S == 1 else 0
+    lens = torch.cat([edges, torch.randint(lo, hi, (B - 3,), generator=gen,
+                                           dtype=torch.int32)]).to(dev)
+    q = torch.randn(B, L_H, S, L_D, generator=gen).to(dev)
+    k, v = _float_kv(gen, dev, (B, L_HKV, CAP, L_D), "bf16")
+    form = decode_mha_folded if S == 1 else decode_mha_heads
+    before = form.launches
+    got = decode_mha(q, k, v, lens, window=window)
+    again = decode_mha(q, k, v, lens, window=window)
+    want = decode_mha_plain(q, k, v, lens, window=window)
+    torch.cuda.synchronize()
+    live = _mask(lens, S, window).any(-1, keepdim=True).expand(B, L_H, S, L_D)
+    err = (got - want)[live].abs().max().item()
+    tag = f"decode_mha S={S} bf16 window={window}"
+    if (form.launches != before + 2 or not err <= 1e-4 or not (got[~live] == 0).all()
+            or not torch.equal(got, again)):
+        fail(f"{tag}: wrong form, max err {err} > 1e-4, a row with no column not 0, or two "
+             f"calls differ")
+    print(f"  {tag}: max abs err {err:.3e} (bound 1e-4), two calls bit-identical", flush=True)
+    if not layers:
+        return err, None
+    layer_kv = [_float_kv(gen, dev, (B, L_HKV, CAP, L_D), "bf16") for _ in range(layers)]
+    k_ms = timed(lambda: [form(q, kk, vv, lens) for kk, vv in layer_kv], iters=10)
+    p_ms = timed(lambda: [decode_mha_plain(q, kk, vv, lens) for kk, vv in layer_kv],
+                 iters=3, warmup=1)
+    qd, m = q.to(torch.bfloat16), _mask(lens, S)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = timed(lambda: [sdpa(qd, kk, vv, attn_mask=m, enable_gqa=True) for kk, vv in layer_kv],
+                iters=10)
+    del layer_kv
+    pairs = _mask(lens, S).sum().item()
+    kv_rows = (lens.long() + S).clamp(max=CAP).sum().item()
+    nbytes = 2 * 4 * B * L_H * S * L_D + 4 * B + 2 * kv_rows * L_HKV * L_D * 2
+    bms, by = bound_ms(layers * nbytes, layers * 4.0 * pairs * L_H * L_D, F32_FLOPS_PER_S)
+    print(f"  {form.__name__} bf16 x{layers}: kernel {fmt(k_ms)}, plain {fmt(p_ms)}, sdpa on "
+          f"bf16 {fmt(lib)}, bound {bms:.4f} ms ({by})", flush=True)
+    return err, {"max_abs_err": err, **time_keys(k_ms, p_ms, lib), "bound_ms": bms,
+                 "bound_by": by}
+
+
+def phase_float_kv_kernels(gen, dev):
+    """The f32/bf16 modes of the four attention kernels (kernel rows 2, 3,
+    6a/6b and 8) at the serve paths' shapes: the flat append and
+    prefill_mha_cat at GPT-2's headline (slots 120, cap 256; an admission
+    of 120 x 128) in bf16 and f32, and at Qwen2.5-1.5B's attention (slots
+    16, cap 256, D 128, group 6, 28 calls) in bf16; the block-table append
+    on bf16 pools of 1 + 480 blocks; decode_mha's two forms and
+    paged_decode_mha on bf16 at TinyLlama's attention shape (22 calls).
+    Returns one row per kernel, its bf16 mode, the other shapes nested."""
+    rows = []
+    gpt2 = f"GPT-2 decode step at slots {SLOTS}, cap {CAP}, H 12, D 64"
+    qwen = f"Qwen2.5-1.5B decode step at slots {Q_SLOTS}, cap {CAP}, H 12/2, D 128"
+    cases = [_append_case(gen, dev, dt, *shape, f"{dt}, {unit}") for dt, shape, unit in (
+        ("bf16", (SLOTS, H, H, D, 12), gpt2), ("f32", (SLOTS, H, H, D, 12), gpt2),
+        ("bf16", (Q_SLOTS, Q_H, Q_HKV, Q_D, Q_LAYERS), qwen))]
+    rows.append({"name": "decode_mha_append_cat[bf16]", "kv": "bf16",
+                 "counter": "decode_mha_append_cat",
+                 "source": "rten_tpu_torch/csrc/flash_attention.cu",
+                 "replaces": "rten_tpu/kernels/flash_attention.py:2597", **cases[0],
+                 "max_abs_err": max(c["max_abs_err"] for c in cases),
+                 "library_call": "scaled_dot_product_attention (enable_gqa where grouped) on "
+                                 "the cache-dtype K/V with the same mask (no append)",
+                 "other_shapes": cases[1:]})
+    gpt2 = f"GPT-2 admission of {SLOTS} x {PROMPT} tokens, H 12, D 64"
+    qwen = f"Qwen2.5-1.5B admission of {Q_SLOTS} x {PROMPT} tokens, H 12/2, D 128"
+    cases = [_prefill_case(gen, dev, dt, *shape, f"{dt}, {unit}") for dt, shape, unit in (
+        ("bf16", (SLOTS, H, H, D, 12), gpt2), ("f32", (SLOTS, H, H, D, 12), gpt2),
+        ("bf16", (Q_SLOTS, Q_H, Q_HKV, Q_D, Q_LAYERS), qwen))]
+    rows.append({"name": "prefill_mha_cat[bf16]", "kv": "bf16", "counter": "prefill_mha_cat",
+                 "source": "rten_tpu_torch/csrc/flash_attention.cu",
+                 "replaces": "rten_tpu/kernels/flash_attention.py:3301", **cases[0],
+                 "max_abs_err": max(c["max_abs_err"] for c in cases),
+                 "library_call": "scaled_dot_product_attention (enable_gqa where grouped) on "
+                                 "the cache-dtype K/V with the same mask",
+                 "other_shapes": cases[1:]})
+    rows.append(phase_paged_append(gen, dev, "bf16"))
+    errs = [_head_major_bf16_case(gen, dev, 1, 64, 0)[0],
+            _head_major_bf16_case(gen, dev, PROMPT, 64, 0)[0]]
+    for S, name, line in ((1, "decode_mha_folded", 772), (PROMPT, "decode_mha_heads", 935)):
+        err, timing = _head_major_bf16_case(gen, dev, S, 0, L_LAYERS)
+        rows.append({"name": f"{name}[bf16]", "kv": "bf16", "counter": name,
+                     "source": "rten_tpu_torch/csrc/decode_mha_bf16.cu",
+                     "replaces": f"rten_tpu/kernels/flash_attention.py:{line}",
+                     "unit": (f"one TinyLlama {'decode step' if S == 1 else 'admission'} at "
+                              f"slots {L_SLOTS}, cap {CAP}{'' if S == 1 else f', {S} tokens'}: "
+                              f"{L_LAYERS} calls (one per layer), bf16 caches"),
+                     **timing, "max_abs_err": max(err, *errs),
+                     "library_call": "scaled_dot_product_attention(enable_gqa=True) on the "
+                                     "bf16 K/V with the same mask"})
+    rows.append(phase_paged_decode_mha(gen, dev, "bf16"))
+    return rows
 
 
 def phase_argmax(gen, dev, slots=SLOTS, vocab=VOCAB, padded=NP):
@@ -862,9 +1143,19 @@ def phase_int4_matmul(gen, dev):
 # --- serve and reference phases -----------------------------------------------
 
 
-def build_model(n_layer, capacity, device, vocab=VOCAB, n_embd=E, n_head=H, **paged):
-    """GPT-2 through the user's entry points; ``paged``: paged_blocks and
-    block_size for the paged cat pools."""
+def kv_options(kv):
+    """The builders' cache options for ``kv``: "s8" (int8 with scales),
+    "bf16" or "f32" (no scales)."""
+    from rten_tpu_torch.dtypes import DataType
+
+    return {"s8": dict(kv_quant=True), "f32": dict(kv_quant=False),
+            "bf16": dict(kv_quant=False, kv_dtype=DataType.BFloat16)}[kv]
+
+
+def build_model(n_layer, capacity, device, vocab=VOCAB, n_embd=E, n_head=H, kv="s8",
+                **paged):
+    """GPT-2 through the user's entry points, on ``kv`` cat caches;
+    ``paged``: paged_blocks and block_size for the paged cat pools."""
     from rten_tpu_torch.model import Model
     from rten_tpu_torch.models import gpt2
     from rten_tpu_torch.quantize_pass import quantize_dynamic
@@ -872,8 +1163,8 @@ def build_model(n_layer, capacity, device, vocab=VOCAB, n_embd=E, n_head=H, **pa
     cfg = gpt2.GPT2Config(vocab_size=vocab, n_layer=n_layer, n_embd=n_embd, n_head=n_head)
     weights = gpt2.random_weights(cfg, seed=0)
     graph = gpt2.build_graph_static_cache(
-        cfg, weights, capacity=capacity, kv_quant=True, kernel_append=True,
-        gather_last=True, **paged,
+        cfg, weights, capacity=capacity, kernel_append=True, gather_last=True,
+        **kv_options(kv), **paged,
     )
     quantize_dynamic(graph)
     return Model(graph, device=device)
@@ -964,13 +1255,13 @@ def check_pool(engine, tag):
 PAGED = dict(paged_blocks=41, block_size=BLOCK)
 
 
-def phase_serve(dev, paged=False):
-    """GPT-2 124M at full width, int8 weights, behind the engine: int8 cat
-    KV caches, or (``paged``) paged int8 cat pools with the block-table
-    append."""
+def phase_serve(dev, paged=False, kv="s8"):
+    """GPT-2 124M at full width, int8 weights, behind the engine: ``kv`` cat
+    KV caches (``bench.py``'s default int8, its RTEN_BENCH_KV=bf16), or
+    (``paged``) paged cat pools with the block-table append."""
     from rten_tpu_torch.serving import ContinuousBatchingEngine
 
-    model = build_model(12, CAP, dev, **(PAGED if paged else {}))
+    model = build_model(12, CAP, dev, kv=kv, **(PAGED if paged else {}))
     engine = ContinuousBatchingEngine(
         model, n_layer=12, n_head=H, head_dim=D, slots=16, capacity=CAP,
         prefill_bucket=128, greedy_on_device=True, steps_per_dispatch=8,
@@ -992,7 +1283,7 @@ def phase_serve(dev, paged=False):
             "prefill_mha_cat": 12 * adm,
             "argmax_lastdim": steps + adm,
         }
-    tag = "GPT-2 paged" if paged else "GPT-2"
+    tag = "GPT-2" + ("" if kv == "s8" else f" {kv}") + (" paged" if paged else "")
     _, elapsed, forwards, launches = serve(engine, prompts, budgets, VOCAB, want, tag)
     profile_wave(engine, prompts[:16], elapsed / forwards)
     check_pool(engine, tag)
@@ -1074,7 +1365,7 @@ def phase_generate(dev, quantize):
         fail(f"{tag}: tokens {toks.shape}, in range: {((toks >= 0) & (toks < VOCAB)).all()}")
     m = gen.metrics
     wall_step = sum(m.step_times_s[1:]) / len(m.step_times_s[1:])
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         Generator(model, prompt, cfg).generate(16)
         torch.cuda.synchronize()
@@ -1092,12 +1383,13 @@ def phase_generate(dev, quantize):
     return launches
 
 
-def build_llama(n_layer, capacity, device, sharpen=1.0, weights=None, **options):
+def build_llama(n_layer, capacity, device, sharpen=1.0, weights=None, kv="s8", **options):
     """A Llama-family model through the user's entry points: ``weights``, or
     random weights from seed 0 (the projections scaled by ``sharpen``), the
-    serving graph, int8 weights, and ``Model``. ``options``: LlamaConfig
-    fields and builder options (the default: int8 head-major KV caches).
-    Returns the model and the seconds each step took."""
+    serving graph on ``kv`` caches (head-major unless ``options`` say
+    kernel_append), int8 weights, and ``Model``. ``options``: LlamaConfig
+    fields and builder options. Returns the model and the seconds each step
+    took."""
     from rten_tpu_torch.model import Model
     from rten_tpu_torch.models import llama
     from rten_tpu_torch.quantize_pass import quantize_dynamic
@@ -1105,7 +1397,7 @@ def build_llama(n_layer, capacity, device, sharpen=1.0, weights=None, **options)
     fields = set(llama.LlamaConfig.__dataclass_fields__)
     cfg = llama.LlamaConfig(num_hidden_layers=n_layer,
                             **{k: v for k, v in options.items() if k in fields})
-    build = {"kv_quant": True, **{k: v for k, v in options.items() if k not in fields}}
+    build = {**kv_options(kv), **{k: v for k, v in options.items() if k not in fields}}
     secs = {}
     if weights is None:
         t0 = time.perf_counter()
@@ -1139,18 +1431,48 @@ def tinyllama_weights():
     return weights
 
 
-def phase_serve_llama(dev, weights, paged=False, n_layer=L_LAYERS):
+def phase_serve_llama(dev, weights, paged=False, n_layer=L_LAYERS, kv="s8"):
     """TinyLlama-1.1B's shape at full width (``n_layer`` of ``weights``'
-    22 layers), int8 weights, int8 head-major KV caches or (``paged``) paged
-    int8 head-major pools, behind the engine: 16 slots, cap 256, bucket 128,
-    8 steps per dispatch, 24 requests of 128 seeded tokens with 16-48 new
-    tokens each."""
+    22 layers), int8 weights, ``kv`` head-major KV caches or (``paged``)
+    paged head-major pools, behind the engine."""
+    tag = "TinyLlama" + ("" if kv == "s8" else f" {kv}") + (" paged" if paged else "")
+    decode = "paged_decode_mha" if paged else "decode_mha_folded"
+    return serve_llama_family(
+        dev, tag, n_layer, L_H, L_D, L_VOCAB, dict(weights=weights, kv=kv, **(PAGED if paged else {})),
+        lambda steps, adm: {
+            "int8_matmul_dequant": (7 * n_layer + 1) * (steps + adm),
+            decode: n_layer * steps,
+            "decode_mha_heads": n_layer * adm,
+            "argmax_lastdim": steps + adm,
+        })
+
+
+def phase_serve_qwen(dev):
+    """Qwen2.5-1.5B's published shape at full width and depth (28 layers,
+    random weights from seed 0), int8 weights, bf16 cat KV caches (D 128,
+    group 6: ``prefill_mha_cat`` at admissions, ``decode_mha_append_cat``
+    at decode steps), behind the engine."""
+    return serve_llama_family(
+        dev, "Qwen2.5-1.5B bf16 cat", Q_LAYERS, Q_H, Q_D, Q_VOCAB,
+        dict(QWEN, kv="bf16", kernel_append=True),
+        lambda steps, adm: {
+            "int8_matmul_dequant": (7 * Q_LAYERS + 1) * (steps + adm),
+            "decode_mha_append_cat": Q_LAYERS * steps,
+            "prefill_mha_cat": Q_LAYERS * adm,
+            "argmax_lastdim": steps + adm,
+        })
+
+
+def serve_llama_family(dev, tag, n_layer, n_head, head_dim, vocab, build_kw, want):
+    """A Llama-family model (``build_llama(**build_kw)``) behind the engine:
+    16 slots, cap 256, bucket 128, 8 steps per dispatch, 24 requests of 128
+    seeded tokens with 16-48 new tokens each, the launches checked against
+    ``want``; then the profiled wave."""
     import resource
 
     from rten_tpu_torch.serving import ContinuousBatchingEngine
 
-    tag = "TinyLlama paged" if paged else "TinyLlama"
-    model, secs = build_llama(n_layer, CAP, dev, weights=weights, **(PAGED if paged else {}))
+    model, secs = build_llama(n_layer, CAP, dev, **build_kw)
     torch.cuda.synchronize()
     n_ops = sum(1 for _ in model.graph.operators())
     print(f"  build [{tag}]: {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())}; "
@@ -1158,20 +1480,13 @@ def phase_serve_llama(dev, weights, paged=False, n_layer=L_LAYERS):
           f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f} GiB "
           f"(the whole process so far)", flush=True)
     engine = ContinuousBatchingEngine(
-        model, n_layer=n_layer, n_head=L_H, head_dim=L_D, slots=L_SLOTS, capacity=CAP,
+        model, n_layer=n_layer, n_head=n_head, head_dim=head_dim, slots=L_SLOTS, capacity=CAP,
         prefill_bucket=128, greedy_on_device=True, steps_per_dispatch=8,
     )
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, L_VOCAB, PROMPT).tolist() for _ in range(24)]
+    prompts = [rng.integers(0, vocab, PROMPT).tolist() for _ in range(24)]
     budgets = [int(rng.integers(16, 49)) for _ in range(24)]
-    decode = "paged_decode_mha" if paged else "decode_mha_folded"
-    _, elapsed, forwards, launches = serve(
-        engine, prompts, budgets, L_VOCAB, lambda steps, adm: {
-            "int8_matmul_dequant": (7 * n_layer + 1) * (steps + adm),
-            decode: n_layer * steps,
-            "decode_mha_heads": n_layer * adm,
-            "argmax_lastdim": steps + adm,
-        }, tag)
+    _, elapsed, forwards, launches = serve(engine, prompts, budgets, vocab, want, tag)
     profile_wave(engine, prompts[:16], elapsed / forwards)
     check_pool(engine, tag)
     return launches
@@ -1180,17 +1495,19 @@ def phase_serve_llama(dev, weights, paged=False, n_layer=L_LAYERS):
 def profile_wave(engine, prompts, wall_per_forward):
     """One more full wave (16 requests of 17 tokens: an admission and two
     dispatches of 8 steps; a paged pool that holds 13 admits the rest once
-    blocks free) under torch.profiler: the card's busy time, by kernel,
-    against the host's wall time. The profiler slows the host, so the idle
-    share is stated against the unprofiled wall time per forward of the
-    serve run as well."""
+    blocks free) under torch.profiler, recording CUDA activity only (only
+    device events are read; a CPU trace of every op cost minutes to stop
+    and summarize): the card's busy time, by kernel, against the host's
+    wall time. The profiler slows the host, so the idle share is stated
+    against the unprofiled wall time per forward of the serve run as
+    well."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     reqs = [engine.submit(p, max_new_tokens=17) for p in prompts]
     steps0 = engine.steps
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         engine.run()
         torch.cuda.synchronize()
@@ -1229,9 +1546,11 @@ def phase_reference(dev):
 
     1. A small GPT-2 (2 layers, E 128, H 2, vocab 512, cap 64) behind the
        engine, 5 requests on 3 slots, 4 steps per dispatch: the same tokens,
-       on int8 cat caches and on paged int8 cat pools (SMALL_PAGED: 3
-       usable blocks of 16 rows, so admissions wait for blocks).
-    2. GPT-2 at full width cut to 2 layers: one admission and 3 decode
+       on int8, bf16 and f32 cat caches and on paged int8 and bf16 cat pools
+       (SMALL_PAGED: 3 usable blocks of 16 rows, so admissions wait for
+       blocks).
+    2. GPT-2 at full width cut to 2 layers, int8 and bf16 cat caches: one
+       admission and 3 decode
        steps from the same inputs: finite logits of the right shape, the
        same greedy tokens unless the CPU's top two are within the logit
        tolerance, and logits within 5e-2 of their maximum. The activations
@@ -1240,19 +1559,22 @@ def phase_reference(dev):
        ~1.5e-2 of their maximum (measured on the CPU against the JAX
        package); a kernel fault moves them by far more.
     """
-    for paged in ({}, SMALL_PAGED):
+    for kv, paged in (("s8", {}), ("s8", SMALL_PAGED), ("bf16", {}), ("bf16", SMALL_PAGED),
+                      ("f32", {})):
+        tag = f"GPT-2 {kv}{' paged' if paged else ''}"
         toks = small_engine_tokens(dev, lambda device: build_model(
-            2, 64, device, vocab=512, n_embd=128, n_head=2, **paged), 2, "GPT-2")
+            2, 64, device, vocab=512, n_embd=128, n_head=2, kv=kv, **paged), 2, tag)
         if toks["cuda"] != toks["cpu"]:
-            fail(f"reference [GPT-2{' paged' if paged else ''}]: small engine tokens differ: "
-                 f"{toks['cuda']} vs {toks['cpu']}")
-
-    worst, equal = logits_card_vs_cpu(dev, lambda device: build_model(2, 64, device), VOCAB,
-                                      "GPT-2")
-    print(f"  reference [GPT-2]: small engine tokens equal on card and CPU (cat caches and "
-          f"paged pools); full width, "
-          f"2 layers: logits max err {worst:.3e} of max|logit|, tokens "
-          f"{'equal' if equal else 'differ only at near ties'}", flush=True)
+            fail(f"reference [{tag}]: small engine tokens differ: {toks['cuda']} vs "
+                 f"{toks['cpu']}")
+    print("  reference [GPT-2]: small engine tokens equal on card and CPU (s8, bf16, f32 cat "
+          "caches; s8, bf16 paged pools)", flush=True)
+    for kv in ("s8", "bf16"):
+        worst, equal = logits_card_vs_cpu(dev, lambda device: build_model(2, 64, device, kv=kv),
+                                          VOCAB, f"GPT-2 {kv}")
+        print(f"  reference [GPT-2 {kv}]: full width, 2 layers: logits max err {worst:.3e} of "
+              f"max|logit|, tokens {'equal' if equal else 'differ only at near ties'}",
+              flush=True)
 
 
 # The small reference engines' pool: 3 usable blocks of 16 rows for
@@ -1260,7 +1582,7 @@ def phase_reference(dev):
 SMALL_PAGED = dict(paged_blocks=4, block_size=16)
 
 
-def small_engine_tokens(dev, make_model, n_head, tag):
+def small_engine_tokens(dev, make_model, n_head, tag, head_dim=64):
     """A small model behind the engine on the card and on the CPU: 5 seeded
     requests on 3 slots, cap 64, 4 steps per dispatch. Returns the tokens by
     device type; a paged engine must end with every block free."""
@@ -1269,7 +1591,7 @@ def small_engine_tokens(dev, make_model, n_head, tag):
     toks = {}
     for device in (dev, torch.device("cpu")):
         eng = ContinuousBatchingEngine(
-            make_model(device), n_layer=2, n_head=n_head, head_dim=64, slots=3, capacity=64,
+            make_model(device), n_layer=2, n_head=n_head, head_dim=head_dim, slots=3, capacity=64,
             prefill_bucket=8, greedy_on_device=True, steps_per_dispatch=4,
         )
         rng = np.random.default_rng(0)
@@ -1284,20 +1606,23 @@ def small_engine_tokens(dev, make_model, n_head, tag):
 
 def logits_card_vs_cpu(dev, make_model, vocab, tag, tol=5e-2):
     """One admission of 16 seeded tokens on 4 slots and 3 decode steps, on
-    the card and on the CPU from the same inputs: finite logits of the
+    the CPU and then on the card from the same inputs (each decode step
+    takes the CPU's greedy tokens on both, so that a token flipped at a
+    near tie does not change the card's next input): finite logits of the
     right shape, within ``tol`` of max|logit|, and the same greedy tokens
     unless the CPU's top two are within that tolerance. A paged model gets
     pools at their declared shape and a shuffled table. Returns (worst
     error, whether every token was equal)."""
     outs = {}
     slots, T = 4, 16
-    for device in (dev, torch.device("cpu")):
+    for device in (torch.device("cpu"), dev):
         model = make_model(device)
         rng = np.random.default_rng(1)
         ids = rng.integers(0, vocab, (slots, T)).astype(np.int32)
         info = {name: (dt, tuple(shape)) for name, dt, shape in model.input_info()}
         paged = "block_table" in info
-        caches = {name: np.zeros(shape if paged else (slots,) + shape[1:], dt.np_dtype)
+        caches = {name: torch.zeros(shape if paged else (slots,) + shape[1:],
+                                    dtype=dt.torch_dtype)
                   for name, (dt, shape) in info.items() if name.startswith("past_key_values.")}
         fixed = {}
         if paged:
@@ -1317,6 +1642,8 @@ def logits_card_vs_cpu(dev, make_model, vocab, tag, tol=5e-2):
                 fail(f"reference [{tag}]: logits {logits.shape} on {device}, finite: "
                      f"{np.isfinite(logits).all()}")
             res.append((logits, tok))
+            if device.type == "cuda":
+                tok = outs["cpu"][step][1]
             feed = {"past_key_values." + n[len("present."):]: t
                     for n, t in zip(names, got[2:])}
             feed.update(fixed, input_ids=tok.astype(np.int32)[:, None], past_lens=lens,
@@ -1325,12 +1652,15 @@ def logits_card_vs_cpu(dev, make_model, vocab, tag, tol=5e-2):
         outs[device.type] = res
         del model
     worst = 0.0
-    for (lg, tg), (lc, tc) in zip(outs["cuda"], outs["cpu"]):
+    for step, ((lg, tg), (lc, tc)) in enumerate(zip(outs["cuda"], outs["cpu"])):
         scale = np.abs(lc).max()
         err = np.abs(lg - lc).max() / scale
         worst = max(worst, err)
         if err > tol:
-            fail(f"reference [{tag}]: logits differ by {err:.2e} of max|logit|")
+            by_slot = np.abs(lg - lc).max(axis=1) / scale
+            fail(f"reference [{tag}]: step {step}: logits differ by {err:.2e} of max|logit| "
+                 f"(by slot {np.round(by_slot, 4).tolist()}; max|logit| {np.abs(lg).max():.4f} "
+                 f"on the card, {scale:.4f} on the CPU)")
         for s in np.nonzero(tg != tc)[0]:
             top2 = np.sort(lc[s])[-2:]
             if top2[1] - top2[0] > tol * scale:
@@ -1345,20 +1675,25 @@ def phase_reference_llama(dev):
        vocab 512; the projections sharpened 2x, so that greedy tokens depend
        on the context) behind the engine, 5 requests on 3 slots, cap 64,
        4 steps per dispatch: the same tokens for each supported cache
-       layout (s8 head-major, f32 head-major, s8 cat), flat and paged
-       (SMALL_PAGED).
-    2. TinyLlama's width cut to 2 layers (s8 head-major caches, and paged
-       s8 head-major pools): logits as in the GPT-2 reference phase, within
-       5e-2 of max|logit|.
+       layout (s8, f32 and bf16 head-major; s8, f32 and bf16 cat), flat and
+       paged (SMALL_PAGED); and at D 128 (E 512, Qwen2's biases and tied
+       embeddings) on bf16 cat caches.
+    2. TinyLlama's width cut to 2 layers (s8 head-major caches, paged s8
+       head-major pools, bf16 head-major caches) and Qwen2.5-1.5B's (bf16
+       cat caches): logits as in the GPT-2 reference phase, within 5e-2 of
+       max|logit|.
     """
     small = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
                  num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=128)
-    layouts = {"s8 head-major": dict(kv_quant=True), "f32 head-major": dict(kv_quant=False),
-               "s8 cat": dict(kv_quant=True, kernel_append=True)}
+    layouts = {f"{kv} {form}": dict(kv=kv, kernel_append=form == "cat")
+               for kv in ("s8", "f32", "bf16") for form in ("head-major", "cat")}
     layouts.update({f"paged {k}": dict(v, **SMALL_PAGED) for k, v in list(layouts.items())})
+    layouts["D 128 bf16 cat"] = dict(kv="bf16", kernel_append=True, hidden_size=512,
+                                     attention_bias=True, tie_word_embeddings=True)
     for layout, opts in layouts.items():
+        head_dim = opts.get("hidden_size", 256) // 4
         toks = small_engine_tokens(dev, lambda device: build_llama(
-            2, 64, device, sharpen=2.0, **small, **opts)[0], 4, f"Llama, {layout}")
+            2, 64, device, sharpen=2.0, **{**small, **opts})[0], 4, f"Llama, {layout}", head_dim)
         if toks["cuda"] != toks["cpu"]:
             fail(f"reference [Llama, {layout}]: small engine tokens differ: "
                  f"{toks['cuda']} vs {toks['cpu']}")
@@ -1367,11 +1702,14 @@ def phase_reference_llama(dev):
     print(f"  reference [Llama]: small engine tokens equal on card and CPU for "
           f"{', '.join(layouts)}", flush=True)
     # 4 slots x 4 blocks of 16 rows, plus the garbage block.
-    for tag, paged in (("TinyLlama", {}), ("TinyLlama paged", dict(paged_blocks=17,
-                                                                   block_size=16))):
+    for tag, opts, vocab in (
+            ("TinyLlama", {}, L_VOCAB),
+            ("TinyLlama paged", dict(paged_blocks=17, block_size=16), L_VOCAB),
+            ("TinyLlama bf16", dict(kv="bf16"), L_VOCAB),
+            ("Qwen2.5-1.5B bf16 cat", dict(QWEN, kv="bf16", kernel_append=True), Q_VOCAB)):
         worst, equal = logits_card_vs_cpu(
-            dev, lambda device: build_llama(2, 64, device, **paged)[0], L_VOCAB, tag)
-        print(f"  reference [{tag}]: width of TinyLlama, 2 layers: logits max err {worst:.3e} "
+            dev, lambda device: build_llama(2, 64, device, **opts)[0], vocab, tag)
+        print(f"  reference [{tag}]: full width, 2 layers: logits max err {worst:.3e} "
               f"of max|logit|, tokens {'equal' if equal else 'differ only at near ties'}",
               flush=True)
 
@@ -1449,7 +1787,8 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.1f} s "
-          f"({_build.build_dir()})", flush=True)
+          f"({_build.build_dir()}); nvcc seconds by library: "
+          f"{json.dumps({k: round(v, 1) for k, v in _build.BUILD_SECONDS.items()})}", flush=True)
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "ptxas.txt"), "w") as f:
@@ -1473,14 +1812,16 @@ def main() -> int:
         phase_prefill_attention(gen, dev),
         phase_argmax(gen, dev),
     ]
-    # The kernels both serve paths run, at the TinyLlama path's shapes too.
+    # The kernels every serve path runs, at the TinyLlama and Qwen paths'
+    # shapes too.
     nested = ("unit", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
               "wall_ms", "plain_wall_ms", "library_wall_ms")
-    for row, llama_row in ((kernels[0], phase_int8_matmul(gen, dev, LLAMA_INT8, L_SLOTS,
-                                                          "TinyLlama")),
-                           (kernels[3], phase_argmax(gen, dev, L_SLOTS, L_VOCAB, 32768))):
-        row["llama"] = {k: llama_row[k] for k in nested}
-        row["max_abs_err"] = max(row["max_abs_err"], llama_row["max_abs_err"])
+    for row, key, other in (
+            (kernels[0], "llama", phase_int8_matmul(gen, dev, LLAMA_INT8, L_SLOTS, "TinyLlama")),
+            (kernels[3], "llama", phase_argmax(gen, dev, L_SLOTS, L_VOCAB, 32768)),
+            (kernels[3], "qwen", phase_argmax(gen, dev, Q_SLOTS, Q_VOCAB, Q_VOCAB))):
+        row[key] = {k: other[k] for k in nested}
+        row["max_abs_err"] = max(row["max_abs_err"], other["max_abs_err"])
     kernels += phase_decode_mha(gen, dev)
     lap("kernels of PRs 1-2")
     kernels.append(phase_paged_decode_mha(gen, dev))
@@ -1489,33 +1830,57 @@ def main() -> int:
     kernels.append(phase_mha(gen, dev))
     kernels.append(phase_int4_matmul(gen, dev))
     lap("mha and int4_matmul kernels")
+    kernels += phase_float_kv_kernels(gen, dev)
+    lap("f32/bf16 KV kernels")
     torch.cuda.empty_cache()
     print("serve phases:", flush=True)
     weights = tinyllama_weights()
-    by_path = {"tinyllama_serve": phase_serve_llama(dev, weights)}
+    # path -> the KV cache type it serves from (None: no KV cache kernel)
+    path_kv = {}
+
+    def run(path, cache_kv, fn, *args, **kw):
+        torch.cuda.empty_cache()
+        by_path[path] = fn(dev, *args, **kw)
+        path_kv[path] = cache_kv
+
+    by_path = {}
+    run("tinyllama_serve", "s8", phase_serve_llama, weights)
     lap("TinyLlama serve (weights included)")
-    torch.cuda.empty_cache()
-    by_path["tinyllama_paged_serve"] = phase_serve_llama(dev, weights, paged=True,
-                                                         n_layer=L_PAGED_LAYERS)
+    run("tinyllama_paged_serve", "s8", phase_serve_llama, weights, paged=True,
+        n_layer=L_CUT_LAYERS)
     lap("TinyLlama paged serve (8 layers)")
+    run("tinyllama_bf16_serve", "bf16", phase_serve_llama, weights, n_layer=L_CUT_LAYERS,
+        kv="bf16")
+    lap("TinyLlama bf16 serve (8 layers)")
+    run("tinyllama_bf16_paged_serve", "bf16", phase_serve_llama, weights, paged=True,
+        n_layer=L_CUT_LAYERS, kv="bf16")
+    lap("TinyLlama bf16 paged serve (8 layers)")
     del weights
-    torch.cuda.empty_cache()
-    by_path["gpt2_serve"] = phase_serve(dev)
+    run("gpt2_serve", "s8", phase_serve)
     lap("GPT-2 serve")
-    torch.cuda.empty_cache()
-    by_path["gpt2_paged_serve"] = phase_serve(dev, paged=True)
+    run("gpt2_paged_serve", "s8", phase_serve, paged=True)
     lap("GPT-2 paged serve")
-    torch.cuda.empty_cache()
-    by_path["gpt2_int4_serve"] = phase_serve_int4(dev)
+    run("gpt2_int4_serve", "s8", phase_serve_int4)
     lap("GPT-2 int4 serve")
+    run("gpt2_bf16_serve", "bf16", phase_serve, kv="bf16")
+    lap("GPT-2 bf16 serve")
+    run("gpt2_bf16_paged_serve", "bf16", phase_serve, paged=True, kv="bf16")
+    lap("GPT-2 bf16 paged serve")
+    run("qwen_bf16_serve", "bf16", phase_serve_qwen)
+    lap("Qwen2.5-1.5B bf16 serve (weights included)")
     print("generate phases:", flush=True)
     for quantize in (None, "int4"):
-        torch.cuda.empty_cache()
-        by_path[f"gpt2_generate_{quantize or 'f32'}"] = phase_generate(dev, quantize)
+        run(f"gpt2_generate_{quantize or 'f32'}", None, phase_generate, quantize)
     lap("GPT-2 generate (f32, int4)")
+    # A row's launches: its counter over the paths that serve from its KV
+    # cache type (every path for the kernels that read no KV cache).
     for k in kernels:
-        k["launches_by_path"] = {path: n[k["name"]] for path, n in by_path.items()}
+        kv = k.get("kv")
+        k["launches_by_path"] = {path: n[k.get("counter", k["name"])]
+                                 for path, n in by_path.items()
+                                 if kv is None or path_kv[path] in (kv, None)}
         k["launches"] = sum(k["launches_by_path"].values())
+        k.setdefault("route", "cuda")
     print("reference phases:", flush=True)
     phase_reference(dev)
     phase_reference_llama(dev)

@@ -1,7 +1,10 @@
-// The fold form of decode attention, shared by decode_mha.cu (slot-major
-// caches), paged_decode_mha.cu (head-major block pools read through a block
-// table) and flash_attention.cu (the block-table append's attention over
-// cat-layout pools: the same strides, rows of Hkv * D).
+// The fold form of decode attention, shared by decode_mha.cu and
+// decode_mha_bf16.cu (slot-major caches), paged_decode_mha.cu and
+// paged_decode_mha_bf16.cu (block pools read through a block table) and
+// flash_attention.cu (the block-table append's attention over s8
+// cat-layout pools: the same strides, rows of Hkv * D; over f32/bf16 cat
+// pools the append attends through the paged entry point with those
+// strides).
 //
 // One 128-thread block per (slot, kv head) holds the group * S query rows
 // that share the head in shared memory and reads each K/V row once for all
@@ -20,6 +23,9 @@
 // the V scale the probability: s = (q . k_int) * scale * ks[j],
 // out = sum_j p_j vs[j] v_int[j] / sum_j p_j.
 //
+// Cache elements T: s8 codes with per-position f32 scales, or f32 or bf16
+// values read as they are (no scales; the K scale is 1).
+//
 // Addressing (all strides in elements):
 // * PAGED = false: row j of slot b, kv head hk at kc + b * kv_sb + hk * kv_sh
 //   + j * kv_sj, its scale at ks[b * sc_sb + hk * sc_sh + j * sc_sj].
@@ -34,15 +40,45 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <type_traits>
 
+// The cache element types, by the code the wrappers pass
+// (kernels/flash_attention.py, KV_KINDS).
+enum KvKind { KV_S8 = 0, KV_F32 = 1, KV_BF16 = 2 };
+
+// Expands M(T) for the element type of ``kind``; any other kind returns
+// cudaErrorInvalidValue from the enclosing entry point.
+#define RTEN_BY_KIND(kind, M)                                                    \
+  switch (kind) {                                                                \
+    case KV_S8: M(int8_t); break;                                                \
+    case KV_F32: M(float); break;                                                \
+    case KV_BF16: M(__nv_bfloat16); break;                                       \
+    default: return (int)cudaErrorInvalidValue;                                  \
+  }
+
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// A value as an f32 or bf16 cache element; bf16 rounds to nearest, ties to
+// even, as jnp.astype(bfloat16) and torch's .to(torch.bfloat16) do.
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -56,7 +92,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// 16 bytes of a cache row as floats: 16 s8 values or 4 f32 values.
+// 16 bytes of a cache row as floats: 16 s8, 4 f32 or 8 bf16 values.
 __device__ __forceinline__ void load16(const int8_t* p, float* out) {
   const int4 w = *reinterpret_cast<const int4*>(p);
   const int8_t* e = reinterpret_cast<const int8_t*>(&w);
@@ -70,6 +106,17 @@ __device__ __forceinline__ void load16(const float* p, float* out) {
   out[1] = w.y;
   out[2] = w.z;
   out[3] = w.w;
+}
+
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
+  const uint4 w = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const float2 f = __bfloat1622float2(e[u]);
+    out[2 * u] = f.x;
+    out[2 * u + 1] = f.y;
+  }
 }
 
 constexpr int FOLD_WARPS = 4;
@@ -213,7 +260,7 @@ __global__ void __launch_bounds__(FOLD_WARPS * 32) decode_mha_fold_kernel(
         const T* vrow = vb + voff;
 #pragma unroll
         for (int i = 0; i < DPL; ++i)
-          vv[uu][i] = u0 + uu < nk ? (float)vrow[lane + 32 * i] : 0.f;
+          vv[uu][i] = u0 + uu < nk ? to_f32(vrow[lane + 32 * i]) : 0.f;
       }
 #pragma unroll
       for (int uu = 0; uu < VB; ++uu) {
@@ -262,3 +309,40 @@ __global__ void __launch_bounds__(FOLD_WARPS * 32) decode_mha_fold_kernel(
 }
 
 }  // namespace
+
+// The paged form's C entry point (paged_decode_mha.cu and
+// paged_decode_mha_bf16.cu): q [B, H, 1, D] f32 against pools read through
+// the table bt [B, MB] with the strides given, out [B, 1, H*D] at strides
+// (o_sb, o_sh); cap = MB * BS; group H / Hkv <= 16; D 64 or 128.
+#define RTEN_PAGED_PARAMS                                                        \
+  const void *q, long long q_sb, long long q_sh, const void *k, const void *v,   \
+      long long kv_sb, long long kv_sh, long long kv_sj, const void *ks,         \
+      const void *vs, long long sc_sb, long long sc_sh, long long sc_sj,         \
+      const void *bt, int MB, int BS, const void *lens, void *out,               \
+      long long o_sb, long long o_sh, int B, int H, int Hkv, int D, int window,  \
+      float scale, void *stream
+#define RTEN_PAGED_NAMES                                                         \
+  q, q_sb, q_sh, k, v, kv_sb, kv_sh, kv_sj, ks, vs, sc_sb, sc_sh, sc_sj, bt, MB, \
+      BS, lens, out, o_sb, o_sh, B, H, Hkv, D, window, scale, stream
+
+template <typename T>
+int launch_paged_decode_mha(RTEN_PAGED_PARAMS) {
+  const int rows = H / Hkv;
+  if (rows < 1 || rows > 16 || (D != 64 && D != 128) || MB < 1 || BS < 1)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(B, Hkv);
+  cudaStream_t st = (cudaStream_t)stream;
+#define RTEN_PAGED(DD, RR)                                                       \
+  decode_mha_fold_kernel<DD, T, RR, true><<<grid, FOLD_WARPS * 32, 0, st>>>(     \
+      (const float*)q, q_sb, q_sh, 0, (const T*)k, (const T*)v, kv_sb, kv_sh,    \
+      kv_sj, (const float*)ks, (const float*)vs, sc_sb, sc_sh, sc_sj,            \
+      (const int32_t*)bt, MB, BS, (const int32_t*)lens, (float*)out, o_sb, o_sh, \
+      0, H, Hkv, 1, MB * BS, window, scale)
+  if (D == 64) {
+    if (rows <= 8) RTEN_PAGED(64, 8); else RTEN_PAGED(64, 16);
+  } else {
+    if (rows <= 8) RTEN_PAGED(128, 8); else RTEN_PAGED(128, 16);
+  }
+#undef RTEN_PAGED
+  return (int)cudaGetLastError();
+}

@@ -6,8 +6,9 @@
 // (slot, j), with the block table in scalar prefetch).
 //
 // q [B, H, 1, D] f32 against pools [NB, Hkv, BS, D], either s8 with scale
-// pools [NB, Hkv, 1, BS] f32 (positions lane-major per block) or f32 with
-// no scales. Slot b's logical position p lives at
+// pools [NB, Hkv, 1, BS] f32 (positions lane-major per block), or f32 or
+// bf16 with no scales (``kind``, KvKind; bf16 in paged_decode_mha_bf16.cu,
+// a translation unit of its own so that nvcc builds it in parallel). Slot b's logical position p lives at
 // pool[bt[b, p / BS], :, p % BS] (bt [B, MB] int32), so cap = MB * BS. The
 // query of slot b sits at position lens[b] (its row already written) and
 // attends columns j <= lens[b] (every column once lens[b] >= cap) and,
@@ -29,35 +30,16 @@
 // a warp's 32 keys touch at most two blocks when BS >= 32; a table entry
 // per row covers any BS (a multiple of 8 is all the builders guarantee).
 // Its own source, so that nvcc builds it in parallel with decode_mha.cu.
+// The pools' strides are arguments, so the block-table append
+// (flash_attention.cu) attends its f32/bf16 cat-layout pools [NB, BS,
+// Hkv*D] through this entry point too (rows of Hkv * D, heads D apart).
 
 #include "decode_fold.cuh"
 
-extern "C" int rten_paged_decode_mha(
-    int quant, const void* q, long long q_sb, long long q_sh,
-    const void* k, const void* v, long long kv_sb, long long kv_sh, long long kv_sj,
-    const void* ks, const void* vs, long long sc_sb, long long sc_sh, long long sc_sj,
-    const void* bt, int MB, int BS, const void* lens, void* out,
-    long long o_sb, long long o_sh, int B, int H, int Hkv, int D, int window,
-    float scale, void* stream) {
-  const int rows = H / Hkv;
-  if (rows < 1 || rows > 16 || (D != 64 && D != 128) || MB < 1 || BS < 1)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(B, Hkv);
-  cudaStream_t st = (cudaStream_t)stream;
-#define RTEN_PAGED(DD, TT, RR)                                                   \
-  decode_mha_fold_kernel<DD, TT, RR, true><<<grid, FOLD_WARPS * 32, 0, st>>>(    \
-      (const float*)q, q_sb, q_sh, 0, (const TT*)k, (const TT*)v, kv_sb, kv_sh,  \
-      kv_sj, (const float*)ks, (const float*)vs, sc_sb, sc_sh, sc_sj,            \
-      (const int32_t*)bt, MB, BS, (const int32_t*)lens, (float*)out, o_sb, o_sh, \
-      0, H, Hkv, 1, MB * BS, window, scale)
-#define RTEN_PAGED_R(DD, TT)                                                     \
-  if (rows <= 8) RTEN_PAGED(DD, TT, 8); else RTEN_PAGED(DD, TT, 16)
-  if (quant) {
-    if (D == 64) { RTEN_PAGED_R(64, int8_t); } else { RTEN_PAGED_R(128, int8_t); }
-  } else {
-    if (D == 64) { RTEN_PAGED_R(64, float); } else { RTEN_PAGED_R(128, float); }
+extern "C" int rten_paged_decode_mha(int kind, RTEN_PAGED_PARAMS) {
+  switch (kind) {
+    case KV_S8: return launch_paged_decode_mha<int8_t>(RTEN_PAGED_NAMES);
+    case KV_F32: return launch_paged_decode_mha<float>(RTEN_PAGED_NAMES);
+    default: return (int)cudaErrorInvalidValue;
   }
-#undef RTEN_PAGED_R
-#undef RTEN_PAGED
-  return (int)cudaGetLastError();
 }

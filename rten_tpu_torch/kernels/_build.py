@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict
 
@@ -32,6 +33,9 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# Seconds each library's nvcc took in this process's last build_all (the
+# libraries it found built are not listed).
+BUILD_SECONDS: Dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -69,6 +73,7 @@ def build_all() -> Dict[str, Path]:
     if todo:
         nvcc = _nvcc()
         procs = {}
+        t0 = time.perf_counter()
         for name, (src, lib) in todo.items():
             tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
             log = open(out_dir / f"{name}.log", "w")
@@ -77,13 +82,17 @@ def build_all() -> Dict[str, Path]:
                 stdout=log, stderr=subprocess.STDOUT,
             ), tmp, lib, log)
         failed = []
-        for name, (proc, tmp, lib, log) in procs.items():
-            rc = proc.wait()
-            log.close()
-            if rc == 0:
-                os.replace(tmp, lib)
-            else:
-                failed.append(name)
+        BUILD_SECONDS.clear()
+        while procs:
+            for name in [n for n, p in procs.items() if p[0].poll() is not None]:
+                proc, tmp, lib, log = procs.pop(name)
+                BUILD_SECONDS[name] = time.perf_counter() - t0
+                log.close()
+                if proc.returncode == 0:
+                    os.replace(tmp, lib)
+                else:
+                    failed.append(name)
+            time.sleep(0.05)
         if failed:
             msgs = "\n".join(
                 f"--- {n} ---\n{(out_dir / f'{n}.log').read_text()}" for n in failed

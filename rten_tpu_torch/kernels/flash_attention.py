@@ -1,6 +1,7 @@
 """Attention: the wrappers of the CUDA kernels in ``csrc/flash_attention.cu``,
-``csrc/decode_mha.cu``, ``csrc/paged_decode_mha.cu`` and ``csrc/mha.cu``
-and their plain PyTorch versions.
+``csrc/decode_mha.cu`` (bf16 caches: ``csrc/decode_mha_bf16.cu``),
+``csrc/paged_decode_mha.cu`` (bf16 pools: ``csrc/paged_decode_mha_bf16.cu``)
+and ``csrc/mha.cu``, and their plain PyTorch versions.
 
 * ``mha`` (``csrc/mha.cu``) replaces
   ``rten_tpu/kernels/flash_attention.py:mha_pallas``: flash attention of
@@ -10,13 +11,15 @@ and their plain PyTorch versions.
   (``ops/attention.py:_attend``).
 * ``decode_mha`` replaces ``rten_tpu/kernels/flash_attention.py:decode_mha``
   and its ``_decode_mha_folded``: S query rows per slot over head-major
-  caches ``[B, Hkv, cap, D]``, s8 with scales ``[B, Hkv, cap]`` or f32.
-  Two launch forms, each with its own launch counter: ``decode_mha_folded``
-  (every decode step) and ``decode_mha_heads`` (every admission).
+  caches ``[B, Hkv, cap, D]``, s8 with scales ``[B, Hkv, cap]``, f32 or
+  bf16 (``csrc/decode_mha_bf16.cu``). Two launch forms, each with its own
+  launch counter: ``decode_mha_folded`` (every decode step) and
+  ``decode_mha_heads`` (every admission).
 * ``decode_mha_append_cat`` replaces
   ``rten_tpu/kernels/flash_attention.py:decode_mha_append_cat``: one decode
-  step that quantizes the new K/V row, writes it in place at row
-  ``min(lens[b], cap - 1)`` and attends rows ``<= lens[b]``.
+  step that writes the new K/V row in place at row ``min(lens[b], cap -
+  1)`` (s8 caches: quantized, with its scale; f32/bf16: rounded to the
+  cache dtype) and attends rows ``<= lens[b]``.
   With ``block_table`` (``decode_mha_append_cat_paged``, its own launch
   counter) the caches are block pools read and written through the table.
 * ``prefill_mha_cat`` replaces
@@ -24,12 +27,17 @@ and their plain PyTorch versions.
   caches that already hold the chunk's rows; row r attends ``<= lens[b]+r``.
 * ``paged_decode_mha`` (``csrc/paged_decode_mha.cu``) replaces
   ``rten_tpu/kernels/flash_attention.py:paged_decode_mha``: a decode step
-  over head-major block pools ``[NB, Hkv, BS, D]`` through a block table;
+  over head-major block pools ``[NB, Hkv, BS, D]`` (s8, f32 or bf16) through
+  a block table;
   ``paged_attention`` routes paged attention by shape.
 
-The cat-layout caches are ``[B, cap, Hkv*D]`` s8 with scales
-``[B, Hkv, cap, 1]`` f32 (the engine's canonical shape). Only s8 cat
-caches are covered; f32/bf16 cat caches raise (ROADMAP.md queue 1 item 7).
+The cat-layout caches are ``[B, cap, Hkv*D]``: s8 with scales ``[B, Hkv,
+cap, 1]`` f32 (the engine's canonical shape), or f32 or bf16 with no
+scales. The kernels read every cache element type through ``KV_KINDS``; an
+s8 cache needs its scales and an f32/bf16 cache takes none. The attention
+always computes in f32 from the values the cache holds, so the new row is
+attended as it was rounded into the cache, as the reference attends the
+cache it wrote.
 
 Paged KV: block pools shared by all slots, ``[NB, Hkv, BS, D]``
 (head-major) or ``[NB, BS, Hkv*D]`` (cat), with scale pools
@@ -43,7 +51,8 @@ single ``index_put_`` leaves the same pool on the CPU and on the card.
 
 The plain versions repeat the JAX package's CPU path
 (``decode_attention_append_cat``'s fallback and ``decode_mha_xla``):
-dequantize, materialize the scores with an additive -1e30 mask, softmax.
+dequantize (or widen f32/bf16 to f32), materialize the scores with an
+additive -1e30 mask, softmax.
 For CPU tensors the wrappers run them; for CUDA tensors they launch the
 kernel or raise — they never fall back.
 """
@@ -60,6 +69,31 @@ from ._build import load_library
 from .common import check_cuda_tensor, kernel_device
 
 NEG_INF = -1e30
+
+# Cache element types the kernels take, by the code their C entry points
+# use (csrc/decode_fold.cuh, KvKind).
+KV_KINDS = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
+
+
+def _kv_kind(name, c, k_scale, v_scale) -> int:
+    """The kernels' code for cache ``c``'s dtype; s8 caches need both
+    scales, f32/bf16 caches take none."""
+    if c.dtype not in KV_KINDS:
+        raise TypeError(f"{name}: dtype {c.dtype}, expected int8, float32 or bfloat16")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale: both or neither")
+    if (c.dtype == torch.int8) != (k_scale is not None):
+        raise ValueError(f"{name}: int8 caches need scales, float32/bfloat16 caches take none")
+    return KV_KINDS[c.dtype]
+
+
+def _head_dims(kind):
+    """The head dims the cat-cache kernels take for an element kind."""
+    return (32, 64, 128) if kind == KV_KINDS[torch.int8] else (64, 128)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def cat_to_heads(c: torch.Tensor, Hkv: int) -> torch.Tensor:
@@ -173,7 +207,8 @@ mha.launches = 0
 def decode_mha_plain(q, k, v, lens, k_scale=None, v_scale=None, *,
                      scale=None, window: int = 0):
     """The JAX package's ``decode_mha_xla``: q [B,H,S,D], k/v [B,Hkv,cap,D]
-    f32, or s8 with scales [B,Hkv,cap]; row r of slot b attends cache
+    f32 or bf16 (widened to f32), or s8 with scales [B,Hkv,cap]; row r of
+    slot b attends cache
     columns <= lens[b] + r (and > lens[b] + r - window). A row with no such
     column gets the mean of V, as the reference's additive -1e30 mask
     gives it (the kernels give 0 there, as the TPU kernel does)."""
@@ -256,70 +291,74 @@ def _paged_gather(pool_k, pool_v, pool_ks, pool_vs, bt):
     return paged_gather_kv(pool_k, bt), paged_gather_kv(pool_v, bt), ks, vs
 
 
-def _check_quant(k_scale, v_scale):
-    if k_scale is None or v_scale is None:
-        raise NotImplementedError(
-            "f32/bf16 cat caches: ROADMAP.md queue 1 item 7"
-        )
-
-
-def decode_mha_append_cat_plain(q, kc, vc, lens, k_scale, v_scale, *, k_new,
-                                v_new, scale=None, window: int = 0):
-    """Plain version of ``decode_mha_append_cat`` (same contract): quantize
-    the new rows, write them in place at the clamped row, attend."""
-    _check_quant(k_scale, v_scale)
+def decode_mha_append_cat_plain(q, kc, vc, lens, k_scale=None, v_scale=None, *,
+                                k_new, v_new, scale=None, window: int = 0):
+    """Plain version of ``decode_mha_append_cat`` (same contract): write the
+    new rows in place at the clamped row (s8 caches: quantized, with their
+    scales; f32/bf16 caches: rounded to the cache dtype), attend in f32
+    over the cache values."""
     B, Hkv = k_new.shape[0], k_new.shape[1]
     cap = kc.shape[1]
     lens = lens.reshape(B)
     wpos = lens.clamp(0, cap - 1).to(torch.int64)
     bidx = torch.arange(B, device=kc.device)
-    k_q, ks_new = quantize_rows(k_new)
-    v_q, vs_new = quantize_rows(v_new)
-    kc[bidx, wpos] = heads_to_cat(k_q)[:, 0]
-    vc[bidx, wpos] = heads_to_cat(v_q)[:, 0]
-    k_scale[bidx, :, wpos] = ks_new.reshape(B, Hkv, 1).to(k_scale.dtype)
-    v_scale[bidx, :, wpos] = vs_new.reshape(B, Hkv, 1).to(v_scale.dtype)
-    out = decode_mha_plain(
-        q, cat_to_heads(kc, Hkv), cat_to_heads(vc, Hkv), lens,
-        k_scale.reshape(B, Hkv, cap), v_scale.reshape(B, Hkv, cap),
+    ks = vs = None
+    if k_scale is not None:
+        k_q, ks_new = quantize_rows(k_new)
+        v_q, vs_new = quantize_rows(v_new)
+        kc[bidx, wpos] = heads_to_cat(k_q)[:, 0]
+        vc[bidx, wpos] = heads_to_cat(v_q)[:, 0]
+        k_scale[bidx, :, wpos] = ks_new.reshape(B, Hkv, 1).to(k_scale.dtype)
+        v_scale[bidx, :, wpos] = vs_new.reshape(B, Hkv, 1).to(v_scale.dtype)
+        ks, vs = k_scale.reshape(B, Hkv, cap), v_scale.reshape(B, Hkv, cap)
+    else:
+        kc[bidx, wpos] = heads_to_cat(k_new)[:, 0].to(kc.dtype)
+        vc[bidx, wpos] = heads_to_cat(v_new)[:, 0].to(vc.dtype)
+    out = heads_to_cat(decode_mha_plain(
+        q, cat_to_heads(kc, Hkv), cat_to_heads(vc, Hkv), lens, ks, vs,
         scale=scale, window=window,
-    )
-    return heads_to_cat(out), kc, vc, k_scale, v_scale
+    ))
+    return (out, kc, vc, k_scale, v_scale) if ks is not None else (out, kc, vc)
 
 
 def _check_common(q, kc, vc, lens, k_scale, v_scale, Hkv):
+    """Check what the flat cat-cache kernels take -> (kind, B, cap, D)."""
     device = q.device
     if q.dtype != torch.float32 or q.stride(-1) != 1:
         raise ValueError("q: float32 with a unit-stride last axis required")
-    check_cuda_tensor("kc", kc, torch.int8, device)
-    check_cuda_tensor("vc", vc, torch.int8, device)
-    check_cuda_tensor("k_scale", k_scale, torch.float32, device)
-    check_cuda_tensor("v_scale", v_scale, torch.float32, device)
+    kind = _kv_kind("kc", kc, k_scale, v_scale)
+    check_cuda_tensor("kc", kc, kc.dtype, device)
+    check_cuda_tensor("vc", vc, kc.dtype, device)
     check_cuda_tensor("lens", lens, torch.int32, device)
     B, cap, HkvD = kc.shape
     if vc.shape != kc.shape or HkvD % Hkv:
         raise ValueError(f"cache shapes {tuple(kc.shape)} / {tuple(vc.shape)}")
     D = HkvD // Hkv
-    for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
-        if s.numel() != B * Hkv * cap:
-            raise ValueError(f"{name}: expected [B, Hkv, cap, 1] = "
-                             f"{(B, Hkv, cap, 1)}, got {tuple(s.shape)}")
+    if k_scale is not None:
+        for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
+            check_cuda_tensor(name, s, torch.float32, device)
+            if s.numel() != B * Hkv * cap:
+                raise ValueError(f"{name}: expected [B, Hkv, cap, 1] = "
+                                 f"{(B, Hkv, cap, 1)}, got {tuple(s.shape)}")
     if lens.numel() != B:
         raise ValueError(f"lens: expected {B} values, got {tuple(lens.shape)}")
     if kc.data_ptr() % 16 or vc.data_ptr() % 16:
         raise ValueError("caches must be 16-byte aligned")
-    return B, cap, D
+    return kind, B, cap, D
 
 
 def decode_mha_append_cat(q, kc, vc, lens, k_scale=None, v_scale=None, *,
                           k_new, v_new, scale: Optional[float] = None,
                           window: int = 0, block_table=None):
-    """Decode attention + in-place append on cat-layout s8 caches (S == 1).
+    """Decode attention + in-place append on cat-layout caches (S == 1).
 
-    q [B,H,1,D] f32; kc/vc [B,cap,Hkv*D] s8 holding rows < lens[b];
-    k_new/v_new [B,Hkv,1,D] f32 rows for position lens[b]; scales
-    [B,Hkv,cap,1] f32; lens [B] int32. The caches and scales are updated in
-    place. Returns (out [B,1,H*D] in cat layout, kc, vc, k_scale, v_scale).
+    q [B,H,1,D] f32; kc/vc [B,cap,Hkv*D] holding rows < lens[b]: s8 with
+    scales [B,Hkv,cap,1] f32, or f32 or bf16 with none; k_new/v_new
+    [B,Hkv,1,D] f32 rows for position lens[b]; lens [B] int32. The caches
+    (and scales) are updated in place. Returns (out [B,1,H*D] in cat layout,
+    kc, vc, k_scale, v_scale), or (out, kc, vc) for f32/bf16 caches, as the
+    reference returns them. Head dims 32, 64 and 128 (s8), 64 and 128
+    (f32, bf16).
 
     With ``block_table`` [B, MB] int32, kc/vc are block pools
     [NB, BS, Hkv*D] and the scales pools [NB, Hkv, 1, BS]
@@ -330,7 +369,6 @@ def decode_mha_append_cat(q, kc, vc, lens, k_scale=None, v_scale=None, *,
             q, kc, vc, lens, k_scale, v_scale, k_new=k_new, v_new=v_new,
             block_table=block_table, scale=scale, window=window,
         )
-    _check_quant(k_scale, v_scale)
     if kernel_device(q, kc, vc, lens, k_scale, v_scale, k_new, v_new) == "cpu":
         return decode_mha_append_cat_plain(
             q, kc, vc, lens, k_scale, v_scale, k_new=k_new, v_new=v_new,
@@ -340,9 +378,10 @@ def decode_mha_append_cat(q, kc, vc, lens, k_scale=None, v_scale=None, *,
     Hkv = k_new.shape[1]
     if S != 1:
         raise ValueError("decode_mha_append_cat is a single-token decode kernel")
-    _, cap, D = _check_common(q, kc, vc, lens, k_scale, v_scale, Hkv)
-    if Dq != D or H % Hkv or D not in (32, 64, 128):
-        raise ValueError(f"head dim {D} (q {Dq}), heads {H}/{Hkv} not supported")
+    kind, _, cap, D = _check_common(q, kc, vc, lens, k_scale, v_scale, Hkv)
+    if Dq != D or H % Hkv or D not in _head_dims(kind):
+        raise ValueError(f"head dim {D} (q {Dq}), heads {H}/{Hkv} not supported "
+                         f"on {kc.dtype} caches")
     for name, t in (("k_new", k_new), ("v_new", v_new)):
         if t.shape != (B, Hkv, 1, D) or t.dtype != torch.float32 or t.stride(-1) != 1:
             raise ValueError(f"{name}: expected float32 {(B, Hkv, 1, D)}")
@@ -350,48 +389,55 @@ def decode_mha_append_cat(q, kc, vc, lens, k_scale=None, v_scale=None, *,
         scale = 1.0 / float(np.sqrt(D))
     out = torch.empty((B, 1, H * D), dtype=torch.float32, device=q.device)
     err = _lib().rten_decode_append_cat(
-        q.data_ptr(), q.stride(0), q.stride(1),
+        kind, q.data_ptr(), q.stride(0), q.stride(1),
         k_new.data_ptr(), k_new.stride(0), k_new.stride(1),
         v_new.data_ptr(), v_new.stride(0), v_new.stride(1),
-        kc.data_ptr(), vc.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+        kc.data_ptr(), vc.data_ptr(), _ptr(k_scale), _ptr(v_scale),
         lens.data_ptr(), out.data_ptr(), B, H, Hkv, D, cap, int(window),
         float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err:
         raise RuntimeError(f"decode_mha_append_cat launch failed: CUDA error {err}")
     decode_mha_append_cat.launches += 1
-    return out, kc, vc, k_scale, v_scale
+    return (out, kc, vc, k_scale, v_scale) if k_scale is not None else (out, kc, vc)
 
 
 decode_mha_append_cat.launches = 0
 
 
-def decode_mha_append_cat_paged_plain(q, pool_kc, pool_vc, lens, k_scale_pool,
-                                      v_scale_pool, *, k_new, v_new, block_table,
+def decode_mha_append_cat_paged_plain(q, pool_kc, pool_vc, lens, k_scale_pool=None,
+                                      v_scale_pool=None, *, k_new, v_new, block_table,
                                       scale=None, window: int = 0):
     """Plain version of ``decode_mha_append_cat_paged`` (the JAX package's
-    ``_append_cat_paged_fallback``): quantize the new rows, write them into
-    the pools through the table at row min(lens, cap - 1), the last slot
-    winning a shared row, then attend over per-slot gathered views."""
-    _check_quant(k_scale_pool, v_scale_pool)
+    ``_append_cat_paged_fallback``): write the new rows (s8: quantized, with
+    their scales; f32/bf16: rounded to the pool dtype) into the pools
+    through the table at row min(lens, cap - 1), the last slot winning a
+    shared row, then attend over per-slot gathered views."""
     B, Hkv = k_new.shape[0], k_new.shape[1]
     NB, BS, _ = pool_kc.shape
     bt = block_table
     lens = lens.reshape(B)
     blk, off, src = paged_targets(lens, 1, bt, NB, BS, clamp=True)
-    k_q, ks_new = quantize_rows(k_new)
-    v_q, vs_new = quantize_rows(v_new)
-    pool_kc[blk, off] = heads_to_cat(k_q)[:, 0][src]
-    pool_vc[blk, off] = heads_to_cat(v_q)[:, 0][src]
-    k_scale_pool.select(2, 0)[blk, :, off] = ks_new.reshape(B, Hkv)[src]
-    v_scale_pool.select(2, 0)[blk, :, off] = vs_new.reshape(B, Hkv)[src]
-    out = decode_mha_plain(
+    ks = vs = None
+    if k_scale_pool is not None:
+        k_q, ks_new = quantize_rows(k_new)
+        v_q, vs_new = quantize_rows(v_new)
+        pool_kc[blk, off] = heads_to_cat(k_q)[:, 0][src]
+        pool_vc[blk, off] = heads_to_cat(v_q)[:, 0][src]
+        k_scale_pool.select(2, 0)[blk, :, off] = ks_new.reshape(B, Hkv)[src]
+        v_scale_pool.select(2, 0)[blk, :, off] = vs_new.reshape(B, Hkv)[src]
+        ks, vs = paged_gather_scales(k_scale_pool, bt), paged_gather_scales(v_scale_pool, bt)
+    else:
+        pool_kc[blk, off] = heads_to_cat(k_new)[:, 0].to(pool_kc.dtype)[src]
+        pool_vc[blk, off] = heads_to_cat(v_new)[:, 0].to(pool_vc.dtype)[src]
+    out = heads_to_cat(decode_mha_plain(
         q, cat_to_heads(paged_gather_cat(pool_kc, bt), Hkv),
-        cat_to_heads(paged_gather_cat(pool_vc, bt), Hkv), lens,
-        paged_gather_scales(k_scale_pool, bt), paged_gather_scales(v_scale_pool, bt),
+        cat_to_heads(paged_gather_cat(pool_vc, bt), Hkv), lens, ks, vs,
         scale=scale, window=window,
-    )
-    return heads_to_cat(out), pool_kc, pool_vc, k_scale_pool, v_scale_pool
+    ))
+    if ks is None:
+        return out, pool_kc, pool_vc
+    return out, pool_kc, pool_vc, k_scale_pool, v_scale_pool
 
 
 def _check_table(bt, lens, B, device):
@@ -409,13 +455,15 @@ def decode_mha_append_cat_paged(q, pool_kc, pool_vc, lens, k_scale_pool=None,
                                 scale: Optional[float] = None, window: int = 0):
     """``decode_mha_append_cat`` through a block table (replaces the TPU
     kernel's ``block_table=`` form): q [B,H,1,D] f32; pools [NB,BS,Hkv*D]
-    s8 and scale pools [NB,Hkv,1,BS] f32, updated in place; block_table
-    [B,MB] int32; lens [B] int32. Slot b's new row lands at position
-    min(lens[b], cap - 1), cap = MB * BS. Two launches on the stream: the
-    rows are written (the last slot winning a shared row), then every slot
-    attends through the table (``decode_mha``'s fold, so group = H / Hkv <=
-    ``FOLD_MAX_ROWS``). Returns (out [B,1,H*D], pools, scale pools)."""
-    _check_quant(k_scale_pool, v_scale_pool)
+    s8 with scale pools [NB,Hkv,1,BS] f32, or f32 or bf16 with none,
+    updated in place; block_table [B,MB] int32; lens [B] int32. Slot b's
+    new row lands at position min(lens[b], cap - 1), cap = MB * BS. Two
+    launches on the stream: the rows are written (the last slot winning a
+    shared row), then every slot attends through the table (``decode_mha``'s
+    fold, so group = H / Hkv <= ``FOLD_MAX_ROWS``; f32/bf16 pools through
+    ``paged_decode_mha``'s entry point on the cat pools' strides).
+    Returns (out [B,1,H*D], pools, scale pools), or (out, pools) for
+    f32/bf16 pools."""
     if kernel_device(q, pool_kc, pool_vc, lens, k_scale_pool, v_scale_pool, k_new,
                      v_new, block_table) == "cpu":
         return decode_mha_append_cat_paged_plain(
@@ -432,18 +480,21 @@ def decode_mha_append_cat_paged(q, pool_kc, pool_vc, lens, k_scale_pool=None,
     if pool_kc.dim() != 3 or pool_vc.shape != pool_kc.shape:
         raise ValueError(f"pools: expected two [NB, BS, Hkv*D] tensors, got "
                          f"{tuple(pool_kc.shape)} / {tuple(pool_vc.shape)}")
+    kind = _kv_kind("pool_kc", pool_kc, k_scale_pool, v_scale_pool)
     NB, BS, HkvD = pool_kc.shape
     if (HkvD != Hkv * D or H % Hkv or H // Hkv > FOLD_MAX_ROWS
-            or D not in (32, 64, 128)):
-        raise ValueError(f"head dim {D}, heads {H}/{Hkv}, pool rows {HkvD} not supported")
+            or D not in _head_dims(kind)):
+        raise ValueError(f"head dim {D}, heads {H}/{Hkv}, pool rows {HkvD} not supported "
+                         f"on {pool_kc.dtype} pools")
     for name, t in (("pool_kc", pool_kc), ("pool_vc", pool_vc)):
-        check_cuda_tensor(name, t, torch.int8, device)
+        check_cuda_tensor(name, t, pool_kc.dtype, device)
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: must be 16-byte aligned")
-    for name, t in (("k_scale_pool", k_scale_pool), ("v_scale_pool", v_scale_pool)):
-        check_cuda_tensor(name, t, torch.float32, device)
-        if t.shape != (NB, Hkv, 1, BS):
-            raise ValueError(f"{name}: expected {(NB, Hkv, 1, BS)}, got {tuple(t.shape)}")
+    if k_scale_pool is not None:
+        for name, t in (("k_scale_pool", k_scale_pool), ("v_scale_pool", v_scale_pool)):
+            check_cuda_tensor(name, t, torch.float32, device)
+            if t.shape != (NB, Hkv, 1, BS):
+                raise ValueError(f"{name}: expected {(NB, Hkv, 1, BS)}, got {tuple(t.shape)}")
     for name, t in (("k_new", k_new), ("v_new", v_new)):
         if t.shape != (B, Hkv, 1, D) or t.dtype != torch.float32 or t.stride(-1) != 1:
             raise ValueError(f"{name}: expected float32 {(B, Hkv, 1, D)}")
@@ -451,61 +502,76 @@ def decode_mha_append_cat_paged(q, pool_kc, pool_vc, lens, k_scale_pool=None,
     if scale is None:
         scale = 1.0 / float(np.sqrt(D))
     out = torch.empty((B, 1, H * D), dtype=torch.float32, device=device)
-    err = _lib().rten_decode_append_cat_paged(
-        q.data_ptr(), q.stride(0), q.stride(1),
-        k_new.data_ptr(), k_new.stride(0), k_new.stride(1),
-        v_new.data_ptr(), v_new.stride(0), v_new.stride(1),
-        pool_kc.data_ptr(), pool_vc.data_ptr(), k_scale_pool.data_ptr(),
-        v_scale_pool.data_ptr(), block_table.data_ptr(), MB, BS, lens.data_ptr(),
-        out.data_ptr(), B, H, Hkv, D, int(window), float(scale),
-        torch.cuda.current_stream(device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(device).cuda_stream
+    new_rows = (k_new.data_ptr(), k_new.stride(0), k_new.stride(1),
+                v_new.data_ptr(), v_new.stride(0), v_new.stride(1))
+    if k_scale_pool is not None:
+        err = _lib().rten_decode_append_cat_paged(
+            q.data_ptr(), q.stride(0), q.stride(1), *new_rows,
+            pool_kc.data_ptr(), pool_vc.data_ptr(), k_scale_pool.data_ptr(),
+            v_scale_pool.data_ptr(), block_table.data_ptr(), MB, BS, lens.data_ptr(),
+            out.data_ptr(), B, H, Hkv, D, int(window), float(scale), stream,
+        )
+    else:
+        err = _lib().rten_append_cat_write(
+            kind, *new_rows, pool_kc.data_ptr(), pool_vc.data_ptr(), None, None,
+            block_table.data_ptr(), MB, BS, lens.data_ptr(), B, Hkv, D, stream,
+        )
+        if not err:  # the fold over the cat pools: rows of Hkv * D, heads D apart
+            err = _paged_lib(pool_kc.dtype).rten_paged_decode_mha(
+                kind, q.data_ptr(), q.stride(0), q.stride(1), pool_kc.data_ptr(),
+                pool_vc.data_ptr(), BS * HkvD, D, HkvD, None, None, 0, 0, 0,
+                block_table.data_ptr(), MB, BS, lens.data_ptr(), out.data_ptr(), H * D, D,
+                B, H, Hkv, D, int(window), float(scale), stream,
+            )
     if err:
         raise RuntimeError(f"decode_mha_append_cat (block table) launch failed: CUDA error {err}")
     decode_mha_append_cat_paged.launches += 1
+    if k_scale_pool is None:
+        return out, pool_kc, pool_vc
     return out, pool_kc, pool_vc, k_scale_pool, v_scale_pool
 
 
 decode_mha_append_cat_paged.launches = 0
 
 
-def prefill_mha_cat_plain(q, kc, vc, lens, k_scale, v_scale, *, scale=None,
+def prefill_mha_cat_plain(q, kc, vc, lens, k_scale=None, v_scale=None, *, scale=None,
                           window: int = 0):
     """Plain version of ``prefill_mha_cat``: head-major views of the caches
     through ``decode_mha_plain`` -> [B, H, S, D]."""
-    _check_quant(k_scale, v_scale)
-    B = q.shape[0]
-    Hkv = k_scale.shape[1]
-    cap = kc.shape[1]
-    return decode_mha_plain(
-        q, cat_to_heads(kc, Hkv), cat_to_heads(vc, Hkv), lens,
-        k_scale.reshape(B, Hkv, cap), v_scale.reshape(B, Hkv, cap),
-        scale=scale, window=window,
-    )
+    B, D = q.shape[0], q.shape[3]
+    cap, Hkv = kc.shape[1], kc.shape[2] // D
+    ks = vs = None
+    if k_scale is not None:
+        ks, vs = k_scale.reshape(B, Hkv, cap), v_scale.reshape(B, Hkv, cap)
+    return decode_mha_plain(q, cat_to_heads(kc, Hkv), cat_to_heads(vc, Hkv), lens, ks, vs,
+                            scale=scale, window=window)
 
 
 def prefill_mha_cat(q, kc, vc, lens, k_scale=None, v_scale=None, *,
                     scale: Optional[float] = None, window: int = 0):
-    """Prefill attention on cat-layout s8 caches: q [B,H,S,D] f32, kc/vc
-    [B,cap,Hkv*D] holding rows < lens[b]+S (the chunk's rows included),
-    scales [B,Hkv,cap,1] -> [B,H,S,D] f32. On the card the result is a
-    head-major view of a [B,S,H*D] buffer, so merging heads is free."""
-    _check_quant(k_scale, v_scale)
+    """Prefill attention on cat-layout caches: q [B,H,S,D] f32, kc/vc
+    [B,cap,Hkv*D] holding rows < lens[b]+S (the chunk's rows included), s8
+    with scales [B,Hkv,cap,1] (D 32, 64, 128) or f32 or bf16 with none (D
+    64, 128) -> [B,H,S,D] f32. On the card the result is a head-major view
+    of a [B,S,H*D] buffer, so merging heads is free."""
     if kernel_device(q, kc, vc, lens, k_scale, v_scale) == "cpu":
         return prefill_mha_cat_plain(
             q, kc, vc, lens, k_scale, v_scale, scale=scale, window=window
         )
     B, H, S, Dq = q.shape
-    Hkv = k_scale.shape[1]
-    _, cap, D = _check_common(q, kc, vc, lens, k_scale, v_scale, Hkv)
-    if Dq != D or H % Hkv or D not in (32, 64):
-        raise ValueError(f"head dim {D} (q {Dq}), heads {H}/{Hkv} not supported")
+    if kc.dim() != 3 or kc.shape[2] % Dq:
+        raise ValueError(f"kc: expected [B, cap, Hkv * {Dq}], got {tuple(kc.shape)}")
+    Hkv = kc.shape[2] // Dq
+    kind, _, cap, D = _check_common(q, kc, vc, lens, k_scale, v_scale, Hkv)
+    if H % Hkv or D not in _head_dims(kind):
+        raise ValueError(f"head dim {D}, heads {H}/{Hkv} not supported on {kc.dtype} caches")
     if scale is None:
         scale = 1.0 / float(np.sqrt(D))
     out_cat = torch.empty((B, S, H * D), dtype=torch.float32, device=q.device)
     err = _lib().rten_prefill_cat(
-        q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
-        kc.data_ptr(), vc.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+        kind, q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
+        kc.data_ptr(), vc.data_ptr(), _ptr(k_scale), _ptr(v_scale),
         lens.data_ptr(), out_cat.data_ptr(), S * H * D, D, H * D,
         B, H, Hkv, S, D, cap, int(window), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream,
@@ -525,8 +591,8 @@ FOLD_MAX_ROWS = 16  # group * S query rows one fold block holds
 def decode_mha(q, k, v, lens, k_scale=None, v_scale=None, *,
                scale: Optional[float] = None, window: int = 0):
     """Per-slot attention over head-major caches (the serving hot path of
-    Llama-family graphs): q [B,H,S,D] f32; k/v [B,Hkv,cap,D] f32, or s8
-    with per-position scales k_scale/v_scale [B,Hkv,cap] f32; lens [B]
+    Llama-family graphs): q [B,H,S,D] f32; k/v [B,Hkv,cap,D] f32 or bf16,
+    or s8 with per-position scales k_scale/v_scale [B,Hkv,cap] f32; lens [B]
     int32 past lengths. Row r of slot b attends columns <= lens[b] + r (and
     > lens[b] + r - window when window > 0) -> [B,H,S,D] f32.
 
@@ -543,18 +609,17 @@ def decode_mha(q, k, v, lens, k_scale=None, v_scale=None, *,
                             scale=scale, window=window)
 
 
-def _decode_mha_launch(fn, q, k, v, lens, k_scale, v_scale, scale, window):
-    """Check what the kernels take, then launch ``fn`` (one of the two C
-    entry points). Returns [B,H,S,D] f32, a head-major view of a
-    [B,S,H*D] buffer, so merging heads afterwards is free."""
+def _decode_mha_launch(form, q, k, v, lens, k_scale, v_scale, scale, window):
+    """Check what the kernels take, then launch ``rten_decode_mha_<form>``
+    (``csrc/decode_mha.cu`` for s8 and f32 caches, ``csrc/decode_mha_bf16.cu``
+    for bf16). Returns [B,H,S,D] f32, a head-major view of a [B,S,H*D]
+    buffer, so merging heads afterwards is free."""
     device = q.device
     B, H, S, D = q.shape
     if q.dtype != torch.float32 or q.stride(-1) != 1:
         raise ValueError("q: float32 with a unit-stride last axis required")
+    kind = _kv_kind("k", k, k_scale, v_scale)
     quant = k_scale is not None
-    if quant != (v_scale is not None):
-        raise ValueError("k_scale and v_scale: both or neither")
-    cache_dtype = torch.int8 if quant else torch.float32
     if k.dim() != 4 or k.shape != v.shape or k.stride() != v.stride():
         raise ValueError(f"caches: expected two [B, Hkv, cap, D] tensors with one "
                          f"layout, got {tuple(k.shape)} / {tuple(v.shape)}")
@@ -563,7 +628,7 @@ def _decode_mha_launch(fn, q, k, v, lens, k_scale, v_scale, scale, window):
         raise ValueError(f"head dim {D} (caches {Dk}), heads {H}/{Hkv}, "
                          f"slots {B}/{k.shape[0]} not supported")
     for name, t in (("k", k), ("v", v)):
-        check_cuda_tensor(name, t, cache_dtype, device, contiguous=False)
+        check_cuda_tensor(name, t, k.dtype, device, contiguous=False)
         row_bytes = [s * t.element_size() for s in t.stride()[:3]]
         if t.stride(-1) != 1 or t.data_ptr() % 16 or any(s % 16 for s in row_bytes):
             raise ValueError(f"{name}: rows must be unit-stride and 16-byte aligned")
@@ -583,8 +648,10 @@ def _decode_mha_launch(fn, q, k, v, lens, k_scale, v_scale, scale, window):
     if scale is None:
         scale = 1.0 / float(np.sqrt(D))
     out_cat = torch.empty((B, S, H * D), dtype=torch.float32, device=device)
+    lib = _mha_lib("decode_mha_bf16" if k.dtype == torch.bfloat16 else "decode_mha")
+    fn = getattr(lib, f"rten_decode_mha_{form}")
     err = fn(
-        int(quant), q.data_ptr(), *q.stride()[:3],
+        kind, q.data_ptr(), *q.stride()[:3],
         k.data_ptr(), v.data_ptr(), *k.stride()[:3],
         *sc_ptrs, *sc_strides, lens.data_ptr(), out_cat.data_ptr(),
         S * H * D, D, H * D, B, H, Hkv, S, D, cap, int(window), float(scale),
@@ -607,8 +674,7 @@ def decode_mha_folded(q, k, v, lens, k_scale=None, v_scale=None, *,
     if group * q.shape[2] > FOLD_MAX_ROWS:
         raise ValueError(f"the fold holds {FOLD_MAX_ROWS} rows per kv head, "
                          f"got group {group} x S {q.shape[2]}")
-    out = _decode_mha_launch(_mha_lib().rten_decode_mha_folded, q, k, v, lens,
-                             k_scale, v_scale, scale, window)
+    out = _decode_mha_launch("folded", q, k, v, lens, k_scale, v_scale, scale, window)
     decode_mha_folded.launches += 1
     return out
 
@@ -624,8 +690,7 @@ def decode_mha_heads(q, k, v, lens, k_scale=None, v_scale=None, *,
     if kernel_device(q, k, v, lens, k_scale, v_scale) == "cpu":
         return decode_mha_plain(q, k, v, lens, k_scale, v_scale,
                                 scale=scale, window=window)
-    out = _decode_mha_launch(_mha_lib().rten_decode_mha_heads, q, k, v, lens,
-                             k_scale, v_scale, scale, window)
+    out = _decode_mha_launch("heads", q, k, v, lens, k_scale, v_scale, scale, window)
     decode_mha_heads.launches += 1
     return out
 
@@ -646,8 +711,8 @@ def paged_decode_mha(q, pool_k, pool_v, lens, block_table, pool_ks=None,
                      pool_vs=None, *, scale: Optional[float] = None, window: int = 0):
     """Paged decode attention (S == 1; replaces
     ``rten_tpu/kernels/flash_attention.py:paged_decode_mha``): q [B,H,1,D]
-    f32 against pools [NB,Hkv,BS,D], s8 with scale pools [NB,Hkv,1,BS] f32
-    or f32 without, read through block_table [B,MB] int32 at lens [B]
+    f32 against pools [NB,Hkv,BS,D], s8 with scale pools [NB,Hkv,1,BS] f32,
+    or f32 or bf16 without, read through block_table [B,MB] int32 at lens [B]
     int32. Slot b's query sits at position lens[b] (its row already
     written) and attends columns <= lens[b] (all of them once lens >= cap,
     cap = MB * BS), and > lens[b] - window with a window -> [B,H,1,D] f32,
@@ -662,9 +727,8 @@ def paged_decode_mha(q, pool_k, pool_v, lens, block_table, pool_ks=None,
         raise ValueError("paged_decode_mha is S == 1 (admissions gather, then decode_mha)")
     if q.dtype != torch.float32 or q.stride(-1) != 1:
         raise ValueError("q: float32 with a unit-stride last axis required")
+    kind = _kv_kind("pool_k", pool_k, pool_ks, pool_vs)
     quant = pool_ks is not None
-    if quant != (pool_vs is not None):
-        raise ValueError("pool_ks and pool_vs: both or neither")
     if pool_k.dim() != 4 or pool_k.shape != pool_v.shape or pool_k.stride() != pool_v.stride():
         raise ValueError(f"pools: expected two [NB, Hkv, BS, D] tensors with one layout, "
                          f"got {tuple(pool_k.shape)} / {tuple(pool_v.shape)}")
@@ -672,8 +736,7 @@ def paged_decode_mha(q, pool_k, pool_v, lens, block_table, pool_ks=None,
     if Dk != D or H % Hkv or H // Hkv > FOLD_MAX_ROWS or D not in (64, 128):
         raise ValueError(f"head dim {D} (pools {Dk}), heads {H}/{Hkv} not supported")
     for name, t in (("pool_k", pool_k), ("pool_v", pool_v)):
-        check_cuda_tensor(name, t, torch.int8 if quant else torch.float32, device,
-                          contiguous=False)
+        check_cuda_tensor(name, t, pool_k.dtype, device, contiguous=False)
         row_bytes = [s * t.element_size() for s in t.stride()[:3]]
         if t.stride(-1) != 1 or t.data_ptr() % 16 or any(s % 16 for s in row_bytes):
             raise ValueError(f"{name}: rows must be unit-stride and 16-byte aligned")
@@ -691,8 +754,8 @@ def paged_decode_mha(q, pool_k, pool_v, lens, block_table, pool_ks=None,
     if scale is None:
         scale = 1.0 / float(np.sqrt(D))
     out_cat = torch.empty((B, 1, H * D), dtype=torch.float32, device=device)
-    err = _paged_lib().rten_paged_decode_mha(
-        int(quant), q.data_ptr(), q.stride(0), q.stride(1),
+    err = _paged_lib(pool_k.dtype).rten_paged_decode_mha(
+        kind, q.data_ptr(), q.stride(0), q.stride(1),
         pool_k.data_ptr(), pool_v.data_ptr(), pool_k.stride(0), pool_k.stride(1),
         pool_k.stride(2), *sc_ptrs, *sc_strides, block_table.data_ptr(), MB, BS,
         lens.data_ptr(), out_cat.data_ptr(), H * D, D, B, H, Hkv, D, int(window),
@@ -722,8 +785,8 @@ def paged_attention(q, pool_k, pool_v, lens, block_table, pool_ks=None, pool_vs=
     return decode_mha(q, k, v, lens, ks, vs, scale=scale, window=window)
 
 
-def _mha_lib():
-    lib = load_library("decode_mha")
+def _mha_lib(name):
+    lib = load_library(name)
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     for fn in (lib.rten_decode_mha_folded, lib.rten_decode_mha_heads):
         if fn.argtypes is None:
@@ -744,8 +807,11 @@ def _mha_kernel_lib():
     return lib
 
 
-def _paged_lib():
-    lib = load_library("paged_decode_mha")
+def _paged_lib(dtype):
+    """``csrc/paged_decode_mha_bf16.cu``'s library for bf16 pools,
+    ``csrc/paged_decode_mha.cu``'s for s8 and f32."""
+    lib = load_library("paged_decode_mha_bf16" if dtype == torch.bfloat16
+                       else "paged_decode_mha")
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     fn = lib.rten_paged_decode_mha
     if fn.argtypes is None:
@@ -760,12 +826,12 @@ def _lib():
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     if lib.rten_decode_append_cat.argtypes is None:
         lib.rten_decode_append_cat.argtypes = [
-            P, L, L, P, L, L, P, L, L, P, P, P, P, P, P,
+            I, P, L, L, P, L, L, P, L, L, P, P, P, P, P, P,
             I, I, I, I, I, I, F, P,
         ]
         lib.rten_decode_append_cat.restype = I
         lib.rten_prefill_cat.argtypes = [
-            P, L, L, L, P, P, P, P, P, P, L, L, L,
+            I, P, L, L, L, P, P, P, P, P, P, L, L, L,
             I, I, I, I, I, I, I, F, P,
         ]
         lib.rten_prefill_cat.restype = I
@@ -774,4 +840,8 @@ def _lib():
             I, I, I, I, I, F, P,
         ]
         lib.rten_decode_append_cat_paged.restype = I
+        lib.rten_append_cat_write.argtypes = [
+            I, P, L, L, P, L, L, P, P, P, P, P, I, I, P, I, I, I, P,
+        ]
+        lib.rten_append_cat_write.restype = I
     return lib

@@ -8,17 +8,21 @@ int4 weight-only), into a ``Model``; ``weights_from_torch`` reads a
 transformers GPT2LMHeadModel. The same builder calls as the JAX package's,
 so both graphs have the same node ids, names and constants.
 
-``build_graph_static_cache`` builds the serving graph: int8 KV caches in
-cat layout ``[slots, cap, H*D]`` with per-position scales
-``[slots, H, cap, 1]``, the new KV row appended inside the decode attention
-kernel, and the lm_head run on one gathered row per slot; with
-``paged_blocks`` the same on block pools ``[paged_blocks, block_size, H*D]``
-with scale pools ``[paged_blocks, H, 1, block_size]`` and a ``block_table``
-input (``bench.py``'s ``RTEN_BENCH_PAGED`` graph). The builder
-issues the same sequence of builder calls as the JAX package's
-``build_graph_static_cache`` on that branch, so both graphs have the same
-node ids, names and constants for the same weights. Every other option
-raises ``NotImplementedError`` naming the ROADMAP.md item that lifts it.
+``build_graph_static_cache`` builds the serving graph, the lm_head run on
+one gathered row per slot. Its KV caches: int8 (``kv_quant=True``) with
+per-position scales ``[slots, H, cap, 1]``, or f32 or bf16
+(``kv_dtype=BFloat16``, ``bench.py``'s ``RTEN_BENCH_KV=bf16`` graph) with
+none; in cat layout ``[slots, cap, H*D]`` with ``kernel_append`` (the new
+KV row appended inside the decode attention kernel) or head-major
+``[slots, H, cap, D]`` without; with ``paged_blocks`` the same on block
+pools ``[paged_blocks, block_size, H*D]`` or ``[paged_blocks, H,
+block_size, D]`` (scale pools ``[paged_blocks, H, 1, block_size]``) and a
+``block_table`` input (``bench.py``'s ``RTEN_BENCH_PAGED`` graph). The
+builder issues the same sequence of builder calls as the JAX package's
+``build_graph_static_cache`` on each branch, so both graphs have the same
+node ids, names and constants for the same weights. Deferred KV, LoRA, int4
+KV and the full-bucket lm_head raise ``NotImplementedError`` naming the
+ROADMAP.md item that lifts them.
 """
 
 from __future__ import annotations
@@ -149,18 +153,19 @@ def build_graph_static_cache(
     paged_blocks: int = 0, block_size: int = 64,
     kernel_append: bool = False, gather_last: bool = False,
 ) -> Graph:
-    """Serving graph with preallocated slot-major int8 KV caches.
+    """Serving graph with preallocated slot-major KV caches (or block
+    pools), written in place at per-slot offsets.
 
     Inputs: input_ids [slots, T], past_lens [slots], position_ids
-    [slots, T], last_pos [slots], past_key_values.N.{key,value}
-    [slots, cap, H*D] s8 and past_key_values.N.{key,value}_scale
-    [slots, H, cap, 1] f32. Outputs: logits [slots, 1, V], the updated
-    caches present.N.*, and next_token [slots, 1] (greedy, on device).
+    [slots, T], block_table [slots, capacity // block_size] (paged graphs),
+    past_key_values.N.{key,value} (the module docstring lists the layouts)
+    and, with ``kv_quant``, past_key_values.N.{key,value}_scale, last_pos
+    [slots]. Outputs: logits [slots, 1, V], the updated caches present.N.*,
+    and next_token [slots, 1] (greedy, on device).
 
-    Supported: ``kv_quant=True, kv_bits=8, kernel_append=True,
-    gather_last=True``, with or without ``paged_blocks`` (then also the
-    input block_table [slots, capacity // block_size] int32), everything
-    else at its default.
+    Supported: ``gather_last=True``, ``kv_quant=True`` with ``kv_bits=8``
+    or ``kv_quant=False`` with ``kv_dtype`` None (f32), Float or BFloat16,
+    with or without ``kernel_append`` and ``paged_blocks``.
     """
     if paged_blocks:
         if deferred_kv or (kv_quant and kv_bits != 8):
@@ -177,27 +182,24 @@ def build_graph_static_cache(
         raise NotImplementedError("deferred KV: ROADMAP.md queue 1 item 9")
     if lora_rank or n_adapters:
         raise NotImplementedError("multi-LoRA serving: ROADMAP.md queue 1 item 9")
-    if not kv_quant or kv_dtype is not None:
-        raise NotImplementedError(
-            "f32/bf16 KV caches (GroupQueryAttention serving): "
-            "ROADMAP.md queue 1 item 7"
-        )
-    if kv_bits != 8:
+    if kv_quant and kv_bits != 8:
         raise NotImplementedError("int4 KV caches: ROADMAP.md queue 1 item 11")
-    if not kernel_append:
-        raise NotImplementedError(
-            "head-major KV caches without in-kernel append: "
-            "ROADMAP.md queue 1 item 7"
-        )
     if not gather_last:
         raise NotImplementedError(
             "full-bucket lm_head (gather_last=False): ROADMAP.md queue 1 item 10"
+        )
+    if kernel_append and kv_bits != 8:
+        raise ValueError(
+            "kernel_append (in-kernel cache append) is incompatible with "
+            "deferred_kv and int4 caches"
         )
     b = GraphBuilder()
     E, H, D = cfg.n_embd, cfg.n_head, cfg.head_dim
 
     def w(name):
         return b.constant(name, np.ascontiguousarray(weights[name], np.float32))
+
+    ka_attr = {"rten_kernel_append": 1} if kernel_append else {}
 
     ids = b.input("input_ids", DataType.Int32, ("slots", "seq"))
     past_lens = b.input("past_lens", DataType.Int32, ("slots",))
@@ -217,6 +219,17 @@ def build_graph_static_cache(
             {"epsilon": cfg.layer_norm_epsilon},
         )
 
+    # Cache (or pool) shapes: cat rows with kernel_append, head-major without.
+    if paged_blocks:
+        kv_shape = ((paged_blocks, block_size, H * D) if kernel_append
+                    else (paged_blocks, H, block_size, D))
+        sc_shape = (paged_blocks, H, 1, block_size)
+    else:
+        kv_shape = (("slots", capacity, H * D) if kernel_append
+                    else ("slots", H, capacity, D))
+        sc_shape = ("slots", H, capacity, 1)
+    paged_in = [block_table] if paged_blocks else []
+    paged_attr = {"rten_paged": 1} if paged_blocks else {}
     presents = []
     for i in range(cfg.n_layer):
         p = f"transformer.h.{i}"
@@ -226,29 +239,38 @@ def build_graph_static_cache(
             name=f"{p}.attn.c_attn",
         )
         q, k, v = b.op("Split", [qkv], {"axis": -1, "num_outputs": 3}, n_outputs=3)
-        if paged_blocks:
-            kv_shape = (paged_blocks, block_size, H * D)
-            sc_shape = (paged_blocks, H, 1, block_size)
-            paged_in, attrs = [block_table], {"rten_paged": 1}
+        if kv_quant:
+            past_k = b.input(f"past_key_values.{i}.key", DataType.Int8, kv_shape)
+            k_sc = b.input(f"past_key_values.{i}.key_scale", DataType.Float, sc_shape)
+            past_v = b.input(f"past_key_values.{i}.value", DataType.Int8, kv_shape)
+            v_sc = b.input(f"past_key_values.{i}.value_scale", DataType.Float, sc_shape)
+            attn, pk, pks, pv, pvs = b.op(
+                "QuantizedKVAttention",
+                [q, k, v, past_k, k_sc, past_v, v_sc, past_lens] + paged_in,
+                {"num_heads": H, "bits": kv_bits, **paged_attr, **ka_attr},
+                n_outputs=5,
+                output_names=[
+                    f"attn_out_{i}", f"present.{i}.key", f"present.{i}.key_scale",
+                    f"present.{i}.value", f"present.{i}.value_scale",
+                ],
+            )
+            presents.extend([pk, pks, pv, pvs])
         else:
-            kv_shape = ("slots", capacity, H * D)
-            sc_shape = ("slots", H, capacity, 1)
-            paged_in, attrs = [], {}
-        past_k = b.input(f"past_key_values.{i}.key", DataType.Int8, kv_shape)
-        k_sc = b.input(f"past_key_values.{i}.key_scale", DataType.Float, sc_shape)
-        past_v = b.input(f"past_key_values.{i}.value", DataType.Int8, kv_shape)
-        v_sc = b.input(f"past_key_values.{i}.value_scale", DataType.Float, sc_shape)
-        attn, pk, pks, pv, pvs = b.op(
-            "QuantizedKVAttention",
-            [q, k, v, past_k, k_sc, past_v, v_sc, past_lens] + paged_in,
-            {"num_heads": H, "bits": kv_bits, **attrs, "rten_kernel_append": 1},
-            n_outputs=5,
-            output_names=[
-                f"attn_out_{i}", f"present.{i}.key", f"present.{i}.key_scale",
-                f"present.{i}.value", f"present.{i}.value_scale",
-            ],
-        )
-        presents.extend([pk, pks, pv, pvs])
+            kdt = kv_dtype or DataType.Float
+            past_k = b.input(f"past_key_values.{i}.key", kdt, kv_shape)
+            past_v = b.input(f"past_key_values.{i}.value", kdt, kv_shape)
+            attn, pk, pv = b.op(
+                "GroupQueryAttention",
+                [q, k, v, past_k, past_v, past_lens]
+                + ([None, None, None, block_table] if paged_blocks else []),
+                {"num_heads": H, "kv_num_heads": H, "rten_past_lens": 1,
+                 **paged_attr, **ka_attr},
+                n_outputs=3,
+                output_names=[
+                    f"attn_out_{i}", f"present.{i}.key", f"present.{i}.value",
+                ],
+            )
+            presents.extend([pk, pv])
         proj = b.op(
             "MatMulAdd",
             [attn, w(f"{p}.attn.c_proj.weight"), w(f"{p}.attn.c_proj.bias")],

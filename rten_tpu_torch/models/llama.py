@@ -10,13 +10,17 @@ positions ``past_lens + s``. The supported branches:
   by ``decode_mha``) or cat layout ``[slots, cap, Hkv*D]``
   (``kernel_append=True``, ``decode_mha_append_cat`` / ``prefill_mha_cat``),
   with scales ``[slots, Hkv, cap, 1]``;
-* ``kv_quant=False``: GroupQueryAttention on f32 head-major caches;
-* ``paged_blocks > 0``: the same three forms on block pools shared by all
-  slots (int8 head-major ``[paged_blocks, Hkv, block_size, D]``, int8 cat
-  ``[paged_blocks, block_size, Hkv*D]`` with ``kernel_append``, f32
-  head-major), scale pools ``[paged_blocks, Hkv, 1, block_size]``, and a
+* ``kv_quant=False``: GroupQueryAttention on f32 or (``kv_dtype=BFloat16``)
+  bf16 caches, head-major ``[slots, Hkv, cap, D]`` (``decode_mha``) or, with
+  ``kernel_append``, cat layout ``[slots, cap, Hkv*D]``
+  (``decode_mha_append_cat`` / ``prefill_mha_cat`` without scales);
+* ``paged_blocks > 0``: the same forms on block pools shared by all slots
+  (head-major ``[paged_blocks, Hkv, block_size, D]``, cat
+  ``[paged_blocks, block_size, Hkv*D]`` with ``kernel_append``), int8
+  pools with scale pools ``[paged_blocks, Hkv, 1, block_size]``, and a
   ``block_table`` input ``[slots, capacity // block_size]`` int32;
-* ``attention_bias`` (Qwen2) and ``sliding_window`` (Mistral) on each;
+* ``attention_bias`` (Qwen2), ``tie_word_embeddings`` (the lm_head reads
+  the embedding table) and ``sliding_window`` (Mistral) on each;
 * ``gather_last=True``: the lm_head runs on one gathered row per slot.
 
 The builder issues the same sequence of builder calls as the JAX package's
@@ -76,8 +80,7 @@ def rope_tables(cfg: LlamaConfig):
     return freqs.astype(np.float32), freqs.astype(np.float32)
 
 
-def _refuse_off_the_slice(deferred_kv, recent_dtype, kv_dtype, kv_quant, kv_bits,
-                          kernel_append, gather_last):
+def _refuse_off_the_slice(deferred_kv, recent_dtype, kv_quant, kv_bits, gather_last):
     def todo(what, item):
         raise NotImplementedError(f"{what}: ROADMAP.md queue 1 item {item}")
 
@@ -85,10 +88,6 @@ def _refuse_off_the_slice(deferred_kv, recent_dtype, kv_dtype, kv_quant, kv_bits
         todo("deferred KV", 9)
     if kv_quant and kv_bits != 8:
         todo("int4 KV caches", 11)
-    if kv_dtype is not None and kv_dtype != DataType.Float:
-        todo(f"{kv_dtype.name} KV caches", 7)
-    if not kv_quant and kernel_append:
-        todo("f32 cat-layout KV caches (decode_mha_append_cat without scales)", 7)
     if not gather_last:
         todo("full-bucket lm_head (gather_last=False)", 10)
 
@@ -118,8 +117,7 @@ def build_graph_static_cache(
                 "capacity must be a multiple of block_size, and block_size "
                 f"a multiple of 8 (got {capacity=}, {block_size=})"
             )
-    _refuse_off_the_slice(deferred_kv, recent_dtype, kv_dtype, kv_quant, kv_bits,
-                          kernel_append, gather_last)
+    _refuse_off_the_slice(deferred_kv, recent_dtype, kv_quant, kv_bits, gather_last)
     b = GraphBuilder()
     Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
 
@@ -247,9 +245,14 @@ def build_graph_static_cache(
             presents.extend(outs[1:])
             x = block_tail(x, outs[0], p)
             continue
-        kv_shape = pool_shape if paged_blocks else ("slots", Hkv, capacity, D)
-        past_k = b.input(f"past_key_values.{i}.key", DataType.Float, kv_shape)
-        past_v = b.input(f"past_key_values.{i}.value", DataType.Float, kv_shape)
+        kdt = kv_dtype or DataType.Float
+        if paged_blocks:
+            kv_shape = pool_shape
+        else:
+            kv_shape = (("slots", capacity, Hkv * D) if kernel_append
+                        else ("slots", Hkv, capacity, D))
+        past_k = b.input(f"past_key_values.{i}.key", kdt, kv_shape)
+        past_v = b.input(f"past_key_values.{i}.value", kdt, kv_shape)
         gqa_inputs = [q, k, v, past_k, past_v, past_lens, None, cos_c, sin_c]
         gqa_attrs = {"num_heads": Hq, "kv_num_heads": Hkv, "rten_past_lens": 1,
                      "do_rotary": 1}
@@ -257,7 +260,7 @@ def build_graph_static_cache(
             gqa_inputs.append(block_table)
             gqa_attrs["rten_paged"] = 1
         attn, pk, pv = b.op(
-            "GroupQueryAttention", gqa_inputs, {**gqa_attrs, **window_attr},
+            "GroupQueryAttention", gqa_inputs, {**gqa_attrs, **ka_attr, **window_attr},
             n_outputs=3,
             output_names=[
                 f"attn_out_{i}", f"present.{i}.key", f"present.{i}.value",

@@ -35,11 +35,22 @@ outputs: out [B,S,H*D], new_k_q8, new_k_scales, new_v_q8, new_v_scales
   ``decode_mha_append_cat``; otherwise write the rows, gather each slot's
   blocks, ``decode_mha``.
 
-GroupQueryAttention (f32 head-major caches [B,Hkv,cap,D], the
-``rten_past_lens`` serving form, ``attention.py:380-468`` and ``641-676``):
-rotary, write the rows at each slot's clamped offset, ``decode_mha``. With
-``rten_paged`` (``attention.py:470-520``, f32 head-major pools, the block
-table as input 9): write the rows into the pools, ``paged_attention``.
+GroupQueryAttention (the ``rten_past_lens`` serving form on f32 or bf16
+caches, ``attention.py:380-468``): rotary first, then the new rows are
+written as ``k.to(cache dtype)`` and attention reads the cache values in
+f32:
+
+* cat caches [B,cap,Hkv*D], S == 1 with ``rten_kernel_append``:
+  ``decode_mha_append_cat`` writes the row and attends (``attention.py:577-593``);
+* cat caches otherwise: write the chunk's rows at each slot's offset, then
+  ``prefill_mha_cat`` (``attention.py:603-639``);
+* head-major caches [B,Hkv,cap,D]: write the rows at each slot's clamped
+  offset, ``decode_mha`` (``attention.py:641-676``);
+* ``rten_paged`` (``attention.py:470-520``, the block table as input 9):
+  cat pools [NB,BS,Hkv*D] at S == 1 with ``rten_kernel_append`` the
+  block-table ``decode_mha_append_cat``, otherwise write the rows, gather
+  each slot's blocks, cast to f32, ``decode_mha``; head-major pools
+  [NB,Hkv,BS,D]: write the rows, ``paged_attention``.
 
 Paged writes follow the reference's two rules for a position past the
 table: the pool helpers below send it to block 0 (the garbage sink), the
@@ -403,10 +414,11 @@ def _quantized_kv_attention(ctx, inputs, attrs):
 
 @register("GroupQueryAttention", inplace=(3, 4))
 def _group_query_attention(ctx, inputs, attrs):
-    """The ``rten_past_lens`` serving form on f32 head-major caches:
-    query/key/value [B,S,H*D] f32, past_key/past_value [B,Hkv,cap,D] f32,
-    seqlens_k [B] per-slot PAST lengths, cos/sin tables (inputs 7, 8) with
-    ``do_rotary``. Outputs: out [B,S,H*D] and the updated caches."""
+    """The ``rten_past_lens`` serving form: query/key/value [B,S,H*D] f32,
+    past_key/past_value f32 or bf16 caches or pools (the module docstring
+    lists the layouts), seqlens_k [B] per-slot PAST lengths, cos/sin tables
+    (inputs 7, 8) with ``do_rotary``, the block table (input 9) with
+    ``rten_paged``. Outputs: out [B,S,H*D] and the updated caches."""
     query = get_input(inputs, 0, "query")
     key = opt_input(inputs, 1)
     value = opt_input(inputs, 2)
@@ -429,9 +441,9 @@ def _group_query_attention(ctx, inputs, attrs):
         _todo("packed QKV GroupQueryAttention", 12)
     if seqlens_k is None or past_k is None or past_v is None:
         raise OpError("rten_past_lens requires seqlens_k and the caches")
-    if past_k.ndim != 4 or past_k.dtype != torch.float32:
-        _todo(f"{past_k.dtype} {'cat' if past_k.ndim == 3 else 'head-major'} "
-              f"{'pools' if paged else 'caches'} in GroupQueryAttention", 7)
+    if past_k.dtype not in (torch.float32, torch.bfloat16) or past_k.ndim not in (3, 4):
+        raise OpError(f"rten_past_lens caches must be [B, Hkv, cap, D] or [B, cap, Hkv*D] "
+                      f"float32 or bfloat16, got {past_k.dtype} {tuple(past_k.shape)}")
     lws = int(attrs.get("local_window_size", -1))
     window = lws if lws > 0 else 0
 
@@ -444,14 +456,44 @@ def _group_query_attention(ctx, inputs, attrs):
         q4, k4 = _rotate_qk(q4, k4, opt_input(inputs, 7), opt_input(inputs, 8),
                             lens, attrs)
     scale = attrs.get("scale")
+    S = q4.shape[2]
+    kernel_append = S == 1 and bool(attrs.get("rten_kernel_append", 0))
     if paged:
         bt = _block_table(inputs, 9)
-        t = paged_targets(lens, q4.shape[2], bt, past_k.shape[0], past_k.shape[2])
-        k_all = paged_kv_update(past_k, k4, lens, bt, t)
-        v_all = paged_kv_update(past_v, v4, lens, bt, t)
-        out = heads_to_cat(paged_attention(q4, k_all, v_all, lens, bt, scale=scale,
-                                           window=window))
+        if past_k.ndim == 3:  # cat pools [NB, BS, Hkv*D]
+            if kernel_append:
+                out, k_all, v_all = decode_mha_append_cat(
+                    q4, past_k, past_v, lens, k_new=k4, v_new=v4, scale=scale,
+                    window=window, block_table=bt,
+                )
+            else:
+                t = paged_targets(lens, S, bt, past_k.shape[0], past_k.shape[1])
+                k_all = paged_kv_update_cat(past_k, heads_to_cat(k4), lens, bt, t)
+                v_all = paged_kv_update_cat(past_v, heads_to_cat(v4), lens, bt, t)
+                out = heads_to_cat(decode_mha(
+                    q4, cat_to_heads(paged_gather_cat(k_all, bt), kv_heads).float(),
+                    cat_to_heads(paged_gather_cat(v_all, bt), kv_heads).float(), lens,
+                    scale=scale, window=window,
+                ))
+        else:
+            t = paged_targets(lens, S, bt, past_k.shape[0], past_k.shape[2])
+            k_all = paged_kv_update(past_k, k4, lens, bt, t)
+            v_all = paged_kv_update(past_v, v4, lens, bt, t)
+            out = heads_to_cat(paged_attention(q4, k_all, v_all, lens, bt, scale=scale,
+                                               window=window))
+    elif past_k.ndim == 3:  # cat caches [B, cap, Hkv*D]
+        if kernel_append:
+            out, k_all, v_all = decode_mha_append_cat(
+                q4, past_k, past_v, lens, k_new=k4, v_new=v4, scale=scale, window=window,
+            )
+        else:
+            k_all = slot_kv_update_cat(past_k, heads_to_cat(k4), lens)
+            v_all = slot_kv_update_cat(past_v, heads_to_cat(v4), lens)
+            out = heads_to_cat(prefill_mha_cat(q4, k_all, v_all, lens, scale=scale,
+                                               window=window))
     else:
+        if kernel_append:
+            _todo("in-kernel append on head-major caches (decode_mha_append)", 7)
         k_all = slot_kv_update(past_k, k4, lens)
         v_all = slot_kv_update(past_v, v4, lens)
         out = heads_to_cat(decode_mha(q4, k_all, v_all, lens, scale=scale, window=window))

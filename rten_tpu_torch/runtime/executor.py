@@ -54,11 +54,14 @@ def _device_resident(node: Constant) -> bool:
 
 
 def to_tensor(value, device: torch.device) -> torch.Tensor:
-    """A caller's value as a tensor on ``device`` (numpy narrowed first)."""
+    """A caller's value as a tensor on ``device`` (numpy narrowed first; a
+    numpy bfloat16 array, ``ml_dtypes``' type, keeps its bits)."""
     if isinstance(value, torch.Tensor):
         return value.to(device)
-    arr = narrow_array(np.asarray(value))
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    arr = np.ascontiguousarray(narrow_array(np.asarray(value)))
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
 
 
 @dataclasses.dataclass

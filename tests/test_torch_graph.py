@@ -175,15 +175,18 @@ def test_load_numpy_constants_checks(bad):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(kv_quant=False),
+    dict(kv_quant=False, deferred_kv=True),     # f32 deferred KV
     dict(kv_bits=4),
     dict(deferred_kv=True),
-    dict(paged_blocks=8, kernel_append=False),  # head-major s8 pools
+    dict(kv_bits=4, kernel_append=False),       # int4 head-major caches
     dict(lora_rank=4, n_adapters=2),
-    dict(kernel_append=False),
+    dict(kv_quant=False, lora_rank=4, n_adapters=2),
     dict(gather_last=False),
 ])
 def test_builder_branches_off_the_slice_raise(kwargs):
+    """What the slice still does not build raises, naming its ROADMAP.md
+    item (f32/bf16 and head-major caches and pools are built:
+    tests/test_torch_kv_dtypes.py)."""
     cfg = tgpt2.GPT2Config(**SMALL)
     opts = {**MAIN_PATH, **kwargs}
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -340,18 +340,19 @@ def test_rotary_clamps_like_jax_indexing():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(paged_blocks=8, kv_dtype=JDataType.BFloat16), 7),     # bf16 pools
     (dict(deferred_kv=True), 9),
+    (dict(kv_dtype=JDataType.BFloat16, deferred_kv=True), 9),          # bf16 deferred KV
+    (dict(kv_dtype=JDataType.BFloat16, recent_dtype=JDataType.BFloat16), 9),
     (dict(kv_quant=True, kv_bits=4), 11),
-    (dict(kv_dtype=JDataType.BFloat16), 7),
-    (dict(kv_quant=False, kernel_append=True), 7),
+    (dict(kv_quant=True, kv_bits=4, kernel_append=True), 11),          # int4 cat caches
     (dict(kv_quant=True, gather_last=False), 10),
 ])
 def test_builder_options_off_the_slice_raise(kwargs, item):
+    """What the slice still does not build raises, naming its ROADMAP.md
+    item (f32/bf16 caches and pools are built: tests/test_torch_kv_dtypes.py)."""
     from rten_tpu_torch.dtypes import DataType
 
-    if "kv_dtype" in kwargs:
-        kwargs = dict(kwargs, kv_dtype=DataType[kwargs["kv_dtype"].name])
+    kwargs = {k: DataType[v.name] if isinstance(v, JDataType) else v for k, v in kwargs.items()}
     cfg = tllama.LlamaConfig(**SMALL)
     opts = dict(capacity=CAP, gather_last=True)
     opts.update(kwargs)

@@ -554,3 +554,254 @@ def test_int4_engine_on_card_matches_cpu(card, k):
         eng.run()
         out[dev.type] = [r.generated for r in reqs]
     assert out["cuda"] == out["cpu"]
+
+
+# --- f32 and bf16 KV caches (no scales) --------------------------------------
+
+CACHE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _float_cache(g, shape, dt, card):
+    return torch.randn(shape, generator=g).to(CACHE_DTYPES[dt]).to(card)
+
+
+def _bits(t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+@pytest.mark.parametrize("dt", list(CACHE_DTYPES))
+@pytest.mark.parametrize("H,Hkv,D,window", [(2, 2, 64, 0), (12, 12, 64, 0), (8, 2, 128, 0),
+                                            (12, 2, 128, 16)])
+def test_decode_append_kernel_float_caches(card, dt, H, Hkv, D, window):
+    """The f32/bf16 mode against its plain version: cache rows bit-exact
+    (the new row rounded to the cache dtype, to nearest even), rows the
+    kernel does not own untouched, out atol 1e-4 (summation order differs),
+    the same bits on a second call from the same caches."""
+    cap, B = 96, 6
+    lens = torch.tensor([0, 31, 32, cap - 1, cap, cap + 7], dtype=torch.int32, device=card)
+    g = _gen(H + D + window)
+    q = torch.randn(B, H, 1, D, generator=g).to(card)
+    kn = torch.randn(B, Hkv, 1, D, generator=g)
+    kn[0, 0, 0, :3] = torch.tensor([1.00390625, -1.01171875, 3.0])  # bf16 ties
+    kn, vn = kn.to(card), torch.randn(B, Hkv, 1, D, generator=g).to(card)
+    kc, vc = (_float_cache(g, (B, cap, Hkv * D), dt, card) for _ in range(2))
+    runs = []
+    for _ in range(2):
+        runs.append(tfa.decode_mha_append_cat(q, kc.clone(), vc.clone(), lens, k_new=kn,
+                                              v_new=vn, window=window))
+    want = tfa.decode_mha_append_cat_plain(q, kc.clone(), vc.clone(), lens, k_new=kn,
+                                           v_new=vn, window=window)
+    torch.cuda.synchronize()
+    got = runs[0]
+    assert len(got) == 3 and all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
+    assert (got[0] - want[0]).abs().max().item() <= 1e-4
+    for i, old in ((1, kc), (2, vc)):
+        assert torch.equal(_bits(got[i]), _bits(want[i]))
+        keep = torch.ones(B, cap, dtype=torch.bool, device=card)
+        keep[torch.arange(B, device=card), lens.clamp(max=cap - 1).long()] = False
+        assert torch.equal(_bits(got[i][keep]), _bits(old[keep]))
+
+
+@pytest.mark.parametrize("dt", ["s8", "f32", "bf16"])
+@pytest.mark.parametrize("H,Hkv,D,S,window", [(12, 2, 128, 45, 0), (8, 8, 128, 33, 0),
+                                              (4, 2, 64, 16, 5), (12, 12, 64, 40, 0)])
+def test_prefill_kernel_dtypes_and_d128(card, dt, H, Hkv, D, S, window):
+    """prefill_mha_cat on s8 (D 128 is new), f32 and bf16 caches, group 6 at
+    D 128 (Qwen2.5-1.5B's attention), against the plain version: atol 1e-4."""
+    cap, B = 96, 4
+    g = _gen(S + D)
+    q = torch.randn(B, H, S, D, generator=g).to(card)
+    if dt == "s8":
+        kc, vc = (torch.randint(-127, 128, (B, cap, Hkv * D), generator=g,
+                                dtype=torch.int8).to(card) for _ in range(2))
+        sc = [(torch.rand(B, Hkv, cap, 1, generator=g) * 0.015 + 0.005).to(card)
+              for _ in range(2)]
+    else:
+        kc, vc = (_float_cache(g, (B, cap, Hkv * D), dt, card) for _ in range(2))
+        sc = []
+    lens = torch.tensor([0, 7, cap - S, 31], dtype=torch.int32, device=card)
+    got = tfa.prefill_mha_cat(q, kc, vc, lens, *sc, window=window)
+    again = tfa.prefill_mha_cat(q, kc, vc, lens, *sc, window=window)
+    want = tfa.prefill_mha_cat_plain(q, kc, vc, lens, *sc, window=window)
+    torch.cuda.synchronize()
+    assert got.shape == (B, H, S, D) and torch.equal(got, again)
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("H,Hkv,S,D,window", [
+    (32, 4, 1, 64, 0),     # TinyLlama's decode step: the fold
+    (12, 2, 1, 128, 0),    # group 6 at D 128
+    (4, 4, 1, 64, 24),     # window
+    (32, 4, 40, 64, 0),    # an admission: per head
+    (8, 2, 16, 128, 20),   # per head, D 128, a window
+])
+def test_decode_mha_kernel_bf16(card, H, Hkv, S, D, window):
+    """decode_mha on bf16 head-major caches (csrc/decode_mha_bf16.cu), both
+    forms, against decode_mha_plain: atol 1e-4 on rows with a column to
+    attend, 0 on the others (a window wholly past cap), the same bits on a
+    second call."""
+    cap, B = 96, 6
+    lens = torch.tensor([0, 17, cap - S, cap - 1, cap, cap + 40], dtype=torch.int32,
+                        device=card)
+    g = _gen(H * S + D)
+    q = torch.randn(B, H, S, D, generator=g).to(card)
+    k, v = (_float_cache(g, (B, Hkv, cap, D), "bf16", card) for _ in range(2))
+    form = tfa.decode_mha_folded if (H // Hkv) * S <= tfa.FOLD_MAX_ROWS else tfa.decode_mha_heads
+    before = form.launches
+    got = tfa.decode_mha(q, k, v, lens, window=window)
+    again = tfa.decode_mha(q, k, v, lens, window=window)
+    want = tfa.decode_mha_plain(q, k, v, lens, window=window)
+    torch.cuda.synchronize()
+    assert form.launches == before + 2 and torch.equal(got, again)
+    qpos = lens.long()[:, None] + torch.arange(S, device=card)[None]
+    live = (qpos - window < cap - 1) if window else torch.ones_like(qpos, dtype=torch.bool)
+    live = live[:, None, :, None].expand_as(got)
+    assert (got - want)[live].abs().max().item() <= 1e-4
+    assert (got[~live] == 0).all()
+
+
+@pytest.mark.parametrize("H,Hkv,D,BS,window", [(32, 4, 64, 64, 0), (12, 2, 128, 16, 0),
+                                               (16, 1, 64, 24, 20)])
+def test_paged_decode_mha_kernel_bf16(card, H, Hkv, D, BS, window):
+    """paged_decode_mha on bf16 head-major pools through a shuffled table,
+    idle slots on block 0: atol 1e-4 against the plain version, the same
+    bits on a second call."""
+    B, MB = 6, 4
+    NB, cap = 4 * MB + 2, MB * BS
+    g = _gen(H * BS + D + 1)
+    bt = _table(card, B, MB, NB, 4, H + BS)
+    lens = torch.tensor([0, BS - 1, BS, cap - 1, cap + 5, 3], dtype=torch.int32, device=card)
+    q = torch.randn(B, H, 1, D, generator=g).to(card)
+    pk, pv = (_float_cache(g, (NB, Hkv, BS, D), "bf16", card) for _ in range(2))
+    got = tfa.paged_decode_mha(q, pk, pv, lens, bt, window=window)
+    again = tfa.paged_decode_mha(q, pk, pv, lens, bt, window=window)
+    want = tfa.paged_decode_mha_plain(q, pk, pv, lens, bt, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("dt", list(CACHE_DTYPES))
+@pytest.mark.parametrize("H,Hkv,D,window", [(12, 12, 64, 0), (12, 2, 128, 0), (8, 2, 64, 20)])
+def test_paged_append_kernel_float_pools(card, dt, H, Hkv, D, window):
+    """The block-table append on f32/bf16 cat pools (the write kernel, then
+    paged_decode_mha's fold on the cat pools' strides) against its plain
+    version, idle slots colliding in block 0: pools bit-exact, blocks no
+    slot owns untouched, out atol 1e-4, the same bits on a second run."""
+    B, BS, MB = 8, 16, 3
+    NB, cap = 5 * MB + 2, MB * BS
+    g = _gen(H + D + window + 7)
+    bt = _table(card, B, MB, NB, 5, H + D)
+    lens = torch.tensor([0, BS - 1, BS, cap - 1, cap + 4, 5, 5, BS + 4], dtype=torch.int32,
+                        device=card)
+    q = torch.randn(B, H, 1, D, generator=g).to(card)
+    kn = torch.randn(B, Hkv, 1, D, generator=g).to(card)
+    vn = torch.randn(B, Hkv, 1, D, generator=g).to(card)
+    pools = [_float_cache(g, (NB, BS, Hkv * D), dt, card) for _ in range(2)]
+    runs = []
+    before = tfa.decode_mha_append_cat_paged.launches
+    for _ in range(2):
+        p = [t.clone() for t in pools]
+        runs.append(tfa.decode_mha_append_cat(q, p[0], p[1], lens, k_new=kn, v_new=vn,
+                                              window=window, block_table=bt))
+    p = [t.clone() for t in pools]
+    want = tfa.decode_mha_append_cat_paged_plain(q, p[0], p[1], lens, k_new=kn, v_new=vn,
+                                                 window=window, block_table=bt)
+    torch.cuda.synchronize()
+    assert tfa.decode_mha_append_cat_paged.launches == before + 2
+    got = runs[0]
+    assert len(got) == 3 and all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
+    assert (got[0] - want[0]).abs().max().item() <= 1e-4
+    owned = set(bt.flatten().tolist())
+    free = [b for b in range(1, NB) if b not in owned]
+    for i in (1, 2):
+        assert torch.equal(_bits(got[i]), _bits(want[i]))
+        assert torch.equal(_bits(got[i][free]), _bits(pools[i - 1][free]))
+
+
+def test_kernels_refuse_modes_they_do_not_take(card):
+    """A CUDA tensor of a dtype or head dim no kernel covers raises, and no
+    kernel launches (no plain version, no library call behind it): f16
+    caches, bf16 caches at D 32, int8 caches without scales, f32 caches with
+    scales."""
+    B, H, D, cap = 2, 2, 32, 64
+    q = torch.zeros(B, H, 1, D, device=card)
+    kn = torch.zeros(B, H, 1, D, device=card)
+    lens = torch.zeros(B, dtype=torch.int32, device=card)
+    sc = torch.ones(B, H, cap, 1, device=card)
+    counters = [tfa.decode_mha_append_cat, tfa.prefill_mha_cat, tfa.decode_mha_folded,
+                tfa.decode_mha_heads, tfa.paged_decode_mha]
+    before = [f.launches for f in counters]
+
+    def cat(dtype, d=D):
+        return torch.zeros(B, cap, H * d, dtype=dtype, device=card)
+
+    with pytest.raises(TypeError):
+        tfa.decode_mha_append_cat(q, cat(torch.float16), cat(torch.float16), lens, k_new=kn,
+                                  v_new=kn)
+    with pytest.raises(ValueError):
+        tfa.decode_mha_append_cat(q, cat(torch.bfloat16), cat(torch.bfloat16), lens,
+                                  k_new=kn, v_new=kn)
+    with pytest.raises(ValueError):
+        tfa.prefill_mha_cat(q, cat(torch.int8), cat(torch.int8), lens)
+    with pytest.raises(ValueError):
+        tfa.prefill_mha_cat(q, cat(torch.float32), cat(torch.float32), lens, sc, sc)
+    hm = torch.zeros(B, H, cap, 64, dtype=torch.float16, device=card)
+    with pytest.raises(TypeError):
+        tfa.decode_mha(torch.zeros(B, H, 1, 64, device=card), hm, hm, lens)
+    with pytest.raises(TypeError):
+        tfa.paged_decode_mha(torch.zeros(B, H, 1, 64, device=card), hm, hm, lens,
+                             torch.zeros(B, 1, dtype=torch.int32, device=card))
+    torch.cuda.synchronize()
+    assert [f.launches for f in counters] == before
+
+
+@pytest.mark.parametrize("form", ["gpt2_bf16_cat", "gpt2_bf16_cat_paged", "gpt2_f32_cat",
+                                  "llama_bf16_head_major", "llama_bf16_head_major_paged",
+                                  "llama_d128_bf16_cat", "llama_f32_cat_paged"])
+def test_kv_dtype_engine_on_card_matches_cpu(card, form):
+    """Small models on f32/bf16 caches and pools served on the card and on
+    the CPU from the same weights: the same tokens; paged pools of 3 usable
+    blocks make admissions wait and end with every block but 0 free."""
+    from rten_tpu_torch.dtypes import DataType
+    from rten_tpu_torch.model import Model
+    from rten_tpu_torch.models import gpt2, llama
+    from rten_tpu_torch.quantize_pass import quantize_dynamic
+    from rten_tpu_torch.serving import ContinuousBatchingEngine
+
+    opts = dict(capacity=64, gather_last=True, kv_quant=False,
+                kernel_append="_cat" in form)
+    if "bf16" in form:
+        opts["kv_dtype"] = DataType.BFloat16
+    if form.endswith("_paged"):
+        opts.update(paged_blocks=4, block_size=16)
+    if form.startswith("gpt2"):
+        cfg = gpt2.GPT2Config(vocab_size=512, n_positions=128, n_embd=128, n_layer=2, n_head=2)
+        weights, n_head, head_dim = gpt2.random_weights(cfg, seed=0), 2, 64
+        build = lambda: gpt2.build_graph_static_cache(cfg, weights, **opts)  # noqa: E731
+    else:
+        hidden = 512 if "d128" in form else 256
+        cfg = llama.LlamaConfig(vocab_size=512, hidden_size=hidden, intermediate_size=512,
+                                num_hidden_layers=2, num_attention_heads=4,
+                                num_key_value_heads=2, max_position_embeddings=128,
+                                attention_bias="d128" in form,
+                                tie_word_embeddings="d128" in form)
+        weights = {k: v * np.float32(2.0) if "_proj." in k else v
+                   for k, v in llama.random_weights(cfg, seed=0).items()}
+        n_head, head_dim = 4, hidden // 4
+        build = lambda: llama.build_graph_static_cache(cfg, weights, **opts)  # noqa: E731
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        graph = build()
+        quantize_dynamic(graph)
+        eng = ContinuousBatchingEngine(
+            Model(graph, device=dev), n_layer=2, n_head=n_head, head_dim=head_dim, slots=3,
+            capacity=64, prefill_bucket=8, greedy_on_device=True, steps_per_dispatch=4)
+        rng = np.random.default_rng(0)
+        reqs = [eng.submit(rng.integers(0, 512, int(rng.integers(3, 12))).tolist(),
+                           max_new_tokens=int(rng.integers(3, 14))) for _ in range(5)]
+        eng.run()
+        if eng.paged:
+            assert sorted(eng._free_blocks) == [1, 2, 3]
+        out[dev.type] = [r.generated for r in reqs]
+    assert out["cuda"] == out["cpu"]

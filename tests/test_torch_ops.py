@@ -524,17 +524,19 @@ def test_quantized_kv_attention_head_major_rotary(S, lens, window, interleaved):
 @pytest.mark.parametrize("op,attrs,feed_change,item", [
     ("GroupQueryAttention", {"rten_past_lens": 0}, None, 12),     # ORT-compatible form
     ("GroupQueryAttention", {"softcap": 30.0}, None, 12),
-    ("GroupQueryAttention", {"rten_paged": 1}, "cat", 7),         # f32 cat-layout pools
+    ("GroupQueryAttention", {"rten_kernel_append": 1}, None, 7),  # decode_mha_append
     ("GroupQueryAttention", {"rten_recent_kv": 1}, None, 9),
-    ("GroupQueryAttention", {}, "bf16", 7),                       # bf16 head-major caches
-    ("GroupQueryAttention", {}, "cat", 7),                        # f32 cat-layout caches
+    ("GroupQueryAttention", {"rten_recent_kv": 1}, "bf16", 9),    # bf16 deferred KV
+    ("GroupQueryAttention", {"rten_kernel_append": 1}, "bf16", 7),  # bf16, head-major
     ("QuantizedKVAttention", {"bits": 4}, None, 11),
     ("QuantizedKVAttention", {"rten_paged": 1, "bits": 4}, None, 11),  # int4 pools
     ("QuantizedKVAttention", {"rten_recent_kv": 1}, None, 9),
 ])
 def test_unported_serving_attention_branches_raise(op, attrs, feed_change, item):
     """Each branch of the serving attention ops that the port does not
-    cover raises NotImplementedError naming its ROADMAP.md item."""
+    cover raises NotImplementedError naming its ROADMAP.md item (the f32
+    and bf16 cat, pool and head-major branches run:
+    tests/test_torch_kv_dtypes.py)."""
     base = _head_major_build(op, 0, False, _rope(48, D // 2))
 
     def build(GB, DT):
