@@ -33,22 +33,29 @@ Run from the repository root:  python3 chip_smoke.py
    quantize_dynamic, Model, ContinuousBatchingEngine) with every launch
    counter zeroed just before and read just after (each kernel of the path
    must have run, as often as the path's forwards say):
-   - TinyLlama-1.1B's shape at full width (22 layers, random weights from
-     seed 0), int8 weights, int8 head-major KV caches;
-   - the same TinyLlama weights cut to 8 layers on paged int8 head-major
-     pools (41 blocks of 64 rows: 40 usable, 3 per request, so at most 13
-     requests run and admissions wait for blocks);
+   - TinyLlama-1.1B's shape at full width, its depth cut to 8 of 22 layers
+     (random weights from seed 0), int8 weights, int8 head-major KV caches;
+   - the same TinyLlama weights on paged int8 head-major pools (41 blocks
+     of 64 rows: 40 usable, 3 per request, so at most 13 requests run and
+     admissions wait for blocks);
    - GPT-2 124M at full width (12 layers), int8 weights, int8 cat KV;
    - GPT-2 on paged int8 cat pools (``bench.py``'s RTEN_BENCH_PAGED graph,
      the same 41-block pool);
    - GPT-2 on the int4 weight-only graph (``bench.py``'s
      RTEN_BENCH_QUANT=int4: int4 weights, int8 cat KV);
-   - TinyLlama's shape again, 8 of the same layers, on bf16 head-major
-     caches, then on paged bf16 head-major pools;
+   - TinyLlama's shape again, the same 8 layers, on bf16 head-major
+     caches, then on paged bf16 head-major pools, then on int4 head-major
+     caches (kv_bits=4), then on int8 head-major caches with the attention
+     nodes marked ``rten_kernel_append`` (no builder emits it; decode steps
+     through decode_mha_append);
    - GPT-2 on bf16 cat caches (``bench.py``'s RTEN_BENCH_KV=bf16), then on
      paged bf16 cat pools (the same 41-block pool);
-   - Qwen2.5-1.5B's published shape at full width and depth (28 layers,
-     random weights from seed 0, int8 weights) on bf16 cat caches: D 128,
+   - GPT-2 on ``bench.py``'s RTEN_BENCH_KV=int4 graph: int8 weights, int4
+     head-major KV caches, deferred KV with bf16 recent windows (the fold's
+     window mode at decode steps, the per-head form on int4 caches at
+     admissions, the windows committed once per dispatch);
+   - Qwen2.5-1.5B's published shape at full width, 14 of its 28 layers
+     (random weights from seed 0, int8 weights) on bf16 cat caches: D 128,
      group 6 through prefill_mha_cat and decode_mha_append_cat;
    each behind the engine with 16 slots, cap 256, prefill bucket 128, 8
    steps per dispatch, answering 24 requests of 128 seeded tokens with
@@ -62,7 +69,10 @@ Run from the repository root:  python3 chip_smoke.py
 5. Reference phases, the card against the CPU (the plain versions): small
    GPT-2 and Llama models behind the engine give the same tokens (each
    supported cache layout: s8, f32 and bf16, cat and head-major; paged too,
-   on a pool small enough that admissions wait; Llama also at D 128), and
+   on a pool small enough that admissions wait; Llama also at D 128; int4
+   and deferred caches; the small int4 Llama at D 64 and 128 also held
+   forward by forward, every quantizer code equal but for flips on a
+   rounding boundary, see int4_engine_lockstep), and
    the full widths cut to 2 layers (TinyLlama's s8, paged and bf16,
    GPT-2's s8 and bf16, Qwen2.5-1.5B's bf16 cat) give finite logits close
    to the CPU's (see logits_card_vs_cpu); small GPT-2 Generators (f32 and int4, batch 1 and
@@ -77,6 +87,7 @@ matmuls and cuDNN, so every f32 product on the card is full f32.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -103,6 +114,30 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+def device_events(prof):
+    """The card's work that a stopped torch.profiler run recorded: (name,
+    count, total microseconds) for each kernel or copy name. Read from the
+    profiler's raw results, which skips building its Python event tree
+    (seconds for a serve wave); its key_averages() where those are not
+    exposed."""
+    from torch.autograd import DeviceType
+
+    try:
+        totals = {}
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() != DeviceType.CUDA or (
+                    hasattr(e, "is_user_annotation") and e.is_user_annotation()):
+                continue
+            ns = e.duration_ns() if hasattr(e, "duration_ns") else e.duration_us() * 1e3
+            if ns > 0:
+                c, t = totals.get(e.name(), (0, 0.0))
+                totals[e.name()] = (c + 1, t + ns / 1e3)
+        return [(name, c, t) for name, (c, t) in totals.items()]
+    except AttributeError:
+        return [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+
+
 def timed(fn, iters: int = 20, warmup: int = 3):
     """Mean milliseconds of one fn() over iters, two ways: (device, wall).
 
@@ -112,7 +147,6 @@ def timed(fn, iters: int = 20, warmup: int = 3):
     calls; where the card finishes a call before the host has launched the
     next, this is the host's launch rate, not the kernel's time. Where the
     profiler records no device time, device is None."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -130,8 +164,7 @@ def timed(fn, iters: int = 20, warmup: int = 3):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA)
+    busy = sum(t for _, _, t in device_events(prof))
     return (busy / iters / 1e3 if busy > 0 else None), wall
 
 
@@ -366,7 +399,7 @@ def phase_prefill_attention(gen, dev):
           f"sdpa {fmt(lib, 12)}, bound {bms:.4f} ms ({by})", flush=True)
     return {
         "name": "prefill_mha_cat", "route": "cuda", "kv": "s8",
-        "source": "rten_tpu_torch/csrc/flash_attention.cu",
+        "source": "rten_tpu_torch/csrc/prefill_cat.cu",
         "replaces": "rten_tpu/kernels/flash_attention.py:3301",
         "unit": "one admission of 120 x 128 tokens: 12 calls (one per layer)",
         "max_abs_err": max(err, err2), **time_keys(k_ms, p_ms, lib, 12),
@@ -378,9 +411,9 @@ def phase_prefill_attention(gen, dev):
 # TinyLlama-1.1B's published shape (rten_tpu_torch.models.llama defaults)
 # and the Llama serve phase's slots.
 L_LAYERS, L_H, L_HKV, L_D, L_VOCAB, L_SLOTS = 22, 32, 4, 64, 32000, 16
-# The depth of the TinyLlama serve phases after the first (paged, and the
-# bf16 ones), cut to keep the whole run near half its time limit; the
-# kernel phases keep all 22 layers.
+# The depth of the TinyLlama serve phases (flat, paged, bf16, int4), cut to
+# keep the whole run near half its time limit; the kernel phases keep all
+# 22 layers.
 L_CUT_LAYERS = 8
 
 
@@ -509,10 +542,10 @@ def _shuffled_table(gen, dev, B, owners):
     return bt.to(dev)
 
 
-def _pools(gen, dev, NB, Hkv, kv, cat=False):
+def _pools(gen, dev, NB, Hkv, kv, cat=False, Dh=L_D):
     """K and V pools of NB blocks (cat rows or head-major) and, for s8, their
     scale pools (None otherwise); ``kv`` "s8", "f32" or "bf16"."""
-    shape = (NB, BLOCK, Hkv * L_D) if cat else (NB, Hkv, BLOCK, L_D)
+    shape = (NB, BLOCK, Hkv * Dh) if cat else (NB, Hkv, BLOCK, Dh)
     if kv != "s8":
         return (*_float_kv(gen, dev, shape, kv), None, None)
     return (torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8).to(dev),
@@ -712,6 +745,9 @@ FLOAT_KV = {"bf16": torch.bfloat16, "f32": torch.float32}
 # group 6), vocab 151936, rope_theta 1e6, rms_norm_eps 1e-6, q/k/v biases,
 # tied embeddings, no sliding window; its serve phase's slots.
 Q_LAYERS, Q_H, Q_HKV, Q_D, Q_VOCAB, Q_SLOTS = 28, 12, 2, 128, 151936, 16
+# The depth of its serve phase, cut to half to keep the whole run near half
+# its time limit; its kernel phases keep all 28 layers.
+Q_SERVE_LAYERS = 14
 QWEN = dict(vocab_size=Q_VOCAB, hidden_size=1536, intermediate_size=8960,
             num_attention_heads=Q_H, num_key_value_heads=Q_HKV,
             max_position_embeddings=131072, rms_norm_eps=1e-6, rope_theta=1e6,
@@ -909,7 +945,7 @@ def phase_float_kv_kernels(gen, dev):
         ("bf16", (SLOTS, H, H, D, 12), gpt2), ("f32", (SLOTS, H, H, D, 12), gpt2),
         ("bf16", (Q_SLOTS, Q_H, Q_HKV, Q_D, Q_LAYERS), qwen))]
     rows.append({"name": "prefill_mha_cat[bf16]", "kv": "bf16", "counter": "prefill_mha_cat",
-                 "source": "rten_tpu_torch/csrc/flash_attention.cu",
+                 "source": "rten_tpu_torch/csrc/prefill_cat.cu",
                  "replaces": "rten_tpu/kernels/flash_attention.py:3301", **cases[0],
                  "max_abs_err": max(c["max_abs_err"] for c in cases),
                  "library_call": "scaled_dot_product_attention (enable_gqa where grouped) on "
@@ -931,6 +967,400 @@ def phase_float_kv_kernels(gen, dev):
                                      "bf16 K/V with the same mask"})
     rows.append(phase_paged_decode_mha(gen, dev, "bf16"))
     return rows
+
+
+# --- int4 KV caches, deferred KV, the head-major append, head dims -----------
+
+
+def _quant_head_major(gen, dev, kv, B, Hkv, Dh=L_D):
+    """Head-major caches of kind ``kv`` [B, Hkv, CAP, Dh] and their scales
+    [B, Hkv, CAP] (None for f32/bf16): "int4" u8 nibbles [.., Dh/2], "s8",
+    "f32" or "bf16" values."""
+    cap = CAP
+    if kv == "int4":
+        k, v = (torch.randint(0, 256, (B, Hkv, cap, Dh // 2), generator=gen,
+                              dtype=torch.uint8).to(dev) for _ in "kv")
+        ks, vs = ((torch.rand(B, Hkv, cap, generator=gen) * 0.3 + 0.05).to(dev) for _ in "kv")
+        return k, v, ks, vs
+    if kv == "s8":
+        k, v = (torch.randint(-127, 128, (B, Hkv, cap, Dh), generator=gen,
+                              dtype=torch.int8).to(dev) for _ in "kv")
+        ks, vs = ((torch.rand(B, Hkv, cap, generator=gen) * 0.015 + 0.005).to(dev) for _ in "kv")
+        return k, v, ks, vs
+    return (*_float_kv(gen, dev, (B, Hkv, cap, Dh), kv), None, None)
+
+
+def _dequant(k, v, ks, vs):
+    """f32 K/V of head-major caches (SDPA's inputs)."""
+    from rten_tpu_torch.kernels.flash_attention import unpack_int4
+
+    if ks is None:
+        return k.float(), v.float()
+    if k.dtype == torch.uint8:
+        k, v = unpack_int4(k), unpack_int4(v)
+    return k.float() * ks[..., None], v.float() * vs[..., None]
+
+
+def _row_bytes(kv, Dh):
+    """Bytes of one cache row of one kv head, its scale included."""
+    return {"int4": Dh // 2 + 4, "s8": Dh + 4, "f32": 4 * Dh, "bf16": 2 * Dh}[kv]
+
+
+def _fold_case(gen, dev, kv, B, Hq, Hkv, layers, tag, W=0):
+    """decode_mha's fold at one decode step (S 1) on head-major ``kv``
+    caches, or (W > 0) a deferred step: a bf16 recent window of W rows at
+    step t = W - 1, the new row written into it. Against the plain version
+    (out within 1e-4 on rows with a column to attend, 0 on the others;
+    windows bit-exact), the same bits twice; then the times of ``layers``
+    calls, the plain version's and SDPA's (enable_gqa) on the dequantized
+    K/V (with the window's rows appended), beside the bound."""
+    from rten_tpu_torch.kernels.flash_attention import (
+        decode_attention_deferred, decode_attention_deferred_plain, decode_mha,
+        decode_mha_folded, decode_mha_plain,
+    )
+
+    q = torch.randn(B, Hq, 1, L_D, generator=gen).to(dev)
+    if W:
+        lens = torch.randint((CAP - W) // 2, CAP - W, (B,), generator=gen, dtype=torch.int32)
+        lens[:3] = torch.tensor([0, 1, CAP - W], dtype=torch.int32)
+    else:
+        lens = torch.randint(128, 192, (B,), generator=gen, dtype=torch.int32)
+        lens[:3] = torch.tensor([0, CAP - 1, CAP + 5], dtype=torch.int32)
+    lens = lens.to(dev)
+    k, v, ks, vs = _quant_head_major(gen, dev, kv, B, Hkv)
+    t = torch.tensor([W - 1], dtype=torch.int32, device=dev)
+    if W:
+        rk, rv = _float_kv(gen, dev, (B, Hkv, W, L_D), "bf16")
+        kn, vn = (torch.randn(B, Hkv, 1, L_D, generator=gen).to(dev) for _ in "kv")
+        runs = [decode_attention_deferred(q, k, v, lens, ks, vs, recent_k=rk.clone(),
+                                          recent_v=rv.clone(), t=t, k_new=kn, v_new=vn)
+                for _ in range(2)]
+        want = decode_attention_deferred_plain(q, k, v, lens, ks, vs, recent_k=rk.clone(),
+                                               recent_v=rv.clone(), t=t, k_new=kn, v_new=vn)
+        torch.cuda.synchronize()
+        err = (runs[0][0] - want[0]).abs().max().item()
+        ok = all(torch.equal(_bits(runs[0][i]), _bits(want[i])) for i in (1, 2))
+        same = all(torch.equal(_bits(a), _bits(b)) for a, b in zip(*runs))
+    else:
+        before = decode_mha_folded.launches
+        runs = [decode_mha(q, k, v, lens, ks, vs) for _ in range(2)]
+        want = decode_mha_plain(q, k, v, lens, ks, vs)
+        torch.cuda.synchronize()
+        live = _mask(lens, 1).any(-1, keepdim=True).expand_as(runs[0])
+        err = (runs[0] - want)[live].abs().max().item()
+        ok = decode_mha_folded.launches == before + 2 and (runs[0][~live] == 0).all()
+        same = torch.equal(runs[0], runs[1])
+    if not err <= 1e-4 or not ok or not same:
+        fail(f"decode_mha fold [{tag}]: max err {err} > 1e-4, windows/dead rows/form {ok}, "
+             f"two calls bit-identical {same}")
+    del runs, want
+    layer_kv = [_quant_head_major(gen, dev, kv, B, Hkv) for _ in range(layers)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if W:
+        wins = [_float_kv(gen, dev, (B, Hkv, W, L_D), "bf16") for _ in range(layers)]
+        k_ms = timed(lambda: [decode_attention_deferred(q, *c[:2], lens, *c[2:], recent_k=w[0],
+                                                        recent_v=w[1], t=t, k_new=kn, v_new=vn)
+                              for c, w in zip(layer_kv, wins)], iters=10)
+        p_ms = timed(lambda: [decode_attention_deferred_plain(
+            q, *c[:2], lens, *c[2:], recent_k=w[0], recent_v=w[1], t=t, k_new=kn, v_new=vn)
+            for c, w in zip(layer_kv, wins)], iters=3, warmup=1)
+        j = torch.arange(CAP + W, device=dev)
+        m = torch.where(j < CAP, j < lens.long()[:, None], True)[:, None, None, :]
+        deq = [tuple(torch.cat([x, w_.float()], 2) for x, w_ in zip(_dequant(*c), w))
+               for c, w in zip(layer_kv, wins)]
+        read = lens.clamp(max=CAP).long().sum().item()
+        pairs = (read + B * W) * Hq
+        nbytes = (2 * 4 * B * Hq * L_D + 4 * B + 2 * read * Hkv * _row_bytes(kv, L_D)
+                  + 2 * B * Hkv * (W - 1) * L_D * 2 + 2 * B * Hkv * L_D * (4 + 2))
+        del wins
+    else:
+        k_ms = timed(lambda: [decode_mha_folded(q, *c[:2], lens, *c[2:]) for c in layer_kv],
+                     iters=10)
+        p_ms = timed(lambda: [decode_mha_plain(q, *c[:2], lens, *c[2:]) for c in layer_kv],
+                     iters=3, warmup=1)
+        m = _mask(lens, 1)
+        deq = [_dequant(*c) for c in layer_kv]
+        pairs = m.sum().item() * Hq
+        kv_rows = (lens.long() + 1).clamp(max=CAP).sum().item()
+        nbytes = 2 * 4 * B * Hq * L_D + 4 * B + 2 * kv_rows * Hkv * _row_bytes(kv, L_D)
+    lib = timed(lambda: [sdpa(q, kf, vf, attn_mask=m, enable_gqa=Hq != Hkv) for kf, vf in deq],
+                iters=10)
+    del layer_kv, deq
+    bms, by = bound_ms(layers * nbytes, layers * 4.0 * pairs * L_D, F32_FLOPS_PER_S)
+    print(f"  decode_mha fold [{tag}] x{layers}: max abs err {err:.3e} (bound 1e-4), two calls "
+          f"bit-identical; kernel {fmt(k_ms)}, plain {fmt(p_ms)}, sdpa {fmt(lib)}, "
+          f"bound {bms:.4f} ms ({by})", flush=True)
+    return {"unit": f"{tag}: {layers} calls (one per layer)", "max_abs_err": err,
+            **time_keys(k_ms, p_ms, lib), "bound_ms": bms, "bound_by": by}
+
+
+def _heads_int4_case(gen, dev, layers):
+    """decode_mha's per-head form on int4 caches at TinyLlama's admission
+    (16 x 128 tokens): against the plain version within 1e-4, the same bits
+    twice; the times of ``layers`` calls beside the bound."""
+    from rten_tpu_torch.kernels.flash_attention import decode_mha, decode_mha_heads, decode_mha_plain
+
+    B = L_SLOTS
+    lens = torch.randint(0, CAP - PROMPT + 1, (B,), generator=gen, dtype=torch.int32)
+    lens[:2] = torch.tensor([0, CAP - 1], dtype=torch.int32)
+    lens = lens.to(dev)
+    q = torch.randn(B, L_H, PROMPT, L_D, generator=gen).to(dev)
+    k, v, ks, vs = _quant_head_major(gen, dev, "int4", B, L_HKV)
+    before = decode_mha_heads.launches
+    got, again = (decode_mha(q, k, v, lens, ks, vs) for _ in range(2))
+    want = decode_mha_plain(q, k, v, lens, ks, vs)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    if decode_mha_heads.launches != before + 2 or not err <= 1e-4 or not torch.equal(got, again):
+        fail(f"decode_mha_heads [int4]: wrong form, max err {err} > 1e-4, or two calls differ")
+    del got, again, want
+    lens = torch.zeros(B, dtype=torch.int32, device=dev)
+    layer_kv = [_quant_head_major(gen, dev, "int4", B, L_HKV) for _ in range(layers)]
+    k_ms = timed(lambda: [decode_mha_heads(q, *c[:2], lens, *c[2:]) for c in layer_kv], iters=5)
+    p_ms = timed(lambda: [decode_mha_plain(q, *c[:2], lens, *c[2:]) for c in layer_kv],
+                 iters=2, warmup=1)
+    m = _mask(lens, PROMPT)
+    deq = [_dequant(*c) for c in layer_kv]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = timed(lambda: [sdpa(q, kf, vf, attn_mask=m, enable_gqa=True) for kf, vf in deq],
+                iters=5)
+    del layer_kv, deq
+    pairs = m.sum().item() * L_H
+    nbytes = 2 * 4 * B * L_H * PROMPT * L_D + 4 * B + 2 * B * PROMPT * L_HKV * _row_bytes(
+        "int4", L_D)
+    bms, by = bound_ms(layers * nbytes, layers * 4.0 * pairs * L_D, F32_FLOPS_PER_S)
+    print(f"  decode_mha_heads [int4] x{layers}: max abs err {err:.3e} (bound 1e-4), two calls "
+          f"bit-identical; kernel {fmt(k_ms)}, plain {fmt(p_ms)}, sdpa {fmt(lib)}, bound "
+          f"{bms:.4f} ms ({by})", flush=True)
+    return {"max_abs_err": err, **time_keys(k_ms, p_ms, lib), "bound_ms": bms, "bound_by": by}
+
+
+def _ulps(a, b):
+    """The largest distance in f32 units in the last place between two
+    positive f32 tensors."""
+    return (a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max().item()
+
+
+def _append_hm_case(gen, dev, kv, B, Hq, Hkv, Dh, layers, tag):
+    """decode_mha_append on head-major ``kv`` caches (s8, f32, bf16): against
+    its plain version (out within 1e-4, cache rows bit-exact, s8 scales
+    within 1 ULP, rows it does not own untouched), the same bits twice; with
+    ``layers``, the times of that many calls, the plain version's and SDPA's
+    on the dequantized K/V beside the bound."""
+    from rten_tpu_torch.kernels.flash_attention import decode_mha_append, decode_mha_append_plain
+
+    q = torch.randn(B, Hq, 1, Dh, generator=gen).to(dev)
+    kn, vn = (torch.randn(B, Hkv, 1, Dh, generator=gen).to(dev) for _ in "kv")
+    lens = torch.randint(128, 192, (B,), generator=gen, dtype=torch.int32)
+    lens[:4] = torch.tensor([0, 31, CAP - 1, CAP + 5], dtype=torch.int32)
+    lens = lens.to(dev)
+    k, v, ks, vs = _quant_head_major(gen, dev, kv, B, Hkv, Dh)
+    if ks is not None:
+        ks, vs = ks[..., None], vs[..., None]
+    args = [x for x in (k, v, ks, vs)]
+
+    def fresh():
+        return [None if x is None else x.clone() for x in args]
+
+    runs = []
+    for _ in range(2):
+        a = fresh()
+        runs.append(decode_mha_append(q, *a[:2], lens, *a[2:], k_new=kn, v_new=vn))
+    p = fresh()
+    want = decode_mha_append_plain(q, *p[:2], lens, *p[2:], k_new=kn, v_new=vn)
+    torch.cuda.synchronize()
+    err = (runs[0][0] - want[0]).abs().max().item()
+    exact = all(torch.equal(_bits(runs[0][i]), _bits(want[i])) for i in (1, 2))
+    ulps = max(_ulps(runs[0][i], want[i]) for i in (3, 4)) if ks is not None else 0
+    same = all(torch.equal(_bits(x), _bits(y)) for x, y in zip(runs[0], runs[1])
+               if x is not None)
+    keep = torch.ones(B, CAP, dtype=torch.bool, device=dev)
+    keep[torch.arange(B, device=dev), lens.long().clamp(max=CAP - 1)] = False
+    untouched = torch.equal(_bits(runs[0][1]).permute(0, 2, 1, 3)[keep],
+                            _bits(k).permute(0, 2, 1, 3)[keep])
+    if not err <= 1e-4 or not exact or ulps > 1 or not same or not untouched:
+        fail(f"decode_mha_append [{tag}]: max err {err} > 1e-4, rows bit-exact {exact}, "
+             f"scales {ulps} ULP apart, two calls bit-identical {same}, other rows untouched "
+             f"{untouched}")
+    del runs, want
+    if not layers:
+        return err, None
+    layer_kv = [_quant_head_major(gen, dev, kv, B, Hkv, Dh) for _ in range(layers)]
+    layer_kv = [(c[0], c[1], None if c[2] is None else c[2][..., None],
+                 None if c[3] is None else c[3][..., None]) for c in layer_kv]
+    k_ms = timed(lambda: [decode_mha_append(q, *c[:2], lens, *c[2:], k_new=kn, v_new=vn)
+                          for c in layer_kv], iters=10)
+    p_ms = timed(lambda: [decode_mha_append_plain(q, *c[:2], lens, *c[2:], k_new=kn, v_new=vn)
+                          for c in layer_kv], iters=3, warmup=1)
+    m = _mask(lens, 1)
+    deq = [_dequant(c[0], c[1], None if c[2] is None else c[2][..., 0],
+                    None if c[3] is None else c[3][..., 0]) for c in layer_kv]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = timed(lambda: [sdpa(q, kf, vf, attn_mask=m, enable_gqa=Hq != Hkv) for kf, vf in deq],
+                iters=10)
+    del layer_kv, deq
+    read = lens.clamp(max=CAP - 1).long().sum().item()
+    rb = _row_bytes(kv, Dh)
+    nbytes = (4 * B * Hq * Dh * 2 + 4 * B * Hkv * Dh * 2 + 4 * B + 2 * read * Hkv * rb
+              + 2 * B * Hkv * rb)
+    bms, by = bound_ms(layers * nbytes, layers * 4.0 * (read + B) * Hq * Dh, F32_FLOPS_PER_S)
+    print(f"  decode_mha_append [{tag}] x{layers}: max abs err {err:.3e} (bound 1e-4), rows "
+          f"bit-exact, scales within {ulps} ULP; kernel {fmt(k_ms)}, plain {fmt(p_ms)}, sdpa "
+          f"{fmt(lib)}, bound {bms:.4f} ms ({by})", flush=True)
+    return err, {"unit": f"{tag}: {layers} calls (one per layer)", "max_abs_err": err,
+                 **time_keys(k_ms, p_ms, lib), "bound_ms": bms, "bound_by": by}
+
+
+def phase_int4_deferred_kernels(gen, dev):
+    """The modes this slice added to kernel rows 6a, 6b and 7, each against
+    its plain version on the card and timed: the int4 fold at TinyLlama's
+    decode step (slots 16, cap 256, H 32 over 4, D 64, 22 calls) and at
+    GPT-2's headline (slots 120, H 12, 12 calls); the fold with a bf16
+    recent window of 8 rows and of 64 (the bench's steps per dispatch) on s8
+    and int4 caches at GPT-2's headline; the int4 per-head form at
+    TinyLlama's admission (16 x 128, 22 calls); decode_mha_append on s8, f32
+    and bf16 head-major caches at TinyLlama's decode step (22 calls)."""
+    rows = []
+    tiny = f"TinyLlama decode step at slots {L_SLOTS}, cap {CAP}, H 32/4, D 64"
+    gpt2 = f"GPT-2 decode step at slots {SLOTS}, cap {CAP}, H 12, D 64"
+    folds = [_fold_case(gen, dev, "int4", L_SLOTS, L_H, L_HKV, L_LAYERS, f"int4, {tiny}"),
+             _fold_case(gen, dev, "int4", SLOTS, H, H, 12, f"int4, {gpt2}")]
+    rows.append({"name": "decode_mha_folded[int4]", "kv": "u4", "counter": "decode_mha_folded",
+                 "source": "rten_tpu_torch/csrc/decode_mha_u4.cu",
+                 "replaces": "rten_tpu/kernels/flash_attention.py:772", **folds[0],
+                 "max_abs_err": max(c["max_abs_err"] for c in folds),
+                 "library_call": "scaled_dot_product_attention(enable_gqa) on pre-dequantized "
+                                 "f32 K/V with the same mask",
+                 "other_shapes": folds[1:]})
+    wins = [_fold_case(gen, dev, kv, SLOTS, H, H, 12, f"{kv} + bf16 window of {W}, {gpt2}", W)
+            for kv in ("int4", "s8") for W in (8, 64)]
+    rows.append({"name": "decode_mha_folded[window]", "kv": "u4-deferred",
+                 "counter": "decode_mha_folded",
+                 "source": "rten_tpu_torch/csrc/decode_mha_u4_win.cu (s8: decode_mha.cu)",
+                 "replaces": "rten_tpu/kernels/flash_attention.py:772", **wins[1],
+                 "max_abs_err": max(c["max_abs_err"] for c in wins),
+                 "library_call": "scaled_dot_product_attention on pre-dequantized f32 K/V with "
+                                 "the window's rows appended, the same mask (no row write)",
+                 "other_shapes": [wins[0]] + wins[2:]})
+    heads = _heads_int4_case(gen, dev, L_LAYERS)
+    rows.append({"name": "decode_mha_heads[int4]", "kv": ("u4", "u4-deferred"),
+                 "counter": "decode_mha_heads", "source": "rten_tpu_torch/csrc/decode_mha_u4.cu",
+                 "replaces": "rten_tpu/kernels/flash_attention.py:935",
+                 "unit": f"one TinyLlama admission at slots {L_SLOTS}, cap {CAP}, {PROMPT} "
+                         f"tokens: {L_LAYERS} calls, int4 caches", **heads,
+                 "library_call": "scaled_dot_product_attention(enable_gqa=True) on "
+                                 "pre-dequantized f32 K/V with the same mask"})
+    appends = [_append_hm_case(gen, dev, kv, L_SLOTS, L_H, L_HKV, L_D, L_LAYERS, f"{kv}, {tiny}")
+               for kv in ("s8", "f32", "bf16")]
+    rows.append({"name": "decode_mha_append", "kv": "head-major append",
+                 "source": "rten_tpu_torch/csrc/flash_attention.cu",
+                 "replaces": "rten_tpu/kernels/flash_attention.py:1442", **appends[0][1],
+                 "max_abs_err": max(e for e, _ in appends),
+                 "library_call": "scaled_dot_product_attention(enable_gqa=True) on the "
+                                 "dequantized K/V with the same mask (no append)",
+                 "other_shapes": [t for _, t in appends[1:]]})
+    return rows
+
+
+def phase_head_dims(gen, dev):
+    """Head dims 80, 96 and 256 (and 512 where the reference takes it) in
+    every attention kernel the masked tail touched, each against its plain
+    version within 1e-4 (bf16 mha 1e-2): decode_mha's fold and per-head
+    form (int4, s8, bf16), paged_decode_mha (s8, bf16), the cat append flat
+    and through a block table (s8, bf16), prefill_mha_cat (s8, bf16), mha
+    (f32, bf16) and decode_mha_append (s8, bf16). Slots 8, cap 256, 8 query
+    heads over 2 KV heads (4 at D 512). Returns {kernel: {D: max err}}."""
+    from rten_tpu_torch.kernels import flash_attention as fa
+
+    B, Hq, S = 8, 8, 32
+    errs = {}
+
+    def note(name, Dh, err, tol=1e-4):
+        if not err <= tol:
+            fail(f"{name} at D {Dh}: max err {err} > {tol}")
+        errs.setdefault(name, {})[str(Dh)] = max(errs.get(name, {}).get(str(Dh), 0.0), err)
+
+    def live_err(got, want, lens, S_):
+        live = _mask(lens, S_).any(-1, keepdim=True).expand_as(got)
+        if not (got[~live] == 0).all():
+            return float("inf")
+        return (got - want)[live].abs().max().item()
+
+    for Dh in (80, 96, 256, 512):
+        Hkv = 2 if Dh < 512 else 4
+        lens = torch.randint(0, CAP - S, (B,), generator=gen, dtype=torch.int32)
+        lens[:2] = torch.tensor([0, CAP - 1], dtype=torch.int32)
+        lens = lens.to(dev)
+        for kv in ("int4", "s8", "bf16"):
+            k, v, ks, vs = _quant_head_major(gen, dev, kv, B, Hkv, Dh)
+            for S_ in (1, S):
+                q = torch.randn(B, Hq, S_, Dh, generator=gen).to(dev)
+                got = fa.decode_mha(q, k, v, lens, ks, vs)
+                want = fa.decode_mha_plain(q, k, v, lens, ks, vs)
+                torch.cuda.synchronize()
+                note("decode_mha_folded" if S_ == 1 else "decode_mha_heads", Dh,
+                     live_err(got, want, lens, S_))
+        q1 = torch.randn(B, Hq, 1, Dh, generator=gen).to(dev)
+        kn, vn = (torch.randn(B, Hkv, 1, Dh, generator=gen).to(dev) for _ in "kv")
+        for kv in ("s8", "bf16"):
+            err, _ = _append_hm_case(gen, dev, kv, B, Hq, Hkv, Dh, 0, f"{kv}, D {Dh}")
+            note("decode_mha_append", Dh, err)
+            # paged_decode_mha on pools of 1 + B * 4 blocks of 64.
+            NB = 1 + B * MAXB
+            pk, pv, pks, pvs = _pools(gen, dev, NB, Hkv, kv, Dh=Dh)
+            bt = _shuffled_table(gen, dev, B, B)
+            got = fa.paged_decode_mha(q1, pk, pv, lens, bt, pks, pvs)
+            want = fa.paged_decode_mha_plain(q1, pk, pv, lens, bt, pks, pvs)
+            torch.cuda.synchronize()
+            note("paged_decode_mha", Dh, (got - want).abs().max().item())
+            if Dh > 256:
+                continue
+            # The cat kernels: the flat append, through a block table, prefill.
+            if kv == "s8":
+                kc, vc = (torch.randint(-127, 128, (B, CAP, Hkv * Dh), generator=gen,
+                                        dtype=torch.int8).to(dev) for _ in "kv")
+                sc = [(torch.rand(B, Hkv, CAP, 1, generator=gen) * 0.01 + 0.005).to(dev)
+                      for _ in "kv"]
+            else:
+                kc, vc = _float_kv(gen, dev, (B, CAP, Hkv * Dh), kv)
+                sc = [None, None]
+            a = [None if x is None else x.clone() for x in (kc, vc, *sc)]
+            p = [None if x is None else x.clone() for x in (kc, vc, *sc)]
+            got = fa.decode_mha_append_cat(q1, a[0], a[1], lens, a[2], a[3], k_new=kn, v_new=vn)
+            want = fa.decode_mha_append_cat_plain(q1, p[0], p[1], lens, p[2], p[3], k_new=kn,
+                                                  v_new=vn)
+            torch.cuda.synchronize()
+            if not all(torch.equal(_bits(got[i]), _bits(want[i])) for i in (1, 2)):
+                fail(f"decode_mha_append_cat at D {Dh}: cache rows differ")
+            note("decode_mha_append_cat", Dh, (got[0] - want[0]).abs().max().item())
+            pools = _pools(gen, dev, NB, Hkv, kv, cat=True, Dh=Dh)
+            a = [None if x is None else x.clone() for x in pools]
+            p = [None if x is None else x.clone() for x in pools]
+            got = fa.decode_mha_append_cat(q1, a[0], a[1], lens, a[2], a[3], k_new=kn, v_new=vn,
+                                           block_table=bt)
+            want = fa.decode_mha_append_cat_paged_plain(q1, p[0], p[1], lens, p[2], p[3],
+                                                        k_new=kn, v_new=vn, block_table=bt)
+            torch.cuda.synchronize()
+            if not all(torch.equal(_bits(got[i]), _bits(want[i])) for i in (1, 2)):
+                fail(f"decode_mha_append_cat (block table) at D {Dh}: pools differ")
+            note("decode_mha_append_cat_paged", Dh, (got[0] - want[0]).abs().max().item())
+            qs = torch.randn(B, Hq, S, Dh, generator=gen).to(dev)
+            got = fa.prefill_mha_cat(qs, kc, vc, lens.clamp(max=CAP - S), *sc)
+            want = fa.prefill_mha_cat_plain(qs, kc, vc, lens.clamp(max=CAP - S), *sc)
+            torch.cuda.synchronize()
+            note("prefill_mha_cat", Dh, (got - want).abs().max().item())
+        if Dh <= 256:
+            for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+                qm = torch.randn(2, Hq, 100, Dh, generator=gen).to(dt).to(dev)
+                km, vm = (torch.randn(2, Hkv, 140, Dh, generator=gen).to(dt).to(dev)
+                          for _ in "kv")
+                got = fa.mha(qm, km, vm, causal=True)
+                want = fa.mha_plain(qm.float(), km.float(), vm.float(), causal=True)
+                torch.cuda.synchronize()
+                note("mha", Dh, (got.float() - want).abs().max().item(), tol)
+    print(f"  head dims (any even D; 512 where the reference takes it): max abs err by kernel "
+          f"and D {json.dumps(errs)}", flush=True)
+    return errs
 
 
 def phase_argmax(gen, dev, slots=SLOTS, vocab=VOCAB, padded=NP):
@@ -1145,25 +1575,50 @@ def phase_int4_matmul(gen, dev):
 
 def kv_options(kv):
     """The builders' cache options for ``kv``: "s8" (int8 with scales),
-    "bf16" or "f32" (no scales)."""
+    "bf16" or "f32" (no scales), "int4" (nibbles with scales); with the
+    suffix "-deferred" (f32 window) or "-deferred-bf16" (bf16 window) the
+    deferred-KV graph."""
     from rten_tpu_torch.dtypes import DataType
 
-    return {"s8": dict(kv_quant=True), "f32": dict(kv_quant=False),
-            "bf16": dict(kv_quant=False, kv_dtype=DataType.BFloat16)}[kv]
+    base, _, deferred = kv.partition("-")
+    opts = {"s8": dict(kv_quant=True), "f32": dict(kv_quant=False),
+            "bf16": dict(kv_quant=False, kv_dtype=DataType.BFloat16),
+            "int4": dict(kv_quant=True, kv_bits=4)}[base]
+    if deferred:
+        opts["deferred_kv"] = True
+        if deferred.endswith("bf16"):
+            opts["recent_dtype"] = DataType.BFloat16
+    return opts
+
+
+_WEIGHTS = {}
+
+
+def random_weights(module, cfg):
+    """``module.random_weights(cfg, seed=0)`` (GPT-2 or Llama), kept until a
+    call for another configuration: a reference check builds the same model
+    on the CPU and then on the card."""
+    key = (module.__name__, repr(cfg))
+    if key not in _WEIGHTS:
+        _WEIGHTS.clear()
+        _WEIGHTS[key] = module.random_weights(cfg, seed=0)
+    return _WEIGHTS[key]
 
 
 def build_model(n_layer, capacity, device, vocab=VOCAB, n_embd=E, n_head=H, kv="s8",
                 **paged):
-    """GPT-2 through the user's entry points, on ``kv`` cat caches;
+    """GPT-2 through the user's entry points, on ``kv`` cat caches (int4
+    and deferred-KV caches are head-major: no in-kernel append there);
     ``paged``: paged_blocks and block_size for the paged cat pools."""
     from rten_tpu_torch.model import Model
     from rten_tpu_torch.models import gpt2
     from rten_tpu_torch.quantize_pass import quantize_dynamic
 
     cfg = gpt2.GPT2Config(vocab_size=vocab, n_layer=n_layer, n_embd=n_embd, n_head=n_head)
-    weights = gpt2.random_weights(cfg, seed=0)
+    weights = random_weights(gpt2, cfg)
     graph = gpt2.build_graph_static_cache(
-        cfg, weights, capacity=capacity, kernel_append=True, gather_last=True,
+        cfg, weights, capacity=capacity, gather_last=True,
+        kernel_append=not kv.startswith("int4") and "deferred" not in kv,
         **kv_options(kv), **paged,
     )
     quantize_dynamic(graph)
@@ -1184,6 +1639,7 @@ def counters():
         "decode_mha_heads": flash_attention.decode_mha_heads,
         "paged_decode_mha": flash_attention.paged_decode_mha,
         "decode_mha_append_cat_paged": flash_attention.decode_mha_append_cat_paged,
+        "decode_mha_append": flash_attention.decode_mha_append,
     }
 
 
@@ -1322,6 +1778,34 @@ def phase_serve_int4(dev):
     return launches
 
 
+def phase_serve_int4_kv(dev):
+    """GPT-2 124M at full width behind the engine on ``bench.py``'s
+    RTEN_BENCH_KV=int4 graph: int8 weights, int4 head-major KV caches,
+    deferred KV with bf16 recent windows (decode steps through the fold's
+    window mode, admissions through the per-head form on int4 caches, the
+    windows committed once per dispatch)."""
+    from rten_tpu_torch.serving import ContinuousBatchingEngine
+
+    model = build_model(12, CAP, dev, kv="int4-deferred-bf16")
+    engine = ContinuousBatchingEngine(
+        model, n_layer=12, n_head=H, head_dim=D, slots=16, capacity=CAP,
+        prefill_bucket=128, greedy_on_device=True, steps_per_dispatch=8,
+    )
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, VOCAB, PROMPT).tolist() for _ in range(24)]
+    budgets = [int(rng.integers(16, 49)) for _ in range(24)]
+    want = lambda steps, adm: {  # noqa: E731
+        "int8_matmul_dequant": 49 * (steps + adm),
+        "decode_mha_folded": 12 * steps,
+        "decode_mha_heads": 12 * adm,
+        "argmax_lastdim": steps + adm,
+    }
+    _, elapsed, forwards, launches = serve(engine, prompts, budgets, VOCAB, want,
+                                           "GPT-2 int4 KV, deferred")
+    profile_wave(engine, prompts[:16], elapsed / forwards)
+    return launches
+
+
 def generator_prompt(vocab=VOCAB, T=GEN_PROMPT, B=1, seed=0):
     return np.random.default_rng(seed).integers(0, vocab, (B, T))
 
@@ -1336,7 +1820,6 @@ def phase_generate(dev, quantize):
     nothing else. TTFT and decode tok/s from the Generator's Metrics; then
     a profiled run of 16 tokens gives the card's busy time per step against
     the host's wall time per step."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from rten_tpu_torch.generate import Generator, GeneratorConfig
@@ -1370,8 +1853,7 @@ def phase_generate(dev, quantize):
         Generator(model, prompt, cfg).generate(16)
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3
+    busy = sum(t for _, _, t in device_events(prof)) / 1e3
     print(f"  generate [{tag}]: {GEN_NEW} tokens after a {GEN_PROMPT}-token prompt (bucket "
           f"{GEN_BUCKET}), TTFT {m.ttft_s() * 1e3:.3f} ms, decode {m.tokens_per_sec():.1f} tok/s "
           f"(host wall per step {wall_step * 1e3:.3f} ms); profiled 16 tokens: device busy "
@@ -1383,13 +1865,16 @@ def phase_generate(dev, quantize):
     return launches
 
 
-def build_llama(n_layer, capacity, device, sharpen=1.0, weights=None, kv="s8", **options):
+def build_llama(n_layer, capacity, device, sharpen=1.0, weights=None, kv="s8",
+                head_major_append=False, **options):
     """A Llama-family model through the user's entry points: ``weights``, or
     random weights from seed 0 (the projections scaled by ``sharpen``), the
     serving graph on ``kv`` caches (head-major unless ``options`` say
     kernel_append), int8 weights, and ``Model``. ``options``: LlamaConfig
-    fields and builder options. Returns the model and the seconds each step
-    took."""
+    fields and builder options. ``head_major_append``: the attention nodes
+    of the head-major graph marked ``rten_kernel_append``, which no builder
+    emits (decode steps then write and attend through decode_mha_append).
+    Returns the model and the seconds each step took."""
     from rten_tpu_torch.model import Model
     from rten_tpu_torch.models import llama
     from rten_tpu_torch.quantize_pass import quantize_dynamic
@@ -1401,15 +1886,16 @@ def build_llama(n_layer, capacity, device, sharpen=1.0, weights=None, kv="s8", *
     secs = {}
     if weights is None:
         t0 = time.perf_counter()
-        weights = llama.random_weights(cfg, seed=0)
-        if sharpen != 1.0:
-            for name in weights:
-                if "_proj." in name:
-                    weights[name] *= np.float32(sharpen)
+        weights = {name: w * np.float32(sharpen) if sharpen != 1.0 and "_proj." in name
+                   else w for name, w in random_weights(llama, cfg).items()}
         secs["weights"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     graph = llama.build_graph_static_cache(cfg, weights, capacity=capacity,
                                            gather_last=True, **build)
+    if head_major_append:
+        for _, node in graph.operators():
+            if node.op_type in ("QuantizedKVAttention", "GroupQueryAttention"):
+                node.attrs = {**node.attrs, "rten_kernel_append": 1}
     secs["graph"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     quantize_dynamic(graph)
@@ -1421,24 +1907,30 @@ def build_llama(n_layer, capacity, device, sharpen=1.0, weights=None, kv="s8", *
 
 
 def tinyllama_weights():
-    """TinyLlama-1.1B's shape at full width: random weights from seed 0 (one
-    dict for both TinyLlama serve phases)."""
+    """TinyLlama-1.1B's shape at full width, L_CUT_LAYERS deep: random
+    weights from seed 0 (one dict for every TinyLlama serve phase)."""
     from rten_tpu_torch.models import llama
 
     t0 = time.perf_counter()
-    weights = llama.random_weights(llama.LlamaConfig(num_hidden_layers=L_LAYERS), seed=0)
+    weights = llama.random_weights(llama.LlamaConfig(num_hidden_layers=L_CUT_LAYERS), seed=0)
     print(f"  TinyLlama random weights (seed 0): {time.perf_counter() - t0:.1f} s", flush=True)
     return weights
 
 
-def phase_serve_llama(dev, weights, paged=False, n_layer=L_LAYERS, kv="s8"):
-    """TinyLlama-1.1B's shape at full width (``n_layer`` of ``weights``'
-    22 layers), int8 weights, ``kv`` head-major KV caches or (``paged``)
-    paged head-major pools, behind the engine."""
+def phase_serve_llama(dev, weights, paged=False, n_layer=L_CUT_LAYERS, kv="s8",
+                      head_major_append=False):
+    """TinyLlama-1.1B's shape at full width (``n_layer`` layers of
+    ``weights``), int8 weights, ``kv`` head-major KV caches or (``paged``)
+    paged head-major pools, behind the engine; with ``head_major_append``
+    the decode steps through decode_mha_append (``build_llama``)."""
     tag = "TinyLlama" + ("" if kv == "s8" else f" {kv}") + (" paged" if paged else "")
-    decode = "paged_decode_mha" if paged else "decode_mha_folded"
+    tag += (" head-major append" if head_major_append else "") + f" ({n_layer} layers)"
+    decode = ("paged_decode_mha" if paged else "decode_mha_append" if head_major_append
+              else "decode_mha_folded")
     return serve_llama_family(
-        dev, tag, n_layer, L_H, L_D, L_VOCAB, dict(weights=weights, kv=kv, **(PAGED if paged else {})),
+        dev, tag, n_layer, L_H, L_D, L_VOCAB,
+        dict(weights=weights, kv=kv, head_major_append=head_major_append,
+             **(PAGED if paged else {})),
         lambda steps, adm: {
             "int8_matmul_dequant": (7 * n_layer + 1) * (steps + adm),
             decode: n_layer * steps,
@@ -1448,17 +1940,18 @@ def phase_serve_llama(dev, weights, paged=False, n_layer=L_LAYERS, kv="s8"):
 
 
 def phase_serve_qwen(dev):
-    """Qwen2.5-1.5B's published shape at full width and depth (28 layers,
-    random weights from seed 0), int8 weights, bf16 cat KV caches (D 128,
-    group 6: ``prefill_mha_cat`` at admissions, ``decode_mha_append_cat``
-    at decode steps), behind the engine."""
+    """Qwen2.5-1.5B's published shape at full width, Q_SERVE_LAYERS of its
+    28 layers (random weights from seed 0), int8 weights, bf16 cat KV caches
+    (D 128, group 6: ``prefill_mha_cat`` at admissions,
+    ``decode_mha_append_cat`` at decode steps), behind the engine."""
+    n = Q_SERVE_LAYERS
     return serve_llama_family(
-        dev, "Qwen2.5-1.5B bf16 cat", Q_LAYERS, Q_H, Q_D, Q_VOCAB,
+        dev, f"Qwen2.5-1.5B bf16 cat ({n} layers)", n, Q_H, Q_D, Q_VOCAB,
         dict(QWEN, kv="bf16", kernel_append=True),
         lambda steps, adm: {
-            "int8_matmul_dequant": (7 * Q_LAYERS + 1) * (steps + adm),
-            "decode_mha_append_cat": Q_LAYERS * steps,
-            "prefill_mha_cat": Q_LAYERS * adm,
+            "int8_matmul_dequant": (7 * n + 1) * (steps + adm),
+            "decode_mha_append_cat": n * steps,
+            "prefill_mha_cat": n * adm,
             "argmax_lastdim": steps + adm,
         })
 
@@ -1501,7 +1994,6 @@ def profile_wave(engine, prompts, wall_per_forward):
     wall time. The profiler slows the host, so the idle share is stated
     against the unprofiled wall time per forward of the serve run as
     well."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     reqs = [engine.submit(p, max_new_tokens=17) for p in prompts]
@@ -1516,9 +2008,8 @@ def profile_wave(engine, prompts, wall_per_forward):
     if not all(r.done and len(r.generated) == 17 for r in reqs):
         fail("profiled wave: a request did not finish with its tokens")
     forwards = engine.steps - steps0 + len({r.first_token_at for r in reqs})
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    events = device_events(prof)
+    busy_ms = sum(t for _, _, t in events) / 1e3
     print(f"  profile: the trace took {time.perf_counter() - t_trace:.1f} s to stop and "
           f"summarize", flush=True)
     if busy_ms <= 0:
@@ -1531,14 +2022,13 @@ def profile_wave(engine, prompts, wall_per_forward):
           f"({busy_ms / forwards / (wall_per_forward * 1e3):.3f} busy)", flush=True)
     # The port's own kernels live in an anonymous namespace; PyTorch's
     # (the plain ops between the kernels) under at::.
-    ours = [e for e in events if "(anonymous namespace)::" in e.key and "at::" not in e.key]
-    ours_ms = sum(e.self_device_time_total for e in ours) / 1e3
+    ours = [e for e in events if "(anonymous namespace)::" in e[0] and "at::" not in e[0]]
+    ours_ms = sum(t for _, _, t in ours) / 1e3
     print(f"  profile: the port's CUDA kernels {ours_ms:.3f} ms, PyTorch's own kernels "
           f"and copies {busy_ms - ours_ms:.3f} ms", flush=True)
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
-    for e in top + [e for e in ours if e not in top]:
-        print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} x  {e.key[:90]}",
-              flush=True)
+    top = sorted(events, key=lambda e: -e[2])[:8]
+    for name, count, t in top + [e for e in ours if e not in top]:
+        print(f"    {t / 1e3:9.3f} ms  {count:6d} x  {name[:90]}", flush=True)
 
 
 def phase_reference(dev):
@@ -1548,9 +2038,10 @@ def phase_reference(dev):
        engine, 5 requests on 3 slots, 4 steps per dispatch: the same tokens,
        on int8, bf16 and f32 cat caches and on paged int8 and bf16 cat pools
        (SMALL_PAGED: 3 usable blocks of 16 rows, so admissions wait for
-       blocks).
-    2. GPT-2 at full width cut to 2 layers, int8 and bf16 cat caches: one
-       admission and 3 decode
+       blocks); on int4 head-major caches, flat and deferred (bf16
+       windows); on int8 deferred caches (f32 windows).
+    2. GPT-2 at full width cut to 2 layers, int8 and bf16 cat caches and
+       int4 deferred caches (bf16 windows): one admission and 3 decode
        steps from the same inputs: finite logits of the right shape, the
        same greedy tokens unless the CPU's top two are within the logit
        tolerance, and logits within 5e-2 of their maximum. The activations
@@ -1560,7 +2051,8 @@ def phase_reference(dev):
        package); a kernel fault moves them by far more.
     """
     for kv, paged in (("s8", {}), ("s8", SMALL_PAGED), ("bf16", {}), ("bf16", SMALL_PAGED),
-                      ("f32", {})):
+                      ("f32", {}), ("int4", {}), ("int4-deferred-bf16", {}),
+                      ("s8-deferred", {})):
         tag = f"GPT-2 {kv}{' paged' if paged else ''}"
         toks = small_engine_tokens(dev, lambda device: build_model(
             2, 64, device, vocab=512, n_embd=128, n_head=2, kv=kv, **paged), 2, tag)
@@ -1568,8 +2060,9 @@ def phase_reference(dev):
             fail(f"reference [{tag}]: small engine tokens differ: {toks['cuda']} vs "
                  f"{toks['cpu']}")
     print("  reference [GPT-2]: small engine tokens equal on card and CPU (s8, bf16, f32 cat "
-          "caches; s8, bf16 paged pools)", flush=True)
-    for kv in ("s8", "bf16"):
+          "caches; s8, bf16 paged pools; int4 head-major caches, flat and deferred with a "
+          "bf16 window; s8 deferred with an f32 window)", flush=True)
+    for kv in ("s8", "bf16", "int4-deferred-bf16"):
         worst, equal = logits_card_vs_cpu(dev, lambda device: build_model(2, 64, device, kv=kv),
                                           VOCAB, f"GPT-2 {kv}")
         print(f"  reference [GPT-2 {kv}]: full width, 2 layers: logits max err {worst:.3e} of "
@@ -1584,8 +2077,10 @@ SMALL_PAGED = dict(paged_blocks=4, block_size=16)
 
 def small_engine_tokens(dev, make_model, n_head, tag, head_dim=64):
     """A small model behind the engine on the card and on the CPU: 5 seeded
-    requests on 3 slots, cap 64, 4 steps per dispatch. Returns the tokens by
-    device type; a paged engine must end with every block free."""
+    requests on 3 slots, cap 64, 4 steps per dispatch, each attention
+    kernel call on the card held against its plain version on the same
+    inputs (``hold_calls``). Returns the tokens by device type; a paged
+    engine must end with every block free."""
     from rten_tpu_torch.serving import ContinuousBatchingEngine
 
     toks = {}
@@ -1597,11 +2092,302 @@ def small_engine_tokens(dev, make_model, n_head, tag, head_dim=64):
         rng = np.random.default_rng(0)
         reqs = [eng.submit(rng.integers(0, 512, int(rng.integers(3, 12))).tolist(),
                            max_new_tokens=int(rng.integers(3, 14))) for _ in range(5)]
-        eng.run()
+        with hold_calls():
+            eng.run()
         if eng.paged and sorted(eng._free_blocks) != list(range(1, eng.n_blocks)):
             fail(f"reference [{tag}]: blocks not returned on {device}")
         toks[device.type] = [r.generated for r in reqs]
     return toks
+
+
+def _host(v):
+    """A copy of a feed or result value as a CPU tensor."""
+    return (v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))).detach().cpu().clone()
+
+
+def _same_input(a, b):
+    """Two devices' engine inputs agree: f32 (scales) within rtol 1e-5, the
+    rest bit for bit."""
+    if a.dtype == torch.float32:
+        return torch.allclose(a, b, rtol=1e-5, atol=0)
+    return torch.equal(_bits(a), _bits(b))
+
+
+# A code the two devices may round apart: the CPU's and the card's
+# x / scale both within this distance of the same half-integer.
+NEAR_HALF = 1e-3
+# A forward's logits with no such flip: within this share of max|logit|.
+LOCKSTEP_TIGHT = 1e-4
+
+
+@contextlib.contextmanager
+def _recording_quantizers(calls):
+    """Within the block, every call of the port's three quantizers (the
+    activations' per-tensor u8 ``dynamic_quantize``, the KV caches'
+    ``pack_int4`` and s8 ``quantize_rows``) appends (kind, x / scale, codes,
+    scale, zero-point ratio or None) to ``calls``, on the host."""
+    from rten_tpu_torch.ops import attention as ops
+    from rten_tpu_torch.ops import quantize as qmod
+
+    real = {"u8": qmod.dynamic_quantize, "int4": ops.pack_int4, "s8": ops.quantize_rows}
+
+    def dq(x):
+        y, s, zp = real["u8"](x)
+        lo = torch.clamp(torch.aminmax(x)[0], max=0.0)
+        calls.append(("u8", _host(x / s), _host(y).to(torch.int32), _host(s),
+                      _host(0.0 - lo / s)))
+        return y, s, zp
+
+    def int4(x):
+        q, s = real["int4"](x)
+        codes = torch.cat([q & 15, q >> 4], dim=-1).to(torch.int32) - 8
+        calls.append(("int4", _host(x.float() / s), _host(codes), _host(s), None))
+        return q, s
+
+    def s8(x):
+        q, s = real["s8"](x)
+        calls.append(("s8", _host(x.float() / s), _host(q).to(torch.int32), _host(s), None))
+        return q, s
+
+    qmod.dynamic_quantize, ops.pack_int4, ops.quantize_rows = dq, int4, s8
+    try:
+        yield
+    finally:
+        qmod.dynamic_quantize, ops.pack_int4, ops.quantize_rows = (
+            real["u8"], real["int4"], real["s8"])
+
+
+def _boundary(rg, rc):
+    """Whether two devices' pre-rounding values sit on the same rounding
+    boundary (a half-integer), each within NEAR_HALF of it."""
+    half = np.floor(rc) + 0.5
+    return abs(rc - half) <= NEAR_HALF and abs(rg - half) <= NEAR_HALF
+
+
+def int4_engine_lockstep(dev, make_model, n_head, tag, head_dim=64, tol=5e-2):
+    """The small int4 engine of ``small_engine_tokens`` (5 seeded requests on
+    3 slots, cap 64, 4 steps per dispatch), held against the CPU forward by
+    forward through the engine, in three runs:
+
+    1. On the CPU: every forward's inputs, outputs, logits and quantizer
+       calls (``_recording_quantizers``: the activations' u8 codes, the
+       caches' int4 codes, each with its x / scale).
+    2. On the card, replaying the CPU run: each forward's inputs, as the
+       card's engine builds them, must equal the CPU's bit for bit; the
+       card's results are checked (``_lockstep_forward``), then the CPU's
+       are handed back, so that every forward starts from the CPU's state.
+       Every attention kernel call is also held against its plain version
+       (``hold_calls``).
+    3. On the card, free running, each forward checked as in run 2 while
+       its inputs equal the CPU run's (f32 scales within rtol 1e-5): the
+       inputs may part only after a forward with a flip or a token at a
+       near tie (a flipped code stays in the card's cache); when they never
+       part, the tokens are equal.
+
+    At the first flip it prints where it is and both devices' x / scale,
+    and every graph operator that, run on the card from the CPU's inputs
+    of that forward, gives another result than on the CPU (where the two
+    devices' arithmetic parts). Returns (tokens by device, the flips of
+    runs 2 and 3)."""
+    from rten_tpu_torch.serving import ContinuousBatchingEngine
+
+    def engine(device):
+        eng = ContinuousBatchingEngine(
+            make_model(device), n_layer=2, n_head=n_head, head_dim=head_dim, slots=3,
+            capacity=64, prefill_bucket=8, greedy_on_device=True, steps_per_dispatch=4)
+        rng = np.random.default_rng(0)
+        reqs = [eng.submit(rng.integers(0, 512, int(rng.integers(3, 12))).tolist(),
+                           max_new_tokens=int(rng.integers(3, 14))) for _ in range(5)]
+        return eng, reqs
+
+    calls = []
+    rec, flips, parts = [], [], set()
+
+    def checked(run, eng, i, feed, out_ids, donate, flips, parts):
+        calls.clear()
+        outs = run(feed, list(out_ids) + [eng.g.find_node("logits")], donate)
+        _lockstep_forward(tag, i, rec[i], [_host(o) for o in outs[:-1]], _host(outs[-1]),
+                          list(calls), flips, parts)
+        return outs[:-1]
+
+    with _recording_quantizers(calls):
+        # 1. The CPU run.
+        cpu, cpu_reqs = engine(torch.device("cpu"))
+        run_cpu = cpu.executor.run
+
+        def record(feed, out_ids, donate=()):
+            calls.clear()
+            before = {nid: _host(v) for nid, v in feed.items()}
+            outs = run_cpu(feed, list(out_ids) + [cpu.g.find_node("logits")], donate)
+            rec.append(dict(feed=before, out_ids=list(out_ids),
+                            outs=[_host(o) for o in outs[:-1]], logits=_host(outs[-1]),
+                            after={nid: _host(feed[nid]) for nid in donate if nid in feed},
+                            calls=list(calls)))
+            return outs[:-1]
+
+        cpu.executor.run = record
+        cpu.run()
+        toks = {"cpu": [r.generated for r in cpu_reqs]}
+
+        # 2. The card, replaying the CPU run forward by forward.
+        card, _ = engine(dev)
+        run_card, n = card.executor.run, [0]
+
+        def replay(feed, out_ids, donate=()):
+            i = n[0]
+            n[0] += 1
+            if i >= len(rec):
+                fail(f"lockstep [{tag}]: the card ran more forwards than the CPU's {len(rec)}")
+            for nid, v in feed.items():
+                if not torch.equal(_bits(_host(v)), _bits(rec[i]["feed"][nid])):
+                    fail(f"lockstep [{tag}]: forward {i}: the engine's input "
+                         f"{card.g.node_name(nid)} differs from the CPU's")
+            checked(run_card, card, i, feed, out_ids, donate, flips, parts)
+            for nid, after in rec[i]["after"].items():
+                feed[nid].copy_(after.to(dev))
+            return [o.to(dev) for o in rec[i]["outs"]]
+
+        card.executor.run = replay
+        with hold_calls():
+            card.run()
+        if n[0] != len(rec):
+            fail(f"lockstep [{tag}]: the card ran {n[0]} forwards, the CPU {len(rec)}")
+
+        # 3. The card, free running.
+        free, free_reqs = engine(dev)
+        run_free, m, parted, free_flips, free_parts = free.executor.run, [0], [], [], set()
+
+        def watch(feed, out_ids, donate=()):
+            i = m[0]
+            m[0] += 1
+            if not parted and i < len(rec) and all(
+                    _same_input(_host(v), rec[i]["feed"][nid]) for nid, v in feed.items()):
+                return checked(run_free, free, i, feed, out_ids, donate, free_flips, free_parts)
+            if not parted:
+                parted.append(i)
+                parted.append([free.g.node_name(nid) for nid, v in feed.items()
+                               if i < len(rec) and not _same_input(_host(v), rec[i]["feed"][nid])])
+            return run_free(feed, out_ids, donate)
+
+        free.executor.run = watch
+        with hold_calls():
+            free.run()
+
+    seen = flips or free_flips
+    if seen:
+        _explain_flip(dev, make_model, tag, seen[0], rec[seen[0]["forward"]])
+    toks["cuda"] = [r.generated for r in free_reqs]
+    if parted and not any(p < parted[0] for p in free_parts):
+        fail(f"lockstep [{tag}]: the free-running card engine's inputs first differ from the "
+             f"CPU's at forward {parted[0]} ({', '.join(parted[1])}), with no flip and no "
+             f"token at a near tie before it")
+    if not parted and toks["cuda"] != toks["cpu"]:
+        fail(f"lockstep [{tag}]: tokens differ with equal inputs: {toks['cuda']} vs "
+             f"{toks['cpu']}")
+    at = sorted({f["forward"] for f in flips})
+    print(f"  lockstep [{tag}]: {len(rec)} forwards replayed on the card from the CPU's "
+          f"inputs, every check held; flips at forwards {at}; free running, "
+          f"{'the inputs stay equal' if not parted else f'checked to forward {parted[0] - 1}, where a flip or near tie before has parted the inputs'}"
+          f" (flips at {sorted({f['forward'] for f in free_flips})}), tokens "
+          f"{'equal' if toks['cuda'] == toks['cpu'] else 'part'}", flush=True)
+    return toks, flips + free_flips
+
+
+def _lockstep_forward(tag, i, r, outs, logits, calls, flips, parts, tol=5e-2):
+    """Forward ``i`` of ``int4_engine_lockstep``: the card's results against
+    the CPU's record ``r``, from the same inputs. The first quantizer call
+    whose codes differ is the root: every code of it that differs must be
+    one step from the CPU's, with both devices' x / scale on the same
+    rounding boundary (a flip; the zero point of a u8 call likewise). Before
+    a root, the two devices' codes are equal; after one, they may differ by
+    what it moved. With no flip, the logits are within LOCKSTEP_TIGHT of
+    max|logit| and every KV cache code and non-f32 output is bit-equal;
+    with one, within ``tol``. A next token may differ only where the CPU's
+    top two are closer than twice the logits' difference. Adds the flips to
+    ``flips``, and ``i`` to ``parts`` when a flip or a token may part a
+    free-running engine from the CPU's."""
+    if len(calls) != len(r["calls"]):
+        fail(f"lockstep [{tag}]: forward {i}: {len(calls)} quantizer calls on the card, "
+             f"{len(r['calls'])} on the CPU")
+    root = None
+    for c, ((kind, rg, cg, sg, zg), (_, rc, cc, sc, zc)) in enumerate(zip(calls, r["calls"])):
+        if torch.equal(cg, cc):
+            continue
+        if zc is not None and not torch.equal(torch.round(zg), torch.round(zc)):
+            if not _boundary(zg.item(), zc.item()):
+                fail(f"lockstep [{tag}]: forward {i}: {kind} call {c}: zero points "
+                     f"{zg.item()!r} / {zc.item()!r} apart, not on a rounding boundary")
+            root = c
+            parts.add(i)
+            flips.append(dict(forward=i, call=c, kind=kind, zero_point=(zg.item(), zc.item())))
+            break
+        for idx in torch.nonzero(cg != cc).tolist():
+            idx = tuple(idx)
+            g_, c_ = rg[idx].item(), rc[idx].item()
+            if abs(cg[idx].item() - cc[idx].item()) != 1 or not _boundary(g_, c_):
+                fail(f"lockstep [{tag}]: forward {i}: {kind} call {c} at {list(idx)}: code "
+                     f"{cg[idx].item()} on the card, {cc[idx].item()} on the CPU, x / scale "
+                     f"{g_!r} vs {c_!r}: not a rounding-boundary flip")
+            sidx = tuple(min(k, n - 1) for k, n in zip(idx, sc.shape)) if sc.dim() else ()
+            flips.append(dict(forward=i, call=c, kind=kind, index=list(idx), ratio_card=g_,
+                              ratio_cpu=c_, code_card=cg[idx].item(), code_cpu=cc[idx].item(),
+                              scale_card=sg[sidx].item(), scale_cpu=sc[sidx].item()))
+        root = c
+        parts.add(i)
+        break
+    V = r["logits"].shape[-1]
+    lc, lg = r["logits"].reshape(-1, V), logits.reshape(-1, V)
+    scale = lc.abs().max().item()
+    diff = (lg - lc).abs().max().item()
+    bound = LOCKSTEP_TIGHT if root is None else tol
+    if not diff <= bound * scale:
+        fail(f"lockstep [{tag}]: forward {i}: logits differ by {diff / scale:.3e} of "
+             f"max|logit| (bound {bound}, flip: {root is not None})")
+    tg, tc = outs[0].reshape(-1), r["outs"][0].reshape(-1)
+    for s in torch.nonzero(tg != tc).reshape(-1).tolist():
+        top2 = torch.sort(lc[s]).values[-2:]
+        if (top2[1] - top2[0]).item() > 2 * diff:
+            fail(f"lockstep [{tag}]: forward {i}: slot {s} token {tg[s].item()} vs CPU "
+                 f"{tc[s].item()}: the CPU's top two {(top2[1] - top2[0]).item():.3e} apart, "
+                 f"the logits {diff:.3e}")
+        parts.add(i)
+    if root is None:
+        for o_card, o_cpu in zip(outs[1:], r["outs"][1:]):
+            if not _same_input(o_card, o_cpu):
+                fail(f"lockstep [{tag}]: forward {i}: a {o_card.dtype} cache differs from the "
+                     f"CPU's with no flip")
+
+
+def _explain_flip(dev, make_model, tag, flip, r):
+    """Prints the first flip, and every operator that, run alone on the card
+    from the CPU's values of that forward (``r``), gives another result
+    than on the CPU: the places where the two devices' arithmetic parts,
+    one of which moved the flipped code's x."""
+    print(f"  lockstep [{tag}]: first flip: {json.dumps(flip)}", flush=True)
+    cpu, card = make_model(torch.device("cpu")), make_model(dev)
+    g = cpu.graph
+    ops_ = [(op_id, g.nodes[op_id]) for op_id in cpu.executor._plan(
+        list(r["feed"]), r["out_ids"] + [g.find_node("logits")])]
+    outs = [o for _, op in ops_ for o in op.outputs]
+    feed = {nid: v.clone() for nid, v in r["feed"].items()}
+    vals = dict(zip(outs, (_host(v) for v in cpu.executor.run(feed, outs))))
+    parted = []
+    for op_id, op in ops_:
+        ins = {i: (vals[i] if i in vals else r["feed"][i]) for i in op.inputs
+               if i is not None and (i in vals or i in r["feed"])}
+        got = card.executor.run({i: v.clone().to(dev) for i, v in ins.items()}, op.outputs)
+        diffs = []
+        for o, v in zip(op.outputs, got):
+            a, b = _host(v), vals[o]
+            if not torch.equal(_bits(a), _bits(b)):
+                d = (a.double() - b.double()).abs().max().item()
+                diffs.append(d / max(b.double().abs().max().item(), 1e-30))
+        if diffs:
+            parted.append(f"{op.op_type} '{g.node_name(op.outputs[0])}' "
+                          f"(rel {max(diffs):.2e})")
+    print(f"  lockstep [{tag}]: operators that, from the CPU's inputs of forward "
+          f"{flip['forward']}, give other bits on the card ({len(parted)} of {len(ops_)}): "
+          f"{'; '.join(parted)}", flush=True)
 
 
 def logits_card_vs_cpu(dev, make_model, vocab, tag, tol=5e-2):
@@ -1611,7 +2397,9 @@ def logits_card_vs_cpu(dev, make_model, vocab, tag, tol=5e-2):
     near tie does not change the card's next input): finite logits of the
     right shape, within ``tol`` of max|logit|, and the same greedy tokens
     unless the CPU's top two are within that tolerance. A paged model gets
-    pools at their declared shape and a shuffled table. Returns (worst
+    pools at their declared shape and a shuffled table; a deferred-KV model
+    one-row windows at the admission, then the three decode steps as one
+    dispatch (windows of 3 rows, step_t 0, 1, 2). Returns (worst
     error, whether every token was equal)."""
     outs = {}
     slots, T = 4, 16
@@ -1630,13 +2418,26 @@ def logits_card_vs_cpu(dev, make_model, vocab, tag, tol=5e-2):
             fixed["block_table"] = (rng.permutation(np.arange(1, nb))[: slots * mb]
                                     .reshape(slots, mb).astype(np.int32))
         names = [n for n in model.output_names() if n.startswith("present.")]
-        feed = dict(caches, **fixed, input_ids=ids, past_lens=np.zeros(slots, np.int32),
+        # Deferred-KV graphs: the three decode steps are one dispatch's,
+        # their rows in windows of 3 rows carried from step to step (the
+        # prompt, written by the admission, is the committed cache).
+        recent = {n: spec for n, spec in info.items() if n.startswith("recent.")}
+        rnames = [n for n in model.output_names() if n.startswith("recent_present.")]
+
+        def windows(rows):
+            return {n: torch.zeros((slots, shape[1], rows, shape[3]), dtype=dt.torch_dtype)
+                    for n, (dt, shape) in recent.items()}
+
+        if recent:
+            fixed["step_t"] = np.zeros(1, np.int32)
+        feed = dict(caches, **fixed, **windows(1), input_ids=ids,
+                    past_lens=np.zeros(slots, np.int32),
                     position_ids=np.tile(np.arange(T, dtype=np.int32), (slots, 1)),
                     last_pos=np.full(slots, T - 1, np.int32))
         res = []
         lens = np.full(slots, T, np.int32)
         for step in range(4):
-            got = model.run(feed, ["logits", "next_token"] + names)
+            got = model.run(feed, ["logits", "next_token"] + names + rnames)
             logits, tok = got[0][:, 0].cpu().numpy(), got[1][:, 0].cpu().numpy()
             if logits.shape != (slots, vocab) or not np.isfinite(logits).all():
                 fail(f"reference [{tag}]: logits {logits.shape} on {device}, finite: "
@@ -1645,7 +2446,12 @@ def logits_card_vs_cpu(dev, make_model, vocab, tag, tol=5e-2):
             if device.type == "cuda":
                 tok = outs["cpu"][step][1]
             feed = {"past_key_values." + n[len("present."):]: t
-                    for n, t in zip(names, got[2:])}
+                    for n, t in zip(names, got[2:2 + len(names)])}
+            if recent:
+                fixed["step_t"] = np.array([step], np.int32)
+                feed.update(windows(3) if step == 0 else {
+                    "recent." + n[len("recent_present."):]: t
+                    for n, t in zip(rnames, got[2 + len(names):])})
             feed.update(fixed, input_ids=tok.astype(np.int32)[:, None], past_lens=lens,
                         position_ids=lens[:, None], last_pos=np.zeros(slots, np.int32))
             lens = lens + 1
@@ -1676,12 +2482,20 @@ def phase_reference_llama(dev):
        on the context) behind the engine, 5 requests on 3 slots, cap 64,
        4 steps per dispatch: the same tokens for each supported cache
        layout (s8, f32 and bf16 head-major; s8, f32 and bf16 cat), flat and
-       paged (SMALL_PAGED); and at D 128 (E 512, Qwen2's biases and tied
-       embeddings) on bf16 cat caches.
+       paged (SMALL_PAGED); at D 128 (E 512, Qwen2's biases and tied
+       embeddings) on bf16 cat caches; on f32 deferred caches with f32
+       windows; on int4 head-major caches at D 64 and 128, where
+       ``int4_engine_lockstep`` also holds every forward against the CPU's.
+       At D 64 the tokens may part, and only after a flip that it located:
+       an int4 code one step apart where both devices' x / scale sit on a
+       rounding boundary (an int4 step is 1/7 of the row's absmax, so one
+       flip moves this sharpened model's later tokens; an s8 step, 1/127,
+       does not).
     2. TinyLlama's width cut to 2 layers (s8 head-major caches, paged s8
-       head-major pools, bf16 head-major caches) and Qwen2.5-1.5B's (bf16
-       cat caches): logits as in the GPT-2 reference phase, within 5e-2 of
-       max|logit|.
+       head-major pools, bf16 and int4 head-major caches) and
+       Qwen2.5-1.5B's (bf16 cat caches): logits as in the GPT-2 reference
+       phase, within 5e-2 of max|logit|, every attention kernel call held
+       against its plain version (``hold_calls``).
     """
     small = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
                  num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=128)
@@ -1690,28 +2504,181 @@ def phase_reference_llama(dev):
     layouts.update({f"paged {k}": dict(v, **SMALL_PAGED) for k, v in list(layouts.items())})
     layouts["D 128 bf16 cat"] = dict(kv="bf16", kernel_append=True, hidden_size=512,
                                      attention_bias=True, tie_word_embeddings=True)
+    layouts["f32 deferred, f32 window"] = dict(kv="f32-deferred")
+    layouts["int4 head-major"] = dict(kv="int4")
+    layouts["D 128 int4 head-major"] = dict(kv="int4", hidden_size=512)
     for layout, opts in layouts.items():
         head_dim = opts.get("hidden_size", 256) // 4
-        toks = small_engine_tokens(dev, lambda device: build_llama(
-            2, 64, device, sharpen=2.0, **{**small, **opts})[0], 4, f"Llama, {layout}", head_dim)
-        if toks["cuda"] != toks["cpu"]:
+
+        def make(device, opts=opts):
+            return build_llama(2, 64, device, sharpen=2.0, **{**small, **opts})[0]
+
+        if opts["kv"] == "int4":
+            toks, flips = int4_engine_lockstep(dev, make, 4, f"Llama, {layout}", head_dim)
+        else:
+            toks, flips = small_engine_tokens(dev, make, 4, f"Llama, {layout}", head_dim), []
+        # Tokens part only after a flip that int4_engine_lockstep located,
+        # and only at D 64.
+        if toks["cuda"] != toks["cpu"] and not (flips and layout == "int4 head-major"):
             fail(f"reference [Llama, {layout}]: small engine tokens differ: "
                  f"{toks['cuda']} vs {toks['cpu']}")
         if len({t for g in toks["cuda"] for t in g}) <= len(toks["cuda"]):
             fail(f"reference [Llama, {layout}]: the tokens do not depend on the context")
     print(f"  reference [Llama]: small engine tokens equal on card and CPU for "
-          f"{', '.join(layouts)}", flush=True)
+          f"{', '.join(layouts)}, unless a located int4 flip parts them (above)", flush=True)
     # 4 slots x 4 blocks of 16 rows, plus the garbage block.
     for tag, opts, vocab in (
             ("TinyLlama", {}, L_VOCAB),
             ("TinyLlama paged", dict(paged_blocks=17, block_size=16), L_VOCAB),
             ("TinyLlama bf16", dict(kv="bf16"), L_VOCAB),
+            ("TinyLlama int4", dict(kv="int4"), L_VOCAB),
             ("Qwen2.5-1.5B bf16 cat", dict(QWEN, kv="bf16", kernel_append=True), Q_VOCAB)):
-        worst, equal = logits_card_vs_cpu(
-            dev, lambda device: build_llama(2, 64, device, **opts)[0], vocab, tag)
+        # Every attention kernel call of the card's run is also held against
+        # its plain version on the same inputs.
+        with hold_calls() as held:
+            worst, equal = logits_card_vs_cpu(
+                dev, lambda device: build_llama(2, 64, device, **opts)[0], vocab, tag)
+        calls = {k: f"{len(v)} calls, max err {max(v):.3e}" for k, v in held.items()}
         print(f"  reference [{tag}]: full width, 2 layers: logits max err {worst:.3e} "
-              f"of max|logit|, tokens {'equal' if equal else 'differ only at near ties'}",
-              flush=True)
+              f"of max|logit|, tokens {'equal' if equal else 'differ only at near ties'}; "
+              f"each attention call against its plain version (bound {HELD_TOL}): "
+              f"{json.dumps(calls)}", flush=True)
+
+
+HELD_TOL = 1e-4  # an attention kernel call against its plain version
+
+
+def _folded_plain(q, k, v, lens, k_scale=None, v_scale=None, *, scale=None, window=0,
+                  recent_k=None, recent_v=None, t=None, k_new=None, v_new=None):
+    """decode_mha_folded's arithmetic in plain PyTorch on any device (the
+    window write included)."""
+    from rten_tpu_torch.kernels.flash_attention import (
+        decode_attention_deferred_plain, decode_mha_plain,
+    )
+
+    if recent_k is None:
+        return decode_mha_plain(q, k, v, lens, k_scale, v_scale, scale=scale, window=window)
+    return decode_attention_deferred_plain(q, k, v, lens, k_scale, v_scale, scale=scale,
+                                           recent_k=recent_k, recent_v=recent_v, t=t,
+                                           k_new=k_new, v_new=v_new)[0]
+
+
+@contextlib.contextmanager
+def hold_calls(tol=HELD_TOL):
+    """Within the block, every call of an attention kernel wrapper on card
+    tensors (decode_mha's two forms, the cat append, the head-major append,
+    prefill_mha_cat, paged_decode_mha) also runs the kernel's plain version
+    on clones of the same inputs: the outputs within ``tol`` of each other,
+    every tensor the two write (caches, scales, windows) equal (s8 scales
+    within rtol 5e-6). Yields
+    {kernel: [max abs error of each call]}; fails on the first call out of
+    bound."""
+    from rten_tpu_torch.kernels import flash_attention as fa
+
+    plain = {"decode_mha_folded": _folded_plain, "decode_mha_heads": fa.decode_mha_plain,
+             "decode_mha_append_cat": fa.decode_mha_append_cat_plain,
+             "decode_mha_append": fa.decode_mha_append_plain,
+             "prefill_mha_cat": fa.prefill_mha_cat_plain,
+             "paged_decode_mha": fa.paged_decode_mha_plain}
+    errs = {}
+
+    def held(name, kernel, args, kw):
+        if not isinstance(args[0], torch.Tensor) or args[0].device.type != "cuda":
+            return kernel(*args, **kw)
+
+        def clone(x):
+            return x.clone() if isinstance(x, torch.Tensor) else x
+
+        pargs, pkw = [clone(a) for a in args], {k: clone(x) for k, x in kw.items()}
+        got = kernel(*args, **kw)
+        want = (fa.decode_mha_append_cat_paged_plain if "block_table" in pkw
+                and pkw["block_table"] is not None else plain[name])(*pargs, **pkw)
+        g0 = got[0] if isinstance(got, tuple) else got
+        w0 = want[0] if isinstance(want, tuple) else want
+        err = (g0.float() - w0.float()).abs().max().item()
+        errs.setdefault(name, []).append(err)
+        written = [(a, b) for a, b in zip(list(args) + list(kw.values()),
+                                          pargs + list(pkw.values()))
+                   if isinstance(a, torch.Tensor)]
+        same = all(torch.equal(_bits(a), _bits(b)) if a.dtype != torch.float32
+                   or a.dim() < 4 or a.shape[-1] > 1
+                   else torch.allclose(a, b, rtol=5e-6, atol=0) for a, b in written)
+        if not err <= tol or not same:
+            fail(f"{name} call {len(errs[name])}: max err {err} > {tol} against its plain "
+                 f"version, or the tensors it writes differ ({same})")
+        return got
+
+    fa.hold = held
+    try:
+        yield errs
+    finally:
+        fa.hold = None
+
+
+def sanitizer_target():
+    """The TinyLlama bf16 head-major 2-layer reference (phase_reference_llama's
+    logits check), the program phase_sanitizer runs under compute-sanitizer."""
+    dev = torch.device("cuda")
+    worst, _ = logits_card_vs_cpu(dev, lambda device: build_llama(2, 64, device, kv="bf16")[0],
+                                  L_VOCAB, "TinyLlama bf16 (sanitizer)")
+    print(f"sanitizer target: logits max err {worst:.3e} of max|logit|", flush=True)
+
+
+def phase_sanitizer(out_dir):
+    """The TinyLlama bf16 head-major 2-layer reference once under
+    ``compute-sanitizer --tool racecheck`` and once under ``--tool memcheck``
+    (the toolkit's own, under /usr/local/cuda/bin), each in a subprocess
+    with a time limit. A hazard or bad access reported in one of the port's
+    kernels fails the run; a tool that is missing, refuses to run, or runs
+    out of time is reported as such; each report goes to ``out_dir``.
+    Returns {tool: outcome}."""
+    tool = "/usr/local/cuda/bin/compute-sanitizer"
+    if not os.path.exists(tool):
+        print(f"  sanitizer: {tool} not found (not run)", flush=True)
+        return {"racecheck": "not found", "memcheck": "not found"}
+    ours = ("decode_mha_fold_kernel", "decode_mha_heads_kernel", "decode_append_kernel",
+            "append_cat_write_kernel", "prefill_cat_kernel", "mha_kernel")
+    code = f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; chip_smoke.sanitizer_target()"
+    # One tiny launch first: a tool that refuses the card says so before
+    # the reference spends its time building the model.
+    probe = subprocess.run([tool, "--tool", "memcheck", sys.executable, "-c",
+                            "import torch; torch.ones(1, device='cuda').sum().item()"],
+                           capture_output=True, text=True, timeout=SANITIZER_S, cwd=ROOT)
+    if "Device not supported" in probe.stdout + probe.stderr:
+        out = {name: "the tool refused the card (Error: Device not supported); not run"
+               for name in ("racecheck", "memcheck")}
+        print(f"  sanitizer: {out['memcheck']}", flush=True)
+        return out
+    out = {}
+    for name in ("racecheck", "memcheck"):
+        t0 = time.perf_counter()
+        try:
+            r = subprocess.run([tool, "--tool", name, sys.executable, "-c", code],
+                               capture_output=True, text=True, timeout=SANITIZER_S, cwd=ROOT)
+        except subprocess.TimeoutExpired:
+            out[name] = f"ran out of its {SANITIZER_S} s"
+            print(f"  sanitizer [{name}]: {out[name]}", flush=True)
+            continue
+        text = r.stdout + r.stderr
+        with open(os.path.join(out_dir, f"sanitizer_{name}.txt"), "w") as f:
+            f.write(text)
+        if "Device not supported" in text:
+            out[name] = "the tool refused the card (Error: Device not supported); not run"
+            print(f"  sanitizer [{name}]: {out[name]}", flush=True)
+            continue
+        summary = [ln.strip() for ln in text.splitlines() if "SUMMARY" in ln]
+        flagged = [ln.strip() for ln in text.splitlines()
+                   if ("Error" in ln or "Hazard" in ln or "hazard" in ln)
+                   and any(k in ln for k in ours)]
+        out[name] = (f"exit {r.returncode} in {time.perf_counter() - t0:.1f} s; "
+                     f"{'; '.join(summary) or text.strip().splitlines()[-1:] }")
+        print(f"  sanitizer [{name}]: {out[name]}", flush=True)
+        if flagged:
+            fail(f"compute-sanitizer {name} reports the port's kernels: {flagged[:5]}")
+    return out
+
+
+SANITIZER_S = 120  # each sanitizer run's time limit
 
 
 def phase_reference_generate(dev):
@@ -1832,6 +2799,14 @@ def main() -> int:
     lap("mha and int4_matmul kernels")
     kernels += phase_float_kv_kernels(gen, dev)
     lap("f32/bf16 KV kernels")
+    kernels += phase_int4_deferred_kernels(gen, dev)
+    lap("int4, recent-window and head-major append kernels")
+    head_dims = phase_head_dims(gen, dev)
+    for k in kernels:
+        errs = head_dims.get(k.get("counter", k["name"]))
+        if errs and "[" not in k["name"]:
+            k["head_dims_max_abs_err"] = errs
+    lap("head dims 80, 96, 256, 512")
     torch.cuda.empty_cache()
     print("serve phases:", flush=True)
     weights = tinyllama_weights()
@@ -1845,16 +2820,19 @@ def main() -> int:
 
     by_path = {}
     run("tinyllama_serve", "s8", phase_serve_llama, weights)
-    lap("TinyLlama serve (weights included)")
-    run("tinyllama_paged_serve", "s8", phase_serve_llama, weights, paged=True,
-        n_layer=L_CUT_LAYERS)
+    lap("TinyLlama serve (8 layers, weights included)")
+    run("tinyllama_paged_serve", "s8", phase_serve_llama, weights, paged=True)
     lap("TinyLlama paged serve (8 layers)")
-    run("tinyllama_bf16_serve", "bf16", phase_serve_llama, weights, n_layer=L_CUT_LAYERS,
-        kv="bf16")
+    run("tinyllama_bf16_serve", "bf16", phase_serve_llama, weights, kv="bf16")
     lap("TinyLlama bf16 serve (8 layers)")
     run("tinyllama_bf16_paged_serve", "bf16", phase_serve_llama, weights, paged=True,
-        n_layer=L_CUT_LAYERS, kv="bf16")
+        kv="bf16")
     lap("TinyLlama bf16 paged serve (8 layers)")
+    run("tinyllama_int4_serve", "u4", phase_serve_llama, weights, kv="int4")
+    lap("TinyLlama int4 serve (8 layers)")
+    run("tinyllama_append_serve", "head-major append", phase_serve_llama, weights,
+        head_major_append=True)
+    lap("TinyLlama head-major append serve (8 layers)")
     del weights
     run("gpt2_serve", "s8", phase_serve)
     lap("GPT-2 serve")
@@ -1866,8 +2844,10 @@ def main() -> int:
     lap("GPT-2 bf16 serve")
     run("gpt2_bf16_paged_serve", "bf16", phase_serve, paged=True, kv="bf16")
     lap("GPT-2 bf16 paged serve")
+    run("gpt2_int4_kv_serve", "u4-deferred", phase_serve_int4_kv)
+    lap("GPT-2 int4 KV deferred serve")
     run("qwen_bf16_serve", "bf16", phase_serve_qwen)
-    lap("Qwen2.5-1.5B bf16 serve (weights included)")
+    lap("Qwen2.5-1.5B bf16 serve (14 layers, weights included)")
     print("generate phases:", flush=True)
     for quantize in (None, "int4"):
         run(f"gpt2_generate_{quantize or 'f32'}", None, phase_generate, quantize)
@@ -1876,17 +2856,21 @@ def main() -> int:
     # cache type (every path for the kernels that read no KV cache).
     for k in kernels:
         kv = k.get("kv")
+        kvs = (kv,) if isinstance(kv, str) else kv
         k["launches_by_path"] = {path: n[k.get("counter", k["name"])]
                                  for path, n in by_path.items()
-                                 if kv is None or path_kv[path] in (kv, None)}
+                                 if kv is None or path_kv[path] in (*kvs, None)}
         k["launches"] = sum(k["launches_by_path"].values())
         k.setdefault("route", "cuda")
     print("reference phases:", flush=True)
+    sanitizer = phase_sanitizer(out_dir)
+    lap("compute-sanitizer (racecheck, memcheck)")
     phase_reference(dev)
     phase_reference_llama(dev)
     phase_reference_generate(dev)
     lap("references (flat, paged, Generator)")
 
+    print(f"sanitizer: {json.dumps(sanitizer)}", flush=True)
     print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in secs.items()})}", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s (build included)", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,8 +1,13 @@
 // decode_mha for Hopper (sm_90a): attention of S query rows per serving
 // slot over head-major KV caches [B, Hkv, cap, D], either s8 with
-// per-position scales [B, Hkv, cap] f32, or f32 or bf16 with no scales
-// (bf16 in decode_mha_bf16.cu, a translation unit of its own so that nvcc
-// builds it in parallel with this one; both instantiate decode_mha.cuh).
+// per-position scales [B, Hkv, cap] f32, int4 (u8 [B, Hkv, cap, D/2], two
+// split-half codes a byte, decode_fold.cuh) with the same scales, or f32 or
+// bf16 with no scales. This library holds s8 at D <= 128; f32 is in
+// decode_mha_f32.cu, bf16 in decode_mha_bf16.cu, int4 in decode_mha_u4.cu
+// (its deferred folds and masked head dims in decode_mha_u4_win.cu) and
+// every kind at D 129-512 in decode_mha_wide.cu, translation units of their
+// own so that nvcc builds them in parallel with this one; all instantiate
+// decode_mha.cuh.
 //
 // Query row s of slot b, head h, sits at position lens[b] + s and reads KV
 // head h / (H / Hkv) (heads are kv-major, as in the TPU kernel's GQA
@@ -22,8 +27,13 @@
 //    _decode_mha_folded (the S <= 8 pallas_call that folds every head of a
 //    slot into one grid step).
 //    Bound on the H100: bytes. A decode step reads each live KV row once
-//    (2 * lens * Hkv * D bytes per slot, plus scales) and does 4 * group
-//    flops per byte of an s8 row.
+//    (2 * lens * Hkv * D bytes per slot, plus scales; half that for int4)
+//    and does 4 * group flops per byte of an s8 row.
+//    Deferred KV (decode_attention_deferred, the reference's
+//    decode_mha(recent_k=...) with k_new): the fold also attends a recent
+//    window of the dispatch's rows (f32 or bf16) after the cache's rows
+//    strictly below lens0, writing the step's new row into the window
+//    first (decode_fold.cuh).
 //    Design (decode_fold.cuh, shared with paged_decode_mha.cu): one
 //    128-thread block per (slot, kv head) holds the group * S query rows
 //    that share the head and reads each K/V row once for all of them (at
@@ -36,17 +46,24 @@
 //    decode_mha (the per-(slot, head, key block) pallas_call for larger S).
 //    Bound on the H100: operations at admission sizes (4 * S * keys * D
 //    flops per head against S * D * 8 + keys * D bytes).
-//    Design: one 128-thread block per (32-row query tile, head, slot). The
-//    key loop runs inside the block up to lens[b] + the tile's last row,
-//    with K/V tiles converted to f32 in shared memory beside their scales;
-//    four threads share a query row (scores for BK / 4 columns each, then
-//    D / 4 output dims each), and the online softmax runs in registers.
-//    For D = 128 the key tile is 16 columns, keeping static shared memory
-//    at 35 KB (< 48 KB).
+//    Design: one 128-thread block per (query tile, head, slot). The key
+//    loop runs inside the block up to lens[b] + the tile's last row, with
+//    K/V tiles converted to f32 in shared memory beside their scales; four
+//    threads share a query row up to D 128, eight beyond (query tiles of
+//    32 and 16 rows: scores for BK / 4 or BK / 8 columns each, then D / 4
+//    or D / 8 output dims each), and the online softmax runs in registers.
+//    The key tile is 32 columns at D <= 64, 16 up to D 256 and 8 at D 512,
+//    in dynamic shared memory (35 KB at D 128, 49 KB at D 256, 65 KB at
+//    D 512; above 48 KB after cudaFuncSetAttribute). int4 rows unpack as
+//    the tile is filled.
+//
+// Head dims: instances for DP = 64, 128 (here), 256 and 512 (decode_mha_wide.cu);
+// any even D runs in the smallest instance that holds it, the dims past D
+// zero in shared memory (a masked tail).
 //
 // bf16 values widen to f32 exactly as they are loaded (8 a 16-byte load in
-// the fold, one a thread in the per-head form's tile fill); every product
-// and sum is f32.
+// the fold, one a thread in the per-head form's tile fill), int4 codes as
+// they are unpacked (nibble - 8); every product and sum is f32.
 //
 // f32 on CUDA cores; tensor cores, split-K across blocks and cp.async are
 // later work. Built without --use_fast_math (IEEE expf and division), like
@@ -54,18 +71,5 @@
 
 #include "decode_mha.cuh"
 
-extern "C" int rten_decode_mha_folded(int kind, RTEN_DECODE_MHA_PARAMS) {
-  switch (kind) {
-    case KV_S8: return launch_decode_mha_folded<int8_t>(RTEN_DECODE_MHA_NAMES);
-    case KV_F32: return launch_decode_mha_folded<float>(RTEN_DECODE_MHA_NAMES);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-extern "C" int rten_decode_mha_heads(int kind, RTEN_DECODE_MHA_PARAMS) {
-  switch (kind) {
-    case KV_S8: return launch_decode_mha_heads<int8_t>(RTEN_DECODE_MHA_NAMES);
-    case KV_F32: return launch_decode_mha_heads<float>(RTEN_DECODE_MHA_NAMES);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
+#define RTEN_CASES(M) M(KV_S8, int8_t, 64) M(KV_S8, int8_t, 128)
+RTEN_DECODE_MHA_ENTRIES(RTEN_CASES)

@@ -1,17 +1,46 @@
-// decode_mha's two launch forms for one cache element type T, shared by
-// decode_mha.cu (s8 and f32 caches) and decode_mha_bf16.cu (bf16 caches),
-// which nvcc builds in parallel. decode_mha.cu says what each form replaces
-// and how it is designed.
+// decode_mha's two launch forms for one cache element type T and head-dim
+// instance DP, shared by decode_mha.cu (s8 and f32 caches, D <= 128),
+// decode_mha_bf16.cu (bf16, D <= 128), decode_mha_u4.cu (int4, D <= 128)
+// and decode_mha_wide.cu (every kind at D 129-512), which nvcc builds in
+// parallel. decode_mha.cu says what each form replaces and how it is
+// designed.
 
 #pragma once
 
 #include "decode_fold.cuh"
 
+// What a library holds (each source may set these before the include): the
+// fold's instances with D fixed and no recent window (RTEN_FOLD_FAST), its
+// general ones (RTEN_FOLD_GENERAL: a recent window, a masked tail; the only
+// ones past DP 128), the per-head form (RTEN_HEADS). An entry point asked
+// for a form its library does not hold returns cudaErrorInvalidValue.
+#ifndef RTEN_FOLD_FAST
+#define RTEN_FOLD_FAST 1
+#endif
+#ifndef RTEN_FOLD_GENERAL
+#define RTEN_FOLD_GENERAL 1
+#endif
+#ifndef RTEN_HEADS
+#define RTEN_HEADS 1
+#endif
+
 namespace {
 
-constexpr int HQ = 32;  // query rows per block of the per-head form
+// The per-head form's tiling at head-dim instance DP: TPR threads share a
+// query row (4 up to D 128, 8 beyond, so that each keeps at most 64
+// accumulators), HQ = 128 / TPR query rows a block, BK key columns a tile;
+// shared memory holds the query tile and one K and V tile as f32, padded by
+// one column, beside the tile's probabilities and scales.
+template <int DP>
+struct HeadsTile {
+  static constexpr int TPR = DP <= 128 ? 4 : 8;
+  static constexpr int HQ = 128 / TPR;
+  static constexpr int BK = DP <= 64 ? 32 : (DP <= 256 ? 16 : 8);
+  static constexpr int SMEM =
+      (int)sizeof(float) * (HQ * (DP + 1) + 2 * BK * (DP + 1) + HQ * (BK + 1) + 2 * BK);
+};
 
-template <int D, typename T>
+template <int DP, typename T>
 __global__ void __launch_bounds__(128) decode_mha_heads_kernel(
     const float* __restrict__ q, long long q_sb, long long q_sh, long long q_ss,
     const T* __restrict__ kc, const T* __restrict__ vc,
@@ -20,29 +49,35 @@ __global__ void __launch_bounds__(128) decode_mha_heads_kernel(
     long long sc_sb, long long sc_sh, long long sc_sj,
     const int32_t* __restrict__ lens, float* __restrict__ out,
     long long o_sb, long long o_sh, long long o_ss,
-    int H, int Hkv, int S, int cap, int window, float scale) {
-  constexpr bool QUANT = std::is_same<T, int8_t>::value;
-  constexpr int BK = D == 128 ? 16 : 32;  // key columns per tile
-  constexpr int DPT = D / 4;               // output dims per thread
-  constexpr int CPT = BK / 4;              // score columns per thread
-  __shared__ float Qs[HQ][D + 1];
-  __shared__ float Ks[BK][D + 1];
-  __shared__ float Vs[BK][D + 1];
-  __shared__ float Ps[HQ][BK + 1];
-  __shared__ float ksc_s[BK], vsc_s[BK];
+    int H, int Hkv, int S, int D, int cap, int window, float scale) {
+  constexpr bool QUANT = KvRow<T>::QUANT;
+  constexpr int TPR = HeadsTile<DP>::TPR, HQ = HeadsTile<DP>::HQ;
+  constexpr int BK = HeadsTile<DP>::BK;  // key columns per tile
+  constexpr int DPT = DP / TPR;          // output dims per thread
+  constexpr int CPT = BK / TPR;          // score columns per thread
+  // Dynamic shared memory (above 48 KB at DP 256 and 512): Qs [HQ][DP + 1],
+  // Ks and Vs [BK][DP + 1], Ps [HQ][BK + 1], then the tile's scales.
+  extern __shared__ float smem[];
+  float (*Qs)[DP + 1] = reinterpret_cast<float (*)[DP + 1]>(smem);
+  float (*Ks)[DP + 1] = reinterpret_cast<float (*)[DP + 1]>(smem + HQ * (DP + 1));
+  float (*Vs)[DP + 1] = reinterpret_cast<float (*)[DP + 1]>(smem + (HQ + BK) * (DP + 1));
+  float (*Ps)[BK + 1] = reinterpret_cast<float (*)[BK + 1]>(smem + (HQ + 2 * BK) * (DP + 1));
+  float* ksc_s = smem + (HQ + 2 * BK) * (DP + 1) + HQ * (BK + 1);
+  float* vsc_s = ksc_s + BK;
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, row = tid / 4, sub = tid % 4;
+  const int tid = threadIdx.x, row = tid / TPR, sub = tid % TPR;
   const int hk = h / (H / Hkv);
   const T* kb = kc + b * kv_sb + hk * kv_sh;
   const T* vb = vc + b * kv_sb + hk * kv_sh;
   const long long sc_off = b * sc_sb + hk * sc_sh;
   const int len = lens[b];
   const int r0 = qt * HQ;
+  const int half = D / 2;
 
-  for (int idx = tid; idx < HQ * D; idx += 128) {
-    const int r = idx / D, d = idx % D, s = r0 + r;
-    Qs[r][d] = s < S ? q[b * q_sb + h * q_sh + s * q_ss + d] : 0.f;
+  for (int idx = tid; idx < HQ * DP; idx += 128) {
+    const int r = idx / DP, d = idx % DP, s = r0 + r;
+    Qs[r][d] = s < S && d < D ? q[b * q_sb + h * q_sh + s * q_ss + d] : 0.f;
   }
   const int last_row = min(S - 1, r0 + HQ - 1);
   const int kmax = min(len + last_row, cap - 1);
@@ -58,11 +93,11 @@ __global__ void __launch_bounds__(128) decode_mha_heads_kernel(
 
   for (int k0 = (kmin / BK) * BK; k0 <= kmax; k0 += BK) {
     __syncthreads();  // Qs ready / the previous tile consumed
-    for (int idx = tid; idx < BK * D; idx += 128) {
-      const int c = idx / D, d = idx % D, col = k0 + c;
-      const bool in = col < cap;
-      Ks[c][d] = in ? to_f32(kb[col * kv_sj + d]) : 0.f;
-      Vs[c][d] = in ? to_f32(vb[col * kv_sj + d]) : 0.f;
+    for (int idx = tid; idx < BK * DP; idx += 128) {
+      const int c = idx / DP, d = idx % DP, col = k0 + c;
+      const bool in = col < cap && d < D;
+      Ks[c][d] = in ? row_elem(kb + col * kv_sj, d, half) : 0.f;
+      Vs[c][d] = in ? row_elem(vb + col * kv_sj, d, half) : 0.f;
     }
     if (tid < BK) {
       const int col = k0 + tid;
@@ -75,38 +110,36 @@ __global__ void __launch_bounds__(128) decode_mha_heads_kernel(
     float mt = -INFINITY;
 #pragma unroll
     for (int i = 0; i < CPT; ++i) {
-      const int c = sub + 4 * i, col = k0 + c;
+      const int c = sub + TPR * i, col = k0 + c;
       const bool ok = row_valid && col <= qpos && col < cap &&
                       (window <= 0 || col > qpos - window);
-      float dot = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) dot += Qs[row][d] * Ks[c][d];
+      const float dot = row_dot<DP>(Qs[row], Ks[c]);
       sc[i] = ok ? dot * scale * ksc_s[c] : -INFINITY;
       mt = fmaxf(mt, sc[i]);
     }
-    mt = fmaxf(mt, __shfl_xor_sync(FULL, mt, 1));
-    mt = fmaxf(mt, __shfl_xor_sync(FULL, mt, 2));
+#pragma unroll
+    for (int off = 1; off < TPR; off <<= 1) mt = fmaxf(mt, __shfl_xor_sync(FULL, mt, off));
     const float m_new = fmaxf(m, mt);
     const float alpha = m == -INFINITY ? 0.f : expf(m - m_new);
     float psum = 0.f;
 #pragma unroll
     for (int i = 0; i < CPT; ++i) {
-      const int c = sub + 4 * i;
+      const int c = sub + TPR * i;
       const float p = sc[i] == -INFINITY ? 0.f : expf(sc[i] - m_new);
       Ps[row][c] = p * vsc_s[c];
       psum += p;
     }
-    psum += __shfl_xor_sync(FULL, psum, 1);
-    psum += __shfl_xor_sync(FULL, psum, 2);
+#pragma unroll
+    for (int off = 1; off < TPR; off <<= 1) psum += __shfl_xor_sync(FULL, psum, off);
     l = l * alpha + psum;
-    __syncwarp();  // a row's four threads share a warp
+    __syncwarp();  // a row's threads share a warp
 #pragma unroll
     for (int i = 0; i < DPT; ++i) acc[i] *= alpha;
     for (int c = 0; c < BK; ++c) {
       const float p = Ps[row][c];
       if (p != 0.f) {
 #pragma unroll
-        for (int i = 0; i < DPT; ++i) acc[i] += p * Vs[c][sub + 4 * i];
+        for (int i = 0; i < DPT; ++i) acc[i] += p * Vs[c][sub + TPR * i];
       }
     }
     m = m_new;
@@ -114,57 +147,122 @@ __global__ void __launch_bounds__(128) decode_mha_heads_kernel(
   if (row_valid) {
     const float inv = l > 0.f ? 1.f / l : 0.f;
 #pragma unroll
-    for (int i = 0; i < DPT; ++i)
-      out[b * o_sb + h * o_sh + s_row * o_ss + sub + 4 * i] = acc[i] * inv;
+    for (int i = 0; i < DPT; ++i) {
+      const int d = sub + TPR * i;
+      if (d < D) out[b * o_sb + h * o_sh + s_row * o_ss + d] = acc[i] * inv;
+    }
   }
 }
 
 }  // namespace
 
-// The C entry points' parameters after the element kind, and their names.
+// The C entry points' parameters after the element kind, and their names:
+// q [B, H, S, D] f32, the caches and scales through strides (elements;
+// bytes for int4 rows), lens, out through strides; vec: 16-byte K loads in
+// the fold; the recent window (deferred KV, the fold only): rk/rv through
+// strides r_sb, r_sh, r_sj, W rows (0: none), wbf16 (bf16 rows, else f32),
+// wvec, the step t [1] int32 on the device, and the new row kn/vn
+// [B, Hkv, 1, D] f32 through strides n_sb, n_sh (null: none).
 #define RTEN_DECODE_MHA_PARAMS                                                   \
   const void *q, long long q_sb, long long q_sh, long long q_ss, const void *k,  \
       const void *v, long long kv_sb, long long kv_sh, long long kv_sj,          \
       const void *ks, const void *vs, long long sc_sb, long long sc_sh,          \
       long long sc_sj, const void *lens, void *out, long long o_sb,              \
       long long o_sh, long long o_ss, int B, int H, int Hkv, int S, int D,       \
-      int cap, int window, float scale, void *stream
+      int cap, int window, float scale, int vec, void *rk, void *rv,             \
+      long long r_sb, long long r_sh, long long r_sj, int W, int wbf16,          \
+      int wvec, const void *t, const void *kn, const void *vn, long long n_sb,   \
+      long long n_sh, void *stream
 #define RTEN_DECODE_MHA_NAMES                                                    \
   q, q_sb, q_sh, q_ss, k, v, kv_sb, kv_sh, kv_sj, ks, vs, sc_sb, sc_sh, sc_sj,   \
-      lens, out, o_sb, o_sh, o_ss, B, H, Hkv, S, D, cap, window, scale, stream
+      lens, out, o_sb, o_sh, o_ss, B, H, Hkv, S, D, cap, window, scale, vec, rk, \
+      rv, r_sb, r_sh, r_sj, W, wbf16, wvec, t, kn, vn, n_sb, n_sh, stream
 
 #define RTEN_KV_ARGS(TT)                                                         \
   (const float*)q, q_sb, q_sh, q_ss, (const TT*)k, (const TT*)v, kv_sb, kv_sh,   \
       kv_sj, (const float*)ks, (const float*)vs, sc_sb, sc_sh, sc_sj
 #define RTEN_OUT_ARGS                                                            \
-  (const int32_t*)lens, (float*)out, o_sb, o_sh, o_ss, H, Hkv, S, cap, window,   \
+  (const int32_t*)lens, (float*)out, o_sb, o_sh, o_ss, H, Hkv, S, D, cap, window, \
       scale
 
-template <typename T>
+template <typename T, int DP, int RR, bool WIN, bool EXACT>
+void launch_fold(RTEN_DECODE_MHA_PARAMS) {
+  const RecentWindow rw{rk, rv, r_sb, r_sh, r_sj, W, wbf16, wvec, (const int32_t*)t,
+                        (const float*)kn, (const float*)vn, n_sb, n_sh};
+  decode_mha_fold_kernel<DP, T, RR, false, WIN, EXACT>
+      <<<dim3(B, Hkv), FOLD_WARPS * 32, 0, (cudaStream_t)stream>>>(
+          RTEN_KV_ARGS(T), nullptr, 0, 0, RTEN_OUT_ARGS, vec, rw);
+}
+
+template <typename T, int DP, bool WIN, bool EXACT>
+void launch_fold_rows(int rows, RTEN_DECODE_MHA_PARAMS) {
+  if (rows == 1) launch_fold<T, DP, 1, WIN, EXACT>(RTEN_DECODE_MHA_NAMES);
+  else if (rows <= 8) launch_fold<T, DP, 8, WIN, EXACT>(RTEN_DECODE_MHA_NAMES);
+  else launch_fold<T, DP, 16, WIN, EXACT>(RTEN_DECODE_MHA_NAMES);
+}
+
+// The fold at head-dim instance DP: group * S rows up to FoldRows<DP>
+// (a one-row instance for the decode steps of models without GQA, such as
+// GPT-2, whose 8-row instance would hold registers for rows it does not
+// have). Up to DP 128 two kinds of instance: D == DP without a recent
+// window (every decode step but deferred KV's: no window code, D fixed at
+// compile time), and the general one (a recent window, a masked tail).
+template <typename T, int DP>
 int launch_decode_mha_folded(RTEN_DECODE_MHA_PARAMS) {
   const int rows = (H / Hkv) * S;
-  if (rows < 1 || rows > 16 || (D != 64 && D != 128)) return (int)cudaErrorInvalidValue;
-  const dim3 grid(B, Hkv);
-  cudaStream_t st = (cudaStream_t)stream;
-#define RTEN_FOLD(DD, RR)                                                        \
-  decode_mha_fold_kernel<DD, T, RR, false><<<grid, FOLD_WARPS * 32, 0, st>>>(    \
-      RTEN_KV_ARGS(T), nullptr, 0, 0, RTEN_OUT_ARGS)
-#define RTEN_FOLD_R(DD)                                                          \
-  if (rows <= 8) RTEN_FOLD(DD, 8); else RTEN_FOLD(DD, 16)
-  if (D == 64) { RTEN_FOLD_R(64); } else { RTEN_FOLD_R(128); }
-#undef RTEN_FOLD_R
-#undef RTEN_FOLD
+  if (rows < 1 || rows > FoldRows<DP>::value || rten_dp_of(D) != DP)
+    return (int)cudaErrorInvalidValue;
+  if (DP <= 128 && W == 0 && D == DP) {
+    if constexpr (DP <= 128 && RTEN_FOLD_FAST)
+      launch_fold_rows<T, DP, false, true>(rows, RTEN_DECODE_MHA_NAMES);
+    else
+      return (int)cudaErrorInvalidValue;
+  } else if constexpr (RTEN_FOLD_GENERAL) {
+    if constexpr (DP <= 128)
+      launch_fold_rows<T, DP, true, false>(rows, RTEN_DECODE_MHA_NAMES);
+    else
+      launch_fold<T, DP, FoldRows<DP>::value, true, false>(RTEN_DECODE_MHA_NAMES);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int DP>
 int launch_decode_mha_heads(RTEN_DECODE_MHA_PARAMS) {
-  if (S < 1 || (D != 64 && D != 128)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((S + HQ - 1) / HQ, H, B);
-  cudaStream_t st = (cudaStream_t)stream;
-#define RTEN_HEADS(DD)                                                           \
-  decode_mha_heads_kernel<DD, T><<<grid, 128, 0, st>>>(RTEN_KV_ARGS(T), RTEN_OUT_ARGS)
-  if (D == 64) RTEN_HEADS(64); else RTEN_HEADS(128);
-#undef RTEN_HEADS
-  return (int)cudaGetLastError();
+  if (S < 1 || rten_dp_of(D) != DP) return (int)cudaErrorInvalidValue;
+  if constexpr (RTEN_HEADS) {
+    constexpr int smem = HeadsTile<DP>::SMEM;
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          decode_mha_heads_kernel<DP, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    constexpr int HQ = HeadsTile<DP>::HQ;
+    const dim3 grid((S + HQ - 1) / HQ, H, B);
+    decode_mha_heads_kernel<DP, T><<<grid, 128, smem, (cudaStream_t)stream>>>(
+        RTEN_KV_ARGS(T), RTEN_OUT_ARGS);
+    return (int)cudaGetLastError();
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
 }
+
+// Defines the two C entry points of a library for the kinds it lists:
+// RTEN_DECODE_MHA_ENTRIES(CASES) with CASES(M) expanding M(kind, T, DP) for
+// every (kind, head-dim instance) the library was built for.
+#define RTEN_DECODE_MHA_CASE(KIND, TT, DPP, FORM)                                \
+  if (kind == KIND && dp == DPP) return launch_decode_mha_##FORM<TT, DPP>(RTEN_DECODE_MHA_NAMES);
+#define RTEN_FOLDED_CASE(KIND, TT, DPP) RTEN_DECODE_MHA_CASE(KIND, TT, DPP, folded)
+#define RTEN_HEADS_CASE(KIND, TT, DPP) RTEN_DECODE_MHA_CASE(KIND, TT, DPP, heads)
+#define RTEN_DECODE_MHA_ENTRIES(CASES)                                           \
+  extern "C" int rten_decode_mha_folded(int kind, RTEN_DECODE_MHA_PARAMS) {      \
+    const int dp = rten_dp_of(D);                                                \
+    CASES(RTEN_FOLDED_CASE)                                                      \
+    return (int)cudaErrorInvalidValue;                                           \
+  }                                                                              \
+  extern "C" int rten_decode_mha_heads(int kind, RTEN_DECODE_MHA_PARAMS) {       \
+    const int dp = rten_dp_of(D);                                                \
+    CASES(RTEN_HEADS_CASE)                                                       \
+    return (int)cudaErrorInvalidValue;                                           \
+  }

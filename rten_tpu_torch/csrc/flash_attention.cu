@@ -8,9 +8,13 @@
 // kernel is a template on T; the s8 instances compile to the code they had
 // before the template (the unquantized branches are `if constexpr`).
 //
-// 1. decode_append_cat_kernel replaces rten_tpu/kernels/flash_attention.py,
+// 1. decode_append_kernel replaces rten_tpu/kernels/flash_attention.py,
 //    decode_mha_append_cat (Pallas bodies _append_cat_fold_vec_kernel,
-//    _append_cat_fold_kernel, _append_cat_kernel): one decode step (S == 1).
+//    _append_cat_fold_kernel, _append_cat_kernel) and, on head-major caches
+//    [B, Hkv, cap, D] with scales [B, Hkv, cap], decode_mha_append (:1442,
+//    Pallas body _append_kernel): one decode step (S == 1). The caches and
+//    scales are addressed through (slot, kv head, row) strides, so the two
+//    layouts are one kernel.
 //    It quantizes the new K/V row per head (scale max(absmax / 127, 1e-8),
 //    round half to even, clip to [-127, 127]) and writes it and its scale,
 //    or (f32/bf16) writes the row rounded to T, in place at row
@@ -25,7 +29,8 @@
 //    layer at 120 slots x cap 256 in s8, twice that in bf16) and does ~4
 //    flops per s8 byte.
 //    Design: one 128-thread block per (slot, kv head). The block quantizes
-//    the head's new row once and keeps it in shared memory; then, for each
+//    the head's new row once (each thread owns D / 128 of its elements,
+//    rounded up) and keeps it in shared memory; then, for each
 //    query head of the group, its four warps split the 32-key tiles of the
 //    cache. A lane scores one key of a tile (16-byte vector loads of the
 //    row), the warp reduces the tile's max and sum with shuffles, each lane
@@ -53,26 +58,19 @@
 //    pools' strides), so that their instances build in those translation
 //    units, in parallel with this one.
 //
-// 2. prefill_cat_kernel replaces rten_tpu/kernels/flash_attention.py,
-//    prefill_mha_cat (Pallas body _prefill_cat_kernel): S > 1 prefill off
-//    caches that already hold the chunk's rows; query row r of slot b
-//    attends columns <= lens[b] + r (and > lens[b] + r - window).
-//    Bound on the H100: operations at admission sizes (4 * S * keys * D
-//    flops per head against S * D * 4 + keys * D bytes).
-//    Design: one 128-thread block per (q-tile of 32 rows, head, slot); key
-//    tiles of 32 columns (16 at D 128, which keeps static shared memory at
-//    35 KB, under 48 KB) are dequantized (s8 x scale) or widened (f32,
-//    bf16) into shared memory, four threads share a query row (scores for
-//    a quarter of the tile's columns each, then D / 4 output dims each),
-//    and the online softmax runs in registers. f32 on CUDA cores: tensor
-//    cores (mma/wgmma) are later work.
+// 2. prefill_mha_cat is in prefill_cat.cu (a library of its own, built in
+//    parallel with this one).
 //
 // Division and rounding must match the plain version bit for bit in the
 // quantizer and the bf16 rounding (__float2bfloat16_rn), so this file is
 // built without --use_fast_math (IEEE division, rintf).
 //
-// Head dims: s8 caches D 32, 64 and 128; f32 and bf16 caches D 64 and 128
-// (the block-table mode likewise).
+// Head dims: every kernel is built for DP = 32, 64, 128 and 256 (the append
+// also 512) and takes any even D <= DP in the smallest instance that holds
+// it: dims past D are zero in shared memory and never read from the cache
+// (a masked tail). K rows load 16 bytes at a time when every row starts
+// 16-byte aligned and its length is a multiple of 16 bytes (``vec``), else
+// one element at a time. The block-table mode attends at D <= 256.
 
 #include "decode_fold.cuh"
 
@@ -83,50 +81,36 @@ __device__ __forceinline__ int8_t quantize_s8(float x, float s) {
 }
 
 constexpr int DEC_WARPS = 4;  // warps per decode block, splitting the keys
+constexpr int DEC_THREADS = DEC_WARPS * 32;
 
-template <int D, typename T>
-__global__ void __launch_bounds__(DEC_WARPS * 32) decode_append_cat_kernel(
-    const float* __restrict__ q, long long q_sb, long long q_sh,
-    const float* __restrict__ kn, long long kn_sb, long long kn_sh,
-    const float* __restrict__ vn, long long vn_sb, long long vn_sh,
-    T* kc, T* vc, float* ks, float* vs,
-    const int32_t* __restrict__ lens, float* __restrict__ out,
-    int H, int Hkv, int cap, int window, float scale) {
-  constexpr bool QUANT = std::is_same<T, int8_t>::value;
-  constexpr int DPL = D / 32;          // output dims per lane
-  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
-  // The new row as the cache holds it: s8 codes (beside their scale), or
-  // the values of the row rounded to T.
-  using RowT = typename std::conditional<QUANT, int8_t, float>::type;
-  __shared__ float q_s[D];
-  __shared__ RowT kq_s[D], vq_s[D];
-  __shared__ float red_s[2][DEC_WARPS];
-  __shared__ float part_m[DEC_WARPS], part_l[DEC_WARPS];
-  __shared__ float part_acc[DEC_WARPS][D];
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int b = blockIdx.x, hk = blockIdx.y;
-  const int group = H / Hkv;
-  const long long HkvD = (long long)Hkv * D;
-  const int len = lens[b];
-  const int wpos = min(max(len, 0), cap - 1);  // clamped like dynamic_update_slice
-  const int hi = wpos;                          // last attended row
-  const int lo = window > 0 ? max(0, len - window + 1) : 0;
-  const long long sc_base = ((long long)b * Hkv + hk) * cap;
-  const long long row_off = ((long long)b * cap + wpos) * HkvD + (long long)hk * D;
-
-  // 1. The new K and V rows of kv head hk (thread d owns element d): s8
-  //    quantized with their scales, or rounded to T; written in place at
-  //    row wpos. This block is the only writer of that row of head hk, and
-  //    no block reads it back.
-  float kx = 0.f, vx = 0.f;
-  if (tid < D) {
-    kx = kn[b * kn_sb + hk * kn_sh + tid];
-    vx = vn[b * vn_sb + hk * vn_sh + tid];
+// Slot b's new K and V rows of kv head hk, as the cache holds them: thread
+// tid owns elements tid + 128 e (e < EPT) of kn/vn. s8: quantized with the
+// scale max(absmax / 127, 1e-8) of the row (the block's max through red_s);
+// f32/bf16: rounded to T. Returns the codes or rounded values (as floats)
+// in kq/vq and the scales in ks_new/vs_new (1 for f32/bf16).
+template <int DP, typename T>
+__device__ __forceinline__ void new_row(const float* kn, const float* vn, int D, int tid,
+                                        float (&red_s)[2][DEC_WARPS], float (&kq)[(DP + 127) / 128],
+                                        float (&vq)[(DP + 127) / 128], float& ks_new,
+                                        float& vs_new) {
+  constexpr int EPT = (DP + 127) / 128;
+  float kx[EPT], vx[EPT];
+#pragma unroll
+  for (int e = 0; e < EPT; ++e) {
+    const int d = tid + DEC_THREADS * e;
+    kx[e] = d < D ? kn[d] : 0.f;
+    vx[e] = d < D ? vn[d] : 0.f;
   }
-  float ks_new = 1.f, vs_new = 1.f;
-  if constexpr (QUANT) {
-    float kam = warp_max(fabsf(kx)), vam = warp_max(fabsf(vx));
+  if constexpr (std::is_same<T, int8_t>::value) {
+    const int warp = tid / 32, lane = tid % 32;
+    float kam = 0.f, vam = 0.f;
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      kam = fmaxf(kam, fabsf(kx[e]));
+      vam = fmaxf(vam, fabsf(vx[e]));
+    }
+    kam = warp_max(kam);
+    vam = warp_max(vam);
     if (lane == 0) {
       red_s[0][warp] = kam;
       red_s[1][warp] = vam;
@@ -141,25 +125,84 @@ __global__ void __launch_bounds__(DEC_WARPS * 32) decode_append_cat_kernel(
     }
     ks_new = fmaxf(kam / 127.0f, 1e-8f);
     vs_new = fmaxf(vam / 127.0f, 1e-8f);
-    if (tid < D) {
-      const int8_t kq = quantize_s8(kx, ks_new), vq = quantize_s8(vx, vs_new);
-      kq_s[tid] = kq;
-      vq_s[tid] = vq;
-      kc[row_off + tid] = kq;
-      vc[row_off + tid] = vq;
-    }
-    if (tid == 0) {
-      ks[sc_base + wpos] = ks_new;
-      vs[sc_base + wpos] = vs_new;
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      kq[e] = (float)quantize_s8(kx[e], ks_new);
+      vq[e] = (float)quantize_s8(vx[e], vs_new);
     }
   } else {
-    if (tid < D) {
-      const T kt = from_f32<T>(kx), vt = from_f32<T>(vx);
-      kq_s[tid] = to_f32(kt);
-      vq_s[tid] = to_f32(vt);
-      kc[row_off + tid] = kt;
-      vc[row_off + tid] = vt;
+    ks_new = vs_new = 1.f;
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      kq[e] = to_f32(from_f32<T>(kx[e]));
+      vq[e] = to_f32(from_f32<T>(vx[e]));
     }
+  }
+}
+
+// The float of a new-row value as the cache element T (exact: s8 codes and
+// rounded values round-trip).
+template <typename T>
+__device__ __forceinline__ T as_elem(float x) {
+  if constexpr (std::is_same<T, int8_t>::value) return (int8_t)x;
+  else return from_f32<T>(x);
+}
+
+// EXACT: D == DP, known at compile time (D 64 and 128; the masked tail's
+// bounds fold away). At D 64 exactly the kernel keeps to 40 registers, so
+// that twelve blocks fit an SM and GPT-2's 120 slots x 12 heads run in one
+// wave of 132 SMs (its masked instances would spill there).
+template <int DP, typename T, bool EXACT>
+__global__ void __launch_bounds__(DEC_THREADS, EXACT && DP == 64 ? 12 : 1) decode_append_kernel(
+    const float* __restrict__ q, long long q_sb, long long q_sh,
+    const float* __restrict__ kn, long long kn_sb, long long kn_sh,
+    const float* __restrict__ vn, long long vn_sb, long long vn_sh,
+    T* kc, T* vc, long long kv_sb, long long kv_sh, long long kv_sj,
+    float* ks, float* vs, long long sc_sb, long long sc_sh, long long sc_sj,
+    const int32_t* __restrict__ lens, float* __restrict__ out,
+    int H, int Hkv, int D, int cap, int window, float scale, int vec) {
+  constexpr bool QUANT = std::is_same<T, int8_t>::value;
+  constexpr int DPL = DP / 32;          // output dims per lane
+  constexpr int EPT = (DP + 127) / 128;  // new-row elements per thread
+  if constexpr (EXACT) D = DP;
+  __shared__ float q_s[DP];
+  __shared__ float kq_s[DP], vq_s[DP];  // the new row as the cache holds it
+  __shared__ float red_s[2][DEC_WARPS];
+  __shared__ float part_m[DEC_WARPS], part_l[DEC_WARPS];
+  __shared__ float part_acc[DEC_WARPS][DP];
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int b = blockIdx.x, hk = blockIdx.y;
+  const int group = H / Hkv;
+  const int len = lens[b];
+  const int wpos = min(max(len, 0), cap - 1);  // clamped like dynamic_update_slice
+  const int hi = wpos;                          // last attended row
+  const int lo = window > 0 ? max(0, len - window + 1) : 0;
+  T* kb = kc + b * kv_sb + hk * kv_sh;
+  T* vb = vc + b * kv_sb + hk * kv_sh;
+  const long long sc_base = b * sc_sb + hk * sc_sh;
+
+  // 1. The new K and V rows of kv head hk: s8 quantized with their scales,
+  //    or rounded to T; written in place at row wpos. This block is the
+  //    only writer of that row of head hk, and no block reads it back.
+  float kq[EPT], vq[EPT], ks_new, vs_new;
+  new_row<DP, T>(kn + b * kn_sb + hk * kn_sh, vn + b * vn_sb + hk * vn_sh, D, tid, red_s,
+                 kq, vq, ks_new, vs_new);
+#pragma unroll
+  for (int e = 0; e < EPT; ++e) {
+    const int d = tid + DEC_THREADS * e;
+    if (d < DP) {
+      kq_s[d] = kq[e];  // 0 past D
+      vq_s[d] = vq[e];
+    }
+    if (d < D) {
+      kb[wpos * kv_sj + d] = as_elem<T>(kq[e]);
+      vb[wpos * kv_sj + d] = as_elem<T>(vq[e]);
+    }
+  }
+  if (QUANT && tid == 0) {
+    ks[sc_base + wpos * sc_sj] = ks_new;
+    vs[sc_base + wpos * sc_sj] = vs_new;
   }
 
   // 2. For each query head of the group: the warps split the key tiles
@@ -169,7 +212,7 @@ __global__ void __launch_bounds__(DEC_WARPS * 32) decode_append_cat_kernel(
   for (int g = 0; g < group; ++g) {
     const int h = hk * group + g;
     __syncthreads();  // the new row is in shared memory; the last head is merged
-    if (tid < D) q_s[tid] = q[b * q_sb + h * q_sh + tid];
+    for (int d = tid; d < DP; d += DEC_THREADS) q_s[d] = d < D ? q[b * q_sb + h * q_sh + d] : 0.f;
     __syncthreads();
 
     float m = -INFINITY, l = 0.f;
@@ -186,22 +229,19 @@ __global__ void __launch_bounds__(DEC_WARPS * 32) decode_append_cat_kernel(
         float dot = 0.f, ksc = 1.f;
         vsc = 1.f;
         if (j == wpos) {
-#pragma unroll
-          for (int d = 0; d < D; ++d) dot += q_s[d] * (float)kq_s[d];
+          dot = row_dot<DP>(q_s, kq_s);
           ksc = ks_new;
           vsc = vs_new;
         } else {
-          const T* row = kc + ((long long)b * cap + j) * HkvD + (long long)hk * D;
-#pragma unroll
-          for (int c = 0; c < D / VEC; ++c) {
-            float e[VEC];
-            load16(row + c * VEC, e);
-#pragma unroll
-            for (int u = 0; u < VEC; ++u) dot += q_s[c * VEC + u] * e[u];
-          }
+          // The fold's row dot with one query row (16-byte loads, unrolled
+          // up to D 128).
+          float sc[1] = {0.f};
+          fold_scores<DP, T, 1, (DP <= 128)>(reinterpret_cast<const float (*)[DP]>(q_s),
+                                             kb + j * kv_sj, 1, D, vec != 0, sc);
+          dot = sc[0];
           if constexpr (QUANT) {
-            ksc = ks[sc_base + j];
-            vsc = vs[sc_base + j];
+            ksc = ks[sc_base + j * sc_sj];
+            vsc = vs[sc_base + j * sc_sj];
           }
         }
         s = dot * ksc * scale;
@@ -220,11 +260,14 @@ __global__ void __launch_bounds__(DEC_WARPS * 32) decode_append_cat_kernel(
         const int jj = j0 + u;
         if (jj == wpos) {
 #pragma unroll
-          for (int i = 0; i < DPL; ++i) acc[i] += pt * (float)vq_s[lane + 32 * i];
+          for (int i = 0; i < DPL; ++i) acc[i] += pt * vq_s[lane + 32 * i];
         } else {
-          const T* vrow = vc + ((long long)b * cap + jj) * HkvD + (long long)hk * D;
+          const T* vrow = vb + jj * kv_sj;
 #pragma unroll
-          for (int i = 0; i < DPL; ++i) acc[i] += pt * to_f32(vrow[lane + 32 * i]);
+          for (int i = 0; i < DPL; ++i) {
+            const int d = lane + 32 * i;
+            acc[i] += d < D ? pt * to_f32(vrow[d]) : 0.f;
+          }
         }
       }
       m = m_new;
@@ -236,7 +279,7 @@ __global__ void __launch_bounds__(DEC_WARPS * 32) decode_append_cat_kernel(
 #pragma unroll
     for (int i = 0; i < DPL; ++i) part_acc[warp][lane + 32 * i] = acc[i];
     __syncthreads();
-    if (tid < D) {
+    for (int d = tid; d < D; d += DEC_THREADS) {
       float mx = part_m[0];
 #pragma unroll
       for (int w = 1; w < DEC_WARPS; ++w) mx = fmaxf(mx, part_m[w]);
@@ -245,9 +288,9 @@ __global__ void __launch_bounds__(DEC_WARPS * 32) decode_append_cat_kernel(
       for (int w = 0; w < DEC_WARPS; ++w) {
         const float c = part_m[w] == -INFINITY ? 0.f : expf(part_m[w] - mx);
         lsum += part_l[w] * c;
-        o += part_acc[w][tid] * c;
+        o += part_acc[w][d] * c;
       }
-      out[((long long)b * H + h) * D + tid] = lsum > 0.f ? o / lsum : 0.f;
+      out[((long long)b * H + h) * D + d] = lsum > 0.f ? o / lsum : 0.f;
     }
   }
 }
@@ -262,205 +305,76 @@ __device__ __forceinline__ long long append_row(const int32_t* __restrict__ bt,
   return (long long)bt[(long long)c * MB + w / BS] * BS + w % BS;
 }
 
-// Block-table mode, launch 1 of 2: slot b's new K/V row of kv head hk
-// (thread d owns element d; the same arithmetic as the flat kernel: s8
-// quantized with its scales, or rounded to T) written into the pools,
-// unless a later slot targets the same pool row: the reference's in-order
-// writes leave the last slot's.
-template <int D, typename T>
-__global__ void __launch_bounds__(DEC_WARPS * 32) append_cat_write_kernel(
+// Block-table mode, launch 1 of 2: slot b's new K/V row of kv head hk (the
+// same arithmetic as the flat kernel: s8 quantized with its scales, or
+// rounded to T) written into the pools, unless a later slot targets the
+// same pool row: the reference's in-order writes leave the last slot's.
+template <int DP, typename T>
+__global__ void __launch_bounds__(DEC_THREADS) append_cat_write_kernel(
     const float* __restrict__ kn, long long kn_sb, long long kn_sh,
     const float* __restrict__ vn, long long vn_sb, long long vn_sh,
     T* kc, T* vc, float* ks, float* vs, const int32_t* __restrict__ bt,
-    int MB, int BS, const int32_t* __restrict__ lens, int B, int Hkv) {
-  constexpr bool QUANT = std::is_same<T, int8_t>::value;
+    int MB, int BS, const int32_t* __restrict__ lens, int B, int Hkv, int D) {
+  constexpr int EPT = (DP + 127) / 128;
   __shared__ float red_s[2][DEC_WARPS];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x;
   const int b = blockIdx.x, hk = blockIdx.y;
   const long long row = append_row(bt, lens, b, MB, BS);
   int later = 0;
-  for (int c = b + 1 + tid; c < B; c += DEC_WARPS * 32)
+  for (int c = b + 1 + tid; c < B; c += DEC_THREADS)
     later |= append_row(bt, lens, c, MB, BS) == row;
   if (__syncthreads_or(later)) return;  // the same answer in every thread
-  float kx = 0.f, vx = 0.f;
-  if (tid < D) {
-    kx = kn[b * kn_sb + hk * kn_sh + tid];
-    vx = vn[b * vn_sb + hk * vn_sh + tid];
-  }
-  const long long off = row * Hkv * D + (long long)hk * D + tid;
-  if constexpr (QUANT) {
-    float kam = warp_max(fabsf(kx)), vam = warp_max(fabsf(vx));
-    if (lane == 0) {
-      red_s[0][warp] = kam;
-      red_s[1][warp] = vam;
-    }
-    __syncthreads();
-    kam = red_s[0][0];
-    vam = red_s[1][0];
+  float kq[EPT], vq[EPT], ks_new, vs_new;
+  new_row<DP, T>(kn + b * kn_sb + hk * kn_sh, vn + b * vn_sb + hk * vn_sh, D, tid, red_s,
+                 kq, vq, ks_new, vs_new);
+  const long long off = row * Hkv * D + (long long)hk * D;
 #pragma unroll
-    for (int w = 1; w < DEC_WARPS; ++w) {
-      kam = fmaxf(kam, red_s[0][w]);
-      vam = fmaxf(vam, red_s[1][w]);
-    }
-    const float ks_new = fmaxf(kam / 127.0f, 1e-8f);
-    const float vs_new = fmaxf(vam / 127.0f, 1e-8f);
-    if (tid < D) {
-      kc[off] = quantize_s8(kx, ks_new);
-      vc[off] = quantize_s8(vx, vs_new);
-    }
-    if (tid == 0) {
-      const long long s = ((row / BS) * Hkv + hk) * BS + row % BS;
-      ks[s] = ks_new;
-      vs[s] = vs_new;
-    }
-  } else {
-    if (tid < D) {
-      kc[off] = from_f32<T>(kx);
-      vc[off] = from_f32<T>(vx);
+  for (int e = 0; e < EPT; ++e) {
+    const int d = tid + DEC_THREADS * e;
+    if (d < D) {
+      kc[off + d] = as_elem<T>(kq[e]);
+      vc[off + d] = as_elem<T>(vq[e]);
     }
   }
-}
-
-constexpr int PBQ = 32;  // query rows per block
-constexpr int PBK = 32;  // key columns per tile (16 at D 128)
-
-template <int D, typename T>
-__global__ void __launch_bounds__(128) prefill_cat_kernel(
-    const float* __restrict__ q, long long q_sb, long long q_sh, long long q_ss,
-    const T* __restrict__ kc, const T* __restrict__ vc,
-    const float* __restrict__ ks, const float* __restrict__ vs,
-    const int32_t* __restrict__ lens, float* __restrict__ out,
-    long long o_sb, long long o_sh, long long o_ss,
-    int H, int Hkv, int S, int cap, int window, float scale) {
-  constexpr bool QUANT = std::is_same<T, int8_t>::value;
-  constexpr int BK = D == 128 ? 16 : PBK;  // static shared memory under 48 KB
-  constexpr int DPT = D / 4;               // output dims per thread
-  constexpr int CPT = BK / 4;              // score columns per thread
-  __shared__ float Qs[PBQ][D + 1];
-  __shared__ float Ks[BK][D + 1];
-  __shared__ float Vs[BK][D + 1];
-  __shared__ float Ps[PBQ][BK + 1];
-
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, row = tid / 4, sub = tid % 4;
-  const int group = H / Hkv, hk = h / group;
-  const long long HkvD = (long long)Hkv * D;
-  const long long sc_base = ((long long)b * Hkv + hk) * cap;
-  const int len = lens[b];
-  const int r0 = qt * PBQ;
-
-  for (int idx = tid; idx < PBQ * D; idx += 128) {
-    const int r = idx / D, d = idx % D, s = r0 + r;
-    Qs[r][d] = s < S ? q[b * q_sb + h * q_sh + s * q_ss + d] : 0.f;
-  }
-  const int last_row = min(S - 1, r0 + PBQ - 1);
-  const int kmax = min(len + last_row, cap - 1);
-  const int kmin = window > 0 ? max(0, len + r0 - window + 1) : 0;
-  const int s_row = r0 + row;
-  const bool row_valid = s_row < S;
-  const int qpos = len + s_row;
-
-  float m = -INFINITY, l = 0.f;
-  float acc[DPT];
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) acc[i] = 0.f;
-
-  for (int k0 = (kmin / BK) * BK; k0 <= kmax; k0 += BK) {
-    __syncthreads();  // Qs ready / previous tile consumed
-    for (int idx = tid; idx < BK * D; idx += 128) {
-      const int c = idx / D, d = idx % D, col = k0 + c;
-      float kv = 0.f, vv = 0.f;
-      if (col < cap) {
-        const long long off = ((long long)b * cap + col) * HkvD + (long long)hk * D + d;
-        if constexpr (QUANT) {
-          kv = (float)kc[off] * ks[sc_base + col];
-          vv = (float)vc[off] * vs[sc_base + col];
-        } else {
-          kv = to_f32(kc[off]);
-          vv = to_f32(vc[off]);
-        }
-      }
-      Ks[c][d] = kv;
-      Vs[c][d] = vv;
-    }
-    __syncthreads();
-
-    float sc[CPT];
-    float mt = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < CPT; ++i) {
-      const int c = sub + 4 * i, col = k0 + c;
-      const bool ok = row_valid && col <= qpos && col < cap &&
-                      (window <= 0 || col > qpos - window);
-      float dot = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) dot += Qs[row][d] * Ks[c][d];
-      sc[i] = ok ? dot * scale : -INFINITY;
-      mt = fmaxf(mt, sc[i]);
-    }
-    mt = fmaxf(mt, __shfl_xor_sync(FULL, mt, 1));
-    mt = fmaxf(mt, __shfl_xor_sync(FULL, mt, 2));
-    const float m_new = fmaxf(m, mt);
-    const float alpha = m == -INFINITY ? 0.f : expf(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int i = 0; i < CPT; ++i) {
-      const float p = sc[i] == -INFINITY ? 0.f : expf(sc[i] - m_new);
-      Ps[row][sub + 4 * i] = p;
-      psum += p;
-    }
-    psum += __shfl_xor_sync(FULL, psum, 1);
-    psum += __shfl_xor_sync(FULL, psum, 2);
-    l = l * alpha + psum;
-    __syncwarp();
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) acc[i] *= alpha;
-    for (int c = 0; c < BK; ++c) {
-      const float p = Ps[row][c];
-      if (p != 0.f) {
-#pragma unroll
-        for (int i = 0; i < DPT; ++i) acc[i] += p * Vs[c][sub + 4 * i];
-      }
-    }
-    m = m_new;
-  }
-  if (row_valid) {
-    const float inv = l > 0.f ? 1.f / l : 0.f;
-#pragma unroll
-    for (int i = 0; i < DPT; ++i)
-      out[b * o_sb + h * o_sh + s_row * o_ss + sub + 4 * i] = acc[i] * inv;
+  if (std::is_same<T, int8_t>::value && tid == 0) {
+    const long long s = ((row / BS) * Hkv + hk) * BS + row % BS;
+    ks[s] = ks_new;
+    vs[s] = vs_new;
   }
 }
 
 }  // namespace
 
-// The head dims each element type takes: D 32, 64, 128 for s8, 64 and 128
-// for f32 and bf16. Expands M(D, T) for the call's D; any other D returns
-// cudaErrorInvalidValue.
-#define RTEN_BY_D(TT, M)                                                         \
-  if (D == 64) { M(64, TT); }                                                    \
-  else if (D == 128) { M(128, TT); }                                             \
-  else if (D == 32 && std::is_same<TT, int8_t>::value) { M(32, int8_t); }        \
-  else return (int)cudaErrorInvalidValue
-
-extern "C" int rten_decode_append_cat(
+// One decode step with the in-kernel row write, on any layout: the caches
+// kc/vc through (slot, kv head, row) strides (cat [B, cap, Hkv*D]: cap *
+// Hkv * D, D, Hkv * D; head-major [B, Hkv, cap, D]: its own), s8 scales
+// through (slot, kv head, row) strides; out [B, 1, H*D].
+extern "C" int rten_decode_append(
     int kind, const void* q, long long q_sb, long long q_sh,
     const void* kn, long long kn_sb, long long kn_sh,
     const void* vn, long long vn_sb, long long vn_sh,
-    void* kc, void* vc, void* ks, void* vs, const void* lens, void* out,
-    int B, int H, int Hkv, int D, int cap, int window, float scale,
-    void* stream) {
+    void* kc, void* vc, long long kv_sb, long long kv_sh, long long kv_sj,
+    void* ks, void* vs, long long sc_sb, long long sc_sh, long long sc_sj,
+    const void* lens, void* out, int B, int H, int Hkv, int D, int cap, int window,
+    float scale, int vec, void* stream) {
+  if (B < 1 || Hkv < 1 || H % Hkv || cap < 1) return (int)cudaErrorInvalidValue;
   dim3 grid(B, Hkv);
   cudaStream_t st = (cudaStream_t)stream;
-#define RTEN_DECODE(DD, TT)                                                      \
-  decode_append_cat_kernel<DD, TT><<<grid, DEC_WARPS * 32, 0, st>>>(             \
+#define RTEN_DECODE_EX(DD, TT, EX)                                               \
+  decode_append_kernel<DD, TT, EX><<<grid, DEC_THREADS, 0, st>>>(                \
       (const float*)q, q_sb, q_sh, (const float*)kn, kn_sb, kn_sh,               \
-      (const float*)vn, vn_sb, vn_sh, (TT*)kc, (TT*)vc, (float*)ks, (float*)vs,  \
-      (const int32_t*)lens, (float*)out, H, Hkv, cap, window, scale)
-#define RTEN_DECODE_T(TT) RTEN_BY_D(TT, RTEN_DECODE)
+      (const float*)vn, vn_sb, vn_sh, (TT*)kc, (TT*)vc, kv_sb, kv_sh, kv_sj,     \
+      (float*)ks, (float*)vs, sc_sb, sc_sh, sc_sj, (const int32_t*)lens,         \
+      (float*)out, H, Hkv, D, cap, window, scale, vec)
+  // D 64 and 128 run their EXACT instances; any other D its masked one.
+#define RTEN_DECODE(DD, TT)                                                      \
+  if ((DD == 64 || DD == 128) && D == DD) RTEN_DECODE_EX(DD, TT, (DD == 64 || DD == 128)); \
+  else RTEN_DECODE_EX(DD, TT, false)
+#define RTEN_DECODE_T(TT) RTEN_BY_DP512(TT, RTEN_DECODE)
   RTEN_BY_KIND(kind, RTEN_DECODE_T)
 #undef RTEN_DECODE_T
 #undef RTEN_DECODE
+#undef RTEN_DECODE_EX
   return (int)cudaGetLastError();
 }
 
@@ -476,11 +390,11 @@ extern "C" int rten_append_cat_write(
   const dim3 grid(B, Hkv);
   cudaStream_t st = (cudaStream_t)stream;
 #define RTEN_WRITE(DD, TT)                                                       \
-  append_cat_write_kernel<DD, TT><<<grid, DEC_WARPS * 32, 0, st>>>(              \
+  append_cat_write_kernel<DD, TT><<<grid, DEC_THREADS, 0, st>>>(                 \
       (const float*)kn, kn_sb, kn_sh, (const float*)vn, vn_sb, vn_sh,            \
       (TT*)kc, (TT*)vc, (float*)ks, (float*)vs, (const int32_t*)bt, MB, BS,      \
-      (const int32_t*)lens, B, Hkv)
-#define RTEN_WRITE_T(TT) RTEN_BY_D(TT, RTEN_WRITE)
+      (const int32_t*)lens, B, Hkv, D)
+#define RTEN_WRITE_T(TT) RTEN_BY_DP256(TT, RTEN_WRITE)
   RTEN_BY_KIND(kind, RTEN_WRITE_T)
 #undef RTEN_WRITE_T
 #undef RTEN_WRITE
@@ -490,60 +404,45 @@ extern "C" int rten_append_cat_write(
 // Block-table mode on s8 pools: kc/vc are pools [NB, BS, Hkv*D], ks/vs
 // scale pools [NB, Hkv, 1, BS], bt [B, MB]; out [B, 1, H*D]. Two launches
 // on the stream: every slot's row is written (the last slot winning a
-// shared row), then every slot attends through the table.
+// shared row), then every slot attends through the table (the fold: group
+// up to 16 at D <= 128, 8 at D <= 256).
 extern "C" int rten_decode_append_cat_paged(
     const void* q, long long q_sb, long long q_sh,
     const void* kn, long long kn_sb, long long kn_sh,
     const void* vn, long long vn_sb, long long vn_sh,
     void* kc, void* vc, void* ks, void* vs, const void* bt, int MB, int BS,
     const void* lens, void* out, int B, int H, int Hkv, int D, int window,
-    float scale, void* stream) {
-  const int rows = H / Hkv;
-  if (rows < 1 || rows > 16) return (int)cudaErrorInvalidValue;
+    float scale, int vec, void* stream) {
+  const int rows = H / Hkv, dp = rten_cat_dp_of(D, 256);
+  if (rows < 1 || dp == 0 || rows > (dp == 256 ? 8 : 16)) return (int)cudaErrorInvalidValue;
   const int err = rten_append_cat_write(KV_S8, kn, kn_sb, kn_sh, vn, vn_sb, vn_sh, kc, vc,
                                         ks, vs, bt, MB, BS, lens, B, Hkv, D, stream);
   if (err) return err;
-  const dim3 grid(B, Hkv);
-  cudaStream_t st = (cudaStream_t)stream;
-  const int32_t* table = (const int32_t*)bt;
   // Strides of the cat pools (rows of Hkv * D) and the scale pools.
   const long long HkvD = (long long)Hkv * D;
-#define RTEN_ATTEND(DD, RR)                                                      \
-  decode_mha_fold_kernel<DD, int8_t, RR, true><<<grid, FOLD_WARPS * 32, 0, st>>>( \
-      (const float*)q, q_sb, q_sh, 0, (const int8_t*)kc, (const int8_t*)vc,     \
-      BS * HkvD, DD, HkvD, (const float*)ks, (const float*)vs,                 \
-      (long long)Hkv * BS, BS, 1, table, MB, BS, (const int32_t*)lens,         \
-      (float*)out, (long long)H * DD, DD, 0, H, Hkv, 1, MB * BS, window, scale)
-#define RTEN_ATTEND_R(DD)                                                        \
-  if (rows == 1) RTEN_ATTEND(DD, 1);                                             \
-  else if (rows <= 8) RTEN_ATTEND(DD, 8);                                        \
-  else RTEN_ATTEND(DD, 16)
-  switch (D) {
-    case 32: RTEN_ATTEND_R(32); break;
-    case 64: RTEN_ATTEND_R(64); break;
-    default: RTEN_ATTEND_R(128); break;
+#define RTEN_ATTEND(DD, RR, EX)                                                  \
+  launch_paged_fold<int8_t, DD, RR, EX>(q, q_sb, q_sh, kc, vc, BS * HkvD, D, HkvD, ks, vs, \
+                                    (long long)Hkv * BS, BS, 1, bt, MB, BS, lens, out, \
+                                    (long long)H * D, D, B, H, Hkv, D, window, scale, vec, \
+                                    stream)
+#define RTEN_ATTEND_R(DD, EX)                                                    \
+  if (rows == 1) RTEN_ATTEND(DD, 1, EX);                                         \
+  else if (rows <= 8) RTEN_ATTEND(DD, 8, EX);                                    \
+  else RTEN_ATTEND(DD, 16, EX)
+  // D 64 and 128 exactly; any other D up to 128 in the masked DP 128
+  // instance; then DP 256.
+  if (D == 64) {
+    RTEN_ATTEND_R(64, true);
+  } else if (D == 128) {
+    RTEN_ATTEND_R(128, true);
+  } else if (dp <= 128) {
+    RTEN_ATTEND_R(128, false);
+  } else if (rows == 1) {
+    RTEN_ATTEND(256, 1, false);
+  } else {
+    RTEN_ATTEND(256, 8, false);
   }
 #undef RTEN_ATTEND_R
 #undef RTEN_ATTEND
-  return (int)cudaGetLastError();
-}
-
-extern "C" int rten_prefill_cat(
-    int kind, const void* q, long long q_sb, long long q_sh, long long q_ss,
-    const void* kc, const void* vc, const void* ks, const void* vs,
-    const void* lens, void* out, long long o_sb, long long o_sh, long long o_ss,
-    int B, int H, int Hkv, int S, int D, int cap, int window, float scale,
-    void* stream) {
-  dim3 grid((S + PBQ - 1) / PBQ, H, B);
-  cudaStream_t st = (cudaStream_t)stream;
-#define RTEN_PREFILL(DD, TT)                                                     \
-  prefill_cat_kernel<DD, TT><<<grid, 128, 0, st>>>(                              \
-      (const float*)q, q_sb, q_sh, q_ss, (const TT*)kc, (const TT*)vc,           \
-      (const float*)ks, (const float*)vs, (const int32_t*)lens, (float*)out,     \
-      o_sb, o_sh, o_ss, H, Hkv, S, cap, window, scale)
-#define RTEN_PREFILL_T(TT) RTEN_BY_D(TT, RTEN_PREFILL)
-  RTEN_BY_KIND(kind, RTEN_PREFILL_T)
-#undef RTEN_PREFILL_T
-#undef RTEN_PREFILL
   return (int)cudaGetLastError();
 }

@@ -7,8 +7,9 @@
 //
 // q [B, H, 1, D] f32 against pools [NB, Hkv, BS, D], either s8 with scale
 // pools [NB, Hkv, 1, BS] f32 (positions lane-major per block), or f32 or
-// bf16 with no scales (``kind``, KvKind; bf16 in paged_decode_mha_bf16.cu,
-// a translation unit of its own so that nvcc builds it in parallel). Slot b's logical position p lives at
+// bf16 with no scales (``kind``, KvKind; this library holds s8, f32 is in
+// paged_decode_mha_f32.cu and bf16 in paged_decode_mha_bf16.cu, translation
+// units of their own so that nvcc builds them in parallel). Slot b's logical position p lives at
 // pool[bt[b, p / BS], :, p % BS] (bt [B, MB] int32), so cap = MB * BS. The
 // query of slot b sits at position lens[b] (its row already written) and
 // attends columns j <= lens[b] (every column once lens[b] >= cap) and,
@@ -29,6 +30,8 @@
 // sink). Rows of one pool block are contiguous in the head-major pool, so
 // a warp's 32 keys touch at most two blocks when BS >= 32; a table entry
 // per row covers any BS (a multiple of 8 is all the builders guarantee).
+// Head dims: the fold's instances DP = 64, 128, 256 (group up to 8) and 512
+// (group up to 4); any even D runs in the smallest that holds it.
 // Its own source, so that nvcc builds it in parallel with decode_mha.cu.
 // The pools' strides are arguments, so the block-table append
 // (flash_attention.cu) attends its f32/bf16 cat-layout pools [NB, BS,
@@ -37,9 +40,6 @@
 #include "decode_fold.cuh"
 
 extern "C" int rten_paged_decode_mha(int kind, RTEN_PAGED_PARAMS) {
-  switch (kind) {
-    case KV_S8: return launch_paged_decode_mha<int8_t>(RTEN_PAGED_NAMES);
-    case KV_F32: return launch_paged_decode_mha<float>(RTEN_PAGED_NAMES);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (kind != KV_S8) return (int)cudaErrorInvalidValue;
+  return launch_paged_decode_mha<int8_t>(RTEN_PAGED_NAMES);
 }

@@ -1,6 +1,6 @@
 """Attention: the wrappers of the CUDA kernels in ``csrc/flash_attention.cu``,
-``csrc/decode_mha.cu`` (bf16 caches: ``csrc/decode_mha_bf16.cu``),
-``csrc/paged_decode_mha.cu`` (bf16 pools: ``csrc/paged_decode_mha_bf16.cu``)
+``csrc/decode_mha*.cu`` (one library per cache type, int4's deferred folds
+apart, and D 129-512), ``csrc/paged_decode_mha*.cu`` (one per pool type)
 and ``csrc/mha.cu``, and their plain PyTorch versions.
 
 * ``mha`` (``csrc/mha.cu``) replaces
@@ -11,10 +11,16 @@ and ``csrc/mha.cu``, and their plain PyTorch versions.
   (``ops/attention.py:_attend``).
 * ``decode_mha`` replaces ``rten_tpu/kernels/flash_attention.py:decode_mha``
   and its ``_decode_mha_folded``: S query rows per slot over head-major
-  caches ``[B, Hkv, cap, D]``, s8 with scales ``[B, Hkv, cap]``, f32 or
-  bf16 (``csrc/decode_mha_bf16.cu``). Two launch forms, each with its own
-  launch counter: ``decode_mha_folded`` (every decode step) and
+  caches ``[B, Hkv, cap, D]``, s8 with scales ``[B, Hkv, cap]``, int4 (u8
+  ``[B, Hkv, cap, D/2]``, ``pack_int4``) with the same scales, f32 or bf16
+  (``csrc/decode_mha{,_f32,_bf16,_u4,_u4_win,_wide}.cu``). Two launch forms, each with
+  its own launch counter: ``decode_mha_folded`` (every decode step, and the
+  deferred-KV step with a recent window: ``decode_attention_deferred``) and
   ``decode_mha_heads`` (every admission).
+* ``decode_mha_append`` replaces
+  ``rten_tpu/kernels/flash_attention.py:decode_mha_append``: the in-kernel
+  append of ``decode_mha_append_cat`` on head-major caches (the same CUDA
+  kernel, addressed through strides).
 * ``decode_mha_append_cat`` replaces
   ``rten_tpu/kernels/flash_attention.py:decode_mha_append_cat``: one decode
   step that writes the new K/V row in place at row ``min(lens[b], cap -
@@ -22,7 +28,7 @@ and ``csrc/mha.cu``, and their plain PyTorch versions.
   cache dtype) and attends rows ``<= lens[b]``.
   With ``block_table`` (``decode_mha_append_cat_paged``, its own launch
   counter) the caches are block pools read and written through the table.
-* ``prefill_mha_cat`` replaces
+* ``prefill_mha_cat`` (``csrc/prefill_cat.cu``) replaces
   ``rten_tpu/kernels/flash_attention.py:prefill_mha_cat``: prefill off
   caches that already hold the chunk's rows; row r attends ``<= lens[b]+r``.
 * ``paged_decode_mha`` (``csrc/paged_decode_mha.cu``) replaces
@@ -49,6 +55,11 @@ rows in slot order, the last one winning, before anything reads them;
 ``paged_targets`` gives every writer of a row the last writer's data, so a
 single ``index_put_`` leaves the same pool on the CPU and on the card.
 
+Head dims: every kernel takes any even D up to 256 (the decode kernels and
+the head-major append up to 512), running it in the smallest instance that
+holds it with the dims past D masked; 16-byte loads where the rows are
+16-byte aligned, element loads otherwise.
+
 The plain versions repeat the JAX package's CPU path
 (``decode_attention_append_cat``'s fallback and ``decode_mha_xla``):
 dequantize (or widen f32/bf16 to f32), materialize the scores with an
@@ -60,6 +71,7 @@ kernel or raise — they never fall back.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import numpy as np
@@ -70,26 +82,88 @@ from .common import check_cuda_tensor, kernel_device
 
 NEG_INF = -1e30
 
+# A watcher of the attention kernel wrappers marked ``@_holdable`` (the
+# smoke test's check of every call against its plain version): while set,
+# each call runs as ``hold(name, wrapper, args, kwargs)``, which returns the
+# wrapper's result. None in normal use.
+hold = None
+
+
+def _holdable(fn):
+    """Routes the wrapper's calls through ``hold`` while one is set; the
+    launch counter stays the wrapper's own."""
+    @functools.wraps(fn)
+    def call(*args, **kw):
+        if hold is None:
+            return fn(*args, **kw)
+        return hold(fn.__name__, fn, args, kw)
+    return call
+
 # Cache element types the kernels take, by the code their C entry points
-# use (csrc/decode_fold.cuh, KvKind).
-KV_KINDS = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
+# use (csrc/decode_fold.cuh, KvKind); u8 is the int4 cache of pack_int4
+# (decode_mha only).
+KV_KINDS = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2, torch.uint8: 3}
+QUANT_KV = (torch.int8, torch.uint8)
+
+# int4 KV caches: codes biased by 8 (0..15) so a byte needs no sign, and
+# split-half packing: the low nibble of byte i is dim i, the high nibble dim
+# i + D/2 (the JAX package's pack_int4 / unpack_int4).
+INT4_BIAS = 8
+# The reference computes the scale as absmax / 7.0; under jit (its serving
+# path) XLA compiles the division by the constant as a multiply by its f32
+# reciprocal, and so does the port, so that the scales match bit for bit.
+_INV7 = float(np.float32(1.0) / np.float32(7.0))
+
+
+def pack_int4(x: torch.Tensor):
+    """Quantize rows x [..., D] to nibble-packed int4 -> (u8 [..., D/2], f32
+    scales [..., 1]): per-row scale max(absmax * f32(1/7), 1e-8), codes
+    round(x / scale) (IEEE division, half to even) clipped to [-8, 7], then
+    biased by 8."""
+    D = x.shape[-1]
+    if D % 2:
+        raise ValueError(f"int4 packing needs an even head dim, got {D}")
+    x = x.to(torch.float32)
+    s = torch.clamp_min(x.abs().amax(dim=-1, keepdim=True) * _INV7, 1e-8)
+    q = torch.round(x / s).clamp(-8, 7).to(torch.int32) + INT4_BIAS
+    return (q[..., : D // 2] | (q[..., D // 2:] << 4)).to(torch.uint8), s
+
+
+def unpack_int4(packed: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """[..., D/2] u8 -> [..., D] codes in ``dtype`` (the low nibbles, then the
+    high ones, each minus the bias)."""
+    b = packed.to(torch.int32)
+    return torch.cat([(b & 0xF) - INT4_BIAS, (b >> 4) - INT4_BIAS], dim=-1).to(dtype)
 
 
 def _kv_kind(name, c, k_scale, v_scale) -> int:
-    """The kernels' code for cache ``c``'s dtype; s8 caches need both
-    scales, f32/bf16 caches take none."""
+    """The kernels' code for cache ``c``'s dtype; s8 and int4 (u8) caches
+    need both scales, f32/bf16 caches take none."""
     if c.dtype not in KV_KINDS:
-        raise TypeError(f"{name}: dtype {c.dtype}, expected int8, float32 or bfloat16")
+        raise TypeError(f"{name}: dtype {c.dtype}, expected int8, uint8 (int4), float32 "
+                        f"or bfloat16")
     if (k_scale is None) != (v_scale is None):
         raise ValueError("k_scale and v_scale: both or neither")
-    if (c.dtype == torch.int8) != (k_scale is not None):
-        raise ValueError(f"{name}: int8 caches need scales, float32/bfloat16 caches take none")
+    if (c.dtype in QUANT_KV) != (k_scale is not None):
+        raise ValueError(f"{name}: int8 and int4 caches need scales, float32/bfloat16 caches "
+                         f"take none")
     return KV_KINDS[c.dtype]
 
 
-def _head_dims(kind):
-    """The head dims the cat-cache kernels take for an element kind."""
-    return (32, 64, 128) if kind == KV_KINDS[torch.int8] else (64, 128)
+def _check_head_dim(D: int, max_d: int, what: str = "") -> None:
+    """The kernels take any even head dim up to ``max_d`` (a masked tail in
+    the smallest instance that holds it)."""
+    if D < 2 or D % 2 or D > max_d:
+        raise ValueError(f"{what}head dim {D} not supported (any even D up to {max_d})")
+
+
+def _vec16(t: torch.Tensor, row_elems: int, strides) -> int:
+    """1 when every row of ``row_elems`` elements that ``strides`` (in
+    elements) address in ``t`` starts 16-byte aligned and is a whole number
+    of 16-byte words, so the kernels may load 16 bytes at a time."""
+    es = t.element_size()
+    return int(t.data_ptr() % 16 == 0 and (row_elems * es) % 16 == 0
+               and all((s * es) % 16 == 0 for s in strides))
 
 
 def _ptr(t):
@@ -112,9 +186,14 @@ def heads_to_cat(x: torch.Tensor) -> torch.Tensor:
 
 def quantize_rows(x: torch.Tensor):
     """Per-row int8 quantization of KV rows: scale max(absmax/127, 1e-8),
-    round half to even, clip to [-127, 127] -> (s8, f32 scales [..., 1])."""
+    round half to even, clip to [-127, 127] -> (s8, f32 scales [..., 1]).
+    The division is elementwise by a tensor: PyTorch divides a CUDA tensor
+    by a Python number as a multiply by its reciprocal, which would round
+    some scales an ulp away from the CPU's (and the kernels') IEEE
+    division."""
     x = x.to(torch.float32)
-    s = torch.clamp_min(x.abs().amax(dim=-1, keepdim=True) / 127.0, 1e-8)
+    absmax = x.abs().amax(dim=-1, keepdim=True)
+    s = torch.clamp_min(absmax / torch.full_like(absmax, 127.0), 1e-8)
     q8 = torch.round(x / s).clamp(-127, 127).to(torch.int8)
     return q8, s
 
@@ -147,7 +226,7 @@ def mha_plain(q, k, v, mask=None, *, scale=None, causal: bool = False,
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
-MHA_HEAD_DIMS = (32, 64, 128)
+MHA_MAX_HEAD_DIM = 256
 _MHA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -155,8 +234,8 @@ def mha(q, k, v, mask=None, *, scale: Optional[float] = None, causal: bool = Fal
         softcap: float = 0.0):
     """Flash attention, the kernel of ``csrc/mha.cu`` (replaces
     ``rten_tpu/kernels/flash_attention.py:mha_pallas``): q [B,Hq,Tq,D], k/v
-    [B,Hkv,Tk,D] in q's dtype (f32 or bf16), each with a unit-stride last
-    axis; ``mask`` an optional additive f32 mask of at most 2 dims that
+    [B,Hkv,Tk,D] in q's dtype (f32 or bf16; any even D up to 256), each with
+    a unit-stride last axis; ``mask`` an optional additive f32 mask of at most 2 dims that
     broadcasts to [Tq, Tk] (the Attention op folds leading unit dims);
     softcap; causal with offset Tk - Tq -> [B,Hq,Tq,D] in q's dtype. A row
     whose every column is masked gives 0 (the plain version gives the mean
@@ -172,9 +251,9 @@ def mha(q, k, v, mask=None, *, scale: Optional[float] = None, causal: bool = Fal
         raise ValueError(f"k/v: expected [B, Hkv, Tk, {D}], got {tuple(k.shape)} / "
                          f"{tuple(v.shape)}")
     Hkv, Tk = k.shape[1], k.shape[2]
-    if D not in MHA_HEAD_DIMS or Hq % Hkv or Tq < 1 or Tk < 1:
-        raise ValueError(f"head dim {D} (supported: {MHA_HEAD_DIMS}), heads {Hq}/{Hkv}, "
-                         f"Tq {Tq}, Tk {Tk} not supported")
+    _check_head_dim(D, MHA_MAX_HEAD_DIM)
+    if Hq % Hkv or Tq < 1 or Tk < 1:
+        raise ValueError(f"heads {Hq}/{Hkv}, Tq {Tq}, Tk {Tk} not supported")
     if q.dtype not in _MHA_DTYPES:
         raise TypeError(f"q: dtype {q.dtype}, expected float32 or bfloat16")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -205,28 +284,94 @@ mha.launches = 0
 
 
 def decode_mha_plain(q, k, v, lens, k_scale=None, v_scale=None, *,
-                     scale=None, window: int = 0):
+                     scale=None, window: int = 0, recent_k=None, recent_v=None, t=None):
     """The JAX package's ``decode_mha_xla``: q [B,H,S,D], k/v [B,Hkv,cap,D]
-    f32 or bf16 (widened to f32), or s8 with scales [B,Hkv,cap]; row r of
-    slot b attends cache
-    columns <= lens[b] + r (and > lens[b] + r - window). A row with no such
-    column gets the mean of V, as the reference's additive -1e30 mask
-    gives it (the kernels give 0 there, as the TPU kernel does)."""
+    f32 or bf16 (widened to f32), or s8 [B,Hkv,cap,D] or int4 u8
+    [B,Hkv,cap,D/2] (``unpack_int4``) with scales [B,Hkv,cap]; row r of
+    slot b attends cache columns <= lens[b] + r (and > lens[b] + r - window).
+    A row with no such column gets the mean of V, as the reference's
+    additive -1e30 mask gives it (the kernels give 0 there, as the TPU
+    kernel does).
+
+    Deferred KV (``recent_k``/``recent_v`` [B,Hkv,W,D] f32 or bf16, the step
+    ``t``): every row attends the cache strictly below lens[b] (lens is the
+    dispatch's lens0) and window rows r <= t, the same for every slot;
+    ``window`` is not read."""
     B, H, S, D = q.shape
     Hkv, cap = k.shape[1], k.shape[2]
-    kf = k.to(torch.float32)
-    vf = v.to(torch.float32)
+    if k.dtype == torch.uint8:
+        kf, vf = unpack_int4(k), unpack_int4(v)
+    else:
+        kf, vf = k.to(torch.float32), v.to(torch.float32)
     if k_scale is not None:
         kf = kf * k_scale.reshape(B, Hkv, cap, 1)
         vf = vf * v_scale.reshape(B, Hkv, cap, 1)
     lens = lens.reshape(B).to(torch.int64)
     j = torch.arange(cap, device=q.device)[None, None, None, :]
+    if recent_k is not None:
+        W = recent_k.shape[2]
+        tt = torch.as_tensor(t, device=q.device).reshape(-1)[0].to(torch.int64)
+        valid = torch.cat([
+            (j < lens[:, None, None, None]).expand(B, 1, 1, cap),
+            (torch.arange(W, device=q.device) <= tt).expand(B, 1, 1, W),
+        ], dim=3).expand(B, 1, S, cap + W)
+        mask = torch.where(valid, 0.0, NEG_INF).to(torch.float32)
+        kf = torch.cat([kf, recent_k.to(torch.float32)], dim=2)
+        vf = torch.cat([vf, recent_v.to(torch.float32)], dim=2)
+        return mha_plain(q, kf, vf, mask, scale=scale)
     qpos = lens[:, None, None, None] + torch.arange(S, device=q.device)[None, None, :, None]
     valid = j <= qpos
     if window:
         valid &= j > qpos - window
     mask = torch.where(valid, 0.0, NEG_INF).to(torch.float32)
     return mha_plain(q, kf, vf, mask, scale=scale)
+
+
+def write_recent(recent_k, recent_v, t, k_new, v_new):
+    """The deferred step's window write, in place: the new rows k_new/v_new
+    [B,Hkv,1,D] rounded to the window's dtype into row t of recent_k/recent_v
+    [B,Hkv,W,D] (t clamped to [0, W - 1], as ``dynamic_update_slice``
+    clamps it)."""
+    W = recent_k.shape[2]
+    tw = torch.as_tensor(t, device=recent_k.device).reshape(-1)[:1].to(torch.int64)
+    tw = tw.clamp(0, W - 1)
+    recent_k.index_copy_(2, tw, k_new.to(recent_k.dtype))
+    recent_v.index_copy_(2, tw, v_new.to(recent_v.dtype))
+    return recent_k, recent_v
+
+
+def decode_attention_deferred_plain(q, k, v, lens0, k_scale=None, v_scale=None, *,
+                                    scale=None, recent_k, recent_v, t, k_new, v_new):
+    """Plain version of ``decode_attention_deferred`` (the JAX package's
+    route off the TPU): write the new row into window row t, then
+    ``decode_mha_plain`` over the cache below lens0 and the window rows
+    <= t. Returns (out, recent_k, recent_v), the windows written in place."""
+    write_recent(recent_k, recent_v, t, k_new, v_new)
+    out = decode_mha_plain(q, k, v, lens0, k_scale, v_scale, scale=scale,
+                           recent_k=recent_k, recent_v=recent_v, t=t)
+    return out, recent_k, recent_v
+
+
+def decode_attention_deferred(q, k, v, lens0, k_scale=None, v_scale=None, *,
+                              scale=None, recent_k, recent_v, t, k_new, v_new):
+    """A deferred-KV decode step (replaces
+    ``rten_tpu/kernels/flash_attention.py:decode_attention_deferred``): q
+    [B,H,S,D] f32 against the big caches (any kind ``decode_mha`` takes),
+    valid strictly below lens0 [B] int32, and the recent windows
+    recent_k/recent_v [B,Hkv,W,D] f32 or bf16, whose rows <= t (``t``: the
+    step, an int or a one-element int32 tensor) every slot attends. The new
+    row k_new/v_new [B,Hkv,1,D] f32 is first written into window row t,
+    rounded to the window's dtype, and scored as the window holds it. Returns
+    (out [B,H,S,D], recent_k, recent_v), the windows updated in place.
+
+    On the card the fold writes the row itself, at any D and window dtype
+    (the reference writes it in the kernel only on its aligned route, D %
+    128 == 0 with an f32 window, and with a ``dynamic_update_slice`` first
+    otherwise; both compute the same math). On the CPU,
+    ``decode_attention_deferred_plain``."""
+    out = decode_mha(q, k, v, lens0, k_scale, v_scale, scale=scale, recent_k=recent_k,
+                     recent_v=recent_v, t=t, k_new=k_new, v_new=v_new)
+    return out, recent_k, recent_v
 
 
 def paged_targets(starts, S: int, bt, n_blocks: int, block_size: int, *,
@@ -327,6 +472,8 @@ def _check_common(q, kc, vc, lens, k_scale, v_scale, Hkv):
     if q.dtype != torch.float32 or q.stride(-1) != 1:
         raise ValueError("q: float32 with a unit-stride last axis required")
     kind = _kv_kind("kc", kc, k_scale, v_scale)
+    if kc.dtype == torch.uint8:
+        raise TypeError("kc: int4 (uint8) caches are head-major only")
     check_cuda_tensor("kc", kc, kc.dtype, device)
     check_cuda_tensor("vc", vc, kc.dtype, device)
     check_cuda_tensor("lens", lens, torch.int32, device)
@@ -342,11 +489,10 @@ def _check_common(q, kc, vc, lens, k_scale, v_scale, Hkv):
                                  f"{(B, Hkv, cap, 1)}, got {tuple(s.shape)}")
     if lens.numel() != B:
         raise ValueError(f"lens: expected {B} values, got {tuple(lens.shape)}")
-    if kc.data_ptr() % 16 or vc.data_ptr() % 16:
-        raise ValueError("caches must be 16-byte aligned")
     return kind, B, cap, D
 
 
+@_holdable
 def decode_mha_append_cat(q, kc, vc, lens, k_scale=None, v_scale=None, *,
                           k_new, v_new, scale: Optional[float] = None,
                           window: int = 0, block_table=None):
@@ -357,8 +503,8 @@ def decode_mha_append_cat(q, kc, vc, lens, k_scale=None, v_scale=None, *,
     [B,Hkv,1,D] f32 rows for position lens[b]; lens [B] int32. The caches
     (and scales) are updated in place. Returns (out [B,1,H*D] in cat layout,
     kc, vc, k_scale, v_scale), or (out, kc, vc) for f32/bf16 caches, as the
-    reference returns them. Head dims 32, 64 and 128 (s8), 64 and 128
-    (f32, bf16).
+    reference returns them. Any even head dim up to 512 (the block-table
+    mode: 256).
 
     With ``block_table`` [B, MB] int32, kc/vc are block pools
     [NB, BS, Hkv*D] and the scales pools [NB, Hkv, 1, BS]
@@ -379,30 +525,130 @@ def decode_mha_append_cat(q, kc, vc, lens, k_scale=None, v_scale=None, *,
     if S != 1:
         raise ValueError("decode_mha_append_cat is a single-token decode kernel")
     kind, _, cap, D = _check_common(q, kc, vc, lens, k_scale, v_scale, Hkv)
-    if Dq != D or H % Hkv or D not in _head_dims(kind):
-        raise ValueError(f"head dim {D} (q {Dq}), heads {H}/{Hkv} not supported "
-                         f"on {kc.dtype} caches")
+    _check_head_dim(D, 512)
+    if Dq != D or H % Hkv:
+        raise ValueError(f"head dim {D} (q {Dq}), heads {H}/{Hkv} not supported")
+    HkvD = Hkv * D
+    out = _launch_append(q, kc, vc, (cap * HkvD, D, HkvD), k_scale, v_scale,
+                         (Hkv * cap, cap, 1), lens, k_new, v_new, kind, D, cap, scale,
+                         window, _vec16(kc, D, (cap * HkvD, HkvD)))
+    decode_mha_append_cat.launches += 1
+    return (out, kc, vc, k_scale, v_scale) if k_scale is not None else (out, kc, vc)
+
+
+decode_mha_append_cat.launches = 0
+
+
+def _launch_append(q, kc, vc, kv_strides, k_scale, v_scale, sc_strides, lens, k_new,
+                   v_new, kind, D, cap, scale, window, vec):
+    """``rten_decode_append`` (csrc/flash_attention.cu) on caches of either
+    layout, addressed through (slot, kv head, row) strides -> out [B,1,H*D]."""
+    B, H = q.shape[0], q.shape[1]
+    Hkv = k_new.shape[1]
     for name, t in (("k_new", k_new), ("v_new", v_new)):
         if t.shape != (B, Hkv, 1, D) or t.dtype != torch.float32 or t.stride(-1) != 1:
             raise ValueError(f"{name}: expected float32 {(B, Hkv, 1, D)}")
     if scale is None:
         scale = 1.0 / float(np.sqrt(D))
     out = torch.empty((B, 1, H * D), dtype=torch.float32, device=q.device)
-    err = _lib().rten_decode_append_cat(
+    err = _lib().rten_decode_append(
         kind, q.data_ptr(), q.stride(0), q.stride(1),
         k_new.data_ptr(), k_new.stride(0), k_new.stride(1),
         v_new.data_ptr(), v_new.stride(0), v_new.stride(1),
-        kc.data_ptr(), vc.data_ptr(), _ptr(k_scale), _ptr(v_scale),
-        lens.data_ptr(), out.data_ptr(), B, H, Hkv, D, cap, int(window),
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+        kc.data_ptr(), vc.data_ptr(), *kv_strides, _ptr(k_scale), _ptr(v_scale), *sc_strides,
+        lens.data_ptr(), out.data_ptr(), B, H, Hkv, D, cap, int(window), float(scale), vec,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err:
-        raise RuntimeError(f"decode_mha_append_cat launch failed: CUDA error {err}")
-    decode_mha_append_cat.launches += 1
-    return (out, kc, vc, k_scale, v_scale) if k_scale is not None else (out, kc, vc)
+        raise RuntimeError(f"rten_decode_append launch failed: CUDA error {err}")
+    return out
 
 
-decode_mha_append_cat.launches = 0
+def decode_mha_append_plain(q, k, v, lens, k_scale=None, v_scale=None, *, k_new, v_new,
+                            scale=None, window: int = 0):
+    """Plain version of ``decode_mha_append`` (the JAX package's
+    ``decode_attention_append`` fallback): s8 caches quantize the new rows
+    (scale max(absmax/127, 1e-8)); f32/bf16 caches round them to the cache
+    dtype; each is written at row min(lens, cap - 1), then every row attends
+    cache rows <= lens (``decode_mha_plain``). Updates the caches in place
+    and returns what ``decode_mha_append`` returns."""
+    B, Hkv = k_new.shape[0], k_new.shape[1]
+    cap = k.shape[2]
+    lens = lens.reshape(B)
+    rows = lens.to(torch.int64).clamp(0, cap - 1)
+    bidx = torch.arange(B, device=k.device)
+    ks = vs = None
+    if k_scale is not None:
+        k_q, ks_new = quantize_rows(k_new)
+        v_q, vs_new = quantize_rows(v_new)
+        k[bidx, :, rows] = k_q[:, :, 0]
+        v[bidx, :, rows] = v_q[:, :, 0]
+        ks, vs = k_scale.view(B, Hkv, cap), v_scale.view(B, Hkv, cap)
+        ks[bidx, :, rows] = ks_new.reshape(B, Hkv).to(ks.dtype)
+        vs[bidx, :, rows] = vs_new.reshape(B, Hkv).to(vs.dtype)
+    else:
+        k[bidx, :, rows] = k_new[:, :, 0].to(k.dtype)
+        v[bidx, :, rows] = v_new[:, :, 0].to(v.dtype)
+    out = decode_mha_plain(q, k, v, lens, ks, vs, scale=scale, window=window)
+    return (out, k, v, k_scale, v_scale) if ks is not None else (out, k, v)
+
+
+@_holdable
+def decode_mha_append(q, k, v, lens, k_scale=None, v_scale=None, *, k_new, v_new,
+                      scale: Optional[float] = None, window: int = 0):
+    """Decode attention with the in-kernel row write on head-major caches
+    (S == 1; replaces ``rten_tpu/kernels/flash_attention.py:decode_mha_append``):
+    q [B,H,1,D] f32; k/v [B,Hkv,cap,D] holding rows < lens[b]: s8 with
+    scales [B,Hkv,cap,1] (or [B,Hkv,cap]) f32, or f32 or bf16 with none;
+    k_new/v_new [B,Hkv,1,D] f32; lens [B] int32. The kernel is
+    ``decode_mha_append_cat``'s (csrc/flash_attention.cu) on the caches'
+    strides: it writes the new row at min(lens[b], cap - 1) (s8: quantized,
+    with its scale) and attends rows <= lens[b] (> lens[b] - window with a
+    window). Any even D up to 512. Returns (out [B,H,1,D], k, v, k_scale,
+    v_scale), or (out, k, v) for f32/bf16 caches; out is a head-major view of
+    a [B,1,H*D] buffer."""
+    if kernel_device(q, k, v, lens, k_scale, v_scale, k_new, v_new) == "cpu":
+        return decode_mha_append_plain(q, k, v, lens, k_scale, v_scale, k_new=k_new,
+                                       v_new=v_new, scale=scale, window=window)
+    device = q.device
+    B, H, S, D = q.shape
+    if S != 1:
+        raise ValueError("decode_mha_append is a single-token decode kernel")
+    if q.dtype != torch.float32 or q.stride(-1) != 1:
+        raise ValueError("q: float32 with a unit-stride last axis required")
+    kind = _kv_kind("k", k, k_scale, v_scale)
+    if k.dtype == torch.uint8:
+        raise TypeError("k: int4 (uint8) caches take the deferred path, not the append")
+    if k.dim() != 4 or k.shape != v.shape or k.stride() != v.stride():
+        raise ValueError(f"caches: expected two [B, Hkv, cap, D] tensors with one layout, "
+                         f"got {tuple(k.shape)} / {tuple(v.shape)}")
+    _, Hkv, cap, Dk = k.shape
+    _check_head_dim(D, 512)
+    if k.shape[0] != B or Dk != D or H % Hkv:
+        raise ValueError(f"head dim {D} (caches {Dk}), heads {H}/{Hkv} not supported")
+    for name, t in (("k", k), ("v", v)):
+        check_cuda_tensor(name, t, k.dtype, device, contiguous=False)
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: rows must be unit-stride")
+    sc_strides = (0, 0, 0)
+    if k_scale is not None:
+        ks, vs = k_scale.view(B, Hkv, cap), v_scale.view(B, Hkv, cap)
+        for name, t in (("k_scale", ks), ("v_scale", vs)):
+            check_cuda_tensor(name, t, torch.float32, device, contiguous=False)
+        if ks.stride() != vs.stride():
+            raise ValueError("k_scale and v_scale: one layout required")
+        sc_strides = ks.stride()
+    check_cuda_tensor("lens", lens, torch.int32, device)
+    if lens.numel() != B:
+        raise ValueError(f"lens: expected {B} values, got {tuple(lens.shape)}")
+    out = _launch_append(q, k, v, k.stride()[:3], k_scale, v_scale, sc_strides, lens, k_new,
+                         v_new, kind, D, cap, scale, window, _vec16(k, D, k.stride()[:3]))
+    decode_mha_append.launches += 1
+    out = out.reshape(B, 1, H, D).permute(0, 2, 1, 3)
+    return (out, k, v, k_scale, v_scale) if k_scale is not None else (out, k, v)
+
+
+decode_mha_append.launches = 0
 
 
 def decode_mha_append_cat_paged_plain(q, pool_kc, pool_vc, lens, k_scale_pool=None,
@@ -460,7 +706,7 @@ def decode_mha_append_cat_paged(q, pool_kc, pool_vc, lens, k_scale_pool=None,
     new row lands at position min(lens[b], cap - 1), cap = MB * BS. Two
     launches on the stream: the rows are written (the last slot winning a
     shared row), then every slot attends through the table (``decode_mha``'s
-    fold, so group = H / Hkv <= ``FOLD_MAX_ROWS``; f32/bf16 pools through
+    fold, so group = H / Hkv <= ``fold_max_rows(D)``; f32/bf16 pools through
     ``paged_decode_mha``'s entry point on the cat pools' strides).
     Returns (out [B,1,H*D], pools, scale pools), or (out, pools) for
     f32/bf16 pools."""
@@ -481,15 +727,14 @@ def decode_mha_append_cat_paged(q, pool_kc, pool_vc, lens, k_scale_pool=None,
         raise ValueError(f"pools: expected two [NB, BS, Hkv*D] tensors, got "
                          f"{tuple(pool_kc.shape)} / {tuple(pool_vc.shape)}")
     kind = _kv_kind("pool_kc", pool_kc, k_scale_pool, v_scale_pool)
+    if pool_kc.dtype == torch.uint8:
+        raise TypeError("pool_kc: int4 (uint8) pools are not taken")
     NB, BS, HkvD = pool_kc.shape
-    if (HkvD != Hkv * D or H % Hkv or H // Hkv > FOLD_MAX_ROWS
-            or D not in _head_dims(kind)):
-        raise ValueError(f"head dim {D}, heads {H}/{Hkv}, pool rows {HkvD} not supported "
-                         f"on {pool_kc.dtype} pools")
+    _check_head_dim(D, 256)
+    if HkvD != Hkv * D or H % Hkv or H // Hkv > fold_max_rows(D):
+        raise ValueError(f"head dim {D}, heads {H}/{Hkv}, pool rows {HkvD} not supported")
     for name, t in (("pool_kc", pool_kc), ("pool_vc", pool_vc)):
         check_cuda_tensor(name, t, pool_kc.dtype, device)
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: must be 16-byte aligned")
     if k_scale_pool is not None:
         for name, t in (("k_scale_pool", k_scale_pool), ("v_scale_pool", v_scale_pool)):
             check_cuda_tensor(name, t, torch.float32, device)
@@ -505,12 +750,13 @@ def decode_mha_append_cat_paged(q, pool_kc, pool_vc, lens, k_scale_pool=None,
     stream = torch.cuda.current_stream(device).cuda_stream
     new_rows = (k_new.data_ptr(), k_new.stride(0), k_new.stride(1),
                 v_new.data_ptr(), v_new.stride(0), v_new.stride(1))
+    vec = _vec16(pool_kc, D, (BS * HkvD, HkvD))
     if k_scale_pool is not None:
         err = _lib().rten_decode_append_cat_paged(
             q.data_ptr(), q.stride(0), q.stride(1), *new_rows,
             pool_kc.data_ptr(), pool_vc.data_ptr(), k_scale_pool.data_ptr(),
             v_scale_pool.data_ptr(), block_table.data_ptr(), MB, BS, lens.data_ptr(),
-            out.data_ptr(), B, H, Hkv, D, int(window), float(scale), stream,
+            out.data_ptr(), B, H, Hkv, D, int(window), float(scale), vec, stream,
         )
     else:
         err = _lib().rten_append_cat_write(
@@ -522,7 +768,7 @@ def decode_mha_append_cat_paged(q, pool_kc, pool_vc, lens, k_scale_pool=None,
                 kind, q.data_ptr(), q.stride(0), q.stride(1), pool_kc.data_ptr(),
                 pool_vc.data_ptr(), BS * HkvD, D, HkvD, None, None, 0, 0, 0,
                 block_table.data_ptr(), MB, BS, lens.data_ptr(), out.data_ptr(), H * D, D,
-                B, H, Hkv, D, int(window), float(scale), stream,
+                B, H, Hkv, D, int(window), float(scale), vec, stream,
             )
     if err:
         raise RuntimeError(f"decode_mha_append_cat (block table) launch failed: CUDA error {err}")
@@ -548,12 +794,13 @@ def prefill_mha_cat_plain(q, kc, vc, lens, k_scale=None, v_scale=None, *, scale=
                             scale=scale, window=window)
 
 
+@_holdable
 def prefill_mha_cat(q, kc, vc, lens, k_scale=None, v_scale=None, *,
                     scale: Optional[float] = None, window: int = 0):
     """Prefill attention on cat-layout caches: q [B,H,S,D] f32, kc/vc
     [B,cap,Hkv*D] holding rows < lens[b]+S (the chunk's rows included), s8
-    with scales [B,Hkv,cap,1] (D 32, 64, 128) or f32 or bf16 with none (D
-    64, 128) -> [B,H,S,D] f32. On the card the result is a head-major view
+    with scales [B,Hkv,cap,1] or f32 or bf16 with none (any even D up to
+    256) -> [B,H,S,D] f32. On the card the result is a head-major view
     of a [B,S,H*D] buffer, so merging heads is free."""
     if kernel_device(q, kc, vc, lens, k_scale, v_scale) == "cpu":
         return prefill_mha_cat_plain(
@@ -564,12 +811,13 @@ def prefill_mha_cat(q, kc, vc, lens, k_scale=None, v_scale=None, *,
         raise ValueError(f"kc: expected [B, cap, Hkv * {Dq}], got {tuple(kc.shape)}")
     Hkv = kc.shape[2] // Dq
     kind, _, cap, D = _check_common(q, kc, vc, lens, k_scale, v_scale, Hkv)
-    if H % Hkv or D not in _head_dims(kind):
-        raise ValueError(f"head dim {D}, heads {H}/{Hkv} not supported on {kc.dtype} caches")
+    _check_head_dim(D, 256)
+    if H % Hkv:
+        raise ValueError(f"heads {H}/{Hkv} not supported")
     if scale is None:
         scale = 1.0 / float(np.sqrt(D))
     out_cat = torch.empty((B, S, H * D), dtype=torch.float32, device=q.device)
-    err = _lib().rten_prefill_cat(
+    err = _prefill_lib().rten_prefill_cat(
         kind, q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
         kc.data_ptr(), vc.data_ptr(), _ptr(k_scale), _ptr(v_scale),
         lens.data_ptr(), out_cat.data_ptr(), S * H * D, D, H * D,
@@ -585,35 +833,77 @@ def prefill_mha_cat(q, kc, vc, lens, k_scale=None, v_scale=None, *,
 prefill_mha_cat.launches = 0
 
 
-FOLD_MAX_ROWS = 16  # group * S query rows one fold block holds
+FOLD_MAX_ROWS = 16  # group * S query rows one fold block holds at D <= 128
+
+
+def fold_max_rows(D: int) -> int:
+    """The query rows (group * S) one fold block holds at head dim D: 16 up
+    to D 128, 8 up to 256, 4 up to 512 (its shared memory stays at 40 KB)."""
+    return FOLD_MAX_ROWS if D <= 128 else 8 if D <= 256 else 4
 
 
 def decode_mha(q, k, v, lens, k_scale=None, v_scale=None, *,
-               scale: Optional[float] = None, window: int = 0):
+               scale: Optional[float] = None, window: int = 0,
+               recent_k=None, recent_v=None, t=None, k_new=None, v_new=None):
     """Per-slot attention over head-major caches (the serving hot path of
     Llama-family graphs): q [B,H,S,D] f32; k/v [B,Hkv,cap,D] f32 or bf16,
-    or s8 with per-position scales k_scale/v_scale [B,Hkv,cap] f32; lens [B]
-    int32 past lengths. Row r of slot b attends columns <= lens[b] + r (and
-    > lens[b] + r - window when window > 0) -> [B,H,S,D] f32.
+    s8 with per-position scales k_scale/v_scale [B,Hkv,cap] f32, or int4
+    (u8 [B,Hkv,cap,D/2], ``pack_int4``) with the same scales; lens [B] int32
+    past lengths. Row r of slot b attends columns <= lens[b] + r (and
+    > lens[b] + r - window when window > 0) -> [B,H,S,D] f32. Any even D up
+    to 512.
+
+    With ``recent_k``/``recent_v`` [B,Hkv,W,D] (f32 or bf16) and the step
+    ``t``, the deferred-KV form: the cache strictly below lens[b] and the
+    window rows <= t (with ``k_new``/``v_new`` [B,Hkv,1,D] f32 written into
+    window row t first); see ``decode_attention_deferred``. The reference's
+    refusals hold: a sliding window with a recent window, and int4 caches at
+    S > 1 with a recent window, raise ``NotImplementedError``.
 
     Routing (the port's own): the fold (one block per slot and kv head,
     ``decode_mha_folded``) when its group * S query rows fit one block
-    (``FOLD_MAX_ROWS``), which covers every decode step of a model with
-    group <= 16 (TinyLlama: 8); per head (``decode_mha_heads``) otherwise,
-    which covers every admission."""
+    (``fold_max_rows``), which covers every decode step of a model with
+    group <= 16 at D <= 128 (TinyLlama: 8) and every deferred step; per head
+    (``decode_mha_heads``) otherwise, which covers every admission."""
+    S = q.shape[2]
+    if recent_k is not None:
+        if window:
+            raise NotImplementedError(
+                "sliding window + deferred-KV recent windows is unsupported "
+                "(build the serving graph with deferred_kv=False)"
+            )
+        if k.dtype == torch.uint8 and S > 1:
+            raise NotImplementedError("int4 KV with S>1 and a recent window is unsupported")
+        return decode_mha_folded(q, k, v, lens, k_scale, v_scale, scale=scale,
+                                 recent_k=recent_k, recent_v=recent_v, t=t, k_new=k_new,
+                                 v_new=v_new)
     group = q.shape[1] // k.shape[1]
-    if group * q.shape[2] <= FOLD_MAX_ROWS:
+    if group * S <= fold_max_rows(q.shape[3]):
         return decode_mha_folded(q, k, v, lens, k_scale, v_scale,
                                  scale=scale, window=window)
     return decode_mha_heads(q, k, v, lens, k_scale, v_scale,
                             scale=scale, window=window)
 
 
-def _decode_mha_launch(form, q, k, v, lens, k_scale, v_scale, scale, window):
+def _decode_lib_name(dtype, D: int, general: bool = False) -> str:
+    """The library that holds decode_mha's instances for a cache dtype and
+    head dim (csrc/decode_mha*.cu); ``general``: the fold's general
+    instances (a recent window, or D other than 64 and 128), which int4
+    keeps apart."""
+    if D > 128:
+        return "decode_mha_wide"
+    if dtype == torch.uint8:
+        return "decode_mha_u4_win" if general else "decode_mha_u4"
+    return {torch.bfloat16: "decode_mha_bf16", torch.float32: "decode_mha_f32"}.get(
+        dtype, "decode_mha")
+
+
+def _decode_mha_launch(form, q, k, v, lens, k_scale, v_scale, scale, window,
+                       recent=None):
     """Check what the kernels take, then launch ``rten_decode_mha_<form>``
-    (``csrc/decode_mha.cu`` for s8 and f32 caches, ``csrc/decode_mha_bf16.cu``
-    for bf16). Returns [B,H,S,D] f32, a head-major view of a [B,S,H*D]
-    buffer, so merging heads afterwards is free."""
+    (``_decode_lib_name``). ``recent``: (recent_k, recent_v, t, k_new,
+    v_new) for the deferred fold. Returns [B,H,S,D] f32, a head-major view
+    of a [B,S,H*D] buffer, so merging heads afterwards is free."""
     device = q.device
     B, H, S, D = q.shape
     if q.dtype != torch.float32 or q.stride(-1) != 1:
@@ -624,14 +914,16 @@ def _decode_mha_launch(form, q, k, v, lens, k_scale, v_scale, scale, window):
         raise ValueError(f"caches: expected two [B, Hkv, cap, D] tensors with one "
                          f"layout, got {tuple(k.shape)} / {tuple(v.shape)}")
     _, Hkv, cap, Dk = k.shape
-    if k.shape[0] != B or Dk != D or H % Hkv or D not in (64, 128):
+    _check_head_dim(D, 512)
+    row = D // 2 if k.dtype == torch.uint8 else D
+    if k.shape[0] != B or Dk != row or H % Hkv:
         raise ValueError(f"head dim {D} (caches {Dk}), heads {H}/{Hkv}, "
                          f"slots {B}/{k.shape[0]} not supported")
     for name, t in (("k", k), ("v", v)):
         check_cuda_tensor(name, t, k.dtype, device, contiguous=False)
-        row_bytes = [s * t.element_size() for s in t.stride()[:3]]
-        if t.stride(-1) != 1 or t.data_ptr() % 16 or any(s % 16 for s in row_bytes):
-            raise ValueError(f"{name}: rows must be unit-stride and 16-byte aligned")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: rows must be unit-stride")
+    vec = _vec16(k, row, k.stride()[:3]) & _vec16(v, row, v.stride()[:3])
     if quant:
         ks = k_scale.reshape(B, Hkv, cap)
         vs = v_scale.reshape(B, Hkv, cap)
@@ -645,16 +937,42 @@ def _decode_mha_launch(form, q, k, v, lens, k_scale, v_scale, scale, window):
     check_cuda_tensor("lens", lens, torch.int32, device)
     if lens.numel() != B:
         raise ValueError(f"lens: expected {B} values, got {tuple(lens.shape)}")
+    win = (None, None, 0, 0, 0, 0, 0, 0, None, None, None, 0, 0)
+    if recent is not None:
+        rk, rv, t, kn, vn = recent
+        W = rk.shape[2]
+        if rk.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"recent_k: dtype {rk.dtype}, expected float32 or bfloat16")
+        if (rk.dim() != 4 or rk.shape != (B, Hkv, W, D) or rv.shape != rk.shape
+                or rv.stride() != rk.stride() or W < 1 or rk.stride(-1) != 1):
+            raise ValueError(f"recent windows: expected two {(B, Hkv, 'W', D)} tensors with "
+                             f"one layout, got {tuple(rk.shape)} / {tuple(rv.shape)}")
+        for name, x in (("recent_k", rk), ("recent_v", rv)):
+            check_cuda_tensor(name, x, rk.dtype, device, contiguous=False)
+        t = torch.as_tensor(t, dtype=torch.int32, device=device).reshape(-1)
+        check_cuda_tensor("t", t, torch.int32, device)
+        kn_ptrs, n_strides = (None, None), (0, 0)
+        if kn is not None:
+            for name, x in (("k_new", kn), ("v_new", vn)):
+                check_cuda_tensor(name, x, torch.float32, device, contiguous=False)
+                if (x.shape != (B, Hkv, 1, D) or x.stride(-1) != 1
+                        or x.stride()[:2] != kn.stride()[:2]):
+                    raise ValueError(f"{name}: expected float32 {(B, Hkv, 1, D)} rows in one "
+                                     f"layout")
+            kn_ptrs, n_strides = (kn.data_ptr(), vn.data_ptr()), kn.stride()[:2]
+        win = (rk.data_ptr(), rv.data_ptr(), *rk.stride()[:3], W,
+               int(rk.dtype == torch.bfloat16), _vec16(rk, D, rk.stride()[:3]), t.data_ptr(),
+               *kn_ptrs, *n_strides)
     if scale is None:
         scale = 1.0 / float(np.sqrt(D))
     out_cat = torch.empty((B, S, H * D), dtype=torch.float32, device=device)
-    lib = _mha_lib("decode_mha_bf16" if k.dtype == torch.bfloat16 else "decode_mha")
-    fn = getattr(lib, f"rten_decode_mha_{form}")
+    general = form == "folded" and (recent is not None or D not in (64, 128))
+    fn = getattr(_mha_lib(_decode_lib_name(k.dtype, D, general)), f"rten_decode_mha_{form}")
     err = fn(
         kind, q.data_ptr(), *q.stride()[:3],
         k.data_ptr(), v.data_ptr(), *k.stride()[:3],
         *sc_ptrs, *sc_strides, lens.data_ptr(), out_cat.data_ptr(),
-        S * H * D, D, H * D, B, H, Hkv, S, D, cap, int(window), float(scale),
+        S * H * D, D, H * D, B, H, Hkv, S, D, cap, int(window), float(scale), vec, *win,
         torch.cuda.current_stream(device).cuda_stream,
     )
     if err:
@@ -662,19 +980,29 @@ def _decode_mha_launch(form, q, k, v, lens, k_scale, v_scale, scale, window):
     return out_cat.reshape(B, S, H, D).permute(0, 2, 1, 3)
 
 
+@_holdable
 def decode_mha_folded(q, k, v, lens, k_scale=None, v_scale=None, *,
-                      scale: Optional[float] = None, window: int = 0):
+                      scale: Optional[float] = None, window: int = 0,
+                      recent_k=None, recent_v=None, t=None, k_new=None, v_new=None):
     """``decode_mha``'s fold form (replaces
     ``rten_tpu/kernels/flash_attention.py:_decode_mha_folded``): one block
-    per (slot, kv head) holding its group * S <= ``FOLD_MAX_ROWS`` rows."""
-    if kernel_device(q, k, v, lens, k_scale, v_scale) == "cpu":
-        return decode_mha_plain(q, k, v, lens, k_scale, v_scale,
-                                scale=scale, window=window)
+    per (slot, kv head) holding its group * S <= ``fold_max_rows(D)`` rows;
+    with a recent window the deferred form (``decode_mha``)."""
+    if kernel_device(q, k, v, lens, k_scale, v_scale, recent_k, recent_v, t, k_new,
+                     v_new) == "cpu":
+        if recent_k is None:
+            return decode_mha_plain(q, k, v, lens, k_scale, v_scale,
+                                    scale=scale, window=window)
+        if k_new is not None:
+            write_recent(recent_k, recent_v, t, k_new, v_new)
+        return decode_mha_plain(q, k, v, lens, k_scale, v_scale, scale=scale,
+                                recent_k=recent_k, recent_v=recent_v, t=t)
     group = q.shape[1] // k.shape[1]
-    if group * q.shape[2] > FOLD_MAX_ROWS:
-        raise ValueError(f"the fold holds {FOLD_MAX_ROWS} rows per kv head, "
-                         f"got group {group} x S {q.shape[2]}")
-    out = _decode_mha_launch("folded", q, k, v, lens, k_scale, v_scale, scale, window)
+    if group * q.shape[2] > fold_max_rows(q.shape[3]):
+        raise ValueError(f"the fold holds {fold_max_rows(q.shape[3])} rows per kv head at "
+                         f"D {q.shape[3]}, got group {group} x S {q.shape[2]}")
+    recent = None if recent_k is None else (recent_k, recent_v, t, k_new, v_new)
+    out = _decode_mha_launch("folded", q, k, v, lens, k_scale, v_scale, scale, window, recent)
     decode_mha_folded.launches += 1
     return out
 
@@ -682,6 +1010,7 @@ def decode_mha_folded(q, k, v, lens, k_scale=None, v_scale=None, *,
 decode_mha_folded.launches = 0
 
 
+@_holdable
 def decode_mha_heads(q, k, v, lens, k_scale=None, v_scale=None, *,
                      scale: Optional[float] = None, window: int = 0):
     """``decode_mha``'s per-head form (replaces
@@ -707,6 +1036,7 @@ def paged_decode_mha_plain(q, pool_k, pool_v, lens, block_table, pool_ks=None,
     return decode_mha_plain(q, k, v, lens, ks, vs, scale=scale, window=window)
 
 
+@_holdable
 def paged_decode_mha(q, pool_k, pool_v, lens, block_table, pool_ks=None,
                      pool_vs=None, *, scale: Optional[float] = None, window: int = 0):
     """Paged decode attention (S == 1; replaces
@@ -717,7 +1047,7 @@ def paged_decode_mha(q, pool_k, pool_v, lens, block_table, pool_ks=None,
     written) and attends columns <= lens[b] (all of them once lens >= cap,
     cap = MB * BS), and > lens[b] - window with a window -> [B,H,1,D] f32,
     a head-major view of a [B,1,H*D] buffer. group = H / Hkv <=
-    ``FOLD_MAX_ROWS``; D 64 or 128."""
+    ``fold_max_rows(D)``; any even D up to 512."""
     if kernel_device(q, pool_k, pool_v, lens, block_table, pool_ks, pool_vs) == "cpu":
         return paged_decode_mha_plain(q, pool_k, pool_v, lens, block_table, pool_ks,
                                       pool_vs, scale=scale, window=window)
@@ -728,18 +1058,21 @@ def paged_decode_mha(q, pool_k, pool_v, lens, block_table, pool_ks=None,
     if q.dtype != torch.float32 or q.stride(-1) != 1:
         raise ValueError("q: float32 with a unit-stride last axis required")
     kind = _kv_kind("pool_k", pool_k, pool_ks, pool_vs)
+    if pool_k.dtype == torch.uint8:
+        raise TypeError("pool_k: int4 (uint8) pools are not taken")
     quant = pool_ks is not None
     if pool_k.dim() != 4 or pool_k.shape != pool_v.shape or pool_k.stride() != pool_v.stride():
         raise ValueError(f"pools: expected two [NB, Hkv, BS, D] tensors with one layout, "
                          f"got {tuple(pool_k.shape)} / {tuple(pool_v.shape)}")
     NB, Hkv, BS, Dk = pool_k.shape
-    if Dk != D or H % Hkv or H // Hkv > FOLD_MAX_ROWS or D not in (64, 128):
+    _check_head_dim(D, 512)
+    if Dk != D or H % Hkv or H // Hkv > fold_max_rows(D):
         raise ValueError(f"head dim {D} (pools {Dk}), heads {H}/{Hkv} not supported")
     for name, t in (("pool_k", pool_k), ("pool_v", pool_v)):
         check_cuda_tensor(name, t, pool_k.dtype, device, contiguous=False)
-        row_bytes = [s * t.element_size() for s in t.stride()[:3]]
-        if t.stride(-1) != 1 or t.data_ptr() % 16 or any(s % 16 for s in row_bytes):
-            raise ValueError(f"{name}: rows must be unit-stride and 16-byte aligned")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: rows must be unit-stride")
+    vec = _vec16(pool_k, D, pool_k.stride()[:3]) & _vec16(pool_v, D, pool_v.stride()[:3])
     if quant:
         for name, t in (("pool_ks", pool_ks), ("pool_vs", pool_vs)):
             check_cuda_tensor(name, t, torch.float32, device, contiguous=False)
@@ -759,7 +1092,7 @@ def paged_decode_mha(q, pool_k, pool_v, lens, block_table, pool_ks=None,
         pool_k.data_ptr(), pool_v.data_ptr(), pool_k.stride(0), pool_k.stride(1),
         pool_k.stride(2), *sc_ptrs, *sc_strides, block_table.data_ptr(), MB, BS,
         lens.data_ptr(), out_cat.data_ptr(), H * D, D, B, H, Hkv, D, int(window),
-        float(scale), torch.cuda.current_stream(device).cuda_stream,
+        float(scale), vec, torch.cuda.current_stream(device).cuda_stream,
     )
     if err:
         raise RuntimeError(f"paged_decode_mha launch failed: CUDA error {err}")
@@ -774,11 +1107,11 @@ def paged_attention(q, pool_k, pool_v, lens, block_table, pool_ks=None, pool_vs=
                     scale: Optional[float] = None, window: int = 0):
     """Attention of q [B,H,S,D] over head-major block pools, routed by shape
     alone (the JAX package's ``paged_attention``): a decode step (S == 1,
-    group <= ``FOLD_MAX_ROWS``) reads the pools through the table in
+    group <= ``fold_max_rows(D)``) reads the pools through the table in
     ``paged_decode_mha``; anything else (an admission) gathers each slot's
     blocks into a contiguous view for ``decode_mha``."""
     group = q.shape[1] // pool_k.shape[1]
-    if q.shape[2] == 1 and group <= FOLD_MAX_ROWS:
+    if q.shape[2] == 1 and group <= fold_max_rows(q.shape[3]):
         return paged_decode_mha(q, pool_k, pool_v, lens, block_table, pool_ks, pool_vs,
                                 scale=scale, window=window)
     k, v, ks, vs = _paged_gather(pool_k, pool_v, pool_ks, pool_vs, block_table)
@@ -786,12 +1119,15 @@ def paged_attention(q, pool_k, pool_v, lens, block_table, pool_ks=None, pool_vs=
 
 
 def _mha_lib(name):
+    """A decode_mha library (``_decode_lib_name``) with its entry points'
+    argument types."""
     lib = load_library(name)
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     for fn in (lib.rten_decode_mha_folded, lib.rten_decode_mha_heads):
         if fn.argtypes is None:
             fn.argtypes = [I, P, L, L, L, P, P, L, L, L, P, P, L, L, L, P, P,
-                           L, L, L, I, I, I, I, I, I, I, F, P]
+                           L, L, L, I, I, I, I, I, I, I, F, I,
+                           P, P, L, L, L, I, I, I, P, P, P, L, L, P]
             fn.restype = I
     return lib
 
@@ -808,15 +1144,27 @@ def _mha_kernel_lib():
 
 
 def _paged_lib(dtype):
-    """``csrc/paged_decode_mha_bf16.cu``'s library for bf16 pools,
-    ``csrc/paged_decode_mha.cu``'s for s8 and f32."""
-    lib = load_library("paged_decode_mha_bf16" if dtype == torch.bfloat16
-                       else "paged_decode_mha")
+    """``csrc/paged_decode_mha.cu``'s library for s8 pools,
+    ``paged_decode_mha_f32.cu``'s for f32, ``paged_decode_mha_bf16.cu``'s
+    for bf16."""
+    lib = load_library({torch.bfloat16: "paged_decode_mha_bf16",
+                        torch.float32: "paged_decode_mha_f32"}.get(dtype, "paged_decode_mha"))
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     fn = lib.rten_paged_decode_mha
     if fn.argtypes is None:
         fn.argtypes = [I, P, L, L, P, P, L, L, L, P, P, L, L, L, P, I, I, P, P,
-                       L, L, I, I, I, I, I, F, P]
+                       L, L, I, I, I, I, I, F, I, P]
+        fn.restype = I
+    return lib
+
+
+def _prefill_lib():
+    lib = load_library("prefill_cat")
+    fn = lib.rten_prefill_cat
+    if fn.argtypes is None:
+        P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        fn.argtypes = [I, P, L, L, L, P, P, P, P, P, P, L, L, L,
+                       I, I, I, I, I, I, I, F, P]
         fn.restype = I
     return lib
 
@@ -824,20 +1172,15 @@ def _paged_lib(dtype):
 def _lib():
     lib = load_library("flash_attention")
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    if lib.rten_decode_append_cat.argtypes is None:
-        lib.rten_decode_append_cat.argtypes = [
-            I, P, L, L, P, L, L, P, L, L, P, P, P, P, P, P,
-            I, I, I, I, I, I, F, P,
+    if lib.rten_decode_append.argtypes is None:
+        lib.rten_decode_append.argtypes = [
+            I, P, L, L, P, L, L, P, L, L, P, P, L, L, L, P, P, L, L, L, P, P,
+            I, I, I, I, I, I, F, I, P,
         ]
-        lib.rten_decode_append_cat.restype = I
-        lib.rten_prefill_cat.argtypes = [
-            I, P, L, L, L, P, P, P, P, P, P, L, L, L,
-            I, I, I, I, I, I, I, F, P,
-        ]
-        lib.rten_prefill_cat.restype = I
+        lib.rten_decode_append.restype = I
         lib.rten_decode_append_cat_paged.argtypes = [
             P, L, L, P, L, L, P, L, L, P, P, P, P, P, I, I, P, P,
-            I, I, I, I, I, F, P,
+            I, I, I, I, I, F, I, P,
         ]
         lib.rten_decode_append_cat_paged.restype = I
         lib.rten_append_cat_write.argtypes = [

@@ -10,19 +10,24 @@ so both graphs have the same node ids, names and constants.
 
 ``build_graph_static_cache`` builds the serving graph, the lm_head run on
 one gathered row per slot. Its KV caches: int8 (``kv_quant=True``) with
-per-position scales ``[slots, H, cap, 1]``, or f32 or bf16
-(``kv_dtype=BFloat16``, ``bench.py``'s ``RTEN_BENCH_KV=bf16`` graph) with
-none; in cat layout ``[slots, cap, H*D]`` with ``kernel_append`` (the new
-KV row appended inside the decode attention kernel) or head-major
-``[slots, H, cap, D]`` without; with ``paged_blocks`` the same on block
-pools ``[paged_blocks, block_size, H*D]`` or ``[paged_blocks, H,
-block_size, D]`` (scale pools ``[paged_blocks, H, 1, block_size]``) and a
-``block_table`` input (``bench.py``'s ``RTEN_BENCH_PAGED`` graph). The
-builder issues the same sequence of builder calls as the JAX package's
-``build_graph_static_cache`` on each branch, so both graphs have the same
-node ids, names and constants for the same weights. Deferred KV, LoRA, int4
-KV and the full-bucket lm_head raise ``NotImplementedError`` naming the
-ROADMAP.md item that lifts them.
+per-position scales ``[slots, H, cap, 1]``, int4 (``kv_bits=4``: u8
+nibbles at D/2 lanes, the same scales; ``bench.py``'s ``RTEN_BENCH_KV=int4``
+graph), or f32 or bf16 (``kv_dtype=BFloat16``, ``bench.py``'s
+``RTEN_BENCH_KV=bf16`` graph) with none; in cat layout ``[slots, cap,
+H*D]`` with ``kernel_append`` (the new KV row appended inside the decode
+attention kernel) or head-major ``[slots, H, cap, D]`` without; with
+``paged_blocks`` the same on block pools ``[paged_blocks, block_size,
+H*D]`` or ``[paged_blocks, H, block_size, D]`` (scale pools
+``[paged_blocks, H, 1, block_size]``) and a ``block_table`` input
+(``bench.py``'s ``RTEN_BENCH_PAGED`` graph). ``deferred_kv`` adds a
+``step_t`` input and per-layer recent windows ``recent.N.{key,value}``
+``[slots, H, recent, D]`` in ``recent_dtype`` (f32 by default) with their
+``recent_present.N.*`` outputs: decode steps keep their rows there and the
+engine commits them once per dispatch. The builder issues the same sequence
+of builder calls as the JAX package's ``build_graph_static_cache`` on each
+branch, so both graphs have the same node ids, names and constants for the
+same weights. LoRA and the full-bucket lm_head raise
+``NotImplementedError`` naming the ROADMAP.md item that lifts them.
 """
 
 from __future__ import annotations
@@ -163,9 +168,11 @@ def build_graph_static_cache(
     [slots]. Outputs: logits [slots, 1, V], the updated caches present.N.*,
     and next_token [slots, 1] (greedy, on device).
 
-    Supported: ``gather_last=True``, ``kv_quant=True`` with ``kv_bits=8``
-    or ``kv_quant=False`` with ``kv_dtype`` None (f32), Float or BFloat16,
-    with or without ``kernel_append`` and ``paged_blocks``.
+    Supported: ``gather_last=True``, ``kv_quant=True`` with ``kv_bits`` 8
+    or 4 or ``kv_quant=False`` with ``kv_dtype`` None (f32), Float or
+    BFloat16, with or without ``kernel_append`` (8 bits or unquantized, not
+    deferred), ``paged_blocks`` (8 bits or unquantized, not deferred) and
+    ``deferred_kv`` (head-major caches).
     """
     if paged_blocks:
         if deferred_kv or (kv_quant and kv_bits != 8):
@@ -178,20 +185,16 @@ def build_graph_static_cache(
                 "capacity must be a multiple of block_size, and block_size "
                 f"a multiple of 8 (got {capacity=}, {block_size=})"
             )
-    if deferred_kv or recent_dtype is not None:
-        raise NotImplementedError("deferred KV: ROADMAP.md queue 1 item 9")
-    if lora_rank or n_adapters:
-        raise NotImplementedError("multi-LoRA serving: ROADMAP.md queue 1 item 9")
-    if kv_quant and kv_bits != 8:
-        raise NotImplementedError("int4 KV caches: ROADMAP.md queue 1 item 11")
-    if not gather_last:
-        raise NotImplementedError(
-            "full-bucket lm_head (gather_last=False): ROADMAP.md queue 1 item 10"
-        )
-    if kernel_append and kv_bits != 8:
+    if kernel_append and (deferred_kv or kv_bits != 8):
         raise ValueError(
             "kernel_append (in-kernel cache append) is incompatible with "
             "deferred_kv and int4 caches"
+        )
+    if lora_rank or n_adapters:
+        raise NotImplementedError("multi-LoRA serving: ROADMAP.md queue 1 item 9")
+    if not gather_last:
+        raise NotImplementedError(
+            "full-bucket lm_head (gather_last=False): ROADMAP.md queue 1 item 10"
         )
     b = GraphBuilder()
     E, H, D = cfg.n_embd, cfg.n_head, cfg.head_dim
@@ -208,6 +211,7 @@ def build_graph_static_cache(
         b.input("block_table", DataType.Int32, ("slots", capacity // block_size))
         if paged_blocks else None
     )
+    step_t = b.input("step_t", DataType.Int32, (1,)) if deferred_kv else None
 
     x = b.op("Gather", [w("transformer.wte.weight"), ids])
     x = x + b.op("Gather", [w("transformer.wpe.weight"), pos])
@@ -219,14 +223,16 @@ def build_graph_static_cache(
             {"epsilon": cfg.layer_norm_epsilon},
         )
 
-    # Cache (or pool) shapes: cat rows with kernel_append, head-major without.
+    # Cache (or pool) shapes: cat rows with kernel_append, head-major without;
+    # int4 rows hold D/2 bytes.
+    kv_d = D // 2 if kv_quant and kv_bits == 4 else D
     if paged_blocks:
         kv_shape = ((paged_blocks, block_size, H * D) if kernel_append
                     else (paged_blocks, H, block_size, D))
         sc_shape = (paged_blocks, H, 1, block_size)
     else:
-        kv_shape = (("slots", capacity, H * D) if kernel_append
-                    else ("slots", H, capacity, D))
+        kv_shape = (("slots", capacity, H * kv_d) if kernel_append
+                    else ("slots", H, capacity, kv_d))
         sc_shape = ("slots", H, capacity, 1)
     paged_in = [block_table] if paged_blocks else []
     paged_attr = {"rten_paged": 1} if paged_blocks else {}
@@ -239,22 +245,47 @@ def build_graph_static_cache(
             name=f"{p}.attn.c_attn",
         )
         q, k, v = b.op("Split", [qkv], {"axis": -1, "num_outputs": 3}, n_outputs=3)
+        if deferred_kv:
+            rdt = recent_dtype or DataType.Float
+            recent_k = b.input(f"recent.{i}.key", rdt, ("slots", H, "recent", D))
+            recent_v = b.input(f"recent.{i}.value", rdt, ("slots", H, "recent", D))
+            recent_in = [recent_k, recent_v, step_t]
+            recent_out = [f"recent_present.{i}.key", f"recent_present.{i}.value"]
+        else:
+            recent_in, recent_out = [], []
+        deferred_attr = {"rten_recent_kv": 1} if deferred_kv else {}
         if kv_quant:
-            past_k = b.input(f"past_key_values.{i}.key", DataType.Int8, kv_shape)
+            kv_elem = DataType.UInt8 if kv_bits == 4 else DataType.Int8
+            past_k = b.input(f"past_key_values.{i}.key", kv_elem, kv_shape)
             k_sc = b.input(f"past_key_values.{i}.key_scale", DataType.Float, sc_shape)
-            past_v = b.input(f"past_key_values.{i}.value", DataType.Int8, kv_shape)
+            past_v = b.input(f"past_key_values.{i}.value", kv_elem, kv_shape)
             v_sc = b.input(f"past_key_values.{i}.value_scale", DataType.Float, sc_shape)
-            attn, pk, pks, pv, pvs = b.op(
+            attn, *outs = b.op(
                 "QuantizedKVAttention",
-                [q, k, v, past_k, k_sc, past_v, v_sc, past_lens] + paged_in,
-                {"num_heads": H, "bits": kv_bits, **paged_attr, **ka_attr},
-                n_outputs=5,
+                [q, k, v, past_k, k_sc, past_v, v_sc, past_lens] + paged_in + recent_in,
+                {"num_heads": H, **deferred_attr, "bits": kv_bits, **paged_attr, **ka_attr},
+                n_outputs=5 + len(recent_out),
                 output_names=[
                     f"attn_out_{i}", f"present.{i}.key", f"present.{i}.key_scale",
                     f"present.{i}.value", f"present.{i}.value_scale",
-                ],
+                ] + recent_out,
             )
-            presents.extend([pk, pks, pv, pvs])
+            presents.extend(outs)
+        elif deferred_kv:
+            kdt = kv_dtype or DataType.Float
+            past_k = b.input(f"past_key_values.{i}.key", kdt, ("slots", H, capacity, D))
+            past_v = b.input(f"past_key_values.{i}.value", kdt, ("slots", H, capacity, D))
+            attn, *outs = b.op(
+                "GroupQueryAttention",
+                [q, k, v, past_k, past_v, past_lens, None, None, None] + recent_in,
+                {"num_heads": H, "kv_num_heads": H, "rten_past_lens": 1,
+                 "rten_recent_kv": 1},
+                n_outputs=5,
+                output_names=[
+                    f"attn_out_{i}", f"present.{i}.key", f"present.{i}.value",
+                ] + recent_out,
+            )
+            presents.extend(outs)
         else:
             kdt = kv_dtype or DataType.Float
             past_k = b.input(f"past_key_values.{i}.key", kdt, kv_shape)

@@ -10,6 +10,13 @@ positions ``past_lens + s``. The supported branches:
   by ``decode_mha``) or cat layout ``[slots, cap, Hkv*D]``
   (``kernel_append=True``, ``decode_mha_append_cat`` / ``prefill_mha_cat``),
   with scales ``[slots, Hkv, cap, 1]``;
+* ``kv_quant=True, kv_bits=4``: the same op on int4 head-major caches (u8
+  ``[slots, Hkv, cap, D/2]``, ``pack_int4``), attended by ``decode_mha``;
+* ``deferred_kv``: a ``step_t`` input and per-layer recent windows
+  ``recent.N.{key,value}`` ``[slots, Hkv, recent, D]`` (``recent_dtype``,
+  f32 by default) with their ``recent_present.N.*`` outputs, on head-major
+  int8, int4, f32 or bf16 caches (decode steps attend
+  ``decode_attention_deferred``; the engine commits the windows);
 * ``kv_quant=False``: GroupQueryAttention on f32 or (``kv_dtype=BFloat16``)
   bf16 caches, head-major ``[slots, Hkv, cap, D]`` (``decode_mha``) or, with
   ``kernel_append``, cat layout ``[slots, cap, Hkv*D]``
@@ -80,16 +87,6 @@ def rope_tables(cfg: LlamaConfig):
     return freqs.astype(np.float32), freqs.astype(np.float32)
 
 
-def _refuse_off_the_slice(deferred_kv, recent_dtype, kv_quant, kv_bits, gather_last):
-    def todo(what, item):
-        raise NotImplementedError(f"{what}: ROADMAP.md queue 1 item {item}")
-
-    if deferred_kv or recent_dtype is not None:
-        todo("deferred KV", 9)
-    if kv_quant and kv_bits != 8:
-        todo("int4 KV caches", 11)
-    if not gather_last:
-        todo("full-bucket lm_head (gather_last=False)", 10)
 
 
 def build_graph_static_cache(
@@ -117,7 +114,15 @@ def build_graph_static_cache(
                 "capacity must be a multiple of block_size, and block_size "
                 f"a multiple of 8 (got {capacity=}, {block_size=})"
             )
-    _refuse_off_the_slice(deferred_kv, recent_dtype, kv_quant, kv_bits, gather_last)
+    if kernel_append and (deferred_kv or kv_bits != 8):
+        raise ValueError(
+            "kernel_append (in-kernel cache append) is incompatible with "
+            "deferred_kv and int4 caches"
+        )
+    if not gather_last:
+        raise NotImplementedError(
+            "full-bucket lm_head (gather_last=False): ROADMAP.md queue 1 item 10"
+        )
     b = GraphBuilder()
     Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
 
@@ -137,6 +142,7 @@ def build_graph_static_cache(
 
     ids = b.input("input_ids", DataType.Int32, ("slots", "seq"))
     past_lens = b.input("past_lens", DataType.Int32, ("slots",))
+    step_t = b.input("step_t", DataType.Int32, (1,)) if deferred_kv else None
     b.input("position_ids", DataType.Int32, ("slots", "seq"))
     block_table = (
         b.input("block_table", DataType.Int32, ("slots", capacity // block_size))
@@ -175,6 +181,17 @@ def build_graph_static_cache(
             )
         return b.op("MatMul", [h, w_t(f"{name}.weight")], name=name)
 
+    def recent(i):
+        """Layer i's deferred-KV windows: (their inputs and step_t, their
+        output names)."""
+        if not deferred_kv:
+            return [], []
+        rdt = recent_dtype or DataType.Float
+        rk = b.input(f"recent.{i}.key", rdt, ("slots", Hkv, "recent", D))
+        rv = b.input(f"recent.{i}.value", rdt, ("slots", Hkv, "recent", D))
+        return [rk, rv, step_t], [f"recent_present.{i}.key", f"recent_present.{i}.value"]
+
+    deferred_attr = {"rten_recent_kv": 1} if deferred_kv else {}
     presents = []
     for i in range(cfg.num_hidden_layers):
         p = f"model.layers.{i}"
@@ -213,16 +230,19 @@ def build_graph_static_cache(
             x = block_tail(x, outs[0], p)
             continue
         if kv_quant:
+            # int4 rows hold D/2 bytes (u8 nibbles, pack_int4).
+            kv_elem = DataType.UInt8 if kv_bits == 4 else DataType.Int8
+            kv_d = D // 2 if kv_bits == 4 else D
             kv_shape = (
-                ("slots", capacity, Hkv * D) if kernel_append
-                else ("slots", Hkv, capacity, D)
+                ("slots", capacity, Hkv * kv_d) if kernel_append
+                else ("slots", Hkv, capacity, kv_d)
             )
-            past_k = b.input(f"past_key_values.{i}.key", DataType.Int8, kv_shape)
+            past_k = b.input(f"past_key_values.{i}.key", kv_elem, kv_shape)
             k_sc = b.input(
                 f"past_key_values.{i}.key_scale", DataType.Float,
                 ("slots", Hkv, capacity, 1),
             )
-            past_v = b.input(f"past_key_values.{i}.value", DataType.Int8, kv_shape)
+            past_v = b.input(f"past_key_values.{i}.value", kv_elem, kv_shape)
             v_sc = b.input(
                 f"past_key_values.{i}.value_scale", DataType.Float,
                 ("slots", Hkv, capacity, 1),
@@ -231,16 +251,17 @@ def build_graph_static_cache(
                 "num_heads": Hq, "kv_num_heads": Hkv, "bits": kv_bits,
                 "do_rotary": 1, **window_attr,
             }
+            recent_in, recent_out = recent(i)
             outs = b.op(
                 "QuantizedKVAttention",
-                [q, k, v, past_k, k_sc, past_v, v_sc, past_lens, cos_c, sin_c],
-                {**qattrs, **ka_attr},
-                n_outputs=5,
+                [q, k, v, past_k, k_sc, past_v, v_sc, past_lens] + recent_in + [cos_c, sin_c],
+                {**qattrs, **deferred_attr, **ka_attr},
+                n_outputs=5 + len(recent_out),
                 output_names=[
                     f"attn_out_{i}", f"present.{i}.key",
                     f"present.{i}.key_scale", f"present.{i}.value",
                     f"present.{i}.value_scale",
-                ],
+                ] + recent_out,
             )
             presents.extend(outs[1:])
             x = block_tail(x, outs[0], p)
@@ -253,20 +274,21 @@ def build_graph_static_cache(
                         else ("slots", Hkv, capacity, D))
         past_k = b.input(f"past_key_values.{i}.key", kdt, kv_shape)
         past_v = b.input(f"past_key_values.{i}.value", kdt, kv_shape)
-        gqa_inputs = [q, k, v, past_k, past_v, past_lens, None, cos_c, sin_c]
+        recent_in, recent_out = recent(i)
+        gqa_inputs = [q, k, v, past_k, past_v, past_lens, None, cos_c, sin_c] + recent_in
         gqa_attrs = {"num_heads": Hq, "kv_num_heads": Hkv, "rten_past_lens": 1,
-                     "do_rotary": 1}
+                     "do_rotary": 1, **deferred_attr}
         if paged_blocks:
             gqa_inputs.append(block_table)
             gqa_attrs["rten_paged"] = 1
-        attn, pk, pv = b.op(
+        attn, *outs = b.op(
             "GroupQueryAttention", gqa_inputs, {**gqa_attrs, **ka_attr, **window_attr},
-            n_outputs=3,
+            n_outputs=3 + len(recent_out),
             output_names=[
                 f"attn_out_{i}", f"present.{i}.key", f"present.{i}.value",
-            ],
+            ] + recent_out,
         )
-        presents.extend([pk, pv])
+        presents.extend(outs)
         x = block_tail(x, attn, p)
 
     x = rms(x, "model.norm.weight")

@@ -12,21 +12,34 @@ on the card; its plain version on the CPU); anything else (a decode step,
 a per-batch mask) to ``mha_plain``. The kernel gives 0 on a row with no
 column to attend (left padding), the plain version the mean of V.
 
-QuantizedKVAttention (int8 caches):
+QuantizedKVAttention (int8 caches, or int4 with ``bits=4``: u8 nibbles
+[..., D/2] from ``pack_int4``, scales absmax/7):
 
 inputs: q, k, v [B,S,H*D] f32; past_k_q8; k_scales [B,Hkv,cap,1] f32;
-        past_v_q8; v_scales; past_lens [B] i32; with ``do_rotary`` the
-        cos/sin tables [max_pos, rot/2] as the last two inputs
+        past_v_q8; v_scales; past_lens [B] i32; with ``rten_recent_kv`` the
+        recent windows recent_k, recent_v [B,Hkv,W,D] and step_t [1] i32
+        (inputs 8-10); with ``do_rotary`` the cos/sin tables [max_pos,
+        rot/2] as the last two inputs
 outputs: out [B,S,H*D], new_k_q8, new_k_scales, new_v_q8, new_v_scales
+         (and, deferred, the windows)
 
 * with ``do_rotary``, q and k rotate first, at positions past_lens + s
   (``attention.py:757-768``);
+* ``rten_recent_kv`` (deferred KV, ``attention.py:786-822``): at S == 1
+  ``decode_attention_deferred`` writes the step's row into window row
+  step_t and attends the caches below lens0 = past_lens - step_t plus the
+  window, the caches passing through unchanged; at S > 1 the rows are
+  quantized and written into the caches, ``decode_mha`` attends, and the
+  windows pass through;
 * cat caches [B,cap,Hkv*D], S == 1 with ``rten_kernel_append``:
   ``decode_mha_append_cat`` quantizes the new row, appends it and attends
   (``attention.py:880-893``);
 * cat caches otherwise: quantize the chunk's rows, write them at each
-  slot's offset, then ``prefill_mha_cat`` (``attention.py:903-932``);
-* head-major caches [B,Hkv,cap,D]: quantize the rows, write them at each
+  slot's offset, then ``prefill_mha_cat`` (int4: ``decode_mha`` over
+  head-major views) (``attention.py:903-932``);
+* head-major caches [B,Hkv,cap,D], S == 1 with ``rten_kernel_append``:
+  ``decode_mha_append`` (``attention.py:894-901``);
+* head-major caches otherwise: quantize the rows, write them at each
   slot's clamped offset, then ``decode_mha`` (``attention.py:934-953``);
 * ``rten_paged`` (``attention.py:824-878``): block pools addressed through
   the block table (input 8), scale pools [NB,Hkv,1,BS]. Head-major s8 pools
@@ -44,8 +57,14 @@ f32:
   ``decode_mha_append_cat`` writes the row and attends (``attention.py:577-593``);
 * cat caches otherwise: write the chunk's rows at each slot's offset, then
   ``prefill_mha_cat`` (``attention.py:603-639``);
-* head-major caches [B,Hkv,cap,D]: write the rows at each slot's clamped
-  offset, ``decode_mha`` (``attention.py:641-676``);
+* head-major caches [B,Hkv,cap,D], S == 1 with ``rten_kernel_append``:
+  ``decode_mha_append`` (``attention.py:594-601``); otherwise write the
+  rows at each slot's clamped offset, ``decode_mha`` (``attention.py:641-676``);
+* ``rten_recent_kv`` (deferred KV on head-major f32/bf16 caches, the
+  windows and step_t as inputs 9-11, ``attention.py:522-570``): at S == 1
+  ``decode_attention_deferred``, at S > 1 the caches written and
+  ``decode_mha``; a local window and softcap are refused as the reference
+  refuses them;
 * ``rten_paged`` (``attention.py:470-520``, the block table as input 9):
   cat pools [NB,BS,Hkv*D] at S == 1 with ``rten_kernel_append`` the
   block-table ``decode_mha_append_cat``, otherwise write the rows, gather
@@ -58,8 +77,9 @@ cat-pool append clamps it to cap - 1 first. Rows that several slots write
 (idle slots all point at block 0) resolve as the reference's in-order
 writes do, the last writer winning (``paged_targets``).
 
-The caches are updated in place and returned as the present outputs (the
-executor copies them first unless the caller donated them). Every other
+The caches (and the deferred windows) are updated in place and returned as
+the present outputs (the executor copies them first unless the caller
+donated them). Every other
 branch raises ``NotImplementedError`` naming the ROADMAP.md item.
 """
 
@@ -68,9 +88,9 @@ from __future__ import annotations
 import torch
 
 from ..kernels.flash_attention import (
-    NEG_INF, cat_to_heads, decode_mha, decode_mha_append_cat, heads_to_cat, mha, mha_plain,
-    paged_attention, paged_gather_cat, paged_gather_scales, paged_targets,
-    prefill_mha_cat, quantize_rows,
+    NEG_INF, cat_to_heads, decode_attention_deferred, decode_mha, decode_mha_append,
+    decode_mha_append_cat, heads_to_cat, mha, mha_plain, pack_int4, paged_attention,
+    paged_gather_cat, paged_gather_scales, paged_targets, prefill_mha_cat, quantize_rows,
 )
 from .registry import OpError, get_input, opt_input, register
 
@@ -339,7 +359,20 @@ def _quantized_paged(q4, k4, v4, pk, ks, pv, vs, lens, bt, attrs, scale, window)
     return (heads_to_cat(out), pk, ks, pv, vs)
 
 
-@register("QuantizedKVAttention", inplace=(3, 4, 5, 6))
+_DEFERRED_WINDOW = ("local_window_size with deferred KV is unsupported; build the "
+                    "serving graph with deferred_kv=False")
+
+
+def _deferred_step(inputs, i, lens):
+    """The deferred form's windows and step (inputs i, i + 1, i + 2) ->
+    (recent_k, recent_v, t [1] int32, lens0 = past_lens - t)."""
+    recent_k = get_input(inputs, i, "recent_k")
+    recent_v = get_input(inputs, i + 1, "recent_v")
+    t = get_input(inputs, i + 2, "step_t").reshape(-1)[:1].to(torch.int32)
+    return recent_k, recent_v, t, (lens - t).to(torch.int32)
+
+
+@register("QuantizedKVAttention", inplace=(3, 4, 5, 6, 8, 9))
 def _quantized_kv_attention(ctx, inputs, attrs):
     q = get_input(inputs, 0, "query")
     k = get_input(inputs, 1, "key")
@@ -352,12 +385,11 @@ def _quantized_kv_attention(ctx, inputs, attrs):
     n_heads = attrs.get("num_heads")
     kv_heads = attrs.get("kv_num_heads", n_heads)
     scale = attrs.get("scale")
+    bits = int(attrs.get("bits", 8))
+    quantize = pack_int4 if bits == 4 else quantize_rows
     lws = int(attrs.get("local_window_size", -1))
     window = lws if lws > 0 else 0
-    if int(attrs.get("bits", 8)) != 8:
-        _todo("int4 KV caches", 11)
-    if attrs.get("rten_recent_kv", 0):
-        _todo("deferred KV", 9)
+    deferred = bool(attrs.get("rten_recent_kv", 0))
     if past_lens.dtype != torch.int32:
         raise OpError("past_lens must be int32")
 
@@ -370,21 +402,56 @@ def _quantized_kv_attention(ctx, inputs, attrs):
     if attrs.get("do_rotary", 0):
         q4, k4 = _rotate_qk(q4, k4, inputs[-2], inputs[-1], lens, attrs)
 
+    if window and deferred:
+        raise OpError(_DEFERRED_WINDOW)
+    if deferred:
+        # Decode steps keep their rows in the windows (the engine commits
+        # them once per dispatch); prefill writes the caches directly.
+        recent_k, recent_v, t, lens0 = _deferred_step(inputs, 8, lens)
+        cap = past_k_q8.shape[2]
+        if S == 1:
+            out, rk, rv = decode_attention_deferred(
+                q4, past_k_q8, past_v_q8, lens0, k_scales.reshape(B, kv_heads, cap),
+                v_scales.reshape(B, kv_heads, cap), scale=scale, recent_k=recent_k,
+                recent_v=recent_v, t=t, k_new=k4, v_new=v4,
+            )
+            return (heads_to_cat(out), past_k_q8, k_scales, past_v_q8, v_scales, rk, rv)
+        k_q, k_s = quantize(k4)
+        v_q, v_s = quantize(v4)
+        new_k = slot_kv_update(past_k_q8, k_q, lens)
+        new_ks = slot_kv_update(k_scales, k_s, lens)
+        new_v = slot_kv_update(past_v_q8, v_q, lens)
+        new_vs = slot_kv_update(v_scales, v_s, lens)
+        out = decode_mha(q4, new_k, new_v, lens, new_ks.reshape(B, kv_heads, cap),
+                         new_vs.reshape(B, kv_heads, cap), scale=scale)
+        return (heads_to_cat(out), new_k, new_ks, new_v, new_vs, recent_k, recent_v)
+
     if attrs.get("rten_paged", 0):
+        if bits != 8:
+            raise OpError("rten_paged quantized KV supports bits=8 only")
         bt = _block_table(inputs, 8)
         return _quantized_paged(q4, k4, v4, past_k_q8, k_scales, past_v_q8, v_scales,
                                 lens, bt, attrs, scale, window)
 
+    if S == 1 and attrs.get("rten_kernel_append", 0):
+        if bits != 8:
+            raise OpError("rten_kernel_append supports bits=8 only")
+        append = decode_mha_append if past_k_q8.ndim == 4 else decode_mha_append_cat
+        out, nk, nv, nks, nvs = append(
+            q4, past_k_q8, past_v_q8, lens, k_scales, v_scales,
+            k_new=k4, v_new=v4, scale=scale, window=window,
+        )
+        # The cat append's out arrives in cat layout [B, 1, H*D] == merged heads.
+        return (heads_to_cat(out) if out.ndim == 4 else out, nk, nks, nv, nvs)
+
+    k_q8, k_s = quantize(k4)
+    v_q8, v_s = quantize(v4)
+    new_k_s = slot_kv_update(k_scales, k_s, lens)
+    new_v_s = slot_kv_update(v_scales, v_s, lens)
     if past_k_q8.ndim == 4:
-        # Head-major caches [B, Hkv, cap, D].
-        if S == 1 and attrs.get("rten_kernel_append", 0):
-            _todo("in-kernel append on head-major caches (decode_mha_append)", 7)
-        k_q8, k_s = quantize_rows(k4)
-        v_q8, v_s = quantize_rows(v4)
+        # Head-major caches [B, Hkv, cap, D] (int4: [B, Hkv, cap, D/2]).
         new_k_q8 = slot_kv_update(past_k_q8, k_q8, lens)
-        new_k_s = slot_kv_update(k_scales, k_s, lens)
         new_v_q8 = slot_kv_update(past_v_q8, v_q8, lens)
-        new_v_s = slot_kv_update(v_scales, v_s, lens)
         cap = past_k_q8.shape[2]
         out = decode_mha(
             q4, new_k_q8, new_v_q8, lens, new_k_s.reshape(B, kv_heads, cap),
@@ -392,33 +459,32 @@ def _quantized_kv_attention(ctx, inputs, attrs):
         )
         return (heads_to_cat(out), new_k_q8, new_k_s, new_v_q8, new_v_s)
 
-    if S == 1 and attrs.get("rten_kernel_append", 0):
-        # out arrives in cat layout [B, 1, H*D] == merged heads.
-        out, nk, nv, nks, nvs = decode_mha_append_cat(
-            q4, past_k_q8, past_v_q8, lens, k_scales, v_scales,
-            k_new=k4, v_new=v4, scale=scale, window=window,
-        )
-        return (out, nk, nks, nv, nvs)
-
-    k_q8, k_s = quantize_rows(k4)
-    v_q8, v_s = quantize_rows(v4)
     new_kc = slot_kv_update_cat(past_k_q8, heads_to_cat(k_q8), lens)
     new_vc = slot_kv_update_cat(past_v_q8, heads_to_cat(v_q8), lens)
-    new_k_s = slot_kv_update(k_scales, k_s, lens)
-    new_v_s = slot_kv_update(v_scales, v_s, lens)
-    out = prefill_mha_cat(
-        q4, new_kc, new_vc, lens, new_k_s, new_v_s, scale=scale, window=window,
-    )
+    if bits == 4:
+        # int4 cat rows: decode_mha over head-major views of the caches.
+        cap = past_k_q8.shape[1]
+        out = decode_mha(
+            q4, cat_to_heads(new_kc, kv_heads), cat_to_heads(new_vc, kv_heads), lens,
+            new_k_s.reshape(B, kv_heads, cap), new_v_s.reshape(B, kv_heads, cap),
+            scale=scale, window=window,
+        )
+    else:
+        out = prefill_mha_cat(
+            q4, new_kc, new_vc, lens, new_k_s, new_v_s, scale=scale, window=window,
+        )
     return (heads_to_cat(out), new_kc, new_k_s, new_vc, new_v_s)
 
 
-@register("GroupQueryAttention", inplace=(3, 4))
+@register("GroupQueryAttention", inplace=(3, 4, 9, 10))
 def _group_query_attention(ctx, inputs, attrs):
     """The ``rten_past_lens`` serving form: query/key/value [B,S,H*D] f32,
     past_key/past_value f32 or bf16 caches or pools (the module docstring
     lists the layouts), seqlens_k [B] per-slot PAST lengths, cos/sin tables
     (inputs 7, 8) with ``do_rotary``, the block table (input 9) with
-    ``rten_paged``. Outputs: out [B,S,H*D] and the updated caches."""
+    ``rten_paged``, the recent windows and step_t (inputs 9-11) with
+    ``rten_recent_kv``. Outputs: out [B,S,H*D] and the updated caches (and,
+    deferred, the windows)."""
     query = get_input(inputs, 0, "query")
     key = opt_input(inputs, 1)
     value = opt_input(inputs, 2)
@@ -430,12 +496,11 @@ def _group_query_attention(ctx, inputs, attrs):
     if n_heads is None or kv_heads is None:
         raise OpError("GroupQueryAttention requires num_heads and kv_num_heads")
     paged = bool(attrs.get("rten_paged", 0))
-    if attrs.get("rten_recent_kv", 0):
-        _todo("deferred KV", 9)
+    deferred = bool(attrs.get("rten_recent_kv", 0)) and not paged
     if not attrs.get("rten_past_lens", 0):
         _todo("ONNX (ORT-compatible) GroupQueryAttention", 12)
-    if attrs.get("softcap", 0.0) or (not paged and any(
-            opt_input(inputs, i) is not None for i in (9, 10, 11))):
+    if not deferred and (attrs.get("softcap", 0.0) or (not paged and any(
+            opt_input(inputs, i) is not None for i in (9, 10, 11)))):
         _todo("GroupQueryAttention with softcap, position ids, bias or sinks", 12)
     if key is None or value is None:
         _todo("packed QKV GroupQueryAttention", 12)
@@ -458,6 +523,24 @@ def _group_query_attention(ctx, inputs, attrs):
     scale = attrs.get("scale")
     S = q4.shape[2]
     kernel_append = S == 1 and bool(attrs.get("rten_kernel_append", 0))
+    n_out = attrs.get("__n_outputs__", 1)
+    if deferred:
+        if window:
+            raise OpError(_DEFERRED_WINDOW)
+        if attrs.get("softcap", 0.0):
+            raise OpError("rten_recent_kv (deferred KV) does not support softcap; "
+                          "build the serving graph with deferred_kv=False")
+        recent_k, recent_v, t, lens0 = _deferred_step(inputs, 9, lens)
+        if S == 1:
+            out, rk, rv = decode_attention_deferred(
+                q4, past_k, past_v, lens0, scale=scale, recent_k=recent_k,
+                recent_v=recent_v, t=t, k_new=k4, v_new=v4,
+            )
+            return (heads_to_cat(out), past_k, past_v, rk, rv)[:n_out]
+        k_all = slot_kv_update(past_k, k4, lens)
+        v_all = slot_kv_update(past_v, v4, lens)
+        out = heads_to_cat(decode_mha(q4, k_all, v_all, lens, scale=scale))
+        return (out, k_all, v_all, recent_k, recent_v)[:n_out]
     if paged:
         bt = _block_table(inputs, 9)
         if past_k.ndim == 3:  # cat pools [NB, BS, Hkv*D]
@@ -491,12 +574,14 @@ def _group_query_attention(ctx, inputs, attrs):
             v_all = slot_kv_update_cat(past_v, heads_to_cat(v4), lens)
             out = heads_to_cat(prefill_mha_cat(q4, k_all, v_all, lens, scale=scale,
                                                window=window))
+    elif kernel_append:
+        out, k_all, v_all = decode_mha_append(q4, past_k, past_v, lens, k_new=k4, v_new=v4,
+                                              scale=scale, window=window)
+        out = heads_to_cat(out)
     else:
-        if kernel_append:
-            _todo("in-kernel append on head-major caches (decode_mha_append)", 7)
         k_all = slot_kv_update(past_k, k4, lens)
         v_all = slot_kv_update(past_v, v4, lens)
         out = heads_to_cat(decode_mha(q4, k_all, v_all, lens, scale=scale, window=window))
-    if attrs.get("__n_outputs__", 1) >= 3:
+    if n_out >= 3:
         return (out, k_all, v_all)
     return out

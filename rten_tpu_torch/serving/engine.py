@@ -26,10 +26,22 @@ greedy decoding on the device).
   idle, advances its length and writes its KV row, as in the JAX scan) and
   copies the [slots, k] tokens to the host once per dispatch. Tokens and
   lengths chain on the device across dispatches until the next admission.
+* Deferred KV (graphs with ``recent.*`` inputs, ``deferred_kv=True``): a
+  dispatch's k steps keep their new rows in per-layer recent windows
+  [slots, H, k, D] (zeroed when the dispatch starts; step t feeds
+  ``step_t = t``) and leave the big caches as they are; the dispatch then
+  commits every slot's window rows, live or idle, into the big caches at
+  the slot's length at the dispatch's start (int4 caches packed with
+  ``pack_int4``, int8 quantized per row, f32/bf16 cast), each write clamped
+  to ``[0, cap - k]``. A single step commits its one row at once;
+  admissions feed one-row dummy windows (the prefill writes the caches).
+* Recovery: ``restart()`` re-queues every running request with its tokens
+  cleared and zeroes all device state; ``fail_inflight(error)`` fails every
+  running and queued request instead.
 
 Not ported (raise ``NotImplementedError``, naming the ROADMAP.md item):
-shared prefix (flat and paged), chunked prefill, LoRA, deferred KV, host or
-device sampling, ``pipeline_dispatch`` and ``dispatches_per_drain > 1``.
+shared prefix (flat and paged), chunked prefill, LoRA, host or device
+sampling, ``pipeline_dispatch`` and ``dispatches_per_drain > 1``.
 """
 
 from __future__ import annotations
@@ -45,6 +57,8 @@ import numpy as np
 import torch
 
 from ..generate.sampler import Sampler
+from ..kernels.flash_attention import pack_int4, quantize_rows
+from ..ops.attention import slot_kv_update
 
 
 class QueueFull(Exception):
@@ -122,9 +136,9 @@ class ContinuousBatchingEngine:
             _unsupported("pipeline_dispatch", 9)
         if dispatches_per_drain != 1:
             _unsupported("dispatches_per_drain > 1", 9)
-        if any(self.g.node_name(n).startswith(("recent.", "lora.", "slot_adapter"))
+        if any(self.g.node_name(n).startswith(("lora.", "slot_adapter"))
                for n in self.g.input_ids):
-            _unsupported("deferred KV and multi-LoRA graphs", 9)
+            _unsupported("multi-LoRA graphs", 9)
         self.last_pos_id = self.g.find_node("last_pos")
         if self.last_pos_id is None:
             _unsupported("graphs without last_pos (gather_last=False)", 10)
@@ -154,6 +168,38 @@ class ContinuousBatchingEngine:
             "present." + n[len("past_key_values."):] for n in self.cache_names
         ]
         self.cache_ids = [self.g.find_node(n) for n in self.cache_names]
+
+        # Deferred-KV graphs: per-layer recent.{i}.key/value windows and a
+        # step_t input; each window commits into its cache (and scales).
+        self.recent_names = [self.g.node_name(n) for n in self.g.input_ids
+                             if self.g.node_name(n).startswith("recent.")]
+        self.deferred_kv = bool(self.recent_names)
+        if self.deferred_kv and prefill_bucket < 2:
+            # The deferred attention ops tell prefill from decode by S > 1:
+            # a 1-token prefill would run as a decode step and route the
+            # prompt's KV into windows the prefill discards.
+            raise ValueError(
+                "deferred-KV graphs need prefill_bucket >= 2 (a 1-token "
+                "prefill is indistinguishable from a decode step)"
+            )
+        self.recent_ids = [self.g.find_node(n) for n in self.recent_names]
+        self.step_t_id = self.g.find_node("step_t") if self.deferred_kv else None
+        self._recent_alloc = []  # (heads, head_dim, torch dtype) per window
+        self._commit_plan = []   # (recent index, cache index, scale index or None)
+        for ri, name in enumerate(self.recent_names):
+            node = self.g.nodes[self.recent_ids[ri]]
+            self._recent_alloc.append((node.shape[1], node.shape[3], node.dtype.torch_dtype))
+            base = "past_key_values." + name[len("recent."):]
+            scale = base + "_scale"
+            self._commit_plan.append((
+                ri, self.cache_names.index(base),
+                self.cache_names.index(scale) if scale in self.cache_names else None,
+            ))
+        # The windows of the current forward, and every set allocated so far
+        # by row count (one row for admissions and single steps, k rows for
+        # dispatches).
+        self._recents: List[torch.Tensor] = []
+        self._recent_sets: Dict[int, List[torch.Tensor]] = {}
         self.in_ids = {
             n: self.g.find_node(n)
             for n in ("input_ids", "past_lens", "position_ids")
@@ -161,6 +207,8 @@ class ContinuousBatchingEngine:
         self.out_ids = [self.g.find_node("next_token")] + [
             self.g.find_node(n) for n in self.present_names
         ]
+        # Inputs the model may write in place: the caches and the windows.
+        self._donate = self.cache_ids + self.recent_ids
 
         if self.paged:
             # max_blocks comes from the table's declared width; the logical
@@ -208,10 +256,12 @@ class ContinuousBatchingEngine:
         return [torch.zeros(shape, dtype=dtype, device=self.device)
                 for shape, dtype in self._cache_alloc]
 
-    def _forward(self, caches, ids, lens, pos, last_pos, table=None):
-        """One model run over all slot rows; the caches are updated in
-        place. Paged graphs read the block table ``table`` (the engine's
-        own by default). Returns (next_token [slots, 1], presents)."""
+    def _forward(self, caches, ids, lens, pos, last_pos, table=None, step=None):
+        """One model run over all slot rows; the caches (and a deferred
+        graph's windows) are updated in place. Paged graphs read the block
+        table ``table`` (the engine's own by default); deferred graphs the
+        windows ``self._recents`` at ``step`` ([1] int32 on the device).
+        Returns (next_token [slots, 1], presents)."""
         feed = {
             self.in_ids["input_ids"]: ids,
             self.in_ids["past_lens"]: lens,
@@ -220,22 +270,63 @@ class ContinuousBatchingEngine:
         }
         if self.paged:
             feed[self._bt_nid] = self._bt_sync() if table is None else table
+        if self.deferred_kv:
+            feed[self.step_t_id] = step
+            feed.update(zip(self.recent_ids, self._recents))
         feed.update(zip(self.cache_ids, caches))
-        outs = self.executor.run(feed, self.out_ids, donate=self.cache_ids)
+        outs = self.executor.run(feed, self.out_ids, donate=self._donate)
         return outs[0], list(outs[1:])
+
+    def _zero_recents(self, rows: int) -> torch.Tensor:
+        """Zeroed windows of ``rows`` rows for every layer, allocated once
+        per row count; returns step 0 ([1] int32 on the device)."""
+        if rows in self._recent_sets:
+            self._recents = self._recent_sets[rows]
+            for r in self._recents:
+                r.zero_()
+        else:
+            self._recents = self._recent_sets[rows] = [
+                torch.zeros((self.slots, h, rows, d), dtype=dt, device=self.device)
+                for h, d, dt in self._recent_alloc]
+        return torch.zeros(1, dtype=torch.int32, device=self.device)
+
+    def _commit_recent(self, lens0: torch.Tensor):
+        """Write every window's rows into its big cache at each slot's
+        length at the dispatch's start, once per dispatch (the JAX engine's
+        ``_commit_recent``): int4 caches packed, int8 caches quantized per
+        row (absmax / 127), f32/bf16 caches cast; each write clamped to
+        [0, cap - rows]."""
+        for ri, ci, si in self._commit_plan:
+            rows = self._recents[ri].to(torch.float32)
+            cache = self.caches[ci]
+            if si is None:
+                slot_kv_update(cache, rows, lens0)
+                continue
+            q, s = pack_int4(rows) if cache.dtype == torch.uint8 else quantize_rows(rows)
+            slot_kv_update(cache, q, lens0)
+            slot_kv_update(self.caches[si], s, lens0)
 
     def _multi_step(self, k: int, toks: torch.Tensor, lens: torch.Tensor):
         """k greedy decode steps chained on the device: [slots] tokens and
-        lengths in, tokens [slots, k] out. Every slot advances."""
+        lengths in, tokens [slots, k] out. Every slot advances. A deferred
+        graph's steps write the windows; the dispatch commits them."""
         zeros = torch.zeros(self.slots, dtype=torch.int32, device=self.device)
+        steps = None
+        if self.deferred_kv:
+            self._zero_recents(k)
+            steps = torch.arange(k, dtype=torch.int32, device=self.device)
+        lens0 = lens
         seq = []
-        for _ in range(k):
+        for t in range(k):
             nt, self.caches = self._forward(
-                self.caches, toks[:, None], lens, lens[:, None], zeros
+                self.caches, toks[:, None], lens, lens[:, None], zeros,
+                step=None if steps is None else steps[t:t + 1],
             )
             toks = nt[:, 0].to(torch.int32)
             lens = lens + 1
             seq.append(toks)
+        if self.deferred_kv:
+            self._commit_recent(lens0)
         return toks, lens, torch.stack(seq, dim=1)
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
@@ -418,6 +509,60 @@ class ContinuousBatchingEngine:
         out, self.finished = self.finished, []
         return out
 
+    def _reset_device_state(self):
+        """Release every slot's blocks and zero the slots' bookkeeping, the
+        caches and the deferred windows; tokens and lengths chain from the
+        host again."""
+        for slot in range(self.slots):
+            self._release_blocks(slot)
+        self.slot_len[:] = 0
+        self.slot_last_tok[:] = 0
+        self._dev_state = None
+        self.caches = self._zero_caches()
+        for windows in self._recent_sets.values():
+            for r in windows:
+                r.zero_()
+
+    def restart(self) -> List[Request]:
+        """Deterministic recovery (the JAX engine's ``restart``): re-queue
+        every running request at the head of the queue with its tokens
+        cleared, release the blocks and zero the caches and windows. Prefill
+        is deterministic, so the re-queued requests regenerate the same
+        tokens. Returns the re-queued requests."""
+        requeued = []
+        for slot in range(self.slots):
+            req = self.slot_req[slot]
+            if req is not None:
+                req.generated.clear()
+                req.first_token_at = None
+                self.queue.appendleft(req)
+                requeued.append(req)
+                self.slot_req[slot] = None
+        self._reset_device_state()
+        return requeued
+
+    def fail_inflight(self, error: str) -> List[Request]:
+        """Fail every running and queued request with ``error`` (for a step
+        that raised: the in-flight state cannot be trusted, but waiters must
+        be released) and reset the device state as ``restart`` does.
+        Returns the failed requests."""
+        failed = []
+        now = time.perf_counter()
+        for slot in range(self.slots):
+            req = self.slot_req[slot]
+            if req is not None:
+                failed.append(req)
+                self.slot_req[slot] = None
+        failed.extend(self.queue)
+        self.queue.clear()
+        for req in failed:
+            req.error = error
+            req.done = True
+            req.finished_at = now
+            self._finish(req)
+        self._reset_device_state()
+        return failed
+
     # -- internals -----------------------------------------------------------
 
     def _round_up(self, x: int) -> int:
@@ -454,13 +599,16 @@ class ContinuousBatchingEngine:
         pos = np.broadcast_to(np.arange(T, dtype=np.int32)[None], (self.slots, T))
         args = (self._to_device(ids), self._to_device(np.zeros(self.slots, np.int32)),
                 self._to_device(pos), self._to_device(last_idx))
+        # Deferred graphs: one-row dummy windows (the prefill writes the
+        # caches directly; the windows pass through).
+        step = self._zero_recents(1) if self.deferred_kv else None
         if self.paged:
             table = np.zeros_like(self.block_table)
             for slot, _ in admissions:
                 table[slot] = self.block_table[slot]
-            nt, self.caches = self._forward(self.caches, *args, self._to_device(table))
+            nt, self.caches = self._forward(self.caches, *args, self._to_device(table), step)
         else:
-            nt, fresh = self._forward(self._zero_caches(), *args)
+            nt, fresh = self._forward(self._zero_caches(), *args, step=step)
             rows = self._to_device(np.array([s for s, _ in admissions], np.int64))
             for c, p in zip(self.caches, fresh):
                 c.index_copy_(0, rows, p.index_select(0, rows))
@@ -550,13 +698,19 @@ class ContinuousBatchingEngine:
         #     slots compute garbage into their own rows, overwritten at the
         #     next admission).
         zeros = self._to_device(np.zeros(self.slots, np.int32))
+        lens = self._to_device(self.slot_len)
+        # Deferred graphs: a one-row window, committed right away.
+        step = self._zero_recents(1) if self.deferred_kv else None
         nt, self.caches = self._forward(
             self.caches,
             self._to_device(self.slot_last_tok[:, None]),
-            self._to_device(self.slot_len),
+            lens,
             self._to_device(self.slot_len[:, None]),
             zeros,
+            step=step,
         )
+        if self.deferred_kv:
+            self._commit_recent(lens)
         toks = nt.cpu().numpy()[active, 0]
         self.steps += 1
         for tok, slot in zip(toks, active):

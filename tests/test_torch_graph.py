@@ -175,18 +175,20 @@ def test_load_numpy_constants_checks(bad):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(kv_quant=False, deferred_kv=True),     # f32 deferred KV
-    dict(kv_bits=4),
-    dict(deferred_kv=True),
-    dict(kv_bits=4, kernel_append=False),       # int4 head-major caches
+    dict(kv_quant=False, kernel_append=False, deferred_kv=True, gather_last=False),
+    dict(kv_bits=4, kernel_append=False, lora_rank=4, n_adapters=2),
+    dict(kernel_append=False, deferred_kv=True, lora_rank=2, n_adapters=1),
+    dict(kv_bits=4, kernel_append=False, gather_last=False),   # int4, full-bucket lm_head
     dict(lora_rank=4, n_adapters=2),
     dict(kv_quant=False, lora_rank=4, n_adapters=2),
     dict(gather_last=False),
 ])
 def test_builder_branches_off_the_slice_raise(kwargs):
     """What the slice still does not build raises, naming its ROADMAP.md
-    item (f32/bf16 and head-major caches and pools are built:
-    tests/test_torch_kv_dtypes.py)."""
+    item: LoRA and the full-bucket lm_head, on every cache form (f32/bf16
+    and head-major caches and pools are built: tests/test_torch_kv_dtypes.py;
+    int4 and deferred KV: tests/test_torch_int4_kv.py,
+    tests/test_torch_deferred_kv.py)."""
     cfg = tgpt2.GPT2Config(**SMALL)
     opts = {**MAIN_PATH, **kwargs}
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

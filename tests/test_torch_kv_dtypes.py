@@ -275,7 +275,9 @@ def test_paged_decode_mha_plain_bf16_matches_jax(window):
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     """The checks a CUDA tensor meets (run here on CPU tensors, which pass
     the device checks): f16 caches, int8 caches without scales, f32 caches
-    with scales, and D 32 on f32/bf16 caches raise before any launch."""
+    with scales, int4 (u8) cat caches, and an odd or too large head dim
+    raise before any launch; D 32 on f32/bf16 caches is taken (a masked
+    tail in the D 64 instance)."""
     q = torch.zeros(2, 2, 1, 32)
     lens = torch.zeros(2, dtype=torch.int32)
     sc = torch.ones(2, 2, 8, 1)
@@ -287,10 +289,17 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                           torch.zeros(2, 8, 64, dtype=torch.int8), lens, None, None, 2)
     with pytest.raises(ValueError, match="scales"):
         tfa._check_common(q, torch.zeros(2, 8, 64), torch.zeros(2, 8, 64), lens, sc, sc, 2)
+    with pytest.raises(TypeError, match="head-major only"):
+        tfa._check_common(q, torch.zeros(2, 8, 64, dtype=torch.uint8),
+                          torch.zeros(2, 8, 64, dtype=torch.uint8), lens, sc[..., 0], sc[..., 0], 2)
     kind, _, _, D = tfa._check_common(q, torch.zeros(2, 8, 64, dtype=torch.bfloat16),
                                       torch.zeros(2, 8, 64, dtype=torch.bfloat16), lens,
                                       None, None, 2)
-    assert D == 32 and D not in tfa._head_dims(kind) and D in tfa._head_dims(0)
+    assert D == 32 and kind == tfa.KV_KINDS[torch.bfloat16]
+    tfa._check_head_dim(D, 256)
+    for bad in (33, 0, 514):
+        with pytest.raises(ValueError, match="head dim"):
+            tfa._check_head_dim(bad, 512)
 
 
 # --- GroupQueryAttention's cat, pool and bf16 branches (ops/attention.py:470-676) ----

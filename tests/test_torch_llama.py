@@ -340,16 +340,18 @@ def test_rotary_clamps_like_jax_indexing():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(deferred_kv=True), 9),
-    (dict(kv_dtype=JDataType.BFloat16, deferred_kv=True), 9),          # bf16 deferred KV
-    (dict(kv_dtype=JDataType.BFloat16, recent_dtype=JDataType.BFloat16), 9),
-    (dict(kv_quant=True, kv_bits=4), 11),
-    (dict(kv_quant=True, kv_bits=4, kernel_append=True), 11),          # int4 cat caches
+    (dict(deferred_kv=True, gather_last=False), 10),
+    (dict(kv_dtype=JDataType.BFloat16, deferred_kv=True, gather_last=False), 10),
+    (dict(kv_dtype=JDataType.BFloat16, recent_dtype=JDataType.BFloat16, gather_last=False), 10),
+    (dict(kv_quant=True, kv_bits=4, gather_last=False), 10),
+    (dict(kv_quant=True, kv_bits=4, deferred_kv=True, gather_last=False), 10),
     (dict(kv_quant=True, gather_last=False), 10),
 ])
 def test_builder_options_off_the_slice_raise(kwargs, item):
     """What the slice still does not build raises, naming its ROADMAP.md
-    item (f32/bf16 caches and pools are built: tests/test_torch_kv_dtypes.py)."""
+    item: the full-bucket lm_head, on every cache form (f32/bf16 caches and
+    pools are built: tests/test_torch_kv_dtypes.py; int4 and deferred KV:
+    tests/test_torch_int4_kv.py, tests/test_torch_deferred_kv.py)."""
     from rten_tpu_torch.dtypes import DataType
 
     kwargs = {k: DataType[v.name] if isinstance(v, JDataType) else v for k, v in kwargs.items()}

@@ -722,8 +722,8 @@ def test_paged_append_kernel_float_pools(card, dt, H, Hkv, D, window):
 def test_kernels_refuse_modes_they_do_not_take(card):
     """A CUDA tensor of a dtype or head dim no kernel covers raises, and no
     kernel launches (no plain version, no library call behind it): f16
-    caches, bf16 caches at D 32, int8 caches without scales, f32 caches with
-    scales."""
+    caches, bf16 caches at an odd D (33), int8 caches without scales, f32
+    caches with scales."""
     B, H, D, cap = 2, 2, 32, 64
     q = torch.zeros(B, H, 1, D, device=card)
     kn = torch.zeros(B, H, 1, D, device=card)
@@ -739,9 +739,11 @@ def test_kernels_refuse_modes_they_do_not_take(card):
     with pytest.raises(TypeError):
         tfa.decode_mha_append_cat(q, cat(torch.float16), cat(torch.float16), lens, k_new=kn,
                                   v_new=kn)
+    q33 = torch.zeros(B, H, 1, 33, device=card)
+    kn33 = torch.zeros(B, H, 1, 33, device=card)
     with pytest.raises(ValueError):
-        tfa.decode_mha_append_cat(q, cat(torch.bfloat16), cat(torch.bfloat16), lens,
-                                  k_new=kn, v_new=kn)
+        tfa.decode_mha_append_cat(q33, cat(torch.bfloat16, 33), cat(torch.bfloat16, 33), lens,
+                                  k_new=kn33, v_new=kn33)
     with pytest.raises(ValueError):
         tfa.prefill_mha_cat(q, cat(torch.int8), cat(torch.int8), lens)
     with pytest.raises(ValueError):
@@ -805,3 +807,310 @@ def test_kv_dtype_engine_on_card_matches_cpu(card, form):
             assert sorted(eng._free_blocks) == [1, 2, 3]
         out[dev.type] = [r.generated for r in reqs]
     assert out["cuda"] == out["cpu"]
+
+
+# --- int4 caches, deferred KV, the head-major append, head dims -----------------
+
+
+def _int4_caches(card, g, B, Hkv, cap, D):
+    """Random int4 (u8 nibble) caches [B, Hkv, cap, D/2] and their scales."""
+    k = torch.randint(0, 256, (B, Hkv, cap, D // 2), generator=g, dtype=torch.uint8)
+    v = torch.randint(0, 256, (B, Hkv, cap, D // 2), generator=g, dtype=torch.uint8)
+    ks = torch.rand(B, Hkv, cap, generator=g) * 0.3 + 0.05
+    vs = torch.rand(B, Hkv, cap, generator=g) * 0.3 + 0.05
+    return [t.to(card) for t in (k, v, ks, vs)]
+
+
+def _caches(card, g, kv, B, Hkv, cap, D):
+    if kv == "int4":
+        return _int4_caches(card, g, B, Hkv, cap, D)
+    if kv == "s8":
+        k = torch.randint(-127, 128, (B, Hkv, cap, D), generator=g, dtype=torch.int8)
+        v = torch.randint(-127, 128, (B, Hkv, cap, D), generator=g, dtype=torch.int8)
+        ks = torch.rand(B, Hkv, cap, generator=g) * 0.015 + 0.005
+        vs = torch.rand(B, Hkv, cap, generator=g) * 0.015 + 0.005
+        return [t.to(card) for t in (k, v, ks, vs)]
+    return [_float_cache(g, (B, Hkv, cap, D), kv, card), _float_cache(g, (B, Hkv, cap, D), kv,
+                                                                      card), None, None]
+
+
+@pytest.mark.parametrize("kv", ["int4", "s8", "f32", "bf16"])
+@pytest.mark.parametrize("H,Hkv,S,D,window", [
+    (32, 4, 1, 64, 0),     # TinyLlama's decode step: the fold
+    (8, 8, 1, 128, 0),
+    (4, 2, 8, 64, 0),      # the fold's 16-row instance (a small Llama's admission of 8)
+    (4, 2, 1, 80, 0),      # masked tails (int4 D 80: 40-byte rows, element loads)
+    (4, 2, 1, 96, 16),
+    (8, 1, 1, 256, 0),     # D 256 (Gemma's head dim): the fold's 8-row instance
+    (4, 2, 1, 512, 0),     # D 512: the fold's 4-row instance
+    (32, 4, 40, 64, 0),    # admissions: per head
+    (4, 2, 33, 80, 20),
+    (8, 1, 17, 256, 0),
+    (2, 2, 9, 512, 0),
+])
+def test_decode_mha_kernel_kinds_and_head_dims(card, kv, H, Hkv, S, D, window):
+    """Both launch forms on int4, s8, f32 and bf16 caches, at D 64-512 and
+    at D 80 and 96 (a masked tail), against decode_mha_plain: atol 1e-4 on
+    rows with a column to attend (0 on the others), the same bits twice."""
+    cap, B = 96, 6
+    lens = torch.tensor([0, 17, cap - S, cap - 1, cap, cap + 40], dtype=torch.int32,
+                        device=card)
+    g = _gen(H * S + D)
+    q = torch.randn(B, H, S, D, generator=g).to(card)
+    k, v, ks, vs = _caches(card, g, kv, B, Hkv, cap, D)
+    fold = (H // Hkv) * S <= tfa.fold_max_rows(D)
+    form = tfa.decode_mha_folded if fold else tfa.decode_mha_heads
+    before = form.launches
+    got = tfa.decode_mha(q, k, v, lens, ks, vs, window=window)
+    again = tfa.decode_mha(q, k, v, lens, ks, vs, window=window)
+    want = tfa.decode_mha_plain(q, k, v, lens, ks, vs, window=window)
+    torch.cuda.synchronize()
+    assert form.launches == before + 2
+    assert got.shape == (B, H, S, D) and torch.equal(got, again)
+    qpos = lens.long()[:, None] + torch.arange(S, device=card)[None]
+    live = (qpos - window < cap - 1) if window else torch.ones_like(qpos, dtype=torch.bool)
+    live = live[:, None, :, None].expand_as(got)
+    assert (got - want)[live].abs().max().item() <= 1e-4
+    assert (got[~live] == 0).all()
+
+
+@pytest.mark.parametrize("kv", ["int4", "s8", "f32", "bf16"])
+@pytest.mark.parametrize("rdt", ["f32", "bf16"])
+@pytest.mark.parametrize("H,Hkv,D,W,t", [(32, 4, 64, 8, 3), (12, 12, 64, 64, 63),
+                                         (8, 2, 128, 8, 0), (4, 2, 80, 8, 5),
+                                         (8, 1, 256, 8, 7), (4, 2, 512, 4, 2)])
+def test_decode_attention_deferred_kernel(card, kv, rdt, H, Hkv, D, W, t):
+    """The deferred fold: the new row written into window row t (rounded to
+    the window's dtype) bit-exact against the plain version, every other
+    window row untouched, the output within 1e-4; lens0 covers an empty
+    cache and a full one."""
+    cap, B = 96, 5
+    g = _gen(D + W + t)
+    q = torch.randn(B, H, 1, D, generator=g).to(card)
+    k, v, ks, vs = _caches(card, g, kv, B, Hkv, cap, D)
+    rk = _float_cache(g, (B, Hkv, W, D), rdt, card)
+    rv = _float_cache(g, (B, Hkv, W, D), rdt, card)
+    kn = torch.randn(B, Hkv, 1, D, generator=g).to(card)
+    vn = torch.randn(B, Hkv, 1, D, generator=g).to(card)
+    lens0 = torch.tensor([0, 1, 40, cap - W, cap], dtype=torch.int32, device=card)
+    step = torch.tensor([t], dtype=torch.int32, device=card)
+    a = [rk.clone(), rv.clone()]
+    p = [rk.clone(), rv.clone()]
+    before = tfa.decode_mha_folded.launches
+    got = tfa.decode_attention_deferred(q, k, v, lens0, ks, vs, recent_k=a[0], recent_v=a[1],
+                                        t=step, k_new=kn, v_new=vn)
+    want = tfa.decode_attention_deferred_plain(q, k, v, lens0, ks, vs, recent_k=p[0],
+                                               recent_v=p[1], t=step, k_new=kn, v_new=vn)
+    torch.cuda.synchronize()
+    assert tfa.decode_mha_folded.launches == before + 1
+    assert (got[0] - want[0]).abs().max().item() <= 1e-4
+    for i in (1, 2):
+        assert torch.equal(_bits(got[i]), _bits(want[i]))
+    keep = torch.ones(W, dtype=torch.bool, device=card)
+    keep[t] = False
+    assert torch.equal(_bits(got[1][:, :, keep]), _bits(rk[:, :, keep]))
+
+
+@pytest.mark.parametrize("dt", ["s8", "f32", "bf16"])
+@pytest.mark.parametrize("H,Hkv,D,window", [(32, 4, 64, 0), (12, 12, 64, 0), (8, 2, 128, 16),
+                                            (4, 2, 80, 0), (8, 1, 256, 0), (4, 2, 512, 0)])
+def test_decode_mha_append_kernel(card, dt, H, Hkv, D, window):
+    """decode_mha_append on head-major caches against its plain version:
+    s8 rows bit-exact, scales rtol 5e-6, f32/bf16 rows bit-exact, rows the
+    kernel does not own untouched, out atol 1e-4."""
+    cap, B = 96, 6
+    g = _gen(H + D + window)
+    lens = torch.tensor([0, 31, 32, cap - 1, cap, cap + 7], dtype=torch.int32, device=card)
+    q = torch.randn(B, H, 1, D, generator=g).to(card)
+    kn = torch.randn(B, Hkv, 1, D, generator=g)
+    kn[0, 0, 0, :4] = torch.tensor([0.5, 1.5, -2.5, 127.0])  # .5 ties
+    kn = kn.to(card)
+    vn = torch.randn(B, Hkv, 1, D, generator=g).to(card)
+    k, v, ks, vs = _caches(card, g, dt, B, Hkv, cap, D)
+    if ks is not None:
+        ks, vs = ks[..., None], vs[..., None]  # the graph's [B, Hkv, cap, 1]
+    a = [None if x is None else x.clone() for x in (k, v, ks, vs)]
+    p = [None if x is None else x.clone() for x in (k, v, ks, vs)]
+    before = tfa.decode_mha_append.launches
+    got = tfa.decode_mha_append(q, *a[:2], lens, *a[2:], k_new=kn, v_new=vn, window=window)
+    want = tfa.decode_mha_append_plain(q, *p[:2], lens, *p[2:], k_new=kn, v_new=vn,
+                                       window=window)
+    torch.cuda.synchronize()
+    assert tfa.decode_mha_append.launches == before + 1
+    assert got[0].shape == (B, H, 1, D)
+    assert (got[0] - want[0]).abs().max().item() <= 1e-4
+    for i in (1, 2):
+        assert torch.equal(_bits(got[i]), _bits(want[i]))
+    if ks is not None:
+        for i in (3, 4):
+            assert torch.allclose(got[i], want[i], rtol=5e-6, atol=0)
+    for bb, n in enumerate(lens.tolist()):
+        keep = torch.ones(cap, dtype=torch.bool, device=card)
+        keep[min(n, cap - 1)] = False
+        assert torch.equal(_bits(got[1][bb, :, keep]), _bits(k[bb, :, keep]))
+
+
+@pytest.mark.parametrize("dt", ["s8", "bf16"])
+@pytest.mark.parametrize("H,Hkv,D", [(4, 2, 80), (4, 4, 96), (8, 1, 256)])
+def test_cat_kernels_head_dims(card, dt, H, Hkv, D):
+    """The cat-cache append (flat and through a block table) and
+    prefill_mha_cat at D 80, 96 and 256 against their plain versions."""
+    cap, B, S, BS = 96, 4, 9, 16
+    g = _gen(D)
+    q = torch.randn(B, H, 1, D, generator=g).to(card)
+    kn = torch.randn(B, Hkv, 1, D, generator=g).to(card)
+    vn = torch.randn(B, Hkv, 1, D, generator=g).to(card)
+    lens = torch.tensor([0, 31, cap - 1, cap + 3], dtype=torch.int32, device=card)
+    if dt == "s8":
+        kc = torch.randint(-127, 128, (B, cap, Hkv * D), generator=g, dtype=torch.int8).to(card)
+        vc = torch.randint(-127, 128, (B, cap, Hkv * D), generator=g, dtype=torch.int8).to(card)
+        sc = [(torch.rand(B, Hkv, cap, 1, generator=g) * 0.01 + 0.005).to(card) for _ in "kv"]
+    else:
+        kc, vc = (_float_cache(g, (B, cap, Hkv * D), dt, card) for _ in "kv")
+        sc = [None, None]
+    a = [None if x is None else x.clone() for x in (kc, vc, *sc)]
+    p = [None if x is None else x.clone() for x in (kc, vc, *sc)]
+    got = tfa.decode_mha_append_cat(q, a[0], a[1], lens, a[2], a[3], k_new=kn, v_new=vn)
+    want = tfa.decode_mha_append_cat_plain(q, p[0], p[1], lens, p[2], p[3], k_new=kn,
+                                           v_new=vn)
+    torch.cuda.synchronize()
+    assert (got[0] - want[0]).abs().max().item() <= 1e-4
+    assert torch.equal(_bits(got[1]), _bits(want[1])) and torch.equal(_bits(got[2]),
+                                                                       _bits(want[2]))
+    # Through a block table: pools of 1 + B * cap / BS blocks.
+    NB, MB = 1 + B * cap // BS, cap // BS
+    bt = _table(card, B, MB, NB, B, D)
+    if dt == "s8":
+        pools = [torch.randint(-127, 128, (NB, BS, Hkv * D), generator=g,
+                               dtype=torch.int8).to(card) for _ in "kv"]
+        spools = [(torch.rand(NB, Hkv, 1, BS, generator=g) * 0.01 + 0.005).to(card)
+                  for _ in "kv"]
+    else:
+        pools = [_float_cache(g, (NB, BS, Hkv * D), dt, card) for _ in "kv"]
+        spools = [None, None]
+    a = [None if x is None else x.clone() for x in (*pools, *spools)]
+    p = [None if x is None else x.clone() for x in (*pools, *spools)]
+    got = tfa.decode_mha_append_cat(q, a[0], a[1], lens, a[2], a[3], k_new=kn, v_new=vn,
+                                    block_table=bt)
+    want = tfa.decode_mha_append_cat_paged_plain(q, p[0], p[1], lens, p[2], p[3], k_new=kn,
+                                                 v_new=vn, block_table=bt)
+    torch.cuda.synchronize()
+    assert (got[0] - want[0]).abs().max().item() <= 1e-4
+    assert torch.equal(_bits(got[1]), _bits(want[1]))
+    # The prefill of S rows per slot.
+    qs = torch.randn(B, H, S, D, generator=g).to(card)
+    lens_p = torch.tensor([0, 7, cap - S, 40], dtype=torch.int32, device=card)
+    got = tfa.prefill_mha_cat(qs, kc, vc, lens_p, *sc)
+    want = tfa.prefill_mha_cat_plain(qs, kc, vc, lens_p, *sc)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("dt", ["s8", "bf16"])
+@pytest.mark.parametrize("H,Hkv,D", [(4, 2, 80), (4, 4, 96), (8, 1, 256), (4, 1, 512)])
+def test_paged_decode_mha_head_dims(card, dt, H, Hkv, D):
+    """paged_decode_mha at D 80, 96, 256 and 512 against its plain version."""
+    B, BS, MB = 4, 16, 6
+    NB = 1 + B * MB
+    g = _gen(D + 1)
+    q = torch.randn(B, H, 1, D, generator=g).to(card)
+    if dt == "s8":
+        pk, pv = (torch.randint(-127, 128, (NB, Hkv, BS, D), generator=g,
+                                dtype=torch.int8).to(card) for _ in "kv")
+        pks, pvs = ((torch.rand(NB, Hkv, 1, BS, generator=g) * 0.01 + 0.005).to(card)
+                    for _ in "kv")
+    else:
+        pk, pv = (_float_cache(g, (NB, Hkv, BS, D), dt, card) for _ in "kv")
+        pks = pvs = None
+    bt = _table(card, B, MB, NB, B - 1, D)
+    lens = torch.tensor([0, 17, MB * BS - 1, MB * BS + 5], dtype=torch.int32, device=card)
+    got = tfa.paged_decode_mha(q, pk, pv, lens, bt, pks, pvs)
+    want = tfa.paged_decode_mha_plain(q, pk, pv, lens, bt, pks, pvs)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,causal", [(80, True), (96, False), (256, True)])
+def test_mha_kernel_head_dims(card, dtype, D, causal):
+    """mha at D 80, 96 and 256 (a masked tail; D 256 in 68 KB of dynamic
+    shared memory) against mha_plain, GQA 4 over 2."""
+    g = _gen(D)
+    q = torch.randn(2, 4, 40, D, generator=g).to(dtype).to(card)
+    k = torch.randn(2, 2, 70, D, generator=g).to(dtype).to(card)
+    v = torch.randn(2, 2, 70, D, generator=g).to(dtype).to(card)
+    got = tfa.mha(q, k, v, causal=causal)
+    want = tfa.mha_plain(q.float(), k.float(), v.float(), causal=causal)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    assert (got.float() - want).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("form", ["gpt2_int4", "gpt2_int4_deferred_bf16", "gpt2_s8_deferred",
+                                  "llama_f32_deferred", "llama_kernel_append"])
+def test_int4_and_deferred_engine_on_card_matches_cpu(card, form):
+    """Small models on int4 caches, deferred KV and the head-major append
+    served on the card and on the CPU from the same weights: the same
+    tokens. (The small Llama on int4 caches is held by
+    test_int4_llama_on_card_matches_cpu instead.)"""
+    from rten_tpu_torch.dtypes import DataType
+    from rten_tpu_torch.model import Model
+    from rten_tpu_torch.models import gpt2, llama
+    from rten_tpu_torch.quantize_pass import quantize_dynamic
+    from rten_tpu_torch.serving import ContinuousBatchingEngine
+
+    opts = {
+        "gpt2_int4": dict(kv_quant=True, kv_bits=4),
+        "gpt2_int4_deferred_bf16": dict(kv_quant=True, kv_bits=4, deferred_kv=True,
+                                        recent_dtype=DataType.BFloat16),
+        "gpt2_s8_deferred": dict(kv_quant=True, deferred_kv=True),
+        "llama_f32_deferred": dict(kv_quant=False, deferred_kv=True),
+        "llama_kernel_append": dict(kv_quant=True),
+    }[form]
+    if form.startswith("gpt2"):
+        cfg, weights = _sharpened_small_gpt2()
+        n_head, build = 2, gpt2.build_graph_static_cache
+    else:
+        cfg = llama.LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                                num_hidden_layers=2, num_attention_heads=4,
+                                num_key_value_heads=2, max_position_embeddings=128)
+        weights = {k: v * np.float32(2.0) if "_proj." in k else v
+                   for k, v in llama.random_weights(cfg, seed=0).items()}
+        n_head, build = 4, llama.build_graph_static_cache
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        graph = build(cfg, weights, capacity=64, gather_last=True, **opts)
+        if form == "llama_kernel_append":  # no builder emits it on head-major caches
+            for _, node in graph.operators():
+                if node.op_type == "QuantizedKVAttention":
+                    node.attrs = {**node.attrs, "rten_kernel_append": 1}
+        quantize_dynamic(graph)
+        eng = ContinuousBatchingEngine(
+            Model(graph, device=dev), n_layer=2, n_head=n_head, head_dim=64, slots=3,
+            capacity=64, prefill_bucket=8, greedy_on_device=True, steps_per_dispatch=4)
+        rng = np.random.default_rng(0)
+        reqs = [eng.submit(rng.integers(0, 512, int(rng.integers(3, 12))).tolist(),
+                           max_new_tokens=int(rng.integers(3, 14))) for _ in range(5)]
+        eng.run()
+        out[dev.type] = [r.generated for r in reqs]
+    assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_int4_llama_engine_on_card_matches_cpu(card, head_dim):
+    """The small Llama on int4 head-major caches behind the engine, held
+    against the CPU forward by forward (chip_smoke.int4_engine_lockstep:
+    a replay of the CPU run on the card, then a free run checked until its
+    inputs part): codes equal but for flips on a rounding boundary, logits
+    within 1e-4 of max|logit| without a flip. At D 128 the tokens are
+    equal; at D 64 they may part, and only after a located flip."""
+    import chip_smoke
+
+    small = dict(vocab_size=512, hidden_size=4 * head_dim, intermediate_size=512,
+                 num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=128)
+
+    def make(device):
+        return chip_smoke.build_llama(2, 64, device, sharpen=2.0, kv="int4", **small)[0]
+
+    toks, flips = chip_smoke.int4_engine_lockstep(card, make, 4, f"D {head_dim}", head_dim)
+    assert toks["cuda"] == toks["cpu"] or (head_dim == 64 and flips)

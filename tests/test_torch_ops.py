@@ -367,14 +367,28 @@ def test_attention_leaves_undonated_caches_unchanged():
 
 
 def test_unported_attention_branches_raise():
-    """The in-kernel append on head-major caches (``decode_mha_append``) is
-    not ported: NotImplementedError naming the ROADMAP item, never a silent
-    fallback."""
-    feed = _attn_feed(1, [0, 0, 0], seed=1)
-    feed["kc"] = feed["kc"].reshape(B, CAP, H, D).transpose(0, 2, 1, 3).copy()
-    feed["vc"] = feed["vc"].reshape(B, CAP, H, D).transpose(0, 2, 1, 3).copy()
-    tm = TModel(_attn_build(1)(TBuilder, TDataType), TOptions(optimize=False), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """A branch the port does not cover raises NotImplementedError naming
+    its ROADMAP item, never a silent fallback: GroupQueryAttention on packed
+    QKV (no key/value inputs; item 12). (The in-kernel append on head-major
+    caches that this test held before is ported:
+    tests/test_torch_deferred_kv.py.)"""
+
+    def build(GB, DT):
+        b = GB()
+        qkv = b.input("qkv", DT.Float)
+        kc, vc, lens = b.input("kc", DT.Float), b.input("vc", DT.Float), b.input("lens", DT.Int32)
+        outs = b.op("GroupQueryAttention", [qkv, None, None, kc, vc, lens],
+                    {"num_heads": H, "kv_num_heads": H, "rten_past_lens": 1}, n_outputs=3,
+                    output_names=["out", "nkc", "nvc"])
+        b.output(*outs)
+        return b.finish()
+
+    rng = np.random.default_rng(1)
+    feed = {"qkv": rng.standard_normal((B, 1, 3 * H * D)).astype(np.float32),
+            "kc": np.zeros((B, H, CAP, D), np.float32), "vc": np.zeros((B, H, CAP, D), np.float32),
+            "lens": np.zeros(B, np.int32)}
+    tm = TModel(build(TBuilder, TDataType), TOptions(optimize=False), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 12"):
         tm.run(feed, ["out"])
 
 
@@ -524,19 +538,21 @@ def test_quantized_kv_attention_head_major_rotary(S, lens, window, interleaved):
 @pytest.mark.parametrize("op,attrs,feed_change,item", [
     ("GroupQueryAttention", {"rten_past_lens": 0}, None, 12),     # ORT-compatible form
     ("GroupQueryAttention", {"softcap": 30.0}, None, 12),
-    ("GroupQueryAttention", {"rten_kernel_append": 1}, None, 7),  # decode_mha_append
-    ("GroupQueryAttention", {"rten_recent_kv": 1}, None, 9),
-    ("GroupQueryAttention", {"rten_recent_kv": 1}, "bf16", 9),    # bf16 deferred KV
-    ("GroupQueryAttention", {"rten_kernel_append": 1}, "bf16", 7),  # bf16, head-major
-    ("QuantizedKVAttention", {"bits": 4}, None, 11),
-    ("QuantizedKVAttention", {"rten_paged": 1, "bits": 4}, None, 11),  # int4 pools
-    ("QuantizedKVAttention", {"rten_recent_kv": 1}, None, 9),
+    ("GroupQueryAttention", {"rten_past_lens": 0, "rten_kernel_append": 1}, None, 12),
+    ("GroupQueryAttention", {"rten_past_lens": 0, "rten_recent_kv": 1}, None, 12),
+    ("GroupQueryAttention", {"softcap": 30.0, "rten_kernel_append": 1}, "bf16", 12),
+    ("GroupQueryAttention", {"rten_past_lens": 0}, "bf16", 12),
+    ("GroupQueryAttention", {"softcap": 30.0, "rten_paged": 1}, None, 12),
+    ("GroupQueryAttention", {"softcap": 10.0}, "cat", 12),
+    ("GroupQueryAttention", {"rten_past_lens": 0}, "cat", 12),
 ])
 def test_unported_serving_attention_branches_raise(op, attrs, feed_change, item):
     """Each branch of the serving attention ops that the port does not
-    cover raises NotImplementedError naming its ROADMAP.md item (the f32
-    and bf16 cat, pool and head-major branches run:
-    tests/test_torch_kv_dtypes.py)."""
+    cover raises NotImplementedError naming its ROADMAP.md item: the ORT
+    form of GroupQueryAttention and its softcap, on every cache form (the
+    f32 and bf16 cat, pool and head-major branches run:
+    tests/test_torch_kv_dtypes.py; int4, deferred KV and the head-major
+    append: tests/test_torch_int4_kv.py, tests/test_torch_deferred_kv.py)."""
     base = _head_major_build(op, 0, False, _rope(48, D // 2))
 
     def build(GB, DT):
