@@ -29,6 +29,11 @@ Run from the repository root:  python3 chip_smoke.py
    calls) in bf16, the block-table append on bf16 pools of 1 + 480 blocks,
    decode_mha's two forms and paged_decode_mha on bf16 at TinyLlama's
    attention shape; the argmax also at [16, 151936] (Qwen's vocabulary).
+   The decode-attention microbenchmark's four kernels (dma_floor,
+   vpu_attn, bd_decode, nt_decode) at its shape (slots 32, H 12, cap 256,
+   D 64), at slots 128 and, for bd/nt, at TinyLlama's attention, then the
+   tool's own report, its launch counters zeroed just before
+   (phase_decode_attn_tool).
 3. Serve phases, each through the user's entry points (builder,
    quantize_dynamic, Model, ContinuousBatchingEngine) with every launch
    counter zeroed just before and read just after (each kernel of the path
@@ -1570,6 +1575,169 @@ def phase_int4_matmul(gen, dev):
     }
 
 
+# --- the decode-attention microbenchmark (rten_tpu_torch.tools) ---------------
+
+
+BF16_FLOPS_PER_S = 989e12     # bf16 tensor cores, dense
+TOOL = dict(B=32, H=12, cap=256, D=64)  # the tool's default shape (group 1)
+TOOL_TL = dict(B=16, H=32, Hkv=4, cap=256, D=64)  # TinyLlama's attention
+TOOL_PAST_L2 = 128  # slots at which the tool's f32 KV (201 MB) is 4x the L2
+L2_BYTES = 50 * 2**20  # the H100's L2
+
+
+def _tool_inputs(dev, B, H, cap, D, Hkv=None, seed=0):
+    """The tool's inputs (numpy default_rng(seed), drawn in its order: q, k,
+    v standard normal, lens in [cap // 2, cap - 2)), K/V with Hkv heads."""
+    rng = np.random.default_rng(seed)
+    Hkv = Hkv or H
+    q = torch.as_tensor(rng.standard_normal((B, H, 1, D)), dtype=torch.float32).to(dev)
+    k = torch.as_tensor(rng.standard_normal((B, Hkv, cap, D)), dtype=torch.float32).to(dev)
+    v = torch.as_tensor(rng.standard_normal((B, Hkv, cap, D)), dtype=torch.float32).to(dev)
+    lens = torch.as_tensor(rng.integers(cap // 2, cap - 2, B), dtype=torch.int32).to(dev)
+    return q, k, v, lens
+
+
+def _excess(got, want, rtol, atol):
+    """The largest |got - want| beyond atol + rtol |want| (<= 0: within)."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs() - (atol + rtol * want.abs())).max().item()
+
+
+def _tool_case(name, form, dev, shape, dt, tag):
+    """One kernel of the tool against its plain version on the same inputs
+    (failing the run beyond the tolerance), then its time, the plain
+    version's and one PyTorch call's, and the byte bound: the bytes this
+    call's data needs (rows past lens are not needed, but for the floor,
+    which sums them all, and the mean of V of a slot with lens < 0 in
+    vpu_attn) and the whole K/V's (the reference's floor)."""
+    from rten_tpu_torch.tools import bench_decode_attn as tb
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v, lens = _tool_inputs(dev, **shape)
+    B, H, _, D = q.shape
+    Hkv, cap = k.shape[1], k.shape[2]
+    scale = 1.0 / float(np.sqrt(D))
+    es = 2 if dt == torch.bfloat16 else 4
+    kk, vv = k.to(dt), v.to(dt)
+    last = lens.long().clamp(max=cap - 1)
+    kv_all = 2 * B * Hkv * cap * D * es
+    io = B * H * D * 4 * 2 + 4 * B  # q read, out written, lens
+    if form == "floor":
+        args, kern, plain = (q, k, v, lens), tb.dma_floor, tb.dma_floor_plain
+        rtol, atol = 1e-5, 1e-4
+        nbytes, ops = kv_all + B * D * 8 + 4 * B, 2.0 * B * Hkv * cap * D
+        lib_name = "torch.sum over K and torch.sum over V (two calls)"
+        lib = lambda: (torch.sum(k, (1, 2)), torch.sum(v, (1, 2)))  # noqa: E731
+    else:
+        bk = cap  # block_k 256 >= cap at these shapes
+        rows = (last + 1).clamp(min=0)
+        kdims = None
+        if form == "vpu":
+            args, kern = (q, k, v, lens), lambda *a: tb.vpu_attn(*a, scale)
+            plain = lambda *a: tb.vpu_attn_plain(*a, scale)  # noqa: E731
+            kv_rows = (2 * rows + (lens < 0).long() * cap).sum().item()
+        else:
+            kx = kk.transpose(2, 3).contiguous() if form == "bd" else kk
+            args = (q, kx, vv, lens)
+            kern = lambda *a: (tb.bd_decode if form == "bd" else tb.nt_decode)(  # noqa: E731
+                *a, scale=scale)
+            plain = lambda *a: (tb.bd_decode_plain if form == "bd"  # noqa: E731
+                                else tb.nt_decode_plain)(*a, scale=scale)
+            kv_rows = 2 * rows.clamp(max=(cap // bk) * bk).sum().item()
+            kdims = kx
+        rtol, atol = (2e-2, 5e-3) if dt == torch.bfloat16 else (0.0, 1e-5)
+        nbytes = io + kv_rows * Hkv * D * es
+        ops = 2.0 * kv_rows * D * H  # 2 flops a K or V element, for each query head
+        mask = (torch.arange(cap, device=dev)[None, :] <= last[:, None])[:, None, None, :]
+        qs = q.to(dt)
+        ks = kdims.transpose(2, 3) if form == "bd" else kk
+        lib_name = (f"scaled_dot_product_attention{'(enable_gqa=True)' if Hkv != H else ''} "
+                    f"on the same {'bf16 q, ' if dt == torch.bfloat16 else ''}K/V"
+                    f"{' (kt transposed back)' if form == 'bd' else ''} with the mask")
+        lib = lambda: sdpa(qs, ks, vv, attn_mask=mask, enable_gqa=Hkv != H)  # noqa: E731
+    got = kern(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    bad = _excess(got, want, rtol, atol)
+    err = (got.float() - want.float()).abs().max().item()
+    if not bad <= 0:
+        fail(f"{name} [{tag}]: max err {err} beyond rtol {rtol}, atol {atol}")
+    k_ms = timed(lambda: kern(*args), iters=20)
+    p_ms = timed(lambda: plain(*args), iters=5, warmup=1)
+    l_ms = timed(lib, iters=20)
+    peak = BF16_FLOPS_PER_S if dt == torch.bfloat16 else F32_FLOPS_PER_S
+    bms, by = bound_ms(nbytes, ops, peak)
+    full_ms = (kv_all + io) / HBM_BYTES_PER_S * 1e3
+    warm = " (L2-warm: the KV fits the 50 MB L2)" if kv_all <= L2_BYTES else ""
+    print(f"  {name} [{tag}]{warm}: kernel {fmt(k_ms)}, plain {fmt(p_ms)}, library "
+          f"{fmt(l_ms)}, bound {bms:.4f} ms ({by}; whole K/V {full_ms:.4f}), max err {err:.3e}",
+          flush=True)
+    return {"unit": f"one call, {tag}", "max_abs_err": err, "tolerance": [rtol, atol],
+            **time_keys(k_ms, p_ms, l_ms), "bound_ms": bms, "bound_by": by,
+            "whole_kv_bound_ms": full_ms, "l2_warm": bool(warm), "library_call": lib_name}
+
+
+def phase_decode_attn_tool(dev):
+    """The decode-attention microbenchmark (kernel rows 10-13).
+
+    1. Each of its four kernels against its plain version on the tool's
+       inputs (seeded as the tool seeds them) at the tool's shape (slots 32,
+       H 12, cap 256, D 64; bd/nt on f32 and bf16 K/V) and, for bd/nt, at
+       TinyLlama's attention (slots 16, H 32 over 4, D 64): the time of the
+       kernel, of its plain version and of one PyTorch call, beside the byte
+       bound. The tool's f32 KV (50.3 MB) fits the H100's 50 MB L2, so
+       back-to-back calls there are L2-warm; each case is timed again at
+       slots 128 (201 MB f32), past the L2.
+    2. The tool itself, ``main([])`` in-process at its default shape, with
+       the four kernels' launch counters zeroed just before and read just
+       after: each must have launched, and each formulation's maxerr
+       against the port's fold must be within the f32 (1e-4) or bf16
+       (5e-2) bound. Returns the four kernel rows."""
+    from rten_tpu_torch.tools import bench_decode_attn as tb
+
+    kernels = (("dma_floor", "floor", 51), ("vpu_attn", "vpu", 89),
+               ("bd_decode", "bd", 214), ("nt_decode", "nt", 318))
+    past = dict(TOOL, B=TOOL_PAST_L2)
+    rows = []
+    for name, form, line in kernels:
+        cases = {"f32": _tool_case(name, form, dev, TOOL, torch.float32, "tool shape, f32")}
+        cases["f32 slots 128"] = _tool_case(name, form, dev, past, torch.float32,
+                                            "slots 128, f32")
+        if form in ("bd", "nt"):
+            cases["bf16"] = _tool_case(name, form, dev, TOOL, torch.bfloat16, "tool shape, bf16")
+            cases["bf16 slots 128"] = _tool_case(name, form, dev, past, torch.bfloat16,
+                                                 "slots 128, bf16")
+            for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+                cases[f"TinyLlama {tag}"] = _tool_case(name, form, dev, TOOL_TL, dt,
+                                                       f"TinyLlama attention, {tag}")
+        torch.cuda.empty_cache()
+        rows.append({"name": name, "route": "cuda",
+                     "source": "rten_tpu_torch/csrc/bench_decode_attn.cu",
+                     "replaces": f"tools/bench_decode_attn.py:{line}", **cases["f32"],
+                     "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+                     "other_shapes": {k: c for k, c in cases.items() if k != "f32"}})
+    print("  the tool (python3 -m rten_tpu_torch.tools.bench_decode_attn, in-process):",
+          flush=True)
+    for fn in tb.KERNELS:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    res = tb.main([])
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in tb.KERNELS}
+    print(f"  tool launches: {json.dumps(launches)}", flush=True)
+    for name, n in launches.items():
+        if n == 0:
+            fail(f"the tool's run never launched {name}")
+    for label, bound in (("VPU-vectorized kernel", 1e-4), ("blockdiag kernel (K^T)", 1e-4),
+                         ("NT natural-layout kernel", 1e-4), ("blockdiag bf16 (K^T)", 5e-2)):
+        if not res[label + " maxerr"] <= bound:
+            fail(f"the tool's {label}: maxerr {res[label + ' maxerr']} against the fold > {bound}")
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+        row["launches_by_path"] = {"bench_decode_attn": row["launches"]}
+    return rows
+
+
 # --- serve and reference phases -----------------------------------------------
 
 
@@ -2808,6 +2976,9 @@ def main() -> int:
             k["head_dims_max_abs_err"] = errs
     lap("head dims 80, 96, 256, 512")
     torch.cuda.empty_cache()
+    kernels += phase_decode_attn_tool(dev)
+    lap("the decode-attention tool (rows 10-13)")
+    torch.cuda.empty_cache()
     print("serve phases:", flush=True)
     weights = tinyllama_weights()
     # path -> the KV cache type it serves from (None: no KV cache kernel)
@@ -2855,6 +3026,8 @@ def main() -> int:
     # A row's launches: its counter over the paths that serve from its KV
     # cache type (every path for the kernels that read no KV cache).
     for k in kernels:
+        if "launches" in k:  # the tool's rows: counted on the tool's run
+            continue
         kv = k.get("kv")
         kvs = (kv,) if isinstance(kv, str) else kv
         k["launches_by_path"] = {path: n[k.get("counter", k["name"])]

@@ -1,0 +1,187 @@
+"""The port's decode-attention microbenchmark
+(``rten_tpu_torch/tools/bench_decode_attn.py``) against the JAX tool
+(``tools/bench_decode_attn.py``): each plain version against the tool's
+Pallas kernel on the same numpy inputs, the Pallas kernels run on the CPU
+(``interpret=True`` for bd/nt, ``pltpu.force_tpu_interpret_mode()`` for the
+floor and the VPU kernel), and the port's ``main`` at a tiny CPU size.
+
+Tolerances: f32 attention atol 1e-5 (sums in another order); the floor
+rtol 1e-5, atol 1e-4 (up to 2 * Hkv * cap terms summed in another order);
+bf16 modes rtol 2e-2, atol 5e-3 (the reference's own rule for interpreted
+bf16 dots, tests/test_kernel_append.py: a p rounding to bf16 on the other
+side of a boundary moves one term by 2^-8).
+"""
+
+import importlib.util
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from rten_tpu_torch.tools import bench_decode_attn as tb
+
+TOOL = pathlib.Path(__file__).resolve().parents[1] / "tools" / "bench_decode_attn.py"
+
+
+@pytest.fixture(scope="module")
+def jt():
+    """The JAX tool, loaded from its file (tools/ is no package) with its
+    compilation cache left off."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("RTEN_JAX_CACHE", "0")
+        spec = importlib.util.spec_from_file_location("jax_bench_decode_attn", TOOL)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+    return mod
+
+
+def _inputs(seed, B, H, Hkv, cap, D, lens):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, 1, D)).astype(np.float32)
+    k = rng.standard_normal((B, Hkv, cap, D)).astype(np.float32)
+    v = rng.standard_normal((B, Hkv, cap, D)).astype(np.float32)
+    return q, k, v, np.asarray(lens, np.int32)
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("cap", [128, 256])
+def test_dma_floor_matches_jax(jt, cap):
+    q, k, v, lens = _inputs(cap, 3, 2, 2, cap, 64, [5, 0, cap - 1])
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jt.dma_floor(q, k, v, lens))
+    tq, tk, tv, tl = _t(q, k, v, lens)
+    got = tb.dma_floor_plain(tq, tk, tv, tl)
+    assert got.shape == (3, 1, 64) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+    assert torch.equal(tb.dma_floor(tq, tk, tv, tl), got)
+
+
+@pytest.mark.parametrize("D", [32, 64])
+def test_vpu_attn_matches_jax(jt, D):
+    cap = 256
+    q, k, v, lens = _inputs(D, 4, 2, 2, cap, D, [-1, 0, 100, cap + 5])
+    scale = 1.0 / np.sqrt(D)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jt.vpu_attn(q, k, v, lens, scale))
+    tq, tk, tv, tl = _t(q, k, v, lens)
+    got = tb.vpu_attn_plain(tq, tk, tv, tl, scale)
+    assert got.shape == (4, 2, 1, D)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+    # lens -1: every column masked with no guard -> the mean of V.
+    np.testing.assert_allclose(got[0, :, 0].numpy(), v[0].mean(1), rtol=0, atol=1e-6)
+    assert torch.equal(tb.vpu_attn(tq, tk, tv, tl, scale), got)
+
+
+FOLD_CASES = [(H, Hkv, cap, bk, dt)
+              for H, Hkv in ((2, 2), (8, 2))
+              for cap, bk in ((256, 128), (256, 256), (384, 128), (384, 256))
+              for dt in ("f32", "bf16")]
+
+
+@pytest.mark.parametrize("H,Hkv,cap,bk,dt", FOLD_CASES)
+def test_bd_nt_decode_match_jax(jt, H, Hkv, cap, bk, dt):
+    """bd gets kt = K^T of the K that nt gets; both plain versions against
+    the interpreted kernels, lens -1 (0 out), 0, a middle value and cap - 1;
+    at cap 384 with key blocks of 256 the last 128 keys are dropped."""
+    import jax.numpy as jnp
+
+    D = 64
+    q, k, v, lens = _inputs(H * cap + bk, 4, H, Hkv, cap, D, [-1, 0, cap // 2 + 7, cap - 1])
+    scale = 1.0 / np.sqrt(D)
+    kt = np.swapaxes(k, 2, 3)
+    jdt = jnp.float32 if dt == "f32" else jnp.bfloat16
+    tdt = torch.float32 if dt == "f32" else torch.bfloat16
+    jk, jkt, jv = (jnp.asarray(a, jdt) for a in (k, kt, v))
+    want_bd = np.asarray(jt.bd_decode(q, jkt, jv, lens, scale=scale, block_k=bk, interpret=True))
+    want_nt = np.asarray(jt.nt_decode(q, jk, jv, lens, scale=scale, block_k=bk, interpret=True))
+    tq, tk, tkt, tv, tl = _t(q, k, kt, v, lens)
+    tk, tkt, tv = tk.to(tdt), tkt.to(tdt), tv.to(tdt)
+    got_bd = tb.bd_decode_plain(tq, tkt, tv, tl, scale=scale, block_k=bk)
+    got_nt = tb.nt_decode_plain(tq, tk, tv, tl, scale=scale, block_k=bk)
+    assert got_bd.shape == got_nt.shape == (4, H, 1, D)
+    assert got_bd.dtype == got_nt.dtype == torch.float32
+    tol = dict(rtol=0, atol=1e-5) if dt == "f32" else dict(rtol=2e-2, atol=5e-3)
+    np.testing.assert_allclose(got_bd.numpy(), want_bd, **tol)
+    np.testing.assert_allclose(got_nt.numpy(), want_nt, **tol)
+    assert not got_nt[0].any() and not got_bd[0].any()  # lens -1 -> 0
+    if dt == "f32":
+        np.testing.assert_allclose(got_bd.numpy(), got_nt.numpy(), rtol=0, atol=1e-5)
+    kept = (cap // bk) * bk
+    if kept < cap:  # the dropped tail: the output of the kept keys alone
+        short = tb.nt_decode_plain(tq, tk[:, :, :kept].contiguous(), tv[:, :, :kept].contiguous(),
+                                   tl.clamp(max=kept - 1), scale=scale, block_k=bk)
+        assert torch.equal(short, got_nt)
+    assert torch.equal(tb.bd_decode(tq, tkt, tv, tl, scale=scale, block_k=bk), got_bd)
+    assert torch.equal(tb.nt_decode(tq, tk, tv, tl, scale=scale, block_k=bk), got_nt)
+
+
+def _fold_args(H=4, Hkv=2, cap=64, D=32, dt=torch.float32, qdt=torch.float32, B=2):
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(B, H, 1, D, generator=g).to(qdt)
+    k = torch.randn(B, Hkv, cap, D, generator=g).to(dt)
+    v = torch.randn(B, Hkv, cap, D, generator=g).to(dt)
+    return q, k, v, torch.tensor([3, cap - 1], dtype=torch.int32)
+
+
+def _kt(args):
+    q, k, v, lens = args
+    return q, k.transpose(2, 3).contiguous(), v, lens
+
+
+REFUSALS = {
+    "bd f16 K/V": (TypeError, lambda: tb.bd_decode(*_kt(_fold_args(dt=torch.float16)), scale=1.0)),
+    "nt f16 K/V": (TypeError, lambda: tb.nt_decode(*_fold_args(dt=torch.float16), scale=1.0)),
+    "nt bf16 q": (TypeError, lambda: tb.nt_decode(*_fold_args(qdt=torch.bfloat16), scale=1.0)),
+    "nt K/V of two dtypes": (TypeError, lambda: tb.nt_decode(
+        *(lambda a: (a[0], a[1], a[2].bfloat16(), a[3]))(_fold_args()), scale=1.0)),
+    "nt group 3/2": (ValueError, lambda: tb.nt_decode(*_fold_args(H=3), scale=1.0)),
+    "nt odd D": (ValueError, lambda: tb.nt_decode(*_fold_args(D=33), scale=1.0)),
+    "nt D 512": (ValueError, lambda: tb.nt_decode(*_fold_args(D=512), scale=1.0)),
+    "bd natural K": (ValueError, lambda: tb.bd_decode(*_fold_args(), scale=1.0)),
+    "nt lens int64": (ValueError, lambda: tb.nt_decode(
+        *_fold_args()[:3], torch.tensor([3, 5]), scale=1.0)),
+    "vpu GQA": (ValueError, lambda: tb.vpu_attn(*_fold_args(), 1.0)),
+    "vpu bf16 K/V": (TypeError, lambda: tb.vpu_attn(*_fold_args(Hkv=4, dt=torch.bfloat16), 1.0)),
+    "floor bf16 K/V": (TypeError, lambda: tb.dma_floor(*_fold_args(dt=torch.bfloat16))),
+    "floor D 30": (ValueError, lambda: tb.dma_floor(*_fold_args(D=30))),
+}
+
+
+@pytest.mark.parametrize("case", list(REFUSALS))
+def test_wrappers_refuse_what_their_kernels_do_not_take(case):
+    err, call = REFUSALS[case]
+    with pytest.raises(err):
+        call()
+
+
+def test_main_on_cpu_prints_every_line(capsys):
+    res = tb.main(["--device", "cpu", "--slots", "2", "--cap", "128", "--heads", "2",
+                   "--d", "32"])
+    out = capsys.readouterr().out.splitlines()
+    labels = ["current folded-loop kernel", "pure DMA floor (same layout)",
+              "VPU-vectorized kernel", "blockdiag kernel (K^T)", "blockdiag bf16 (K^T)",
+              "CHAINED current kernel", "CHAINED bf16-KV kernel", "CHAINED DMA floor",
+              "CHAINED blockdiag (K^T)", "CHAINED blockdiag bf16", "NT natural-layout kernel",
+              "CHAINED NT natural", "CHAINED NT bf16"]
+    assert len(out) == 1 + len(labels)
+    assert out[0].startswith("the CPU") and "B=2 H=2 cap=128 D=32" in out[0]
+    for label, text in zip(labels, out[1:]):
+        assert text.startswith(label + ":") and text.endswith("[cpu]"), text
+        assert res[label] > 0
+    # The formulations agree with the fold (f32 to 1e-5, bf16 K/V to bf16's
+    # rounding of K, V and p).
+    for label in ("VPU-vectorized kernel", "blockdiag kernel (K^T)", "NT natural-layout kernel"):
+        assert res[label + " maxerr"] <= 1e-5
+    assert res["blockdiag bf16 (K^T) maxerr"] <= 5e-2
+
+
+def test_main_needs_a_card_unless_told_cpu(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tb.main([])
+    assert capsys.readouterr().out == ""

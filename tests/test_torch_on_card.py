@@ -18,6 +18,7 @@ from rten_tpu_torch.kernels import argmax as targmax
 from rten_tpu_torch.kernels import flash_attention as tfa
 from rten_tpu_torch.kernels import int4_matmul as t4
 from rten_tpu_torch.kernels import int8_matmul as tmm
+from rten_tpu_torch.tools import bench_decode_attn as tbda
 
 pytestmark = pytest.mark.gpu
 
@@ -1114,3 +1115,118 @@ def test_int4_llama_engine_on_card_matches_cpu(card, head_dim):
 
     toks, flips = chip_smoke.int4_engine_lockstep(card, make, 4, f"D {head_dim}", head_dim)
     assert toks["cuda"] == toks["cpu"] or (head_dim == 64 and flips)
+
+
+# --- the decode-attention microbenchmark's kernels (rows 10-13) --------------
+
+
+def _tool_inputs(card, B, H, Hkv, cap, D, seed):
+    """The tool's inputs (q, k, v standard normal, lens in [cap // 2, cap -
+    2)) with the edges put in: slot 0 lens -1, slot 1 cap - 1, slot 2 0."""
+    rng = np.random.default_rng(seed)
+    q = torch.as_tensor(rng.standard_normal((B, H, 1, D)), dtype=torch.float32)
+    k = torch.as_tensor(rng.standard_normal((B, Hkv, cap, D)), dtype=torch.float32)
+    v = torch.as_tensor(rng.standard_normal((B, Hkv, cap, D)), dtype=torch.float32)
+    lens = rng.integers(cap // 2, cap - 2, B)
+    lens[:3] = [-1, cap - 1, 0]
+    return [t.to(card) for t in (q, k, v, torch.as_tensor(lens, dtype=torch.int32))]
+
+
+def _within(got, want, rtol, atol):
+    got, want = got.float(), want.float()
+    return bool(((got - want).abs() <= atol + rtol * want.abs()).all())
+
+
+TOOL_SHAPES = [(32, 12, 256, 64), (4, 4, 384, 128)]  # the tool's; cap 384, D 128
+
+
+@pytest.mark.parametrize("B,H,cap,D", TOOL_SHAPES)
+def test_dma_floor_kernel(card, B, H, cap, D):
+    """Sums over up to 2 * Hkv * cap terms in another order: rtol 1e-5,
+    atol 1e-4."""
+    q, k, v, lens = _tool_inputs(card, B, H, H, cap, D, cap + D)
+    before = tbda.dma_floor.launches
+    got = tbda.dma_floor(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert tbda.dma_floor.launches == before + 1 and got.shape == (B, 1, D)
+    assert _within(got, tbda.dma_floor_plain(q, k, v, lens), 1e-5, 1e-4)
+
+
+@pytest.mark.parametrize("B,H,cap,D", TOOL_SHAPES)
+def test_vpu_attn_kernel(card, B, H, cap, D):
+    """f32 atol 1e-5; lens -1 gives the mean of V."""
+    q, k, v, lens = _tool_inputs(card, B, H, H, cap, D, cap * D)
+    scale = 1.0 / np.sqrt(D)
+    before = tbda.vpu_attn.launches
+    got = tbda.vpu_attn(q, k, v, lens, scale)
+    torch.cuda.synchronize()
+    assert tbda.vpu_attn.launches == before + 1
+    assert _within(got, tbda.vpu_attn_plain(q, k, v, lens, scale), 0.0, 1e-5)
+    assert _within(got[0, :, 0], v[0].mean(1), 0.0, 1e-5)
+
+
+@pytest.mark.parametrize("form", ["bd", "nt"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,cap,D,bk", [
+    (32, 12, 12, 256, 64, 256),   # the tool's shape
+    (16, 32, 4, 256, 64, 256),    # TinyLlama's attention (group 8)
+    (4, 8, 2, 384, 128, 256),     # D 128, the dropped key tail
+    (4, 8, 2, 384, 128, 128),
+    (3, 20, 2, 200, 80, 64),      # group 10 (two row chunks), D 80, ragged tiles
+])
+def test_bd_nt_decode_kernel(card, form, dt, B, H, Hkv, cap, D, bk):
+    """f32 atol 1e-5; bf16 K/V rtol 2e-2, atol 5e-3 (the output is q's
+    f32); lens -1 gives 0."""
+    q, k, v, lens = _tool_inputs(card, B, H, Hkv, cap, D, B * H + cap)
+    k, v = k.to(dt), v.to(dt)
+    scale = 1.0 / np.sqrt(D)
+    kern, plain = ((tbda.bd_decode, tbda.bd_decode_plain) if form == "bd"
+                   else (tbda.nt_decode, tbda.nt_decode_plain))
+    kx = k.transpose(2, 3).contiguous() if form == "bd" else k
+    before = kern.launches
+    got = kern(q, kx, v, lens, scale=scale, block_k=bk)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1 and got.shape == (B, H, 1, D)
+    want = plain(q, kx, v, lens, scale=scale, block_k=bk)
+    rtol, atol = (0.0, 1e-5) if dt == torch.float32 else (2e-2, 5e-3)
+    assert _within(got, want, rtol, atol), (got.float() - want).abs().max().item()
+    assert not got[0].any()
+
+
+def test_tool_kernels_refuse_on_the_card(card):
+    q, k, v, lens = _tool_inputs(card, 4, 8, 2, 64, 32, 0)
+    with pytest.raises(ValueError):  # a non-contiguous K
+        tbda.nt_decode(q, k.transpose(2, 3).contiguous().transpose(2, 3), v, lens, scale=1.0)
+    with pytest.raises(ValueError):  # tensors on two devices
+        tbda.nt_decode(q, k, v, lens.cpu(), scale=1.0)
+    with pytest.raises(ValueError):  # a key block whose scores overflow shared memory
+        tbda.nt_decode(q, torch.zeros(4, 2, 8192, 32, device=card),
+                       torch.zeros(4, 2, 8192, 32, device=card), lens, scale=1.0, block_k=8192)
+
+
+def test_tinyllama_bf16_reference_repeats(card, capsys):
+    """ROADMAP fault 3, a TinyLlama bf16 head-major 2-layer reference that
+    failed once on the card: ``RTEN_REFERENCE_REPEATS`` runs of it (default
+    1), built as ``chip_smoke.phase_reference_llama`` builds it, every
+    attention kernel call held against its plain version (``hold_calls``),
+    so that a failing run names the kernel call. Prints each run's
+    outcome."""
+    import os
+
+    import chip_smoke
+
+    outcomes = []
+    for i in range(int(os.environ.get("RTEN_REFERENCE_REPEATS", "1"))):
+        try:
+            with chip_smoke.hold_calls() as held:
+                worst, _ = chip_smoke.logits_card_vs_cpu(
+                    card, lambda device: chip_smoke.build_llama(2, 64, device, kv="bf16")[0],
+                    chip_smoke.L_VOCAB, f"TinyLlama bf16, run {i}")
+            outcomes.append(f"pass: logits {worst:.3e} of max|logit|, attention calls "
+                            f"{ {k: f'{len(v)} within {max(v):.2e}' for k, v in held.items()} }")
+        except SystemExit:  # chip_smoke.fail: its message is on stderr
+            outcomes.append(f"FAIL: {capsys.readouterr().err.strip().splitlines()[-1:]}")
+    with capsys.disabled():
+        for i, o in enumerate(outcomes):
+            print(f"\nTinyLlama bf16 reference, run {i}: {o}", flush=True)
+    assert all(o.startswith("pass") for o in outcomes), outcomes
