@@ -109,6 +109,7 @@ sys.path.insert(0, ROOT)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 INT8_OPS_PER_S = 1.979e15     # int8 tensor cores, dense
 F32_FLOPS_PER_S = 67e12       # f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12     # bf16 tensor cores, dense
 
 SLOTS, CAP, PROMPT = 120, 256, 128
 E, H, D, VOCAB, NP = 768, 12, 64, 50257, 51200
@@ -194,6 +195,14 @@ def time_keys(kernel, plain, library, scale: float = 1.0):
 def bound_ms(nbytes: float, ops: float, peak_ops: float):
     tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak_ops * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def attn_peak(kv) -> float:
+    """The operations peak of an attention call's bound: the bf16 tensor
+    cores for s8, int4 and bf16 caches, whose values bf16 holds exactly (the
+    reference feeds its matrix unit bf16 for them, and the port's per-head
+    form runs there), the f32 rate outside the tensor cores for f32 K/V."""
+    return F32_FLOPS_PER_S if kv in ("f32", torch.float32) else BF16_FLOPS_PER_S
 
 
 # --- kernel phases ------------------------------------------------------------
@@ -357,7 +366,7 @@ def phase_decode_attention(gen, dev):
     per_call_bytes = (4 * B * H * D * 2 + 4 * B * H * D * 2 + 4 * B
                       + 2 * read * H * (D + 4) + 2 * B * H * (D + 4))
     per_call_ops = 4.0 * (read + B) * H * D
-    bms, by = bound_ms(12 * per_call_bytes, 12 * per_call_ops, F32_FLOPS_PER_S)
+    bms, by = bound_ms(12 * per_call_bytes, 12 * per_call_ops, attn_peak("s8"))
     print(f"  decode_mha_append_cat x12: kernel {fmt(k_ms)}, plain {fmt(p_ms)}, "
           f"sdpa {fmt(lib)}, bound {bms:.4f} ms ({by})", flush=True)
     return {
@@ -399,7 +408,7 @@ def phase_prefill_attention(gen, dev):
     lib = timed(lambda: torch.nn.functional.scaled_dot_product_attention(q, kf, vf, attn_mask=m), iters=10)
     pairs = B * H * PROMPT * (PROMPT + 1) / 2  # causal (row, column) pairs
     nbytes = 4 * B * H * PROMPT * D * 2 + 2 * B * PROMPT * H * (D + 4) + 4 * B
-    bms, by = bound_ms(12 * nbytes, 12 * 4.0 * pairs * D, F32_FLOPS_PER_S)
+    bms, by = bound_ms(12 * nbytes, 12 * 4.0 * pairs * D, attn_peak("s8"))
     print(f"  prefill_mha_cat x12: kernel {fmt(k_ms, 12)}, plain {fmt(p_ms, 12)}, "
           f"sdpa {fmt(lib, 12)}, bound {bms:.4f} ms ({by})", flush=True)
     return {
@@ -452,8 +461,9 @@ def phase_decode_mha(gen, dev):
     inputs, within 1e-4 (f32 accumulation on both sides, other summation
     order). A row with no column to attend (a window wholly past cap)
     gives 0 from the kernel, as on the TPU, and the mean of V from the
-    plain version; such rows are checked apart. Then times over 22 layers'
-    s8 caches."""
+    plain version; such rows are checked apart. The per-head form runs on
+    tensor cores for s8 caches and on CUDA cores for f32 caches
+    (heads_form). Then times over 22 layers' s8 and f32 caches."""
     from rten_tpu_torch.kernels.flash_attention import (
         decode_mha, decode_mha_folded, decode_mha_heads, decode_mha_plain,
     )
@@ -470,18 +480,20 @@ def phase_decode_mha(gen, dev):
                                                  dtype=torch.int32)]).to(dev),
     }
     forms = {1: decode_mha_folded, PROMPT: decode_mha_heads}
-    errs = {1: 0.0, PROMPT: 0.0}
+    errs = {1: 0.0, PROMPT: 0.0, "f32 heads": 0.0}
     for S, quant, window in ((1, True, 0), (1, False, 0), (1, True, 64),
                              (PROMPT, True, 0), (PROMPT, False, 0), (PROMPT, True, 64)):
         q = torch.randn(B, L_H, S, L_D, generator=gen).to(dev)
         k, v, ks, vs = _head_major_caches(gen, dev, B, quant)
         lens = lens_by_S[S]
         before = {s: f.launches for s, f in forms.items()}
+        core = decode_mha_heads.cuda_core_launches
         got = decode_mha(q, k, v, lens, ks, vs, window=window)
         want = decode_mha_plain(q, k, v, lens, ks, vs, window=window)
         torch.cuda.synchronize()
         if {s: f.launches - before[s] for s, f in forms.items()} != \
-                {s: int(s == S) for s in forms}:
+                {s: int(s == S) for s in forms} or \
+                decode_mha_heads.cuda_core_launches - core != int(S > 1 and not quant):
             fail(f"decode_mha S={S}: routed to the wrong form")
         live = _mask(lens, S, window).any(-1, keepdim=True).expand(B, L_H, S, L_D)
         err = (got - want)[live].abs().max().item()
@@ -489,46 +501,72 @@ def phase_decode_mha(gen, dev):
         if not err <= tol or not (got[~live] == 0).all() or not torch.isfinite(got).all():
             fail(f"{tag}: max err {err} > {tol}, or a row with no column is not 0")
         print(f"  {tag}: max abs err {err:.3e} (bound {tol})", flush=True)
-        errs[S] = max(errs[S], err)
+        key = "f32 heads" if S > 1 and not quant else S
+        errs[key] = max(errs[key], err)
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
     for S, name, line in ((1, "decode_mha_folded", 772), (PROMPT, "decode_mha_heads", 935)):
         lens, fn = lens_by_S[S], forms[S]
         q = torch.randn(B, L_H, S, L_D, generator=gen).to(dev)
+        m = _mask(lens, S)
         times = {}
         for quant in (True, False):
             layers = [_head_major_caches(gen, dev, B, quant) for _ in range(L_LAYERS)]
-            times[quant] = timed(lambda: [fn(q, *c[:2], lens, *c[2:]) for c in layers], iters=10)
-            if quant:
-                p_ms = timed(lambda: [decode_mha_plain(q, *c[:2], lens, *c[2:]) for c in layers],
-                             iters=3, warmup=1)
-                m = _mask(lens, S)
-                deq = [(c[0].float() * c[2][..., None], c[1].float() * c[3][..., None])
-                       for c in layers]
-                lib = timed(lambda: [sdpa(q, kf, vf, attn_mask=m, enable_gqa=True)
-                                     for kf, vf in deq], iters=10)
-            del layers
+            k_ms = timed(lambda: [fn(q, *c[:2], lens, *c[2:]) for c in layers], iters=10)
+            p_ms = timed(lambda: [decode_mha_plain(q, *c[:2], lens, *c[2:]) for c in layers],
+                         iters=3, warmup=1)
+            deq = [(c[0].float() * c[2][..., None], c[1].float() * c[3][..., None]) if quant
+                   else c[:2] for c in layers]
+            lib = timed(lambda: [sdpa(q, kf, vf, attn_mask=m, enable_gqa=True)
+                                 for kf, vf in deq], iters=10)
+            times[quant] = (k_ms, p_ms, lib)
+            del layers, deq
         # This run's work: every (row, column) pair the mask admits, and
-        # each live K/V row (s8 plus its scale) read once.
-        pairs = _mask(lens, S).sum().item()
+        # each live K/V row (s8 plus its scale, or f32) read once.
+        pairs = m.sum().item()
         kv_rows = (lens.long() + S).clamp(max=CAP).sum().item()
-        nbytes = 2 * 4 * B * L_H * S * L_D + 4 * B + 2 * kv_rows * L_HKV * (L_D + 4)
-        bms, by = bound_ms(L_LAYERS * nbytes, L_LAYERS * 4.0 * pairs * L_H * L_D,
-                           F32_FLOPS_PER_S)
-        print(f"  {name} x{L_LAYERS}: kernel {fmt(times[True])} (f32 caches "
-              f"{fmt(times[False])}), plain {fmt(p_ms)}, sdpa {fmt(lib)}, "
-              f"bound {bms:.4f} ms ({by})", flush=True)
+        bounds = {}
+        for kv, row_bytes in (("s8", L_D + 4), ("f32", 4 * L_D)):
+            nbytes = 2 * 4 * B * L_H * S * L_D + 4 * B + 2 * kv_rows * L_HKV * row_bytes
+            bounds[kv] = bound_ms(L_LAYERS * nbytes, L_LAYERS * 4.0 * pairs * L_H * L_D,
+                                  attn_peak(kv))
+        unit = (f"one TinyLlama {'decode step' if S == 1 else 'admission'} at slots {B}, cap "
+                f"{CAP}{'' if S == 1 else f', {S} tokens'}: {L_LAYERS} calls (one per layer)")
+        for quant, kv in ((True, "s8"), (False, "f32")):
+            (bms, by), (k_ms, p_ms, lib) = bounds[kv], times[quant]
+            label = name + ("" if quant else " [f32 caches]")
+            print(f"  {label} x{L_LAYERS}: kernel {fmt(k_ms)}, plain {fmt(p_ms)}, sdpa {fmt(lib)}, "
+                  f"bound {bms:.4f} ms ({by})", flush=True)
+        (bms, by), (k_ms, p_ms, lib) = bounds["s8"], times[True]
+        (fbms, fby), (fk_ms, fp_ms, flib) = bounds["f32"], times[False]
         rows.append({
-            "name": name, "route": "cuda", "kv": "s8", "source": "rten_tpu_torch/csrc/decode_mha.cu",
+            "name": name, "route": "cuda", "kv": "s8",
+            "source": ("rten_tpu_torch/csrc/decode_mha.cu" if S == 1
+                       else "rten_tpu_torch/csrc/decode_heads_tc.cuh"),
             "replaces": f"rten_tpu/kernels/flash_attention.py:{line}",
-            "unit": (f"one TinyLlama {'decode step' if S == 1 else 'admission'} at slots "
-                     f"{B}, cap {CAP}{'' if S == 1 else f', {S} tokens'}: {L_LAYERS} calls "
-                     f"(one per layer), s8 caches"),
-            "max_abs_err": errs[S], **time_keys(times[True], p_ms, lib), "bound_ms": bms,
-            "bound_by": by, "f32_cache_ms": ms_of(times[False]),
+            "unit": unit + ", s8 caches",
+            "max_abs_err": errs[S], **time_keys(k_ms, p_ms, lib), "bound_ms": bms,
+            "bound_by": by,
             "library_call": "scaled_dot_product_attention(enable_gqa=True) on "
                             "pre-dequantized f32 K/V with the same mask",
+        })
+        if S == 1:
+            rows[-1].update({"f32_cache_ms": ms_of(fk_ms), "f32_cache_bound_ms": fbms,
+                             "f32_cache_bound_by": fby})
+            continue
+        rows[-1]["counter"] = "decode_mha_heads_tensor_core"
+        # The CUDA-core per-head kernel (f32 caches; D 129-512): a row of
+        # its own, its launches those of its route.
+        rows.append({
+            "name": "decode_mha_heads[cuda_core]", "route": "cuda", "kv": None,
+            "counter": "decode_mha_heads_cuda_core",
+            "source": "rten_tpu_torch/csrc/decode_mha.cuh",
+            "replaces": f"rten_tpu/kernels/flash_attention.py:{line}",
+            "unit": unit + ", f32 caches", "max_abs_err": errs["f32 heads"],
+            **time_keys(fk_ms, fp_ms, flib), "bound_ms": fbms, "bound_by": fby,
+            "library_call": "scaled_dot_product_attention(enable_gqa=True) on the f32 K/V "
+                            "with the same mask",
         })
     return rows
 
@@ -626,7 +664,7 @@ def phase_paged_decode_mha(gen, dev, kv="s8"):
     rows = (lens.long().clamp(max=CAP - 1) + 1).sum().item()
     row_bytes = L_D + 4 if kv == "s8" else L_D * FLOAT_KV[kv].itemsize
     nbytes = 2 * 4 * B * L_H * L_D + 4 * B + 4 * B * MAXB + 2 * rows * L_HKV * row_bytes
-    bms, by = bound_ms(L_LAYERS * nbytes, L_LAYERS * 4.0 * rows * L_H * L_D, F32_FLOPS_PER_S)
+    bms, by = bound_ms(L_LAYERS * nbytes, L_LAYERS * 4.0 * rows * L_H * L_D, attn_peak(kv))
     print(f"  paged_decode_mha {kv} x{L_LAYERS}: kernel {fmt(k_ms)}, plain {fmt(p_ms)}, flat fold "
           f"on gathered caches {fmt(f_ms)}, sdpa {fmt(lib)}, bound {bms:.4f} ms ({by})",
           flush=True)
@@ -723,7 +761,7 @@ def phase_paged_append(gen, dev, kv="s8"):
     row_bytes = D + 4 if kv == "s8" else D * FLOAT_KV[kv].itemsize
     per_call_bytes = (4 * B * H * D * 2 + 4 * B * H * D * 2 + 4 * B + 4 * B * MAXB
                       + 2 * read * H * row_bytes + 2 * B * H * row_bytes)
-    bms, by = bound_ms(12 * per_call_bytes, 12 * 4.0 * read * H * D, F32_FLOPS_PER_S)
+    bms, by = bound_ms(12 * per_call_bytes, 12 * 4.0 * read * H * D, attn_peak(kv))
     print(f"  {tag} x12: kernel {fmt(k_ms)}, plain {fmt(p_ms)}, sdpa {fmt(lib)}, "
           f"bound {bms:.4f} ms ({by})", flush=True)
     return {
@@ -814,7 +852,7 @@ def _append_case(gen, dev, dt, B, Hq, Hkv, Dh, layers, tag):
     read = lens.clamp(max=CAP - 1).long().sum().item()
     nbytes = (4 * B * Hq * Dh * 2 + 4 * B * Hkv * Dh * 2 + 4 * B
               + 2 * read * Hkv * Dh * el + 2 * B * Hkv * Dh * el)
-    bms, by = bound_ms(layers * nbytes, layers * 4.0 * (read + B) * Hq * Dh, F32_FLOPS_PER_S)
+    bms, by = bound_ms(layers * nbytes, layers * 4.0 * (read + B) * Hq * Dh, attn_peak(dt))
     print(f"  decode_mha_append_cat [{tag}] x{layers}: max abs err {err:.3e} (bound 1e-4), "
           f"rows bit-exact, two calls bit-identical; kernel {fmt(k_ms)}, plain {fmt(p_ms)}, "
           f"sdpa {fmt(lib)}, bound {bms:.4f} ms ({by})", flush=True)
@@ -860,7 +898,7 @@ def _prefill_case(gen, dev, dt, B, Hq, Hkv, Dh, layers, tag):
     del layer_kv, sd
     pairs = B * Hq * PROMPT * (PROMPT + 1) / 2  # causal (row, column) pairs from empty slots
     nbytes = 4 * B * Hq * PROMPT * Dh * 2 + 2 * B * PROMPT * Hkv * Dh * FLOAT_KV[dt].itemsize + 4 * B
-    bms, by = bound_ms(layers * nbytes, layers * 4.0 * pairs * Dh, F32_FLOPS_PER_S)
+    bms, by = bound_ms(layers * nbytes, layers * 4.0 * pairs * Dh, attn_peak(dt))
     print(f"  prefill_mha_cat [{tag}] x{layers}: max abs err {err:.3e} (bound 1e-4), two calls "
           f"bit-identical; kernel {fmt(k_ms)}, plain {fmt(p_ms)}, sdpa {fmt(lib)}, "
           f"bound {bms:.4f} ms ({by})", flush=True)
@@ -914,7 +952,7 @@ def _head_major_bf16_case(gen, dev, S, window, layers):
     pairs = _mask(lens, S).sum().item()
     kv_rows = (lens.long() + S).clamp(max=CAP).sum().item()
     nbytes = 2 * 4 * B * L_H * S * L_D + 4 * B + 2 * kv_rows * L_HKV * L_D * 2
-    bms, by = bound_ms(layers * nbytes, layers * 4.0 * pairs * L_H * L_D, F32_FLOPS_PER_S)
+    bms, by = bound_ms(layers * nbytes, layers * 4.0 * pairs * L_H * L_D, attn_peak("bf16"))
     print(f"  {form.__name__} bf16 x{layers}: kernel {fmt(k_ms)}, plain {fmt(p_ms)}, sdpa on "
           f"bf16 {fmt(lib)}, bound {bms:.4f} ms ({by})", flush=True)
     return err, {"max_abs_err": err, **time_keys(k_ms, p_ms, lib), "bound_ms": bms,
@@ -961,8 +999,10 @@ def phase_float_kv_kernels(gen, dev):
             _head_major_bf16_case(gen, dev, PROMPT, 64, 0)[0]]
     for S, name, line in ((1, "decode_mha_folded", 772), (PROMPT, "decode_mha_heads", 935)):
         err, timing = _head_major_bf16_case(gen, dev, S, 0, L_LAYERS)
-        rows.append({"name": f"{name}[bf16]", "kv": "bf16", "counter": name,
-                     "source": "rten_tpu_torch/csrc/decode_mha_bf16.cu",
+        rows.append({"name": f"{name}[bf16]", "kv": "bf16",
+                     "counter": name if S == 1 else "decode_mha_heads_tensor_core",
+                     "source": ("rten_tpu_torch/csrc/decode_mha_bf16.cu" if S == 1
+                                else "rten_tpu_torch/csrc/decode_heads_tc.cuh"),
                      "replaces": f"rten_tpu/kernels/flash_attention.py:{line}",
                      "unit": (f"one TinyLlama {'decode step' if S == 1 else 'admission'} at "
                               f"slots {L_SLOTS}, cap {CAP}{'' if S == 1 else f', {S} tokens'}: "
@@ -1091,7 +1131,7 @@ def _fold_case(gen, dev, kv, B, Hq, Hkv, layers, tag, W=0):
     lib = timed(lambda: [sdpa(q, kf, vf, attn_mask=m, enable_gqa=Hq != Hkv) for kf, vf in deq],
                 iters=10)
     del layer_kv, deq
-    bms, by = bound_ms(layers * nbytes, layers * 4.0 * pairs * L_D, F32_FLOPS_PER_S)
+    bms, by = bound_ms(layers * nbytes, layers * 4.0 * pairs * L_D, attn_peak(kv))
     print(f"  decode_mha fold [{tag}] x{layers}: max abs err {err:.3e} (bound 1e-4), two calls "
           f"bit-identical; kernel {fmt(k_ms)}, plain {fmt(p_ms)}, sdpa {fmt(lib)}, "
           f"bound {bms:.4f} ms ({by})", flush=True)
@@ -1133,7 +1173,7 @@ def _heads_int4_case(gen, dev, layers):
     pairs = m.sum().item() * L_H
     nbytes = 2 * 4 * B * L_H * PROMPT * L_D + 4 * B + 2 * B * PROMPT * L_HKV * _row_bytes(
         "int4", L_D)
-    bms, by = bound_ms(layers * nbytes, layers * 4.0 * pairs * L_D, F32_FLOPS_PER_S)
+    bms, by = bound_ms(layers * nbytes, layers * 4.0 * pairs * L_D, attn_peak("int4"))
     print(f"  decode_mha_heads [int4] x{layers}: max abs err {err:.3e} (bound 1e-4), two calls "
           f"bit-identical; kernel {fmt(k_ms)}, plain {fmt(p_ms)}, sdpa {fmt(lib)}, bound "
           f"{bms:.4f} ms ({by})", flush=True)
@@ -1208,7 +1248,7 @@ def _append_hm_case(gen, dev, kv, B, Hq, Hkv, Dh, layers, tag):
     rb = _row_bytes(kv, Dh)
     nbytes = (4 * B * Hq * Dh * 2 + 4 * B * Hkv * Dh * 2 + 4 * B + 2 * read * Hkv * rb
               + 2 * B * Hkv * rb)
-    bms, by = bound_ms(layers * nbytes, layers * 4.0 * (read + B) * Hq * Dh, F32_FLOPS_PER_S)
+    bms, by = bound_ms(layers * nbytes, layers * 4.0 * (read + B) * Hq * Dh, attn_peak(kv))
     print(f"  decode_mha_append [{tag}] x{layers}: max abs err {err:.3e} (bound 1e-4), rows "
           f"bit-exact, scales within {ulps} ULP; kernel {fmt(k_ms)}, plain {fmt(p_ms)}, sdpa "
           f"{fmt(lib)}, bound {bms:.4f} ms ({by})", flush=True)
@@ -1249,7 +1289,8 @@ def phase_int4_deferred_kernels(gen, dev):
                  "other_shapes": [wins[0]] + wins[2:]})
     heads = _heads_int4_case(gen, dev, L_LAYERS)
     rows.append({"name": "decode_mha_heads[int4]", "kv": ("u4", "u4-deferred"),
-                 "counter": "decode_mha_heads", "source": "rten_tpu_torch/csrc/decode_mha_u4.cu",
+                 "counter": "decode_mha_heads_tensor_core",
+                 "source": "rten_tpu_torch/csrc/decode_heads_tc.cuh",
                  "replaces": "rten_tpu/kernels/flash_attention.py:935",
                  "unit": f"one TinyLlama admission at slots {L_SLOTS}, cap {CAP}, {PROMPT} "
                          f"tokens: {L_LAYERS} calls, int4 caches", **heads,
@@ -1369,23 +1410,41 @@ def phase_head_dims(gen, dev):
 
 
 def phase_argmax(gen, dev, slots=SLOTS, vocab=VOCAB, padded=NP):
-    from rten_tpu_torch.kernels.argmax import argmax_lastdim, argmax_plain
+    """The argmax on the engine's strided view of [slots, padded] logits cut
+    to the vocabulary, against its plain version: a tie (the lower index
+    wins), the last column, two calls giving the same bits; on a copy, a tie
+    over a chunk boundary, two NaNs (the first wins) and an all -inf row
+    (0). Then the times beside torch.argmax and the byte bound."""
+    from rten_tpu_torch.kernels.argmax import argmax_lastdim, argmax_plain, chunk_plan
 
     logits = torch.randn(slots, padded, generator=gen).to(dev)
     x = logits[:, :vocab]                       # the engine's strided view
     x[0, 7] = x[0, 9] = 1e4                     # a tie: the lower index wins
     x[1, vocab - 1] = 1e4                       # the last column
     got = argmax_lastdim(x)
+    again = argmax_lastdim(x)
     want = argmax_plain(x)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
-    if err != 0 or int(got[0]) != 7:
-        fail("argmax_lastdim disagrees with its plain version")
+    if err != 0 or int(got[0]) != 7 or not torch.equal(got, again):
+        fail("argmax_lastdim disagrees with its plain version, or two calls differ")
+    chunks, length = chunk_plan(slots, vocab, torch.cuda.get_device_properties(dev)
+                                .multi_processor_count)
+    edge = logits.clone()[:, :vocab]
+    edge[2, length - 1] = edge[2, length] = 1e4  # a tie over a chunk boundary
+    edge[3, 11] = edge[3, vocab - 2] = float("nan")
+    edge[4] = float("-inf")
+    got = argmax_lastdim(edge)
+    torch.cuda.synchronize()
+    if not torch.equal(got, argmax_plain(edge)) or got[2:5].tolist() != [
+            length - 1 if chunks > 1 else int(got[2]), 11, 0]:
+        fail(f"argmax_lastdim on the edge rows: {got[2:5].tolist()}")
     k_ms = timed(lambda: argmax_lastdim(x))
     p_ms = timed(lambda: argmax_plain(x))
     lib = timed(lambda: torch.argmax(x, dim=-1))
     bms, by = bound_ms(4.0 * slots * vocab + 4 * slots, float(slots * vocab), F32_FLOPS_PER_S)
-    print(f"  argmax_lastdim [{slots}, {vocab}]: kernel {fmt(k_ms)}, plain {fmt(p_ms)}, "
+    print(f"  argmax_lastdim [{slots}, {vocab}] ({chunks} chunks of {length} columns a row; "
+          f"edges, two calls bit-identical): kernel {fmt(k_ms)}, plain {fmt(p_ms)}, "
           f"torch.argmax {fmt(lib)}, bound {bms:.4f} ms ({by})", flush=True)
     return {
         "name": "argmax_lastdim", "route": "cuda",
@@ -1444,7 +1503,7 @@ def _mha_case(gen, dev, tag, B, Hq, Hkv, T_q, T_k, causal, softcap, pad, calls):
     lib = None if softcap else sd
     pairs = admitted.sum().item() * B * Hq
     nbytes = 4 * (2 * B * Hq * T_q * D + 2 * B * Hkv * T_k * D) + (4 * T_k if pad else 0)
-    bms, by = bound_ms(calls * nbytes, calls * 4.0 * pairs * D, F32_FLOPS_PER_S)
+    bms, by = bound_ms(calls * nbytes, calls * 4.0 * pairs * D, attn_peak("f32"))
     print(f"  mha [{tag}] x{calls}: max abs err {err:.3e} (bound 1e-4), {int((~live).sum()) // D} "
           f"fully masked rows 0, two calls bit-identical; kernel {fmt(k_ms)}, plain {fmt(p_ms)}, "
           f"sdpa{' without the softcap' if softcap else ''} {fmt(sd)}, bound {bms:.4f} ms ({by})",
@@ -1578,7 +1637,6 @@ def phase_int4_matmul(gen, dev):
 # --- the decode-attention microbenchmark (rten_tpu_torch.tools) ---------------
 
 
-BF16_FLOPS_PER_S = 989e12     # bf16 tensor cores, dense
 TOOL = dict(B=32, H=12, cap=256, D=64)  # the tool's default shape (group 1)
 TOOL_TL = dict(B=16, H=32, Hkv=4, cap=256, D=64)  # TinyLlama's attention
 TOOL_PAST_L2 = 128  # slots at which the tool's f32 KV (201 MB) is 4x the L2
@@ -1716,6 +1774,27 @@ def phase_decode_attn_tool(dev):
                      "replaces": f"tools/bench_decode_attn.py:{line}", **cases["f32"],
                      "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
                      "other_shapes": {k: c for k, c in cases.items() if k != "f32"}})
+    # A bf16 q (the output bf16): each of bd/nt against its plain version on
+    # f32 and bf16 K/V at the tool's shape, not timed.
+    q, k, v, lens = _tool_inputs(dev, **TOOL)
+    scale = 1.0 / float(np.sqrt(q.shape[3]))
+    for row, (kern, plain) in zip(rows[2:], ((tb.bd_decode, tb.bd_decode_plain),
+                                             (tb.nt_decode, tb.nt_decode_plain))):
+        errs = {}
+        for dt, (rtol, atol) in ((torch.float32, (2.0 ** -7, 1e-5)),
+                                 (torch.bfloat16, (2e-2, 5e-3))):
+            kk = k.to(dt).transpose(2, 3).contiguous() if kern is tb.bd_decode else k.to(dt)
+            args = (q.to(torch.bfloat16), kk, v.to(dt), lens)
+            got = kern(*args, scale=scale)
+            want = plain(*args, scale=scale)
+            torch.cuda.synchronize()
+            errs[str(dt).split(".")[1]] = (got.float() - want.float()).abs().max().item()
+            if got.dtype != torch.bfloat16 or not _excess(got, want, rtol, atol) <= 0:
+                fail(f"{row['name']} with a bf16 q on {dt} K/V: {got.dtype}, max err "
+                     f"{errs[str(dt).split('.')[1]]} beyond rtol {rtol}, atol {atol}")
+        print(f"  {row['name']} [bf16 q, bf16 out, tool shape]: max abs err by K/V dtype "
+              f"{json.dumps(errs)}", flush=True)
+        row["bf16_q_max_abs_err"] = errs
     print("  the tool (python3 -m rten_tpu_torch.tools.bench_decode_attn, in-process):",
           flush=True)
     for fn in tb.KERNELS:
@@ -1793,6 +1872,22 @@ def build_model(n_layer, capacity, device, vocab=VOCAB, n_embd=E, n_head=H, kv="
     return Model(graph, device=device)
 
 
+class CoreHeads:
+    """decode_mha_heads' launches of its CUDA-core kernel (f32 caches, D
+    129-512; ``decode_mha_heads.launches`` counts both kernels) as a counter
+    of their own."""
+
+    @property
+    def launches(self):
+        from rten_tpu_torch.kernels.flash_attention import decode_mha_heads
+        return decode_mha_heads.cuda_core_launches
+
+    @launches.setter
+    def launches(self, n):
+        from rten_tpu_torch.kernels.flash_attention import decode_mha_heads
+        decode_mha_heads.cuda_core_launches = n
+
+
 def counters():
     from rten_tpu_torch.kernels import argmax, flash_attention, int4_matmul, int8_matmul
 
@@ -1805,6 +1900,7 @@ def counters():
         "argmax_lastdim": argmax.argmax_lastdim,
         "decode_mha_folded": flash_attention.decode_mha_folded,
         "decode_mha_heads": flash_attention.decode_mha_heads,
+        "decode_mha_heads_cuda_core": CoreHeads(),
         "paged_decode_mha": flash_attention.paged_decode_mha,
         "decode_mha_append_cat_paged": flash_attention.decode_mha_append_cat_paged,
         "decode_mha_append": flash_attention.decode_mha_append,
@@ -1893,11 +1989,13 @@ def phase_serve(dev, paged=False, kv="s8"):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, VOCAB, PROMPT).tolist() for _ in range(24)]
     budgets = [int(rng.integers(16, 49)) for _ in range(24)]
-    if paged:  # admissions gather the pools, then decode_mha (per head)
+    if paged:  # admissions gather the pools, then decode_mha (per head; bf16 pools widened
+        # to f32, as the reference widens them, run on CUDA cores)
         want = lambda steps, adm: {  # noqa: E731
             "int8_matmul_dequant": 49 * (steps + adm),
             "decode_mha_append_cat_paged": 12 * steps,
             "decode_mha_heads": 12 * adm,
+            **({"decode_mha_heads_cuda_core": 12 * adm} if kv == "bf16" else {}),
             "argmax_lastdim": steps + adm,
         }
     else:
@@ -2971,7 +3069,7 @@ def main() -> int:
     lap("int4, recent-window and head-major append kernels")
     head_dims = phase_head_dims(gen, dev)
     for k in kernels:
-        errs = head_dims.get(k.get("counter", k["name"]))
+        errs = head_dims.get(k.get("counter")) or head_dims.get(k["name"])
         if errs and "[" not in k["name"]:
             k["head_dims_max_abs_err"] = errs
     lap("head dims 80, 96, 256, 512")
@@ -3024,7 +3122,12 @@ def main() -> int:
         run(f"gpt2_generate_{quantize or 'f32'}", None, phase_generate, quantize)
     lap("GPT-2 generate (f32, int4)")
     # A row's launches: its counter over the paths that serve from its KV
-    # cache type (every path for the kernels that read no KV cache).
+    # cache type (every path for the kernels that read no KV cache). The
+    # per-head wrapper's tensor-core launches are its launches less the
+    # CUDA-core kernel's.
+    for n in by_path.values():
+        n["decode_mha_heads_tensor_core"] = (n["decode_mha_heads"]
+                                             - n["decode_mha_heads_cuda_core"])
     for k in kernels:
         if "launches" in k:  # the tool's rows: counted on the tool's run
             continue

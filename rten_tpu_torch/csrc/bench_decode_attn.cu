@@ -39,7 +39,7 @@
 // 3. bd_decode and 4. nt_decode. Replace tools/bench_decode_attn.py:214
 //    (bd_decode, _bd_kernel: K stored transposed, kt [B, Hkv, D, cap]) and
 //    :318 (nt_decode, _nt_kernel: natural K [B, Hkv, cap, D]): decode
-//    attention of f32 q over f32 or bf16 K/V with kv-major GQA, an online
+//    attention of f32 or bf16 q over f32 or bf16 K/V with kv-major GQA, an online
 //    softmax over key blocks of bk = min(block_k, cap) columns, the grid
 //    cap // bk (keys past (cap // bk) * bk are dropped, as the reference's
 //    grid drops them), mask col <= lens[b], and a slot with no valid column
@@ -67,7 +67,11 @@
 //    rounds as the reference does: bd scores in f32 from the widened K, nt
 //    rounds q to bf16 for the score; both round p to bf16 for the value
 //    product (bf16 x bf16 products are exact in f32, summed in f32), and l
-//    sums the unrounded p. Measured, both wait on memory latency rather
+//    sums the unrounded p. A bf16 q (QB) widens exactly as it is loaded;
+//    bd then rounds f32 K to bf16 for the score (the reference casts kt to
+//    q's dtype), nt scores f32 K as it is (the reference widens q), and the
+//    output is written in bf16 (round to nearest even), as the reference
+//    writes q's dtype. Measured, both wait on memory latency rather
 //    than bandwidth (bf16 K/V saves them no time; PERF.md section 6).
 //
 // Built without --use_fast_math (IEEE expf and division). Each entry point
@@ -77,6 +81,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -121,6 +127,14 @@ __device__ __forceinline__ float2 pair_f32(const __nv_bfloat16* p) {
 }
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+template <typename Q>
+__device__ __forceinline__ Q from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
 }
 
 // ---- 1. dma_floor ----------------------------------------------------------
@@ -265,14 +279,20 @@ __host__ __device__ inline int fold_smem_floats(int D, int bk) {
 }
 
 // Grid (B * Hkv, ceil(group / RB)). KT: K is kt [B, Hkv, D, cap] (bd);
-// otherwise [B, Hkv, cap, D] (nt). DP: the smallest power of two >= D, at
-// least 32 (thread t of the value product owns dim t % DP of every row).
-template <typename T, bool KT>
+// otherwise [B, Hkv, cap, D] (nt). QB: q and the output are bf16, else
+// f32. DP: the smallest power of two >= D, at least 32 (thread t of the
+// value product owns dim t % DP of every row).
+template <typename T, bool KT, bool QB>
 __global__ void __launch_bounds__(THREADS) fold_attn_kernel(
-    const float* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const int* __restrict__ lens, float* __restrict__ out, int H, int Hkv, int cap, int D,
+    const void* __restrict__ qv, const T* __restrict__ k, const T* __restrict__ v,
+    const int* __restrict__ lens, void* __restrict__ outv, int H, int Hkv, int cap, int D,
     int DP, int bk, int nblk, float scale) {
+  using Q = typename std::conditional<QB, __nv_bfloat16, float>::type;
+  const Q* __restrict__ q = static_cast<const Q*>(qv);
+  Q* __restrict__ out = static_cast<Q*>(outv);
   constexpr bool BF16 = sizeof(T) == 2;
+  // bd with a bf16 q scores bf16(K): the reference casts kt to q's dtype.
+  constexpr bool ROUND_K = QB && KT && !BF16;
   extern __shared__ float sm[];
   float* qs = sm;                  // [RB][D]
   float* S = qs + RB * D;          // [RB][bk]: scores, then p
@@ -289,7 +309,7 @@ __global__ void __launch_bounds__(THREADS) fold_attn_kernel(
   const T* vp = v + kv;
   for (int i = t; i < RB * D; i += THREADS) {
     const int r = i / D, d = i % D;
-    float x = r < nrows ? q[((long long)b * H + h0 + r) * D + d] : 0.f;
+    float x = r < nrows ? to_f32(q[((long long)b * H + h0 + r) * D + d]) : 0.f;
     if (BF16 && !KT) x = round_bf16(x);  // nt's score product is bf16 x bf16
     qs[i] = x;
   }
@@ -319,8 +339,10 @@ __global__ void __launch_bounds__(THREADS) fold_attn_kernel(
         if (KT) {
           const T* col = kp + c0 + c;
 #pragma unroll
-          for (int u = 0; u < CHUNK; ++u)
+          for (int u = 0; u < CHUNK; ++u) {
             x[u] = d0 + u < D ? to_f32(col[(long long)(d0 + u) * cap]) : 0.f;
+            if (ROUND_K) x[u] = round_bf16(x[u]);
+          }
         } else {
           const T* row = kp + (long long)(c0 + c) * D + d0;
 #pragma unroll
@@ -395,18 +417,19 @@ __global__ void __launch_bounds__(THREADS) fold_attn_kernel(
     const int r = i / D, d = i % D;
     float o = 0.f;
     for (int g = 0; g < nsplit; ++g) o += split[(g * RB + r) * DP + d];
-    out[((long long)b * H + h0 + r) * D + d] = o / l_s[r];
+    const float y = o / l_s[r];
+    out[((long long)b * H + h0 + r) * D + d] = from_f32<Q>(y);
   }
 }
 
-template <typename T, bool KT>
+template <typename T, bool KT, bool QB>
 cudaError_t launch_fold(const void* q, const void* k, const void* v, const void* lens, void* out,
                         int B, int H, int Hkv, int cap, int D, int bk, int nblk, float scale,
                         cudaStream_t stream) {
   int DP = 32;
   while (DP < D) DP *= 2;
   const size_t smem = sizeof(float) * fold_smem_floats(D, bk);
-  auto kern = fold_attn_kernel<T, KT>;
+  auto kern = fold_attn_kernel<T, KT, QB>;
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -414,9 +437,8 @@ cudaError_t launch_fold(const void* q, const void* k, const void* v, const void*
   }
   const int group = H / Hkv;
   dim3 grid(B * Hkv, (group + RB - 1) / RB);
-  kern<<<grid, THREADS, smem, stream>>>((const float*)q, (const T*)k, (const T*)v,
-                                        (const int*)lens, (float*)out, H, Hkv, cap, D, DP, bk,
-                                        nblk, scale);
+  kern<<<grid, THREADS, smem, stream>>>(q, (const T*)k, (const T*)v, (const int*)lens, out, H,
+                                        Hkv, cap, D, DP, bk, nblk, scale);
   return cudaGetLastError();
 }
 
@@ -448,15 +470,20 @@ extern "C" int rten_vpu_attn(const void* q, const void* k, const void* v, const 
   return (int)cudaGetLastError();
 }
 
-// kind: 0 f32 K/V, 1 bf16 K/V; transposed: K is kt [B, Hkv, D, cap] (bd).
-extern "C" int rten_fold_attn(int kind, int transposed, const void* q, const void* k,
+// kind: 0 f32 K/V, 1 bf16 K/V; transposed: K is kt [B, Hkv, D, cap] (bd);
+// qbf16: q and out are bf16, else f32.
+extern "C" int rten_fold_attn(int kind, int transposed, int qbf16, const void* q, const void* k,
                               const void* v, const void* lens, void* out, int B, int H, int Hkv,
                               int cap, int D, int bk, int nblk, float scale, void* stream) {
-#define RTEN_FOLD(T, KT) \
-  launch_fold<T, KT>(q, k, v, lens, out, B, H, Hkv, cap, D, bk, nblk, scale, (cudaStream_t)stream)
+#define RTEN_FOLD(T, KT, QB)                                                          \
+  launch_fold<T, KT, QB>(q, k, v, lens, out, B, H, Hkv, cap, D, bk, nblk, scale,      \
+                         (cudaStream_t)stream)
+#define RTEN_FOLD_Q(T, KT) (qbf16 ? RTEN_FOLD(T, KT, true) : RTEN_FOLD(T, KT, false))
   cudaError_t e = cudaErrorInvalidValue;
-  if (kind == 0) e = transposed ? RTEN_FOLD(float, true) : RTEN_FOLD(float, false);
-  if (kind == 1) e = transposed ? RTEN_FOLD(__nv_bfloat16, true) : RTEN_FOLD(__nv_bfloat16, false);
+  if (kind == 0) e = transposed ? RTEN_FOLD_Q(float, true) : RTEN_FOLD_Q(float, false);
+  if (kind == 1)
+    e = transposed ? RTEN_FOLD_Q(__nv_bfloat16, true) : RTEN_FOLD_Q(__nv_bfloat16, false);
+#undef RTEN_FOLD_Q
 #undef RTEN_FOLD
   return (int)e;
 }

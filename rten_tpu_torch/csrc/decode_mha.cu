@@ -42,32 +42,38 @@
 //    the card is far from full and a call is latency-bound; split-K across
 //    blocks is later work.
 //
-// 2. decode_mha_heads_kernel replaces rten_tpu/kernels/flash_attention.py:935
+// 2. The per-head form replaces rten_tpu/kernels/flash_attention.py:935
 //    decode_mha (the per-(slot, head, key block) pallas_call for larger S).
-//    Bound on the H100: operations at admission sizes (4 * S * keys * D
-//    flops per head against S * D * 8 + keys * D bytes).
-//    Design: one 128-thread block per (query tile, head, slot). The key
-//    loop runs inside the block up to lens[b] + the tile's last row, with
-//    K/V tiles converted to f32 in shared memory beside their scales; four
-//    threads share a query row up to D 128, eight beyond (query tiles of
-//    32 and 16 rows: scores for BK / 4 or BK / 8 columns each, then D / 4
-//    or D / 8 output dims each), and the online softmax runs in registers.
-//    The key tile is 32 columns at D <= 64, 16 up to D 256 and 8 at D 512,
-//    in dynamic shared memory (35 KB at D 128, 49 KB at D 256, 65 KB at
-//    D 512; above 48 KB after cudaFuncSetAttribute). int4 rows unpack as
-//    the tile is filled.
+//    Two kernels; the wrapper's heads_form picks one:
+//    a. decode_mha_heads_tc_kernel (decode_heads_tc.cuh, which says how it
+//       is designed): s8, int4 and bf16 caches at D <= 128, on tensor
+//       cores (bf16 mma.sync, q and p * vs split into three bf16 parts, f32
+//       accumulation). Bound on the H100 at an admission: bytes (the f32 q
+//       and output).
+//    b. decode_mha_heads_kernel (decode_mha.cuh): f32 caches, whose values
+//       bf16 does not hold, and D 129-512, on CUDA cores. Bound: operations
+//       at admission sizes (4 * S * keys * D flops per head at the f32
+//       rate). Design: one 128-thread block per (query tile, head, slot).
+//       The key loop runs inside the block up to lens[b] + the tile's last
+//       row, with K/V tiles converted to f32 in shared memory beside their
+//       scales; four threads share a query row up to D 128, eight beyond
+//       (query tiles of 32 and 16 rows: scores for BK / 4 or BK / 8 columns
+//       each, then D / 4 or D / 8 output dims each), and the online softmax
+//       runs in registers. The key tile is 32 columns at D <= 64, 16 up to
+//       D 256 and 8 at D 512, in dynamic shared memory (35 KB at D 128, 49
+//       KB at D 256, 65 KB at D 512; above 48 KB after
+//       cudaFuncSetAttribute). int4 rows unpack as the tile is filled.
 //
 // Head dims: instances for DP = 64, 128 (here), 256 and 512 (decode_mha_wide.cu);
 // any even D runs in the smallest instance that holds it, the dims past D
 // zero in shared memory (a masked tail).
 //
-// bf16 values widen to f32 exactly as they are loaded (8 a 16-byte load in
-// the fold, one a thread in the per-head form's tile fill), int4 codes as
-// they are unpacked (nibble - 8); every product and sum is f32.
-//
-// f32 on CUDA cores; tensor cores, split-K across blocks and cp.async are
-// later work. Built without --use_fast_math (IEEE expf and division), like
-// the other kernels of the port.
+// In the fold and the CUDA-core per-head form, bf16 values widen to f32
+// exactly as they are loaded (8 a 16-byte load in the fold, one a thread in
+// the per-head tile fill), int4 codes as they are unpacked (nibble - 8);
+// every product and sum is f32. The fold's split-K across blocks is later
+// work. Built without --use_fast_math (IEEE expf and division), like the
+// other kernels of the port.
 
 #include "decode_mha.cuh"
 

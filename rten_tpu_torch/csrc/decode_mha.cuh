@@ -1,19 +1,26 @@
-// decode_mha's two launch forms for one cache element type T and head-dim
-// instance DP, shared by decode_mha.cu (s8 and f32 caches, D <= 128),
-// decode_mha_bf16.cu (bf16, D <= 128), decode_mha_u4.cu (int4, D <= 128)
-// and decode_mha_wide.cu (every kind at D 129-512), which nvcc builds in
-// parallel. decode_mha.cu says what each form replaces and how it is
-// designed.
+// decode_mha's launch forms for one cache element type T and head-dim
+// instance DP, shared by decode_mha.cu (s8 caches, D <= 128),
+// decode_mha_f32.cu (f32, D <= 128), decode_mha_bf16.cu (bf16, D <= 128),
+// decode_mha_u4.cu (int4, D <= 128) and decode_mha_wide.cu (every kind at
+// D 129-512), which nvcc builds in parallel: the fold, the per-head form on
+// tensor cores (decode_heads_tc.cuh: s8, int4 and bf16 at D <= 128) and the
+// per-head form on CUDA cores (here: f32 caches and D 129-512).
+// decode_mha.cu says what each form replaces and how it is designed.
 
 #pragma once
 
+#include <type_traits>
+
 #include "decode_fold.cuh"
+#include "decode_heads_tc.cuh"
 
 // What a library holds (each source may set these before the include): the
 // fold's instances with D fixed and no recent window (RTEN_FOLD_FAST), its
 // general ones (RTEN_FOLD_GENERAL: a recent window, a masked tail; the only
-// ones past DP 128), the per-head form (RTEN_HEADS). An entry point asked
-// for a form its library does not hold returns cudaErrorInvalidValue.
+// ones past DP 128), the per-head form (RTEN_HEADS: on tensor cores for
+// s8, int4 and bf16 up to DP 128, on CUDA cores for f32 and past DP 128).
+// An entry point asked for a form its library does not hold returns
+// cudaErrorInvalidValue.
 #ifndef RTEN_FOLD_FAST
 #define RTEN_FOLD_FAST 1
 #endif
@@ -26,8 +33,8 @@
 
 namespace {
 
-// The per-head form's tiling at head-dim instance DP: TPR threads share a
-// query row (4 up to D 128, 8 beyond, so that each keeps at most 64
+// The CUDA-core per-head form's tiling at head-dim instance DP: TPR threads
+// share a query row (4 up to D 128, 8 beyond, so that each keeps at most 64
 // accumulators), HQ = 128 / TPR query rows a block, BK key columns a tile;
 // shared memory holds the query tile and one K and V tile as f32, padded by
 // one column, beside the tile's probabilities and scales.
@@ -231,7 +238,7 @@ int launch_decode_mha_folded(RTEN_DECODE_MHA_PARAMS) {
 template <typename T, int DP>
 int launch_decode_mha_heads(RTEN_DECODE_MHA_PARAMS) {
   if (S < 1 || rten_dp_of(D) != DP) return (int)cudaErrorInvalidValue;
-  if constexpr (RTEN_HEADS) {
+  if constexpr (RTEN_HEADS && (std::is_same<T, float>::value || DP > 128)) {
     constexpr int smem = HeadsTile<DP>::SMEM;
     if (smem > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
@@ -248,13 +255,36 @@ int launch_decode_mha_heads(RTEN_DECODE_MHA_PARAMS) {
   }
 }
 
-// Defines the two C entry points of a library for the kinds it lists:
+// The per-head form on tensor cores: s8, int4 and bf16 caches at DP 64 and
+// 128 (the wrapper's heads_form routes there); any other instance returns
+// cudaErrorInvalidValue.
+template <typename T, int DP>
+int launch_decode_mha_heads_tc(RTEN_DECODE_MHA_PARAMS) {
+  if constexpr (RTEN_HEADS && DP <= 128 && !std::is_same<T, float>::value) {
+    if (S < 1 || rten_dp_of(D) != DP) return (int)cudaErrorInvalidValue;
+    constexpr int smem = TcTile<DP, T>::SMEM;
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          decode_mha_heads_tc_kernel<DP, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    const dim3 grid((S + TC_ROWS - 1) / TC_ROWS, H, B);
+    decode_mha_heads_tc_kernel<DP, T><<<grid, TC_THREADS, smem, (cudaStream_t)stream>>>(
+        RTEN_KV_ARGS(T), RTEN_OUT_ARGS, vec);
+    return (int)cudaGetLastError();
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Defines the three C entry points of a library for the kinds it lists:
 // RTEN_DECODE_MHA_ENTRIES(CASES) with CASES(M) expanding M(kind, T, DP) for
 // every (kind, head-dim instance) the library was built for.
 #define RTEN_DECODE_MHA_CASE(KIND, TT, DPP, FORM)                                \
   if (kind == KIND && dp == DPP) return launch_decode_mha_##FORM<TT, DPP>(RTEN_DECODE_MHA_NAMES);
 #define RTEN_FOLDED_CASE(KIND, TT, DPP) RTEN_DECODE_MHA_CASE(KIND, TT, DPP, folded)
 #define RTEN_HEADS_CASE(KIND, TT, DPP) RTEN_DECODE_MHA_CASE(KIND, TT, DPP, heads)
+#define RTEN_HEADS_TC_CASE(KIND, TT, DPP) RTEN_DECODE_MHA_CASE(KIND, TT, DPP, heads_tc)
 #define RTEN_DECODE_MHA_ENTRIES(CASES)                                           \
   extern "C" int rten_decode_mha_folded(int kind, RTEN_DECODE_MHA_PARAMS) {      \
     const int dp = rten_dp_of(D);                                                \
@@ -264,5 +294,10 @@ int launch_decode_mha_heads(RTEN_DECODE_MHA_PARAMS) {
   extern "C" int rten_decode_mha_heads(int kind, RTEN_DECODE_MHA_PARAMS) {       \
     const int dp = rten_dp_of(D);                                                \
     CASES(RTEN_HEADS_CASE)                                                       \
+    return (int)cudaErrorInvalidValue;                                           \
+  }                                                                              \
+  extern "C" int rten_decode_mha_heads_tc(int kind, RTEN_DECODE_MHA_PARAMS) {    \
+    const int dp = rten_dp_of(D);                                                \
+    CASES(RTEN_HEADS_TC_CASE)                                                    \
     return (int)cudaErrorInvalidValue;                                           \
   }

@@ -16,7 +16,9 @@ and ``csrc/mha.cu``, and their plain PyTorch versions.
   (``csrc/decode_mha{,_f32,_bf16,_u4,_u4_win,_wide}.cu``). Two launch forms, each with
   its own launch counter: ``decode_mha_folded`` (every decode step, and the
   deferred-KV step with a recent window: ``decode_attention_deferred``) and
-  ``decode_mha_heads`` (every admission).
+  ``decode_mha_heads`` (every admission), which runs on tensor cores for
+  s8, int4 and bf16 caches at D <= 128 and on CUDA cores otherwise
+  (``heads_form``).
 * ``decode_mha_append`` replaces
   ``rten_tpu/kernels/flash_attention.py:decode_mha_append``: the in-kernel
   append of ``decode_mha_append_cat`` on head-major caches (the same CUDA
@@ -885,6 +887,20 @@ def decode_mha(q, k, v, lens, k_scale=None, v_scale=None, *,
                             scale=scale, window=window)
 
 
+# Cache dtypes whose values bf16 holds exactly: the per-head form runs them
+# on tensor cores (csrc/decode_heads_tc.cuh) up to D 128.
+TENSOR_CORE_KV = (torch.int8, torch.uint8, torch.bfloat16)
+
+
+def heads_form(dtype, D: int) -> str:
+    """The kernel ``decode_mha_heads`` launches for a cache dtype and head
+    dim: "tensor_core" (bf16 ``mma.sync`` with q and p * vs split into three
+    bf16 parts, f32 accumulation) for s8, int4 and bf16 caches at D <= 128;
+    "cuda_core" (f32 FMAs, ``decode_mha_heads_kernel``) for f32 caches,
+    whose values bf16 does not hold, and for D 129-512."""
+    return "tensor_core" if dtype in TENSOR_CORE_KV and D <= 128 else "cuda_core"
+
+
 def _decode_lib_name(dtype, D: int, general: bool = False) -> str:
     """The library that holds decode_mha's instances for a cache dtype and
     head dim (csrc/decode_mha*.cu); ``general``: the fold's general
@@ -1014,17 +1030,25 @@ decode_mha_folded.launches = 0
 def decode_mha_heads(q, k, v, lens, k_scale=None, v_scale=None, *,
                      scale: Optional[float] = None, window: int = 0):
     """``decode_mha``'s per-head form (replaces
-    ``rten_tpu/kernels/flash_attention.py:decode_mha``'s per-head grid):
-    one block per (32-row query tile, head, slot)."""
+    ``rten_tpu/kernels/flash_attention.py:decode_mha``'s per-head grid),
+    routed by ``heads_form``: on tensor cores one block per (64-row query
+    tile, head, slot); on CUDA cores one per (32-row tile, 16 beyond D
+    128)."""
     if kernel_device(q, k, v, lens, k_scale, v_scale) == "cpu":
         return decode_mha_plain(q, k, v, lens, k_scale, v_scale,
                                 scale=scale, window=window)
-    out = _decode_mha_launch("heads", q, k, v, lens, k_scale, v_scale, scale, window)
+    form = heads_form(k.dtype, q.shape[3])
+    out = _decode_mha_launch("heads_tc" if form == "tensor_core" else "heads", q, k, v, lens,
+                             k_scale, v_scale, scale, window)
     decode_mha_heads.launches += 1
+    if form == "cuda_core":
+        decode_mha_heads.cuda_core_launches += 1
     return out
 
 
+# Every launch, and (of them) the CUDA-core form's.
 decode_mha_heads.launches = 0
+decode_mha_heads.cuda_core_launches = 0
 
 
 def paged_decode_mha_plain(q, pool_k, pool_v, lens, block_table, pool_ks=None,
@@ -1123,7 +1147,8 @@ def _mha_lib(name):
     argument types."""
     lib = load_library(name)
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    for fn in (lib.rten_decode_mha_folded, lib.rten_decode_mha_heads):
+    for fn in (lib.rten_decode_mha_folded, lib.rten_decode_mha_heads,
+               lib.rten_decode_mha_heads_tc):
         if fn.argtypes is None:
             fn.argtypes = [I, P, L, L, L, P, P, L, L, L, P, P, L, L, L, P, P,
                            L, L, L, I, I, I, I, I, I, I, F, I,

@@ -15,12 +15,14 @@ The port of ``tools/bench_decode_attn.py``:
   K of H heads; a slot with ``lens < 0`` gets the mean of V.
 * ``bd_decode`` (``:214``): decode attention from K stored transposed,
   ``kt [B, Hkv, D, cap]``; ``nt_decode`` (``:318``): the same from natural
-  ``[B, Hkv, cap, D]`` K. f32 or bf16 K/V, f32 q, kv-major GQA, an online
-  softmax over key blocks of ``min(block_k, cap)`` columns whose grid
-  drops the keys past ``(cap // bk) * bk``; a slot with no valid column
-  gives 0. In bf16 mode ``bd`` scores in f32 from the widened K, ``nt``
-  rounds q to bf16 for the score, and both round p to bf16 for the value
-  product.
+  ``[B, Hkv, cap, D]`` K. f32 or bf16 K/V, f32 or bf16 q, kv-major GQA,
+  an online softmax over key blocks of ``min(block_k, cap)`` columns whose
+  grid drops the keys past ``(cap // bk) * bk``; a slot with no valid
+  column gives 0. With bf16 K/V ``bd`` scores an f32 q in f32 from the
+  widened K, ``nt`` rounds q to bf16 for the score, and both round p to
+  bf16 for the value product. With a bf16 q ``bd`` rounds f32 K to bf16 for
+  the score (the reference casts kt to q's dtype), ``nt`` scores f32 K as
+  it is, and both return bf16 (the reference's output has q's dtype).
 
 Every wrapper checks dtypes, shapes and groups on any device and raises on
 what its kernel does not take; given CPU tensors it then runs its plain
@@ -69,10 +71,10 @@ def _check_lens(lens, B):
         raise ValueError(f"lens: expected {B} int32 values")
 
 
-def _check_q(q, B, H, D):
+def _check_q(q, B, H, D, dtypes=(torch.float32,)):
     _shape("q", q, 4)
-    if q.dtype != torch.float32:
-        raise TypeError(f"q: dtype {q.dtype}, expected float32 (a bf16 q is not ported)")
+    if q.dtype not in dtypes:
+        raise TypeError(f"q: dtype {q.dtype}, expected one of {dtypes}")
     if tuple(q.shape) != (B, H, 1, D):
         raise ValueError(f"q: expected {(B, H, 1, D)}, got {tuple(q.shape)}")
 
@@ -190,16 +192,17 @@ vpu_attn.launches = 0
 # --- 3./4. bd_decode, nt_decode --------------------------------------------
 
 
-def _fold_plain(q, k, v, lens, scale, block_k, round_q):
+def _fold_plain(q, k, v, lens, scale, block_k, round_q, round_k=False):
     """The reference's online softmax, block by block, with its rounding
     points: k [B, Hkv, cap, D] natural; bf16 K/V round p to bf16 for the
-    value product (and q for the score when ``round_q``)."""
+    value product (and q for the score when ``round_q``, K when
+    ``round_k``); the output has q's dtype."""
     B, H, _, D = q.shape
     Hkv, cap = k.shape[1], k.shape[2]
     group = H // Hkv
     bk = min(block_k, cap)
     bf16 = v.dtype == torch.bfloat16
-    qh = q[:, :, 0, :].reshape(B, Hkv, group, D)
+    qh = q[:, :, 0, :].reshape(B, Hkv, group, D).to(torch.float32)
     if round_q:
         qh = qh.to(torch.bfloat16).to(torch.float32)
     last = lens.to(torch.int64)[:, None, None, None]
@@ -207,7 +210,8 @@ def _fold_plain(q, k, v, lens, scale, block_k, round_q):
     l = torch.zeros_like(m)
     acc = torch.zeros((B, Hkv, group, D), dtype=torch.float32, device=q.device)
     for i in range(cap // bk):
-        kb = k[:, :, i * bk:(i + 1) * bk].to(torch.float32)
+        kb = k[:, :, i * bk:(i + 1) * bk]
+        kb = (kb.to(torch.bfloat16) if round_k else kb).to(torch.float32)
         vb = v[:, :, i * bk:(i + 1) * bk].to(torch.float32)
         s = torch.matmul(qh, kb.transpose(2, 3)) * scale
         col = i * bk + torch.arange(bk, device=q.device)
@@ -226,7 +230,8 @@ def _fold_plain(q, k, v, lens, scale, block_k, round_q):
 
 def bd_decode_plain(q, kt, v, lens, *, scale, block_k=256):
     """``bd_decode``'s function in plain PyTorch (K transposed back)."""
-    return _fold_plain(q, kt.transpose(2, 3), v, lens, scale, block_k, round_q=False)
+    return _fold_plain(q, kt.transpose(2, 3), v, lens, scale, block_k, round_q=False,
+                       round_k=q.dtype == torch.bfloat16)
 
 
 def nt_decode_plain(q, k, v, lens, *, scale, block_k=256):
@@ -245,7 +250,7 @@ def _check_fold(q, k, v, lens, transposed, block_k):
     if k.dtype != v.dtype or k.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"k/v: expected float32 or bfloat16 of one dtype, got {k.dtype}/{v.dtype}")
     H = q.shape[1] if q.dim() == 4 else 0
-    _check_q(q, B, H, D)
+    _check_q(q, B, H, D, (torch.float32, torch.bfloat16))
     if H % Hkv:
         raise ValueError(f"{H} query heads over {Hkv} kv heads: not a whole group")
     if D % 2 or D > 256:
@@ -266,17 +271,18 @@ def _fold(name, shape, q, k, v, lens, scale, transposed):
     smem = lib.rten_fold_attn_smem(D, bk)
     if smem > MAX_SMEM:
         raise ValueError(f"{name}: D {D}, key block {bk} need {smem} shared bytes > {MAX_SMEM}")
-    out = torch.empty((B, H, 1, D), dtype=torch.float32, device=dev)
-    _launch(lib.rten_fold_attn, int(k.dtype == torch.bfloat16), int(transposed), q.data_ptr(),
-            k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(), B, H, Hkv, cap, D, bk,
-            cap // bk, float(scale), torch.cuda.current_stream(dev).cuda_stream)
+    out = torch.empty((B, H, 1, D), dtype=q.dtype, device=dev)
+    _launch(lib.rten_fold_attn, int(k.dtype == torch.bfloat16), int(transposed),
+            int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            lens.data_ptr(), out.data_ptr(), B, H, Hkv, cap, D, bk, cap // bk, float(scale),
+            torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 
 def bd_decode(q, kt, v, lens, *, scale, block_k=256):
-    """q [B, H, 1, D] f32, kt [B, Hkv, D, cap] and v [B, Hkv, cap, D] (f32 or
-    bf16), lens [B] int32 -> [B, H, 1, D] f32. Any even D up to 256, any
-    group H / Hkv."""
+    """q [B, H, 1, D] f32 or bf16, kt [B, Hkv, D, cap] and v [B, Hkv, cap, D]
+    (f32 or bf16), lens [B] int32 -> [B, H, 1, D] in q's dtype. Any even D
+    up to 256, any group H / Hkv."""
     shape = _check_fold(q, kt, v, lens, True, block_k)
     if kernel_device(q, kt, v, lens) == "cpu":
         return bd_decode_plain(q, kt, v, lens, scale=scale, block_k=block_k)
@@ -309,7 +315,7 @@ def _lib():
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.rten_dma_floor.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, P]
         lib.rten_vpu_attn.argtypes = [P, P, P, P, P, I, I, I, I, F, P]
-        lib.rten_fold_attn.argtypes = [I, I, P, P, P, P, P, I, I, I, I, I, I, I, F, P]
+        lib.rten_fold_attn.argtypes = [I, I, I, P, P, P, P, P, I, I, I, I, I, I, I, F, P]
         lib.rten_fold_attn_smem.argtypes = [I, I]
         for fn in (lib.rten_dma_floor, lib.rten_vpu_attn, lib.rten_fold_attn,
                    lib.rten_fold_attn_smem):

@@ -120,6 +120,50 @@ def test_bd_nt_decode_match_jax(jt, H, Hkv, cap, bk, dt):
     assert torch.equal(tb.nt_decode(tq, tk, tv, tl, scale=scale, block_k=bk), got_nt)
 
 
+@pytest.mark.parametrize("H,Hkv,cap,bk", [(2, 2, 256, 128), (8, 2, 384, 256)])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_bd_nt_decode_bf16_q_match_jax(jt, H, Hkv, cap, bk, dt):
+    """A bf16 q: the reference's bd casts kt to q's dtype (f32 K rounds to
+    bf16 for the score), nt widens q against f32 K, and both return bf16.
+    Against the interpreted kernels at the bf16 rule (rtol 2e-2, atol 5e-3);
+    the plain versions' bf16 outputs are the f32 outputs of the same
+    arithmetic rounded once."""
+    import jax.numpy as jnp
+
+    D = 64
+    q, k, v, lens = _inputs(H * cap + bk + 1, 4, H, Hkv, cap, D, [-1, 0, cap // 2 + 7, cap - 1])
+    scale = 1.0 / np.sqrt(D)
+    kt = np.swapaxes(k, 2, 3)
+    jdt = jnp.float32 if dt == "f32" else jnp.bfloat16
+    tdt = torch.float32 if dt == "f32" else torch.bfloat16
+    jq = jnp.asarray(q, jnp.bfloat16)
+    jk, jkt, jv = (jnp.asarray(a, jdt) for a in (k, kt, v))
+    want_bd = jt.bd_decode(jq, jkt, jv, lens, scale=scale, block_k=bk, interpret=True)
+    want_nt = jt.nt_decode(jq, jk, jv, lens, scale=scale, block_k=bk, interpret=True)
+    assert want_bd.dtype == want_nt.dtype == jnp.bfloat16
+    tq, tk, tkt, tv, tl = _t(q, k, kt, v, lens)
+    tq = tq.to(torch.bfloat16)
+    tk, tkt, tv = tk.to(tdt), tkt.to(tdt), tv.to(tdt)
+    got_bd = tb.bd_decode_plain(tq, tkt, tv, tl, scale=scale, block_k=bk)
+    got_nt = tb.nt_decode_plain(tq, tk, tv, tl, scale=scale, block_k=bk)
+    assert got_bd.dtype == got_nt.dtype == torch.bfloat16
+    assert got_bd.shape == got_nt.shape == (4, H, 1, D)
+    for got, want in ((got_bd, want_bd), (got_nt, want_nt)):
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                                   rtol=2e-2, atol=5e-3)
+        assert not got[0].any()  # lens -1 -> 0
+    # f32 K: nt scores q against K as it is, bd against bf16(K).
+    q32 = tq.float()
+    if dt == "f32":
+        nt32 = tb.nt_decode_plain(q32, tk, tv, tl, scale=scale, block_k=bk)
+        assert torch.equal(got_nt, nt32.to(torch.bfloat16))
+        bd32 = tb.bd_decode_plain(q32, tkt.to(torch.bfloat16).float(), tv, tl, scale=scale,
+                                  block_k=bk)
+        assert torch.equal(got_bd, bd32.to(torch.bfloat16))
+    assert torch.equal(tb.bd_decode(tq, tkt, tv, tl, scale=scale, block_k=bk), got_bd)
+    assert torch.equal(tb.nt_decode(tq, tk, tv, tl, scale=scale, block_k=bk), got_nt)
+
+
 def _fold_args(H=4, Hkv=2, cap=64, D=32, dt=torch.float32, qdt=torch.float32, B=2):
     g = torch.Generator().manual_seed(0)
     q = torch.randn(B, H, 1, D, generator=g).to(qdt)
@@ -136,7 +180,7 @@ def _kt(args):
 REFUSALS = {
     "bd f16 K/V": (TypeError, lambda: tb.bd_decode(*_kt(_fold_args(dt=torch.float16)), scale=1.0)),
     "nt f16 K/V": (TypeError, lambda: tb.nt_decode(*_fold_args(dt=torch.float16), scale=1.0)),
-    "nt bf16 q": (TypeError, lambda: tb.nt_decode(*_fold_args(qdt=torch.bfloat16), scale=1.0)),
+    "nt f16 q": (TypeError, lambda: tb.nt_decode(*_fold_args(qdt=torch.float16), scale=1.0)),
     "nt K/V of two dtypes": (TypeError, lambda: tb.nt_decode(
         *(lambda a: (a[0], a[1], a[2].bfloat16(), a[3]))(_fold_args()), scale=1.0)),
     "nt group 3/2": (ValueError, lambda: tb.nt_decode(*_fold_args(H=3), scale=1.0)),

@@ -66,6 +66,12 @@ def test_int8_matmul_kernel(card, M, K, N, zp):
 
 
 def test_argmax_kernel(card):
+    """The split argmax against its plain version at a ragged slice and at
+    the three serve shapes ([120, 50257] through the padded lm_head's
+    stride 51200, [16, 32000], [16, 151936]), with ties straddling chunk
+    boundaries, the maximum in the first and last column, NaN rows (the
+    first NaN wins), an all -inf row (0), M 1, and two calls giving the
+    same bits."""
     g = _gen(1)
     full = torch.randn(37, 5000, generator=g)
     full[0, 3] = full[0, 4000] = 99.0   # tie: the lower index wins
@@ -77,6 +83,33 @@ def test_argmax_kernel(card):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert got[0].item() == 3 and got[2].item() == 4096
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for M, N, padded in ((120, 50257, 51200), (16, 32000, 32000), (16, 151936, 151936),
+                         (1, 50257, 50257), (1, 1000, 1003)):
+        full = torch.randn(M, padded, generator=_gen(N))
+        full[:, N:] = 1e9                           # past the slice: never read
+        chunks, L = targmax.chunk_plan(M, N, sms)
+        r = full[:, :N]
+        r[0, 0] = 50.0                              # the first column
+        r[M - 1, N - 1] = 60.0                      # the last column
+        if chunks > 2 and M > 4:
+            r[1, L - 1] = r[1, L] = 50.0            # a tie over a chunk boundary
+            r[2, 2 * L + 3] = r[2, (chunks - 1) * L] = 50.0  # two chunks apart
+            r[3, 7] = r[3, L + 7] = float("nan")    # two NaNs: the first wins
+            r[3, 3] = 1e30
+            r[4] = float("-inf")                    # all -inf: 0
+        x = full.to(card)[:, :N]
+        before = targmax.argmax_lastdim.launches
+        got = targmax.argmax_lastdim(x)
+        again = targmax.argmax_lastdim(x)
+        want = targmax.argmax_plain(x)
+        torch.cuda.synchronize()
+        assert targmax.argmax_lastdim.launches == before + 2
+        assert torch.equal(got, want) and torch.equal(got, again), (M, N)
+        assert got[M - 1].item() == N - 1
+        if chunks > 2 and M > 4:
+            assert got[1:5].tolist() == [L - 1, 2 * L + 3, 7, 0], (M, N)
+        assert torch.equal(got.cpu(), targmax.argmax_plain(full[:, :N])), (M, N)
 
 
 def _decode_inputs(card, B, H, Hkv, D, cap, lens, seed):
@@ -875,6 +908,46 @@ def test_decode_mha_kernel_kinds_and_head_dims(card, kv, H, Hkv, S, D, window):
     assert (got[~live] == 0).all()
 
 
+@pytest.mark.parametrize("kv", ["s8", "bf16", "int4", "f32"])
+@pytest.mark.parametrize("H,Hkv,S,D,window", [
+    (32, 4, 128, 64, 0),   # TinyLlama's admission
+    (32, 4, 100, 64, 24),  # a ragged 64-row tile, a window
+    (8, 2, 40, 80, 0),     # masked tails: D 80 (int4: 40-byte rows, element copies)
+    (8, 2, 70, 96, 16),
+    (12, 2, 65, 128, 0),   # Qwen's and Llama-3's D 128, group 6
+    (4, 4, 33, 128, 20),
+    (8, 1, 24, 256, 0),    # D 256: the CUDA-core form
+])
+def test_decode_mha_heads_forms(card, kv, H, Hkv, S, D, window):
+    """The per-head form: on tensor cores for s8, bf16 and int4 caches at
+    D <= 128, on CUDA cores for f32 caches and D 256 (heads_form), against
+    decode_mha_plain within 1e-4 on rows with a column to attend, 0 on the
+    others, the same bits twice. lens: 0, mid-cache, the last row, past cap
+    (a window then leaves the row no column), and the chunk's clamp."""
+    cap, B = 256, 6
+    lens = torch.tensor([0, 37, cap - 1, cap + 40, cap - S, 5], dtype=torch.int32,
+                        device=card)
+    g = _gen(H * S + D + len(kv))
+    q = torch.randn(B, H, S, D, generator=g).to(card)
+    k, v, ks, vs = _caches(card, g, kv, B, Hkv, cap, D)
+    form = tfa.heads_form(k.dtype, D)
+    assert form == ("tensor_core" if kv != "f32" and D <= 128 else "cuda_core")
+    before = (tfa.decode_mha_heads.launches, tfa.decode_mha_heads.cuda_core_launches)
+    got = tfa.decode_mha_heads(q, k, v, lens, ks, vs, window=window)
+    again = tfa.decode_mha_heads(q, k, v, lens, ks, vs, window=window)
+    want = tfa.decode_mha_plain(q, k, v, lens, ks, vs, window=window)
+    torch.cuda.synchronize()
+    core = 2 if form == "cuda_core" else 0
+    assert (tfa.decode_mha_heads.launches, tfa.decode_mha_heads.cuda_core_launches) == (
+        before[0] + 2, before[1] + core)
+    assert got.shape == (B, H, S, D) and torch.equal(got, again)
+    qpos = lens.long()[:, None] + torch.arange(S, device=card)[None]
+    live = (qpos - window < cap - 1) if window else torch.ones_like(qpos, dtype=torch.bool)
+    live = live[:, None, :, None].expand_as(got)
+    assert (got - want)[live].abs().max().item() <= 1e-4
+    assert (got[~live] == 0).all() and torch.isfinite(got).all()
+
+
 @pytest.mark.parametrize("kv", ["int4", "s8", "f32", "bf16"])
 @pytest.mark.parametrize("rdt", ["f32", "bf16"])
 @pytest.mark.parametrize("H,Hkv,D,W,t", [(32, 4, 64, 8, 3), (12, 12, 64, 64, 63),
@@ -1190,6 +1263,35 @@ def test_bd_nt_decode_kernel(card, form, dt, B, H, Hkv, cap, D, bk):
     want = plain(q, kx, v, lens, scale=scale, block_k=bk)
     rtol, atol = (0.0, 1e-5) if dt == torch.float32 else (2e-2, 5e-3)
     assert _within(got, want, rtol, atol), (got.float() - want).abs().max().item()
+    assert not got[0].any()
+
+
+@pytest.mark.parametrize("form", ["bd", "nt"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,cap,D,bk", [
+    (32, 12, 12, 256, 64, 256),   # the tool's shape
+    (16, 32, 4, 256, 64, 256),    # TinyLlama's attention (group 8)
+    (3, 20, 2, 200, 80, 64),      # group 10, D 80, ragged tiles
+])
+def test_bd_nt_decode_kernel_bf16_q(card, form, dt, B, H, Hkv, cap, D, bk):
+    """A bf16 q gives a bf16 output: against the plain version, f32 K/V
+    within one bf16 rounding of the output (rtol 2^-7, atol 1e-5), bf16 K/V
+    at the bf16 rule (rtol 2e-2, atol 5e-3); lens -1 gives 0."""
+    q, k, v, lens = _tool_inputs(card, B, H, Hkv, cap, D, B * H + cap + 1)
+    q, k, v = q.to(torch.bfloat16), k.to(dt), v.to(dt)
+    scale = 1.0 / np.sqrt(D)
+    kern, plain = ((tbda.bd_decode, tbda.bd_decode_plain) if form == "bd"
+                   else (tbda.nt_decode, tbda.nt_decode_plain))
+    kx = k.transpose(2, 3).contiguous() if form == "bd" else k
+    before = kern.launches
+    got = kern(q, kx, v, lens, scale=scale, block_k=bk)
+    again = kern(q, kx, v, lens, scale=scale, block_k=bk)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 2 and got.shape == (B, H, 1, D)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    want = plain(q, kx, v, lens, scale=scale, block_k=bk)
+    rtol, atol = (2.0 ** -7, 1e-5) if dt == torch.float32 else (2e-2, 5e-3)
+    assert _within(got, want, rtol, atol), (got.float() - want.float()).abs().max().item()
     assert not got[0].any()
 
 
