@@ -144,15 +144,22 @@ def device_events(prof):
                 if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
 
 
+PROFILE_ATTEMPTS = 5  # profiled windows a timing may take before it fails
+
+
 def timed(fn, iters: int = 20, warmup: int = 3):
     """Mean milliseconds of one fn() over iters, two ways: (device, wall).
 
     device: the summed duration of every kernel (and copy) that fn()
     launched on the card, from torch.profiler; the host's time between
-    launches is left out. wall: CUDA events around iters back-to-back
+    launches is left out (checked against one profiled call's count of
+    device events). wall: CUDA events around iters back-to-back
     calls; where the card finishes a call before the host has launched the
     next, this is the host's launch rate, not the kernel's time. Where the
-    profiler records no device time, device is None."""
+    profiler records no device time, device is None. The profiler has
+    dropped events of a window before: a window with fewer than iters
+    times one call's events is profiled again, and the run fails if every
+    attempt falls short."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -166,11 +173,24 @@ def timed(fn, iters: int = 20, warmup: int = 3):
     t1.record()
     torch.cuda.synchronize()
     wall = t0.elapsed_time(t1) / iters
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
+    # One call's device events, then iters calls'.
+    for attempt in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CUDA]) as one:
             fn()
-        torch.cuda.synchronize()
-    busy = sum(t for _, _, t in device_events(prof))
+            torch.cuda.synchronize()
+        per_call = sum(c for _, c, _ in device_events(one))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = device_events(prof)
+        busy, count = sum(t for _, _, t in events), sum(c for _, c, _ in events)
+        if count == 0 or count >= per_call * iters:
+            break
+        print(f"  (the profiler recorded {count} of {per_call * iters} device events: "
+              f"profiling again)", flush=True)
+    else:
+        fail(f"the profiler dropped device events in {PROFILE_ATTEMPTS} windows running")
     return (busy / iters / 1e3 if busy > 0 else None), wall
 
 
@@ -195,6 +215,16 @@ def time_keys(kernel, plain, library, scale: float = 1.0):
 def bound_ms(nbytes: float, ops: float, peak_ops: float):
     tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak_ops * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def split_plan(B, Hkv, cap):
+    """(splits, chunk) of a split decode-attention call at this shape on this
+    card (kernels/flash_attention.py, decode_split_plan, as the wrappers
+    run it)."""
+    from rten_tpu_torch.kernels.common import sm_count
+    from rten_tpu_torch.kernels.flash_attention import decode_split_plan
+
+    return decode_split_plan(B * Hkv, cap, sm_count(0))
 
 
 def attn_peak(kv) -> float:
@@ -367,11 +397,12 @@ def phase_decode_attention(gen, dev):
                       + 2 * read * H * (D + 4) + 2 * B * H * (D + 4))
     per_call_ops = 4.0 * (read + B) * H * D
     bms, by = bound_ms(12 * per_call_bytes, 12 * per_call_ops, attn_peak("s8"))
-    print(f"  decode_mha_append_cat x12: kernel {fmt(k_ms)}, plain {fmt(p_ms)}, "
-          f"sdpa {fmt(lib)}, bound {bms:.4f} ms ({by})", flush=True)
-    return {
+    splits = split_plan(B, H, CAP)
+    print(f"  decode_mha_append_cat x12 (splits {splits[0]} of {splits[1]} columns): kernel "
+          f"{fmt(k_ms)}, plain {fmt(p_ms)}, sdpa {fmt(lib)}, bound {bms:.4f} ms ({by})", flush=True)
+    return {"splits": splits[0],
         "name": "decode_mha_append_cat", "route": "cuda", "kv": "s8",
-        "source": "rten_tpu_torch/csrc/flash_attention.cu",
+        "source": "rten_tpu_torch/csrc/decode_append.cu",
         "replaces": "rten_tpu/kernels/flash_attention.py:2597",
         "unit": "one decode step at slots 120, cap 256: 12 calls (one per layer)",
         "max_abs_err": err, **time_keys(k_ms, p_ms, lib), "bound_ms": bms, "bound_by": by,
@@ -665,10 +696,11 @@ def phase_paged_decode_mha(gen, dev, kv="s8"):
     row_bytes = L_D + 4 if kv == "s8" else L_D * FLOAT_KV[kv].itemsize
     nbytes = 2 * 4 * B * L_H * L_D + 4 * B + 4 * B * MAXB + 2 * rows * L_HKV * row_bytes
     bms, by = bound_ms(L_LAYERS * nbytes, L_LAYERS * 4.0 * rows * L_H * L_D, attn_peak(kv))
-    print(f"  paged_decode_mha {kv} x{L_LAYERS}: kernel {fmt(k_ms)}, plain {fmt(p_ms)}, flat fold "
-          f"on gathered caches {fmt(f_ms)}, sdpa {fmt(lib)}, bound {bms:.4f} ms ({by})",
-          flush=True)
-    return {
+    splits = split_plan(B, L_HKV, CAP)
+    print(f"  paged_decode_mha {kv} x{L_LAYERS} (splits {splits[0]} of {splits[1]} columns): "
+          f"kernel {fmt(k_ms)}, plain {fmt(p_ms)}, flat fold on gathered caches {fmt(f_ms)}, "
+          f"sdpa {fmt(lib)}, bound {bms:.4f} ms ({by})", flush=True)
+    return {"splits": splits[0],
         "name": "paged_decode_mha" + ("" if kv == "s8" else f"[{kv}]"), "kv": kv,
         "counter": "paged_decode_mha",
         "source": f"rten_tpu_torch/csrc/paged_decode_mha{'_bf16' * (kv == 'bf16')}.cu",
@@ -762,14 +794,14 @@ def phase_paged_append(gen, dev, kv="s8"):
     per_call_bytes = (4 * B * H * D * 2 + 4 * B * H * D * 2 + 4 * B + 4 * B * MAXB
                       + 2 * read * H * row_bytes + 2 * B * H * row_bytes)
     bms, by = bound_ms(12 * per_call_bytes, 12 * 4.0 * read * H * D, attn_peak(kv))
-    print(f"  {tag} x12: kernel {fmt(k_ms)}, plain {fmt(p_ms)}, sdpa {fmt(lib)}, "
-          f"bound {bms:.4f} ms ({by})", flush=True)
-    return {
+    splits = split_plan(B, H, CAP)
+    print(f"  {tag} x12 (splits {splits[0]} of {splits[1]} columns): kernel {fmt(k_ms)}, plain "
+          f"{fmt(p_ms)}, sdpa {fmt(lib)}, bound {bms:.4f} ms ({by})", flush=True)
+    return {"splits": splits[0],
         "name": "decode_mha_append_cat_paged" + ("" if kv == "s8" else f"[{kv}]"), "kv": kv,
         "counter": "decode_mha_append_cat_paged",
-        "source": "rten_tpu_torch/csrc/flash_attention.cu" + (
-            "" if kv == "s8" else
-            f" (write) and rten_tpu_torch/csrc/paged_decode_mha{'_bf16' * (kv == 'bf16')}.cu (attend)"),
+        "source": ("rten_tpu_torch/csrc/flash_attention.cu (write) and rten_tpu_torch/csrc/"
+                   f"paged_decode_mha{'_bf16' * (kv == 'bf16')}.cu (attend)"),
         "replaces": "rten_tpu/kernels/flash_attention.py:2597",
         "unit": (f"block_table= mode: one GPT-2 decode step at slots {B}, cap {CAP}, {kv} "
                  f"pools of {NB} blocks of {BLOCK}: 12 calls (one per layer), two launches each"),
@@ -853,10 +885,13 @@ def _append_case(gen, dev, dt, B, Hq, Hkv, Dh, layers, tag):
     nbytes = (4 * B * Hq * Dh * 2 + 4 * B * Hkv * Dh * 2 + 4 * B
               + 2 * read * Hkv * Dh * el + 2 * B * Hkv * Dh * el)
     bms, by = bound_ms(layers * nbytes, layers * 4.0 * (read + B) * Hq * Dh, attn_peak(dt))
-    print(f"  decode_mha_append_cat [{tag}] x{layers}: max abs err {err:.3e} (bound 1e-4), "
-          f"rows bit-exact, two calls bit-identical; kernel {fmt(k_ms)}, plain {fmt(p_ms)}, "
-          f"sdpa {fmt(lib)}, bound {bms:.4f} ms ({by})", flush=True)
+    splits = split_plan(B, Hkv, CAP)
+    print(f"  decode_mha_append_cat [{tag}] x{layers} (splits {splits[0]} of {splits[1]} "
+          f"columns): max abs err {err:.3e} (bound 1e-4), rows bit-exact, two calls "
+          f"bit-identical; kernel {fmt(k_ms)}, plain {fmt(p_ms)}, sdpa {fmt(lib)}, bound "
+          f"{bms:.4f} ms ({by})", flush=True)
     return {"unit": f"{tag}: {layers} calls (one per layer)", "max_abs_err": err,
+            "splits": splits[0],
             **time_keys(k_ms, p_ms, lib), "bound_ms": bms, "bound_by": by}
 
 
@@ -976,7 +1011,7 @@ def phase_float_kv_kernels(gen, dev):
         ("bf16", (Q_SLOTS, Q_H, Q_HKV, Q_D, Q_LAYERS), qwen))]
     rows.append({"name": "decode_mha_append_cat[bf16]", "kv": "bf16",
                  "counter": "decode_mha_append_cat",
-                 "source": "rten_tpu_torch/csrc/flash_attention.cu",
+                 "source": "rten_tpu_torch/csrc/decode_append_bf16.cu (f32: decode_append_f32.cu)",
                  "replaces": "rten_tpu/kernels/flash_attention.py:2597", **cases[0],
                  "max_abs_err": max(c["max_abs_err"] for c in cases),
                  "library_call": "scaled_dot_product_attention (enable_gqa where grouped) on "
@@ -1249,10 +1284,13 @@ def _append_hm_case(gen, dev, kv, B, Hq, Hkv, Dh, layers, tag):
     nbytes = (4 * B * Hq * Dh * 2 + 4 * B * Hkv * Dh * 2 + 4 * B + 2 * read * Hkv * rb
               + 2 * B * Hkv * rb)
     bms, by = bound_ms(layers * nbytes, layers * 4.0 * (read + B) * Hq * Dh, attn_peak(kv))
-    print(f"  decode_mha_append [{tag}] x{layers}: max abs err {err:.3e} (bound 1e-4), rows "
-          f"bit-exact, scales within {ulps} ULP; kernel {fmt(k_ms)}, plain {fmt(p_ms)}, sdpa "
-          f"{fmt(lib)}, bound {bms:.4f} ms ({by})", flush=True)
+    splits = split_plan(B, Hkv, CAP)
+    print(f"  decode_mha_append [{tag}] x{layers} (splits {splits[0]} of {splits[1]} columns): "
+          f"max abs err {err:.3e} (bound 1e-4), rows bit-exact, scales within {ulps} ULP; "
+          f"kernel {fmt(k_ms)}, plain {fmt(p_ms)}, sdpa {fmt(lib)}, bound {bms:.4f} ms ({by})",
+          flush=True)
     return err, {"unit": f"{tag}: {layers} calls (one per layer)", "max_abs_err": err,
+                 "splits": splits[0],
                  **time_keys(k_ms, p_ms, lib), "bound_ms": bms, "bound_by": by}
 
 
@@ -1299,7 +1337,8 @@ def phase_int4_deferred_kernels(gen, dev):
     appends = [_append_hm_case(gen, dev, kv, L_SLOTS, L_H, L_HKV, L_D, L_LAYERS, f"{kv}, {tiny}")
                for kv in ("s8", "f32", "bf16")]
     rows.append({"name": "decode_mha_append", "kv": "head-major append",
-                 "source": "rten_tpu_torch/csrc/flash_attention.cu",
+                 "source": "rten_tpu_torch/csrc/decode_append.cu (f32, bf16: decode_append_f32.cu, "
+                           "decode_append_bf16.cu)",
                  "replaces": "rten_tpu/kernels/flash_attention.py:1442", **appends[0][1],
                  "max_abs_err": max(e for e, _ in appends),
                  "library_call": "scaled_dot_product_attention(enable_gqa=True) on the "
@@ -1775,26 +1814,44 @@ def phase_decode_attn_tool(dev):
                      "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
                      "other_shapes": {k: c for k, c in cases.items() if k != "f32"}})
     # A bf16 q (the output bf16): each of bd/nt against its plain version on
-    # f32 and bf16 K/V at the tool's shape, not timed.
+    # f32 and bf16 K/V at the tool's shape, then the kernel's time, the plain
+    # version's and SDPA's on the same bf16 q and K/V, beside the byte bound.
     q, k, v, lens = _tool_inputs(dev, **TOOL)
-    scale = 1.0 / float(np.sqrt(q.shape[3]))
+    B, Hq, _, Dh = q.shape
+    scale = 1.0 / float(np.sqrt(Dh))
+    rows_read = (lens.long().clamp(max=TOOL["cap"] - 1) + 1).clamp(min=0).sum().item()
+    mask = (torch.arange(TOOL["cap"], device=dev)[None, :]
+            <= lens.long().clamp(max=TOOL["cap"] - 1)[:, None])[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     for row, (kern, plain) in zip(rows[2:], ((tb.bd_decode, tb.bd_decode_plain),
                                              (tb.nt_decode, tb.nt_decode_plain))):
-        errs = {}
+        errs, times = {}, {}
         for dt, (rtol, atol) in ((torch.float32, (2.0 ** -7, 1e-5)),
                                  (torch.bfloat16, (2e-2, 5e-3))):
+            tag = str(dt).split(".")[1]
             kk = k.to(dt).transpose(2, 3).contiguous() if kern is tb.bd_decode else k.to(dt)
             args = (q.to(torch.bfloat16), kk, v.to(dt), lens)
             got = kern(*args, scale=scale)
             want = plain(*args, scale=scale)
             torch.cuda.synchronize()
-            errs[str(dt).split(".")[1]] = (got.float() - want.float()).abs().max().item()
+            errs[tag] = (got.float() - want.float()).abs().max().item()
             if got.dtype != torch.bfloat16 or not _excess(got, want, rtol, atol) <= 0:
                 fail(f"{row['name']} with a bf16 q on {dt} K/V: {got.dtype}, max err "
-                     f"{errs[str(dt).split('.')[1]]} beyond rtol {rtol}, atol {atol}")
-        print(f"  {row['name']} [bf16 q, bf16 out, tool shape]: max abs err by K/V dtype "
-              f"{json.dumps(errs)}", flush=True)
+                     f"{errs[tag]} beyond rtol {rtol}, atol {atol}")
+            k_ms = timed(lambda: kern(*args, scale=scale), iters=20)
+            p_ms = timed(lambda: plain(*args, scale=scale), iters=5, warmup=1)
+            # SDPA takes one dtype: the K/V in the query's bf16.
+            kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)
+            l_ms = timed(lambda: sdpa(args[0], kb, vb, attn_mask=mask), iters=20)
+            es = 2 if dt == torch.bfloat16 else 4
+            nbytes = B * Hq * Dh * 2 * 2 + 4 * B + 2 * rows_read * k.shape[1] * Dh * es
+            bms, by = bound_ms(nbytes, 4.0 * rows_read * Hq * Dh, BF16_FLOPS_PER_S)
+            times[tag] = {**time_keys(k_ms, p_ms, l_ms), "bound_ms": bms, "bound_by": by}
+            print(f"  {row['name']} [bf16 q, bf16 out, tool shape, {tag} K/V]: kernel "
+                  f"{fmt(k_ms)}, plain {fmt(p_ms)}, sdpa on bf16 K/V {fmt(l_ms)}, bound "
+                  f"{bms:.4f} ms ({by}), max err {errs[tag]:.3e}", flush=True)
         row["bf16_q_max_abs_err"] = errs
+        row["bf16_q"] = times
     print("  the tool (python3 -m rten_tpu_torch.tools.bench_decode_attn, in-process):",
           flush=True)
     for fn in tb.KERNELS:
@@ -2902,8 +2959,8 @@ def phase_sanitizer(out_dir):
     if not os.path.exists(tool):
         print(f"  sanitizer: {tool} not found (not run)", flush=True)
         return {"racecheck": "not found", "memcheck": "not found"}
-    ours = ("decode_mha_fold_kernel", "decode_mha_heads_kernel", "decode_append_kernel",
-            "append_cat_write_kernel", "prefill_cat_kernel", "mha_kernel")
+    ours = ("decode_mha_fold_kernel", "decode_mha_heads_kernel", "append_cat_write_kernel",
+            "prefill_cat_kernel", "mha_kernel")
     code = f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; chip_smoke.sanitizer_target()"
     # One tiny launch first: a tool that refuses the card says so before
     # the reference spends its time building the model.

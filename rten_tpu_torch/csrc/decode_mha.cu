@@ -38,9 +38,12 @@
 //    128-thread block per (slot, kv head) holds the group * S query rows
 //    that share the head and reads each K/V row once for all of them (at
 //    TinyLlama's 32 / 4 heads, eight rows read one stream); four warps
-//    split the 32-key tiles of the live range. With 64 blocks at slots 16
-//    the card is far from full and a call is latency-bound; split-K across
-//    blocks is later work.
+//    split the 32-key tiles of the live range, each streaming its tile's
+//    V rows into shared memory while it scores the K rows. This form keeps
+//    one block per (slot, kv head): the fold's split over several blocks
+//    (decode_fold.cuh's SPLIT instances, which the paged fold and the
+//    append run) is not used here yet, so at slots 16 the card is far from
+//    full and a call is latency-bound.
 //
 // 2. The per-head form replaces rten_tpu/kernels/flash_attention.py:935
 //    decode_mha (the per-(slot, head, key block) pallas_call for larger S).
@@ -71,9 +74,8 @@
 // In the fold and the CUDA-core per-head form, bf16 values widen to f32
 // exactly as they are loaded (8 a 16-byte load in the fold, one a thread in
 // the per-head tile fill), int4 codes as they are unpacked (nibble - 8);
-// every product and sum is f32. The fold's split-K across blocks is later
-// work. Built without --use_fast_math (IEEE expf and division), like the
-// other kernels of the port.
+// every product and sum is f32. Built without --use_fast_math (IEEE expf
+// and division), like the other kernels of the port.
 
 #include "decode_mha.cuh"
 

@@ -193,19 +193,19 @@ __global__ void __launch_bounds__(128) decode_mha_heads_kernel(
       scale
 
 template <typename T, int DP, int RR, bool WIN, bool EXACT>
-void launch_fold(RTEN_DECODE_MHA_PARAMS) {
+cudaError_t launch_fold(RTEN_DECODE_MHA_PARAMS) {
   const RecentWindow rw{rk, rv, r_sb, r_sh, r_sj, W, wbf16, wvec, (const int32_t*)t,
                         (const float*)kn, (const float*)vn, n_sb, n_sh};
-  decode_mha_fold_kernel<DP, T, RR, false, WIN, EXACT>
-      <<<dim3(B, Hkv), FOLD_WARPS * 32, 0, (cudaStream_t)stream>>>(
-          RTEN_KV_ARGS(T), nullptr, 0, 0, RTEN_OUT_ARGS, vec, rw);
+  return launch_fold_kernel<DP, T, RR, false, WIN, EXACT, false, false>(
+      dim3(B, Hkv), (cudaStream_t)stream, RTEN_KV_ARGS(T), nullptr, 0, 0, RTEN_OUT_ARGS, vec, rw,
+      SplitArgs{}, AppendArgs{});
 }
 
 template <typename T, int DP, bool WIN, bool EXACT>
-void launch_fold_rows(int rows, RTEN_DECODE_MHA_PARAMS) {
-  if (rows == 1) launch_fold<T, DP, 1, WIN, EXACT>(RTEN_DECODE_MHA_NAMES);
-  else if (rows <= 8) launch_fold<T, DP, 8, WIN, EXACT>(RTEN_DECODE_MHA_NAMES);
-  else launch_fold<T, DP, 16, WIN, EXACT>(RTEN_DECODE_MHA_NAMES);
+cudaError_t launch_fold_rows(int rows, RTEN_DECODE_MHA_PARAMS) {
+  if (rows == 1) return launch_fold<T, DP, 1, WIN, EXACT>(RTEN_DECODE_MHA_NAMES);
+  if (rows <= 8) return launch_fold<T, DP, 8, WIN, EXACT>(RTEN_DECODE_MHA_NAMES);
+  return launch_fold<T, DP, 16, WIN, EXACT>(RTEN_DECODE_MHA_NAMES);
 }
 
 // The fold at head-dim instance DP: group * S rows up to FoldRows<DP>
@@ -219,20 +219,21 @@ int launch_decode_mha_folded(RTEN_DECODE_MHA_PARAMS) {
   const int rows = (H / Hkv) * S;
   if (rows < 1 || rows > FoldRows<DP>::value || rten_dp_of(D) != DP)
     return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSuccess;
   if (DP <= 128 && W == 0 && D == DP) {
     if constexpr (DP <= 128 && RTEN_FOLD_FAST)
-      launch_fold_rows<T, DP, false, true>(rows, RTEN_DECODE_MHA_NAMES);
+      e = launch_fold_rows<T, DP, false, true>(rows, RTEN_DECODE_MHA_NAMES);
     else
       return (int)cudaErrorInvalidValue;
   } else if constexpr (RTEN_FOLD_GENERAL) {
     if constexpr (DP <= 128)
-      launch_fold_rows<T, DP, true, false>(rows, RTEN_DECODE_MHA_NAMES);
+      e = launch_fold_rows<T, DP, true, false>(rows, RTEN_DECODE_MHA_NAMES);
     else
-      launch_fold<T, DP, FoldRows<DP>::value, true, false>(RTEN_DECODE_MHA_NAMES);
+      e = launch_fold<T, DP, FoldRows<DP>::value, true, false>(RTEN_DECODE_MHA_NAMES);
   } else {
     return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  return rten_launch_error(e);
 }
 
 template <typename T, int DP>

@@ -20,22 +20,27 @@
 // (2 * (min(lens, cap - 1) + 1) * Hkv * (D + 4) bytes per slot with s8
 // rows and their scales) and does 4 * group flops per byte of an s8 row.
 //
-// Design: decode_mha's fold (decode_fold.cuh) with table addressing. One
-// 128-thread block per (slot, kv head) reads each live K/V row once for
-// the group's query rows; the block reads the table itself: each lane
-// resolves the table entry of the key it scores (16-byte K loads from the
-// pool row), and the P.V loop takes each key's row offset from the lane
-// that resolved it by a shuffle. Dead blocks past the slot's last live
-// column are never read, so their table entries may be 0 (the garbage
-// sink). Rows of one pool block are contiguous in the head-major pool, so
-// a warp's 32 keys touch at most two blocks when BS >= 32; a table entry
-// per row covers any BS (a multiple of 8 is all the builders guarantee).
+// Design: decode_mha's fold (decode_fold.cuh) with table addressing and
+// split-K. A call at 16 slots has 64 (slot, kv head) units, too few for
+// 132 SMs, so each unit's columns are cut into chunks
+// (kernels/flash_attention.py, decode_split_plan: 4 of 64 at TinyLlama's
+// shape), one 128-thread block each, and the last block of a unit merges
+// the chunks' softmax states in chunk order. A block reads each live K/V
+// row of its chunk once for the group's query rows and reads the table
+// itself: each lane resolves the table entry of the key it scores (16-byte
+// K loads from the pool row), and the V stage takes each key's row offset
+// from the lane that resolved it by a shuffle. A block resolves only its
+// own chunk's entries, and entries past the slot's last live column are
+// never read, so they may be 0 (the garbage sink). Rows of one pool block
+// are contiguous in the head-major pool, so a warp's 32 keys touch at most
+// two blocks when BS >= 32; a table entry per row covers any BS (a
+// multiple of 8 is all the model graphs guarantee).
 // Head dims: the fold's instances DP = 64, 128, 256 (group up to 8) and 512
 // (group up to 4); any even D runs in the smallest that holds it.
 // Its own source, so that nvcc builds it in parallel with decode_mha.cu.
 // The pools' strides are arguments, so the block-table append
-// (flash_attention.cu) attends its f32/bf16 cat-layout pools [NB, BS,
-// Hkv*D] through this entry point too (rows of Hkv * D, heads D apart).
+// (flash_attention.cu) attends its cat-layout pools [NB, BS, Hkv*D]
+// through this entry point too (rows of Hkv * D, heads D apart).
 
 #include "decode_fold.cuh"
 

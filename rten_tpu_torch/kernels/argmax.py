@@ -20,13 +20,12 @@ launches the kernel or raises — it never falls back.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Dict, Tuple
 
 import torch
 
 from ._build import load_library
-from .common import kernel_device
+from .common import kernel_device, sm_count
 
 BLOCKS_PER_SM = 3      # blocks a call aims to put on each SM
 MIN_CHUNK_COLS = 4096  # columns a block reads at least (one pass of 256 threads, 4 vectors each)
@@ -87,7 +86,7 @@ def argmax_lastdim(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((M,), dtype=torch.int32, device=x.device)
     if M == 0:
         return out
-    chunks, length = chunk_plan(M, N, _sm_count(x.device.index))
+    chunks, length = chunk_plan(M, N, sm_count(x.device.index))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     count, part = _workspace(x.device, stream, M, M * chunks)
     err = _lib().rten_argmax_rows(
@@ -101,11 +100,6 @@ def argmax_lastdim(x: torch.Tensor) -> torch.Tensor:
 
 
 argmax_lastdim.launches = 0
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index):
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _lib():

@@ -4,6 +4,8 @@ the CUDA kernels mask ragged tiles instead of padding operands)."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -45,3 +47,10 @@ def kernel_device(*tensors: torch.Tensor) -> str:
             raise ValueError("kernel inputs lie on different CUDA devices")
         return "cuda"
     raise ValueError(f"kernel inputs on unsupported devices: {sorted(types)}")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index) -> int:
+    """The streaming multiprocessors of CUDA device ``index`` (the kernels'
+    split plans size their grids to it)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -1,6 +1,7 @@
-"""Attention: the wrappers of the CUDA kernels in ``csrc/flash_attention.cu``,
-``csrc/decode_mha*.cu`` (one library per cache type, int4's deferred folds
-apart, and D 129-512), ``csrc/paged_decode_mha*.cu`` (one per pool type)
+"""Attention: the wrappers of the CUDA kernels in ``csrc/decode_append*.cu``
+and ``csrc/flash_attention.cu`` (the append), ``csrc/decode_mha*.cu`` (one
+library per cache type, int4's deferred folds apart, and D 129-512),
+``csrc/paged_decode_mha*.cu`` (one per pool type), ``csrc/prefill_cat.cu``
 and ``csrc/mha.cu``, and their plain PyTorch versions.
 
 * ``mha`` (``csrc/mha.cu``) replaces
@@ -22,7 +23,7 @@ and ``csrc/mha.cu``, and their plain PyTorch versions.
 * ``decode_mha_append`` replaces
   ``rten_tpu/kernels/flash_attention.py:decode_mha_append``: the in-kernel
   append of ``decode_mha_append_cat`` on head-major caches (the same CUDA
-  kernel, addressed through strides).
+  kernel, ``csrc/decode_append*.cu``, addressed through strides).
 * ``decode_mha_append_cat`` replaces
   ``rten_tpu/kernels/flash_attention.py:decode_mha_append_cat``: one decode
   step that writes the new K/V row in place at row ``min(lens[b], cap -
@@ -38,6 +39,15 @@ and ``csrc/mha.cu``, and their plain PyTorch versions.
   over head-major block pools ``[NB, Hkv, BS, D]`` (s8, f32 or bf16) through
   a block table;
   ``paged_attention`` routes paged attention by shape.
+
+Split-K: ``paged_decode_mha``, the block-table append's attention and the
+flat append (``csrc/decode_append*.cu``) cut each (slot, kv head)'s
+columns into chunks, one block each (``decode_split_plan``, from the shapes
+alone), so that a decode step at 16 slots fills the card, and fold the
+group's query rows into the block; the last block of a (slot, kv head) merges the
+chunks' softmax states in chunk order. The states and the arrival counters
+live in a workspace kept per device and stream and grown as needed
+(``_split_workspace``). The wrappers read nothing back from the card.
 
 The cat-layout caches are ``[B, cap, Hkv*D]``: s8 with scales ``[B, Hkv,
 cap, 1]`` f32 (the engine's canonical shape), or f32 or bf16 with no
@@ -74,13 +84,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ._build import load_library
-from .common import check_cuda_tensor, kernel_device
+from .common import check_cuda_tensor, kernel_device, sm_count
 
 NEG_INF = -1e30
 
@@ -438,6 +448,60 @@ def _paged_gather(pool_k, pool_v, pool_ks, pool_vs, bt):
     return paged_gather_kv(pool_k, bt), paged_gather_kv(pool_v, bt), ks, vs
 
 
+SMS = 132          # the H100's SMs: the split plan's target
+SPLIT_TILE = 32    # keys a warp scores at once (csrc/decode_fold.cuh, fold_tile)
+SPLIT_WARPS = 4    # warps of a split block, taking its chunk's tiles in turn
+MAX_SPLITS = 64    # csrc/decode_fold.cuh, FOLD_MAX_SPLITS
+
+
+def decode_split_plan(units: int, cap: int, sms: int = SMS) -> Tuple[int, int]:
+    """(splits, chunk): a decode-attention call of ``units`` (slot, kv head)
+    pairs over ``cap`` columns cuts each pair's columns [0, cap) into
+    ``splits`` chunks of ``chunk`` columns, a multiple of the 32-key tile
+    (the last chunk may be shorter, none is empty), one block of
+    SPLIT_WARPS warps each, the warps taking the chunk's tiles in turn. The
+    chunks are as long as lets units * splits blocks give each of ``sms``
+    SMs one, at most MAX_SPLITS of them; where the units alone fill the
+    card, one split. Shapes only: the kernels read lens on the card. 8
+    chunks of 32 at Qwen2.5-1.5B's 16 x 2 and cap 256 (256 blocks), 4 of
+    64 at TinyLlama's 16 x 4, one at GPT-2's 120 x 12."""
+    tiles = max(1, -(-cap // SPLIT_TILE))
+    want = -(-sms // max(units, 1))  # splits for one block an SM
+    per = max(1, tiles // want, -(-tiles // MAX_SPLITS))  # tiles a chunk
+    return -(-tiles // per), per * SPLIT_TILE
+
+
+# (device index, stream) -> (counters int32, states float32)
+_split_ws: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _split_workspace(device, stream: int, units: int, floats: int):
+    """The arrival counters (all 0 between calls: each call's last blocks
+    reset theirs) and the state storage of this device and stream, grown to
+    ``units`` counters and ``floats`` floats. Kernels on one stream run in
+    order, so one workspace serves every call made on it."""
+    key = (device.index, stream)
+    count, ws = _split_ws.get(key, (None, None))
+    if count is None or count.numel() < units:
+        count = torch.zeros(max(units, 2 * (0 if count is None else count.numel())),
+                            dtype=torch.int32, device=device)
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(max(floats, 2 * (0 if ws is None else ws.numel())),
+                         dtype=torch.float32, device=device)
+    _split_ws[key] = (count, ws)
+    return count, ws
+
+
+def _split_args(device, stream: int, B: int, H: int, Hkv: int, D: int, cap: int):
+    """(splits, chunk, workspace pointer, counters pointer) of a call; no
+    workspace with one split."""
+    splits, chunk = decode_split_plan(B * Hkv, cap, sm_count(device.index))
+    if splits == 1:
+        return splits, chunk, None, None
+    count, ws = _split_workspace(device, stream, B * Hkv, B * H * splits * (D + 2))
+    return splits, chunk, ws.data_ptr(), count.data_ptr()
+
+
 def decode_mha_append_cat_plain(q, kc, vc, lens, k_scale=None, v_scale=None, *,
                                 k_new, v_new, scale=None, window: int = 0):
     """Plain version of ``decode_mha_append_cat`` (same contract): write the
@@ -531,9 +595,10 @@ def decode_mha_append_cat(q, kc, vc, lens, k_scale=None, v_scale=None, *,
     if Dq != D or H % Hkv:
         raise ValueError(f"head dim {D} (q {Dq}), heads {H}/{Hkv} not supported")
     HkvD = Hkv * D
+    strides = (cap * HkvD, HkvD)
     out = _launch_append(q, kc, vc, (cap * HkvD, D, HkvD), k_scale, v_scale,
                          (Hkv * cap, cap, 1), lens, k_new, v_new, kind, D, cap, scale,
-                         window, _vec16(kc, D, (cap * HkvD, HkvD)))
+                         window, _vec16(kc, D, strides) & _vec16(vc, D, strides))
     decode_mha_append_cat.launches += 1
     return (out, kc, vc, k_scale, v_scale) if k_scale is not None else (out, kc, vc)
 
@@ -543,8 +608,10 @@ decode_mha_append_cat.launches = 0
 
 def _launch_append(q, kc, vc, kv_strides, k_scale, v_scale, sc_strides, lens, k_new,
                    v_new, kind, D, cap, scale, window, vec):
-    """``rten_decode_append`` (csrc/flash_attention.cu) on caches of either
-    layout, addressed through (slot, kv head, row) strides -> out [B,1,H*D]."""
+    """The append on caches of either layout, addressed through (slot, kv
+    head, row) strides -> out [B,1,H*D]: the split fold
+    ``rten_decode_append_split`` (csrc/decode_append*.cu,
+    ``decode_split_plan``)."""
     B, H = q.shape[0], q.shape[1]
     Hkv = k_new.shape[1]
     for name, t in (("k_new", k_new), ("v_new", v_new)):
@@ -553,16 +620,17 @@ def _launch_append(q, kc, vc, kv_strides, k_scale, v_scale, sc_strides, lens, k_
     if scale is None:
         scale = 1.0 / float(np.sqrt(D))
     out = torch.empty((B, 1, H * D), dtype=torch.float32, device=q.device)
-    err = _lib().rten_decode_append(
-        kind, q.data_ptr(), q.stride(0), q.stride(1),
-        k_new.data_ptr(), k_new.stride(0), k_new.stride(1),
-        v_new.data_ptr(), v_new.stride(0), v_new.stride(1),
-        kc.data_ptr(), vc.data_ptr(), *kv_strides, _ptr(k_scale), _ptr(v_scale), *sc_strides,
-        lens.data_ptr(), out.data_ptr(), B, H, Hkv, D, cap, int(window), float(scale), vec,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    args = (q.data_ptr(), q.stride(0), q.stride(1),
+            k_new.data_ptr(), k_new.stride(0), k_new.stride(1),
+            v_new.data_ptr(), v_new.stride(0), v_new.stride(1),
+            kc.data_ptr(), vc.data_ptr(), *kv_strides, _ptr(k_scale), _ptr(v_scale), *sc_strides,
+            lens.data_ptr(), out.data_ptr(), B, H, Hkv, D, cap, int(window), float(scale), vec)
+    split = _split_args(q.device, stream, B, H, Hkv, D, cap)
+    fn = _append_lib(kc.dtype).rten_decode_append_split
+    err = fn(kind, *args, *split, stream)
     if err:
-        raise RuntimeError(f"rten_decode_append launch failed: CUDA error {err}")
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
     return out
 
 
@@ -603,7 +671,7 @@ def decode_mha_append(q, k, v, lens, k_scale=None, v_scale=None, *, k_new, v_new
     q [B,H,1,D] f32; k/v [B,Hkv,cap,D] holding rows < lens[b]: s8 with
     scales [B,Hkv,cap,1] (or [B,Hkv,cap]) f32, or f32 or bf16 with none;
     k_new/v_new [B,Hkv,1,D] f32; lens [B] int32. The kernel is
-    ``decode_mha_append_cat``'s (csrc/flash_attention.cu) on the caches'
+    ``decode_mha_append_cat``'s (csrc/decode_append*.cu) on the caches'
     strides: it writes the new row at min(lens[b], cap - 1) (s8: quantized,
     with its scale) and attends rows <= lens[b] (> lens[b] - window with a
     window). Any even D up to 512. Returns (out [B,H,1,D], k, v, k_scale,
@@ -643,8 +711,9 @@ def decode_mha_append(q, k, v, lens, k_scale=None, v_scale=None, *, k_new, v_new
     check_cuda_tensor("lens", lens, torch.int32, device)
     if lens.numel() != B:
         raise ValueError(f"lens: expected {B} values, got {tuple(lens.shape)}")
+    vec = _vec16(k, D, k.stride()[:3]) & _vec16(v, D, v.stride()[:3])
     out = _launch_append(q, k, v, k.stride()[:3], k_scale, v_scale, sc_strides, lens, k_new,
-                         v_new, kind, D, cap, scale, window, _vec16(k, D, k.stride()[:3]))
+                         v_new, kind, D, cap, scale, window, vec)
     decode_mha_append.launches += 1
     out = out.reshape(B, 1, H, D).permute(0, 2, 1, 3)
     return (out, k, v, k_scale, v_scale) if k_scale is not None else (out, k, v)
@@ -707,9 +776,9 @@ def decode_mha_append_cat_paged(q, pool_kc, pool_vc, lens, k_scale_pool=None,
     updated in place; block_table [B,MB] int32; lens [B] int32. Slot b's
     new row lands at position min(lens[b], cap - 1), cap = MB * BS. Two
     launches on the stream: the rows are written (the last slot winning a
-    shared row), then every slot attends through the table (``decode_mha``'s
-    fold, so group = H / Hkv <= ``fold_max_rows(D)``; f32/bf16 pools through
-    ``paged_decode_mha``'s entry point on the cat pools' strides).
+    shared row), then every slot attends through the table
+    (``paged_decode_mha``'s split fold on the cat pools' strides, so group =
+    H / Hkv <= ``fold_max_rows(D)``).
     Returns (out [B,1,H*D], pools, scale pools), or (out, pools) for
     f32/bf16 pools."""
     if kernel_device(q, pool_kc, pool_vc, lens, k_scale_pool, v_scale_pool, k_new,
@@ -746,32 +815,19 @@ def decode_mha_append_cat_paged(q, pool_kc, pool_vc, lens, k_scale_pool=None,
         if t.shape != (B, Hkv, 1, D) or t.dtype != torch.float32 or t.stride(-1) != 1:
             raise ValueError(f"{name}: expected float32 {(B, Hkv, 1, D)}")
     MB = _check_table(block_table, lens, B, device)
-    if scale is None:
-        scale = 1.0 / float(np.sqrt(D))
     out = torch.empty((B, 1, H * D), dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    new_rows = (k_new.data_ptr(), k_new.stride(0), k_new.stride(1),
-                v_new.data_ptr(), v_new.stride(0), v_new.stride(1))
-    vec = _vec16(pool_kc, D, (BS * HkvD, HkvD))
-    if k_scale_pool is not None:
-        err = _lib().rten_decode_append_cat_paged(
-            q.data_ptr(), q.stride(0), q.stride(1), *new_rows,
-            pool_kc.data_ptr(), pool_vc.data_ptr(), k_scale_pool.data_ptr(),
-            v_scale_pool.data_ptr(), block_table.data_ptr(), MB, BS, lens.data_ptr(),
-            out.data_ptr(), B, H, Hkv, D, int(window), float(scale), vec, stream,
-        )
-    else:
-        err = _lib().rten_append_cat_write(
-            kind, *new_rows, pool_kc.data_ptr(), pool_vc.data_ptr(), None, None,
-            block_table.data_ptr(), MB, BS, lens.data_ptr(), B, Hkv, D, stream,
-        )
-        if not err:  # the fold over the cat pools: rows of Hkv * D, heads D apart
-            err = _paged_lib(pool_kc.dtype).rten_paged_decode_mha(
-                kind, q.data_ptr(), q.stride(0), q.stride(1), pool_kc.data_ptr(),
-                pool_vc.data_ptr(), BS * HkvD, D, HkvD, None, None, 0, 0, 0,
-                block_table.data_ptr(), MB, BS, lens.data_ptr(), out.data_ptr(), H * D, D,
-                B, H, Hkv, D, int(window), float(scale), vec, stream,
-            )
+    err = _lib().rten_append_cat_write(
+        kind, k_new.data_ptr(), k_new.stride(0), k_new.stride(1), v_new.data_ptr(),
+        v_new.stride(0), v_new.stride(1), pool_kc.data_ptr(), pool_vc.data_ptr(),
+        _ptr(k_scale_pool), _ptr(v_scale_pool), block_table.data_ptr(), MB, BS,
+        lens.data_ptr(), B, Hkv, D, stream,
+    )
+    if not err:  # the fold over the cat pools: rows of Hkv * D, heads D apart
+        vec = _vec16(pool_kc, D, (BS * HkvD, HkvD)) & _vec16(pool_vc, D, (BS * HkvD, HkvD))
+        err = _paged_fold(kind, q, pool_kc, pool_vc, Hkv, (BS * HkvD, D, HkvD), k_scale_pool,
+                          v_scale_pool, (Hkv * BS, BS, 1), block_table, MB, BS, lens, out,
+                          window, scale, vec, stream)
     if err:
         raise RuntimeError(f"decode_mha_append_cat (block table) launch failed: CUDA error {err}")
     decode_mha_append_cat_paged.launches += 1
@@ -1103,21 +1159,14 @@ def paged_decode_mha(q, pool_k, pool_v, lens, block_table, pool_ks=None,
             if t.shape != (NB, Hkv, 1, BS) or t.stride() != pool_ks.stride():
                 raise ValueError(f"{name}: expected {(NB, Hkv, 1, BS)} in one layout, "
                                  f"got {tuple(t.shape)}")
-        sc_ptrs = (pool_ks.data_ptr(), pool_vs.data_ptr())
         sc_strides = (pool_ks.stride(0), pool_ks.stride(1), pool_ks.stride(3))
     else:
-        sc_ptrs, sc_strides = (None, None), (0, 0, 0)
+        sc_strides = (0, 0, 0)
     MB = _check_table(block_table, lens, B, device)
-    if scale is None:
-        scale = 1.0 / float(np.sqrt(D))
     out_cat = torch.empty((B, 1, H * D), dtype=torch.float32, device=device)
-    err = _paged_lib(pool_k.dtype).rten_paged_decode_mha(
-        kind, q.data_ptr(), q.stride(0), q.stride(1),
-        pool_k.data_ptr(), pool_v.data_ptr(), pool_k.stride(0), pool_k.stride(1),
-        pool_k.stride(2), *sc_ptrs, *sc_strides, block_table.data_ptr(), MB, BS,
-        lens.data_ptr(), out_cat.data_ptr(), H * D, D, B, H, Hkv, D, int(window),
-        float(scale), vec, torch.cuda.current_stream(device).cuda_stream,
-    )
+    err = _paged_fold(kind, q, pool_k, pool_v, Hkv, pool_k.stride()[:3], pool_ks, pool_vs,
+                      sc_strides, block_table, MB, BS, lens, out_cat, window, scale, vec,
+                      torch.cuda.current_stream(device).cuda_stream)
     if err:
         raise RuntimeError(f"paged_decode_mha launch failed: CUDA error {err}")
     paged_decode_mha.launches += 1
@@ -1125,6 +1174,23 @@ def paged_decode_mha(q, pool_k, pool_v, lens, block_table, pool_ks=None,
 
 
 paged_decode_mha.launches = 0
+
+
+def _paged_fold(kind, q, k, v, Hkv, kv_strides, ks, vs, sc_strides, bt, MB, BS, lens, out,
+                window, scale, vec, stream) -> int:
+    """``rten_paged_decode_mha`` (csrc/paged_decode_mha*.cu): the split fold
+    of q [B,H,1,D] over the pools k/v of Hkv heads addressed through (block,
+    kv head, row) strides and the table, into out [B,1,H*D]; returns the
+    CUDA error code."""
+    B, H, _, D = q.shape
+    if scale is None:
+        scale = 1.0 / float(np.sqrt(D))
+    split = _split_args(q.device, stream, B, H, Hkv, D, MB * BS)
+    return _paged_lib(k.dtype).rten_paged_decode_mha(
+        kind, q.data_ptr(), q.stride(0), q.stride(1), k.data_ptr(), v.data_ptr(), *kv_strides,
+        _ptr(ks), _ptr(vs), *sc_strides, bt.data_ptr(), MB, BS, lens.data_ptr(),
+        out.data_ptr(), H * D, D, B, H, Hkv, D, int(window), float(scale), vec, *split, stream,
+    )
 
 
 def paged_attention(q, pool_k, pool_v, lens, block_table, pool_ks=None, pool_vs=None, *,
@@ -1178,7 +1244,29 @@ def _paged_lib(dtype):
     fn = lib.rten_paged_decode_mha
     if fn.argtypes is None:
         fn.argtypes = [I, P, L, L, P, P, L, L, L, P, P, L, L, L, P, I, I, P, P,
-                       L, L, I, I, I, I, I, F, I, P]
+                       L, L, I, I, I, I, I, F, I, I, I, P, P, P]
+        fn.restype = I
+    return lib
+
+
+# The flat append's entry point's arguments after the kind, before the split's
+# (csrc/decode_append*.cu, rten_decode_append_split).
+_APPEND_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] * 3 + [
+    ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [
+    ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [
+    ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int]
+
+
+def _append_lib(dtype):
+    """``csrc/decode_append.cu``'s library for s8 caches,
+    ``decode_append_f32.cu``'s for f32, ``decode_append_bf16.cu``'s for
+    bf16."""
+    lib = load_library({torch.bfloat16: "decode_append_bf16",
+                        torch.float32: "decode_append_f32"}.get(dtype, "decode_append"))
+    fn = lib.rten_decode_append_split
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [I, *_APPEND_ARGS, I, I, P, P, P]
         fn.restype = I
     return lib
 
@@ -1197,17 +1285,7 @@ def _prefill_lib():
 def _lib():
     lib = load_library("flash_attention")
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    if lib.rten_decode_append.argtypes is None:
-        lib.rten_decode_append.argtypes = [
-            I, P, L, L, P, L, L, P, L, L, P, P, L, L, L, P, P, L, L, L, P, P,
-            I, I, I, I, I, I, F, I, P,
-        ]
-        lib.rten_decode_append.restype = I
-        lib.rten_decode_append_cat_paged.argtypes = [
-            P, L, L, P, L, L, P, L, L, P, P, P, P, P, I, I, P, P,
-            I, I, I, I, I, F, I, P,
-        ]
-        lib.rten_decode_append_cat_paged.restype = I
+    if lib.rten_append_cat_write.argtypes is None:
         lib.rten_append_cat_write.argtypes = [
             I, P, L, L, P, L, L, P, P, P, P, P, I, I, P, I, I, I, P,
         ]

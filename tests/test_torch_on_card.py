@@ -1332,3 +1332,225 @@ def test_tinyllama_bf16_reference_repeats(card, capsys):
         for i, o in enumerate(outcomes):
             print(f"\nTinyLlama bf16 reference, run {i}: {o}", flush=True)
     assert all(o.startswith("pass") for o in outcomes), outcomes
+
+
+# --- split-K: the append, paged_decode_mha and the block-table append ----------
+
+
+def _plan(card, B, Hkv, cap):
+    """The split plan the wrappers run on this card. The cases take more
+    than one split, but for those whose B * Hkv units alone fill the SMs:
+    they take one, and the block writes out directly."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    splits, chunk = tfa.decode_split_plan(B * Hkv, cap, sms)
+    assert (splits == 1) == (B * Hkv >= sms), (B, Hkv, cap, splits)
+    return splits, chunk
+
+
+def _split_lens(card, g, B, cap, chunk, window):
+    """Lens at the edges of the split: empty caches (every split but the
+    first empty), a chunk's last row and the next, the last row, past cap
+    and, with a window, a row whose window lies wholly past cap (no
+    column); the rest mid-range."""
+    edges = [0, 5, chunk - 1, chunk, cap - 1, cap + 5] + ([cap + window + 3] if window else [])
+    rest = torch.randint(cap // 2, cap - 1, (max(0, B - len(edges)),), generator=g).tolist()
+    return torch.tensor((edges + rest)[:B], dtype=torch.int32, device=card)
+
+
+def _live(lens, cap, window, shape):
+    """Rows with a column to attend (the others give 0, the plain version
+    the mean of V), broadcast to ``shape`` [B, H, 1, D]."""
+    live = (lens.long() - window < cap - 1) if window else torch.ones_like(lens, dtype=torch.bool)
+    return live[:, None, None, None].expand(shape)
+
+
+def _check_split_out(got, again, want, lens, cap, window):
+    live = _live(lens, cap, window, got.shape)
+    assert torch.equal(got, again)
+    assert (got - want)[live].abs().max().item() <= 1e-4
+    assert (got[~live] == 0).all()
+
+
+@pytest.mark.parametrize("dt", ["s8", "f32", "bf16"])
+@pytest.mark.parametrize("B,H,Hkv,D,cap,window", [
+    (16, 12, 2, 128, 256, 0),    # Qwen2.5-1.5B's decode step: 8 splits of 32
+    (16, 12, 2, 128, 256, 40),   # and a window
+    (4, 8, 2, 64, 1024, 0),      # cap 1024
+    (3, 36, 2, 64, 96, 0),       # group 18: two passes of 16 rows
+    (2, 8, 1, 512, 64, 0),       # D 512: two passes of 4 rows
+    (4, 3, 3, 80, 256, 0),       # group 1 at few slots, a masked tail
+    (40, 32, 4, 64, 256, 0),     # TinyLlama at 40 slots: one split, group 8
+    (40, 32, 4, 64, 256, 30),
+    (66, 12, 2, 128, 256, 0),    # Qwen2.5-1.5B at 66 slots: one split, group 6
+    (40, 4, 4, 64, 256, 0),      # group 1 at one split
+])
+def test_split_append_kernel(card, dt, B, H, Hkv, D, cap, window):
+    """The flat cat append of the split fold (csrc/decode_append*.cu), at
+    more than one split and at one, against its plain version: out
+    atol 1e-4 on rows with a column, 0 on the others, new rows bit-exact
+    (s8 scales rtol 5e-6), other rows untouched, the same bits on a second
+    call, splits with no live column included."""
+    splits, chunk = _plan(card, B, Hkv, cap)
+    g = _gen(H * D + cap + window)
+    lens = _split_lens(card, g, B, cap, chunk, window)
+    q = torch.randn(B, H, 1, D, generator=g).to(card)
+    kn, vn = (torch.randn(B, Hkv, 1, D, generator=g).to(card) for _ in "kv")
+    if dt == "s8":
+        kc, vc = (torch.randint(-127, 128, (B, cap, Hkv * D), generator=g,
+                                dtype=torch.int8).to(card) for _ in "kv")
+        sc = [(torch.rand(B, Hkv, cap, 1, generator=g) * 0.015 + 0.005).to(card) for _ in "kv"]
+    else:
+        kc, vc = (_float_cache(g, (B, cap, Hkv * D), dt, card) for _ in "kv")
+        sc = [None, None]
+    before = tfa.decode_mha_append_cat.launches
+    runs = []
+    for _ in range(2):
+        a = [None if x is None else x.clone() for x in (kc, vc, *sc)]
+        runs.append(tfa.decode_mha_append_cat(q, a[0], a[1], lens, a[2], a[3], k_new=kn,
+                                              v_new=vn, window=window))
+    p = [None if x is None else x.clone() for x in (kc, vc, *sc)]
+    want = tfa.decode_mha_append_cat_plain(q, p[0], p[1], lens, p[2], p[3], k_new=kn, v_new=vn,
+                                           window=window)
+    torch.cuda.synchronize()
+    assert tfa.decode_mha_append_cat.launches == before + 2
+    got = runs[0]
+    out = [x[0].reshape(B, 1, H, D).permute(0, 2, 1, 3) for x in (got, runs[1], want)]
+    _check_split_out(*out, lens, cap, window)
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(runs[0][1:], runs[1][1:]))
+    for i in (1, 2):
+        assert torch.equal(_bits(got[i]), _bits(want[i]))
+    if dt == "s8":
+        for i in (3, 4):
+            assert torch.allclose(got[i], want[i], rtol=5e-6, atol=0)
+    keep = torch.ones(B, cap, dtype=torch.bool, device=card)
+    keep[torch.arange(B, device=card), lens.clamp(max=cap - 1).long()] = False
+    assert torch.equal(_bits(got[1][keep]), _bits(kc[keep]))
+    assert torch.equal(_bits(got[2][keep]), _bits(vc[keep]))
+
+
+@pytest.mark.parametrize("dt", ["s8", "f32", "bf16"])
+@pytest.mark.parametrize("B,H,Hkv,D,cap,window", [
+    (16, 32, 4, 64, 256, 0),     # TinyLlama's decode step: 4 splits of 64
+    (16, 32, 4, 64, 256, 30),
+    (2, 8, 2, 128, 1024, 0),
+    (40, 32, 4, 64, 256, 0),     # one split
+])
+def test_split_head_major_append_kernel(card, dt, B, H, Hkv, D, cap, window):
+    """decode_mha_append on head-major caches, at more than one split and
+    at one: the same checks as the cat append's."""
+    splits, chunk = _plan(card, B, Hkv, cap)
+    g = _gen(H * D + cap + window + 1)
+    lens = _split_lens(card, g, B, cap, chunk, window)
+    q = torch.randn(B, H, 1, D, generator=g).to(card)
+    kn, vn = (torch.randn(B, Hkv, 1, D, generator=g).to(card) for _ in "kv")
+    k, v, ks, vs = _caches(card, g, dt, B, Hkv, cap, D)
+    if ks is not None:
+        ks, vs = ks[..., None], vs[..., None]
+    runs = []
+    for _ in range(2):
+        a = [None if x is None else x.clone() for x in (k, v, ks, vs)]
+        runs.append(tfa.decode_mha_append(q, *a[:2], lens, *a[2:], k_new=kn, v_new=vn,
+                                          window=window))
+    p = [None if x is None else x.clone() for x in (k, v, ks, vs)]
+    want = tfa.decode_mha_append_plain(q, *p[:2], lens, *p[2:], k_new=kn, v_new=vn,
+                                       window=window)
+    torch.cuda.synchronize()
+    got = runs[0]
+    _check_split_out(got[0], runs[1][0], want[0], lens, cap, window)
+    for i in (1, 2):
+        assert torch.equal(_bits(got[i]), _bits(want[i]))
+        assert torch.equal(_bits(got[i]), _bits(runs[1][i]))
+    if ks is not None:
+        for i in (3, 4):
+            assert torch.allclose(got[i], want[i], rtol=5e-6, atol=0)
+    keep = torch.ones(B, cap, dtype=torch.bool, device=card)
+    keep[torch.arange(B, device=card), lens.clamp(max=cap - 1).long()] = False
+    assert torch.equal(_bits(got[1]).permute(0, 2, 1, 3)[keep], _bits(k).permute(0, 2, 1, 3)[keep])
+
+
+def _split_pools(card, g, dt, NB, Hkv, BS, D, cat=False):
+    shape = (NB, BS, Hkv * D) if cat else (NB, Hkv, BS, D)
+    if dt == "s8":
+        pools = [torch.randint(-127, 128, shape, generator=g, dtype=torch.int8).to(card)
+                 for _ in "kv"]
+        return pools + [(torch.rand(NB, Hkv, 1, BS, generator=g) * 0.015 + 0.005).to(card)
+                        for _ in "kv"]
+    return [_float_cache(g, shape, dt, card) for _ in "kv"] + [None, None]
+
+
+@pytest.mark.parametrize("dt", ["s8", "bf16"])
+@pytest.mark.parametrize("B,H,Hkv,D,BS,MB,window", [
+    (16, 32, 4, 64, 64, 4, 0),    # TinyLlama's decode step on 65 blocks of 64
+    (16, 32, 4, 64, 64, 4, 50),
+    (4, 8, 2, 128, 16, 64, 0),    # cap 1024
+    (6, 12, 2, 128, 24, 8, 0),    # Qwen's group, BS not a power of two
+    (40, 32, 4, 64, 64, 4, 0),    # TinyLlama at 40 slots: one split
+    (66, 12, 2, 128, 64, 4, 0),   # Qwen at 66 slots: one split
+])
+def test_split_paged_decode_mha_kernel(card, dt, B, H, Hkv, D, BS, MB, window):
+    """paged_decode_mha, at more than one split and at one, through a
+    shuffled table (idle slots' rows 0, the garbage sink) against its plain
+    version: atol 1e-4 on rows with a column, 0 on the others, the same
+    bits twice."""
+    cap = MB * BS
+    splits, chunk = _plan(card, B, Hkv, cap)
+    NB = 1 + B * MB
+    g = _gen(H * BS + D + window)
+    bt = _table(card, B, MB, NB, B - 1, D)
+    lens = _split_lens(card, g, B, cap, chunk, window)
+    q = torch.randn(B, H, 1, D, generator=g).to(card)
+    pk, pv, pks, pvs = _split_pools(card, g, dt, NB, Hkv, BS, D)
+    got = tfa.paged_decode_mha(q, pk, pv, lens, bt, pks, pvs, window=window)
+    again = tfa.paged_decode_mha(q, pk, pv, lens, bt, pks, pvs, window=window)
+    want = tfa.paged_decode_mha_plain(q, pk, pv, lens, bt, pks, pvs, window=window)
+    torch.cuda.synchronize()
+    _check_split_out(got, again, want, lens, cap, window)
+
+
+@pytest.mark.parametrize("dt", ["s8", "bf16"])
+@pytest.mark.parametrize("B,H,Hkv,D,BS,MB,window", [
+    (16, 12, 2, 128, 64, 4, 0),   # Qwen's shape on cat pools
+    (8, 8, 2, 64, 16, 64, 0),     # cap 1024
+    (8, 8, 2, 64, 16, 8, 20),
+    (40, 32, 4, 64, 64, 4, 0),    # one split
+])
+def test_split_paged_append_kernel(card, dt, B, H, Hkv, D, BS, MB, window):
+    """The block-table append, at more than one split and at one, idle
+    slots colliding in block 0: out atol 1e-4 on rows with a column, 0 on
+    the others, pools bit-exact (s8 scale pools rtol 5e-6), blocks no slot
+    owns untouched, the same bits on a second run."""
+    cap = MB * BS
+    splits, chunk = _plan(card, B, Hkv, cap)
+    owners = B - 3
+    NB = 1 + owners * MB
+    g = _gen(H + D + BS + window)
+    bt = _table(card, B, MB, NB + 2, owners, H + D)
+    lens = _split_lens(card, g, B, cap, chunk, window)
+    lens[owners:] = torch.tensor([5, 5, 70], dtype=torch.int32, device=card) % cap
+    q = torch.randn(B, H, 1, D, generator=g).to(card)
+    kn, vn = (torch.randn(B, Hkv, 1, D, generator=g).to(card) for _ in "kv")
+    pools = _split_pools(card, g, dt, NB + 2, Hkv, BS, D, cat=True)
+    runs = []
+    for _ in range(2):
+        p = [None if x is None else x.clone() for x in pools]
+        runs.append(tfa.decode_mha_append_cat(q, p[0], p[1], lens, p[2], p[3], k_new=kn,
+                                              v_new=vn, window=window, block_table=bt))
+    p = [None if x is None else x.clone() for x in pools]
+    want = tfa.decode_mha_append_cat_paged_plain(q, p[0], p[1], lens, p[2], p[3], k_new=kn,
+                                                 v_new=vn, window=window, block_table=bt)
+    torch.cuda.synchronize()
+    got = runs[0]
+    out = [x[0].reshape(B, 1, H, D).permute(0, 2, 1, 3) for x in (got, runs[1], want)]
+    _check_split_out(*out, lens, cap, window)
+    n = 4 if dt == "s8" else 2
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(runs[0][1:], runs[1][1:]))
+    for i in (1, 2):
+        assert torch.equal(_bits(got[i]), _bits(want[i]))
+    if dt == "s8":
+        for i in (3, 4):
+            assert torch.allclose(got[i], want[i], rtol=5e-6, atol=0)
+    owned = set(bt.flatten().tolist())
+    free = [b for b in range(1, NB + 2) if b not in owned]
+    assert free
+    for i in range(n):
+        assert torch.equal(_bits(got[i + 1][free]), _bits(pools[i][free]))
