@@ -444,7 +444,9 @@ def phase_prefill_attention(gen, dev):
           f"sdpa {fmt(lib, 12)}, bound {bms:.4f} ms ({by})", flush=True)
     return {
         "name": "prefill_mha_cat", "route": "cuda", "kv": "s8",
-        "source": "rten_tpu_torch/csrc/prefill_cat.cu",
+        "counter": "prefill_mha_cat_tensor_core",
+        "source": "rten_tpu_torch/csrc/decode_heads_tc.cuh (decode_mha.cu's per-head form on "
+                  "the cat caches' head-major views)",
         "replaces": "rten_tpu/kernels/flash_attention.py:3301",
         "unit": "one admission of 120 x 128 tokens: 12 calls (one per layer)",
         "max_abs_err": max(err, err2), **time_keys(k_ms, p_ms, lib, 12),
@@ -1022,8 +1024,10 @@ def phase_float_kv_kernels(gen, dev):
     cases = [_prefill_case(gen, dev, dt, *shape, f"{dt}, {unit}") for dt, shape, unit in (
         ("bf16", (SLOTS, H, H, D, 12), gpt2), ("f32", (SLOTS, H, H, D, 12), gpt2),
         ("bf16", (Q_SLOTS, Q_H, Q_HKV, Q_D, Q_LAYERS), qwen))]
-    rows.append({"name": "prefill_mha_cat[bf16]", "kv": "bf16", "counter": "prefill_mha_cat",
-                 "source": "rten_tpu_torch/csrc/prefill_cat.cu",
+    rows.append({"name": "prefill_mha_cat[bf16]", "kv": "bf16",
+                 "counter": "prefill_mha_cat_tensor_core",
+                 "source": "rten_tpu_torch/csrc/decode_heads_tc.cuh (decode_mha_bf16.cu's "
+                           "per-head form; f32: decode_mha_f32.cu's CUDA-core form)",
                  "replaces": "rten_tpu/kernels/flash_attention.py:3301", **cases[0],
                  "max_abs_err": max(c["max_abs_err"] for c in cases),
                  "library_call": "scaled_dot_product_attention (enable_gqa where grouped) on "
@@ -1610,11 +1614,17 @@ def phase_int4_matmul(gen, dev):
     Generator decode step), 16 (a serve decode step), 128 (a Generator
     prefill) and 2048 (a serve admission, the lm_head at 16), and one shape
     with u8 zero points: within 1e-4 of max|out| of int4_matmul_plain, the
-    same bits on a second call. The yardstick, torch.matmul on the
+    same bits on a second call, on the form int4_form names (M <= 16 the
+    stream kernel, above it the tiled one; each call's split plan printed).
+    The bound counts one product's operations at the bf16 tensor-core rate,
+    where both forms run it (three parts of the activations are the
+    design's cost, not the function's). The yardstick, torch.matmul on the
     pre-dequantized f32 weights, reads 8x the bytes and is not the same
     function."""
+    from rten_tpu_torch.kernels.common import sm_count
     from rten_tpu_torch.kernels.int4_matmul import (
-        dequant_nbits, int4_matmul, int4_matmul_plain, unpack_zero_points,
+        FORMS, dequant_nbits, int4_form, int4_matmul, int4_matmul_plain, int4_split_plan,
+        unpack_zero_points,
     )
 
     layers = [[_int4_weights(gen, dev, K, N) for _ in range(n)] for K, N, n in GPT2_INT4]
@@ -1624,6 +1634,8 @@ def phase_int4_matmul(gen, dev):
         for M in sorted({_int4_rows(M, N) for M in INT4_MS}):
             a = torch.randn(M, K, generator=gen).to(dev)
             packed, scales, zps = ws[0]
+            form = int4_form(M, 32)
+            before = getattr(int4_matmul, f"{form}_launches")
             got = int4_matmul(a, packed, scales, zps, K=K, N=N, block_size=32)
             again = int4_matmul(a, packed, scales, zps, K=K, N=N, block_size=32)
             want = int4_matmul_plain(a, packed.reshape(N, -1), scales,
@@ -1631,12 +1643,18 @@ def phase_int4_matmul(gen, dev):
                                      block_size=32)
             torch.cuda.synchronize()
             e = (got - want).abs().max().item() / want.abs().max().item()
-            if not e <= 1e-4 or not torch.equal(got, again):
+            if (not e <= 1e-4 or not torch.equal(got, again)
+                    or getattr(int4_matmul, f"{form}_launches") != before + 2):
                 fail(f"int4_matmul M={M} K={K} N={N} zp={zps is not None}: max err {e} of "
-                     f"max|out| > 1e-4, or two calls differ")
+                     f"max|out| > 1e-4, two calls differ, or not the {form} form")
             err = max(err, e)
     print(f"  int4_matmul: every shape at M 1, 16, 128, 2048 (and u8 zero points) within "
           f"{err:.3e} of max|out| (bound 1e-4), two calls bit-identical", flush=True)
+    for M in INT4_MS:
+        plans = {f"{K}x{N}": int4_split_plan(_int4_rows(M, N), N, K, 32, sm_count(0))[:2]
+                 for K, N, _ in GPT2_INT4}
+        print(f"  int4_matmul M={M} ({int4_form(M, 32)}; lm_head {int4_form(_int4_rows(M, VOCAB), 32)}): "
+              f"(splits, kchunk) by K x N {json.dumps(plans)}", flush=True)
     deq = [[dequant_nbits(p, s, None, K=K, N=N, block_size=32).T.contiguous() for p, s, _ in ws]
            for (K, N, _), ws in zip(GPT2_INT4, layers)]
     calls = [(K, N, w, d) for (K, N, _), ws, ds in zip(GPT2_INT4, layers, deq)
@@ -1645,6 +1663,10 @@ def phase_int4_matmul(gen, dev):
     for M in INT4_MS:
         xs = {(K, N): torch.randn(_int4_rows(M, N), K, generator=gen).to(dev)
               for K, N, _ in GPT2_INT4}
+        before = {f: getattr(int4_matmul, f"{f}_launches") for f in FORMS}
+        for K, N, (p, s, _), _ in calls:
+            int4_matmul(xs[K, N], p, s, None, K=K, N=N, block_size=32)
+        by_form = {f: getattr(int4_matmul, f"{f}_launches") - before[f] for f in FORMS}
         k_ms = timed(lambda: [int4_matmul(xs[K, N], p, s, None, K=K, N=N, block_size=32)
                               for K, N, (p, s, _), _ in calls], iters=10)
         p_ms = timed(lambda: [int4_matmul_plain(xs[K, N], p.reshape(N, -1), s, None, K=K, N=N,
@@ -1654,13 +1676,14 @@ def phase_int4_matmul(gen, dev):
         rows = [(_int4_rows(M, N), K, N) for K, N, _, _ in calls]
         nbytes = sum(K * N // 2 + 4 * N * (K // 32) + 4 * m * (K + N) for m, K, N in rows)
         ops = sum(2.0 * m * K * N for m, K, N in rows)
-        bms, by = bound_ms(nbytes, ops, F32_FLOPS_PER_S)
-        print(f"  int4_matmul x49, M={M}: kernel {fmt(k_ms)}, plain {fmt(p_ms)}, torch.matmul "
-              f"on f32 weights {fmt(lib)}, bound {bms:.4f} ms ({by})", flush=True)
+        bms, by = bound_ms(nbytes, ops, BF16_FLOPS_PER_S)
+        print(f"  int4_matmul x49, M={M} (launches by form {json.dumps(by_form)}): kernel "
+              f"{fmt(k_ms)}, plain {fmt(p_ms)}, torch.matmul on f32 weights {fmt(lib)}, bound "
+              f"{bms:.4f} ms ({by}, operations at the bf16 tensor-core rate)", flush=True)
         unit = (f"one GPT-2 124M forward at M = {M}: 49 calls" if M != 2048 else
                 "one GPT-2 124M serve admission (16 x 128 rows): 48 calls at M = 2048, "
                 "the lm_head at M = 16")
-        per_m[M] = {"unit": unit, "max_abs_err": err,
+        per_m[M] = {"unit": unit, "max_abs_err": err, "calls_by_form": by_form,
                     **time_keys(k_ms, p_ms, lib), "bound_ms": bms, "bound_by": by}
         del xs
     del layers, deq, calls
@@ -1929,20 +1952,22 @@ def build_model(n_layer, capacity, device, vocab=VOCAB, n_embd=E, n_head=H, kv="
     return Model(graph, device=device)
 
 
-class CoreHeads:
-    """decode_mha_heads' launches of its CUDA-core kernel (f32 caches, D
-    129-512; ``decode_mha_heads.launches`` counts both kernels) as a counter
-    of their own."""
+class FormCounter:
+    """A wrapper's launches of one of its kernels (``fn.<attr>``, which
+    ``fn.launches`` also counts) as a counter of their own: decode_mha_heads'
+    and prefill_mha_cat's CUDA-core kernel (f32 caches, D 129-512),
+    int4_matmul's forms."""
+
+    def __init__(self, fn, attr):
+        self.fn, self.attr = fn, attr
 
     @property
     def launches(self):
-        from rten_tpu_torch.kernels.flash_attention import decode_mha_heads
-        return decode_mha_heads.cuda_core_launches
+        return getattr(self.fn, self.attr)
 
     @launches.setter
     def launches(self, n):
-        from rten_tpu_torch.kernels.flash_attention import decode_mha_heads
-        decode_mha_heads.cuda_core_launches = n
+        setattr(self.fn, self.attr, n)
 
 
 def counters():
@@ -1957,7 +1982,12 @@ def counters():
         "argmax_lastdim": argmax.argmax_lastdim,
         "decode_mha_folded": flash_attention.decode_mha_folded,
         "decode_mha_heads": flash_attention.decode_mha_heads,
-        "decode_mha_heads_cuda_core": CoreHeads(),
+        "decode_mha_heads_cuda_core": FormCounter(flash_attention.decode_mha_heads,
+                                                  "cuda_core_launches"),
+        "prefill_mha_cat_cuda_core": FormCounter(flash_attention.prefill_mha_cat,
+                                                 "cuda_core_launches"),
+        **{f"int4_matmul_{form}": FormCounter(int4_matmul.int4_matmul, f"{form}_launches")
+           for form in int4_matmul.FORMS},
         "paged_decode_mha": flash_attention.paged_decode_mha,
         "decode_mha_append_cat_paged": flash_attention.decode_mha_append_cat_paged,
         "decode_mha_append": flash_attention.decode_mha_append,
@@ -2090,8 +2120,12 @@ def phase_serve_int4(dev):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, VOCAB, PROMPT).tolist() for _ in range(24)]
     budgets = [int(rng.integers(16, 49)) for _ in range(24)]
+    # Decode steps (16 rows) and the admissions' lm_head (one row a slot) on
+    # the stream form, the admissions' 48 projections (16 x 128 rows) tiled.
     want = lambda steps, adm: {  # noqa: E731
         "int4_matmul": 49 * (steps + adm),
+        "int4_matmul_stream": 49 * steps + adm,
+        "int4_matmul_tiled": 48 * adm,
         "decode_mha_append_cat": 12 * steps,
         "prefill_mha_cat": 12 * adm,
         "argmax_lastdim": steps + adm,
@@ -2163,7 +2197,11 @@ def phase_generate(dev, quantize):
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counters().items()}
     forwards = 1 + gen.metrics.generated_tokens  # the prefill, then a step per token
-    want = {"mha": 12, **({"int4_matmul": 49 * forwards} if quantize == "int4" else {})}
+    # int4: the prefill (128 rows, the lm_head on every position) tiled, each
+    # step (one row) on the stream form.
+    want = {"mha": 12, **({"int4_matmul": 49 * forwards, "int4_matmul_tiled": 49,
+                           "int4_matmul_stream": 49 * (forwards - 1)}
+                          if quantize == "int4" else {})}
     for k, n in launches.items():
         if n != want.get(k, 0):
             fail(f"{tag}: {k} launched {n} times, expected {want.get(k, 0)}")
@@ -2959,8 +2997,8 @@ def phase_sanitizer(out_dir):
     if not os.path.exists(tool):
         print(f"  sanitizer: {tool} not found (not run)", flush=True)
         return {"racecheck": "not found", "memcheck": "not found"}
-    ours = ("decode_mha_fold_kernel", "decode_mha_heads_kernel", "append_cat_write_kernel",
-            "prefill_cat_kernel", "mha_kernel")
+    ours = ("decode_mha_fold_kernel", "decode_mha_heads_kernel", "decode_mha_heads_tc_kernel",
+            "append_cat_write_kernel", "mha_kernel")
     code = f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; chip_smoke.sanitizer_target()"
     # One tiny launch first: a tool that refuses the card says so before
     # the reference spends its time building the model.
@@ -3183,8 +3221,8 @@ def main() -> int:
     # per-head wrapper's tensor-core launches are its launches less the
     # CUDA-core kernel's.
     for n in by_path.values():
-        n["decode_mha_heads_tensor_core"] = (n["decode_mha_heads"]
-                                             - n["decode_mha_heads_cuda_core"])
+        for fn in ("decode_mha_heads", "prefill_mha_cat"):
+            n[f"{fn}_tensor_core"] = n[fn] - n[f"{fn}_cuda_core"]
     for k in kernels:
         if "launches" in k:  # the tool's rows: counted on the tool's run
             continue
@@ -3195,6 +3233,9 @@ def main() -> int:
                                  if kv is None or path_kv[path] in (*kvs, None)}
         k["launches"] = sum(k["launches_by_path"].values())
         k.setdefault("route", "cuda")
+        if k["name"] == "int4_matmul":  # each form's share of the launches
+            k["launches_by_form"] = {f: sum(n[f"int4_matmul_{f}"] for n in by_path.values())
+                                     for f in ("stream", "tiled", "cuda_core")}
     print("reference phases:", flush=True)
     sanitizer = phase_sanitizer(out_dir)
     lap("compute-sanitizer (racecheck, memcheck)")

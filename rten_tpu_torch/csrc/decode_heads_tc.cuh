@@ -1,12 +1,15 @@
 // decode_mha's per-head form on tensor cores, for s8, int4 and bf16
 // head-major caches at head dims up to 128 (instances DP 64 and 128): the
 // admissions of every Llama-family graph on those caches, and of GPT-2's
-// int4 deferred graph. Included by decode_mha.cuh; the CUDA-core form
+// int4 deferred graph; and prefill_mha_cat's admissions on s8 and bf16 cat
+// caches, read through the strides of their head-major views. Included by
+// decode_mha.cuh; the CUDA-core form
 // (decode_mha_heads_kernel there) keeps f32 caches, whose values bf16 does
 // not hold, and D 129-512.
 //
 // Replaces rten_tpu/kernels/flash_attention.py:935 decode_mha (the
-// per-(slot, head, key block) pallas_call), like the CUDA-core form.
+// per-(slot, head, key block) pallas_call), like the CUDA-core form, and
+// :3301 prefill_mha_cat.
 //
 // Function (as decode_mha.cu states it): query row s of slot b, head h, at
 // position lens[b] + s, reads kv head h / (H / Hkv) and attends columns

@@ -16,7 +16,10 @@
 // The K scale multiplies the score and the V scale the probability, as on
 // the TPU: s = (q . k_int) * scale * ks[j], out = sum_j p_j vs[j] v_int[j]
 // / sum_j p_j. K, V and the scales are addressed through strides, so the
-// same code reads the head-major layout here and could read cat rows.
+// same code reads the head-major layout here and cat rows [B, cap, Hkv*D]
+// (strides (cap*Hkv*D, D, Hkv*D)): the per-head form is also
+// prefill_mha_cat's kernel (rten_tpu/kernels/flash_attention.py:3301
+// prefill_mha_cat, whose function is decode_mha's on those views).
 //
 // Two launch forms; the wrapper (kernels/flash_attention.py, decode_mha)
 // routes by rows per KV head: the fold when group * S <= 16 (a decode

@@ -31,8 +31,8 @@
 // bit (__float2bfloat16_rn), so this file is built without
 // --use_fast_math (IEEE division, rintf). Any even D up to 256.
 //
-// prefill_mha_cat is in prefill_cat.cu (a library of its own, built in
-// parallel with this one).
+// prefill_mha_cat runs decode_mha's per-head kernels on the cat caches'
+// head-major views (decode_mha.cu, decode_heads_tc.cuh).
 
 #include "decode_fold.cuh"
 

@@ -1,8 +1,8 @@
 """Attention: the wrappers of the CUDA kernels in ``csrc/decode_append*.cu``
 and ``csrc/flash_attention.cu`` (the append), ``csrc/decode_mha*.cu`` (one
 library per cache type, int4's deferred folds apart, and D 129-512),
-``csrc/paged_decode_mha*.cu`` (one per pool type), ``csrc/prefill_cat.cu``
-and ``csrc/mha.cu``, and their plain PyTorch versions.
+``csrc/paged_decode_mha*.cu`` (one per pool type) and ``csrc/mha.cu``, and
+their plain PyTorch versions.
 
 * ``mha`` (``csrc/mha.cu``) replaces
   ``rten_tpu/kernels/flash_attention.py:mha_pallas``: flash attention of
@@ -31,9 +31,12 @@ and ``csrc/mha.cu``, and their plain PyTorch versions.
   cache dtype) and attends rows ``<= lens[b]``.
   With ``block_table`` (``decode_mha_append_cat_paged``, its own launch
   counter) the caches are block pools read and written through the table.
-* ``prefill_mha_cat`` (``csrc/prefill_cat.cu``) replaces
+* ``prefill_mha_cat`` replaces
   ``rten_tpu/kernels/flash_attention.py:prefill_mha_cat``: prefill off
   caches that already hold the chunk's rows; row r attends ``<= lens[b]+r``.
+  It is ``decode_mha_heads``'s function on the cat caches' head-major
+  views, so it launches that form's kernels (``csrc/decode_mha*.cu``)
+  through the views' strides, under its own launch counters.
 * ``paged_decode_mha`` (``csrc/paged_decode_mha.cu``) replaces
   ``rten_tpu/kernels/flash_attention.py:paged_decode_mha``: a decode step
   over head-major block pools ``[NB, Hkv, BS, D]`` (s8, f32 or bf16) through
@@ -859,7 +862,13 @@ def prefill_mha_cat(q, kc, vc, lens, k_scale=None, v_scale=None, *,
     [B,cap,Hkv*D] holding rows < lens[b]+S (the chunk's rows included), s8
     with scales [B,Hkv,cap,1] or f32 or bf16 with none (any even D up to
     256) -> [B,H,S,D] f32. On the card the result is a head-major view
-    of a [B,S,H*D] buffer, so merging heads is free."""
+    of a [B,S,H*D] buffer, so merging heads is free.
+
+    The function is ``decode_mha``'s per-head form on the head-major views
+    ``cat_to_heads`` gives (no copy: strides (cap*Hkv*D, D, Hkv*D)), so the
+    card runs that form's kernels, routed by ``heads_form``: on tensor cores
+    for s8 and bf16 caches at D <= 128, on CUDA cores for f32 caches and D
+    129-256 (``prefill_mha_cat.cuda_core_launches`` counts those)."""
     if kernel_device(q, kc, vc, lens, k_scale, v_scale) == "cpu":
         return prefill_mha_cat_plain(
             q, kc, vc, lens, k_scale, v_scale, scale=scale, window=window
@@ -868,27 +877,24 @@ def prefill_mha_cat(q, kc, vc, lens, k_scale=None, v_scale=None, *,
     if kc.dim() != 3 or kc.shape[2] % Dq:
         raise ValueError(f"kc: expected [B, cap, Hkv * {Dq}], got {tuple(kc.shape)}")
     Hkv = kc.shape[2] // Dq
-    kind, _, cap, D = _check_common(q, kc, vc, lens, k_scale, v_scale, Hkv)
+    _, _, cap, D = _check_common(q, kc, vc, lens, k_scale, v_scale, Hkv)
     _check_head_dim(D, 256)
     if H % Hkv:
         raise ValueError(f"heads {H}/{Hkv} not supported")
-    if scale is None:
-        scale = 1.0 / float(np.sqrt(D))
-    out_cat = torch.empty((B, S, H * D), dtype=torch.float32, device=q.device)
-    err = _prefill_lib().rten_prefill_cat(
-        kind, q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
-        kc.data_ptr(), vc.data_ptr(), _ptr(k_scale), _ptr(v_scale),
-        lens.data_ptr(), out_cat.data_ptr(), S * H * D, D, H * D,
-        B, H, Hkv, S, D, cap, int(window), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if err:
-        raise RuntimeError(f"prefill_mha_cat launch failed: CUDA error {err}")
+    ks = vs = None
+    if k_scale is not None:
+        ks, vs = k_scale.reshape(B, Hkv, cap), v_scale.reshape(B, Hkv, cap)
+    out, form = _heads_launch(q, cat_to_heads(kc, Hkv), cat_to_heads(vc, Hkv), lens, ks, vs,
+                              scale, window)
     prefill_mha_cat.launches += 1
-    return out_cat.reshape(B, S, H, D).permute(0, 2, 1, 3)
+    if form == "cuda_core":
+        prefill_mha_cat.cuda_core_launches += 1
+    return out
 
 
+# Every launch, and (of them) the CUDA-core form's.
 prefill_mha_cat.launches = 0
+prefill_mha_cat.cuda_core_launches = 0
 
 
 FOLD_MAX_ROWS = 16  # group * S query rows one fold block holds at D <= 128
@@ -955,6 +961,15 @@ def heads_form(dtype, D: int) -> str:
     "cuda_core" (f32 FMAs, ``decode_mha_heads_kernel``) for f32 caches,
     whose values bf16 does not hold, and for D 129-512."""
     return "tensor_core" if dtype in TENSOR_CORE_KV and D <= 128 else "cuda_core"
+
+
+def _heads_launch(q, k, v, lens, k_scale, v_scale, scale, window):
+    """The per-head form's kernel that ``heads_form`` picks, launched on
+    head-major caches (or views) -> (out, form)."""
+    form = heads_form(k.dtype, q.shape[3])
+    out = _decode_mha_launch("heads_tc" if form == "tensor_core" else "heads", q, k, v, lens,
+                             k_scale, v_scale, scale, window)
+    return out, form
 
 
 def _decode_lib_name(dtype, D: int, general: bool = False) -> str:
@@ -1093,9 +1108,7 @@ def decode_mha_heads(q, k, v, lens, k_scale=None, v_scale=None, *,
     if kernel_device(q, k, v, lens, k_scale, v_scale) == "cpu":
         return decode_mha_plain(q, k, v, lens, k_scale, v_scale,
                                 scale=scale, window=window)
-    form = heads_form(k.dtype, q.shape[3])
-    out = _decode_mha_launch("heads_tc" if form == "tensor_core" else "heads", q, k, v, lens,
-                             k_scale, v_scale, scale, window)
+    out, form = _heads_launch(q, k, v, lens, k_scale, v_scale, scale, window)
     decode_mha_heads.launches += 1
     if form == "cuda_core":
         decode_mha_heads.cuda_core_launches += 1
@@ -1267,17 +1280,6 @@ def _append_lib(dtype):
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [I, *_APPEND_ARGS, I, I, P, P, P]
-        fn.restype = I
-    return lib
-
-
-def _prefill_lib():
-    lib = load_library("prefill_cat")
-    fn = lib.rten_prefill_cat
-    if fn.argtypes is None:
-        P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        fn.argtypes = [I, P, L, L, L, P, P, P, P, P, P, L, L, L,
-                       I, I, I, I, I, I, I, F, P]
         fn.restype = I
     return lib
 

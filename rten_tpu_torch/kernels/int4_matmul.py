@@ -1,5 +1,5 @@
-"""int4 block-dequant matmul (MatMulNBits): the wrapper of the CUDA kernel
-in ``csrc/int4_matmul.cu`` and its plain PyTorch version.
+"""int4 block-dequant matmul (MatMulNBits): the wrapper of the CUDA kernels
+in ``csrc/int4_matmul.cu`` and their plain PyTorch version.
 
 Replaces ``rten_tpu/kernels/int4_matmul.py:int4_matmul_pallas``: f32
 activations a [..., K] times int4 weights W [N, K] held as MatMulNBits
@@ -7,26 +7,45 @@ operands, packed nibbles [N, nb * block_size / 2] (byte p of a row holds
 k = 2p in its low nibble and k = 2p + 1 in its high one), per-block scales
 [N, nb] and optional zero points (int32 [N, nb], or u8-packed two to a byte,
 ``ceil(nb / 2)`` bytes per column; none means 8), nb = ceil(K / block_size).
-Each weight is ``(nibble - zp) * scale`` and the product runs in f32 (no
-TF32: the reference runs HIGHEST precision). The kernel's source note says
-what bounds it on the H100.
+Each weight is ``(nibble - zp) * scale``; the reference runs the product at
+HIGHEST precision (f32).
 
 For CPU tensors ``int4_matmul`` runs the plain version (the JAX package's
 ``int4_matmul_xla``: dequantize, then an f32 product); for CUDA tensors it
-launches the kernel or raises — it never falls back. Zero points are
-unpacked and the activations zero-padded to nb * block_size here, as the
-JAX wrapper does; without zero points the kernel reads none.
+launches a kernel or raises — it never falls back. ``int4_form`` picks the
+kernel from M and the block size, each form with its own launch counter:
+"stream" (M <= 16: a weight-streaming tensor-core kernel, K split over
+blocks where the column tiles alone do not fill the card), "tiled" (M > 16:
+a tiled tensor-core kernel, split the same way at small M) and "cuda_core"
+(block sizes that are no multiple of 16). The tensor-core forms take the
+activations as three bf16 parts and scale each quantization block's
+partial sum (the kernel's source note says why, and what bounds it).
+``int4_split_plan`` sizes the split from the shapes alone (no host sync);
+its workspace and arrival counters are kept per device and stream. Zero
+points are unpacked and the activations zero-padded to nb * block_size
+here, as the JAX wrapper does; without zero points the kernels read none.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from ._build import load_library
-from .common import check_cuda_tensor, kernel_device
+from .common import check_cuda_tensor, kernel_device, sm_count
+
+SMS = 132           # the H100's SMs: the split plan's target
+STREAM_MAX_M = 16   # rows the stream form takes (one m16 tile of the product)
+STREAM_COLS = 64    # weight columns a stream block (4 warps x 16)
+TILE_M, TILE_N = 64, 128  # a tiled block's output tile
+K_STAGE = 64        # k a pipeline stage of both tensor-core forms
+ACT_SMEM = 96 * 1024  # the stream form's staged activations (3 bf16 parts) at most
+STREAM_BLOCKS_PER_SM = 2  # the stream form's split target at M <= 8 (small blocks, in pairs)
+TILED_MAX_SPLITS = 6  # the tiled form's splits at most
+FORMS = ("stream", "tiled", "cuda_core")
 
 
 def unpack_zero_points(zero_points, N: int, n_blocks: int) -> Optional[torch.Tensor]:
@@ -69,6 +88,71 @@ def int4_matmul_plain(a2, b2, scales2, zps2, *, K: int, N: int, block_size: int)
     return a2.to(torch.float32) @ w.T
 
 
+def int4_form(M: int, block_size: int) -> str:
+    """The kernel ``int4_matmul`` launches for M rows: "stream" (M <= 16) or
+    "tiled" (M > 16) on tensor cores for block sizes that are a multiple of
+    16 (MatMulNBits emits 16, 32, 64, 128), "cuda_core" for the others (8)."""
+    if block_size % 16:
+        return "cuda_core"
+    return "stream" if M <= STREAM_MAX_M else "tiled"
+
+
+def int4_split_plan(M: int, N: int, K: int, block_size: int,
+                    sms: int = SMS) -> Tuple[int, int, int]:
+    """(splits, kchunk, tiles) of a tensor-core call: K (a multiple of the
+    block size) cut into ``splits`` chunks of ``kchunk`` (whole 64-k stages
+    and whole quantization blocks; the last chunk may be shorter, none is
+    empty), one block per (output tile, chunk), ``tiles`` output tiles
+    (64-column tiles for the stream form, 64 x 128 for the tiled one).
+
+    The chunks are as long as lets tiles * splits blocks reach the target:
+    two blocks an SM for the stream form at M <= 8 (its blocks are small),
+    one otherwise; where the tiles alone reach it, one split. The stream
+    form stages a chunk's activations in shared memory, three bf16 parts,
+    so ``3 * M * (2 * kchunk + 64)`` bytes stay within ACT_SMEM; the tiled
+    form takes at most TILED_MAX_SPLITS splits, each of which writes and
+    merges a whole 64 x 128 partial tile. Shapes only: at GPT-2's N 768
+    projections 12 or 24 splits of the stream form (144 or 288 blocks) and
+    6 of the tiled one, at its lm_head one."""
+    form = int4_form(M, block_size)
+    unit = K_STAGE * block_size // math.gcd(K_STAGE, block_size)
+    units = max(1, -(-K // unit))
+    if form == "stream":
+        tiles = -(-N // STREAM_COLS)
+        target = (STREAM_BLOCKS_PER_SM if M <= 8 else 1) * sms
+        per_max = max(1, (ACT_SMEM // (3 * M) - 64) // 2 // unit)
+        per_min = 1
+    else:
+        tiles = -(-M // TILE_M) * -(-N // TILE_N)
+        target = sms
+        per_max = units
+        per_min = -(-units // TILED_MAX_SPLITS)
+    want = -(-target // tiles)  # splits for the target's blocks
+    per = max(per_min, min(per_max, max(1, units // want)))
+    return -(-units // per), per * unit, tiles
+
+
+# (device index, stream) -> (counters int32, partial sums float32)
+_workspaces: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _workspace(device, stream: int, tiles: int, floats: int):
+    """The arrival counters (all 0 between calls: each call's last blocks
+    reset theirs) and the partial-sum storage of this device and stream,
+    grown to ``tiles`` counters and ``floats`` floats. Kernels on one stream
+    run in order, so one workspace serves every call made on it."""
+    key = (device.index, stream)
+    count, ws = _workspaces.get(key, (None, None))
+    if count is None or count.numel() < tiles:
+        count = torch.zeros(max(tiles, 2 * (0 if count is None else count.numel())),
+                            dtype=torch.int32, device=device)
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(max(floats, 2 * (0 if ws is None else ws.numel())),
+                         dtype=torch.float32, device=device)
+    _workspaces[key] = (count, ws)
+    return count, ws
+
+
 def int4_matmul(a, b_packed, scales, zero_points=None, *, K: int, N: int,
                 block_size: int):
     """MatMulNBits: a [..., K] x int4 weights -> [..., N] (a's float dtype,
@@ -85,7 +169,7 @@ def int4_matmul(a, b_packed, scales, zero_points=None, *, K: int, N: int,
         return out.reshape(*lead, N).to(out_dtype)
     device = a.device
     if block_size < 8 or block_size % 8:
-        raise ValueError(f"block_size {block_size}: the kernel takes multiples of 8")
+        raise ValueError(f"block_size {block_size}: the kernels take multiples of 8")
     check_cuda_tensor("b_packed", b2, torch.uint8, device)
     check_cuda_tensor("scales", scales2, torch.float32, device)
     if zps2 is not None:
@@ -102,18 +186,35 @@ def int4_matmul(a, b_packed, scales, zero_points=None, *, K: int, N: int,
     M = a2.shape[0]
     out = torch.empty((M, N), dtype=torch.float32, device=device)
     if M:
+        form = int4_form(M, block_size)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        splits, kchunk, tiles, ws, count, grid_x = 1, k_data, 1, None, None, 1
+        if form != "cuda_core":
+            sms = sm_count(device.index)
+            splits, kchunk, tiles = int4_split_plan(M, N, k_data, block_size, sms)
+            # Stream tiles loop over a grid of at most two blocks an SM above
+            # 8 rows, where each block's staged activations are worth reusing.
+            grid_x = tiles if M <= 8 or splits > 1 else min(tiles, 2 * sms)
+            if splits > 1:
+                count, ws = _workspace(device, stream, tiles, splits * M * N)
+                count, ws = count.data_ptr(), ws.data_ptr()
         err = _lib().rten_int4_matmul(
-            a2.data_ptr(), a2.stride(0), b2.data_ptr(), scales2.data_ptr(),
-            None if zps2 is None else zps2.data_ptr(), out.data_ptr(), M, N, k_data,
-            block_size, torch.cuda.current_stream(device).cuda_stream,
+            FORMS.index(form), a2.data_ptr(), a2.stride(0), b2.data_ptr(), scales2.data_ptr(),
+            None if zps2 is None else zps2.data_ptr(), out.data_ptr(), ws, count, M, N,
+            k_data, block_size, splits, kchunk, grid_x, stream,
         )
         if err:
-            raise RuntimeError(f"int4_matmul launch failed: CUDA error {err}")
+            raise RuntimeError(f"int4_matmul ({form}) launch failed: CUDA error {err}")
         int4_matmul.launches += 1
+        setattr(int4_matmul, f"{form}_launches", getattr(int4_matmul, f"{form}_launches") + 1)
     return out.reshape(*lead, N).to(out_dtype)
 
 
+# Every launch, and (of them) each form's.
 int4_matmul.launches = 0
+int4_matmul.stream_launches = 0
+int4_matmul.tiled_launches = 0
+int4_matmul.cuda_core_launches = 0
 
 
 def _lib():
@@ -121,6 +222,6 @@ def _lib():
     fn = lib.rten_int4_matmul
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P, L, P, P, P, P, I, I, I, I, P]
+        fn.argtypes = [I, P, L, P, P, P, P, P, P, I, I, I, I, I, I, I, P]
         fn.restype = I
     return lib

@@ -152,12 +152,30 @@ def test_decode_append_kernel(card, H, Hkv, D, window):
         assert torch.equal(got[1][bb, keep], kc[bb, keep])
 
 
+def _prefill_launches():
+    return tfa.prefill_mha_cat.launches, tfa.prefill_mha_cat.cuda_core_launches
+
+
+def _check_prefill_form(before, dtype, D, calls):
+    """prefill_mha_cat ran ``calls`` times on the form heads_form names:
+    the tensor-core per-head kernel for s8 and bf16 caches at D <= 128, the
+    CUDA-core one for f32 caches and D 129-256."""
+    core = calls if tfa.heads_form(dtype, D) == "cuda_core" else 0
+    assert tfa.heads_form(dtype, D) == (
+        "tensor_core" if dtype != torch.float32 and D <= 128 else "cuda_core")
+    assert _prefill_launches() == (before[0] + calls, before[1] + core)
+
+
 @pytest.mark.parametrize("H,Hkv,D,S,window", [(2, 2, 64, 8, 0), (12, 12, 64, 45, 0),
-                                              (8, 2, 64, 33, 0), (4, 4, 32, 16, 5)])
+                                              (8, 2, 64, 33, 0), (4, 4, 32, 16, 5),
+                                              (12, 12, 64, 128, 0)])
 def test_prefill_kernel(card, H, Hkv, D, S, window):
     """Row r of slot b attends columns <= lens[b] + r: atol 1e-4 against
-    the plain version (summation order differs)."""
-    cap, B = 96, 4
+    the plain version (summation order differs), on the tensor-core
+    per-head kernel through the cat caches' strides (GPT-2's group 1 at D 64
+    and S 128 among the shapes, cap 256 there), the same bits on a second
+    call."""
+    cap, B = (96 if S < 96 else 256), 4
     g = _gen(S)
     q = torch.randn(B, H, S, D, generator=g).to(card)
     kc = torch.randint(-127, 128, (B, cap, Hkv * D), generator=g, dtype=torch.int8).to(card)
@@ -165,10 +183,13 @@ def test_prefill_kernel(card, H, Hkv, D, S, window):
     ks = (torch.rand(B, Hkv, cap, 1, generator=g) * 0.015 + 0.005).to(card)
     vs = (torch.rand(B, Hkv, cap, 1, generator=g) * 0.015 + 0.005).to(card)
     lens = torch.tensor([0, 7, cap - S, 31], dtype=torch.int32, device=card)
+    before = _prefill_launches()
     got = tfa.prefill_mha_cat(q, kc, vc, lens, ks, vs, window=window)
+    again = tfa.prefill_mha_cat(q, kc, vc, lens, ks, vs, window=window)
     want = tfa.prefill_mha_cat_plain(q, kc, vc, lens, ks, vs, window=window)
     torch.cuda.synchronize()
-    assert got.shape == (B, H, S, D)
+    _check_prefill_form(before, kc.dtype, D, 2)
+    assert got.shape == (B, H, S, D) and torch.equal(got, again)
     assert (got - want).abs().max().item() <= 1e-4
 
 
@@ -455,26 +476,38 @@ def _int4_operands(g, N, K, bs, zp):
                                       (17, 768, 50257, 32), (130, 512, 130, 64),
                                       (64, 48, 70, 16), (1, 768, 50257, 32),
                                       (128, 768, 3072, 32), (128, 3072, 768, 32),
-                                      (2048, 768, 2304, 32), (2048, 3072, 768, 32)])
+                                      (2048, 768, 2304, 32), (2048, 3072, 768, 32),
+                                      (2, 768, 768, 32), (4, 3072, 768, 32), (15, 768, 2304, 16),
+                                      (16, 768, 50257, 32), (1, 256, 200, 128),
+                                      (2, 96, 40, 8), (16, 768, 768, 8), (40, 200, 72, 8),
+                                      (5, 48, 70, 16)])
 @pytest.mark.parametrize("zp", ["none", "u8", "i32"])
 def test_int4_matmul_kernel(card, M, K, N, bs, zp):
     """int4_matmul against int4_matmul_plain (dequantize, then an f32
     product with TF32 off) on the same inputs: within 1e-4 of max|out|
-    (f32 accumulation on both sides, other summation order), K not a
-    multiple of the block (zero-padded activations), ragged M and N, and the
-    same bits on a second call."""
+    (three bf16 parts of a on tensor cores, or f32 FMAs for block 8, against
+    f32 on both sides, other summation order), K not a multiple of the block
+    (zero-padded activations), rows that are no multiple of 16 bytes (4-byte
+    copies), ragged M and N, split K (GPT-2's N 768 projections), the form
+    int4_form names (its counter moves, the others do not), and the same
+    bits on a second call."""
     g = _gen(M * 31 + K + N)
     packed, scales, zps = _int4_operands(g, N, K, bs, None if zp == "none" else zp)
     a = torch.randn(M, K, generator=g)
     args = [t if t is None else t.to(card) for t in (a, packed, scales, zps)]
-    before = t4.int4_matmul.launches
+    form = t4.int4_form(M, bs)
+    assert form == ("cuda_core" if bs % 16 else "stream" if M <= 16 else "tiled")
+    before = {f: getattr(t4.int4_matmul, f"{f}_launches") for f in t4.FORMS}
+    before_all = t4.int4_matmul.launches
     got = t4.int4_matmul(*args, K=K, N=N, block_size=bs)
     again = t4.int4_matmul(*args, K=K, N=N, block_size=bs)
     nb = -(-K // bs)
     want = t4.int4_matmul_plain(args[0], args[1].reshape(N, -1), args[2],
                                 t4.unpack_zero_points(args[3], N, nb), K=K, N=N, block_size=bs)
     torch.cuda.synchronize()
-    assert t4.int4_matmul.launches == before + 2
+    assert t4.int4_matmul.launches == before_all + 2
+    assert {f: getattr(t4.int4_matmul, f"{f}_launches") - before[f] for f in t4.FORMS} == {
+        f: 2 if f == form else 0 for f in t4.FORMS}
     assert got.shape == (M, N) and torch.equal(got, again)
     assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
 
@@ -638,11 +671,16 @@ def test_decode_append_kernel_float_caches(card, dt, H, Hkv, D, window):
 
 @pytest.mark.parametrize("dt", ["s8", "f32", "bf16"])
 @pytest.mark.parametrize("H,Hkv,D,S,window", [(12, 2, 128, 45, 0), (8, 8, 128, 33, 0),
-                                              (4, 2, 64, 16, 5), (12, 12, 64, 40, 0)])
+                                              (4, 2, 64, 16, 5), (12, 12, 64, 40, 0),
+                                              (12, 2, 128, 128, 0), (12, 12, 64, 128, 0),
+                                              (4, 1, 256, 20, 0)])
 def test_prefill_kernel_dtypes_and_d128(card, dt, H, Hkv, D, S, window):
-    """prefill_mha_cat on s8 (D 128 is new), f32 and bf16 caches, group 6 at
-    D 128 (Qwen2.5-1.5B's attention), against the plain version: atol 1e-4."""
-    cap, B = 96, 4
+    """prefill_mha_cat on s8, f32 and bf16 caches, group 6 at D 128
+    (Qwen2.5-1.5B's attention; at S 128 too) and GPT-2's group 1 at D 64 and
+    S 128, D 256, against the plain version: atol 1e-4, the same bits on a
+    second call; s8 and bf16 at D <= 128 on the tensor-core per-head
+    kernel, f32 and D 256 on the CUDA-core one (cap 256 at S 128)."""
+    cap, B = (96 if S < 96 else 256), 4
     g = _gen(S + D)
     q = torch.randn(B, H, S, D, generator=g).to(card)
     if dt == "s8":
@@ -654,10 +692,12 @@ def test_prefill_kernel_dtypes_and_d128(card, dt, H, Hkv, D, S, window):
         kc, vc = (_float_cache(g, (B, cap, Hkv * D), dt, card) for _ in range(2))
         sc = []
     lens = torch.tensor([0, 7, cap - S, 31], dtype=torch.int32, device=card)
+    before = _prefill_launches()
     got = tfa.prefill_mha_cat(q, kc, vc, lens, *sc, window=window)
     again = tfa.prefill_mha_cat(q, kc, vc, lens, *sc, window=window)
     want = tfa.prefill_mha_cat_plain(q, kc, vc, lens, *sc, window=window)
     torch.cuda.synchronize()
+    _check_prefill_form(before, kc.dtype, D, 2)
     assert got.shape == (B, H, S, D) and torch.equal(got, again)
     assert (got - want).abs().max().item() <= 1e-4
 
