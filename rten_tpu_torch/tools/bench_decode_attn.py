@@ -27,7 +27,9 @@ The port of ``tools/bench_decode_attn.py``:
 Every wrapper checks dtypes, shapes and groups on any device and raises on
 what its kernel does not take; given CPU tensors it then runs its plain
 version, given CUDA tensors it launches its kernel (counted in its
-``launches``) or raises. Nothing runs at import: no argument parsing, no
+``launches``; ``bd_decode`` and ``nt_decode`` also count in
+``split_launches`` the calls whose plan, ``fold_plan``, splits the keys
+over blocks) or raises. Nothing runs at import: no argument parsing, no
 build.
 
 ``main`` prints the reference's lines. ``timed`` is CUDA events around
@@ -44,15 +46,15 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import functools
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..kernels._build import load_library
-from ..kernels.common import check_cuda_tensor, kernel_device
-from ..kernels.flash_attention import decode_mha
+from ..kernels.common import check_cuda_tensor, kernel_device, sm_count
+from ..kernels.flash_attention import SMS, _split_workspace, decode_mha, decode_split_plan
 
 NEG_INF = -1e30
 H100_HBM_GBPS = 3350.0  # H100 SXM device memory, GB/s
@@ -94,11 +96,6 @@ def _on_card(dev, *named, align=4):
             raise ValueError(f"{name}: its data must be {align}-byte aligned")
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index):
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 # --- 1. dma_floor -----------------------------------------------------------
 
 
@@ -128,7 +125,7 @@ def dma_floor(q, k, v, lens):
     # Split each slot's 2 * Hkv * cap rows over enough blocks to fill the
     # card (four per SM), each covering at least one pass of its threads.
     rows, sweep = 2 * Hkv * cap, THREADS // (D // 4)
-    sms = _sm_count(dev.index)
+    sms = sm_count(dev.index)
     chunks = max(1, min(-(-4 * sms // B), -(-rows // sweep)))
     per = -(-rows // chunks)
     chunks = -(-rows // per)
@@ -262,20 +259,70 @@ def _check_fold(q, k, v, lens, transposed, block_k):
     return B, H, Hkv, cap, D, bk
 
 
-def _fold(name, shape, q, k, v, lens, scale, transposed):
+FOLD_TILE = 16  # keys of a warp's tile (csrc/bench_decode_attn.cu, FT_KEYS)
+
+
+class FoldPlan(NamedTuple):
+    """How ``bd_decode``/``nt_decode``'s kernel cuts one call, from the
+    shapes alone: ``rows`` query rows a block (two 8-row mma n-tiles for
+    bf16 K/V at groups above 8 and D <= 128, else one), ``row_tiles`` of
+    them a (slot, kv head), the ``kept`` keys (the reference's grid drops
+    those at or past ``(cap // bk) * bk``) cut into ``splits`` chunks of
+    ``chunk`` keys (``decode_split_plan`` over the units B * Hkv *
+    row_tiles), and ``warps`` a block, each taking the chunk's 16-key tiles
+    in turn."""
+    rows: int
+    row_tiles: int
+    kept: int
+    splits: int
+    chunk: int
+    warps: int
+
+
+def fold_plan(B, H, Hkv, cap, D, dtype, block_k=256, sms=SMS):
+    """The plan of a call at these shapes on a card of ``sms`` SMs."""
+    group = H // Hkv
+    bk = min(int(block_k), cap)
+    kept = (cap // bk) * bk
+    bf16 = dtype == torch.bfloat16
+    rows = 16 if bf16 and group > 8 and D <= 128 else 8
+    row_tiles = -(-group // rows)
+    splits, chunk = decode_split_plan(B * Hkv * row_tiles, kept, sms)
+    return FoldPlan(rows, row_tiles, kept, splits, chunk, 2 if not bf16 and D > 128 else 4)
+
+
+def _copy_bytes(t, row_bytes):
+    """The piece the kernel copies a row of ``t`` in: 16-byte cp.async where
+    every row starts 16-byte aligned, else 4 bytes, else (bf16 kt of odd
+    cap) 2."""
+    for n in (16, 4):
+        if row_bytes % n == 0 and t.data_ptr() % n == 0:
+            return n
+    return 2
+
+
+def _fold(fn, shape, q, k, v, lens, scale, transposed):
     B, H, Hkv, cap, D, bk = shape
     dev = q.device
     _on_card(dev, ("q", q), ("lens", lens))
-    _on_card(dev, ("k", k), ("v", v), align=2 * k.element_size())  # two-element loads
-    lib = _lib()
-    smem = lib.rten_fold_attn_smem(D, bk)
-    if smem > MAX_SMEM:
-        raise ValueError(f"{name}: D {D}, key block {bk} need {smem} shared bytes > {MAX_SMEM}")
+    _on_card(dev, ("k", k), ("v", v), align=2 * k.element_size())  # the pieces' alignment
+    plan = fold_plan(B, H, Hkv, cap, D, k.dtype, bk, sm_count(dev.index))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ws = count = None
+    if plan.splits > 1:
+        count, ws = _split_workspace(dev, stream, B * Hkv * plan.row_tiles,
+                                     B * H * plan.splits * (D + 2))
+    es = k.element_size()
     out = torch.empty((B, H, 1, D), dtype=q.dtype, device=dev)
-    _launch(lib.rten_fold_attn, int(k.dtype == torch.bfloat16), int(transposed),
-            int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            lens.data_ptr(), out.data_ptr(), B, H, Hkv, cap, D, bk, cap // bk, float(scale),
-            torch.cuda.current_stream(dev).cuda_stream)
+    _launch(_lib().rten_fold_attn, int(k.dtype == torch.bfloat16), int(transposed),
+            int(q.dtype == torch.bfloat16), plan.rows, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            lens.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
+            None if count is None else count.data_ptr(), B, H, Hkv, cap, D, plan.kept,
+            plan.splits, plan.chunk, _copy_bytes(k, (cap if transposed else D) * es),
+            _copy_bytes(v, D * es), float(scale), stream)
+    fn.launches += 1
+    if plan.splits > 1:
+        fn.split_launches += 1
     return out
 
 
@@ -286,12 +333,10 @@ def bd_decode(q, kt, v, lens, *, scale, block_k=256):
     shape = _check_fold(q, kt, v, lens, True, block_k)
     if kernel_device(q, kt, v, lens) == "cpu":
         return bd_decode_plain(q, kt, v, lens, scale=scale, block_k=block_k)
-    out = _fold("bd_decode", shape, q, kt, v, lens, scale, transposed=True)
-    bd_decode.launches += 1
-    return out
+    return _fold(bd_decode, shape, q, kt, v, lens, scale, transposed=True)
 
 
-bd_decode.launches = 0
+bd_decode.launches = bd_decode.split_launches = 0
 
 
 def nt_decode(q, k, v, lens, *, scale, block_k=256):
@@ -299,12 +344,10 @@ def nt_decode(q, k, v, lens, *, scale, block_k=256):
     shape = _check_fold(q, k, v, lens, False, block_k)
     if kernel_device(q, k, v, lens) == "cpu":
         return nt_decode_plain(q, k, v, lens, scale=scale, block_k=block_k)
-    out = _fold("nt_decode", shape, q, k, v, lens, scale, transposed=False)
-    nt_decode.launches += 1
-    return out
+    return _fold(nt_decode, shape, q, k, v, lens, scale, transposed=False)
 
 
-nt_decode.launches = 0
+nt_decode.launches = nt_decode.split_launches = 0
 
 KERNELS = (dma_floor, vpu_attn, bd_decode, nt_decode)
 
@@ -315,10 +358,9 @@ def _lib():
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.rten_dma_floor.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, P]
         lib.rten_vpu_attn.argtypes = [P, P, P, P, P, I, I, I, I, F, P]
-        lib.rten_fold_attn.argtypes = [I, I, I, P, P, P, P, P, I, I, I, I, I, I, I, F, P]
-        lib.rten_fold_attn_smem.argtypes = [I, I]
-        for fn in (lib.rten_dma_floor, lib.rten_vpu_attn, lib.rten_fold_attn,
-                   lib.rten_fold_attn_smem):
+        lib.rten_fold_attn.argtypes = [I, I, I, I, P, P, P, P, P, P, P,
+                                       I, I, I, I, I, I, I, I, I, I, F, P]
+        for fn in (lib.rten_dma_floor, lib.rten_vpu_attn, lib.rten_fold_attn):
             fn.restype = ctypes.c_int
     return lib
 

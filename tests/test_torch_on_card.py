@@ -1278,29 +1278,59 @@ def test_vpu_attn_kernel(card, B, H, cap, D):
     assert _within(got[0, :, 0], v[0].mean(1), 0.0, 1e-5)
 
 
-@pytest.mark.parametrize("form", ["bd", "nt"])
-@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,H,Hkv,cap,D,bk", [
+FOLD_SHAPES = [
     (32, 12, 12, 256, 64, 256),   # the tool's shape
-    (16, 32, 4, 256, 64, 256),    # TinyLlama's attention (group 8)
+    (16, 32, 4, 256, 64, 256),    # TinyLlama's attention (group 8): 4 splits
+    (16, 12, 2, 256, 128, 256),   # Qwen2.5-1.5B's attention (group 6, D 128)
     (4, 8, 2, 384, 128, 256),     # D 128, the dropped key tail
     (4, 8, 2, 384, 128, 128),
-    (3, 20, 2, 200, 80, 64),      # group 10 (two row chunks), D 80, ragged tiles
-])
-def test_bd_nt_decode_kernel(card, form, dt, B, H, Hkv, cap, D, bk):
-    """f32 atol 1e-5; bf16 K/V rtol 2e-2, atol 5e-3 (the output is q's
-    f32); lens -1 gives 0."""
-    q, k, v, lens = _tool_inputs(card, B, H, Hkv, cap, D, B * H + cap)
-    k, v = k.to(dt), v.to(dt)
-    scale = 1.0 / np.sqrt(D)
+    (3, 20, 2, 200, 80, 64),      # group 10 (two n-tiles), D 80, ragged tiles
+    (5, 8, 2, 201, 6, 256),       # D 6 (zero-padded dims), odd cap (bd bf16: 2-byte copies)
+    (4, 8, 2, 300, 256, 256),     # D 256
+]
+
+
+def _fold_case(card, form, B, H, Hkv, cap, D, seed):
+    """The tool's inputs with slot 3 (where there is one) past cap, the
+    kernel and plain version of ``form``, and K in that form's layout."""
+    q, k, v, lens = _tool_inputs(card, B, H, Hkv, cap, D, seed)
+    if B > 3:
+        lens[3] = cap + 5
     kern, plain = ((tbda.bd_decode, tbda.bd_decode_plain) if form == "bd"
                    else (tbda.nt_decode, tbda.nt_decode_plain))
-    kx = k.transpose(2, 3).contiguous() if form == "bd" else k
-    before = kern.launches
-    got = kern(q, kx, v, lens, scale=scale, block_k=bk)
+    return q, k, v, lens, kern, plain
+
+
+def _two_calls(card, kern, q, kx, v, lens, D, bk):
+    """Two calls of the kernel: (output, second output), after checking
+    their launch and split counters against the plan (TinyLlama's shape
+    splits its keys over blocks)."""
+    B, H, Hkv, cap = q.shape[0], q.shape[1], v.shape[1], v.shape[2]
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    plan = tbda.fold_plan(B, H, Hkv, cap, D, v.dtype, bk, sms)
+    if (B, H, Hkv) == (16, 32, 4):
+        assert plan.splits > 1 and B * Hkv * plan.row_tiles * plan.splits >= sms, plan
+    before, split_before = kern.launches, kern.split_launches
+    got = kern(q, kx, v, lens, scale=1.0 / np.sqrt(D), block_k=bk)
+    again = kern(q, kx, v, lens, scale=1.0 / np.sqrt(D), block_k=bk)
     torch.cuda.synchronize()
-    assert kern.launches == before + 1 and got.shape == (B, H, 1, D)
-    want = plain(q, kx, v, lens, scale=scale, block_k=bk)
+    assert kern.launches == before + 2
+    assert kern.split_launches == split_before + 2 * (plan.splits > 1), plan
+    return got, again
+
+
+@pytest.mark.parametrize("form", ["bd", "nt"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,cap,D,bk", FOLD_SHAPES)
+def test_bd_nt_decode_kernel(card, form, dt, B, H, Hkv, cap, D, bk):
+    """f32 atol 1e-5; bf16 K/V rtol 2e-2, atol 5e-3 (the output is q's
+    f32); lens -1 gives 0; a second call gives the same bits."""
+    q, k, v, lens, kern, plain = _fold_case(card, form, B, H, Hkv, cap, D, B * H + cap)
+    k, v = k.to(dt), v.to(dt)
+    kx = k.transpose(2, 3).contiguous() if form == "bd" else k
+    got, again = _two_calls(card, kern, q, kx, v, lens, D, bk)
+    assert got.shape == (B, H, 1, D) and torch.equal(got, again)
+    want = plain(q, kx, v, lens, scale=1.0 / np.sqrt(D), block_k=bk)
     rtol, atol = (0.0, 1e-5) if dt == torch.float32 else (2e-2, 5e-3)
     assert _within(got, want, rtol, atol), (got.float() - want).abs().max().item()
     assert not got[0].any()
@@ -1310,26 +1340,22 @@ def test_bd_nt_decode_kernel(card, form, dt, B, H, Hkv, cap, D, bk):
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,Hkv,cap,D,bk", [
     (32, 12, 12, 256, 64, 256),   # the tool's shape
-    (16, 32, 4, 256, 64, 256),    # TinyLlama's attention (group 8)
+    (16, 32, 4, 256, 64, 256),    # TinyLlama's attention (group 8): 4 splits
+    (16, 12, 2, 256, 128, 256),   # Qwen2.5-1.5B's attention (group 6, D 128)
     (3, 20, 2, 200, 80, 64),      # group 10, D 80, ragged tiles
 ])
 def test_bd_nt_decode_kernel_bf16_q(card, form, dt, B, H, Hkv, cap, D, bk):
     """A bf16 q gives a bf16 output: against the plain version, f32 K/V
     within one bf16 rounding of the output (rtol 2^-7, atol 1e-5), bf16 K/V
-    at the bf16 rule (rtol 2e-2, atol 5e-3); lens -1 gives 0."""
-    q, k, v, lens = _tool_inputs(card, B, H, Hkv, cap, D, B * H + cap + 1)
+    at the bf16 rule (rtol 2e-2, atol 5e-3); lens -1 gives 0; a second call
+    gives the same bits."""
+    q, k, v, lens, kern, plain = _fold_case(card, form, B, H, Hkv, cap, D, B * H + cap + 1)
     q, k, v = q.to(torch.bfloat16), k.to(dt), v.to(dt)
-    scale = 1.0 / np.sqrt(D)
-    kern, plain = ((tbda.bd_decode, tbda.bd_decode_plain) if form == "bd"
-                   else (tbda.nt_decode, tbda.nt_decode_plain))
     kx = k.transpose(2, 3).contiguous() if form == "bd" else k
-    before = kern.launches
-    got = kern(q, kx, v, lens, scale=scale, block_k=bk)
-    again = kern(q, kx, v, lens, scale=scale, block_k=bk)
-    torch.cuda.synchronize()
-    assert kern.launches == before + 2 and got.shape == (B, H, 1, D)
+    got, again = _two_calls(card, kern, q, kx, v, lens, D, bk)
+    assert got.shape == (B, H, 1, D)
     assert got.dtype == torch.bfloat16 and torch.equal(got, again)
-    want = plain(q, kx, v, lens, scale=scale, block_k=bk)
+    want = plain(q, kx, v, lens, scale=1.0 / np.sqrt(D), block_k=bk)
     rtol, atol = (2.0 ** -7, 1e-5) if dt == torch.float32 else (2e-2, 5e-3)
     assert _within(got, want, rtol, atol), (got.float() - want.float()).abs().max().item()
     assert not got[0].any()
@@ -1341,9 +1367,41 @@ def test_tool_kernels_refuse_on_the_card(card):
         tbda.nt_decode(q, k.transpose(2, 3).contiguous().transpose(2, 3), v, lens, scale=1.0)
     with pytest.raises(ValueError):  # tensors on two devices
         tbda.nt_decode(q, k, v, lens.cpu(), scale=1.0)
-    with pytest.raises(ValueError):  # a key block whose scores overflow shared memory
-        tbda.nt_decode(q, torch.zeros(4, 2, 8192, 32, device=card),
-                       torch.zeros(4, 2, 8192, 32, device=card), lens, scale=1.0, block_k=8192)
+
+
+@pytest.mark.parametrize("form", ["bd", "nt"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_tool_kernels_take_a_long_key_block(card, form, dt):
+    """A key block of 8192 keys (which the CUDA-core kernel before the
+    split one refused: its scores overflowed shared memory) against the
+    plain version, lens -1, 8191, 0 and 5000."""
+    q, _, _, _ = _tool_inputs(card, 4, 8, 2, 64, 32, 0)
+    g = _gen(8192)
+    k = torch.randn(4, 2, 8192, 32, generator=g).to(card, dt)
+    v = torch.randn(4, 2, 8192, 32, generator=g).to(card, dt)
+    lens = torch.tensor([-1, 8191, 0, 5000], dtype=torch.int32, device=card)
+    kern, plain = ((tbda.bd_decode, tbda.bd_decode_plain) if form == "bd"
+                   else (tbda.nt_decode, tbda.nt_decode_plain))
+    kx = k.transpose(2, 3).contiguous() if form == "bd" else k
+    got = kern(q, kx, v, lens, scale=1.0, block_k=8192)
+    want = plain(q, kx, v, lens, scale=1.0, block_k=8192)
+    torch.cuda.synchronize()
+    rtol, atol = (0.0, 1e-5) if dt == torch.float32 else (2e-2, 5e-3)
+    assert _within(got, want, rtol, atol), (got.float() - want).abs().max().item()
+    assert not got[0].any()
+
+
+def test_timed_fails_below_the_byte_floor(card):
+    """``chip_smoke.timed`` profiles again a call whose device time reads
+    below its byte floor, and fails the run when every window does; a call
+    whose bytes fit the L2 has no floor."""
+    import chip_smoke
+
+    x = torch.zeros(1024, device=card)
+    device, wall = chip_smoke.timed(lambda: x.add_(1), iters=3, warmup=1, nbytes=8 * x.numel())
+    assert device is not None and device > 0 and wall > 0
+    with pytest.raises(SystemExit):  # a floor of about 0.3 s for a microsecond's add
+        chip_smoke.timed(lambda: x.add_(1), iters=3, warmup=1, nbytes=1e12)
 
 
 def test_tinyllama_bf16_reference_repeats(card, capsys):
