@@ -15,7 +15,11 @@ Run from the repository root:  python3 chip_smoke.py
    the host's launch overhead, is printed beside it as "wall" (see
    ``timed``). GPT-2 124M's kernels at the serving headline's shapes
    (slots 120, cap 256, prompt 128: E 768, H 12, D 64, vocab 50257); the
-   int8 matmul and the argmax also at the TinyLlama serve phase's shapes;
+   int8 matmul and the argmax also at the TinyLlama serve phase's shapes,
+   the int8 matmul's GPT-2 step also at 16 rows (the serve phases' slots)
+   and 1 (a Generator step), each case on its form (stream, rows, tiled)
+   and equal to its plain version bit for bit, one admission's per-layer
+   calls totalled;
    decode_mha's two forms at TinyLlama's attention shape (H 32 over 4 KV
    heads, D 64, slots 16, cap 256; S 1 and S 128; s8 and f32 caches; a
    window); paged_decode_mha at the same shape on block pools (block size
@@ -23,7 +27,8 @@ Run from the repository root:  python3 chip_smoke.py
    the GPT-2 headline shape (a pool of 1 + 480 blocks of 64 rows, idle
    slots colliding in block 0); mha at the Generator's prefill (B 1, H 12,
    T 128, D 64, causal, 37 left-pad columns), at T 1024, and with GQA 32/4
-   and softcap 30 (B 2, Tq 256, Tk 512); int4_matmul over one GPT-2 124M
+   and softcap 30 (B 2, Tq 256, Tk 512), all on tensor cores, the first two
+   also in bf16 beside SDPA in bf16; int4_matmul over one GPT-2 124M
    forward's 49 MatMulNBits calls at M 1, 16, 128 and a serve admission's
    2048 (the lm_head there at 16), and with u8 zero points. The f32/bf16
    modes (no scales) of the attention kernels: the flat append and
@@ -40,7 +45,9 @@ Run from the repository root:  python3 chip_smoke.py
 3. Serve phases, each through the user's entry points (builder,
    quantize_dynamic, Model, ContinuousBatchingEngine) with every launch
    counter zeroed just before and read just after (each kernel of the path
-   must have run, as often as the path's forwards say):
+   must have run, as often as the path's forwards say; the int8 matmul on
+   its stream form at every decode step and tiled at every admission, mha
+   never on CUDA cores):
    - TinyLlama-1.1B's shape at full width, its depth cut to 8 of 22 layers
      (random weights from seed 0), int8 weights, int8 head-major KV caches;
    - the same TinyLlama weights on paged int8 head-major pools (41 blocks
@@ -112,6 +119,7 @@ sys.path.insert(0, ROOT)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 INT8_OPS_PER_S = 1.979e15     # int8 tensor cores, dense
 F32_FLOPS_PER_S = 67e12       # f32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12     # TF32 tensor cores, dense
 BF16_FLOPS_PER_S = 989e12     # bf16 tensor cores, dense
 
 SLOTS, CAP, PROMPT = 120, 256, 128
@@ -301,31 +309,45 @@ LLAMA_INT8 = [(2048, 2048, 44), (2048, 256, 44), (2048, 5632, 44), (5632, 2048, 
               (2048, 32768, 1)]
 
 
-def phase_int8_matmul(gen, dev, decode=GPT2_INT8, slots=SLOTS, tag="GPT-2"):
+def phase_int8_matmul(gen, dev, decode=GPT2_INT8, slots=SLOTS, tag="GPT-2", steps=()):
+    """int8_matmul_dequant (rten_tpu_torch/csrc/int8_matmul.cu) over one
+    decode step's calls at ``slots`` rows and at each of ``steps`` (GPT-2:
+    16, the serve phases' slots, and 1, a Generator step), and one
+    admission's per-layer calls at slots x 128 rows: each case on the form
+    int8_form names (its counter moves by the two calls), equal to
+    int8_matmul_dequant_plain bit for bit, the same bits on a second call,
+    its form and split count printed beside its times. Returns the step at
+    ``slots`` as the row, the other steps and the admission (the four
+    per-layer shapes x layers) as ``other_shapes``."""
+    from rten_tpu_torch.kernels.common import sm_count
     from rten_tpu_torch.kernels.int8_matmul import (
-        int8_matmul_dequant, int8_matmul_dequant_plain,
+        int8_form, int8_matmul_dequant, int8_matmul_dequant_plain, int8_split_plan,
     )
 
-    calls = [(slots, K, N, n) for K, N, n in decode]
-    calls += [(slots * PROMPT, K, N, 1) for K, N, _ in decode[:-1]]
-    max_err = 0.0
+    admission = slots * PROMPT
+    calls = [(M, K, N, n) for M in (slots, *steps) for K, N, n in decode]
+    calls += [(admission, K, N, n) for K, N, n in decode[:-1]]
     per_shape = []
-    for M, K, N, _ in calls:
+    for M, K, N, n in calls:
         a = torch.randint(0, 256, (M, K), generator=gen, dtype=torch.uint8).to(dev)
         b = torch.randint(-127, 128, (K, N), generator=gen, dtype=torch.int8).to(dev)
         sa = torch.tensor(0.02, device=dev)
         sb = (torch.rand(N, generator=gen) * 1e-3 + 1e-4).to(dev)
         zp = torch.tensor(131, dtype=torch.uint8, device=dev)
         cs = b.to(torch.int32).sum(0, keepdim=True).to(torch.int32)
+        form = int8_form(M)
+        before = getattr(int8_matmul_dequant, f"{form}_launches")
         got = int8_matmul_dequant(a, b, sa, sb, zp, None, cs)
+        again = int8_matmul_dequant(a, b, sa, sb, zp, None, cs)
         want = int8_matmul_dequant_plain(a, b, sa, sb, zp, None, cs)
         torch.cuda.synchronize()
-        # The integer part is exact; the f32 epilogue rounds identically.
-        err = (got - want).abs().max().item()
-        tol = 1e-6 * want.abs().max().item()
-        if not err <= tol:
-            fail(f"int8_matmul_dequant M={M} K={K} N={N}: max err {err} > {tol}")
-        max_err = max(max_err, err)
+        # The integer part is exact and the f32 epilogue rounds as the plain
+        # version's: equal bits.
+        if (not torch.equal(got, want) or not torch.equal(got, again)
+                or getattr(int8_matmul_dequant, f"{form}_launches") != before + 2):
+            fail(f"int8_matmul_dequant M={M} K={K} N={N}: max err "
+                 f"{(got - want).abs().max().item()}, two calls differ, or not the {form} form")
+        splits = int8_split_plan(M, N, K, sm_count(0))[0]
         lib = int_mm_ms(a, b)
         nbytes = M * K + K * N + 8 * N + 4 * M * N
         k_ms = timed(lambda: int8_matmul_dequant(a, b, sa, sb, zp, None, cs), iters=10,
@@ -333,35 +355,48 @@ def phase_int8_matmul(gen, dev, decode=GPT2_INT8, slots=SLOTS, tag="GPT-2"):
         p_ms = timed(lambda: int8_matmul_dequant_plain(a, b, sa, sb, zp, None, cs), iters=3,
                      warmup=1, nbytes=nbytes)
         bms, by = bound_ms(nbytes, 2.0 * M * N * K, INT8_OPS_PER_S)
-        per_shape.append((M, K, N, k_ms, p_ms, lib, bms, by))
+        per_shape.append((M, K, N, k_ms, p_ms, lib, bms, by, n))
         pad = f" (M padded to {INT_MM_MIN_ROWS})" if M <= 16 else ""
-        print(f"  int8_matmul [{tag}] M={M} K={K} N={N}: kernel {fmt(k_ms)}, plain "
-              f"{fmt(p_ms)}, _int_mm{pad} {'refused' if lib is None else fmt(lib)}, "
-              f"bound {bms:.4f} ms ({by})", flush=True)
-        del a, b, got, want
-    # The reported unit: one decode step.
-    step = [(s, n) for s, (_, _, _, n) in zip(per_shape, calls) if s[0] == slots]
+        print(f"  int8_matmul [{tag}] M={M} K={K} N={N} ({form}, {splits} "
+              f"split{'s' if splits > 1 else ''}): kernel {fmt(k_ms)}, plain {fmt(p_ms)}, "
+              f"_int_mm{pad} {'refused' if lib is None else fmt(lib)}, bound {bms:.4f} ms "
+              f"({by}); equal to the plain version, two calls bit-identical", flush=True)
+        del a, b, got, again, want
 
-    def tot(i, wall=False):
-        return sum((s[i][1] if wall else ms_of(s[i])) * n for s, n in step)
+    def unit(M, what):
+        rows = [s for s in per_shape if s[0] == M and (M == admission or s[1:3] in
+                                                       [(K, N) for K, N, _ in decode])]
 
-    lib_tot = None if any(s[5] is None for s, _ in step) else (tot(5), tot(5, True))
-    bytes_bound = sum(s[6] * n for s, n in step if s[7] == "bytes")
+        def tot(i, wall=False):
+            return sum((s[i][1] if wall else ms_of(s[i])) * s[8] for s in rows)
+
+        lib_tot = None if any(s[5] is None for s in rows) else (tot(5), tot(5, True))
+        bound = sum(s[6] * s[8] for s in rows)
+        bytes_bound = sum(s[6] * s[8] for s in rows if s[7] == "bytes")
+        r = {"unit": what, "form": int8_form(M), "max_abs_err": 0.0, "ms": tot(3),
+             "plain_ms": tot(4), "bound_ms": bound,
+             "bound_by": "bytes" if 2 * bytes_bound >= bound else "operations",
+             "library_ms": None if lib_tot is None else lib_tot[0],
+             "wall_ms": tot(3, True), "plain_wall_ms": tot(4, True),
+             "library_wall_ms": None if lib_tot is None else lib_tot[1]}
+        print(f"  int8_matmul [{tag}] {what} ({r['form']}): kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f}, _int_mm {r['library_ms'] if lib_tot is None else f'{lib_tot[0]:.4f}'}, "
+              f"bound {bound:.4f} ms", flush=True)
+        return r
+
+    calls_step = sum(n for _, _, n in decode)
+    calls_adm = sum(n for _, _, n in decode[:-1])
+    head = unit(slots, f"one {tag} decode step at slots {slots}: {calls_step} calls")
+    others = [unit(M, f"one {tag} decode step at M {M}: {calls_step} calls") for M in steps]
+    others.append(unit(admission, f"one {tag} admission at M {admission} (slots {slots} x "
+                                  f"{PROMPT}): the per-layer calls, {calls_adm}"))
     return {
         "name": "int8_matmul_dequant", "route": "cuda",
         "source": "rten_tpu_torch/csrc/int8_matmul.cu",
-        "replaces": "rten_tpu/kernels/int8_matmul.py:121",
-        "unit": f"one {tag} decode step at slots {slots}: "
-                f"{sum(n for _, _, n in decode)} calls",
-        "max_abs_err": max_err, "ms": tot(3), "plain_ms": tot(4),
-        "bound_ms": sum(s[6] * n for s, n in step),
-        "bound_by": "bytes" if 2 * bytes_bound >= sum(s[6] * n for s, n in step)
-        else "operations",
-        "library_ms": None if lib_tot is None else lib_tot[0],
+        "replaces": "rten_tpu/kernels/int8_matmul.py:121", **head,
         "library_call": "torch._int_mm (integer product only, no epilogue; cuBLAS refuses "
                         f"M <= 16, so M <= 16 is padded to {INT_MM_MIN_ROWS} rows)",
-        "wall_ms": tot(3, True), "plain_wall_ms": tot(4, True),
-        "library_wall_ms": None if lib_tot is None else lib_tot[1],
+        "other_shapes": others,
     }
 
 
@@ -1551,18 +1586,25 @@ def phase_argmax(gen, dev, slots=SLOTS, vocab=VOCAB, padded=NP):
 GEN_PROMPT, GEN_BUCKET, GEN_NEW = 91, 128, 64
 
 
-def _mha_case(gen, dev, tag, B, Hq, Hkv, T_q, T_k, causal, softcap, pad, calls):
-    """One mha shape: against mha_plain within 1e-4 on the rows with a column
-    to attend, 0 on the others (the left padding under causal), the same bits
-    on a second call; then the times of ``calls`` calls (one per layer) of
-    the kernel, the plain version and SDPA with the mask and the causal band
-    folded into one float mask (enable_gqa), beside the bound from this
-    run's (row, column) pairs."""
-    from rten_tpu_torch.kernels.flash_attention import mha, mha_plain
+def _mha_case(gen, dev, tag, B, Hq, Hkv, T_q, T_k, causal, softcap, pad, calls,
+              dt=torch.float32):
+    """One mha shape in ``dt``: against mha_plain within 1e-4 (f32; bf16 2e-2,
+    one bf16 rounding of the output) on the rows with a column to attend, 0
+    on the others (the left padding under causal), the same bits on a second
+    call, on tensor cores (the CUDA-core counter does not move); then the
+    times of ``calls`` calls (one per layer) of the kernel, the plain
+    version and SDPA in ``dt`` with the mask and the causal band folded into
+    one float mask (enable_gqa), beside the bound from this run's (row,
+    column) pairs: the operations at the TF32 (f32) or bf16 tensor-core
+    peak, or the bytes, whichever is larger (the f32 CUDA-core figure beside
+    it)."""
+    from rten_tpu_torch.kernels.common import sm_count
+    from rten_tpu_torch.kernels.flash_attention import mha, mha_plain, mha_key_warps
 
-    q = torch.randn(B, Hq, T_q, D, generator=gen).to(dev)
-    k = torch.randn(B, Hkv, T_k, D, generator=gen).to(dev)
-    v = torch.randn(B, Hkv, T_k, D, generator=gen).to(dev)
+    q = torch.randn(B, Hq, T_q, D, generator=gen).to(dev, dt)
+    k = torch.randn(B, Hkv, T_k, D, generator=gen).to(dev, dt)
+    v = torch.randn(B, Hkv, T_k, D, generator=gen).to(dev, dt)
+    cc = mha.cuda_core_launches
     # The Generator's folded [1, Tk] additive mask: -1e30 on the pad columns.
     m = torch.where(torch.arange(T_k, device=dev) < pad, -1e30, 0.0)[None] if pad else None
     kw = dict(causal=causal, softcap=softcap)
@@ -1577,31 +1619,41 @@ def _mha_case(gen, dev, tag, B, Hq, Hkv, T_q, T_k, causal, softcap, pad, calls):
     if m is not None:
         admitted &= m > -1e29
     live = admitted.any(-1)[None, None, :, None].expand_as(got)
-    err = (got - want)[live].abs().max().item()
-    if not err <= 1e-4 or not (got[~live] == 0).all() or not torch.equal(got, again):
-        fail(f"mha [{tag}]: max err {err} > 1e-4, a fully masked row is not 0, or two "
-             f"calls differ")
+    err = (got.float() - want.float())[live].abs().max().item()
+    tol = 1e-4 if dt == torch.float32 else 2e-2
+    if (not err <= tol or not (got[~live] == 0).all() or not torch.equal(got, again)
+            or mha.cuda_core_launches != cc):
+        fail(f"mha [{tag}]: max err {err} > {tol}, a fully masked row is not 0, two "
+             f"calls differ, or not on tensor cores")
     layers = [(torch.randn_like(k), torch.randn_like(v)) for _ in range(calls)]
     pairs = admitted.sum().item() * B * Hq
-    nbytes = 4 * (2 * B * Hq * T_q * D + 2 * B * Hkv * T_k * D) + (4 * T_k if pad else 0)
+    el = q.element_size()
+    nbytes = el * (2 * B * Hq * T_q * D + 2 * B * Hkv * T_k * D) + (4 * T_k if pad else 0)
     k_ms = timed(lambda: [mha(q, kk, vv, m, **kw) for kk, vv in layers], iters=10,
                  nbytes=calls * nbytes)
     p_ms = timed(lambda: [mha_plain(q, kk, vv, m, **kw) for kk, vv in layers], iters=3, warmup=1,
                  nbytes=calls * nbytes)
-    fmask = torch.where(admitted, 0.0, float("-inf"))
+    fmask = torch.where(admitted, 0.0, float("-inf")).to(dt)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     sd = timed(lambda: [sdpa(q, kk, vv, attn_mask=fmask, enable_gqa=Hq != Hkv)
                         for kk, vv in layers], iters=10, nbytes=calls * nbytes)
     # SDPA has no softcap: with one it is a yardstick only, not the library
     # time of the same function.
     lib = None if softcap else sd
-    bms, by = bound_ms(calls * nbytes, calls * 4.0 * pairs * D, attn_peak("f32"))
-    print(f"  mha [{tag}] x{calls}: max abs err {err:.3e} (bound 1e-4), {int((~live).sum()) // D} "
-          f"fully masked rows 0, two calls bit-identical; kernel {fmt(k_ms)}, plain {fmt(p_ms)}, "
-          f"sdpa{' without the softcap' if softcap else ''} {fmt(sd)}, bound {bms:.4f} ms ({by})",
-          flush=True)
+    ops = calls * 4.0 * pairs * D
+    bms, by = bound_ms(calls * nbytes, ops,
+                       TF32_FLOPS_PER_S if dt == torch.float32 else BF16_FLOPS_PER_S)
+    old_bms, old_by = bound_ms(calls * nbytes, ops, F32_FLOPS_PER_S)
+    key_warps = mha_key_warps(B, Hq, T_q, causal, sm_count(0))
+    print(f"  mha [{tag}] x{calls}: max abs err {err:.3e} (bound {tol:g}), "
+          f"{int((~live).sum()) // D} fully masked rows 0, two calls bit-identical, tensor "
+          f"cores ({key_warps} key warp{'s' if key_warps > 1 else ''} a block); kernel "
+          f"{fmt(k_ms)}, plain {fmt(p_ms)}, "
+          f"sdpa{' without the softcap' if softcap else ''} {fmt(sd)}, bound {bms:.4f} ms ({by}; "
+          f"at the f32 CUDA-core rate {old_bms:.4f} ms, {old_by})", flush=True)
     return {"unit": f"{tag}: {calls} call{'s' if calls > 1 else ''}", "max_abs_err": err,
             **time_keys(k_ms, p_ms, lib), "bound_ms": bms, "bound_by": by,
+            "bound_ms_f32_cuda_cores": old_bms, "key_warps": key_warps,
             **({"sdpa_without_softcap_ms": ms_of(sd)} if softcap else {})}
 
 
@@ -1609,8 +1661,9 @@ def phase_mha(gen, dev):
     """mha (rten_tpu_torch/csrc/mha.cu) at the Generator's prefill (B 1, H 12,
     Tq = Tk = 128, D 64, causal, a [1, 128] mask with 37 left-pad columns;
     12 calls, one per layer), at GPT-2's longest prompt (the same at 1024),
-    and with GQA and softcap (B 2, 32 query heads over 4 KV heads, Tq 256,
-    Tk 512, softcap 30, causal and not, no mask)."""
+    with GQA and softcap (B 2, 32 query heads over 4 KV heads, Tq 256, Tk
+    512, softcap 30, causal and not, no mask), all f32, and the first two
+    again in bf16 beside SDPA in bf16. Every case runs on tensor cores."""
     rows = [
         _mha_case(gen, dev, "Generator prefill, B 1, H 12, T 128, D 64, causal, 37 pad columns",
                   1, H, H, GEN_BUCKET, GEN_BUCKET, True, 0.0, GEN_BUCKET - GEN_PROMPT, 12),
@@ -1621,11 +1674,18 @@ def phase_mha(gen, dev):
         rows.append(_mha_case(gen, dev, f"GQA 32/4, B 2, Tq 256, Tk 512, softcap 30, "
                                         f"{'causal' if causal else 'not causal'}",
                               2, 32, 4, 256, 512, causal, 30.0, 0, 1))
+    rows += [
+        _mha_case(gen, dev, "Generator prefill in bf16, T 128", 1, H, H, GEN_BUCKET, GEN_BUCKET,
+                  True, 0.0, GEN_BUCKET - GEN_PROMPT, 12, torch.bfloat16),
+        _mha_case(gen, dev, "GPT-2's longest prompt in bf16, T 1024", 1, H, H, 1024, 1024, True,
+                  0.0, 37, 12, torch.bfloat16),
+    ]
     head = rows[0]
     return {
         "name": "mha", "route": "cuda", "source": "rten_tpu_torch/csrc/mha.cu",
         "replaces": "rten_tpu/kernels/flash_attention.py:139",
-        **head, "max_abs_err": max(r["max_abs_err"] for r in rows),
+        **head, "max_abs_err": max(r["max_abs_err"] for r in rows[:4]),
+        "bf16_max_abs_err": max(r["max_abs_err"] for r in rows[4:]),
         "library_call": "scaled_dot_product_attention(enable_gqa) with the mask and the causal "
                         "band folded into one float mask",
         "other_shapes": rows[1:],
@@ -2057,8 +2117,8 @@ def build_model(n_layer, capacity, device, vocab=VOCAB, n_embd=E, n_head=H, kv="
 class FormCounter:
     """A wrapper's launches of one of its kernels (``fn.<attr>``, which
     ``fn.launches`` also counts) as a counter of their own: decode_mha_heads'
-    and prefill_mha_cat's CUDA-core kernel (f32 caches, D 129-512),
-    int4_matmul's forms."""
+    and prefill_mha_cat's CUDA-core kernel (f32 caches, D 129-512), mha's
+    (D 129-256), int4_matmul's and int8_matmul_dequant's forms."""
 
     def __init__(self, fn, attr):
         self.fn, self.attr = fn, attr
@@ -2090,6 +2150,10 @@ def counters():
                                                  "cuda_core_launches"),
         **{f"int4_matmul_{form}": FormCounter(int4_matmul.int4_matmul, f"{form}_launches")
            for form in int4_matmul.FORMS},
+        **{f"int8_matmul_dequant_{form}": FormCounter(int8_matmul.int8_matmul_dequant,
+                                                      f"{form}_launches")
+           for form in int8_matmul.FORMS},
+        "mha_cuda_core": FormCounter(flash_attention.mha, "cuda_core_launches"),
         "paged_decode_mha": flash_attention.paged_decode_mha,
         "decode_mha_append_cat_paged": flash_attention.decode_mha_append_cat_paged,
         "decode_mha_append": flash_attention.decode_mha_append,
@@ -2182,6 +2246,10 @@ def phase_serve(dev, paged=False, kv="s8"):
         # to f32, as the reference widens them, run on CUDA cores)
         want = lambda steps, adm: {  # noqa: E731
             "int8_matmul_dequant": 49 * (steps + adm),
+            # decode steps (16 rows) and the admissions' lm_head (one row a
+            # slot) on the stream form, the admissions' 48 projections tiled
+            "int8_matmul_dequant_stream": 49 * steps + adm,
+            "int8_matmul_dequant_tiled": 48 * adm,
             "decode_mha_append_cat_paged": 12 * steps,
             "decode_mha_heads": 12 * adm,
             **({"decode_mha_heads_cuda_core": 12 * adm} if kv == "bf16" else {}),
@@ -2190,6 +2258,10 @@ def phase_serve(dev, paged=False, kv="s8"):
     else:
         want = lambda steps, adm: {  # noqa: E731
             "int8_matmul_dequant": 49 * (steps + adm),
+            # decode steps (16 rows) and the admissions' lm_head (one row a
+            # slot) on the stream form, the admissions' 48 projections tiled
+            "int8_matmul_dequant_stream": 49 * steps + adm,
+            "int8_matmul_dequant_tiled": 48 * adm,
             "decode_mha_append_cat": 12 * steps,
             "prefill_mha_cat": 12 * adm,
             "argmax_lastdim": steps + adm,
@@ -2255,6 +2327,8 @@ def phase_serve_int4_kv(dev):
     budgets = [int(rng.integers(16, 49)) for _ in range(24)]
     want = lambda steps, adm: {  # noqa: E731
         "int8_matmul_dequant": 49 * (steps + adm),
+        "int8_matmul_dequant_stream": 49 * steps + adm,
+        "int8_matmul_dequant_tiled": 48 * adm,
         "decode_mha_folded": 12 * steps,
         "decode_mha_heads": 12 * adm,
         "argmax_lastdim": steps + adm,
@@ -2396,6 +2470,8 @@ def phase_serve_llama(dev, weights, paged=False, n_layer=L_CUT_LAYERS, kv="s8",
              **(PAGED if paged else {})),
         lambda steps, adm: {
             "int8_matmul_dequant": (7 * n_layer + 1) * (steps + adm),
+            "int8_matmul_dequant_stream": (7 * n_layer + 1) * steps + adm,
+            "int8_matmul_dequant_tiled": 7 * n_layer * adm,
             decode: n_layer * steps,
             "decode_mha_heads": n_layer * adm,
             "argmax_lastdim": steps + adm,
@@ -2413,6 +2489,8 @@ def phase_serve_qwen(dev):
         dict(QWEN, kv="bf16", kernel_append=True),
         lambda steps, adm: {
             "int8_matmul_dequant": (7 * n + 1) * (steps + adm),
+            "int8_matmul_dequant_stream": (7 * n + 1) * steps + adm,
+            "int8_matmul_dequant_tiled": 7 * n * adm,
             "decode_mha_append_cat": n * steps,
             "prefill_mha_cat": n * adm,
             "argmax_lastdim": steps + adm,
@@ -3237,7 +3315,7 @@ def main() -> int:
 
     print("kernel phases:", flush=True)
     kernels = [
-        phase_int8_matmul(gen, dev),
+        phase_int8_matmul(gen, dev, steps=(16, 1)),
         phase_decode_attention(gen, dev),
         phase_prefill_attention(gen, dev),
         phase_argmax(gen, dev),
@@ -3250,7 +3328,7 @@ def main() -> int:
             (kernels[0], "llama", phase_int8_matmul(gen, dev, LLAMA_INT8, L_SLOTS, "TinyLlama")),
             (kernels[3], "llama", phase_argmax(gen, dev, L_SLOTS, L_VOCAB, 32768)),
             (kernels[3], "qwen", phase_argmax(gen, dev, Q_SLOTS, Q_VOCAB, Q_VOCAB))):
-        row[key] = {k: other[k] for k in nested}
+        row[key] = {k: other[k] for k in (*nested, "other_shapes") if k in other}
         row["max_abs_err"] = max(row["max_abs_err"], other["max_abs_err"])
     kernels += phase_decode_mha(gen, dev)
     lap("kernels of PRs 1-2")
@@ -3338,6 +3416,12 @@ def main() -> int:
         if k["name"] == "int4_matmul":  # each form's share of the launches
             k["launches_by_form"] = {f: sum(n[f"int4_matmul_{f}"] for n in by_path.values())
                                      for f in ("stream", "tiled", "cuda_core")}
+        if k["name"] == "int8_matmul_dequant":
+            k["launches_by_form"] = {f: sum(n[f"int8_matmul_dequant_{f}"]
+                                            for n in by_path.values())
+                                     for f in ("stream", "rows", "tiled")}
+        if k["name"] == "mha":
+            k["cuda_core_launches"] = sum(n["mha_cuda_core"] for n in by_path.values())
     print("reference phases:", flush=True)
     sanitizer = phase_sanitizer(out_dir)
     lap("compute-sanitizer (racecheck, memcheck)")

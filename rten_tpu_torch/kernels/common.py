@@ -5,6 +5,7 @@ the CUDA kernels mask ragged tiles instead of padding operands)."""
 from __future__ import annotations
 
 import functools
+from typing import Dict, Tuple
 
 import torch
 
@@ -54,3 +55,26 @@ def sm_count(index) -> int:
     """The streaming multiprocessors of CUDA device ``index`` (the kernels'
     split plans size their grids to it)."""
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# (device index, stream) -> (counters int32, partial sums float32)
+_workspaces: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def split_workspace(device, stream: int, tiles: int, floats: int):
+    """The arrival counters (all 0 between calls: each call's last blocks
+    reset theirs) and the partial-sum storage (4-byte words: f32 partials
+    of int4_matmul, int32 ones of int8_matmul_dequant) of this device and
+    stream, grown to ``tiles`` counters and ``floats`` words. Kernels on
+    one stream run in order, so one workspace serves every call made on
+    it."""
+    key = (device.index, stream)
+    count, ws = _workspaces.get(key, (None, None))
+    if count is None or count.numel() < tiles:
+        count = torch.zeros(max(tiles, 2 * (0 if count is None else count.numel())),
+                            dtype=torch.int32, device=device)
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(max(floats, 2 * (0 if ws is None else ws.numel())),
+                         dtype=torch.float32, device=device)
+    _workspaces[key] = (count, ws)
+    return count, ws

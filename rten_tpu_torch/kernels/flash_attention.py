@@ -8,8 +8,9 @@ their plain PyTorch versions.
   ``rten_tpu/kernels/flash_attention.py:mha_pallas``: flash attention of
   q [B,Hq,Tq,D] over whole K/V [B,Hkv,Tk,D] (f32 or bf16), an optional 2-D
   additive mask, softcap, causal anchored at the KV end; ``mha_plain`` is
-  the reference's ``mha_xla``. The Attention ops route between the two
-  (``ops/attention.py:_attend``).
+  the reference's ``mha_xla``. D <= 128 runs on tensor cores (f32 in
+  3xTF32), D 129-256 on CUDA cores (``mha_form``, ``mha_key_warps``). The
+  Attention ops route between the two (``ops/attention.py:_attend``).
 * ``decode_mha`` replaces ``rten_tpu/kernels/flash_attention.py:decode_mha``
   and its ``_decode_mha_folded``: S query rows per slot over head-major
   caches ``[B, Hkv, cap, D]``, s8 with scales ``[B, Hkv, cap]``, int4 (u8
@@ -96,6 +97,7 @@ from ._build import load_library
 from .common import check_cuda_tensor, kernel_device, sm_count
 
 NEG_INF = -1e30
+SMS = 132  # the H100's SMs: the split plans' and mha_key_warps' target
 
 # A watcher of the attention kernel wrappers marked ``@_holdable`` (the
 # smoke test's check of every call against its plain version): while set,
@@ -242,19 +244,48 @@ def mha_plain(q, k, v, mask=None, *, scale=None, causal: bool = False,
 
 
 MHA_MAX_HEAD_DIM = 256
+MHA_TC_MAX_HEAD_DIM = 128  # tensor cores up to here, CUDA cores above
 _MHA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def mha_form(D: int) -> str:
+    """The kernel ``mha`` launches at head dim D: "tensor_core" (D <= 128)
+    or "cuda_core" (D 129-256, counted by ``mha.cuda_core_launches``)."""
+    return "tensor_core" if D <= MHA_TC_MAX_HEAD_DIM else "cuda_core"
+
+
+def mha_key_warps(B: int, Hq: int, Tq: int, causal: bool, sms: int = SMS) -> int:
+    """How many of a tensor-core mha block's four warps split each key tile
+    (the rest hold 16 query rows each): 1 where blocks of 64 rows fill the
+    SMs with even work (GQA 32/4 at 256 rows: 256 blocks); 2 where they fill
+    them but a causal prompt of 512 rows or more leaves the last blocks with
+    most of the keys (GPT-2's 1024-token prefill: 384 blocks of 32 rows),
+    or where blocks of 32 rows are needed to fill them; else 4 (its
+    128-token prefill: 96 blocks of 16 rows, each key tile split four
+    ways)."""
+    blocks = -(-Tq // 64) * Hq * B
+    if blocks >= sms and not (causal and Tq >= 512):
+        return 1
+    return 2 if 2 * blocks >= sms else 4
+
+
+def _rows16(t: torch.Tensor) -> bool:
+    """Rows of ``t`` (a unit-stride last axis) start on 16-byte boundaries."""
+    el = t.element_size()
+    return t.data_ptr() % 16 == 0 and all((st * el) % 16 == 0 for st in t.stride()[:-1])
 
 
 def mha(q, k, v, mask=None, *, scale: Optional[float] = None, causal: bool = False,
         softcap: float = 0.0):
-    """Flash attention, the kernel of ``csrc/mha.cu`` (replaces
+    """Flash attention, the kernels of ``csrc/mha.cu`` (replace
     ``rten_tpu/kernels/flash_attention.py:mha_pallas``): q [B,Hq,Tq,D], k/v
     [B,Hkv,Tk,D] in q's dtype (f32 or bf16; any even D up to 256), each with
     a unit-stride last axis; ``mask`` an optional additive f32 mask of at most 2 dims that
     broadcasts to [Tq, Tk] (the Attention op folds leading unit dims);
     softcap; causal with offset Tk - Tq -> [B,Hq,Tq,D] in q's dtype. A row
     whose every column is masked gives 0 (the plain version gives the mean
-    of V). For CPU tensors, ``mha_plain``."""
+    of V). D <= 128 runs on tensor cores (``mha_form``; f32 in 3xTF32),
+    D 129-256 on CUDA cores. For CPU tensors, ``mha_plain``."""
     if mask is not None and mask.dim() > 2:
         raise ValueError(f"mask: expected at most 2 dims broadcasting to [Tq, Tk], "
                          f"got {tuple(mask.shape)}")
@@ -275,6 +306,9 @@ def mha(q, k, v, mask=None, *, scale: Optional[float] = None, causal: bool = Fal
         check_cuda_tensor(name, t, q.dtype, device, contiguous=False)
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: the last axis must be unit-stride")
+    if q.dtype == torch.bfloat16:  # the 4-byte copies take bf16 pairs
+        q, k, v = (t if t.data_ptr() % 4 == 0 and all(st % 2 == 0 for st in t.stride()[:-1])
+                   else t.contiguous() for t in (q, k, v))
     m_ptr, m_sq, m_sk = None, 0, 0
     if mask is not None:
         mask = mask.to(torch.float32).expand(Tq, Tk)
@@ -283,19 +317,26 @@ def mha(q, k, v, mask=None, *, scale: Optional[float] = None, causal: bool = Fal
     if scale is None:
         scale = 1.0 / float(np.sqrt(D))
     out = torch.empty((B, Hq, Tq, D), dtype=q.dtype, device=device)
+    form = mha_form(D)
+    key_warps = mha_key_warps(B, Hq, Tq, bool(causal), sm_count(device.index))
+    vec = int(all(_rows16(t) for t in (q, k, v)))
     err = _mha_kernel_lib().rten_mha(
         _MHA_DTYPES[q.dtype], q.data_ptr(), *q.stride()[:3], k.data_ptr(), *k.stride()[:3],
         v.data_ptr(), *v.stride()[:3], m_ptr, m_sq, m_sk, out.data_ptr(), *out.stride()[:3],
         B, Hq, Hkv, Tq, Tk, D, int(bool(causal)), float(softcap or 0.0), float(scale),
-        torch.cuda.current_stream(device).cuda_stream,
+        key_warps, vec, torch.cuda.current_stream(device).cuda_stream,
     )
     if err:
-        raise RuntimeError(f"mha launch failed: CUDA error {err}")
+        raise RuntimeError(f"mha ({form}) launch failed: CUDA error {err}")
     mha.launches += 1
+    if form == "cuda_core":
+        mha.cuda_core_launches += 1
     return out
 
 
+# Every launch, and (of them) those on CUDA cores (D 129-256).
 mha.launches = 0
+mha.cuda_core_launches = 0
 
 
 def decode_mha_plain(q, k, v, lens, k_scale=None, v_scale=None, *,
@@ -451,7 +492,6 @@ def _paged_gather(pool_k, pool_v, pool_ks, pool_vs, bt):
     return paged_gather_kv(pool_k, bt), paged_gather_kv(pool_v, bt), ks, vs
 
 
-SMS = 132          # the H100's SMs: the split plan's target
 SPLIT_TILE = 32    # keys a warp scores at once (csrc/decode_fold.cuh, fold_tile)
 SPLIT_WARPS = 4    # warps of a split block, taking its chunk's tiles in turn
 MAX_SPLITS = 64    # csrc/decode_fold.cuh, FOLD_MAX_SPLITS
@@ -1242,7 +1282,7 @@ def _mha_kernel_lib():
     if fn.argtypes is None:
         P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         fn.argtypes = [I, P, L, L, L, P, L, L, L, P, L, L, L, P, L, L, P, L, L, L,
-                       I, I, I, I, I, I, I, F, F, P]
+                       I, I, I, I, I, I, I, F, F, I, I, P]
         fn.restype = I
     return lib
 

@@ -30,12 +30,12 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from ._build import load_library
-from .common import check_cuda_tensor, kernel_device, sm_count
+from .common import check_cuda_tensor, kernel_device, sm_count, split_workspace
 
 SMS = 132           # the H100's SMs: the split plan's target
 STREAM_MAX_M = 16   # rows the stream form takes (one m16 tile of the product)
@@ -132,27 +132,6 @@ def int4_split_plan(M: int, N: int, K: int, block_size: int,
     return -(-units // per), per * unit, tiles
 
 
-# (device index, stream) -> (counters int32, partial sums float32)
-_workspaces: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
-
-
-def _workspace(device, stream: int, tiles: int, floats: int):
-    """The arrival counters (all 0 between calls: each call's last blocks
-    reset theirs) and the partial-sum storage of this device and stream,
-    grown to ``tiles`` counters and ``floats`` floats. Kernels on one stream
-    run in order, so one workspace serves every call made on it."""
-    key = (device.index, stream)
-    count, ws = _workspaces.get(key, (None, None))
-    if count is None or count.numel() < tiles:
-        count = torch.zeros(max(tiles, 2 * (0 if count is None else count.numel())),
-                            dtype=torch.int32, device=device)
-    if ws is None or ws.numel() < floats:
-        ws = torch.empty(max(floats, 2 * (0 if ws is None else ws.numel())),
-                         dtype=torch.float32, device=device)
-    _workspaces[key] = (count, ws)
-    return count, ws
-
-
 def int4_matmul(a, b_packed, scales, zero_points=None, *, K: int, N: int,
                 block_size: int):
     """MatMulNBits: a [..., K] x int4 weights -> [..., N] (a's float dtype,
@@ -196,7 +175,7 @@ def int4_matmul(a, b_packed, scales, zero_points=None, *, K: int, N: int,
             # 8 rows, where each block's staged activations are worth reusing.
             grid_x = tiles if M <= 8 or splits > 1 else min(tiles, 2 * sms)
             if splits > 1:
-                count, ws = _workspace(device, stream, tiles, splits * M * N)
+                count, ws = split_workspace(device, stream, tiles, splits * M * N)
                 count, ws = count.data_ptr(), ws.data_ptr()
         err = _lib().rten_int4_matmul(
             FORMS.index(form), a2.data_ptr(), a2.stride(0), b2.data_ptr(), scales2.data_ptr(),

@@ -37,11 +37,22 @@ def _gen(seed):
 
 
 @pytest.mark.parametrize("M,K,N", [(1, 64, 128), (3, 768, 2304), (40, 100, 36),
-                                   (130, 3072, 768), (16, 768, 51200)])
+                                   (130, 3072, 768), (16, 768, 51200),
+                                   # every form boundary: stream to 16, rows to 128, tiled
+                                   (1, 768, 768), (16, 2048, 256), (17, 768, 768),
+                                   (120, 3072, 768), (128, 768, 2304), (129, 768, 768),
+                                   (2048, 2048, 256), (2048, 768, 2304), (120, 772, 36)])
 @pytest.mark.parametrize("zp", ["u8_colsums", "u8", "s8_both"])
 def test_int8_matmul_kernel(card, M, K, N, zp):
-    """The integer part is exact; the f32 epilogue (acc * sa) * sb rounds
-    the same way in both: rtol 1e-6 of the largest output."""
+    """Every form (``int8_form``: stream to M 16, rows to 128, tiled above)
+    against the plain version: the integer part is exact and the f32
+    epilogue (acc * sa) * sb rounds the same way in both, so the outputs
+    are equal, bit for bit, and a second call gives the same bits; the
+    form's counter moves and no other's. K and N not multiples of 16
+    (4-byte copies), ragged M and N, and split K (TinyLlama's k/v
+    projection at 16 and 2048 rows, GPT-2's K 3072 c_proj at 120)."""
+    from rten_tpu_torch.kernels.common import sm_count
+
     g = _gen(M * 7 + N)
     b = torch.randint(-127, 128, (K, N), generator=g, dtype=torch.int8)
     sb = torch.rand(N, generator=g) * 1e-3 + 1e-4
@@ -56,13 +67,22 @@ def test_int8_matmul_kernel(card, M, K, N, zp):
         azp, bzp, sa = torch.tensor(131, dtype=torch.uint8), None, torch.tensor(0.02)
         cs = b.to(torch.int32).sum(0, keepdim=True).to(torch.int32) if zp == "u8_colsums" else None
     args = [t if t is None else t.to(card) for t in (a, b, sa, sb, azp, bzp, cs)]
-    before = tmm.int8_matmul_dequant.launches
+    form = tmm.int8_form(M)
+    assert form == ("stream" if M <= 16 else "rows" if M <= 128 else "tiled")
+    splits = tmm.int8_split_plan(M, N, K, sm_count(card.index or 0))[0]
+    if (M, K, N) in ((16, 2048, 256), (2048, 2048, 256), (120, 3072, 768)):
+        assert splits > 1  # the split route runs
+    before = {f: getattr(tmm.int8_matmul_dequant, f"{f}_launches") for f in tmm.FORMS}
+    before_all = tmm.int8_matmul_dequant.launches
     got = tmm.int8_matmul_dequant(*args)
+    again = tmm.int8_matmul_dequant(*args)
     want = tmm.int8_matmul_dequant_plain(*args)
     torch.cuda.synchronize()
-    assert tmm.int8_matmul_dequant.launches == before + 1
+    assert tmm.int8_matmul_dequant.launches == before_all + 2
+    assert {f: getattr(tmm.int8_matmul_dequant, f"{f}_launches") - before[f]
+            for f in tmm.FORMS} == {f: 2 if f == form else 0 for f in tmm.FORMS}
     assert got.shape == (M, N) and got.device.type == "cuda"
-    assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+    assert torch.equal(got, want) and torch.equal(got, again)
 
 
 def test_argmax_kernel(card):
@@ -529,7 +549,10 @@ def test_mha_kernel(card, dtype, B, Hq, Hkv, Tq, Tk, D, causal, softcap, mask):
     and out: 2e-2, one bf16 rounding of the output) on rows that have a
     column to attend; rows with none (left padding under causal) are 0 from
     the kernel, as from the TPU kernel, where the plain version gives the
-    mean of V. Two calls give the same bits."""
+    mean of V. Two calls give the same bits. Every case (D <= 128) runs on
+    tensor cores: the CUDA-core counter does not move; the Generator's
+    128-token prefill splits each key tile over a block's four warps, the
+    1024-token one over two."""
     g = _gen(Hq * Tq + Tk + D)
     q = torch.randn(B, Hq, Tq, D, generator=g)
     k = torch.randn(B, Hkv, Tk, D, generator=g)
@@ -543,12 +566,18 @@ def test_mha_kernel(card, dtype, B, Hq, Hkv, Tq, Tk, D, causal, softcap, mask):
         m = torch.where(torch.rand(Tq, Tk, generator=g) > 0.2, 0.0, -1e30)
     q, k, v = (t.to(card, dtype) for t in (q, k, v))
     m = None if m is None else m.to(card)
-    before = tfa.mha.launches
+    before, before_cc = tfa.mha.launches, tfa.mha.cuda_core_launches
     got = tfa.mha(q, k, v, m, causal=causal, softcap=softcap)
     again = tfa.mha(q, k, v, m, causal=causal, softcap=softcap)
     want = tfa.mha_plain(q, k, v, m, causal=causal, softcap=softcap)
     torch.cuda.synchronize()
     assert tfa.mha.launches == before + 2
+    assert tfa.mha.cuda_core_launches == before_cc  # D <= 128: tensor cores
+    if (B, Hq, Tq) in ((1, 12, 128), (1, 12, 1024)):  # the key-split routes
+        from rten_tpu_torch.kernels.common import sm_count
+
+        assert tfa.mha_key_warps(B, Hq, Tq, causal, sm_count(card.index or 0)) == (
+            4 if Tq == 128 else 2)
     assert got.shape == (B, Hq, Tq, D) and got.dtype == dtype and torch.equal(got, again)
     rows = torch.arange(Tq, device=card)[:, None]
     cols = torch.arange(Tk, device=card)[None, :]
@@ -1148,14 +1177,18 @@ def test_paged_decode_mha_head_dims(card, dt, H, Hkv, D):
 @pytest.mark.parametrize("D,causal", [(80, True), (96, False), (256, True)])
 def test_mha_kernel_head_dims(card, dtype, D, causal):
     """mha at D 80, 96 and 256 (a masked tail; D 256 in 68 KB of dynamic
-    shared memory) against mha_plain, GQA 4 over 2."""
+    shared memory) against mha_plain, GQA 4 over 2; the form ``mha_form``
+    names (tensor cores to D 128, CUDA cores above) runs."""
     g = _gen(D)
     q = torch.randn(2, 4, 40, D, generator=g).to(dtype).to(card)
     k = torch.randn(2, 2, 70, D, generator=g).to(dtype).to(card)
     v = torch.randn(2, 2, 70, D, generator=g).to(dtype).to(card)
+    before_cc = tfa.mha.cuda_core_launches
     got = tfa.mha(q, k, v, causal=causal)
     want = tfa.mha_plain(q.float(), k.float(), v.float(), causal=causal)
     torch.cuda.synchronize()
+    # D 80 and 96 on tensor cores, D 256 on CUDA cores.
+    assert tfa.mha.cuda_core_launches == before_cc + (D > 128)
     tol = 1e-4 if dtype == torch.float32 else 1e-2
     assert (got.float() - want).abs().max().item() <= tol
 
