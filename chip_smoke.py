@@ -22,7 +22,9 @@ Run from the repository root:  python3 chip_smoke.py
    calls totalled;
    decode_mha's two forms at TinyLlama's attention shape (H 32 over 4 KV
    heads, D 64, slots 16, cap 256; S 1 and S 128; s8 and f32 caches; a
-   window); paged_decode_mha at the same shape on block pools (block size
+   window: the fold split over blocks, on tensor cores for s8 and on CUDA
+   cores for f32, the per-head form on tensor cores, f32 in 3xTF32), the
+   CUDA-core per-head kernel (D 129-512) at D 256; paged_decode_mha at the same shape on block pools (block size
    64, a shuffled table); decode_mha_append_cat through a block table at
    the GPT-2 headline shape (a pool of 1 + 480 blocks of 64 rows, idle
    slots colliding in block 0); mha at the Generator's prefill (B 1, H 12,
@@ -47,7 +49,8 @@ Run from the repository root:  python3 chip_smoke.py
    counter zeroed just before and read just after (each kernel of the path
    must have run, as often as the path's forwards say; the int8 matmul on
    its stream form at every decode step and tiled at every admission, mha
-   never on CUDA cores):
+   never on CUDA cores, decode_mha's fold never on CUDA cores, GPT-2's bf16
+   paged admissions on the 3xTF32 per-head kernel):
    - TinyLlama-1.1B's shape at full width, its depth cut to 8 of 22 layers
      (random weights from seed 0), int8 weights, int8 head-major KV caches;
    - the same TinyLlama weights on paged int8 head-major pools (41 blocks
@@ -266,9 +269,11 @@ def split_plan(B, Hkv, cap):
 def attn_peak(kv) -> float:
     """The operations peak of an attention call's bound: the bf16 tensor
     cores for s8, int4 and bf16 caches, whose values bf16 holds exactly (the
-    reference feeds its matrix unit bf16 for them, and the port's per-head
-    form runs there), the f32 rate outside the tensor cores for f32 K/V."""
-    return F32_FLOPS_PER_S if kv in ("f32", torch.float32) else BF16_FLOPS_PER_S
+    reference feeds its matrix unit bf16 for them, and the port's kernels
+    run there), the TF32 tensor cores for f32 K/V (the port's 3xTF32
+    kernels run there; rows that ran on CUDA cores also give the f32 rate's
+    figure, ``bound_ms_f32_cuda_cores``)."""
+    return TF32_FLOPS_PER_S if kv in ("f32", torch.float32) else BF16_FLOPS_PER_S
 
 
 # --- kernel phases ------------------------------------------------------------
@@ -563,9 +568,11 @@ def phase_decode_mha(gen, dev):
     inputs, within 1e-4 (f32 accumulation on both sides, other summation
     order). A row with no column to attend (a window wholly past cap)
     gives 0 from the kernel, as on the TPU, and the mean of V from the
-    plain version; such rows are checked apart. The per-head form runs on
-    tensor cores for s8 caches and on CUDA cores for f32 caches
-    (heads_form). Then times over 22 layers' s8 and f32 caches."""
+    plain version; such rows are checked apart. The fold runs split over
+    blocks, on tensor cores for s8 caches and on CUDA cores for f32 caches
+    (fold_form); the per-head form on tensor cores for both, f32 in 3xTF32
+    (heads_form). Then times over 22 layers' s8 and f32 caches, and the
+    CUDA-core per-head kernel (D 129-512) at D 256."""
     from rten_tpu_torch.kernels.flash_attention import (
         decode_mha, decode_mha_folded, decode_mha_heads, decode_mha_plain,
     )
@@ -582,20 +589,24 @@ def phase_decode_mha(gen, dev):
                                                  dtype=torch.int32)]).to(dev),
     }
     forms = {1: decode_mha_folded, PROMPT: decode_mha_heads}
-    errs = {1: 0.0, PROMPT: 0.0, "f32 heads": 0.0}
+    errs = {1: 0.0, PROMPT: 0.0, "f32 heads": 0.0, "f32 fold": 0.0}
     for S, quant, window in ((1, True, 0), (1, False, 0), (1, True, 64),
                              (PROMPT, True, 0), (PROMPT, False, 0), (PROMPT, True, 64)):
         q = torch.randn(B, L_H, S, L_D, generator=gen).to(dev)
         k, v, ks, vs = _head_major_caches(gen, dev, B, quant)
         lens = lens_by_S[S]
         before = {s: f.launches for s, f in forms.items()}
-        core = decode_mha_heads.cuda_core_launches
+        core = (decode_mha_heads.cuda_core_launches, decode_mha_heads.tf32_launches,
+                decode_mha_folded.cuda_core_launches)
         got = decode_mha(q, k, v, lens, ks, vs, window=window)
         want = decode_mha_plain(q, k, v, lens, ks, vs, window=window)
         torch.cuda.synchronize()
         if {s: f.launches - before[s] for s, f in forms.items()} != \
                 {s: int(s == S) for s in forms} or \
-                decode_mha_heads.cuda_core_launches - core != int(S > 1 and not quant):
+                (decode_mha_heads.cuda_core_launches - core[0],
+                 decode_mha_heads.tf32_launches - core[1],
+                 decode_mha_folded.cuda_core_launches - core[2]) != \
+                (0, int(S > 1 and not quant), int(S == 1 and not quant)):
             fail(f"decode_mha S={S}: routed to the wrong form")
         live = _mask(lens, S, window).any(-1, keepdim=True).expand(B, L_H, S, L_D)
         err = (got - want)[live].abs().max().item()
@@ -603,7 +614,7 @@ def phase_decode_mha(gen, dev):
         if not err <= tol or not (got[~live] == 0).all() or not torch.isfinite(got).all():
             fail(f"{tag}: max err {err} > {tol}, or a row with no column is not 0")
         print(f"  {tag}: max abs err {err:.3e} (bound {tol})", flush=True)
-        key = "f32 heads" if S > 1 and not quant else S
+        key = S if quant else "f32 heads" if S > 1 else "f32 fold"
         errs[key] = max(errs[key], err)
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -622,6 +633,8 @@ def phase_decode_mha(gen, dev):
                                      + 2 * kv_rows * L_HKV * row_bytes)
             bounds[kv] = bound_ms(nbytes[kv], L_LAYERS * 4.0 * pairs * L_H * L_D,
                                   attn_peak(kv))
+        cuda_core_bound = bound_ms(nbytes["f32"], L_LAYERS * 4.0 * pairs * L_H * L_D,
+                                   F32_FLOPS_PER_S)
         times = {}
         for quant in (True, False):
             layers = [_head_major_caches(gen, dev, B, quant) for _ in range(L_LAYERS)]
@@ -648,7 +661,8 @@ def phase_decode_mha(gen, dev):
         (fbms, fby), (fk_ms, fp_ms, flib) = bounds["f32"], times[False]
         rows.append({
             "name": name, "route": "cuda", "kv": "s8",
-            "source": ("rten_tpu_torch/csrc/decode_mha.cu" if S == 1
+            "counter": f"{name}_tensor_core",
+            "source": ("rten_tpu_torch/csrc/decode_fold_tc.cuh" if S == 1
                        else "rten_tpu_torch/csrc/decode_heads_tc.cuh"),
             "replaces": f"rten_tpu/kernels/flash_attention.py:{line}",
             "unit": unit + ", s8 caches",
@@ -657,24 +671,75 @@ def phase_decode_mha(gen, dev):
             "library_call": "scaled_dot_product_attention(enable_gqa=True) on "
                             "pre-dequantized f32 K/V with the same mask",
         })
-        if S == 1:
-            rows[-1].update({"f32_cache_ms": ms_of(fk_ms), "f32_cache_bound_ms": fbms,
-                             "f32_cache_bound_by": fby})
-            continue
-        rows[-1]["counter"] = "decode_mha_heads_tensor_core"
-        # The CUDA-core per-head kernel (f32 caches; D 129-512): a row of
-        # its own, its launches those of its route.
+        # f32 caches: the CUDA-core fold (split), the 3xTF32 per-head kernel;
+        # rows of their own, their launches those of their kernels.
         rows.append({
-            "name": "decode_mha_heads[cuda_core]", "route": "cuda", "kv": None,
-            "counter": "decode_mha_heads_cuda_core",
-            "source": "rten_tpu_torch/csrc/decode_mha.cuh",
+            "name": f"{name}[f32]", "route": "cuda", "kv": None,
+            "counter": "decode_mha_folded_cuda_core" if S == 1 else "decode_mha_heads_tf32",
+            "source": ("rten_tpu_torch/csrc/decode_fold.cuh" if S == 1
+                       else "rten_tpu_torch/csrc/decode_heads_tf32.cuh"),
             "replaces": f"rten_tpu/kernels/flash_attention.py:{line}",
-            "unit": unit + ", f32 caches", "max_abs_err": errs["f32 heads"],
+            "unit": unit + ", f32 caches",
+            "max_abs_err": errs["f32 fold" if S == 1 else "f32 heads"],
             **time_keys(fk_ms, fp_ms, flib), "bound_ms": fbms, "bound_by": fby,
             "library_call": "scaled_dot_product_attention(enable_gqa=True) on the f32 K/V "
                             "with the same mask",
         })
+        if S > 1:
+            rows[-1]["bound_ms_f32_cuda_cores"] = cuda_core_bound[0]
+    rows.append(_heads_cuda_core_case(gen, dev))
     return rows
+
+
+def _heads_cuda_core_case(gen, dev, calls=8):
+    """The CUDA-core per-head kernel (D 129-512) at D 256: an admission of
+    16 x 128 tokens, H 8 over 1 KV head (Gemma's head dim), f32 caches,
+    against decode_mha_plain within 1e-4, the same bits twice; the times of
+    ``calls`` calls beside the bound (at the TF32 peak; the f32 rate's in
+    ``bound_ms_f32_cuda_cores``)."""
+    from rten_tpu_torch.kernels.flash_attention import decode_mha_heads, decode_mha_plain
+
+    B, Hq, Hkv, Dh = L_SLOTS, 8, 1, 256
+    lens = torch.randint(0, CAP - PROMPT + 1, (B,), generator=gen, dtype=torch.int32).to(dev)
+    q = torch.randn(B, Hq, PROMPT, Dh, generator=gen).to(dev)
+    layers = [_float_kv(gen, dev, (B, Hkv, CAP, Dh), "f32") for _ in range(calls)]
+    core = decode_mha_heads.cuda_core_launches
+    got, again = (decode_mha_heads(q, *layers[0], lens) for _ in range(2))
+    want = decode_mha_plain(q, *layers[0], lens)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    if (decode_mha_heads.cuda_core_launches != core + 2 or not err <= 1e-4
+            or not torch.equal(got, again)):
+        fail(f"decode_mha_heads [D 256, CUDA cores]: wrong form, max err {err} > 1e-4, or two "
+             f"calls differ")
+    del got, again, want
+    m = _mask(lens, PROMPT)
+    pairs = m.sum().item() * Hq
+    kv_rows = (lens.long() + PROMPT).clamp(max=CAP).sum().item()
+    nbytes = 2 * 4 * B * Hq * PROMPT * Dh + 4 * B + 2 * kv_rows * Hkv * Dh * 4
+    k_ms = timed(lambda: [decode_mha_heads(q, k, v, lens) for k, v in layers], iters=5,
+                 nbytes=calls * nbytes)
+    p_ms = timed(lambda: [decode_mha_plain(q, k, v, lens) for k, v in layers], iters=2,
+                 warmup=1, nbytes=calls * nbytes)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = timed(lambda: [sdpa(q, k, v, attn_mask=m, enable_gqa=True) for k, v in layers],
+                iters=5, nbytes=calls * sdpa_bytes(q, kv_rows, Hkv, Dh, 4))
+    del layers
+    bms, by = bound_ms(calls * nbytes, calls * 4.0 * pairs * Dh, attn_peak("f32"))
+    cc = bound_ms(calls * nbytes, calls * 4.0 * pairs * Dh, F32_FLOPS_PER_S)[0]
+    print(f"  decode_mha_heads [cuda_core, D 256, f32] x{calls}: max abs err {err:.3e} (bound "
+          f"1e-4), two calls bit-identical; kernel {fmt(k_ms)}, plain {fmt(p_ms)}, sdpa "
+          f"{fmt(lib)}, bound {bms:.4f} ms ({by}) [f32 rate: {cc:.4f}]", flush=True)
+    return {"name": "decode_mha_heads[cuda_core]", "route": "cuda", "kv": None,
+            "counter": "decode_mha_heads_cuda_core",
+            "source": "rten_tpu_torch/csrc/decode_mha.cuh",
+            "replaces": "rten_tpu/kernels/flash_attention.py:935",
+            "unit": (f"an admission at slots {B}, cap {CAP}, {PROMPT} tokens, H {Hq} over "
+                     f"{Hkv}, D {Dh}, f32 caches: {calls} calls"),
+            "max_abs_err": err, **time_keys(k_ms, p_ms, lib), "bound_ms": bms, "bound_by": by,
+            "bound_ms_f32_cuda_cores": cc,
+            "library_call": "scaled_dot_product_attention(enable_gqa=True) on the f32 K/V "
+                            "with the same mask"}
 
 
 # Paged pools: blocks of 64 rows, cap 256 (4 table entries a slot).
@@ -1106,7 +1171,7 @@ def phase_float_kv_kernels(gen, dev):
     rows.append({"name": "prefill_mha_cat[bf16]", "kv": "bf16",
                  "counter": "prefill_mha_cat_tensor_core",
                  "source": "rten_tpu_torch/csrc/decode_heads_tc.cuh (decode_mha_bf16.cu's "
-                           "per-head form; f32: decode_mha_f32.cu's CUDA-core form)",
+                           "per-head form; f32: decode_heads_tf32.cuh, 3xTF32)",
                  "replaces": "rten_tpu/kernels/flash_attention.py:3301", **cases[0],
                  "max_abs_err": max(c["max_abs_err"] for c in cases),
                  "library_call": "scaled_dot_product_attention (enable_gqa where grouped) on "
@@ -1118,8 +1183,8 @@ def phase_float_kv_kernels(gen, dev):
     for S, name, line in ((1, "decode_mha_folded", 772), (PROMPT, "decode_mha_heads", 935)):
         err, timing = _head_major_bf16_case(gen, dev, S, 0, L_LAYERS)
         rows.append({"name": f"{name}[bf16]", "kv": "bf16",
-                     "counter": name if S == 1 else "decode_mha_heads_tensor_core",
-                     "source": ("rten_tpu_torch/csrc/decode_mha_bf16.cu" if S == 1
+                     "counter": f"{name}_tensor_core",
+                     "source": ("rten_tpu_torch/csrc/decode_fold_tc.cuh" if S == 1
                                 else "rten_tpu_torch/csrc/decode_heads_tc.cuh"),
                      "replaces": f"rten_tpu/kernels/flash_attention.py:{line}",
                      "unit": (f"one TinyLlama {'decode step' if S == 1 else 'admission'} at "
@@ -1393,8 +1458,9 @@ def phase_int4_deferred_kernels(gen, dev):
     gpt2 = f"GPT-2 decode step at slots {SLOTS}, cap {CAP}, H 12, D 64"
     folds = [_fold_case(gen, dev, "int4", L_SLOTS, L_H, L_HKV, L_LAYERS, f"int4, {tiny}"),
              _fold_case(gen, dev, "int4", SLOTS, H, H, 12, f"int4, {gpt2}")]
-    rows.append({"name": "decode_mha_folded[int4]", "kv": "u4", "counter": "decode_mha_folded",
-                 "source": "rten_tpu_torch/csrc/decode_mha_u4.cu",
+    rows.append({"name": "decode_mha_folded[int4]", "kv": "u4",
+                 "counter": "decode_mha_folded_tensor_core",
+                 "source": "rten_tpu_torch/csrc/decode_fold_tc.cuh (decode_mha_u4.cu)",
                  "replaces": "rten_tpu/kernels/flash_attention.py:772", **folds[0],
                  "max_abs_err": max(c["max_abs_err"] for c in folds),
                  "library_call": "scaled_dot_product_attention(enable_gqa) on pre-dequantized "
@@ -1403,8 +1469,9 @@ def phase_int4_deferred_kernels(gen, dev):
     wins = [_fold_case(gen, dev, kv, SLOTS, H, H, 12, f"{kv} + bf16 window of {W}, {gpt2}", W)
             for kv in ("int4", "s8") for W in (8, 64)]
     rows.append({"name": "decode_mha_folded[window]", "kv": "u4-deferred",
-                 "counter": "decode_mha_folded",
-                 "source": "rten_tpu_torch/csrc/decode_mha_u4_win.cu (s8: decode_mha.cu)",
+                 "counter": "decode_mha_folded_tensor_core",
+                 "source": "rten_tpu_torch/csrc/decode_fold_tc.cuh (decode_mha_u4.cu; s8: "
+                           "decode_mha.cu)",
                  "replaces": "rten_tpu/kernels/flash_attention.py:772", **wins[1],
                  "max_abs_err": max(c["max_abs_err"] for c in wins),
                  "library_call": "scaled_dot_product_attention on pre-dequantized f32 K/V with "
@@ -2116,9 +2183,11 @@ def build_model(n_layer, capacity, device, vocab=VOCAB, n_embd=E, n_head=H, kv="
 
 class FormCounter:
     """A wrapper's launches of one of its kernels (``fn.<attr>``, which
-    ``fn.launches`` also counts) as a counter of their own: decode_mha_heads'
-    and prefill_mha_cat's CUDA-core kernel (f32 caches, D 129-512), mha's
-    (D 129-256), int4_matmul's and int8_matmul_dequant's forms."""
+    ``fn.launches`` also counts) as a counter of their own: decode_mha_folded's
+    CUDA-core kernel (f32 caches and windows, D 129-512), decode_mha_heads'
+    and prefill_mha_cat's CUDA-core kernel (D 129-512) and 3xTF32 kernel (f32
+    caches), mha's CUDA-core kernel (D 129-256), int4_matmul's and
+    int8_matmul_dequant's forms."""
 
     def __init__(self, fn, attr):
         self.fn, self.attr = fn, attr
@@ -2144,10 +2213,14 @@ def counters():
         "argmax_lastdim": argmax.argmax_lastdim,
         "decode_mha_folded": flash_attention.decode_mha_folded,
         "decode_mha_heads": flash_attention.decode_mha_heads,
+        "decode_mha_folded_cuda_core": FormCounter(flash_attention.decode_mha_folded,
+                                                   "cuda_core_launches"),
         "decode_mha_heads_cuda_core": FormCounter(flash_attention.decode_mha_heads,
                                                   "cuda_core_launches"),
+        "decode_mha_heads_tf32": FormCounter(flash_attention.decode_mha_heads, "tf32_launches"),
         "prefill_mha_cat_cuda_core": FormCounter(flash_attention.prefill_mha_cat,
                                                  "cuda_core_launches"),
+        "prefill_mha_cat_tf32": FormCounter(flash_attention.prefill_mha_cat, "tf32_launches"),
         **{f"int4_matmul_{form}": FormCounter(int4_matmul.int4_matmul, f"{form}_launches")
            for form in int4_matmul.FORMS},
         **{f"int8_matmul_dequant_{form}": FormCounter(int8_matmul.int8_matmul_dequant,
@@ -2243,7 +2316,7 @@ def phase_serve(dev, paged=False, kv="s8"):
     prompts = [rng.integers(0, VOCAB, PROMPT).tolist() for _ in range(24)]
     budgets = [int(rng.integers(16, 49)) for _ in range(24)]
     if paged:  # admissions gather the pools, then decode_mha (per head; bf16 pools widened
-        # to f32, as the reference widens them, run on CUDA cores)
+        # to f32, as the reference widens them, run in 3xTF32 on tensor cores)
         want = lambda steps, adm: {  # noqa: E731
             "int8_matmul_dequant": 49 * (steps + adm),
             # decode steps (16 rows) and the admissions' lm_head (one row a
@@ -2252,7 +2325,7 @@ def phase_serve(dev, paged=False, kv="s8"):
             "int8_matmul_dequant_tiled": 48 * adm,
             "decode_mha_append_cat_paged": 12 * steps,
             "decode_mha_heads": 12 * adm,
-            **({"decode_mha_heads_cuda_core": 12 * adm} if kv == "bf16" else {}),
+            **({"decode_mha_heads_tf32": 12 * adm} if kv == "bf16" else {}),
             "argmax_lastdim": steps + adm,
         }
     else:
@@ -3177,7 +3250,8 @@ def phase_sanitizer(out_dir):
     if not os.path.exists(tool):
         print(f"  sanitizer: {tool} not found (not run)", flush=True)
         return {"racecheck": "not found", "memcheck": "not found"}
-    ours = ("decode_mha_fold_kernel", "decode_mha_heads_kernel", "decode_mha_heads_tc_kernel",
+    ours = ("decode_mha_fold_kernel", "decode_fold_tc_kernel", "decode_mha_heads_kernel",
+            "decode_mha_heads_tc_kernel", "decode_mha_heads_tf32_kernel",
             "append_cat_write_kernel", "mha_kernel")
     code = f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; chip_smoke.sanitizer_target()"
     # One tiny launch first: a tool that refuses the card says so before
@@ -3397,12 +3471,14 @@ def main() -> int:
         run(f"gpt2_generate_{quantize or 'f32'}", None, phase_generate, quantize)
     lap("GPT-2 generate (f32, int4)")
     # A row's launches: its counter over the paths that serve from its KV
-    # cache type (every path for the kernels that read no KV cache). The
-    # per-head wrapper's tensor-core launches are its launches less the
-    # CUDA-core kernel's.
+    # cache type (every path for the kernels that read no KV cache). A
+    # wrapper's bf16-part tensor-core launches are its launches less those of
+    # its CUDA-core and 3xTF32 kernels.
     for n in by_path.values():
         for fn in ("decode_mha_heads", "prefill_mha_cat"):
-            n[f"{fn}_tensor_core"] = n[fn] - n[f"{fn}_cuda_core"]
+            n[f"{fn}_tensor_core"] = n[fn] - n[f"{fn}_cuda_core"] - n[f"{fn}_tf32"]
+        n["decode_mha_folded_tensor_core"] = (n["decode_mha_folded"]
+                                              - n["decode_mha_folded_cuda_core"])
     for k in kernels:
         if "launches" in k:  # the tool's rows: counted on the tool's run
             continue

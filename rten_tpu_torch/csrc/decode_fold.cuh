@@ -1,6 +1,7 @@
-// The fold form of decode attention, shared by decode_mha.cu,
-// decode_mha_bf16.cu, decode_mha_u4.cu and decode_mha_wide.cu (slot-major
-// caches), paged_decode_mha{,_f32,_bf16}.cu (block pools read through a
+// The fold form of decode attention on CUDA cores, shared by
+// decode_mha{,_f32,_bf16,_u4_win,_wide}.cu (slot-major caches: f32 caches,
+// f32 recent windows and D 129-512; decode_fold_tc.cuh holds the others),
+// paged_decode_mha{,_f32,_bf16}.cu (block pools read through a
 // block table, head-major or, for the block-table append, cat-layout rows
 // of Hkv * D) and decode_append{,_f32,_bf16}.cu (the flat append of a
 // decode step's row, cat or head-major caches).
@@ -19,14 +20,15 @@
 // memory. The warps' online-softmax states merge in shared memory (a
 // block whose warps hold whole rows writes them directly).
 //
-// Split-K (SPLIT instances: the paged fold and the append): the grid is
+// Split-K (every instance): the grid is
 // (slots, kv heads, splits) and block z takes the columns [z * chunk,
 // (z + 1) * chunk) of the slot's range (kernels/flash_attention.py,
 // decode_split_plan, sizes chunk from the shapes alone so that the card's
 // SMs all get a block). A block whose chunk holds no live column reads
 // nothing. With one split the block writes the output. With more, each
 // block writes its rows' states (m, l, acc[D]) to the workspace ws, bumps
-// its (slot, kv head)'s counter (an acquire-release atomic), and the block
+// its (slot, kv head)'s counter after a barrier (one acquire-release atomic
+// by thread 0), and the block
 // that arrives last merges the states in split order, writes the output
 // and resets the counter: the result does not depend on which block ends
 // last, so two calls give the same bits.
@@ -69,7 +71,8 @@
 // to the window's type, into window row min(max(t, 0), W - 1) of its own
 // (slot, kv head) and then scores it as the window holds it (read back after
 // a barrier; no other block reads that row). The window's tiles follow the
-// cache's in the warps' round robin.
+// cache's in the warps' round robin, in the last split only: its block alone
+// writes the new row and scores the window.
 //
 // Addressing (all strides in elements; bytes for int4 rows):
 // * PAGED = false: row j of slot b, kv head hk at kc + b * kv_sb + hk * kv_sh
@@ -412,7 +415,8 @@ __device__ __forceinline__ void stage_rows(unsigned char* dst, const T* src, lon
 // (m, l, acc). kb/vb: the (slot, kv head)'s K/V rows of type T; roff: this
 // lane's key's row offset (PAGED), otherwise key u's row is (j0 + u) * sj;
 // ks/vs: the scales (QUANT rows), soff this lane's; causal: mask column j
-// per row (j <= qpos, the window), else every live key counts for every
+// per row (j <= qpos, the window; row r of the warp is the block's row0 + r,
+// at position len + (row0 + r) % S), else every live key counts for every
 // row; stage: the warp's SB bytes of shared memory; p_s: its [MAXR][32]
 // floats for the tile's p * vs, which P.V reads back (a shared-memory
 // broadcast, not a shuffle: the rows' guards then hold no convergent
@@ -430,7 +434,7 @@ template <int DP, typename T, int MAXR, bool PAGED, int SB>
 __device__ __forceinline__ void fold_tile(
     const float (*q_s)[DP], int R, int S, int D, bool vec, const T* kb, const T* vb,
     long long roff, long long sj, int j0, int nk, const float* ks, const float* vs,
-    long long soff, bool causal, int len, int window, float scale, int lane,
+    long long soff, bool causal, int len, int row0, int window, float scale, int lane,
     unsigned char* stage, float* p_s, float (&m)[MAXR], float (&l)[MAXR],
     float (&acc)[MAXR][DP / 32]) {
   constexpr bool QUANT = KvRow<T>::QUANT;
@@ -475,7 +479,7 @@ __device__ __forceinline__ void fold_tile(
   float red[MAXR];
 #pragma unroll
   for (int r = 0; r < MAXR; ++r) {
-    const int qpos = len + r % S;
+    const int qpos = len + (row0 + r) % S;
     const bool ok = r < R && live &&
                     (!causal || (j <= qpos && (window <= 0 || j > qpos - window)));
     sc[r] = ok ? sc[r] : -INFINITY;
@@ -646,12 +650,15 @@ __device__ __forceinline__ T as_elem(float x) {
 
 // --- the fold kernel -------------------------------------------------------------
 
-// Split-K (SPLIT instances): splits = gridDim.z blocks per (slot, kv head),
+// Split-K: splits = gridDim.z blocks per (slot, kv head),
 // block z taking columns [z * chunk, (z + 1) * chunk). With splits > 1 the
-// states of (slot b, head h, split z), st = (b * H + h) * splits + z, sit
-// in ws: acc[D] at ws + st * D, then (m, l) at ws + B * H * splits * D +
-// 2 * st; count holds one arrival counter per (slot, kv head), 0 between
-// calls.
+// states of (slot b, kv head hk, block row r, split z), st = ((b * Hkv +
+// hk) * R + r) * splits + z (R = group * S; with S == 1, (b * H + h) *
+// splits + z), sit in ws: acc[D] at ws + st * D, then (m, l) at ws + B *
+// Hkv * R * splits * D + 2 * st; count holds one arrival counter per
+// (slot, kv head), 0 between calls. A deferred step's recent window
+// belongs to the last split: that block alone writes the new row and
+// scores the window's tiles.
 struct SplitArgs {
   int chunk;
   float* ws;
@@ -672,20 +679,21 @@ struct AppendArgs {
   float* vs;
 };
 
-// The last block's merge of RR rows (heads h0, h0 + 1, ...), V dims a
-// thread at a time: out = sum_z w[r][z] acc_z / lsum[r] in split order,
-// the splits' acc read from L2 (every split's loads in flight together).
+// The last block's merge of RR rows (block rows r0, r0 + 1, ...; row r of
+// head hg0 + r / S at position s = r % S, its states at index (u0 + r -
+// r0) * splits + z), V dims a thread at a time: out = sum_z w[r][z] acc_z /
+// lsum[r] in split order, the splits' acc read from L2 (every split's
+// loads in flight together).
 template <int V>
 __device__ __forceinline__ void merge_dims(const float* ws, const float* w_s,
-                                           const float* lsum_s, float* out, int b, int H, int h0,
-                                           int RR, int splits, int D, long long o_sb,
-                                           long long o_sh, int tid) {
+                                           const float* lsum_s, float* out, long long u0, int r0,
+                                           int hg0, int S, int RR, int splits, int D,
+                                           long long o_sh, long long o_ss, int tid) {
   using Vec = typename std::conditional<V == 4, float4, float2>::type;
   const int per = D / V;
   for (int idx = tid; idx < RR * per; idx += FOLD_WARPS * 32) {
     const int r = idx / per, d = V * (idx % per);
-    const int h = h0 + r;
-    const float* a = ws + ((long long)b * H + h) * splits * D + d;
+    const float* a = ws + (u0 + r) * splits * D + d;
     float o[V];
 #pragma unroll
     for (int x = 0; x < V; ++x) o[x] = 0.f;
@@ -698,7 +706,7 @@ __device__ __forceinline__ void merge_dims(const float* ws, const float* w_s,
       for (int x = 0; x < V; ++x) o[x] += c * vf[x];
     }
     const float lsum = lsum_s[r];
-    float* dst = out + b * o_sb + (long long)h * o_sh + d;
+    float* dst = out + (long long)(hg0 + (r0 + r) / S) * o_sh + (long long)((r0 + r) % S) * o_ss + d;
 #pragma unroll
     for (int x = 0; x < V; ++x) dst[x] = lsum > 0.f ? o[x] / lsum : 0.f;
   }
@@ -708,11 +716,10 @@ __device__ __forceinline__ void merge_dims(const float* ws, const float* w_s,
 // others never pay for its code and registers; with few accumulators it
 // keeps to 128 registers, so that GPT-2's 1440 blocks fill the card four a
 // SM). EXACT: D == DP, known at
-// compile time (the masked tail and its bounds fold away). SPLIT: the key
-// range is split over gridDim.z blocks (S == 1). APPEND: the block writes
-// the step's row first (S == 1, flat caches, SPLIT).
-template <int DP, typename T, int MAXR, bool PAGED, bool WIN, bool EXACT, bool SPLIT = false,
-          bool APPEND = false>
+// compile time (the masked tail and its bounds fold away). APPEND: the
+// block writes the step's row first (S == 1, flat caches). Every instance
+// splits the key range over gridDim.z blocks.
+template <int DP, typename T, int MAXR, bool PAGED, bool WIN, bool EXACT, bool APPEND = false>
 __global__ void __launch_bounds__(FOLD_WARPS * 32, WIN && MAXR * DP <= 256 ? 4 : 1)
     decode_mha_fold_kernel(
     const float* __restrict__ q, long long q_sb, long long q_sh, long long q_ss,
@@ -726,7 +733,7 @@ __global__ void __launch_bounds__(FOLD_WARPS * 32, WIN && MAXR * DP <= 256 ? 4 :
     int H, int Hkv, int S, int D, int cap, int window, float scale, int vec,
     RecentWindow rw, SplitArgs sp, AppendArgs ap) {
   static_assert(!(PAGED && WIN), "the recent window exists in flat folds only");
-  static_assert(!APPEND || (SPLIT && !PAGED && !WIN), "the append is a flat split fold");
+  static_assert(!APPEND || (!PAGED && !WIN), "the append is a flat fold");
   constexpr bool QUANT = KvRow<T>::QUANT;
   constexpr int DPL = DP / 32;
   constexpr int THREADS = FOLD_WARPS * 32;
@@ -755,13 +762,10 @@ __global__ void __launch_bounds__(FOLD_WARPS * 32, WIN && MAXR * DP <= 256 ? 4 :
   // The slot's live columns: for deferred KV up to the last committed row.
   int hi = deferred ? min(len - 1, cap - 1) : min(len + S - 1, cap - 1);
   int lo = window > 0 && !deferred ? max(0, len - window + 1) : 0;
-  const int splits = SPLIT ? (int)gridDim.z : 1;
-  const int split = SPLIT ? (int)blockIdx.z : 0;
-  const int c0 = split * (SPLIT ? sp.chunk : 0);  // this block's first column
-  if constexpr (SPLIT) {
-    lo = max(lo, c0);
-    hi = min(hi, c0 + sp.chunk - 1);
-  }
+  const int splits = gridDim.z, split = blockIdx.z;
+  const int c0 = split * sp.chunk;  // this block's first column
+  lo = max(lo, c0);
+  hi = min(hi, c0 + sp.chunk - 1);
   // The append writes row wpos and reads it back, so it reads the caches
   // through the pointers it writes (no read-only loads).
   const long long slot_kv = PAGED ? 0 : b * kv_sb;
@@ -772,8 +776,9 @@ __global__ void __launch_bounds__(FOLD_WARPS * 32, WIN && MAXR * DP <= 256 ? 4 :
   const float* vsb = QUANT ? (APPEND ? ap.vs : vs) + sc_base : nullptr;
 
   int t = 0;
+  const bool win_block = deferred && split == splits - 1;  // the window is the last split's
   if constexpr (WIN) {
-    if (deferred) {
+    if (win_block) {
       t = *rw.t;
       if (rw.kn != nullptr) {
         const int tw = min(max(t, 0), rw.W - 1);  // clamped like dynamic_update_slice
@@ -811,19 +816,19 @@ __global__ void __launch_bounds__(FOLD_WARPS * 32, WIN && MAXR * DP <= 256 ? 4 :
   int blk0 = 0;
   const int j_first = c0 + 32 * warp + lane;
   if constexpr (PAGED) {
-    if (j_first < cap && j_first < c0 + (SPLIT ? sp.chunk : cap))
+    if (j_first < cap && j_first < c0 + sp.chunk)
       blk0 = bt[(long long)b * MB + j_first / BS];
   }
   const int ntiles = hi >= lo ? (hi - lo) / 32 + 1 : 0;
   // Window rows 0..wlast are valid for every query row.
-  const int wlast = deferred ? min(t, rw.W - 1) : -1;
+  const int wlast = win_block ? min(t, rw.W - 1) : -1;
   const int nwt = wlast >= 0 ? wlast / 32 + 1 : 0;
   // The warps' work: KW tile groups take the block's tiles in turn; with
-  // fewer live tiles than warps (SPLIT instances, S == 1), the RW = 4 / KW
+  // fewer live tiles than warps, the RW = 4 / KW
   // warps of a tile group take disjoint runs of RPW query rows, so that
   // every warp works and none carries every row.
   const int live_tiles = ntiles + nwt;
-  const int KW = !SPLIT || live_tiles >= FOLD_WARPS ? FOLD_WARPS : live_tiles >= 2 ? 2 : 1;
+  const int KW = live_tiles >= FOLD_WARPS ? FOLD_WARPS : live_tiles >= 2 ? 2 : 1;
   const int kw = warp % KW, rw_i = warp / KW;
   // Passes of MAXR query rows (more than one only for the append's large
   // groups, S == 1).
@@ -877,7 +882,8 @@ __global__ void __launch_bounds__(FOLD_WARPS * 32, WIN && MAXR * DP <= 256 ? 4 :
           }
         }
         fold_tile<DP, T, MAXR, PAGED, SB>(qw, Rw, S, D, vec != 0, kb, vb, roff, kv_sj, j0, nk,
-                                          ksb, vsb, soff, !deferred, len, window, scale, lane,
+                                          ksb, vsb, soff, !deferred, len, r0 + rbase, window,
+                                          scale, lane,
                                           stage, p_s, m, l, acc);
       } else if constexpr (WIN) {
         // A tile of the recent window (rows as the window holds them; no
@@ -890,13 +896,13 @@ __global__ void __launch_bounds__(FOLD_WARPS * 32, WIN && MAXR * DP <= 256 ? 4 :
           const __nv_bfloat16* w_v = reinterpret_cast<const __nv_bfloat16*>(rw.rv) + off;
           fold_tile<DP, __nv_bfloat16, MAXR, false, SB>(
               qw, Rw, S, D, rw.wvec != 0, w_k, w_v, 0, rw.r_sj, j0, nk, nullptr, nullptr, 0,
-              false, len, 0, scale, lane, stage, p_s, m, l, acc);
+              false, len, r0 + rbase, 0, scale, lane, stage, p_s, m, l, acc);
         } else {
           const float* w_k = reinterpret_cast<const float*>(rw.rk) + off;
           const float* w_v = reinterpret_cast<const float*>(rw.rv) + off;
           fold_tile<DP, float, MAXR, false, SB>(
               qw, Rw, S, D, rw.wvec != 0, w_k, w_v, 0, rw.r_sj, j0, nk, nullptr, nullptr, 0,
-              false, len, 0, scale, lane, stage, p_s, m, l, acc);
+              false, len, r0 + rbase, 0, scale, lane, stage, p_s, m, l, acc);
         }
       }
     }
@@ -909,7 +915,7 @@ __global__ void __launch_bounds__(FOLD_WARPS * 32, WIN && MAXR * DP <= 256 ? 4 :
         if (r < Rw) {
           const int g = (r0 + rbase + r) / S, s = (r0 + rbase + r) % S;
           const int h = hk * group + g;
-          const long long st = ((long long)b * H + h) * splits + split;
+          const long long st = (((long long)b * Hkv + hk) * R + r0 + rbase + r) * splits + split;
 #pragma unroll
           for (int i = 0; i < DPL; ++i) {
             const int d = lane + 32 * i;
@@ -923,7 +929,7 @@ __global__ void __launch_bounds__(FOLD_WARPS * 32, WIN && MAXR * DP <= 256 ? 4 :
             }
           }
           if (splits > 1 && lane == 0) {
-            float* ml = sp.ws + (long long)gridDim.x * H * splits * D + 2 * st;
+            float* ml = sp.ws + (long long)gridDim.x * Hkv * R * splits * D + 2 * st;
             ml[0] = m[r];
             ml[1] = l[r];
           }
@@ -973,71 +979,69 @@ __global__ void __launch_bounds__(FOLD_WARPS * 32, WIN && MAXR * DP <= 256 ? 4 :
       if (splits == 1) {
         out[b * o_sb + (long long)h * o_sh + s * o_ss + d] = lsum > 0.f ? o / lsum : 0.f;
       } else {
-        const long long st = ((long long)b * H + h) * splits + split;
+        const long long st = (((long long)b * Hkv + hk) * R + r0 + r) * splits + split;
         sp.ws[st * D + d] = o;
         if (d == 0) {
-          float* ml = sp.ws + (long long)gridDim.x * H * splits * D + 2 * st;
+          float* ml = sp.ws + (long long)gridDim.x * Hkv * R * splits * D + 2 * st;
           ml[0] = mx;
           ml[1] = lsum;
         }
       }
     }
   }
-  if constexpr (SPLIT) {
-    if (splits == 1) return;
-    // Arrive: every state of this block is written (and fenced) before the
-    // count says so; the last block to arrive sees every other block's.
-    __threadfence();
-    __syncthreads();
-    if (tid == 0) {
-      cuda::atomic_ref<unsigned, cuda::thread_scope_device> cnt(sp.count[b * Hkv + hk]);
-      last = cnt.fetch_add(1u, cuda::memory_order_acq_rel) == (unsigned)(splits - 1);
-    }
-    __syncthreads();
-    if (!last) return;
-    __threadfence();
-    // The last block merges every row's states in split order (read from
-    // L2: other blocks wrote them): the rows' (m, l) staged in shared
-    // memory, one thread a row turns them into weights and the row's sum,
-    // then every thread takes four output dims at a time (two where D is
-    // not a multiple of 4).
-    const long long ml_base = (long long)gridDim.x * H * splits * D;
-    float* w_s = reinterpret_cast<float*>(pool);  // [MAXR][splits] m, then weights
-    float* l_s = w_s + MAXR * splits;              // [MAXR][splits] l
-    float* lsum_s = &part_l[0][0];                 // [MAXR] each row's sum
-    for (int r0 = 0; r0 < R; r0 += MAXR) {
-      const int RR = min(MAXR, R - r0);
-      __syncthreads();
-      for (int idx = tid; idx < RR * splits; idx += THREADS) {
-        const int r = idx / splits, z = idx % splits;
-        const long long st = ((long long)b * H + hk * group + r0 + r) * splits + z;
-        w_s[idx] = __ldcg(sp.ws + ml_base + 2 * st);
-        l_s[idx] = __ldcg(sp.ws + ml_base + 2 * st + 1);
-      }
-      __syncthreads();
-      if (tid < RR) {
-        float mx = -INFINITY;
-        for (int z = 0; z < splits; ++z) mx = fmaxf(mx, w_s[tid * splits + z]);
-        float lsum = 0.f;
-        for (int z = 0; z < splits; ++z) {
-          const float mz = w_s[tid * splits + z];
-          const float c = mz == -INFINITY ? 0.f : expf(mz - mx);
-          w_s[tid * splits + z] = c;
-          lsum += l_s[tid * splits + z] * c;
-        }
-        lsum_s[tid] = lsum;
-      }
-      __syncthreads();
-      if (D % 4 == 0) {
-        merge_dims<4>(sp.ws, w_s, lsum_s, out, b, H, hk * group + r0, RR, splits, D, o_sb, o_sh,
-                      tid);
-      } else {
-        merge_dims<2>(sp.ws, w_s, lsum_s, out, b, H, hk * group + r0, RR, splits, D, o_sb, o_sh,
-                      tid);
-      }
-    }
-    if (tid == 0) sp.count[b * Hkv + hk] = 0u;  // ready for the next call on this workspace
+  if (splits == 1) return;
+  // Arrive: the barrier orders the block's state stores before thread 0's
+  // acquire-release increment, which makes them visible to the block that
+  // finds the count complete (no fence in every thread).
+  __syncthreads();
+  if (tid == 0) {
+    cuda::atomic_ref<unsigned, cuda::thread_scope_device> cnt(sp.count[b * Hkv + hk]);
+    last = cnt.fetch_add(1u, cuda::memory_order_acq_rel) == (unsigned)(splits - 1);
   }
+  __syncthreads();
+  if (!last) return;
+  // The last block merges every row's states in split order (read from
+  // L2: other blocks wrote them): the rows' (m, l) staged in shared
+  // memory, one thread a row turns them into weights and the row's sum,
+  // then every thread takes four output dims at a time (two where D is
+  // not a multiple of 4).
+  const long long ml_base = (long long)gridDim.x * Hkv * R * splits * D;
+  const long long u_base = ((long long)b * Hkv + hk) * R;
+  float* w_s = reinterpret_cast<float*>(pool);  // [MAXR][splits] m, then weights
+  float* l_s = w_s + MAXR * splits;              // [MAXR][splits] l
+  float* lsum_s = &part_l[0][0];                 // [MAXR] each row's sum
+  for (int r0 = 0; r0 < R; r0 += MAXR) {
+    const int RR = min(MAXR, R - r0);
+    __syncthreads();
+    for (int idx = tid; idx < RR * splits; idx += THREADS) {
+      const int r = idx / splits, z = idx % splits;
+      const long long st = (u_base + r0 + r) * splits + z;
+      w_s[idx] = __ldcg(sp.ws + ml_base + 2 * st);
+      l_s[idx] = __ldcg(sp.ws + ml_base + 2 * st + 1);
+    }
+    __syncthreads();
+    if (tid < RR) {
+      float mx = -INFINITY;
+      for (int z = 0; z < splits; ++z) mx = fmaxf(mx, w_s[tid * splits + z]);
+      float lsum = 0.f;
+      for (int z = 0; z < splits; ++z) {
+        const float mz = w_s[tid * splits + z];
+        const float c = mz == -INFINITY ? 0.f : expf(mz - mx);
+        w_s[tid * splits + z] = c;
+        lsum += l_s[tid * splits + z] * c;
+      }
+      lsum_s[tid] = lsum;
+    }
+    __syncthreads();
+    if (D % 4 == 0) {
+      merge_dims<4>(sp.ws, w_s, lsum_s, out + b * o_sb, u_base + r0, r0, hk * group, S, RR,
+                    splits, D, o_sh, o_ss, tid);
+    } else {
+      merge_dims<2>(sp.ws, w_s, lsum_s, out + b * o_sb, u_base + r0, r0, hk * group, S, RR,
+                    splits, D, o_sh, o_ss, tid);
+    }
+  }
+  if (tid == 0) sp.count[b * Hkv + hk] = 0u;  // ready for the next call on this workspace
 }
 
 // Launches an instance of decode_mha_fold_kernel with its dynamic shared
@@ -1046,10 +1050,10 @@ __global__ void __launch_bounds__(FOLD_WARPS * 32, WIN && MAXR * DP <= 256 ? 4 :
 // on, so the first launch of the instance on a device sets the attribute
 // (whatever the size), and its error is returned without a launch. A
 // refused launch shows in cudaGetLastError.
-template <int DP, typename T, int MAXR, bool PAGED, bool WIN, bool EXACT, bool SPLIT, bool APPEND,
+template <int DP, typename T, int MAXR, bool PAGED, bool WIN, bool EXACT, bool APPEND,
           typename... Args>
 cudaError_t launch_fold_kernel(dim3 grid, cudaStream_t stream, Args... args) {
-  auto* kernel = decode_mha_fold_kernel<DP, T, MAXR, PAGED, WIN, EXACT, SPLIT, APPEND>;
+  auto* kernel = decode_mha_fold_kernel<DP, T, MAXR, PAGED, WIN, EXACT, APPEND>;
   constexpr int bytes = FoldSmem<DP, T, MAXR, WIN>::POOL;
   static std::atomic<unsigned long long> allowed{0};  // bit d: set on device d
   int dev = 0;
@@ -1107,7 +1111,7 @@ static inline bool rten_split_ok(int splits, int chunk, int cap, const void* ws,
 
 template <typename T, int DP, int RR, bool EXACT>
 cudaError_t launch_paged_fold(RTEN_PAGED_PARAMS) {
-  return launch_fold_kernel<DP, T, RR, true, false, EXACT, true, false>(
+  return launch_fold_kernel<DP, T, RR, true, false, EXACT, false>(
       dim3(B, Hkv, splits), (cudaStream_t)stream, (const float*)q, q_sb, q_sh, 0, (const T*)k,
       (const T*)v, kv_sb, kv_sh, kv_sj, (const float*)ks, (const float*)vs, sc_sb, sc_sh, sc_sj,
       (const int32_t*)bt, MB, BS, (const int32_t*)lens, (float*)out, o_sb, o_sh, 0, H, Hkv, 1,
@@ -1169,7 +1173,7 @@ int launch_paged_decode_mha(RTEN_PAGED_PARAMS) {
 
 template <typename T, int DP, int RR, bool EXACT>
 cudaError_t launch_append_fold(RTEN_APPEND_PARAMS) {
-  return launch_fold_kernel<DP, T, RR, false, false, EXACT, true, true>(
+  return launch_fold_kernel<DP, T, RR, false, false, EXACT, true>(
       dim3(B, Hkv, splits), (cudaStream_t)stream, (const float*)q, q_sb, q_sh, 0, (const T*)kc,
       (const T*)vc, kv_sb, kv_sh, kv_sj, (const float*)ks, (const float*)vs, sc_sb, sc_sh, sc_sj,
       nullptr, 0, 0, (const int32_t*)lens, (float*)out, (long long)H * D, D, 0, H, Hkv, 1, D,

@@ -170,14 +170,16 @@ __device__ __forceinline__ uint2 bf16x4_of_bytes(uint32_t w) {
   return make_uint2(__byte_perm(f[0], f[1], 0x7632), __byte_perm(f[2], f[3], 0x7632));
 }
 
-// Widen the staged s8/int4 rows of one matrix into its bf16 tile (every DP
-// column; zeros past D). With D == DP, eight dims from one 8-byte read.
-template <int DP, typename T>
-__device__ __forceinline__ void widen_tile(const uint8_t* raw, __nv_bfloat16* tile, int D) {
+// Widen ROWS staged s8/int4 rows of one matrix into its bf16 tile (every DP
+// column; zeros past D), thread ``tid`` of ``nthreads``. With D == DP, eight
+// dims from one 8-byte read.
+template <int DP, typename T, int ROWS = TC_KEYS>
+__device__ __forceinline__ void widen_tile(const uint8_t* raw, __nv_bfloat16* tile, int D,
+                                           int tid = threadIdx.x, int nthreads = TC_THREADS) {
   using TT = TcTile<DP, T>;
   constexpr int GROUPS = DP / 8;  // 8 dims a group
   const int half = D / 2;
-  for (int idx = threadIdx.x; idx < TC_KEYS * GROUPS; idx += TC_THREADS) {
+  for (int idx = tid; idx < ROWS * GROUPS; idx += nthreads) {
     const int r = idx / GROUPS, d0 = (idx % GROUPS) * 8;
     const uint8_t* row = raw + r * TT::RAW_ROW;
     uint4 o;

@@ -26,7 +26,7 @@
 // step, S == 1, of any model with group <= 16), per head otherwise (an
 // admission, S = the bucket).
 //
-// 1. decode_mha_fold_kernel replaces rten_tpu/kernels/flash_attention.py:772
+// 1. The fold replaces rten_tpu/kernels/flash_attention.py:772
 //    _decode_mha_folded (the S <= 8 pallas_call that folds every head of a
 //    slot into one grid step).
 //    Bound on the H100: bytes. A decode step reads each live KV row once
@@ -36,50 +36,57 @@
 //    decode_mha(recent_k=...) with k_new): the fold also attends a recent
 //    window of the dispatch's rows (f32 or bf16) after the cache's rows
 //    strictly below lens0, writing the step's new row into the window
-//    first (decode_fold.cuh).
-//    Design (decode_fold.cuh, shared with paged_decode_mha.cu): one
-//    128-thread block per (slot, kv head) holds the group * S query rows
-//    that share the head and reads each K/V row once for all of them (at
-//    TinyLlama's 32 / 4 heads, eight rows read one stream); four warps
-//    split the 32-key tiles of the live range, each streaming its tile's
-//    V rows into shared memory while it scores the K rows. This form keeps
-//    one block per (slot, kv head): the fold's split over several blocks
-//    (decode_fold.cuh's SPLIT instances, which the paged fold and the
-//    append run) is not used here yet, so at slots 16 the card is far from
-//    full and a call is latency-bound.
+//    first.
+//    Design: a block per (slot, kv head, split of its columns) holds the
+//    group * S query rows that share the kv head and reads each K/V row
+//    once for all of them; the wrapper's decode_split_plan cuts the
+//    columns so that a 16-slot step fills the card (4 splits at
+//    TinyLlama's 16 x 4 heads), the last block of a (slot, kv head)
+//    merging the splits' states in split order. Two kernels; the
+//    wrapper's fold_form picks one:
+//    a. decode_fold_tc_kernel (decode_fold_tc.cuh, which says how it is
+//       designed): s8, int4 and bf16 caches at D <= 128 with no window or
+//       a bf16 one, on tensor cores (keys on the M side, q and p * vs in
+//       three bf16 parts, f32 accumulation).
+//    b. decode_mha_fold_kernel (decode_fold.cuh): f32 caches, f32 windows
+//       and D 129-512, on CUDA cores, its four warps taking 32-key tiles
+//       staged by cp.async.
 //
 // 2. The per-head form replaces rten_tpu/kernels/flash_attention.py:935
 //    decode_mha (the per-(slot, head, key block) pallas_call for larger S).
-//    Two kernels; the wrapper's heads_form picks one:
+//    Three kernels; the wrapper's heads_form picks one:
 //    a. decode_mha_heads_tc_kernel (decode_heads_tc.cuh, which says how it
 //       is designed): s8, int4 and bf16 caches at D <= 128, on tensor
 //       cores (bf16 mma.sync, q and p * vs split into three bf16 parts, f32
 //       accumulation). Bound on the H100 at an admission: bytes (the f32 q
 //       and output).
-//    b. decode_mha_heads_kernel (decode_mha.cuh): f32 caches, whose values
-//       bf16 does not hold, and D 129-512, on CUDA cores. Bound: operations
-//       at admission sizes (4 * S * keys * D flops per head at the f32
-//       rate). Design: one 128-thread block per (query tile, head, slot).
-//       The key loop runs inside the block up to lens[b] + the tile's last
-//       row, with K/V tiles converted to f32 in shared memory beside their
-//       scales; four threads share a query row up to D 128, eight beyond
-//       (query tiles of 32 and 16 rows: scores for BK / 4 or BK / 8 columns
-//       each, then D / 4 or D / 8 output dims each), and the online softmax
-//       runs in registers. The key tile is 32 columns at D <= 64, 16 up to
-//       D 256 and 8 at D 512, in dynamic shared memory (35 KB at D 128, 49
-//       KB at D 256, 65 KB at D 512; above 48 KB after
+//    b. decode_mha_heads_tf32_kernel (decode_heads_tf32.cuh): f32 caches at
+//       D <= 128, on tensor cores in 3xTF32. Bound: bytes, as 2a.
+//    c. decode_mha_heads_kernel (decode_mha.cuh): D 129-512, on CUDA
+//       cores. Bound: operations at admission sizes (4 * S * keys * D
+//       flops per head at the f32 rate). Design: one 128-thread block per
+//       (query tile, head, slot). The key loop runs inside the block up to
+//       lens[b] + the tile's last row, with K/V tiles converted to f32 in
+//       shared memory beside their scales; eight threads share a query row
+//       (query tiles of 16 rows: scores for BK / 8 columns each, then D / 8
+//       output dims each), and the online softmax runs in registers. The
+//       key tile is 16 columns up to D 256 and 8 at D 512, in dynamic
+//       shared memory (49 KB at D 256, 65 KB at D 512, after
 //       cudaFuncSetAttribute). int4 rows unpack as the tile is filled.
 //
 // Head dims: instances for DP = 64, 128 (here), 256 and 512 (decode_mha_wide.cu);
 // any even D runs in the smallest instance that holds it, the dims past D
 // zero in shared memory (a masked tail).
 //
-// In the fold and the CUDA-core per-head form, bf16 values widen to f32
+// In the CUDA-core fold and per-head form, bf16 values widen to f32
 // exactly as they are loaded (8 a 16-byte load in the fold, one a thread in
 // the per-head tile fill), int4 codes as they are unpacked (nibble - 8);
 // every product and sum is f32. Built without --use_fast_math (IEEE expf
 // and division), like the other kernels of the port.
 
+// s8 without a window or with a bf16 one runs on tensor cores: the
+// CUDA-core fold keeps only its general instances (f32 windows).
+#define RTEN_FOLD_FAST 0
 #include "decode_mha.cuh"
 
 #define RTEN_CASES(M) M(KV_S8, int8_t, 64) M(KV_S8, int8_t, 128)

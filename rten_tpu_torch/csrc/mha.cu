@@ -80,6 +80,7 @@
 // (IEEE expf, tanhf and division where the kernels do not say otherwise).
 
 #include "decode_fold.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -126,33 +127,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a . b: A 16 x 8 tf32 (row), B 8 x 8 tf32 (col), C 16 x 8 f32.
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// x as TF32 parts: big = x rounded to 11 significant bits (to nearest, ties
-// away), small = the same rounding of x - big (exact in f32).
-__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& big, uint32_t& small) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(__uint_as_float(x)));
-  const float rest = __uint_as_float(x) - __uint_as_float(big);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(rest));
-}
-
-// c += a . b in 3xTF32: a_big.b_big + a_big.b_small + a_small.b_big, the
-// small terms first.
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ab)[4],
-                                           const uint32_t (&as)[4], uint32_t bb0, uint32_t bb1,
-                                           uint32_t bs0, uint32_t bs1) {
-  mma_tf32(c, as, bb0, bb1);
-  mma_tf32(c, ab, bs0, bs1);
-  mma_tf32(c, ab, bb0, bb1);
 }
 
 __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {

@@ -17,9 +17,11 @@ their plain PyTorch versions.
   ``[B, Hkv, cap, D/2]``, ``pack_int4``) with the same scales, f32 or bf16
   (``csrc/decode_mha{,_f32,_bf16,_u4,_u4_win,_wide}.cu``). Two launch forms, each with
   its own launch counter: ``decode_mha_folded`` (every decode step, and the
-  deferred-KV step with a recent window: ``decode_attention_deferred``) and
-  ``decode_mha_heads`` (every admission), which runs on tensor cores for
-  s8, int4 and bf16 caches at D <= 128 and on CUDA cores otherwise
+  deferred-KV step with a recent window: ``decode_attention_deferred``),
+  split over blocks, on tensor cores for s8, int4 and bf16 caches at D <=
+  128 with no window or a bf16 one and on CUDA cores otherwise
+  (``fold_form``); and ``decode_mha_heads`` (every admission), on tensor
+  cores at D <= 128 (f32 caches in 3xTF32) and on CUDA cores for D 129-512
   (``heads_form``).
 * ``decode_mha_append`` replaces
   ``rten_tpu/kernels/flash_attention.py:decode_mha_append``: the in-kernel
@@ -44,8 +46,9 @@ their plain PyTorch versions.
   a block table;
   ``paged_attention`` routes paged attention by shape.
 
-Split-K: ``paged_decode_mha``, the block-table append's attention and the
-flat append (``csrc/decode_append*.cu``) cut each (slot, kv head)'s
+Split-K: the decode steps' kernels (``decode_mha_folded``,
+``paged_decode_mha``, the block-table append's attention and the flat
+append, ``csrc/decode_append*.cu``) cut each (slot, kv head)'s
 columns into chunks, one block each (``decode_split_plan``, from the shapes
 alone), so that a decode step at 16 slots fills the card, and fold the
 group's query rows into the block; the last block of a (slot, kv head) merges the
@@ -537,7 +540,8 @@ def _split_workspace(device, stream: int, units: int, floats: int):
 
 def _split_args(device, stream: int, B: int, H: int, Hkv: int, D: int, cap: int):
     """(splits, chunk, workspace pointer, counters pointer) of a call; no
-    workspace with one split."""
+    workspace with one split. ``H``: the query rows of a slot (heads, times
+    S for the fold's S > 1 rows)."""
     splits, chunk = decode_split_plan(B * Hkv, cap, sm_count(device.index))
     if splits == 1:
         return splits, chunk, None, None
@@ -907,8 +911,8 @@ def prefill_mha_cat(q, kc, vc, lens, k_scale=None, v_scale=None, *,
     The function is ``decode_mha``'s per-head form on the head-major views
     ``cat_to_heads`` gives (no copy: strides (cap*Hkv*D, D, Hkv*D)), so the
     card runs that form's kernels, routed by ``heads_form``: on tensor cores
-    for s8 and bf16 caches at D <= 128, on CUDA cores for f32 caches and D
-    129-256 (``prefill_mha_cat.cuda_core_launches`` counts those)."""
+    at D <= 128 (f32 caches in 3xTF32), on CUDA cores for D 129-256
+    (``prefill_mha_cat.cuda_core_launches`` counts those)."""
     if kernel_device(q, kc, vc, lens, k_scale, v_scale) == "cpu":
         return prefill_mha_cat_plain(
             q, kc, vc, lens, k_scale, v_scale, scale=scale, window=window
@@ -929,12 +933,16 @@ def prefill_mha_cat(q, kc, vc, lens, k_scale=None, v_scale=None, *,
     prefill_mha_cat.launches += 1
     if form == "cuda_core":
         prefill_mha_cat.cuda_core_launches += 1
+    elif kc.dtype == torch.float32:
+        prefill_mha_cat.tf32_launches += 1
     return out
 
 
-# Every launch, and (of them) the CUDA-core form's.
+# Every launch, and (of them) the CUDA-core form's and the 3xTF32 kernel's
+# (f32 caches on tensor cores).
 prefill_mha_cat.launches = 0
 prefill_mha_cat.cuda_core_launches = 0
+prefill_mha_cat.tf32_launches = 0
 
 
 FOLD_MAX_ROWS = 16  # group * S query rows one fold block holds at D <= 128
@@ -964,11 +972,11 @@ def decode_mha(q, k, v, lens, k_scale=None, v_scale=None, *,
     refusals hold: a sliding window with a recent window, and int4 caches at
     S > 1 with a recent window, raise ``NotImplementedError``.
 
-    Routing (the port's own): the fold (one block per slot and kv head,
-    ``decode_mha_folded``) when its group * S query rows fit one block
-    (``fold_max_rows``), which covers every decode step of a model with
-    group <= 16 at D <= 128 (TinyLlama: 8) and every deferred step; per head
-    (``decode_mha_heads``) otherwise, which covers every admission."""
+    Routing (the port's own): the fold (blocks per slot, kv head and split
+    of the columns, ``decode_mha_folded``) when its group * S query rows fit
+    one block (``fold_max_rows``), which covers every decode step of a model
+    with group <= 16 at D <= 128 (TinyLlama: 8) and every deferred step; per
+    head (``decode_mha_heads``) otherwise, which covers every admission."""
     S = q.shape[2]
     if recent_k is not None:
         if window:
@@ -989,18 +997,33 @@ def decode_mha(q, k, v, lens, k_scale=None, v_scale=None, *,
                             scale=scale, window=window)
 
 
-# Cache dtypes whose values bf16 holds exactly: the per-head form runs them
-# on tensor cores (csrc/decode_heads_tc.cuh) up to D 128.
+# Cache dtypes whose values bf16 holds exactly: the fold and the per-head
+# form run them on tensor cores in bf16 parts (csrc/decode_fold_tc.cuh,
+# csrc/decode_heads_tc.cuh) up to D 128.
 TENSOR_CORE_KV = (torch.int8, torch.uint8, torch.bfloat16)
+TENSOR_CORE_MAX_D = 128
 
 
 def heads_form(dtype, D: int) -> str:
     """The kernel ``decode_mha_heads`` launches for a cache dtype and head
-    dim: "tensor_core" (bf16 ``mma.sync`` with q and p * vs split into three
-    bf16 parts, f32 accumulation) for s8, int4 and bf16 caches at D <= 128;
-    "cuda_core" (f32 FMAs, ``decode_mha_heads_kernel``) for f32 caches,
-    whose values bf16 does not hold, and for D 129-512."""
-    return "tensor_core" if dtype in TENSOR_CORE_KV and D <= 128 else "cuda_core"
+    dim: "tensor_core" at D <= 128 (s8, int4 and bf16 caches: bf16
+    ``mma.sync`` with q and p * vs split into three bf16 parts; f32 caches:
+    3xTF32; f32 accumulation); "cuda_core" (f32 FMAs,
+    ``decode_mha_heads_kernel``) for D 129-512."""
+    return "tensor_core" if D <= TENSOR_CORE_MAX_D else "cuda_core"
+
+
+def fold_form(dtype, D: int, recent_dtype=None) -> str:
+    """The kernel ``decode_mha_folded`` launches for a cache dtype, head dim
+    and recent window dtype (None: no window): "tensor_core"
+    (``csrc/decode_fold_tc.cuh``: bf16 ``mma.sync``, keys on the M side,
+    q and p * vs in three bf16 parts) for s8, int4 and bf16 caches at D <=
+    128 with no window or a bf16 one; "cuda_core" (``csrc/decode_fold.cuh``,
+    f32 FMAs) for f32 caches and f32 windows, whose values bf16 does not
+    hold, and for D 129-512. Both split each (slot, kv head)'s columns over
+    blocks (``decode_split_plan``)."""
+    return ("tensor_core" if dtype in TENSOR_CORE_KV and D <= TENSOR_CORE_MAX_D
+            and recent_dtype in (None, torch.bfloat16) else "cuda_core")
 
 
 def _heads_launch(q, k, v, lens, k_scale, v_scale, scale, window):
@@ -1012,15 +1035,14 @@ def _heads_launch(q, k, v, lens, k_scale, v_scale, scale, window):
     return out, form
 
 
-def _decode_lib_name(dtype, D: int, general: bool = False) -> str:
-    """The library that holds decode_mha's instances for a cache dtype and
-    head dim (csrc/decode_mha*.cu); ``general``: the fold's general
-    instances (a recent window, or D other than 64 and 128), which int4
-    keeps apart."""
+def _decode_lib_name(dtype, D: int, entry: str) -> str:
+    """The library that holds decode_mha's ``entry`` (``rten_decode_mha_
+    <entry>``) for a cache dtype and head dim (csrc/decode_mha*.cu): int4
+    keeps its CUDA-core fold (f32 windows) apart."""
     if D > 128:
         return "decode_mha_wide"
     if dtype == torch.uint8:
-        return "decode_mha_u4_win" if general else "decode_mha_u4"
+        return "decode_mha_u4_win" if entry == "folded" else "decode_mha_u4"
     return {torch.bfloat16: "decode_mha_bf16", torch.float32: "decode_mha_f32"}.get(
         dtype, "decode_mha")
 
@@ -1028,9 +1050,10 @@ def _decode_lib_name(dtype, D: int, general: bool = False) -> str:
 def _decode_mha_launch(form, q, k, v, lens, k_scale, v_scale, scale, window,
                        recent=None):
     """Check what the kernels take, then launch ``rten_decode_mha_<form>``
-    (``_decode_lib_name``). ``recent``: (recent_k, recent_v, t, k_new,
-    v_new) for the deferred fold. Returns [B,H,S,D] f32, a head-major view
-    of a [B,S,H*D] buffer, so merging heads afterwards is free."""
+    (``_decode_lib_name``; the folds with the split of ``decode_split_plan``).
+    ``recent``: (recent_k, recent_v, t, k_new, v_new) for the deferred fold.
+    Returns [B,H,S,D] f32, a head-major view of a [B,S,H*D] buffer, so
+    merging heads afterwards is free."""
     device = q.device
     B, H, S, D = q.shape
     if q.dtype != torch.float32 or q.stride(-1) != 1:
@@ -1093,14 +1116,16 @@ def _decode_mha_launch(form, q, k, v, lens, k_scale, v_scale, scale, window,
     if scale is None:
         scale = 1.0 / float(np.sqrt(D))
     out_cat = torch.empty((B, S, H * D), dtype=torch.float32, device=device)
-    general = form == "folded" and (recent is not None or D not in (64, 128))
-    fn = getattr(_mha_lib(_decode_lib_name(k.dtype, D, general)), f"rten_decode_mha_{form}")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    split = (_split_args(device, stream, B, H * S, Hkv, D, cap) if form.startswith("folded")
+             else (0, 0, None, None))
+    fn = getattr(_mha_lib(_decode_lib_name(k.dtype, D, form)), f"rten_decode_mha_{form}")
     err = fn(
         kind, q.data_ptr(), *q.stride()[:3],
         k.data_ptr(), v.data_ptr(), *k.stride()[:3],
         *sc_ptrs, *sc_strides, lens.data_ptr(), out_cat.data_ptr(),
         S * H * D, D, H * D, B, H, Hkv, S, D, cap, int(window), float(scale), vec, *win,
-        torch.cuda.current_stream(device).cuda_stream,
+        *split, stream,
     )
     if err:
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
@@ -1112,9 +1137,12 @@ def decode_mha_folded(q, k, v, lens, k_scale=None, v_scale=None, *,
                       scale: Optional[float] = None, window: int = 0,
                       recent_k=None, recent_v=None, t=None, k_new=None, v_new=None):
     """``decode_mha``'s fold form (replaces
-    ``rten_tpu/kernels/flash_attention.py:_decode_mha_folded``): one block
-    per (slot, kv head) holding its group * S <= ``fold_max_rows(D)`` rows;
-    with a recent window the deferred form (``decode_mha``)."""
+    ``rten_tpu/kernels/flash_attention.py:_decode_mha_folded``): a block per
+    (slot, kv head, split of its columns) holding its group * S <=
+    ``fold_max_rows(D)`` rows, the last block of a (slot, kv head) merging
+    the splits; with a recent window the deferred form (``decode_mha``).
+    Routed by ``fold_form``: on tensor cores or (counted by
+    ``decode_mha_folded.cuda_core_launches``) on CUDA cores."""
     if kernel_device(q, k, v, lens, k_scale, v_scale, recent_k, recent_v, t, k_new,
                      v_new) == "cpu":
         if recent_k is None:
@@ -1129,12 +1157,18 @@ def decode_mha_folded(q, k, v, lens, k_scale=None, v_scale=None, *,
         raise ValueError(f"the fold holds {fold_max_rows(q.shape[3])} rows per kv head at "
                          f"D {q.shape[3]}, got group {group} x S {q.shape[2]}")
     recent = None if recent_k is None else (recent_k, recent_v, t, k_new, v_new)
-    out = _decode_mha_launch("folded", q, k, v, lens, k_scale, v_scale, scale, window, recent)
+    form = fold_form(k.dtype, q.shape[3], None if recent_k is None else recent_k.dtype)
+    out = _decode_mha_launch("folded_tc" if form == "tensor_core" else "folded", q, k, v, lens,
+                             k_scale, v_scale, scale, window, recent)
     decode_mha_folded.launches += 1
+    if form == "cuda_core":
+        decode_mha_folded.cuda_core_launches += 1
     return out
 
 
+# Every launch, and (of them) the CUDA-core form's.
 decode_mha_folded.launches = 0
+decode_mha_folded.cuda_core_launches = 0
 
 
 @_holdable
@@ -1143,8 +1177,7 @@ def decode_mha_heads(q, k, v, lens, k_scale=None, v_scale=None, *,
     """``decode_mha``'s per-head form (replaces
     ``rten_tpu/kernels/flash_attention.py:decode_mha``'s per-head grid),
     routed by ``heads_form``: on tensor cores one block per (64-row query
-    tile, head, slot); on CUDA cores one per (32-row tile, 16 beyond D
-    128)."""
+    tile, head, slot); on CUDA cores (D 129-512) one per 16-row tile."""
     if kernel_device(q, k, v, lens, k_scale, v_scale) == "cpu":
         return decode_mha_plain(q, k, v, lens, k_scale, v_scale,
                                 scale=scale, window=window)
@@ -1152,12 +1185,16 @@ def decode_mha_heads(q, k, v, lens, k_scale=None, v_scale=None, *,
     decode_mha_heads.launches += 1
     if form == "cuda_core":
         decode_mha_heads.cuda_core_launches += 1
+    elif k.dtype == torch.float32:
+        decode_mha_heads.tf32_launches += 1
     return out
 
 
-# Every launch, and (of them) the CUDA-core form's.
+# Every launch, and (of them) the CUDA-core form's and the 3xTF32 kernel's
+# (f32 caches on tensor cores).
 decode_mha_heads.launches = 0
 decode_mha_heads.cuda_core_launches = 0
+decode_mha_heads.tf32_launches = 0
 
 
 def paged_decode_mha_plain(q, pool_k, pool_v, lens, block_table, pool_ks=None,
@@ -1266,12 +1303,12 @@ def _mha_lib(name):
     argument types."""
     lib = load_library(name)
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    for fn in (lib.rten_decode_mha_folded, lib.rten_decode_mha_heads,
-               lib.rten_decode_mha_heads_tc):
+    for fn in (lib.rten_decode_mha_folded, lib.rten_decode_mha_folded_tc,
+               lib.rten_decode_mha_heads, lib.rten_decode_mha_heads_tc):
         if fn.argtypes is None:
             fn.argtypes = [I, P, L, L, L, P, P, L, L, L, P, P, L, L, L, P, P,
                            L, L, L, I, I, I, I, I, I, I, F, I,
-                           P, P, L, L, L, I, I, I, P, P, P, L, L, P]
+                           P, P, L, L, L, I, I, I, P, P, P, L, L, I, I, P, P, P]
             fn.restype = I
     return lib
 

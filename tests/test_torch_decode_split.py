@@ -1,4 +1,4 @@
-"""Split-K decode attention (``csrc/decode_fold.cuh``'s SPLIT instances:
+"""Split-K decode attention (``csrc/decode_fold.cuh``'s split fold:
 ``paged_decode_mha``, the block-table append's attention and the flat
 append of a grouped model) modelled on the CPU in PyTorch.
 

@@ -178,11 +178,10 @@ def _prefill_launches():
 
 def _check_prefill_form(before, dtype, D, calls):
     """prefill_mha_cat ran ``calls`` times on the form heads_form names:
-    the tensor-core per-head kernel for s8 and bf16 caches at D <= 128, the
-    CUDA-core one for f32 caches and D 129-256."""
+    the tensor-core per-head kernels at D <= 128 (f32 caches in 3xTF32), the
+    CUDA-core one for D 129-256."""
     core = calls if tfa.heads_form(dtype, D) == "cuda_core" else 0
-    assert tfa.heads_form(dtype, D) == (
-        "tensor_core" if dtype != torch.float32 and D <= 128 else "cuda_core")
+    assert tfa.heads_form(dtype, D) == ("tensor_core" if D <= 128 else "cuda_core")
     assert _prefill_launches() == (before[0] + calls, before[1] + core)
 
 
@@ -988,8 +987,8 @@ def test_decode_mha_kernel_kinds_and_head_dims(card, kv, H, Hkv, S, D, window):
     (8, 1, 24, 256, 0),    # D 256: the CUDA-core form
 ])
 def test_decode_mha_heads_forms(card, kv, H, Hkv, S, D, window):
-    """The per-head form: on tensor cores for s8, bf16 and int4 caches at
-    D <= 128, on CUDA cores for f32 caches and D 256 (heads_form), against
+    """The per-head form: on tensor cores at D <= 128 (f32 caches in
+    3xTF32), on CUDA cores at D 256 (heads_form), against
     decode_mha_plain within 1e-4 on rows with a column to attend, 0 on the
     others, the same bits twice. lens: 0, mid-cache, the last row, past cap
     (a window then leaves the row no column), and the chunk's clamp."""
@@ -1000,7 +999,7 @@ def test_decode_mha_heads_forms(card, kv, H, Hkv, S, D, window):
     q = torch.randn(B, H, S, D, generator=g).to(card)
     k, v, ks, vs = _caches(card, g, kv, B, Hkv, cap, D)
     form = tfa.heads_form(k.dtype, D)
-    assert form == ("tensor_core" if kv != "f32" and D <= 128 else "cuda_core")
+    assert form == ("tensor_core" if D <= 128 else "cuda_core")
     before = (tfa.decode_mha_heads.launches, tfa.decode_mha_heads.cuda_core_launches)
     got = tfa.decode_mha_heads(q, k, v, lens, ks, vs, window=window)
     again = tfa.decode_mha_heads(q, k, v, lens, ks, vs, window=window)
@@ -1685,3 +1684,143 @@ def test_split_paged_append_kernel(card, dt, B, H, Hkv, D, BS, MB, window):
     assert free
     for i in range(n):
         assert torch.equal(_bits(got[i + 1][free]), _bits(pools[i][free]))
+
+
+# --- the fold split over blocks on both cores; the f32 per-head form in 3xTF32 --
+
+
+def _fold_counts():
+    return tfa.decode_mha_folded.launches, tfa.decode_mha_folded.cuda_core_launches
+
+
+@pytest.mark.parametrize("kv", ["s8", "int4", "bf16", "f32"])
+@pytest.mark.parametrize("B,H,Hkv,S,D,cap,window", [
+    (16, 32, 4, 1, 64, 256, 0),     # TinyLlama's decode step: 4 splits of 64
+    (16, 32, 4, 1, 64, 256, 30),    # and a sliding window
+    (120, 12, 12, 1, 64, 256, 0),   # GPT-2's step: 1440 units, one split
+    (4, 8, 2, 2, 128, 1024, 0),     # S 2 (8 rows a kv head) at cap 1024
+    (3, 16, 2, 2, 64, 96, 0),       # 16 rows a kv head: two n-tiles
+    (5, 6, 3, 1, 80, 256, 0),       # masked tails (int4 D 80: 40-byte rows)
+    (5, 4, 2, 3, 96, 256, 16),
+    (6, 8, 1, 1, 256, 256, 0),      # D 256 and 512: the CUDA-core fold, split
+    (6, 4, 1, 1, 512, 128, 0),
+])
+def test_fold_forms_and_splits(card, kv, B, H, Hkv, S, D, cap, window):
+    """decode_mha's fold on the form fold_form names (tensor cores for s8,
+    int4 and bf16 at D <= 128, CUDA cores for f32 and D 129-512), at more
+    than one split and at one, against decode_mha_plain: atol 1e-4 on rows
+    with a column (0 on the others), the same bits twice, the counters
+    moved for that form alone. lens: the split's edges (empty caches, a
+    chunk's last row and the next, past cap)."""
+    splits, chunk = _plan(card, B, Hkv, cap)
+    g = _gen(B * H + S * D + cap + window + len(kv))
+    lens = _split_lens(card, g, B, cap, chunk, window)
+    q = torch.randn(B, H, S, D, generator=g).to(card)
+    k, v, ks, vs = _caches(card, g, kv, B, Hkv, cap, D)
+    form = tfa.fold_form(k.dtype, D)
+    assert form == ("tensor_core" if kv != "f32" and D <= 128 else "cuda_core")
+    before = _fold_counts()
+    got = tfa.decode_mha(q, k, v, lens, ks, vs, window=window)
+    again = tfa.decode_mha(q, k, v, lens, ks, vs, window=window)
+    want = tfa.decode_mha_plain(q, k, v, lens, ks, vs, window=window)
+    torch.cuda.synchronize()
+    assert _fold_counts() == (before[0] + 2, before[1] + (2 if form == "cuda_core" else 0))
+    assert got.shape == (B, H, S, D) and torch.equal(got, again)
+    qpos = lens.long()[:, None] + torch.arange(S, device=card)[None]
+    live = (qpos - window < cap - 1) if window else torch.ones_like(qpos, dtype=torch.bool)
+    live = live[:, None, :, None].expand_as(got)
+    assert (got - want)[live].abs().max().item() <= 1e-4
+    assert (got[~live] == 0).all() and torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("kv", ["s8", "int4", "bf16", "f32"])
+@pytest.mark.parametrize("rdt", ["bf16", "f32"])
+@pytest.mark.parametrize("B,H,Hkv,D,W,t", [
+    (16, 32, 4, 64, 8, 7),      # TinyLlama's deferred step: 4 splits, the window in the last
+    (120, 12, 12, 64, 8, 7),    # GPT-2's: one split
+    (120, 12, 12, 64, 64, 63),  # the bench's window of 64
+    (6, 8, 2, 128, 40, 0),      # t 0: the new row alone
+    (5, 4, 2, 80, 8, 5),        # a masked tail
+])
+def test_fold_deferred_splits(card, kv, rdt, B, H, Hkv, D, W, t):
+    """The deferred fold split over blocks: the last split alone writes the
+    new row (bit-exact against the plain version, every other window row
+    untouched) and scores the window; out within 1e-4, the same bits twice
+    (windows too); the form fold_form names (tensor cores for s8, int4 and
+    bf16 caches with a bf16 window)."""
+    cap = 256
+    splits, chunk = _plan(card, B, Hkv, cap)
+    g = _gen(B + D + W + t + len(kv) + len(rdt))
+    q = torch.randn(B, H, 1, D, generator=g).to(card)
+    k, v, ks, vs = _caches(card, g, kv, B, Hkv, cap, D)
+    rk, rv = (_float_cache(g, (B, Hkv, W, D), rdt, card) for _ in "kv")
+    kn, vn = (torch.randn(B, Hkv, 1, D, generator=g).to(card) for _ in "kv")
+    edges = [0, 1, chunk - 1, chunk, cap - W, cap]
+    lens0 = torch.tensor((edges * B)[:B], dtype=torch.int32, device=card)
+    step = torch.tensor([t], dtype=torch.int32, device=card)
+    form = tfa.fold_form(k.dtype, D, rk.dtype)
+    assert form == ("tensor_core" if kv != "f32" and rdt == "bf16" else "cuda_core")
+    before = _fold_counts()
+    runs = []
+    for _ in range(2):
+        a = [rk.clone(), rv.clone()]
+        runs.append(tfa.decode_attention_deferred(q, k, v, lens0, ks, vs, recent_k=a[0],
+                                                  recent_v=a[1], t=step, k_new=kn, v_new=vn))
+    p = [rk.clone(), rv.clone()]
+    want = tfa.decode_attention_deferred_plain(q, k, v, lens0, ks, vs, recent_k=p[0],
+                                               recent_v=p[1], t=step, k_new=kn, v_new=vn)
+    torch.cuda.synchronize()
+    assert _fold_counts() == (before[0] + 2, before[1] + (2 if form == "cuda_core" else 0))
+    got = runs[0]
+    assert (got[0] - want[0]).abs().max().item() <= 1e-4 and torch.isfinite(got[0]).all()
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(runs[0], runs[1]))
+    for i in (1, 2):
+        assert torch.equal(_bits(got[i]), _bits(want[i]))
+    keep = torch.ones(W, dtype=torch.bool, device=card)
+    keep[t] = False
+    assert torch.equal(_bits(got[1][:, :, keep]), _bits(rk[:, :, keep]))
+
+
+@pytest.mark.parametrize("H,Hkv,S,D,window", [
+    (32, 4, 128, 64, 0),    # TinyLlama's admission
+    (12, 12, 100, 64, 0),   # GPT-2's, a ragged 64-row tile
+    (8, 2, 40, 80, 0),      # a masked tail (4-byte copies)
+    (8, 2, 70, 80, 24),
+    (12, 2, 65, 128, 0),    # Qwen's D 128, group 6
+    (4, 4, 33, 128, 20),
+])
+def test_heads_tf32_kernel(card, H, Hkv, S, D, window):
+    """decode_mha's per-head form on f32 caches at D <= 128 runs in 3xTF32
+    on tensor cores (no CUDA-core launch) within 1e-4 of decode_mha_plain
+    on rows with a column (0 on the others), the same bits twice; and
+    prefill_mha_cat on f32 cat caches (the same kernel through the views'
+    strides) likewise."""
+    cap, B = 256, 6
+    lens = torch.tensor([0, 37, cap - 1, cap + 40, cap - S, 5], dtype=torch.int32,
+                        device=card)
+    g = _gen(H * S + D + window)
+    q = torch.randn(B, H, S, D, generator=g).to(card)
+    k, v = (_float_cache(g, (B, Hkv, cap, D), "f32", card) for _ in "kv")
+    assert tfa.heads_form(torch.float32, D) == "tensor_core"
+    before = (tfa.decode_mha_heads.launches, tfa.decode_mha_heads.cuda_core_launches)
+    got = tfa.decode_mha_heads(q, k, v, lens, window=window)
+    again = tfa.decode_mha_heads(q, k, v, lens, window=window)
+    want = tfa.decode_mha_plain(q, k, v, lens, window=window)
+    torch.cuda.synchronize()
+    assert (tfa.decode_mha_heads.launches, tfa.decode_mha_heads.cuda_core_launches) == (
+        before[0] + 2, before[1])
+    assert torch.equal(got, again)
+    qpos = lens.long()[:, None] + torch.arange(S, device=card)[None]
+    live = (qpos - window < cap - 1) if window else torch.ones_like(qpos, dtype=torch.bool)
+    live = live[:, None, :, None].expand_as(got)
+    assert (got - want)[live].abs().max().item() <= 1e-4
+    assert (got[~live] == 0).all() and torch.isfinite(got).all()
+    # The same kernel on cat caches (rows of Hkv * D), lens inside the cache.
+    kc, vc = (x.permute(0, 2, 1, 3).reshape(B, cap, Hkv * D).contiguous() for x in (k, v))
+    lens = lens.clamp(max=cap - S)
+    pre = _prefill_launches()
+    got = tfa.prefill_mha_cat(q, kc, vc, lens, window=window)
+    want = tfa.prefill_mha_cat_plain(q, kc, vc, lens, window=window)
+    torch.cuda.synchronize()
+    _check_prefill_form(pre, torch.float32, D, 1)
+    assert (got - want).abs().max().item() <= 1e-4
