@@ -571,8 +571,8 @@ def phase_decode_mha(gen, dev):
     plain version; such rows are checked apart. The fold runs split over
     blocks, on tensor cores for s8 caches and on CUDA cores for f32 caches
     (fold_form); the per-head form on tensor cores for both, f32 in 3xTF32
-    (heads_form). Then times over 22 layers' s8 and f32 caches, and the
-    CUDA-core per-head kernel (D 129-512) at D 256."""
+    (heads_plan). Then times over 22 layers' s8 and f32 caches, and the
+    wide per-head kernel (D 129-512) at D 256 and 512."""
     from rten_tpu_torch.kernels.flash_attention import (
         decode_mha, decode_mha_folded, decode_mha_heads, decode_mha_plain,
     )
@@ -596,14 +596,14 @@ def phase_decode_mha(gen, dev):
         k, v, ks, vs = _head_major_caches(gen, dev, B, quant)
         lens = lens_by_S[S]
         before = {s: f.launches for s, f in forms.items()}
-        core = (decode_mha_heads.cuda_core_launches, decode_mha_heads.tf32_launches,
+        core = (decode_mha_heads.wide_launches, decode_mha_heads.tf32_launches,
                 decode_mha_folded.cuda_core_launches)
         got = decode_mha(q, k, v, lens, ks, vs, window=window)
         want = decode_mha_plain(q, k, v, lens, ks, vs, window=window)
         torch.cuda.synchronize()
         if {s: f.launches - before[s] for s, f in forms.items()} != \
                 {s: int(s == S) for s in forms} or \
-                (decode_mha_heads.cuda_core_launches - core[0],
+                (decode_mha_heads.wide_launches - core[0],
                  decode_mha_heads.tf32_launches - core[1],
                  decode_mha_folded.cuda_core_launches - core[2]) != \
                 (0, int(S > 1 and not quant), int(S == 1 and not quant)):
@@ -687,59 +687,179 @@ def phase_decode_mha(gen, dev):
         })
         if S > 1:
             rows[-1]["bound_ms_f32_cuda_cores"] = cuda_core_bound[0]
-    rows.append(_heads_cuda_core_case(gen, dev))
+    rows.append(_heads_wide_case(gen, dev))
     return rows
 
 
-def _heads_cuda_core_case(gen, dev, calls=8):
-    """The CUDA-core per-head kernel (D 129-512) at D 256: an admission of
-    16 x 128 tokens, H 8 over 1 KV head (Gemma's head dim), f32 caches,
-    against decode_mha_plain within 1e-4, the same bits twice; the times of
-    ``calls`` calls beside the bound (at the TF32 peak; the f32 rate's in
-    ``bound_ms_f32_cuda_cores``)."""
+WIDE_CASES = (("f32", 256), ("s8", 256), ("int4", 256), ("bf16", 256), ("f32", 512))
+
+
+def _heads_wide_case(gen, dev, calls=8):
+    """The wide per-head kernel (csrc/decode_heads_wide.cuh, D 129-512) at
+    an admission of 16 x 128 tokens, H 8 over 1 KV head (Gemma's head dim
+    256), cap 256, for every cache kind at D 256 and f32 at D 512: each
+    against decode_mha_plain within 1e-4, the same bits twice, counted by
+    ``wide_launches``; then the times of ``calls`` calls (one per layer's
+    caches), the plain version's and SDPA's (on the f32 values of the K/V,
+    dequantized, with the same mask; for bf16 caches also on the bf16 K/V
+    with a bf16 q), beside the bound (at the bf16 tensor-core peak for s8,
+    int4 and bf16 caches, the TF32 one for f32). The row's numbers are the
+    f32 D 256 case's (PERF.md's unit); the others are in ``other_shapes``."""
     from rten_tpu_torch.kernels.flash_attention import decode_mha_heads, decode_mha_plain
 
-    B, Hq, Hkv, Dh = L_SLOTS, 8, 1, 256
+    B, Hq, Hkv = L_SLOTS, 8, 1
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     lens = torch.randint(0, CAP - PROMPT + 1, (B,), generator=gen, dtype=torch.int32).to(dev)
-    q = torch.randn(B, Hq, PROMPT, Dh, generator=gen).to(dev)
-    layers = [_float_kv(gen, dev, (B, Hkv, CAP, Dh), "f32") for _ in range(calls)]
-    core = decode_mha_heads.cuda_core_launches
-    got, again = (decode_mha_heads(q, *layers[0], lens) for _ in range(2))
-    want = decode_mha_plain(q, *layers[0], lens)
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    if (decode_mha_heads.cuda_core_launches != core + 2 or not err <= 1e-4
-            or not torch.equal(got, again)):
-        fail(f"decode_mha_heads [D 256, CUDA cores]: wrong form, max err {err} > 1e-4, or two "
-             f"calls differ")
-    del got, again, want
     m = _mask(lens, PROMPT)
     pairs = m.sum().item() * Hq
     kv_rows = (lens.long() + PROMPT).clamp(max=CAP).sum().item()
-    nbytes = 2 * 4 * B * Hq * PROMPT * Dh + 4 * B + 2 * kv_rows * Hkv * Dh * 4
-    k_ms = timed(lambda: [decode_mha_heads(q, k, v, lens) for k, v in layers], iters=5,
-                 nbytes=calls * nbytes)
-    p_ms = timed(lambda: [decode_mha_plain(q, k, v, lens) for k, v in layers], iters=2,
-                 warmup=1, nbytes=calls * nbytes)
+    cases = {}
+    for kv, Dh in WIDE_CASES:
+        q = torch.randn(B, Hq, PROMPT, Dh, generator=gen).to(dev)
+        layers = [_quant_head_major(gen, dev, kv, B, Hkv, Dh) for _ in range(calls)]
+        wide = decode_mha_heads.wide_launches
+        got, again = (decode_mha_heads(q, *layers[0][:2], lens, *layers[0][2:]) for _ in range(2))
+        want = decode_mha_plain(q, *layers[0][:2], lens, *layers[0][2:])
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if (decode_mha_heads.wide_launches != wide + 2 or not err <= 1e-4
+                or not torch.equal(got, again)):
+            fail(f"decode_mha_heads [wide, {kv}, D {Dh}]: wrong kernel, max err {err} > 1e-4, "
+                 f"or two calls differ")
+        del got, again, want
+        nbytes = 2 * 4 * B * Hq * PROMPT * Dh + 4 * B + 2 * kv_rows * Hkv * _row_bytes(kv, Dh)
+        k_ms = timed(lambda: [decode_mha_heads(q, c[0], c[1], lens, c[2], c[3]) for c in layers],
+                     iters=5, nbytes=calls * nbytes)
+        p_ms = timed(lambda: [decode_mha_plain(q, c[0], c[1], lens, c[2], c[3]) for c in layers],
+                     iters=2, warmup=1, nbytes=calls * nbytes)
+        deq = [_dequant(*c) for c in layers]
+        lib = timed(lambda: [sdpa(q, kf, vf, attn_mask=m, enable_gqa=True) for kf, vf in deq],
+                    iters=5, nbytes=calls * sdpa_bytes(q, kv_rows, Hkv, Dh, 4))
+        del deq
+        bms, by = bound_ms(calls * nbytes, calls * 4.0 * pairs * Dh, attn_peak(kv))
+        case = {"unit": (f"an admission at slots {B}, cap {CAP}, {PROMPT} tokens, H {Hq} over "
+                         f"{Hkv}, D {Dh}, {kv} caches: {calls} calls"),
+                "max_abs_err": err, **time_keys(k_ms, p_ms, lib), "bound_ms": bms,
+                "bound_by": by,
+                "library_call": "scaled_dot_product_attention(enable_gqa=True) on the f32 "
+                                "values of the K/V with the same mask"}
+        note = ""
+        if kv == "bf16":
+            qb = q.to(torch.bfloat16)
+            lb = timed(lambda: [sdpa(qb, c[0], c[1], attn_mask=m, enable_gqa=True)
+                                for c in layers],
+                       iters=5, nbytes=calls * sdpa_bytes(qb, kv_rows, Hkv, Dh, 2))
+            case["library_bf16_ms"] = ms_of(lb)
+            note = f", sdpa on the bf16 K/V (bf16 q) {fmt(lb)}"
+        print(f"  decode_mha_heads [wide, {kv}, D {Dh}] x{calls}: max abs err {err:.3e} (bound "
+              f"1e-4), two calls bit-identical; kernel {fmt(k_ms)}, plain {fmt(p_ms)}, sdpa "
+              f"{fmt(lib)}{note}, bound {bms:.4f} ms ({by})", flush=True)
+        cases[f"{kv} D {Dh}"] = case
+        del layers, q
+        torch.cuda.empty_cache()
+    head = cases.pop("f32 D 256")
+    return {"name": "decode_mha_heads[wide]", "route": "cuda", "kv": None,
+            "counter": "decode_mha_heads_wide",
+            "source": "rten_tpu_torch/csrc/decode_heads_wide.cuh",
+            "replaces": "rten_tpu/kernels/flash_attention.py:935", **head,
+            "max_abs_err": max([head["max_abs_err"]] + [c["max_abs_err"] for c in cases.values()]),
+            "other_shapes": cases}
+
+
+def _d256_modes(gen, dev, calls=8):
+    """Two CUDA-core modes of redesigned rows that PERF.md's table lacked,
+    timed (not changed) beside SDPA at Gemma's head dim 256, H 8 over 1 KV
+    head: mha (row 5, ``mha_form`` "cuda_core") at a causal prefill of T
+    1024, B 1, f32; and the split fold (row 6a, ``fold_form`` "cuda_core")
+    at a decode step of 16 slots, cap 256, lens in [128, 192), on s8 and
+    bf16 caches. Each against its plain version within 1e-4 on its CUDA-core
+    counter, then ``calls`` calls (one per layer) of the kernel, the plain
+    version and SDPA (causal; the fold's on the dequantized f32 K/V, or the
+    bf16 K/V with a bf16 q, with the same mask), beside the bound (TF32 or
+    bf16 tensor-core peak, the f32 rate's in ``bound_ms_f32_cuda_cores``).
+    Returns {row name: {case: its numbers}}."""
+    from rten_tpu_torch.kernels.flash_attention import (
+        decode_mha_folded, decode_mha_plain, fold_form, mha, mha_form, mha_plain,
+    )
+
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = timed(lambda: [sdpa(q, k, v, attn_mask=m, enable_gqa=True) for k, v in layers],
-                iters=5, nbytes=calls * sdpa_bytes(q, kv_rows, Hkv, Dh, 4))
-    del layers
-    bms, by = bound_ms(calls * nbytes, calls * 4.0 * pairs * Dh, attn_peak("f32"))
-    cc = bound_ms(calls * nbytes, calls * 4.0 * pairs * Dh, F32_FLOPS_PER_S)[0]
-    print(f"  decode_mha_heads [cuda_core, D 256, f32] x{calls}: max abs err {err:.3e} (bound "
-          f"1e-4), two calls bit-identical; kernel {fmt(k_ms)}, plain {fmt(p_ms)}, sdpa "
-          f"{fmt(lib)}, bound {bms:.4f} ms ({by}) [f32 rate: {cc:.4f}]", flush=True)
-    return {"name": "decode_mha_heads[cuda_core]", "route": "cuda", "kv": None,
-            "counter": "decode_mha_heads_cuda_core",
-            "source": "rten_tpu_torch/csrc/decode_mha.cuh",
-            "replaces": "rten_tpu/kernels/flash_attention.py:935",
-            "unit": (f"an admission at slots {B}, cap {CAP}, {PROMPT} tokens, H {Hq} over "
-                     f"{Hkv}, D {Dh}, f32 caches: {calls} calls"),
+    Dh, Hq, Hkv, T, B = 256, 8, 1, 1024, L_SLOTS
+    out = {"mha": {}, "decode_mha_folded": {}}
+    q = torch.randn(1, Hq, T, Dh, generator=gen).to(dev)
+    layers = [tuple(torch.randn(1, Hkv, T, Dh, generator=gen).to(dev) for _ in "kv")
+              for _ in range(calls)]
+    cc = mha.cuda_core_launches
+    got = mha(q, *layers[0], causal=True)
+    want = mha_plain(q, *layers[0], causal=True)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    if mha_form(Dh) != "cuda_core" or mha.cuda_core_launches != cc + 1 or not err <= 1e-4:
+        fail(f"mha at D {Dh}: not on its CUDA-core kernel, or max err {err} > 1e-4")
+    nbytes = 4 * (2 * Hq * T * Dh + 2 * Hkv * T * Dh)
+    ops = 4.0 * Hq * T * (T + 1) / 2 * Dh
+    k_ms = timed(lambda: [mha(q, k, v, causal=True) for k, v in layers], iters=5,
+                 nbytes=calls * nbytes)
+    p_ms = timed(lambda: [mha_plain(q, k, v, causal=True) for k, v in layers], iters=2, warmup=1,
+                 nbytes=calls * nbytes)
+    lib = timed(lambda: [sdpa(q, k, v, is_causal=True, enable_gqa=True) for k, v in layers],
+                iters=5, nbytes=calls * nbytes)
+    bms, by = bound_ms(calls * nbytes, calls * ops, TF32_FLOPS_PER_S)
+    cc_bms = bound_ms(calls * nbytes, calls * ops, F32_FLOPS_PER_S)[0]
+    out["mha"]["f32, B 1, T 1024, causal"] = {
+        "unit": f"a causal prefill, B 1, T {T}, H {Hq} over {Hkv}, D {Dh}, f32: {calls} calls",
+        "max_abs_err": err, **time_keys(k_ms, p_ms, lib), "bound_ms": bms, "bound_by": by,
+        "bound_ms_f32_cuda_cores": cc_bms,
+        "library_call": "scaled_dot_product_attention(is_causal=True, enable_gqa=True)"}
+    print(f"  mha [cuda_core, D {Dh}, T {T}, f32] x{calls}: max abs err {err:.3e}; kernel "
+          f"{fmt(k_ms)}, plain {fmt(p_ms)}, sdpa {fmt(lib)}, bound {bms:.4f} ms ({by}) [f32 "
+          f"rate: {cc_bms:.4f}]", flush=True)
+    del layers, q
+    lens = torch.randint(128, 192, (B,), generator=gen, dtype=torch.int32).to(dev)
+    m = _mask(lens, 1)
+    kv_rows = (lens.long() + 1).sum().item()
+    for kv in ("s8", "bf16"):
+        q = torch.randn(B, Hq, 1, Dh, generator=gen).to(dev)
+        layers = [_quant_head_major(gen, dev, kv, B, Hkv, Dh) for _ in range(calls)]
+        cc = decode_mha_folded.cuda_core_launches
+        got = decode_mha_folded(q, *layers[0][:2], lens, *layers[0][2:])
+        want = decode_mha_plain(q, *layers[0][:2], lens, *layers[0][2:])
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if (fold_form(layers[0][0].dtype, Dh) != "cuda_core"
+                or decode_mha_folded.cuda_core_launches != cc + 1 or not err <= 1e-4):
+            fail(f"decode_mha_folded [{kv}, D {Dh}]: not on its CUDA-core kernel, or max err "
+                 f"{err} > 1e-4")
+        nbytes = 2 * 4 * B * Hq * Dh + 4 * B + 2 * kv_rows * Hkv * _row_bytes(kv, Dh)
+        ops = 4.0 * kv_rows * Hq * Dh
+        k_ms = timed(lambda: [decode_mha_folded(q, c[0], c[1], lens, c[2], c[3]) for c in layers],
+                     iters=10, nbytes=calls * nbytes)
+        p_ms = timed(lambda: [decode_mha_plain(q, c[0], c[1], lens, c[2], c[3]) for c in layers],
+                     iters=3, warmup=1, nbytes=calls * nbytes)
+        if kv == "bf16":
+            qb = q.to(torch.bfloat16)
+            lib = timed(lambda: [sdpa(qb, c[0], c[1], attn_mask=m, enable_gqa=True)
+                                 for c in layers],
+                        iters=10, nbytes=calls * sdpa_bytes(qb, kv_rows, Hkv, Dh, 2))
+            call = "scaled_dot_product_attention(enable_gqa=True) on the bf16 K/V, a bf16 q"
+        else:
+            deq = [_dequant(*c) for c in layers]
+            lib = timed(lambda: [sdpa(q, kf, vf, attn_mask=m, enable_gqa=True) for kf, vf in deq],
+                        iters=10, nbytes=calls * sdpa_bytes(q, kv_rows, Hkv, Dh, 4))
+            call = "scaled_dot_product_attention(enable_gqa=True) on the dequantized f32 K/V"
+            del deq
+        bms, by = bound_ms(calls * nbytes, calls * ops, attn_peak(kv))
+        cc_bms = bound_ms(calls * nbytes, calls * ops, F32_FLOPS_PER_S)[0]
+        out["decode_mha_folded"][f"{kv}, slots {B}, step"] = {
+            "unit": (f"a decode step at slots {B}, cap {CAP}, H {Hq} over {Hkv}, D {Dh}, {kv} "
+                     f"caches: {calls} calls"),
             "max_abs_err": err, **time_keys(k_ms, p_ms, lib), "bound_ms": bms, "bound_by": by,
-            "bound_ms_f32_cuda_cores": cc,
-            "library_call": "scaled_dot_product_attention(enable_gqa=True) on the f32 K/V "
-                            "with the same mask"}
+            "bound_ms_f32_cuda_cores": cc_bms, "library_call": call + ", the same mask"}
+        print(f"  decode_mha_folded [cuda_core, {kv}, D {Dh}, step] x{calls}: max abs err "
+              f"{err:.3e}; kernel {fmt(k_ms)}, plain {fmt(p_ms)}, sdpa {fmt(lib)}, bound "
+              f"{bms:.4f} ms ({by})", flush=True)
+        del layers
+    torch.cuda.empty_cache()
+    return out
 
 
 # Paged pools: blocks of 64 rows, cap 256 (4 table entries a slot).
@@ -1975,14 +2095,15 @@ def _tool_case(name, form, dev, shape, dt, tag):
                     f"on the same {'bf16 q, ' if dt == torch.bfloat16 else ''}K/V"
                     f"{' (kt transposed back)' if form == 'bd' else ''} with the mask")
         lib = lambda: sdpa(qs, ks, vv, attn_mask=mask, enable_gqa=Hkv != H)  # noqa: E731
-    fn = {"bd": tb.bd_decode, "nt": tb.nt_decode}.get(form)
+    fn = {"bd": tb.bd_decode, "nt": tb.nt_decode, "vpu": tb.vpu_attn}.get(form)
+    splits = plan.splits if plan else tb.vpu_plan(B, H, cap, sm_count(0))[0]
     splits_before = fn.split_launches if fn else 0
     got = kern(*args)
     want = plain(*args)
     torch.cuda.synchronize()
-    if fn and fn.split_launches - splits_before != int(plan.splits > 1):
+    if fn and fn.split_launches - splits_before != int(splits > 1):
         fail(f"{name} [{tag}]: the split counter moved by {fn.split_launches - splits_before} "
-             f"for a plan of {plan.splits} splits")
+             f"for a plan of {splits} splits")
     bad = _excess(got, want, rtol, atol)
     err = (got.float() - want.float()).abs().max().item()
     if not bad <= 0:
@@ -1990,7 +2111,8 @@ def _tool_case(name, form, dev, shape, dt, tag):
     k_ms = timed(lambda: kern(*args), iters=20, nbytes=nbytes)
     p_ms = timed(lambda: plain(*args), iters=5, warmup=1, nbytes=nbytes)
     l_ms = timed(lib, iters=20, nbytes=lib_bytes)
-    note = f"; {_fold_plan_note(plan)}" if plan else ""
+    note = (f"; {_fold_plan_note(plan)}" if plan else
+            f"; {splits} split{'s' if splits > 1 else ''}" if form == "vpu" else "")
     if form == "bd":
         c_ms = timed(lambda: sdpa(qs, kk, vv, attn_mask=mask, enable_gqa=Hkv != H), iters=20,
                      nbytes=lib_bytes)
@@ -2020,7 +2142,8 @@ def phase_decode_attn_tool(dev):
        TinyLlama's attention (slots 16, H 32 over 4, D 64): the time of the
        kernel, of its plain version and of one PyTorch call, beside the byte
        bound; bd/nt with their split plan (``fold_plan``) and bd's SDPA
-       also on natural contiguous K. The tool's f32 KV (50.3 MB) fits the
+       also on natural contiguous K; vpu also at slots 8 (96 (slot, head)
+       pairs, its keys split over blocks by ``vpu_plan``). The tool's f32 KV (50.3 MB) fits the
        H100's 50 MB L2, so back-to-back calls there are L2-warm (printed
        so, and held to no byte floor); each case is timed again at slots
        128 (201 MB f32), past the L2.
@@ -2040,6 +2163,9 @@ def phase_decode_attn_tool(dev):
         cases = {"f32": _tool_case(name, form, dev, TOOL, torch.float32, "tool shape, f32")}
         cases["f32 slots 128"] = _tool_case(name, form, dev, past, torch.float32,
                                             "slots 128, f32")
+        if form == "vpu":
+            cases["f32 slots 8"] = _tool_case(name, form, dev, dict(TOOL, B=8), torch.float32,
+                                              "slots 8 (split), f32")
         if form in ("bd", "nt"):
             cases["bf16"] = _tool_case(name, form, dev, TOOL, torch.bfloat16, "tool shape, bf16")
             cases["bf16 slots 128"] = _tool_case(name, form, dev, past, torch.bfloat16,
@@ -2101,14 +2227,16 @@ def phase_decode_attn_tool(dev):
         row["bf16_q"] = times
     print("  the tool (python3 -m rten_tpu_torch.tools.bench_decode_attn, in-process):",
           flush=True)
+    splitting = (tb.vpu_attn, tb.bd_decode, tb.nt_decode)
     for fn in tb.KERNELS:
         fn.launches = 0
-    tb.bd_decode.split_launches = tb.nt_decode.split_launches = 0
+    for fn in splitting:
+        fn.split_launches = 0
     torch.cuda.synchronize()
     res = tb.main([])
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in tb.KERNELS}
-    split_launches = {fn.__name__: fn.split_launches for fn in (tb.bd_decode, tb.nt_decode)}
+    split_launches = {fn.__name__: fn.split_launches for fn in splitting}
     print(f"  tool launches: {json.dumps(launches)}; of them split over blocks "
           f"{json.dumps(split_launches)} (the tool's shape takes one split)", flush=True)
     for name, n in launches.items():
@@ -2185,8 +2313,8 @@ class FormCounter:
     """A wrapper's launches of one of its kernels (``fn.<attr>``, which
     ``fn.launches`` also counts) as a counter of their own: decode_mha_folded's
     CUDA-core kernel (f32 caches and windows, D 129-512), decode_mha_heads'
-    and prefill_mha_cat's CUDA-core kernel (D 129-512) and 3xTF32 kernel (f32
-    caches), mha's CUDA-core kernel (D 129-256), int4_matmul's and
+    and prefill_mha_cat's wide kernel (D 129-512) and 3xTF32 kernel (f32
+    caches at D <= 128), mha's CUDA-core kernel (D 129-256), int4_matmul's and
     int8_matmul_dequant's forms."""
 
     def __init__(self, fn, attr):
@@ -2215,11 +2343,10 @@ def counters():
         "decode_mha_heads": flash_attention.decode_mha_heads,
         "decode_mha_folded_cuda_core": FormCounter(flash_attention.decode_mha_folded,
                                                    "cuda_core_launches"),
-        "decode_mha_heads_cuda_core": FormCounter(flash_attention.decode_mha_heads,
-                                                  "cuda_core_launches"),
+        "decode_mha_heads_wide": FormCounter(flash_attention.decode_mha_heads,
+                                             "wide_launches"),
         "decode_mha_heads_tf32": FormCounter(flash_attention.decode_mha_heads, "tf32_launches"),
-        "prefill_mha_cat_cuda_core": FormCounter(flash_attention.prefill_mha_cat,
-                                                 "cuda_core_launches"),
+        "prefill_mha_cat_wide": FormCounter(flash_attention.prefill_mha_cat, "wide_launches"),
         "prefill_mha_cat_tf32": FormCounter(flash_attention.prefill_mha_cat, "tf32_launches"),
         **{f"int4_matmul_{form}": FormCounter(int4_matmul.int4_matmul, f"{form}_launches")
            for form in int4_matmul.FORMS},
@@ -3250,7 +3377,7 @@ def phase_sanitizer(out_dir):
     if not os.path.exists(tool):
         print(f"  sanitizer: {tool} not found (not run)", flush=True)
         return {"racecheck": "not found", "memcheck": "not found"}
-    ours = ("decode_mha_fold_kernel", "decode_fold_tc_kernel", "decode_mha_heads_kernel",
+    ours = ("decode_mha_fold_kernel", "decode_fold_tc_kernel", "decode_mha_heads_wide_kernel",
             "decode_mha_heads_tc_kernel", "decode_mha_heads_tf32_kernel",
             "append_cat_write_kernel", "mha_kernel")
     code = f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; chip_smoke.sanitizer_target()"
@@ -3422,6 +3549,11 @@ def main() -> int:
         if errs and "[" not in k["name"]:
             k["head_dims_max_abs_err"] = errs
     lap("head dims 80, 96, 256, 512")
+    d256 = _d256_modes(gen, dev)
+    for k in kernels:
+        if k["name"] in d256:
+            k["cuda_core_d256"] = d256[k["name"]]
+    lap("CUDA-core modes of rows 5 and 6a at D 256")
     torch.cuda.empty_cache()
     kernels += phase_decode_attn_tool(dev)
     lap("the decode-attention tool (rows 10-13)")
@@ -3476,7 +3608,7 @@ def main() -> int:
     # its CUDA-core and 3xTF32 kernels.
     for n in by_path.values():
         for fn in ("decode_mha_heads", "prefill_mha_cat"):
-            n[f"{fn}_tensor_core"] = n[fn] - n[f"{fn}_cuda_core"] - n[f"{fn}_tf32"]
+            n[f"{fn}_tensor_core"] = n[fn] - n[f"{fn}_wide"] - n[f"{fn}_tf32"]
         n["decode_mha_folded_tensor_core"] = (n["decode_mha_folded"]
                                               - n["decode_mha_folded_cuda_core"])
     for k in kernels:

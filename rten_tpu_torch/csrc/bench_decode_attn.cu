@@ -25,14 +25,26 @@
 //    _vpu_kernel): per (slot, head), softmax(q . K^T * scale) V over the
 //    columns <= lens[b], with K of H heads (no GQA) and the masked scores at
 //    -1e30 with no guard, so a slot with lens < 0 gets the mean of V over
-//    all cap rows, as the reference does. Bound: bytes. Design: the
-//    formulation without a matrix unit, on CUDA cores: one 256-thread block
-//    per (slot, head); each warp scores one column at a time (lanes split D,
-//    coalesced, a shuffle reduction), the scores live in shared memory (cap
-//    floats), then a block-wide max and sum, then the weighted V sum with
-//    threads along D (coalesced) in groups that split the columns, eight V
-//    loads in flight per thread. Columns past lens are neither read nor
-//    summed (their p is exactly 0).
+//    all cap rows, as the reference does. Bound: bytes (0.5 flop a byte of
+//    f32 K/V against the CUDA cores' 20). The formulation without a matrix
+//    unit, so it stays on CUDA cores; rows 3 and 4 below are the tool's
+//    tensor-core ones. Design: one pass with an online softmax, so K and V
+//    of a key are in flight together. One 128-thread block per (slot, head,
+//    split of the live columns); the wrapper's plan (decode_split_plan over
+//    the B * H units, shapes only) splits the columns only where B * H
+//    blocks would not fill the SMs (one split at the tool's shape and at
+//    slots 128). Eight lanes own a key (each a 16-byte piece of its row, so
+//    a group's loads are coalesced and there is no 32-lane reduction per
+//    key: three shuffles), four keys side by side a warp, U = 8 / NV keys a
+//    group a batch, every load of the batch (8 KB a warp at D 64) issued
+//    before the first is used; one rescale of the running (m, l, acc) a
+//    batch. The warp's groups merge by shuffles, the warps in shared memory
+//    in warp order, the splits (if any) in split order in the block that
+//    arrives last (the fold's acquire-release counter). The cap-long score
+//    buffer of the two-pass kernel this replaces is gone, so cap has no
+//    limit; D is a multiple of 4 up to 256. Columns past lens are neither
+//    read nor summed, and with lens < 0 K is not read (every score is the
+//    mask's). No float atomics: two calls give the same bits.
 //
 // 3. bd_decode and 4. nt_decode. Replace tools/bench_decode_attn.py:214
 //    (bd_decode, _bd_kernel: K stored transposed, kt [B, Hkv, D, cap]) and
@@ -121,34 +133,7 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int UNROLL = 8;  // loads a thread issues before it waits on the first
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-// Block-wide reduction of one value per thread (max or sum); every thread
-// gets the result. red: WARPS floats of shared memory.
-template <bool MAX>
-__device__ float block_reduce(float x, float* red) {
-  x = MAX ? warp_max(x) : warp_sum(x);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();  // red may still be read by an earlier call
-  if (lane == 0) red[warp] = x;
-  __syncthreads();
-  float r = red[0];
-  for (int w = 1; w < WARPS; ++w) r = MAX ? fmaxf(r, red[w]) : r + red[w];
-  return r;
-}
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -218,84 +203,209 @@ __global__ void __launch_bounds__(THREADS) floor_finish_kernel(
 
 // ---- 2. vpu_attn -----------------------------------------------------------
 
-// Grid (H, B); shared memory: q [D], scores [cap], group sums [THREADS],
-// reduction [WARPS].
-__global__ void __launch_bounds__(THREADS) vpu_attn_kernel(
+constexpr int VPU_THREADS = 128;                  // four warps
+constexpr int VPU_WARPS = VPU_THREADS / 32;
+constexpr int VPU_LANES = 8;                      // lanes a key: NV float4 of its row each
+constexpr int VPU_GROUPS = 32 / VPU_LANES;        // keys a warp scores side by side
+constexpr int VPU_MAXD = 256;                     // 8 lanes x 8 float4
+
+// Two online-softmax states (m, l, acc) merged into the first: M = max,
+// each side rescaled by e^(m - M) (0 for a state with no key, m = -inf).
+template <int NV>
+__device__ __forceinline__ void vpu_merge(float& m, float& l, float4 (&acc)[NV], float mb,
+                                          float lb, const float4 (&ab)[NV]) {
+  const float M = fmaxf(m, mb);
+  const float mu = M == -INFINITY ? 0.f : M;
+  const float fa = expf(m - mu), fb = expf(mb - mu);
+  l = l * fa + lb * fb;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    acc[i].x = acc[i].x * fa + ab[i].x * fb;
+    acc[i].y = acc[i].y * fa + ab[i].y * fb;
+    acc[i].z = acc[i].z * fa + ab[i].z * fb;
+    acc[i].w = acc[i].w * fa + ab[i].w * fb;
+  }
+  m = M;
+}
+
+// Grid (B * H, splits): block (unit = b * H + h, z) takes columns [z *
+// chunk, (z + 1) * chunk) of the unit's live ones. Its warps take batches of
+// VPU_GROUPS * U keys in turn; in a batch, lane group grp (8 lanes) loads
+// keys base + u * VPU_GROUPS + grp (u < U) whole, K and V, 16 bytes a lane
+// (every load of the batch issued before the first is used), scores each
+// (the 8 lanes' partial dots summed by three shuffles) and folds the batch
+// into its online softmax (one rescale a batch). Then the warp's four
+// groups merge by shuffles, the warps in shared memory in warp order, and
+// with one split the block writes the output; with more it writes its
+// state (acc[D], m, l) to ws and the block that arrives last merges the
+// splits in split order.
+template <int NV>
+__global__ void __launch_bounds__(VPU_THREADS, NV <= 4 ? 4 : 2) vpu_attn_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const int* __restrict__ lens, float* __restrict__ out, int H, int cap, int D, float scale) {
-  extern __shared__ float sm[];
-  float* qs = sm;
-  float* s = qs + D;
-  float* part = s + cap;
-  float* red = part + THREADS;
-  const int h = blockIdx.x, b = blockIdx.y, t = threadIdx.x;
-  const int lane = t & 31, warp = t >> 5;
-  const long long head = (long long)b * H + h;
-  const float* kp = k + head * cap * D;
-  const float* vp = v + head * cap * D;
-  for (int d = t; d < D; d += THREADS) qs[d] = q[head * D + d];
+    const int* __restrict__ lens, float* __restrict__ out, float* __restrict__ ws,
+    unsigned* __restrict__ count, int H, int cap, int D, int chunk, float scale) {
+  constexpr int U = 8 / NV;                // keys a lane group loads a batch
+  constexpr int BATCH = VPU_GROUPS * U;    // keys a warp's batch
+  __shared__ __align__(16) float acc_s[VPU_WARPS][VPU_MAXD];
+  __shared__ float ml_s[VPU_WARPS][2];
+  __shared__ bool last;
+  const int z = blockIdx.y, splits = gridDim.y;
+  const long long unit = blockIdx.x;  // b * H + h
+  const int b = (int)(unit / H);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grp = lane / VPU_LANES, sub = lane % VPU_LANES;
+  const float* kp = k + unit * cap * D;
+  const float* vp = v + unit * cap * D;
   const int len = lens[b];
-  const int last = len < 0 ? -1 : min(len, cap - 1);  // the last column attended
-  __syncthreads();
-#pragma unroll 4
-  for (int j = warp; j < cap; j += WARPS) {
-    float dot = 0.f;
-    if (j <= last) {
-      for (int d = lane; d < D; d += 32) dot += qs[d] * kp[(long long)j * D + d];
-      dot = warp_sum(dot);
-    }
-    if (lane == 0) s[j] = j <= last ? dot * scale : NEG_INF;
-  }
-  __syncthreads();
-  float mx = NEG_INF;
-  for (int j = t; j < cap; j += THREADS) mx = fmaxf(mx, s[j]);
-  const float m = block_reduce<true>(mx, red);
-  float ls = 0.f;
-  for (int j = t; j < cap; j += THREADS) {
-    const float p = expf(s[j] - m);
-    s[j] = p;
-    ls += p;
-  }
-  const float l = block_reduce<false>(ls, red);  // its barriers publish s
-  // Every column has p = 1 when all are masked (the mean of V); otherwise
-  // the masked ones have p = 0 and are skipped.
-  const int jend = last < 0 ? cap : last + 1;
-  if (D <= THREADS) {
-    const int ng = THREADS / D, g = t / D, d = t % D;
-    if (g < ng) {
-      float acc = 0.f;
-      for (int j0 = g; j0 < jend; j0 += UNROLL * ng) {
-        float x[UNROLL];
+  // lens < 0: every score is the mask's -1e30 (no guard), every p is 1,
+  // and the result is the mean of V over all cap rows; K is not needed.
+  const bool none = len < 0;
+  const int jend = none ? cap : min(len, cap - 1) + 1;
+  const int j0 = z * chunk, j1 = min(j0 + chunk, jend);
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  // The lane's dims: float4 c = sub + 8 i of a row (dims 4c to 4c + 3).
+  float4 qv[NV], acc[NV];
 #pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
-          const int j = j0 + u * ng;
-          x[u] = j < jend ? vp[(long long)j * D + d] : 0.f;
-        }
+  for (int i = 0; i < NV; ++i) {
+    const int c = sub + VPU_LANES * i;
+    qv[i] = 4 * c < D ? *reinterpret_cast<const float4*>(q + unit * D + 4 * c) : zero;
+    acc[i] = zero;
+  }
+  float m = -INFINITY, l = 0.f;
+  for (int base = j0 + warp * BATCH; base < j1; base += VPU_WARPS * BATCH) {
+    float4 kr[U][NV], vr[U][NV];
 #pragma unroll
-        for (int u = 0; u < UNROLL; ++u)
-          if (j0 + u * ng < jend) acc += s[j0 + u * ng] * x[u];
+    for (int u = 0; u < U; ++u) {
+      const int j = base + u * VPU_GROUPS + grp;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const int c = sub + VPU_LANES * i;
+        const bool in = j < j1 && 4 * c < D;
+        const long long off = (long long)j * D + 4 * c;
+        kr[u][i] = in && !none ? __ldg(reinterpret_cast<const float4*>(kp + off)) : zero;
+        vr[u][i] = in ? __ldg(reinterpret_cast<const float4*>(vp + off)) : zero;
       }
-      part[g * D + d] = acc;
     }
-    __syncthreads();
-    if (t < D) {
-      float o = 0.f;
-      for (int gg = 0; gg < ng; ++gg) o += part[gg * D + t];
-      out[head * D + t] = o / l;
+    float s[U], mt = -INFINITY;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float d = 0.f;
+#pragma unroll
+      for (int i = 0; i < NV; ++i)
+        d += qv[i].x * kr[u][i].x + qv[i].y * kr[u][i].y + qv[i].z * kr[u][i].z +
+             qv[i].w * kr[u][i].w;
+#pragma unroll
+      for (int off = 1; off < VPU_LANES; off <<= 1) d += __shfl_xor_sync(FULL, d, off);
+      const int j = base + u * VPU_GROUPS + grp;
+      s[u] = j < j1 ? (none ? NEG_INF : d * scale) : -INFINITY;
+      mt = fmaxf(mt, s[u]);
     }
-  } else {
-    for (int d = t; d < D; d += THREADS) {
-      float acc = 0.f;
-      for (int j = 0; j < jend; ++j) acc += s[j] * vp[(long long)j * D + d];
-      out[head * D + d] = acc / l;
+    const float m_new = fmaxf(m, mt);
+    const float mu = m_new == -INFINITY ? 0.f : m_new;  // no key yet: every p is 0
+    const float alpha = expf(m - mu);                    // 0 while m is -inf
+    l *= alpha;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      acc[i].x *= alpha; acc[i].y *= alpha; acc[i].z *= alpha; acc[i].w *= alpha;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float p = expf(s[u] - mu);  // 0 past the live keys
+      l += p;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        acc[i].x += p * vr[u][i].x; acc[i].y += p * vr[u][i].y;
+        acc[i].z += p * vr[u][i].z; acc[i].w += p * vr[u][i].w;
+      }
+    }
+    m = m_new;
+  }
+  // The warp's groups: lane (sub, grp) and (sub, grp ^ 1), then ^ 2, hold
+  // the same dims; group 0's merged state is the warp's.
+#pragma unroll
+  for (int off = VPU_LANES; off < 32; off <<= 1) {
+    float4 ab[NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      ab[i].x = __shfl_xor_sync(FULL, acc[i].x, off);
+      ab[i].y = __shfl_xor_sync(FULL, acc[i].y, off);
+      ab[i].z = __shfl_xor_sync(FULL, acc[i].z, off);
+      ab[i].w = __shfl_xor_sync(FULL, acc[i].w, off);
+    }
+    const float mb = __shfl_xor_sync(FULL, m, off), lb = __shfl_xor_sync(FULL, l, off);
+    vpu_merge<NV>(m, l, acc, mb, lb, ab);
+  }
+  if (grp == 0) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = sub + VPU_LANES * i;
+      if (4 * c < D) *reinterpret_cast<float4*>(&acc_s[warp][4 * c]) = acc[i];
+    }
+    if (sub == 0) {
+      ml_s[warp][0] = m;
+      ml_s[warp][1] = l;
     }
   }
+  __syncthreads();
+  // The block's state: the warps' in warp order.
+  float M = -INFINITY;
+#pragma unroll
+  for (int w = 0; w < VPU_WARPS; ++w) M = fmaxf(M, ml_s[w][0]);
+  const float mu = M == -INFINITY ? 0.f : M;
+  float c[VPU_WARPS], L = 0.f;
+#pragma unroll
+  for (int w = 0; w < VPU_WARPS; ++w) {
+    c[w] = expf(ml_s[w][0] - mu);
+    L += c[w] * ml_s[w][1];
+  }
+  const long long st = unit * splits + z;                // this block's state
+  const long long ml0 = (long long)gridDim.x * splits * D;  // the (m, l) pairs
+  for (int d = tid; d < D; d += VPU_THREADS) {
+    float o = 0.f;
+#pragma unroll
+    for (int w = 0; w < VPU_WARPS; ++w) o += c[w] * acc_s[w][d];
+    if (splits == 1)
+      out[unit * D + d] = o / L;  // L > 0: the one split holds every live key
+    else
+      ws[st * D + d] = o;
+  }
+  if (splits == 1) return;
+  if (tid == 0) {
+    ws[ml0 + 2 * st] = M;
+    ws[ml0 + 2 * st + 1] = L;
+  }
+  // Arrive: the barrier orders the block's state stores before thread 0's
+  // acquire-release increment, which makes them visible to the block that
+  // finds the count complete.
+  __syncthreads();
+  if (tid == 0) {
+    cuda::atomic_ref<unsigned, cuda::thread_scope_device> cnt(count[unit]);
+    last = cnt.fetch_add(1u, cuda::memory_order_acq_rel) == (unsigned)(splits - 1);
+  }
+  __syncthreads();
+  if (!last) return;
+  for (int d = tid; d < D; d += VPU_THREADS) {
+    float Mz = -INFINITY, Lz = 0.f, O = 0.f;
+#pragma unroll 8
+    for (int zz = 0; zz < splits; ++zz) {
+      const long long sz = unit * splits + zz;
+      const float2 ml = __ldcg(reinterpret_cast<const float2*>(ws + ml0 + 2 * sz));
+      const float oz = __ldcg(ws + sz * D + d);
+      const float mn = fmaxf(Mz, ml.x);
+      const float mn0 = mn == -INFINITY ? 0.f : mn;
+      const float fa = expf(Mz - mn0), fb = expf(ml.x - mn0);
+      Lz = Lz * fa + ml.y * fb;
+      O = O * fa + oz * fb;
+      Mz = mn;
+    }
+    out[unit * D + d] = O / Lz;
+  }
+  if (tid == 0) count[unit] = 0u;  // ready for the next call on this workspace
 }
 
 
 // ---- 3./4. bd_decode, nt_decode --------------------------------------------
 
-constexpr unsigned FULL = 0xffffffffu;
 constexpr int FT_KEYS = 16;  // keys of a warp's tile: one mma M tile
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -960,17 +1070,31 @@ extern "C" int rten_dma_floor(const void* q, const void* k, const void* v, void*
   return (int)cudaGetLastError();
 }
 
+// splits, chunk: the wrapper's plan (splits * chunk >= cap > (splits - 1)
+// * chunk); ws and count: its split workspace (none with one split).
 extern "C" int rten_vpu_attn(const void* q, const void* k, const void* v, const void* lens,
-                             void* out, int B, int H, int cap, int D, float scale, void* stream) {
-  const size_t smem = sizeof(float) * (D + cap + THREADS + WARPS);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        vpu_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  vpu_attn_kernel<<<dim3(H, B), THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const int*)lens, (float*)out, H, cap,
-      D, scale);
+                             void* out, void* ws, void* count, int B, int H, int cap, int D,
+                             int splits, int chunk, float scale, void* stream) {
+  if (B < 1 || H < 1 || cap < 1 || D < 4 || D % 4 || D > VPU_MAXD || splits < 1 || chunk < 1 ||
+      (long long)splits * chunk < cap || (long long)(splits - 1) * chunk >= cap ||
+      (splits > 1 && (!ws || !count)))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(B * H, splits);
+  const cudaStream_t s = (cudaStream_t)stream;
+#define RTEN_VPU(NV)                                                                      \
+  vpu_attn_kernel<NV><<<grid, VPU_THREADS, 0, s>>>((const float*)q, (const float*)k,     \
+                                                   (const float*)v, (const int*)lens,    \
+                                                   (float*)out, (float*)ws,              \
+                                                   (unsigned*)count, H, cap, D, chunk, scale)
+  if (D <= 32)
+    RTEN_VPU(1);
+  else if (D <= 64)
+    RTEN_VPU(2);
+  else if (D <= 128)
+    RTEN_VPU(4);
+  else
+    RTEN_VPU(8);
+#undef RTEN_VPU
   return (int)cudaGetLastError();
 }
 

@@ -3,12 +3,12 @@
 // admissions of every Llama-family graph on those caches, and of GPT-2's
 // int4 deferred graph; and prefill_mha_cat's admissions on s8 and bf16 cat
 // caches, read through the strides of their head-major views. Included by
-// decode_mha.cuh; the CUDA-core form
-// (decode_mha_heads_kernel there) keeps f32 caches, whose values bf16 does
-// not hold, and D 129-512.
+// decode_mha.cuh; f32 caches, whose values bf16 does not hold, run in
+// 3xTF32 (decode_heads_tf32.cuh), and D 129-512 in decode_heads_wide.cuh,
+// which also uses this file's helpers.
 //
 // Replaces rten_tpu/kernels/flash_attention.py:935 decode_mha (the
-// per-(slot, head, key block) pallas_call), like the CUDA-core form, and
+// per-(slot, head, key block) pallas_call), and
 // :3301 prefill_mha_cat.
 //
 // Function (as decode_mha.cu states it): query row s of slot b, head h, at

@@ -3,8 +3,7 @@
 // of graphs on f32 caches (and of GPT-2's bf16 paged graphs, whose
 // gathered pools the reference widens to f32), and prefill_mha_cat's on f32
 // cat caches through the strides of their head-major views. Included by
-// decode_mha.cuh; D 129-512 keeps the CUDA-core kernel there
-// (decode_mha_heads_kernel).
+// decode_mha.cuh; D 129-512 runs in decode_heads_wide.cuh.
 //
 // Replaces rten_tpu/kernels/flash_attention.py:935 decode_mha (the
 // per-(slot, head, key block) pallas_call) on f32 caches, and :3301
@@ -66,21 +65,21 @@ struct Tf32Tile {
 };
 
 // Rows [r0, r0 + n) of a [.., D] f32 tensor (rows st floats apart) into dst
-// (rows PITCH floats apart), every DP column: rows at or past ``valid`` and
-// dims past D zero-filled. 16-byte cp.async when ``vec``, else 4-byte.
-template <int DP>
+// (rows P floats apart), every DP column, by a block of NTHREADS threads:
+// rows at or past ``valid`` and dims past D zero-filled. 16-byte cp.async
+// when ``vec``, else 4-byte. (decode_heads_wide.cuh stages q with it too.)
+template <int DP, int P = Tf32Tile<DP>::PITCH, int NTHREADS = TC_THREADS>
 __device__ __forceinline__ void tf32_rows(float* dst, const float* src, long long st, int r0,
                                           int n, int valid, int D, bool vec, int tid) {
-  constexpr int P = Tf32Tile<DP>::PITCH;
   if (vec) {
     constexpr int CPR = DP / 4;  // 16-byte chunks a row
-    for (int i = tid; i < n * CPR; i += TC_THREADS) {
+    for (int i = tid; i < n * CPR; i += NTHREADS) {
       const int r = i / CPR, c = i % CPR, row = r0 + r;
       const bool in = row < valid && 4 * c < D;
       cp_async16(dst + r * P + 4 * c, in ? src + row * st + 4 * c : src, in);
     }
   } else {
-    for (int i = tid; i < n * DP; i += TC_THREADS) {
+    for (int i = tid; i < n * DP; i += NTHREADS) {
       const int r = i / DP, c = i % DP, row = r0 + r;
       const bool in = row < valid && c < D;
       cp_async4(dst + r * P + c, in ? src + row * st + c : src, in);

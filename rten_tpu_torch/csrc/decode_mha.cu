@@ -5,9 +5,10 @@
 // bf16 with no scales. This library holds s8 at D <= 128; f32 is in
 // decode_mha_f32.cu, bf16 in decode_mha_bf16.cu, int4 in decode_mha_u4.cu
 // (its deferred folds and masked head dims in decode_mha_u4_win.cu) and
-// every kind at D 129-512 in decode_mha_wide.cu, translation units of their
-// own so that nvcc builds them in parallel with this one; all instantiate
-// decode_mha.cuh.
+// every kind at D 129-512 in decode_mha_wide.cu (the folds),
+// decode_mha_wide_heads.cu and decode_mha_wide_heads_f32.cu (the per-head
+// form), translation units of their own so that nvcc builds them in
+// parallel with this one; all instantiate decode_mha.cuh.
 //
 // Query row s of slot b, head h, sits at position lens[b] + s and reads KV
 // head h / (H / Hkv) (heads are kv-major, as in the TPU kernel's GQA
@@ -54,33 +55,25 @@
 //
 // 2. The per-head form replaces rten_tpu/kernels/flash_attention.py:935
 //    decode_mha (the per-(slot, head, key block) pallas_call for larger S).
-//    Three kernels; the wrapper's heads_form picks one:
+//    Three kernels, all on tensor cores; the wrapper's heads_plan names
+//    the one a cache dtype and head dim take:
 //    a. decode_mha_heads_tc_kernel (decode_heads_tc.cuh, which says how it
-//       is designed): s8, int4 and bf16 caches at D <= 128, on tensor
-//       cores (bf16 mma.sync, q and p * vs split into three bf16 parts, f32
-//       accumulation). Bound on the H100 at an admission: bytes (the f32 q
-//       and output).
+//       is designed): s8, int4 and bf16 caches at D <= 128 (bf16 mma.sync,
+//       q and p * vs split into three bf16 parts, f32 accumulation).
+//       Bound on the H100 at an admission: bytes (the f32 q and output).
 //    b. decode_mha_heads_tf32_kernel (decode_heads_tf32.cuh): f32 caches at
-//       D <= 128, on tensor cores in 3xTF32. Bound: bytes, as 2a.
-//    c. decode_mha_heads_kernel (decode_mha.cuh): D 129-512, on CUDA
-//       cores. Bound: operations at admission sizes (4 * S * keys * D
-//       flops per head at the f32 rate). Design: one 128-thread block per
-//       (query tile, head, slot). The key loop runs inside the block up to
-//       lens[b] + the tile's last row, with K/V tiles converted to f32 in
-//       shared memory beside their scales; eight threads share a query row
-//       (query tiles of 16 rows: scores for BK / 8 columns each, then D / 8
-//       output dims each), and the online softmax runs in registers. The
-//       key tile is 16 columns up to D 256 and 8 at D 512, in dynamic
-//       shared memory (49 KB at D 256, 65 KB at D 512, after
-//       cudaFuncSetAttribute). int4 rows unpack as the tile is filled.
+//       D <= 128, in 3xTF32. Bound: bytes, as 2a.
+//    c. decode_mha_heads_wide_kernel (decode_heads_wide.cuh): every kind at
+//       D 129-512, the arithmetic of 2a (s8, int4, bf16) or 2b (f32), the
+//       output dims split over the warps that share 16 query rows. Bound:
+//       bytes, as 2a.
 //
 // Head dims: instances for DP = 64, 128 (here), 256 and 512 (decode_mha_wide.cu);
 // any even D runs in the smallest instance that holds it, the dims past D
 // zero in shared memory (a masked tail).
 //
-// In the CUDA-core fold and per-head form, bf16 values widen to f32
-// exactly as they are loaded (8 a 16-byte load in the fold, one a thread in
-// the per-head tile fill), int4 codes as they are unpacked (nibble - 8);
+// In the CUDA-core fold, bf16 values widen to f32 exactly as they are
+// loaded (8 a 16-byte load), int4 codes as they are unpacked (nibble - 8);
 // every product and sum is f32. Built without --use_fast_math (IEEE expf
 // and division), like the other kernels of the port.
 

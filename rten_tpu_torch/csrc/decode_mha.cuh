@@ -1,15 +1,17 @@
 // decode_mha's launch forms for one cache element type T and head-dim
 // instance DP, shared by decode_mha.cu (s8 caches, D <= 128),
 // decode_mha_f32.cu (f32, D <= 128), decode_mha_bf16.cu (bf16, D <= 128),
-// decode_mha_u4.cu and decode_mha_u4_win.cu (int4, D <= 128) and
-// decode_mha_wide.cu (every kind at D 129-512), which nvcc builds in
-// parallel: the fold on tensor cores (decode_fold_tc.cuh: s8, int4 and
-// bf16 at D <= 128, no window or a bf16 one) and on CUDA cores
-// (decode_fold.cuh: f32 caches, f32 windows, D 129-512), both split over
-// blocks; the per-head form on tensor cores (decode_heads_tc.cuh: s8, int4
-// and bf16 at D <= 128; decode_heads_tf32.cuh: f32 at D <= 128, 3xTF32)
-// and on CUDA cores (here: D 129-512). decode_mha.cu says what each form
-// replaces and how it is designed.
+// decode_mha_u4.cu and decode_mha_u4_win.cu (int4, D <= 128),
+// decode_mha_wide.cu (the folds of every kind at D 129-512) and
+// decode_mha_wide_heads.cu / decode_mha_wide_heads_f32.cu (the per-head
+// form at D 129-512), which nvcc builds in parallel: the fold on tensor
+// cores (decode_fold_tc.cuh: s8, int4 and bf16 at D <= 128, no window or a
+// bf16 one) and on CUDA cores (decode_fold.cuh: f32 caches, f32 windows,
+// D 129-512), both split over blocks; the per-head form on tensor cores
+// for every kind and head dim (decode_heads_tc.cuh: s8, int4 and bf16 at
+// D <= 128; decode_heads_tf32.cuh: f32 at D <= 128, 3xTF32;
+// decode_heads_wide.cuh: every kind at D 129-512). decode_mha.cu says what
+// each form replaces and how it is designed.
 
 #pragma once
 
@@ -19,13 +21,14 @@
 #include "decode_fold_tc.cuh"
 #include "decode_heads_tc.cuh"
 #include "decode_heads_tf32.cuh"
+#include "decode_heads_wide.cuh"
 
 // What a library holds (each source may set these before the include): the
 // CUDA-core fold's instances with D fixed and no recent window
 // (RTEN_FOLD_FAST), its general ones (RTEN_FOLD_GENERAL: a recent window, a
 // masked tail; the only ones past DP 128), the tensor-core fold
 // (RTEN_FOLD_TC: s8, int4 and bf16 up to DP 128), the per-head form
-// (RTEN_HEADS: on tensor cores up to DP 128, on CUDA cores past it). An
+// (RTEN_HEADS: on tensor cores at every DP). An
 // entry point asked for a form its library does not hold returns
 // cudaErrorInvalidValue.
 #ifndef RTEN_FOLD_FAST
@@ -40,139 +43,6 @@
 #ifndef RTEN_HEADS
 #define RTEN_HEADS 1
 #endif
-
-namespace {
-
-// The CUDA-core per-head form's tiling at head-dim instance DP (256 or 512,
-// D 129-512): TPR = 8 threads share a query row (so that each keeps at most
-// 64 accumulators), HQ = 128 / TPR query rows a block, BK key columns a
-// tile; shared memory holds the query tile and one K and V tile as f32,
-// padded by one column, beside the tile's probabilities and scales.
-template <int DP>
-struct HeadsTile {
-  static_assert(DP > 128, "D <= 128 runs on tensor cores");
-  static constexpr int TPR = 8;
-  static constexpr int HQ = 128 / TPR;
-  static constexpr int BK = DP <= 256 ? 16 : 8;
-  static constexpr int SMEM =
-      (int)sizeof(float) * (HQ * (DP + 1) + 2 * BK * (DP + 1) + HQ * (BK + 1) + 2 * BK);
-};
-
-template <int DP, typename T>
-__global__ void __launch_bounds__(128) decode_mha_heads_kernel(
-    const float* __restrict__ q, long long q_sb, long long q_sh, long long q_ss,
-    const T* __restrict__ kc, const T* __restrict__ vc,
-    long long kv_sb, long long kv_sh, long long kv_sj,
-    const float* __restrict__ ks, const float* __restrict__ vs,
-    long long sc_sb, long long sc_sh, long long sc_sj,
-    const int32_t* __restrict__ lens, float* __restrict__ out,
-    long long o_sb, long long o_sh, long long o_ss,
-    int H, int Hkv, int S, int D, int cap, int window, float scale) {
-  constexpr bool QUANT = KvRow<T>::QUANT;
-  constexpr int TPR = HeadsTile<DP>::TPR, HQ = HeadsTile<DP>::HQ;
-  constexpr int BK = HeadsTile<DP>::BK;  // key columns per tile
-  constexpr int DPT = DP / TPR;          // output dims per thread
-  constexpr int CPT = BK / TPR;          // score columns per thread
-  // Dynamic shared memory (above 48 KB at DP 256 and 512): Qs [HQ][DP + 1],
-  // Ks and Vs [BK][DP + 1], Ps [HQ][BK + 1], then the tile's scales.
-  extern __shared__ float smem[];
-  float (*Qs)[DP + 1] = reinterpret_cast<float (*)[DP + 1]>(smem);
-  float (*Ks)[DP + 1] = reinterpret_cast<float (*)[DP + 1]>(smem + HQ * (DP + 1));
-  float (*Vs)[DP + 1] = reinterpret_cast<float (*)[DP + 1]>(smem + (HQ + BK) * (DP + 1));
-  float (*Ps)[BK + 1] = reinterpret_cast<float (*)[BK + 1]>(smem + (HQ + 2 * BK) * (DP + 1));
-  float* ksc_s = smem + (HQ + 2 * BK) * (DP + 1) + HQ * (BK + 1);
-  float* vsc_s = ksc_s + BK;
-
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, row = tid / TPR, sub = tid % TPR;
-  const int hk = h / (H / Hkv);
-  const T* kb = kc + b * kv_sb + hk * kv_sh;
-  const T* vb = vc + b * kv_sb + hk * kv_sh;
-  const long long sc_off = b * sc_sb + hk * sc_sh;
-  const int len = lens[b];
-  const int r0 = qt * HQ;
-  const int half = D / 2;
-
-  for (int idx = tid; idx < HQ * DP; idx += 128) {
-    const int r = idx / DP, d = idx % DP, s = r0 + r;
-    Qs[r][d] = s < S && d < D ? q[b * q_sb + h * q_sh + s * q_ss + d] : 0.f;
-  }
-  const int last_row = min(S - 1, r0 + HQ - 1);
-  const int kmax = min(len + last_row, cap - 1);
-  const int kmin = window > 0 ? max(0, len + r0 - window + 1) : 0;
-  const int s_row = r0 + row;
-  const bool row_valid = s_row < S;
-  const int qpos = len + s_row;
-
-  float m = -INFINITY, l = 0.f;
-  float acc[DPT];
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) acc[i] = 0.f;
-
-  for (int k0 = (kmin / BK) * BK; k0 <= kmax; k0 += BK) {
-    __syncthreads();  // Qs ready / the previous tile consumed
-    for (int idx = tid; idx < BK * DP; idx += 128) {
-      const int c = idx / DP, d = idx % DP, col = k0 + c;
-      const bool in = col < cap && d < D;
-      Ks[c][d] = in ? row_elem(kb + col * kv_sj, d, half) : 0.f;
-      Vs[c][d] = in ? row_elem(vb + col * kv_sj, d, half) : 0.f;
-    }
-    if (tid < BK) {
-      const int col = k0 + tid;
-      ksc_s[tid] = QUANT && col < cap ? ks[sc_off + col * sc_sj] : 1.f;
-      vsc_s[tid] = QUANT && col < cap ? vs[sc_off + col * sc_sj] : 1.f;
-    }
-    __syncthreads();
-
-    float sc[CPT];
-    float mt = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < CPT; ++i) {
-      const int c = sub + TPR * i, col = k0 + c;
-      const bool ok = row_valid && col <= qpos && col < cap &&
-                      (window <= 0 || col > qpos - window);
-      const float dot = row_dot<DP>(Qs[row], Ks[c]);
-      sc[i] = ok ? dot * scale * ksc_s[c] : -INFINITY;
-      mt = fmaxf(mt, sc[i]);
-    }
-#pragma unroll
-    for (int off = 1; off < TPR; off <<= 1) mt = fmaxf(mt, __shfl_xor_sync(FULL, mt, off));
-    const float m_new = fmaxf(m, mt);
-    const float alpha = m == -INFINITY ? 0.f : expf(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int i = 0; i < CPT; ++i) {
-      const int c = sub + TPR * i;
-      const float p = sc[i] == -INFINITY ? 0.f : expf(sc[i] - m_new);
-      Ps[row][c] = p * vsc_s[c];
-      psum += p;
-    }
-#pragma unroll
-    for (int off = 1; off < TPR; off <<= 1) psum += __shfl_xor_sync(FULL, psum, off);
-    l = l * alpha + psum;
-    __syncwarp();  // a row's threads share a warp
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) acc[i] *= alpha;
-    for (int c = 0; c < BK; ++c) {
-      const float p = Ps[row][c];
-      if (p != 0.f) {
-#pragma unroll
-        for (int i = 0; i < DPT; ++i) acc[i] += p * Vs[c][sub + TPR * i];
-      }
-    }
-    m = m_new;
-  }
-  if (row_valid) {
-    const float inv = l > 0.f ? 1.f / l : 0.f;
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) {
-      const int d = sub + TPR * i;
-      if (d < D) out[b * o_sb + h * o_sh + s_row * o_ss + d] = acc[i] * inv;
-    }
-  }
-}
-
-}  // namespace
 
 // The C entry points' parameters after the element kind, and their names:
 // q [B, H, S, D] f32, the caches and scales through strides (elements;
@@ -278,37 +148,26 @@ int launch_decode_mha_folded_tc(RTEN_DECODE_MHA_PARAMS) {
   }
 }
 
-// The CUDA-core per-head form: D 129-512 (instances DP 256 and 512).
-template <typename T, int DP>
-int launch_decode_mha_heads(RTEN_DECODE_MHA_PARAMS) {
-  if constexpr (RTEN_HEADS && DP > 128) {
-    if (S < 1 || rten_dp_of(D) != DP) return (int)cudaErrorInvalidValue;
-    constexpr int smem = HeadsTile<DP>::SMEM;
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          decode_mha_heads_kernel<DP, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    constexpr int HQ = HeadsTile<DP>::HQ;
-    const dim3 grid((S + HQ - 1) / HQ, H, B);
-    decode_mha_heads_kernel<DP, T><<<grid, 128, smem, (cudaStream_t)stream>>>(
-        RTEN_KV_ARGS(T), RTEN_OUT_ARGS);
-    return (int)cudaGetLastError();
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-}
-
-// The per-head form on tensor cores at DP 64 and 128: s8, int4 and bf16
+// The per-head form on tensor cores: at DP 64 and 128 s8, int4 and bf16
 // caches in bf16 parts (decode_heads_tc.cuh), f32 caches in 3xTF32
-// (decode_heads_tf32.cuh); any other instance returns
-// cudaErrorInvalidValue.
+// (decode_heads_tf32.cuh); at DP 256 and 512 every kind
+// (decode_heads_wide.cuh); an instance the library was not built for
+// returns cudaErrorInvalidValue.
 template <typename T, int DP>
 int launch_decode_mha_heads_tc(RTEN_DECODE_MHA_PARAMS) {
-  if constexpr (RTEN_HEADS && DP <= 128) {
+  if constexpr (RTEN_HEADS) {
     if (S < 1 || rten_dp_of(D) != DP) return (int)cudaErrorInvalidValue;
-    const dim3 grid((S + TC_ROWS - 1) / TC_ROWS, H, B);
-    if constexpr (std::is_same<T, float>::value) {
+    if constexpr (DP > 128) {
+      using WT = WideTile<DP, T>;
+      auto* kernel = decode_mha_heads_wide_kernel<DP, T>;
+      const cudaError_t e =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WT::SMEM);
+      if (e != cudaSuccess) return (int)e;
+      const dim3 grid(H, B, (S + WT::ROWS - 1) / WT::ROWS);
+      kernel<<<grid, WD_THREADS, WT::SMEM, (cudaStream_t)stream>>>(RTEN_KV_ARGS(T),
+                                                                   RTEN_OUT_ARGS, vec);
+    } else if constexpr (std::is_same<T, float>::value) {
+      const dim3 grid((S + TC_ROWS - 1) / TC_ROWS, H, B);
       constexpr int smem = Tf32Tile<DP>::SMEM;
       const cudaError_t e = cudaFuncSetAttribute(
           decode_mha_heads_tf32_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -317,6 +176,7 @@ int launch_decode_mha_heads_tc(RTEN_DECODE_MHA_PARAMS) {
           (const float*)q, q_sb, q_sh, q_ss, (const float*)k, (const float*)v, kv_sb, kv_sh,
           kv_sj, RTEN_OUT_ARGS, vec);
     } else {
+      const dim3 grid((S + TC_ROWS - 1) / TC_ROWS, H, B);
       auto* kernel = decode_mha_heads_tc_kernel<DP, T>;
       constexpr int smem = TcTile<DP, T>::SMEM;
       if (smem > 48 * 1024) {
@@ -333,19 +193,17 @@ int launch_decode_mha_heads_tc(RTEN_DECODE_MHA_PARAMS) {
   }
 }
 
-// Defines the four C entry points of a library for the kinds it lists:
+// Defines the three C entry points of a library for the kinds it lists:
 // RTEN_DECODE_MHA_ENTRIES(CASES) with CASES(M) expanding M(kind, T, DP) for
 // every (kind, head-dim instance) the library was built for.
 #define RTEN_DECODE_MHA_CASE(KIND, TT, DPP, FORM)                                \
   if (kind == KIND && dp == DPP) return launch_decode_mha_##FORM<TT, DPP>(RTEN_DECODE_MHA_NAMES);
 #define RTEN_FOLDED_CASE(KIND, TT, DPP) RTEN_DECODE_MHA_CASE(KIND, TT, DPP, folded)
 #define RTEN_FOLDED_TC_CASE(KIND, TT, DPP) RTEN_DECODE_MHA_CASE(KIND, TT, DPP, folded_tc)
-#define RTEN_HEADS_CASE(KIND, TT, DPP) RTEN_DECODE_MHA_CASE(KIND, TT, DPP, heads)
 #define RTEN_HEADS_TC_CASE(KIND, TT, DPP) RTEN_DECODE_MHA_CASE(KIND, TT, DPP, heads_tc)
 #define RTEN_DECODE_MHA_ENTRIES(CASES_)                                          \
   RTEN_DECODE_MHA_ENTRY_OF(CASES_, folded, RTEN_FOLDED_CASE)                     \
   RTEN_DECODE_MHA_ENTRY_OF(CASES_, folded_tc, RTEN_FOLDED_TC_CASE)               \
-  RTEN_DECODE_MHA_ENTRY_OF(CASES_, heads, RTEN_HEADS_CASE)                       \
   RTEN_DECODE_MHA_ENTRY_OF(CASES_, heads_tc, RTEN_HEADS_TC_CASE)
 #define RTEN_DECODE_MHA_ENTRY_OF(CASES_, NAME, CASE)                             \
   extern "C" int rten_decode_mha_##NAME(int kind, RTEN_DECODE_MHA_PARAMS) {      \

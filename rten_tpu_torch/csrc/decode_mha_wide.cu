@@ -1,12 +1,13 @@
-// decode_mha's two launch forms at head dims 129-512 (instances DP 256 and
-// 512; Gemma's D 256 among them) for every cache kind: s8, int4, f32, bf16.
-// The same kernels as decode_mha.cu (decode_mha.cuh, decode_fold.cuh), which
-// says what they replace and how they are designed, built as a library of
-// their own so that nvcc compiles them in parallel with the others. The fold
-// holds 8 query rows a kv head at DP 256 and 4 at DP 512 (its shared memory
-// stays at 40 KB); the per-head form runs 16-row query tiles, eight threads
-// a row, in 49 KB and 65 KB of dynamic shared memory.
+// decode_mha's fold at head dims 129-512 (instances DP 256 and 512; Gemma's
+// D 256 among them) for every cache kind: s8, int4, f32, bf16. The same
+// kernel as decode_mha.cu's CUDA-core fold (decode_fold.cuh), which says
+// what it replaces and how it is designed, built as a library of its own
+// so that nvcc compiles it in parallel with the others. It holds 8 query
+// rows a kv head at DP 256 and 4 at DP 512 (its shared memory stays at 40
+// KB). The per-head form at these head dims is in decode_mha_wide_heads.cu
+// and decode_mha_wide_heads_f32.cu.
 
+#define RTEN_HEADS 0
 #include "decode_mha.cuh"
 
 #define RTEN_CASES(M)                                                          \

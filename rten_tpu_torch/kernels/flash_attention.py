@@ -21,8 +21,8 @@ their plain PyTorch versions.
   split over blocks, on tensor cores for s8, int4 and bf16 caches at D <=
   128 with no window or a bf16 one and on CUDA cores otherwise
   (``fold_form``); and ``decode_mha_heads`` (every admission), on tensor
-  cores at D <= 128 (f32 caches in 3xTF32) and on CUDA cores for D 129-512
-  (``heads_form``).
+  cores at every head dim (f32 caches in 3xTF32; ``heads_plan`` names the
+  kernel and its tiling).
 * ``decode_mha_append`` replaces
   ``rten_tpu/kernels/flash_attention.py:decode_mha_append``: the in-kernel
   append of ``decode_mha_append_cat`` on head-major caches (the same CUDA
@@ -91,7 +91,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -910,9 +910,9 @@ def prefill_mha_cat(q, kc, vc, lens, k_scale=None, v_scale=None, *,
 
     The function is ``decode_mha``'s per-head form on the head-major views
     ``cat_to_heads`` gives (no copy: strides (cap*Hkv*D, D, Hkv*D)), so the
-    card runs that form's kernels, routed by ``heads_form``: on tensor cores
-    at D <= 128 (f32 caches in 3xTF32), on CUDA cores for D 129-256
-    (``prefill_mha_cat.cuda_core_launches`` counts those)."""
+    card runs that form's tensor-core kernels (``heads_plan``), under this
+    wrapper's own counters (``prefill_mha_cat.tf32_launches``: f32 caches
+    at D <= 128; ``prefill_mha_cat.wide_launches``: D 129-256)."""
     if kernel_device(q, kc, vc, lens, k_scale, v_scale) == "cpu":
         return prefill_mha_cat_plain(
             q, kc, vc, lens, k_scale, v_scale, scale=scale, window=window
@@ -928,21 +928,17 @@ def prefill_mha_cat(q, kc, vc, lens, k_scale=None, v_scale=None, *,
     ks = vs = None
     if k_scale is not None:
         ks, vs = k_scale.reshape(B, Hkv, cap), v_scale.reshape(B, Hkv, cap)
-    out, form = _heads_launch(q, cat_to_heads(kc, Hkv), cat_to_heads(vc, Hkv), lens, ks, vs,
+    out, plan = _heads_launch(q, cat_to_heads(kc, Hkv), cat_to_heads(vc, Hkv), lens, ks, vs,
                               scale, window)
-    prefill_mha_cat.launches += 1
-    if form == "cuda_core":
-        prefill_mha_cat.cuda_core_launches += 1
-    elif kc.dtype == torch.float32:
-        prefill_mha_cat.tf32_launches += 1
+    _count_heads(prefill_mha_cat, plan)
     return out
 
 
-# Every launch, and (of them) the CUDA-core form's and the 3xTF32 kernel's
-# (f32 caches on tensor cores).
+# Every launch, and (of them) decode_heads_tf32.cuh's (f32 caches at D <=
+# 128) and decode_heads_wide.cuh's (D 129-512).
 prefill_mha_cat.launches = 0
-prefill_mha_cat.cuda_core_launches = 0
 prefill_mha_cat.tf32_launches = 0
+prefill_mha_cat.wide_launches = 0
 
 
 FOLD_MAX_ROWS = 16  # group * S query rows one fold block holds at D <= 128
@@ -1005,12 +1001,59 @@ TENSOR_CORE_MAX_D = 128
 
 
 def heads_form(dtype, D: int) -> str:
-    """The kernel ``decode_mha_heads`` launches for a cache dtype and head
-    dim: "tensor_core" at D <= 128 (s8, int4 and bf16 caches: bf16
-    ``mma.sync`` with q and p * vs split into three bf16 parts; f32 caches:
-    3xTF32; f32 accumulation); "cuda_core" (f32 FMAs,
-    ``decode_mha_heads_kernel``) for D 129-512."""
-    return "tensor_core" if D <= TENSOR_CORE_MAX_D else "cuda_core"
+    """The kernel family ``decode_mha_heads`` launches for a cache dtype and
+    head dim: "tensor_core" at every head dim the kernels take (D even, up
+    to 512) and every cache kind; ``heads_plan`` names the kernel."""
+    _check_head_dim(D, 512)
+    return "tensor_core"
+
+
+class HeadsPlan(NamedTuple):
+    """How the per-head form runs a cache dtype and head dim on the card,
+    mirroring the kernels' constants (``csrc/decode_heads_tc.cuh`` TcTile,
+    ``decode_heads_tf32.cuh`` Tf32Tile, ``decode_heads_wide.cuh``
+    WideTile): the ``kernel`` ("tc": three bf16 parts at D <= 128; "tf32":
+    f32 caches at D <= 128; "wide": every kind at D 129-512), the head-dim
+    instance ``dp``, the query ``rows`` a block and the ``threads`` a block,
+    the ``keys`` of a tile, the ``slices`` of the output dims (warps that
+    share 16 rows, each owning 128 dims) and the dynamic shared bytes
+    ``smem`` a block takes (at most ``MAX_SMEM``)."""
+    kernel: str
+    dp: int
+    rows: int
+    threads: int
+    keys: int
+    slices: int
+    smem: int
+
+
+MAX_SMEM = 232448  # shared bytes one block may use on the H100
+
+
+def heads_plan(dtype, D: int) -> HeadsPlan:
+    """The plan of a per-head call on ``dtype`` caches at head dim ``D``."""
+    _check_head_dim(D, 512)
+    dp = 64 if D <= 64 else 128 if D <= 128 else 256 if D <= 256 else 512
+    quant, f32 = dtype in QUANT_KV, dtype == torch.float32
+    raw_row = dp // 2 if dtype == torch.uint8 else dp  # staged bytes a row (s8, int4)
+    if dp <= 128:
+        if f32:
+            pitch, keys = dp + 4, 32
+            return HeadsPlan("tf32", dp, 64, 128, keys, 1,
+                             (64 * pitch + 3 * 2 * keys * pitch) * 4)
+        tile = 64 * (dp + 8)  # bf16 elements of a 64-key K or V tile
+        smem = 2 * tile * 2 + 4 * 64 * raw_row + 4 * 64 * 4 if quant else 4 * tile * 2
+        return HeadsPlan("tc", dp, 64, 128, 64, 1, smem)
+    slices = dp // 128
+    rows = 16 * 8 // slices
+    keys = 16 if dp == 512 else 32
+    pitch = dp + 4 if f32 else dp + 8  # q's and a tile's elements a row
+    q_bytes = rows * pitch * 4 if f32 else 3 * rows * pitch * 2  # f32 rows, or three bf16 planes
+    tile = keys * pitch
+    kv = (2 * tile * 2 + 4 * keys * raw_row + 4 * keys * 4 if quant
+          else 4 * tile * (4 if f32 else 2))
+    psum = 8 * (keys // 8) * 32 * 16  # each warp's partial scores
+    return HeadsPlan("wide", dp, rows, 256, keys, slices, q_bytes + kv + psum)
 
 
 def fold_form(dtype, D: int, recent_dtype=None) -> str:
@@ -1027,20 +1070,31 @@ def fold_form(dtype, D: int, recent_dtype=None) -> str:
 
 
 def _heads_launch(q, k, v, lens, k_scale, v_scale, scale, window):
-    """The per-head form's kernel that ``heads_form`` picks, launched on
-    head-major caches (or views) -> (out, form)."""
-    form = heads_form(k.dtype, q.shape[3])
-    out = _decode_mha_launch("heads_tc" if form == "tensor_core" else "heads", q, k, v, lens,
-                             k_scale, v_scale, scale, window)
-    return out, form
+    """The per-head form's kernel (``heads_plan``), launched on head-major
+    caches (or views) -> (out, plan)."""
+    plan = heads_plan(k.dtype, q.shape[3])
+    out = _decode_mha_launch("heads_tc", q, k, v, lens, k_scale, v_scale, scale, window)
+    return out, plan
+
+
+def _count_heads(fn, plan: HeadsPlan) -> None:
+    """One launch of a per-head wrapper, and of the kernel ``plan`` names."""
+    fn.launches += 1
+    if plan.kernel == "tf32":
+        fn.tf32_launches += 1
+    elif plan.kernel == "wide":
+        fn.wide_launches += 1
 
 
 def _decode_lib_name(dtype, D: int, entry: str) -> str:
     """The library that holds decode_mha's ``entry`` (``rten_decode_mha_
     <entry>``) for a cache dtype and head dim (csrc/decode_mha*.cu): int4
-    keeps its CUDA-core fold (f32 windows) apart."""
+    keeps its CUDA-core fold (f32 windows) apart; past D 128 the per-head
+    form has libraries of its own, f32 apart."""
     if D > 128:
-        return "decode_mha_wide"
+        if entry != "heads_tc":
+            return "decode_mha_wide"
+        return "decode_mha_wide_heads_f32" if dtype == torch.float32 else "decode_mha_wide_heads"
     if dtype == torch.uint8:
         return "decode_mha_u4_win" if entry == "folded" else "decode_mha_u4"
     return {torch.bfloat16: "decode_mha_bf16", torch.float32: "decode_mha_f32"}.get(
@@ -1176,25 +1230,21 @@ def decode_mha_heads(q, k, v, lens, k_scale=None, v_scale=None, *,
                      scale: Optional[float] = None, window: int = 0):
     """``decode_mha``'s per-head form (replaces
     ``rten_tpu/kernels/flash_attention.py:decode_mha``'s per-head grid),
-    routed by ``heads_form``: on tensor cores one block per (64-row query
-    tile, head, slot); on CUDA cores (D 129-512) one per 16-row tile."""
+    on tensor cores at every head dim (``heads_plan``): one block per
+    (query tile of ``rows``, head, slot)."""
     if kernel_device(q, k, v, lens, k_scale, v_scale) == "cpu":
         return decode_mha_plain(q, k, v, lens, k_scale, v_scale,
                                 scale=scale, window=window)
-    out, form = _heads_launch(q, k, v, lens, k_scale, v_scale, scale, window)
-    decode_mha_heads.launches += 1
-    if form == "cuda_core":
-        decode_mha_heads.cuda_core_launches += 1
-    elif k.dtype == torch.float32:
-        decode_mha_heads.tf32_launches += 1
+    out, plan = _heads_launch(q, k, v, lens, k_scale, v_scale, scale, window)
+    _count_heads(decode_mha_heads, plan)
     return out
 
 
-# Every launch, and (of them) the CUDA-core form's and the 3xTF32 kernel's
-# (f32 caches on tensor cores).
+# Every launch, and (of them) decode_heads_tf32.cuh's (f32 caches at D <=
+# 128) and decode_heads_wide.cuh's (D 129-512).
 decode_mha_heads.launches = 0
-decode_mha_heads.cuda_core_launches = 0
 decode_mha_heads.tf32_launches = 0
+decode_mha_heads.wide_launches = 0
 
 
 def paged_decode_mha_plain(q, pool_k, pool_v, lens, block_table, pool_ks=None,
@@ -1304,7 +1354,7 @@ def _mha_lib(name):
     lib = load_library(name)
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     for fn in (lib.rten_decode_mha_folded, lib.rten_decode_mha_folded_tc,
-               lib.rten_decode_mha_heads, lib.rten_decode_mha_heads_tc):
+               lib.rten_decode_mha_heads_tc):
         if fn.argtypes is None:
             fn.argtypes = [I, P, L, L, L, P, P, L, L, L, P, P, L, L, L, P, P,
                            L, L, L, I, I, I, I, I, I, I, F, I,

@@ -12,7 +12,9 @@ The port of ``tools/bench_decode_attn.py``:
   slot's whole f32 K and V and sums them, plus q's first head row: the
   memory floor of a decode step.
 * ``vpu_attn`` (``:89``): decode attention per (slot, head) on CUDA cores,
-  K of H heads; a slot with ``lens < 0`` gets the mean of V.
+  K of H heads, one pass with an online softmax (the keys split over
+  blocks by ``vpu_plan`` where the (slot, head) pairs would not fill the
+  card); a slot with ``lens < 0`` gets the mean of V.
 * ``bd_decode`` (``:214``): decode attention from K stored transposed,
   ``kt [B, Hkv, D, cap]``; ``nt_decode`` (``:318``): the same from natural
   ``[B, Hkv, cap, D]`` K. f32 or bf16 K/V, f32 or bf16 q, kv-major GQA,
@@ -27,9 +29,9 @@ The port of ``tools/bench_decode_attn.py``:
 Every wrapper checks dtypes, shapes and groups on any device and raises on
 what its kernel does not take; given CPU tensors it then runs its plain
 version, given CUDA tensors it launches its kernel (counted in its
-``launches``; ``bd_decode`` and ``nt_decode`` also count in
-``split_launches`` the calls whose plan, ``fold_plan``, splits the keys
-over blocks) or raises. Nothing runs at import: no argument parsing, no
+``launches``; ``vpu_attn``, ``bd_decode`` and ``nt_decode`` also count in
+``split_launches`` the calls whose plan, ``vpu_plan`` or ``fold_plan``,
+splits the keys over blocks) or raises. Nothing runs at import: no argument parsing, no
 build.
 
 ``main`` prints the reference's lines. ``timed`` is CUDA events around
@@ -58,8 +60,8 @@ from ..kernels.flash_attention import SMS, _split_workspace, decode_mha, decode_
 
 NEG_INF = -1e30
 H100_HBM_GBPS = 3350.0  # H100 SXM device memory, GB/s
-MAX_SMEM = 232448       # shared bytes one block can use on the H100
-THREADS = 256           # the kernels' block size (csrc/bench_decode_attn.cu)
+THREADS = 256           # dma_floor's block size (csrc/bench_decode_attn.cu)
+VPU_MAX_D = 256         # vpu_attn's largest head dim (csrc/bench_decode_attn.cu, VPU_MAXD)
 
 
 def _shape(name, t, ndim):
@@ -79,6 +81,10 @@ def _check_q(q, B, H, D, dtypes=(torch.float32,)):
         raise TypeError(f"q: dtype {q.dtype}, expected one of {dtypes}")
     if tuple(q.shape) != (B, H, 1, D):
         raise ValueError(f"q: expected {(B, H, 1, D)}, got {tuple(q.shape)}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _launch(fn, *args):
@@ -157,9 +163,18 @@ def vpu_attn_plain(q, k, v, lens, scale):
     return o[:, :, None, :]
 
 
+def vpu_plan(B, H, cap, sms=SMS):
+    """(splits, chunk) of a ``vpu_attn`` call, from the shapes alone: each
+    (slot, head)'s columns cut into ``splits`` chunks of ``chunk`` keys, one
+    block each, where the B * H pairs alone would not give every SM a block
+    (``decode_split_plan`` over them); one split at the tool's shape."""
+    return decode_split_plan(B * H, cap, sms)
+
+
 def vpu_attn(q, k, v, lens, scale):
     """q [B, H, 1, D] f32, k/v [B, H, cap, D] f32 (K has H heads) ->
-    [B, H, 1, D] f32 (see ``vpu_attn_plain``)."""
+    [B, H, 1, D] f32 (see ``vpu_attn_plain``). D a multiple of 4 up to
+    ``VPU_MAX_D``, any cap."""
     _shape("k", k, 4)
     B, H, cap, D = k.shape
     _check_q(q, B, q.shape[1] if q.dim() == 4 else 0, D)
@@ -167,23 +182,30 @@ def vpu_attn(q, k, v, lens, scale):
         raise ValueError(f"vpu_attn: K has {H} heads, q {q.shape[1]}; it takes no GQA")
     if k.dtype != torch.float32 or v.dtype != torch.float32 or v.shape != k.shape:
         raise TypeError("k/v: expected two float32 tensors of one shape")
-    smem = 4 * (D + cap + THREADS + THREADS // 32)
-    if smem > MAX_SMEM:
-        raise ValueError(f"cap {cap}, D {D}: the scores need {smem} shared bytes > {MAX_SMEM}")
+    if D % 4 or D > VPU_MAX_D:
+        raise ValueError(f"head dim {D} not supported (a multiple of 4 up to {VPU_MAX_D})")
     _check_lens(lens, B)
     if kernel_device(q, k, v, lens) == "cpu":
         return vpu_attn_plain(q, k, v, lens, scale)
     dev = q.device
-    _on_card(dev, ("q", q), ("k", k), ("v", v), ("lens", lens))
+    _on_card(dev, ("lens", lens))
+    _on_card(dev, ("q", q), ("k", k), ("v", v), align=16)  # 16-byte loads along D
+    splits, chunk = vpu_plan(B, H, cap, sm_count(dev.index))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    count = ws = None
+    if splits > 1:
+        count, ws = _split_workspace(dev, stream, B * H, B * H * splits * (D + 2))
     out = torch.empty((B, H, 1, D), dtype=torch.float32, device=dev)
     _launch(_lib().rten_vpu_attn, q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-            out.data_ptr(), B, H, cap, D, float(scale),
-            torch.cuda.current_stream(dev).cuda_stream)
+            out.data_ptr(), _ptr(ws), _ptr(count), B, H, cap, D, splits, chunk, float(scale),
+            stream)
     vpu_attn.launches += 1
+    if splits > 1:
+        vpu_attn.split_launches += 1
     return out
 
 
-vpu_attn.launches = 0
+vpu_attn.launches = vpu_attn.split_launches = 0
 
 
 # --- 3./4. bd_decode, nt_decode --------------------------------------------
@@ -316,8 +338,7 @@ def _fold(fn, shape, q, k, v, lens, scale, transposed):
     out = torch.empty((B, H, 1, D), dtype=q.dtype, device=dev)
     _launch(_lib().rten_fold_attn, int(k.dtype == torch.bfloat16), int(transposed),
             int(q.dtype == torch.bfloat16), plan.rows, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            lens.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
-            None if count is None else count.data_ptr(), B, H, Hkv, cap, D, plan.kept,
+            lens.data_ptr(), out.data_ptr(), _ptr(ws), _ptr(count), B, H, Hkv, cap, D, plan.kept,
             plan.splits, plan.chunk, _copy_bytes(k, (cap if transposed else D) * es),
             _copy_bytes(v, D * es), float(scale), stream)
     fn.launches += 1
@@ -357,7 +378,7 @@ def _lib():
     if lib.rten_fold_attn.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.rten_dma_floor.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, P]
-        lib.rten_vpu_attn.argtypes = [P, P, P, P, P, I, I, I, I, F, P]
+        lib.rten_vpu_attn.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, F, P]
         lib.rten_fold_attn.argtypes = [I, I, I, I, P, P, P, P, P, P, P,
                                        I, I, I, I, I, I, I, I, I, I, F, P]
         for fn in (lib.rten_dma_floor, lib.rten_vpu_attn, lib.rten_fold_attn):

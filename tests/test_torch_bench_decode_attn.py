@@ -77,6 +77,98 @@ def test_vpu_attn_matches_jax(jt, D):
     assert torch.equal(tb.vpu_attn(tq, tk, tv, tl, scale), got)
 
 
+def vpu_one_pass(q, k, v, lens, scale, sms=132):
+    """The one-pass ``vpu_attn`` kernel's order (csrc/bench_decode_attn.cu,
+    vpu_attn_kernel), in f32: per (slot, head), the live columns (all cap of
+    them, every score the mask's -1e30, when lens < 0) cut by ``vpu_plan``
+    into splits; a split's keys in batches of 4 warps x 4 lane groups x U =
+    8 / NV keys (NV: the 16-byte pieces of a row a lane holds), each lane
+    group keeping an online softmax with one rescale a batch; the groups
+    merged pairwise (g ^ 1, then ^ 2), the warps in warp order, the splits
+    in split order."""
+    Bq, Hq, cap, D = k.shape
+    nv = 1 if D <= 32 else 2 if D <= 64 else 4 if D <= 128 else 8
+    u_keys, warps, groups = 8 // nv, 4, 4
+    batch = groups * u_keys
+    splits, chunk = tb.vpu_plan(Bq, Hq, cap, sms)
+    f = torch.float32
+    ninf = torch.tensor(-torch.inf)
+
+    def merge(a, b):
+        m = torch.maximum(a[0], b[0])
+        mu = torch.where(m == -torch.inf, 0.0, m)
+        fa, fb = torch.exp(a[0] - mu), torch.exp(b[0] - mu)
+        return m, a[1] * fa + b[1] * fb, a[2] * fa + b[2] * fb
+
+    out = torch.zeros(Bq, Hq, 1, D)
+    for b in range(Bq):
+        n = int(lens[b])
+        jend = cap if n < 0 else min(n, cap - 1) + 1
+        for h in range(Hq):
+            states = []
+            for z in range(splits):
+                j0, j1 = z * chunk, min(z * chunk + chunk, jend)
+                ws = []
+                for w in range(warps):
+                    gs = [(ninf, torch.tensor(0.0), torch.zeros(D)) for _ in range(groups)]
+                    for base in range(j0 + w * batch, j1, warps * batch):
+                        for g in range(groups):
+                            m, l, acc = gs[g]
+                            js = [base + u * groups + g for u in range(u_keys)]
+                            s = torch.stack([
+                                (torch.tensor(-1e30, dtype=f) if n < 0
+                                 else (q[b, h, 0] * k[b, h, j]).sum() * np.float32(scale))
+                                if j < j1 else ninf for j in js])
+                            m_new = torch.maximum(m, s.max())
+                            mu = torch.where(m_new == -torch.inf, 0.0, m_new)
+                            alpha = torch.exp(m - mu)
+                            l, acc = l * alpha, acc * alpha
+                            for j, sj in zip(js, s):
+                                p = torch.exp(sj - mu)
+                                l = l + p
+                                if j < j1:
+                                    acc = acc + p * v[b, h, j]
+                            gs[g] = (m_new, l, acc)
+                    ws.append(merge(merge(gs[0], gs[1]), merge(gs[2], gs[3])))
+                m = torch.stack([x[0] for x in ws]).max()
+                mu = torch.where(m == -torch.inf, 0.0, m)
+                c = [torch.exp(x[0] - mu) for x in ws]
+                states.append((m, sum(ci * x[1] for ci, x in zip(c, ws)),
+                               sum(ci * x[2] for ci, x in zip(c, ws))))
+            st = states[0]
+            for x in states[1:]:
+                st = merge(st, x)
+            out[b, h, 0] = st[2] / st[1]
+    return out
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_vpu_one_pass_model_matches_jax(jt, D):
+    """The kernel's one-pass order against the interpreted JAX kernel, lens
+    -1 (the mean of V), 0, mid and cap + 5, atol 1e-5; 2 slots x 2 heads on
+    132 SMs split each head's columns (8 splits of 32 keys at cap 256), and
+    the tool's 384 (slot, head) pairs take one split."""
+    cap = 256
+    q, k, v, lens = _inputs(D + 1, 4, 2, 2, cap, D, [-1, 0, 100, cap + 5])
+    scale = 1.0 / np.sqrt(D)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jt.vpu_attn(q, k, v, lens, scale))
+    assert tb.vpu_plan(4, 2, cap) == (8, 32) and tb.vpu_plan(32, 12, cap)[0] == 1
+    got = vpu_one_pass(*_t(q, k, v, lens), scale)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got[0, :, 0].numpy(), v[0].mean(1), rtol=0, atol=1e-6)
+
+
+def test_vpu_attn_head_dims():
+    """The kernel takes D a multiple of 4 up to 256 (any cap: no score buffer
+    a cap long); the wrapper refuses the rest on every device."""
+    for D in (6, 260):
+        with pytest.raises(ValueError, match="head dim"):
+            tb.vpu_attn(*_t(*_inputs(0, 1, 1, 1, 8, D, [3])), 1.0)
+    q, k, v, lens = _inputs(1, 1, 1, 1, 20000, 4, [19999])
+    assert tb.vpu_attn(*_t(q, k, v, lens), 0.5).shape == (1, 1, 1, 4)
+
+
 FOLD_CASES = [(H, Hkv, cap, bk, dt)
               for H, Hkv in ((2, 2), (8, 2))
               for cap, bk in ((256, 128), (256, 256), (384, 128), (384, 256))

@@ -173,16 +173,19 @@ def test_decode_append_kernel(card, H, Hkv, D, window):
 
 
 def _prefill_launches():
-    return tfa.prefill_mha_cat.launches, tfa.prefill_mha_cat.cuda_core_launches
+    return tfa.prefill_mha_cat.launches, tfa.prefill_mha_cat.wide_launches
 
 
 def _check_prefill_form(before, dtype, D, calls):
-    """prefill_mha_cat ran ``calls`` times on the form heads_form names:
-    the tensor-core per-head kernels at D <= 128 (f32 caches in 3xTF32), the
-    CUDA-core one for D 129-256."""
-    core = calls if tfa.heads_form(dtype, D) == "cuda_core" else 0
-    assert tfa.heads_form(dtype, D) == ("tensor_core" if D <= 128 else "cuda_core")
-    assert _prefill_launches() == (before[0] + calls, before[1] + core)
+    """prefill_mha_cat ran ``calls`` times on the tensor-core per-head
+    kernel heads_plan names: decode_heads_tc.cuh or (f32 caches)
+    decode_heads_tf32.cuh at D <= 128, decode_heads_wide.cuh for D
+    129-256, counted by ``wide_launches``."""
+    wide = calls if D > 128 else 0
+    assert tfa.heads_form(dtype, D) == "tensor_core"
+    assert tfa.heads_plan(dtype, D).kernel == ("wide" if D > 128 else "tf32"
+                                               if dtype == torch.float32 else "tc")
+    assert _prefill_launches() == (before[0] + calls, before[1] + wide)
 
 
 @pytest.mark.parametrize("H,Hkv,D,S,window", [(2, 2, 64, 8, 0), (12, 12, 64, 45, 0),
@@ -706,8 +709,9 @@ def test_prefill_kernel_dtypes_and_d128(card, dt, H, Hkv, D, S, window):
     """prefill_mha_cat on s8, f32 and bf16 caches, group 6 at D 128
     (Qwen2.5-1.5B's attention; at S 128 too) and GPT-2's group 1 at D 64 and
     S 128, D 256, against the plain version: atol 1e-4, the same bits on a
-    second call; s8 and bf16 at D <= 128 on the tensor-core per-head
-    kernel, f32 and D 256 on the CUDA-core one (cap 256 at S 128)."""
+    second call; s8 and bf16 at D <= 128 on the tensor-core per-head kernel
+    in bf16 parts, f32 in 3xTF32, D 256 on the wide tensor-core kernel
+    (cap 256 at S 128)."""
     cap, B = (96 if S < 96 else 256), 4
     g = _gen(S + D)
     q = torch.randn(B, H, S, D, generator=g).to(card)
@@ -984,30 +988,37 @@ def test_decode_mha_kernel_kinds_and_head_dims(card, kv, H, Hkv, S, D, window):
     (8, 2, 70, 96, 16),
     (12, 2, 65, 128, 0),   # Qwen's and Llama-3's D 128, group 6
     (4, 4, 33, 128, 20),
-    (8, 1, 24, 256, 0),    # D 256: the CUDA-core form
+    (8, 1, 24, 256, 0),    # D 256: the wide kernel (two 128-dim slices a row group)
+    (8, 2, 70, 160, 16),   # a masked tail in DP 256, a window, past one 64-row block
+    (8, 1, 128, 256, 0),   # Gemma's head dim at a full admission of 128 rows
+    (12, 2, 65, 256, 20),  # group 6, a window
+    (4, 4, 33, 512, 0),    # D 512: four slices, 32 rows a block, past one block
+    (8, 2, 40, 512, 24),   # GQA, a window
+    (4, 2, 30, 130, 0),    # D 130: element copies (rows not whole 16-byte words)
+    (4, 2, 50, 300, 0),    # D 300 in DP 512: a slice wholly past D
 ])
 def test_decode_mha_heads_forms(card, kv, H, Hkv, S, D, window):
-    """The per-head form: on tensor cores at D <= 128 (f32 caches in
-    3xTF32), on CUDA cores at D 256 (heads_form), against
-    decode_mha_plain within 1e-4 on rows with a column to attend, 0 on the
-    others, the same bits twice. lens: 0, mid-cache, the last row, past cap
-    (a window then leaves the row no column), and the chunk's clamp."""
+    """The per-head form on tensor cores at every head dim (heads_plan: bf16
+    parts or, f32 caches, 3xTF32; decode_heads_wide.cuh past D 128, counted
+    by ``wide_launches``), against decode_mha_plain within 1e-4 on rows with
+    a column to attend, 0 on the others, the same bits twice. lens: 0,
+    mid-cache, the last row, past cap (a window then leaves the row no
+    column), and the chunk's clamp."""
     cap, B = 256, 6
     lens = torch.tensor([0, 37, cap - 1, cap + 40, cap - S, 5], dtype=torch.int32,
                         device=card)
     g = _gen(H * S + D + len(kv))
     q = torch.randn(B, H, S, D, generator=g).to(card)
     k, v, ks, vs = _caches(card, g, kv, B, Hkv, cap, D)
-    form = tfa.heads_form(k.dtype, D)
-    assert form == ("tensor_core" if D <= 128 else "cuda_core")
-    before = (tfa.decode_mha_heads.launches, tfa.decode_mha_heads.cuda_core_launches)
+    assert tfa.heads_form(k.dtype, D) == "tensor_core"
+    before = (tfa.decode_mha_heads.launches, tfa.decode_mha_heads.wide_launches)
     got = tfa.decode_mha_heads(q, k, v, lens, ks, vs, window=window)
     again = tfa.decode_mha_heads(q, k, v, lens, ks, vs, window=window)
     want = tfa.decode_mha_plain(q, k, v, lens, ks, vs, window=window)
     torch.cuda.synchronize()
-    core = 2 if form == "cuda_core" else 0
-    assert (tfa.decode_mha_heads.launches, tfa.decode_mha_heads.cuda_core_launches) == (
-        before[0] + 2, before[1] + core)
+    wide = 2 if D > 128 else 0
+    assert (tfa.decode_mha_heads.launches, tfa.decode_mha_heads.wide_launches) == (
+        before[0] + 2, before[1] + wide)
     assert got.shape == (B, H, S, D) and torch.equal(got, again)
     qpos = lens.long()[:, None] + torch.arange(S, device=card)[None]
     live = (qpos - window < cap - 1) if window else torch.ones_like(qpos, dtype=torch.bool)
@@ -1297,15 +1308,31 @@ def test_dma_floor_kernel(card, B, H, cap, D):
     assert _within(got, tbda.dma_floor_plain(q, k, v, lens), 1e-5, 1e-4)
 
 
-@pytest.mark.parametrize("B,H,cap,D", TOOL_SHAPES)
+@pytest.mark.parametrize("B,H,cap,D", TOOL_SHAPES + [
+    (128, 12, 256, 64),   # slots 128: 1536 (slot, head) blocks, one split
+    (8, 12, 256, 64),     # 96 pairs < 132 SMs: the keys split over blocks
+    (3, 2, 200, 32),      # 6 pairs: many splits, ragged ones past lens
+    (3, 3, 1000, 256),    # D 256, a cap no score buffer would hold
+    (5, 4, 77, 100),      # D 100 in the 128 instance, an odd cap
+])
 def test_vpu_attn_kernel(card, B, H, cap, D):
-    """f32 atol 1e-5; lens -1 gives the mean of V."""
+    """The one-pass kernel against its plain version: f32 atol 1e-5; lens -1
+    gives the mean of V, lens past cap every column; the same bits on a
+    second call; the split counter moves where ``vpu_plan`` splits."""
     q, k, v, lens = _tool_inputs(card, B, H, H, cap, D, cap * D)
+    if B > 3:
+        lens[3] = cap + 5
     scale = 1.0 / np.sqrt(D)
-    before = tbda.vpu_attn.launches
+    before = (tbda.vpu_attn.launches, tbda.vpu_attn.split_launches)
     got = tbda.vpu_attn(q, k, v, lens, scale)
+    again = tbda.vpu_attn(q, k, v, lens, scale)
     torch.cuda.synchronize()
-    assert tbda.vpu_attn.launches == before + 1
+    from rten_tpu_torch.kernels.common import sm_count
+
+    splits = tbda.vpu_plan(B, H, cap, sm_count(card.index or 0))[0]
+    assert (tbda.vpu_attn.launches, tbda.vpu_attn.split_launches) == (
+        before[0] + 2, before[1] + 2 * (splits > 1))
+    assert torch.equal(got, again)
     assert _within(got, tbda.vpu_attn_plain(q, k, v, lens, scale), 0.0, 1e-5)
     assert _within(got[0, :, 0], v[0].mean(1), 0.0, 1e-5)
 
@@ -1791,7 +1818,7 @@ def test_fold_deferred_splits(card, kv, rdt, B, H, Hkv, D, W, t):
 ])
 def test_heads_tf32_kernel(card, H, Hkv, S, D, window):
     """decode_mha's per-head form on f32 caches at D <= 128 runs in 3xTF32
-    on tensor cores (no CUDA-core launch) within 1e-4 of decode_mha_plain
+    on tensor cores (its tf32_launches counter) within 1e-4 of decode_mha_plain
     on rows with a column (0 on the others), the same bits twice; and
     prefill_mha_cat on f32 cat caches (the same kernel through the views'
     strides) likewise."""
@@ -1802,13 +1829,13 @@ def test_heads_tf32_kernel(card, H, Hkv, S, D, window):
     q = torch.randn(B, H, S, D, generator=g).to(card)
     k, v = (_float_cache(g, (B, Hkv, cap, D), "f32", card) for _ in "kv")
     assert tfa.heads_form(torch.float32, D) == "tensor_core"
-    before = (tfa.decode_mha_heads.launches, tfa.decode_mha_heads.cuda_core_launches)
+    before = (tfa.decode_mha_heads.launches, tfa.decode_mha_heads.tf32_launches)
     got = tfa.decode_mha_heads(q, k, v, lens, window=window)
     again = tfa.decode_mha_heads(q, k, v, lens, window=window)
     want = tfa.decode_mha_plain(q, k, v, lens, window=window)
     torch.cuda.synchronize()
-    assert (tfa.decode_mha_heads.launches, tfa.decode_mha_heads.cuda_core_launches) == (
-        before[0] + 2, before[1])
+    assert (tfa.decode_mha_heads.launches, tfa.decode_mha_heads.tf32_launches) == (
+        before[0] + 2, before[1] + 2)
     assert torch.equal(got, again)
     qpos = lens.long()[:, None] + torch.arange(S, device=card)[None]
     live = (qpos - window < cap - 1) if window else torch.ones_like(qpos, dtype=torch.bool)
