@@ -16,10 +16,12 @@ Run from the repository root:  python3 chip_smoke.py
    ``timed``). GPT-2 124M's kernels at the serving headline's shapes
    (slots 120, cap 256, prompt 128: E 768, H 12, D 64, vocab 50257); the
    int8 matmul and the argmax also at the TinyLlama serve phase's shapes,
-   the int8 matmul's GPT-2 step also at 16 rows (the serve phases' slots)
-   and 1 (a Generator step), each case on its form (stream, rows, tiled)
-   and equal to its plain version bit for bit, one admission's per-layer
-   calls totalled;
+   the int8 matmul's GPT-2 step also at 16 rows (the serve phases' slots),
+   1 (a Generator step) and 96 (the hard config's slots), each case on its
+   form (stream, rows, tiled) and equal to its plain version bit for bit,
+   one admission's per-layer calls totalled; decode_mha_append_cat and
+   prefill_mha_cat also at the hard config's shapes (96 slots over cap
+   1024, lengths 128-512 and the edges; a 96 x 128 admission);
    decode_mha's two forms at TinyLlama's attention shape (H 32 over 4 KV
    heads, D 64, slots 16, cap 256; S 1 and S 128; s8 and f32 caches; a
    window: the fold split over blocks, on tensor cores for s8 and on CUDA
@@ -51,7 +53,7 @@ Run from the repository root:  python3 chip_smoke.py
    its stream form at every decode step and tiled at every admission, mha
    never on CUDA cores, decode_mha's fold never on CUDA cores, GPT-2's bf16
    paged admissions on the 3xTF32 per-head kernel):
-   - TinyLlama-1.1B's shape at full width, its depth cut to 8 of 22 layers
+   - TinyLlama-1.1B's shape at full width, its depth cut to 4 of 22 layers
      (random weights from seed 0), int8 weights, int8 head-major KV caches;
    - the same TinyLlama weights on paged int8 head-major pools (41 blocks
      of 64 rows: 40 usable, 3 per request, so at most 13 requests run and
@@ -61,7 +63,7 @@ Run from the repository root:  python3 chip_smoke.py
      the same 41-block pool);
    - GPT-2 on the int4 weight-only graph (``bench.py``'s
      RTEN_BENCH_QUANT=int4: int4 weights, int8 cat KV);
-   - TinyLlama's shape again, the same 8 layers, on bf16 head-major
+   - TinyLlama's shape again, the same 4 layers, on bf16 head-major
      caches, then on paged bf16 head-major pools, then on int4 head-major
      caches (kv_bits=4), then on int8 head-major caches with the attention
      nodes marked ``rten_kernel_append`` (no builder emits it; decode steps
@@ -72,7 +74,7 @@ Run from the repository root:  python3 chip_smoke.py
      head-major KV caches, deferred KV with bf16 recent windows (the fold's
      window mode at decode steps, the per-head form on int4 caches at
      admissions, the windows committed once per dispatch);
-   - Qwen2.5-1.5B's published shape at full width, 14 of its 28 layers
+   - Qwen2.5-1.5B's published shape at full width, 8 of its 28 layers
      (random weights from seed 0, int8 weights) on bf16 cat caches: D 128,
      group 6 through prefill_mha_cat and decode_mha_append_cat;
    each behind the engine with 16 slots, cap 256, prefill bucket 128, 8
@@ -95,7 +97,21 @@ Run from the repository root:  python3 chip_smoke.py
    GPT-2's s8 and bf16, Qwen2.5-1.5B's bf16 cat) give finite logits close
    to the CPU's (see logits_card_vs_cpu); small GPT-2 Generators (f32 and int4, batch 1 and
    2) give the same tokens, and the full width cut to 2 layers gives
-   prefill logits within 1e-5 of max|logit| (phase_reference_generate).
+   prefill logits within 1e-5 of max|logit| (phase_reference_generate);
+   and the rest of the serving stack (phase_reference_serving): host
+   sampling, the full-bucket lm_head, chunked prefill, shared prefixes flat
+   and paged, mixed LoRA adapters, speculative decoding, 2 dispatches a
+   drain and pipeline_dispatch give the CPU's tokens, and one HTTP round
+   trip through serve_background on the card gives the card engine's.
+6. The hard config (``bench.py:run_hard_config``, phase_serve_hard): GPT-2
+   124M at cap 1024, int8 weights and cat KV, 96 slots, sampled on the
+   device (temperature 0.8, top-k 40), 64 steps a dispatch and 2 dispatches
+   a drain, a wave of 96 128-token prompts with 384 new tokens: tok/s,
+   TTFT, host wall and card busy time per forward, the host's seconds
+   issuing against draining; the argmax never launches. Then the device
+   sampler (phase_sampling): its filters on the card against the CPU, top-k
+   1 and temperature 1e-6 against the greedy engine, seed determinism with
+   drains and pipelining, and 2^16 draws against their probabilities.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Exits nonzero, printing
@@ -158,7 +174,7 @@ def device_events(prof):
                 if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
 
 
-PROFILE_ATTEMPTS = 5  # profiled windows a timing may take before it fails
+PROFILE_ATTEMPTS = 8  # profiled windows a timing may take before it fails
 L2_BYTES = 50 * 2**20  # the H100's L2
 
 
@@ -317,7 +333,8 @@ LLAMA_INT8 = [(2048, 2048, 44), (2048, 256, 44), (2048, 5632, 44), (5632, 2048, 
 def phase_int8_matmul(gen, dev, decode=GPT2_INT8, slots=SLOTS, tag="GPT-2", steps=()):
     """int8_matmul_dequant (rten_tpu_torch/csrc/int8_matmul.cu) over one
     decode step's calls at ``slots`` rows and at each of ``steps`` (GPT-2:
-    16, the serve phases' slots, and 1, a Generator step), and one
+    16, the serve phases' slots, 1, a Generator step, and 96, the hard
+    config's slots), and one
     admission's per-layer calls at slots x 128 rows: each case on the form
     int8_form names (its counter moves by the two calls), equal to
     int8_matmul_dequant_plain bit for bit, the same bits on a second call,
@@ -405,58 +422,67 @@ def phase_int8_matmul(gen, dev, decode=GPT2_INT8, slots=SLOTS, tag="GPT-2", step
     }
 
 
-def _caches(gen, dev, B, Hkv):
-    kc = torch.randint(-127, 128, (B, CAP, Hkv * D), generator=gen, dtype=torch.int8).to(dev)
-    vc = torch.randint(-127, 128, (B, CAP, Hkv * D), generator=gen, dtype=torch.int8).to(dev)
-    ks = (torch.rand(B, Hkv, CAP, 1, generator=gen) * 0.015 + 0.005).to(dev)
-    vs = (torch.rand(B, Hkv, CAP, 1, generator=gen) * 0.015 + 0.005).to(dev)
+def _caches(gen, dev, B, Hkv, cap=CAP):
+    """Random s8 cat caches and their scales, drawn on the card from a
+    generator seeded from ``gen`` (on the host, the hard config's 13 sets
+    of cap-1024 caches took about 15 s)."""
+    g = torch.Generator(device=dev).manual_seed(
+        int(torch.randint(2**62, (1,), generator=gen).item()))
+    kc = torch.randint(-127, 128, (B, cap, Hkv * D), generator=g, dtype=torch.int8, device=dev)
+    vc = torch.randint(-127, 128, (B, cap, Hkv * D), generator=g, dtype=torch.int8, device=dev)
+    ks = torch.rand(B, Hkv, cap, 1, generator=g, device=dev) * 0.015 + 0.005
+    vs = torch.rand(B, Hkv, cap, 1, generator=g, device=dev) * 0.015 + 0.005
     return kc, vc, ks, vs
 
 
 def _sdpa_inputs(q, kc, vc, ks, vs, lens, S):
     from rten_tpu_torch.kernels.flash_attention import cat_to_heads
 
-    B, Hkv = ks.shape[:2]
+    B, Hkv, cap = ks.shape[:3]
     kf = cat_to_heads(kc, Hkv).float() * ks
     vf = cat_to_heads(vc, Hkv).float() * vs
-    j = torch.arange(CAP, device=q.device)
+    j = torch.arange(cap, device=q.device)
     qpos = lens.long()[:, None, None, None] + torch.arange(S, device=q.device)[None, None, :, None]
     return kf, vf, j <= qpos
 
 
-def phase_decode_attention(gen, dev):
+def _decode_append_case(gen, dev, B, cap, lo, hi, unit):
+    """decode_mha_append_cat at B slots over cap-row cat caches, the slots'
+    lengths drawn from [lo, hi) but for four edges (an empty cache, 31, the
+    last row, past cap): one call against its plain version (the output
+    within 1e-3, the s8 caches equal, the scales within 5e-6), then timed
+    over 12 layers' caches, as one decode step reads them."""
     from rten_tpu_torch.kernels.flash_attention import (
         decode_mha_append_cat, decode_mha_append_cat_plain,
     )
 
-    B = SLOTS
     q = torch.randn(B, H, 1, D, generator=gen).to(dev)
     kn = torch.randn(B, H, 1, D, generator=gen).to(dev)
     vn = torch.randn(B, H, 1, D, generator=gen).to(dev)
-    # Mid-decode lengths, plus the edges: empty cache, last row, past cap.
-    lens = torch.randint(128, 192, (B,), generator=gen, dtype=torch.int32)
-    lens[:4] = torch.tensor([0, 31, CAP - 1, CAP + 5], dtype=torch.int32)
+    lens = torch.randint(lo, hi, (B,), generator=gen, dtype=torch.int32)
+    lens[:4] = torch.tensor([0, 31, cap - 1, cap + 5], dtype=torch.int32)
     lens = lens.to(dev)
-    kc, vc, ks, vs = _caches(gen, dev, B, H)
+    kc, vc, ks, vs = _caches(gen, dev, B, H, cap)
     k1 = [t.clone() for t in (kc, vc, ks, vs)]
     k2 = [t.clone() for t in (kc, vc, ks, vs)]
     got = decode_mha_append_cat(q, *k1[:2], lens, *k1[2:], k_new=kn, v_new=vn)
     want = decode_mha_append_cat_plain(q, *k2[:2], lens, *k2[2:], k_new=kn, v_new=vn)
     torch.cuda.synchronize()
     err = (got[0] - want[0]).abs().max().item()
+    tag = f"decode_mha_append_cat B={B} cap={cap}"
     if not err <= 1e-3:  # summation order differs
-        fail(f"decode_mha_append_cat out: max err {err} > 1e-3")
+        fail(f"{tag} out: max err {err} > 1e-3")
     for i, name in ((1, "kc"), (2, "vc")):
         if not torch.equal(got[i], want[i]):
-            fail(f"decode_mha_append_cat {name}: s8 caches differ")
+            fail(f"{tag} {name}: s8 caches differ")
     for i, name in ((3, "k_scale"), (4, "v_scale")):
         if not torch.allclose(got[i], want[i], rtol=5e-6, atol=0):
-            fail(f"decode_mha_append_cat {name}: scales differ")
-    # Time over 12 layers' caches, as one decode step reads them.
-    layers = [_caches(gen, dev, B, H) for _ in range(12)]
+            fail(f"{tag} {name}: scales differ")
+    del kc, vc, ks, vs, k1, k2, got, want
+    layers = [_caches(gen, dev, B, H, cap) for _ in range(12)]
     # Rows attended: lens + 1 (the new row comes from registers, so only
     # lens rows are read back); the new row and its scale are written.
-    read = lens.clamp(max=CAP - 1).long().sum().item()
+    read = lens.clamp(max=cap - 1).long().sum().item()
     per_call_bytes = (4 * B * H * D * 2 + 4 * B * H * D * 2 + 4 * B
                       + 2 * read * H * (D + 4) + 2 * B * H * (D + 4))
     k_ms = timed(lambda: [decode_mha_append_cat(q, c[0], c[1], lens, c[2], c[3], k_new=kn, v_new=vn)
@@ -469,42 +495,57 @@ def phase_decode_attention(gen, dev):
                 nbytes=12 * sdpa_bytes(q, read + B, H, D, 4))
     per_call_ops = 4.0 * (read + B) * H * D
     bms, by = bound_ms(12 * per_call_bytes, 12 * per_call_ops, attn_peak("s8"))
-    splits = split_plan(B, H, CAP)
-    print(f"  decode_mha_append_cat x12 (splits {splits[0]} of {splits[1]} columns): kernel "
-          f"{fmt(k_ms)}, plain {fmt(p_ms)}, sdpa {fmt(lib)}, bound {bms:.4f} ms ({by})", flush=True)
-    return {"splits": splits[0],
+    splits = split_plan(B, H, cap)
+    print(f"  {tag} x12 (lens {lo}-{hi - 1} and the edges; splits {splits[0]} of {splits[1]} "
+          f"columns): max err {err:.2e}, caches equal; kernel {fmt(k_ms)}, plain {fmt(p_ms)}, "
+          f"sdpa {fmt(lib)}, bound {bms:.4f} ms ({by})", flush=True)
+    return {"unit": unit, "splits": splits[0], "max_abs_err": err,
+            **time_keys(k_ms, p_ms, lib), "bound_ms": bms, "bound_by": by}
+
+
+def phase_decode_attention(gen, dev):
+    """Row 2 at the serve phases' shape (slots 120, cap 256, mid-decode
+    lengths 128-191) and at the hard config's (96 slots over cap 1024, the
+    lengths a wave of 128-token prompts reaches over 384 new tokens)."""
+    head = _decode_append_case(gen, dev, SLOTS, CAP, 128, 192,
+                               "one decode step at slots 120, cap 256: 12 calls (one per layer)")
+    hard = _decode_append_case(gen, dev, HARD_SLOTS, HARD_CAP, PROMPT, PROMPT + HARD_NEW + 1,
+                               f"one decode step of the hard config at slots {HARD_SLOTS}, cap "
+                               f"{HARD_CAP}, lens {PROMPT}-{PROMPT + HARD_NEW}: 12 calls")
+    torch.cuda.empty_cache()
+    return {**head,
         "name": "decode_mha_append_cat", "route": "cuda", "kv": "s8",
         "source": "rten_tpu_torch/csrc/decode_append.cu",
         "replaces": "rten_tpu/kernels/flash_attention.py:2597",
-        "unit": "one decode step at slots 120, cap 256: 12 calls (one per layer)",
-        "max_abs_err": err, **time_keys(k_ms, p_ms, lib), "bound_ms": bms, "bound_by": by,
+        "max_abs_err": max(head["max_abs_err"], hard["max_abs_err"]),
         "library_call": "scaled_dot_product_attention on pre-dequantized f32 K/V (no quantize, no append)",
+        "other_shapes": [hard],
     }
 
 
-def phase_prefill_attention(gen, dev):
-    from rten_tpu_torch.kernels.flash_attention import (
-        prefill_mha_cat, prefill_mha_cat_plain,
-    )
+def _prefill_cat_case(gen, dev, B, cap, unit):
+    """prefill_mha_cat over an admission of B x 128 tokens on cap-row cat
+    caches: at lens 0 and at random offsets (lens + 128 <= cap) against
+    its plain version (within 1e-3), then timed at lens 0 (one call, x12
+    for the admission's layers)."""
+    from rten_tpu_torch.kernels.flash_attention import prefill_mha_cat, prefill_mha_cat_plain
 
-    B = SLOTS
     # q as the op hands it over: a head-major view of a [B, S, 3E] qkv.
     qkv = torch.randn(B, PROMPT, 3 * E, generator=gen).to(dev)
     q = qkv[..., :E].reshape(B, PROMPT, H, D).permute(0, 2, 1, 3)
     lens = torch.zeros(B, dtype=torch.int32, device=dev)
-    kc, vc, ks, vs = _caches(gen, dev, B, H)
-    got = prefill_mha_cat(q, kc, vc, lens, ks, vs)
-    want = prefill_mha_cat_plain(q, kc, vc, lens, ks, vs)
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
+    kc, vc, ks, vs = _caches(gen, dev, B, H, cap)
+    tag = f"prefill_mha_cat B={B} cap={cap}"
+    err = (prefill_mha_cat(q, kc, vc, lens, ks, vs)
+           - prefill_mha_cat_plain(q, kc, vc, lens, ks, vs)).abs().max().item()
     if not err <= 1e-3:
-        fail(f"prefill_mha_cat: max err {err} > 1e-3")
+        fail(f"{tag}: max err {err} > 1e-3")
     # Also a chunk at nonzero offsets (lens + S <= cap).
-    lens2 = torch.randint(0, CAP - PROMPT, (B,), generator=gen, dtype=torch.int32).to(dev)
+    lens2 = torch.randint(0, cap - PROMPT, (B,), generator=gen, dtype=torch.int32).to(dev)
     err2 = (prefill_mha_cat(q, kc, vc, lens2, ks, vs)
             - prefill_mha_cat_plain(q, kc, vc, lens2, ks, vs)).abs().max().item()
     if not err2 <= 1e-3:
-        fail(f"prefill_mha_cat (offsets): max err {err2} > 1e-3")
+        fail(f"{tag} (offsets): max err {err2} > 1e-3")
     pairs = B * H * PROMPT * (PROMPT + 1) / 2  # causal (row, column) pairs
     nbytes = 4 * B * H * PROMPT * D * 2 + 2 * B * PROMPT * H * (D + 4) + 4 * B
     k_ms = timed(lambda: prefill_mha_cat(q, kc, vc, lens, ks, vs), iters=10, nbytes=nbytes)
@@ -514,18 +555,31 @@ def phase_prefill_attention(gen, dev):
     lib = timed(lambda: torch.nn.functional.scaled_dot_product_attention(q, kf, vf, attn_mask=m),
                 iters=10, nbytes=sdpa_bytes(q, B * PROMPT, H, D, 4))
     bms, by = bound_ms(12 * nbytes, 12 * 4.0 * pairs * D, attn_peak("s8"))
-    print(f"  prefill_mha_cat x12: kernel {fmt(k_ms, 12)}, plain {fmt(p_ms, 12)}, "
-          f"sdpa {fmt(lib, 12)}, bound {bms:.4f} ms ({by})", flush=True)
-    return {
+    print(f"  {tag} x12: max err {max(err, err2):.2e} (lens 0 and offsets); kernel "
+          f"{fmt(k_ms, 12)}, plain {fmt(p_ms, 12)}, sdpa {fmt(lib, 12)}, bound {bms:.4f} ms "
+          f"({by})", flush=True)
+    return {"unit": unit, "max_abs_err": max(err, err2), **time_keys(k_ms, p_ms, lib, 12),
+            "bound_ms": bms, "bound_by": by}
+
+
+def phase_prefill_attention(gen, dev):
+    """Row 3 at the serve phases' admission (120 x 128 over cap 256) and at
+    the hard config's (96 x 128 over cap 1024)."""
+    head = _prefill_cat_case(gen, dev, SLOTS, CAP,
+                             "one admission of 120 x 128 tokens: 12 calls (one per layer)")
+    hard = _prefill_cat_case(gen, dev, HARD_SLOTS, HARD_CAP,
+                             f"one admission of the hard config, {HARD_SLOTS} x {PROMPT} tokens "
+                             f"over cap {HARD_CAP}: 12 calls")
+    torch.cuda.empty_cache()
+    return {**head,
         "name": "prefill_mha_cat", "route": "cuda", "kv": "s8",
         "counter": "prefill_mha_cat_tensor_core",
         "source": "rten_tpu_torch/csrc/decode_heads_tc.cuh (decode_mha.cu's per-head form on "
                   "the cat caches' head-major views)",
         "replaces": "rten_tpu/kernels/flash_attention.py:3301",
-        "unit": "one admission of 120 x 128 tokens: 12 calls (one per layer)",
-        "max_abs_err": max(err, err2), **time_keys(k_ms, p_ms, lib, 12),
-        "bound_ms": bms, "bound_by": by,
+        "max_abs_err": max(head["max_abs_err"], hard["max_abs_err"]),
         "library_call": "scaled_dot_product_attention on pre-dequantized f32 K/V with a mask",
+        "other_shapes": [hard],
     }
 
 
@@ -533,9 +587,9 @@ def phase_prefill_attention(gen, dev):
 # and the Llama serve phase's slots.
 L_LAYERS, L_H, L_HKV, L_D, L_VOCAB, L_SLOTS = 22, 32, 4, 64, 32000, 16
 # The depth of the TinyLlama serve phases (flat, paged, bf16, int4), cut to
-# keep the whole run near half its time limit; the kernel phases keep all
-# 22 layers.
-L_CUT_LAYERS = 8
+# keep the whole run near half its time limit (8 until the hard config's
+# phases came in); the kernel phases keep all 22 layers.
+L_CUT_LAYERS = 4
 
 
 def _head_major_caches(gen, dev, B, quant):
@@ -1083,9 +1137,10 @@ FLOAT_KV = {"bf16": torch.bfloat16, "f32": torch.float32}
 # group 6), vocab 151936, rope_theta 1e6, rms_norm_eps 1e-6, q/k/v biases,
 # tied embeddings, no sliding window; its serve phase's slots.
 Q_LAYERS, Q_H, Q_HKV, Q_D, Q_VOCAB, Q_SLOTS = 28, 12, 2, 128, 151936, 16
-# The depth of its serve phase, cut to half to keep the whole run near half
-# its time limit; its kernel phases keep all 28 layers.
-Q_SERVE_LAYERS = 14
+# The depth of its serve phase, cut to keep the whole run near half its
+# time limit (14 until the hard config's phases came in); its kernel phases
+# keep all 28 layers.
+Q_SERVE_LAYERS = 8
 QWEN = dict(vocab_size=Q_VOCAB, hidden_size=1536, intermediate_size=8960,
             num_attention_heads=Q_H, num_key_value_heads=Q_HKV,
             max_position_embeddings=131072, rms_norm_eps=1e-6, rope_theta=1e6,
@@ -2290,10 +2345,12 @@ def random_weights(module, cfg):
 
 
 def build_model(n_layer, capacity, device, vocab=VOCAB, n_embd=E, n_head=H, kv="s8",
-                **paged):
+                gather_last=True, quantize=True, **options):
     """GPT-2 through the user's entry points, on ``kv`` cat caches (int4
-    and deferred-KV caches are head-major: no in-kernel append there);
-    ``paged``: paged_blocks and block_size for the paged cat pools."""
+    and deferred-KV caches are head-major: no in-kernel append there), int8
+    weights unless ``quantize`` is false; ``options``: the builder's
+    paged_blocks and block_size for the paged cat pools, lora_rank and
+    n_adapters."""
     from rten_tpu_torch.model import Model
     from rten_tpu_torch.models import gpt2
     from rten_tpu_torch.quantize_pass import quantize_dynamic
@@ -2301,11 +2358,12 @@ def build_model(n_layer, capacity, device, vocab=VOCAB, n_embd=E, n_head=H, kv="
     cfg = gpt2.GPT2Config(vocab_size=vocab, n_layer=n_layer, n_embd=n_embd, n_head=n_head)
     weights = random_weights(gpt2, cfg)
     graph = gpt2.build_graph_static_cache(
-        cfg, weights, capacity=capacity, gather_last=True,
+        cfg, weights, capacity=capacity, gather_last=gather_last,
         kernel_append=not kv.startswith("int4") and "deferred" not in kv,
-        **kv_options(kv), **paged,
+        **kv_options(kv), **options,
     )
-    quantize_dynamic(graph)
+    if quantize:
+        quantize_dynamic(graph)
     return Model(graph, device=device)
 
 
@@ -2628,7 +2686,7 @@ def build_llama(n_layer, capacity, device, sharpen=1.0, weights=None, kv="s8",
         secs["weights"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     graph = llama.build_graph_static_cache(cfg, weights, capacity=capacity,
-                                           gather_last=True, **build)
+                                           **{"gather_last": True, **build})
     if head_major_append:
         for _, node in graph.operators():
             if node.op_type in ("QuantizedKVAttention", "GroupQueryAttention"):
@@ -2726,18 +2784,15 @@ def serve_llama_family(dev, tag, n_layer, n_head, head_dim, vocab, build_kw, wan
     return launches
 
 
-def profile_wave(engine, prompts, wall_per_forward):
-    """One more full wave (16 requests of 17 tokens: an admission and two
-    dispatches of 8 steps; a paged pool that holds 13 admits the rest once
-    blocks free) under torch.profiler, recording CUDA activity only (only
-    device events are read; a CPU trace of every op cost minutes to stop
-    and summarize): the card's busy time, by kernel, against the host's
-    wall time. The profiler slows the host, so the idle share is stated
-    against the unprofiled wall time per forward of the serve run as
-    well."""
+def profiled_run(engine, prompts, new_tokens):
+    """One more full wave of ``prompts`` with ``new_tokens`` each under
+    torch.profiler, recording CUDA activity only (only device events are
+    read; a CPU trace of every op cost minutes to stop and summarize).
+    Returns (device busy ms, profiled wall ms, decode steps, admissions,
+    device events)."""
     from torch.profiler import ProfilerActivity, profile
 
-    reqs = [engine.submit(p, max_new_tokens=17) for p in prompts]
+    reqs = [engine.submit(p, max_new_tokens=new_tokens) for p in prompts]
     steps0 = engine.steps
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2746,21 +2801,38 @@ def profile_wave(engine, prompts, wall_per_forward):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     t_trace = time.perf_counter()
-    if not all(r.done and len(r.generated) == 17 for r in reqs):
+    if not all(r.done and len(r.generated) == new_tokens for r in reqs):
         fail("profiled wave: a request did not finish with its tokens")
-    forwards = engine.steps - steps0 + len({r.first_token_at for r in reqs})
     events = device_events(prof)
-    busy_ms = sum(t for _, _, t in events) / 1e3
     print(f"  profile: the trace took {time.perf_counter() - t_trace:.1f} s to stop and "
           f"summarize", flush=True)
+    return (sum(t for _, _, t in events) / 1e3, wall * 1e3, engine.steps - steps0,
+            len({r.first_token_at for r in reqs}), events)
+
+
+def profile_wave(engine, prompts, wall_per_forward, new_tokens=17):
+    """One more full wave (16 requests of 17 tokens: an admission and two
+    dispatches of 8 steps; a paged pool that holds 13 admits the rest once
+    blocks free) under ``profiled_run``: the card's busy time, by kernel,
+    against the host's wall time. The profiler slows the host, so the idle
+    share is stated against the unprofiled wall time per forward of the
+    serve run as well. Returns (busy ms per forward, busy share of the
+    unprofiled wall), or None where the profiler recorded no device time."""
+    busy_ms, wall_ms, steps, adm, events = profiled_run(engine, prompts, new_tokens)
+    forwards = steps + adm
     if busy_ms <= 0:
         print("  profile: the profiler recorded no device time (not measured)", flush=True)
-        return
+        return None
     print(f"  profile: {forwards} forwards, device busy {busy_ms:.3f} ms in "
-          f"{wall * 1e3:.3f} ms profiled wall ({busy_ms / (wall * 1e3):.3f} busy); "
+          f"{wall_ms:.3f} ms profiled wall ({busy_ms / wall_ms:.3f} busy); "
           f"busy per forward {busy_ms / forwards:.3f} ms vs unprofiled wall per "
           f"forward {wall_per_forward * 1e3:.3f} ms "
           f"({busy_ms / forwards / (wall_per_forward * 1e3):.3f} busy)", flush=True)
+    print_top_kernels(events, busy_ms)
+    return busy_ms / forwards, busy_ms / forwards / (wall_per_forward * 1e3)
+
+
+def print_top_kernels(events, busy_ms):
     # The port's own kernels live in an anonymous namespace; PyTorch's
     # (the plain ops between the kernels) under at::.
     ours = [e for e in events if "(anonymous namespace)::" in e[0] and "at::" not in e[0]]
@@ -3140,12 +3212,18 @@ def logits_card_vs_cpu(dev, make_model, vocab, tag, tol=5e-2):
     unless the CPU's top two are within that tolerance. A paged model gets
     pools at their declared shape and a shuffled table; a deferred-KV model
     one-row windows at the admission, then the three decode steps as one
-    dispatch (windows of 3 rows, step_t 0, 1, 2). Returns (worst
-    error, whether every token was equal)."""
+    dispatch (windows of 3 rows, step_t 0, 1, 2). The card's model runs
+    the CPU model's optimized graph (built, quantized and optimized once;
+    the passes do not depend on the device). Returns (worst error, whether
+    every token was equal)."""
+    from rten_tpu_torch.model import Model, ModelOptions
+
     outs = {}
     slots, T = 4, 16
+    cpu_model = make_model(torch.device("cpu"))
     for device in (torch.device("cpu"), dev):
-        model = make_model(device)
+        model = (cpu_model if device.type == "cpu"
+                 else Model(cpu_model.graph, ModelOptions(optimize=False), device=device))
         rng = np.random.default_rng(1)
         ids = rng.integers(0, vocab, (slots, T)).astype(np.int32)
         info = {name: (dt, tuple(shape)) for name, dt, shape in model.input_info()}
@@ -3198,6 +3276,7 @@ def logits_card_vs_cpu(dev, make_model, vocab, tag, tol=5e-2):
             lens = lens + 1
         outs[device.type] = res
         del model
+    del cpu_model
     worst = 0.0
     for step, ((lg, tg), (lc, tc)) in enumerate(zip(outs["cuda"], outs["cpu"])):
         scale = np.abs(lc).max()
@@ -3475,6 +3554,461 @@ def phase_reference_generate(dev):
           flush=True)
 
 
+# --- the rest of the serving stack: the hard config, sampling, references -----
+
+# bench.py's hard config (run_hard_config): GPT-2 124M at cap 1024, int8 KV,
+# sampled on the device, 64 steps a dispatch, 2 dispatches a drain, 96 slots;
+# a warm-up wave of 2 new tokens, then a wave of 384.
+HARD_SLOTS, HARD_CAP, HARD_K, HARD_D, HARD_NEW = 96, 1024, 64, 2, 384
+HARD_SAMPLER = dict(temperature=0.8, top_k=40, seed=0)
+
+
+def hard_engine(model, n_layer=12, **kw):
+    """The hard config's engine over ``model``: 96 slots, cap 1024, prefill
+    bucket 128, 64 steps a dispatch, 2 dispatches a drain, the device
+    sampler at temperature 0.8 and top-k 40 from seed 0 (``kw`` overrides
+    any of these)."""
+    from rten_tpu_torch.generate.sampler import DeviceSampler
+    from rten_tpu_torch.serving import ContinuousBatchingEngine
+
+    opts = dict(device_sampler=DeviceSampler(**HARD_SAMPLER), steps_per_dispatch=HARD_K,
+                dispatches_per_drain=HARD_D)
+    opts.update(kw)
+    return ContinuousBatchingEngine(model, n_layer=n_layer, n_head=H, head_dim=D,
+                                    slots=HARD_SLOTS, capacity=HARD_CAP, prefill_bucket=PROMPT,
+                                    **opts)
+
+
+def hard_prompts(rng, n=HARD_SLOTS):
+    return [rng.integers(0, VOCAB, PROMPT).tolist() for _ in range(n)]
+
+
+def phase_serve_hard(dev):
+    """``bench.py``'s hard config at full width through the user's entry
+    points (builder with int8 cat KV, the in-kernel append and the gathered
+    lm_head at cap 1024, quantize_dynamic, Model, the engine above): a
+    warm-up wave of 96 seeded 128-token prompts with 2 new tokens, then,
+    every launch counter zeroed, a wave of 96 with 384 new tokens. Every
+    request must get its 384 tokens, all in [0, V); the int8 matmul runs on
+    its rows form at every decode step (96 rows) and tiled at every
+    admission, the append 12 times a step, prefill_mha_cat 12 times an
+    admission and the argmax never (the tokens are sampled). Prints tok/s,
+    TTFT p50, the host's wall per forward, the host's seconds issuing
+    dispatches against draining them (the drain waits for the card), and
+    the card's busy time of an admission and of a decode step, weighted by
+    the timed wave's forwards (``hard_busy``)."""
+    model = build_model(12, HARD_CAP, dev)
+    engine = hard_engine(model)
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    for p in hard_prompts(rng):
+        engine.submit(p, max_new_tokens=2)
+    engine.run()
+    torch.cuda.synchronize()
+    engine.finished.clear()
+    print(f"  warm-up [hard config]: {HARD_SLOTS} requests of 2 tokens in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    # The host's seconds issuing dispatches and draining them.
+    host = {"issue_s": 0.0, "drain_s": 0.0, "dispatches": 0}
+    issue, drain = engine._issue_multi, engine._drain_record
+
+    def timed_issue(from_host):
+        t = time.perf_counter()
+        issue(from_host)
+        host["issue_s"] += time.perf_counter() - t
+        host["dispatches"] += 1
+
+    def timed_drain(rec):
+        t = time.perf_counter()
+        drain(rec)
+        host["drain_s"] += time.perf_counter() - t
+
+    engine._issue_multi, engine._drain_record = timed_issue, timed_drain
+    steps0 = engine.steps
+    for fn in counters().values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [engine.submit(p, max_new_tokens=HARD_NEW) for p in hard_prompts(rng)]
+    engine.run()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters().items()}
+    del engine._issue_multi, engine._drain_record
+    for r in reqs:
+        if not r.done or len(r.generated) != HARD_NEW or r.error:
+            fail(f"hard config request {r.request_id}: {len(r.generated)} of {HARD_NEW} tokens")
+        if not all(0 <= t < VOCAB for t in r.generated):
+            fail(f"hard config request {r.request_id}: token out of range")
+    steps = engine.steps - steps0
+    adm = len({r.first_token_at for r in reqs})
+    want = {
+        "int8_matmul_dequant": 49 * (steps + adm),
+        # 96 rows a decode step and the admission's gathered lm_head on the
+        # rows form, the admission's 48 projections (96 x 128 rows) tiled
+        "int8_matmul_dequant_rows": 49 * steps + adm,
+        "int8_matmul_dequant_tiled": 48 * adm,
+        "decode_mha_append_cat": 12 * steps,
+        "prefill_mha_cat": 12 * adm,
+    }
+    for k, n in launches.items():
+        if n != want.get(k, 0):
+            fail(f"hard config: {k} launched {n} times, expected {want.get(k, 0)}")
+    toks = sum(len(r.generated) for r in reqs)
+    forwards = steps + adm
+    ttft = statistics.median(r.ttft_s for r in reqs)
+    print(f"  serve [hard config]: {len(reqs)} requests, {toks} tokens in {elapsed:.3f} s = "
+          f"{toks / elapsed:.1f} tok/s, TTFT p50 {ttft * 1e3:.1f} ms, {adm} admissions, "
+          f"{steps} decode steps in {host['dispatches']} dispatches, host wall per forward "
+          f"{elapsed / forwards * 1e3:.3f} ms; host issuing {host['issue_s']:.3f} s, "
+          f"draining {host['drain_s']:.3f} s", flush=True)
+    print(f"  serve launches [hard config]: {json.dumps(launches)}", flush=True)
+    busy = hard_busy(engine, rng, steps, adm, elapsed / forwards)
+    print("HARD_CONFIG " + json.dumps({
+        "tok_s": toks / elapsed, "ttft_p50_ms": ttft * 1e3, "forwards": forwards,
+        "decode_steps": steps, "admissions": adm, "dispatches": host["dispatches"],
+        "host_wall_per_forward_ms": elapsed / forwards * 1e3,
+        "host_issue_s": host["issue_s"], "host_drain_s": host["drain_s"],
+        **(busy or {"busy": "not measured"})}), flush=True)
+    return launches
+
+
+def hard_busy(engine, rng, steps, adm, wall_per_forward):
+    """The card's busy time in the hard config, split between its two kinds
+    of forward: a profiled wave of admissions alone (96 requests of 1
+    token) and one of an admission and one dispatch (17 tokens) give two
+    equations in an admission's and a decode step's busy time. Weighted by
+    the timed wave's ``adm`` admissions and ``steps`` decode steps, they
+    give its busy time per forward and busy share of its unprofiled wall
+    per forward. None where the profiler recorded no device time."""
+    busy_a, _, s_a, a_a, _ = profiled_run(engine, hard_prompts(rng), 1)
+    busy_b, wall_b, s_b, a_b, events = profiled_run(engine, hard_prompts(rng), 17)
+    det = a_a * s_b - a_b * s_a
+    if busy_a <= 0 or busy_b <= 0 or det == 0:
+        print("  profile [hard config]: no device time recorded, or the waves' mixes are "
+              "the same (not measured)", flush=True)
+        return None
+    per_adm = (busy_a * s_b - busy_b * s_a) / det
+    per_step = (a_a * busy_b - a_b * busy_a) / det
+    forwards = steps + adm
+    per_forward = (adm * per_adm + steps * per_step) / forwards
+    share = per_forward / (wall_per_forward * 1e3)
+    print(f"  profile [hard config]: {a_a} admissions and {s_a} steps busy {busy_a:.3f} ms; "
+          f"{a_b} admissions and {s_b} steps busy {busy_b:.3f} ms in {wall_b:.3f} ms "
+          f"profiled wall: an admission {per_adm:.3f} ms, a decode step {per_step:.3f} ms; "
+          f"over the timed wave's {adm} admissions and {steps} steps, {per_forward:.3f} ms "
+          f"a forward against {wall_per_forward * 1e3:.3f} ms of unprofiled wall "
+          f"({share:.3f} busy)", flush=True)
+    print_top_kernels(events, busy_b)
+    return {"busy_per_admission_ms": per_adm, "busy_per_decode_step_ms": per_step,
+            "busy_per_forward_ms": per_forward, "busy_share": share}
+
+
+def _near_top_p(ds, x, eps=1e-6):
+    """The tokens whose exclusive cumulative probability (the top-p test's
+    ``cum - probs``) lies within ``eps`` of ``top_p`` on ``x``'s device."""
+    from rten_tpu_torch.generate.sampler import DeviceSampler
+
+    if ds.top_p is None:
+        return torch.zeros(x.shape, dtype=torch.bool)
+    pre = DeviceSampler(temperature=ds.temperature, top_k=ds.top_k).transform(x)
+    sx, order = torch.sort(pre, dim=-1, descending=True)
+    probs = torch.softmax(sx.double(), dim=-1)  # as the sampler sums them
+    near = ((torch.cumsum(probs, dim=-1) - probs) - ds.top_p).abs() < eps
+    return torch.zeros_like(near).scatter(-1, order, near).cpu()
+
+
+def phase_sampling(dev):
+    """The device sampler on the card.
+
+    1. ``transform`` on the card against the CPU on the same seeded
+       [96, 50257] logits: the kept values within 1 ulp, the masks equal but
+       for top-p tokens whose cumulative probability lies within 1e-6 of
+       top_p on either device (the devices sum in different orders; their
+       count is printed). Then one ``sample`` at the hard config's shape,
+       timed.
+    2. The hard config's engine cut to 2 layers: top_k 1 and temperature
+       1e-6 give the greedy engine's tokens; the same seed twice gives the
+       same tokens with 2 dispatches a drain and with pipeline_dispatch.
+    3. 2^16 draws from one fixed row at temperature 0.8, top-k 40, top-p
+       0.9: every draw in the kept set, each token's count within 5 sigma
+       of its probability (binomial).
+    """
+    from rten_tpu_torch.generate.sampler import DeviceSampler
+
+    g = torch.Generator().manual_seed(3)
+    logits = torch.randn(HARD_SLOTS, VOCAB, generator=g) * 4
+    for spec in (dict(temperature=0.8, top_k=40), dict(top_p=0.9),
+                 dict(temperature=0.8, top_k=40, top_p=0.9), dict(temperature=0.7)):
+        ds = DeviceSampler(**spec)
+        cpu, card = ds.transform(logits), ds.transform(logits.to(dev)).cpu()
+        near = _near_top_p(ds, logits) | _near_top_p(ds, logits.to(dev))
+        differ = torch.isinf(cpu) != torch.isinf(card)
+        if (differ & ~near).any():
+            fail(f"sampling {spec}: {int((differ & ~near).sum())} mask entries differ away "
+                 f"from the top-p boundary")
+        both = ~torch.isinf(cpu) & ~torch.isinf(card)
+        ulps = (cpu[both].view(torch.int32).long() - card[both].view(torch.int32).long()).abs()
+        if ulps.numel() and int(ulps.max()) > 1:
+            fail(f"sampling {spec}: kept values {int(ulps.max())} ulps apart")
+        print(f"  sampling {json.dumps(spec)}: transform card vs CPU: masks equal but for "
+              f"{int(differ.sum())} entries ({int(near.sum())} tokens within 1e-6 of top_p), "
+              f"kept values within {int(ulps.max()) if ulps.numel() else 0} ulp, "
+              f"{int(both.sum(-1).float().mean())} kept a row", flush=True)
+    ds = DeviceSampler(**HARD_SAMPLER)
+    gen = ds.init_generator(dev)
+    x = logits.to(dev)
+    t = timed(lambda: ds.sample(x, gen), nbytes=x.numel() * 4)
+    print(f"  sampling: one sample() at [{HARD_SLOTS}, {VOCAB}] (temperature, top-k 40, "
+          f"Gumbel-max): {fmt(t)}", flush=True)
+
+    model = build_model(2, HARD_CAP, dev)
+    rng = np.random.default_rng(1)
+    prompts = hard_prompts(rng)
+
+    def tokens(engine, n_new=100):
+        reqs = [engine.submit(p, max_new_tokens=n_new) for p in prompts]
+        engine.run()
+        return [r.generated for r in reqs]
+
+    greedy = tokens(hard_engine(model, 2, device_sampler=None, greedy_on_device=True), 40)
+    for spec in (dict(top_k=1), dict(temperature=1e-6)):
+        got = tokens(hard_engine(model, 2, device_sampler=DeviceSampler(seed=0, **spec)), 40)
+        if got != greedy:
+            n = sum(a != b for a, b in zip(got, greedy))
+            fail(f"sampling {spec}: {n} of {len(got)} requests differ from the greedy engine")
+    print("  sampling: top_k 1 and temperature 1e-6 give the greedy engine's tokens "
+          f"({HARD_SLOTS} requests of 40 tokens, 2 layers)", flush=True)
+    runs = {}
+    for mode, kw in (("2 dispatches a drain", {}),
+                     ("pipeline_dispatch", dict(dispatches_per_drain=1, pipeline_dispatch=True))):
+        a, b = tokens(hard_engine(model, 2, **kw)), tokens(hard_engine(model, 2, **kw))
+        if a != b:
+            fail(f"sampling: the same seed gave different tokens with {mode}")
+        runs[mode] = a
+    print(f"  sampling: the same seed twice gives the same tokens with 2 dispatches a drain "
+          f"and with pipeline_dispatch ({HARD_SLOTS} requests of 100 tokens; the two modes "
+          f"{'agree' if runs['pipeline_dispatch'] == runs['2 dispatches a drain'] else 'differ'})",
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+    ds = DeviceSampler(temperature=0.8, top_k=40, top_p=0.9)
+    row = logits[:1].to(dev)
+    kept_logits = ds.transform(row)[0].double().cpu()
+    kept = ~torch.isinf(kept_logits)
+    p = torch.softmax(kept_logits, dim=0)
+    n, batch = 2 ** 16, 4096
+    counts = torch.zeros(VOCAB, dtype=torch.float64, device=dev)
+    gen = ds.init_generator(dev)
+    for _ in range(n // batch):
+        toks, gen = ds.sample(row.expand(batch, VOCAB), gen)
+        counts += torch.bincount(toks.long(), minlength=VOCAB).double()
+    counts = counts.cpu()
+    if counts[~kept].sum() > 0:
+        fail(f"sampling: {int(counts[~kept].sum())} draws outside the kept set")
+    sigma = (n * p * (1 - p)).sqrt()
+    z = ((counts - n * p).abs() / sigma)[kept]
+    if z.max() > 5:
+        fail(f"sampling: a token's count is {float(z.max()):.2f} sigma from its probability")
+    print(f"  sampling: {n} draws from one row (temperature 0.8, top-k 40, top-p 0.9): all in "
+          f"the kept set of {int(kept.sum())} tokens, the largest deviation {float(z.max()):.2f} "
+          f"sigma", flush=True)
+
+
+SERVING_PREFIX = [11, 3, 42, 9, 27, 60, 100, 200, 300, 400, 5, 6, 7, 8, 9, 10, 11, 12, 13]
+PREFIX_PAGED = dict(paged_blocks=8, block_size=16)  # 7 usable blocks: the prefix takes 2
+
+
+def _wave(prefix=()):
+    """Five seeded (prompt, new tokens) pairs for the small models: prompts
+    of 3-11 tokens, or the prefix and 1-8 more."""
+    rng = np.random.default_rng(0)
+    lo, hi = (1, 9) if prefix else (3, 12)
+    return [(list(prefix) + rng.integers(0, 512, int(rng.integers(lo, hi))).tolist(),
+             int(rng.integers(3, 14))) for _ in range(5)]
+
+
+def _serve_wave(eng, wave, adapter_ids=None):
+    reqs = [eng.submit(p, max_new_tokens=n, **({} if adapter_ids is None
+                                                else dict(adapter_id=adapter_ids[i])))
+            for i, (p, n) in enumerate(wave)]
+    eng.run()
+    return [r.generated for r in reqs]
+
+
+def card_vs_cpu(dev, tag, make_engine, drive):
+    """``drive(make_engine(device))`` on the card and on the CPU: the same
+    tokens, or fail. Returns the card's."""
+    card, cpu = (drive(make_engine(device)) for device in (dev, torch.device("cpu")))
+    if card != cpu:
+        fail(f"reference [{tag}]: tokens differ on card and CPU: {card} vs {cpu}")
+    return card
+
+
+def phase_reference_serving(dev):
+    """The rest of the serving stack, the card against the CPU (the plain
+    versions), each at the small configs (GPT-2: 2 layers, E 128, H 2,
+    vocab 512, cap 64, 3 slots; Llama: 2 layers, E 256, 4 query heads over
+    2 KV heads, projections sharpened 2x): the same tokens for host sampling
+    through ArgMaxSampler, the full-bucket lm_head (gather_last=False:
+    GPT-2 s8 cat, Llama s8 head-major), chunked prefill with a slot
+    mid-decode, a shared prefix flat (s8 cat) and paged (GPT-2 s8 cat
+    pools, Llama s8 head-major pools; every block back in the pool once
+    the prefix is cleared), mixed LoRA adapters at 1 and 4 steps a
+    dispatch, speculative decoding with an unrelated draft (gamma 4), 2
+    dispatches a drain and pipeline_dispatch; then one HTTP round trip
+    through serve_background on the card, against the card engine's own
+    tokens."""
+    from rten_tpu_torch.generate.sampler import ArgMaxSampler
+    from rten_tpu_torch.model import Model
+    from rten_tpu_torch.models import gpt2
+    from rten_tpu_torch.serving import ContinuousBatchingEngine, SpeculativeEngine
+    from rten_tpu_torch.serving.http_server import serve_background
+
+    small = dict(vocab=512, n_embd=128, n_head=2)
+
+    def gpt2_engine(device, k=4, kv="s8", model_kw=None, **kw):
+        model = build_model(2, 64, device, kv=kv, **small, **(model_kw or {}))
+        return ContinuousBatchingEngine(model, n_layer=2, n_head=2, head_dim=64, slots=3,
+                                        capacity=64, prefill_bucket=8, greedy_on_device=True,
+                                        steps_per_dispatch=k, **kw)
+
+    llama_small = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
+                       num_attention_heads=4, num_key_value_heads=2,
+                       max_position_embeddings=128)
+
+    def llama_engine(device, **opts):
+        model = build_llama(2, 64, device, sharpen=2.0, **llama_small, **opts)[0]
+        return ContinuousBatchingEngine(model, n_layer=2, n_head=4, head_dim=64, slots=3,
+                                        capacity=64, prefill_bucket=8, greedy_on_device=True,
+                                        steps_per_dispatch=4)
+
+    def wave(eng):
+        return _serve_wave(eng, _wave())
+
+    done = []
+    card_vs_cpu(dev, "host ArgMaxSampler",
+                lambda d: gpt2_engine(d, k=1, sampler=ArgMaxSampler()), wave)
+    done.append("host ArgMaxSampler")
+    card_vs_cpu(dev, "GPT-2 gather_last=False",
+                lambda d: gpt2_engine(d, model_kw=dict(gather_last=False)), wave)
+    card_vs_cpu(dev, "Llama gather_last=False",
+                lambda d: llama_engine(d, gather_last=False), wave)
+    done.append("gather_last=False (GPT-2 s8 cat, Llama s8 head-major)")
+
+    def chunked(eng):
+        long_prompt = np.random.default_rng(7).integers(1, 500, 30).tolist()
+        short = eng.submit([5, 9, 12], max_new_tokens=10)
+        eng.step()  # the short request decodes while the long one prefills
+        long_ = eng.submit(long_prompt, max_new_tokens=10)
+        eng.run()
+        return [short.generated, long_.generated]
+
+    card_vs_cpu(dev, "chunked prefill", lambda d: gpt2_engine(d, chunked_prefill=True), chunked)
+    done.append("chunked prefill with a slot mid-decode")
+
+    def prefixed(eng):
+        eng.set_shared_prefix(SERVING_PREFIX)
+        toks = _serve_wave(eng, _wave(prefix=SERVING_PREFIX))
+        if eng.paged:
+            held = 1 + len(eng._prefix_shared)  # block 0 and the shared blocks
+            held += eng._prefix_tmpl is not None
+            if len(eng._free_blocks) != eng.n_blocks - held:
+                fail(f"reference [paged prefix]: {len(eng._free_blocks)} blocks free, "
+                     f"expected {eng.n_blocks - held}")
+            eng.set_shared_prefix([])
+            if sorted(eng._free_blocks) != list(range(1, eng.n_blocks)):
+                fail("reference [paged prefix]: the pool is not whole once the prefix is cleared")
+        return toks
+
+    card_vs_cpu(dev, "GPT-2 prefix flat", gpt2_engine, prefixed)
+    card_vs_cpu(dev, "GPT-2 prefix paged",
+                lambda d: gpt2_engine(d, model_kw=PREFIX_PAGED), prefixed)
+    card_vs_cpu(dev, "Llama prefix paged", lambda d: llama_engine(d, **PREFIX_PAGED), prefixed)
+    done.append("shared prefix (GPT-2 flat and paged, Llama paged head-major; pool whole)")
+
+    adapters = {}
+    rng = np.random.default_rng(5)
+    for i in range(2):
+        for tgt, kin, kout in (("attn.c_attn", 128, 384), ("attn.c_proj", 128, 128)):
+            a = rng.standard_normal((3, kin, 4)) * 0.1
+            b = rng.standard_normal((3, 4, kout)) * 0.1
+            a[0] = b[0] = 0.0  # adapter 0: the base model
+            adapters[f"lora.{i}.{tgt}.A"] = a.astype(np.float32)
+            adapters[f"lora.{i}.{tgt}.B"] = b.astype(np.float32)
+
+    def lora(eng):
+        eng.set_lora_adapters(adapters)
+        return _serve_wave(eng, _wave(), [i % 3 for i in range(5)])
+
+    for k in (1, 4):
+        card_vs_cpu(dev, f"LoRA k {k}", lambda d: gpt2_engine(
+            d, k=k, model_kw=dict(lora_rank=4, n_adapters=3)), lora)
+    done.append("mixed LoRA adapters (1 and 4 steps a dispatch)")
+
+    draft_w = gpt2.random_weights(gpt2.GPT2Config(vocab_size=512, n_embd=128, n_head=2,
+                                                  n_layer=1), seed=99)
+
+    # f32 weights: the verify's rows would otherwise move the per-tensor
+    # activation scale away from the greedy engine's.
+    def spec_engine(device):
+        target = build_model(2, 64, device, kv="s8", gather_last=False, quantize=False,
+                             **small)
+        dgraph = gpt2.build_graph_static_cache(
+            gpt2.GPT2Config(vocab_size=512, n_embd=128, n_head=2, n_layer=1), draft_w,
+            capacity=64, kv_quant=True, kernel_append=True)
+        return SpeculativeEngine(target, Model(dgraph, device=device), gamma=4, n_layer=2,
+                                 n_head=2, head_dim=64, slots=3, capacity=64, prefill_bucket=8)
+
+    spec_rounds = []
+
+    def spec(eng):
+        toks = wave(eng)
+        spec_rounds.append(eng.stats()["spec_tokens_per_round"])
+        return toks
+
+    spec_toks = card_vs_cpu(dev, "speculative", spec_engine, spec)
+    greedy_full = card_vs_cpu(dev, "greedy, gather_last=False, f32 weights", lambda d: gpt2_engine(
+        d, model_kw=dict(gather_last=False, quantize=False)), wave)
+    if spec_toks != greedy_full:
+        fail("reference [speculative]: the tokens differ from the greedy engine's")
+    done.append(f"speculative decoding, an unrelated draft (gamma 4, "
+                f"{spec_rounds[0]:.2f} tokens a round)")
+    card_vs_cpu(dev, "2 dispatches a drain", lambda d: gpt2_engine(d, dispatches_per_drain=2),
+                wave)
+    card_vs_cpu(dev, "pipeline_dispatch", lambda d: gpt2_engine(d, pipeline_dispatch=True), wave)
+    done.append("2 dispatches a drain, pipeline_dispatch")
+    print(f"  reference [serving]: tokens equal on card and CPU for {'; '.join(done)}",
+          flush=True)
+
+    import urllib.request
+
+    # One request at a time, as the HTTP client below sends them.
+    direct = gpt2_engine(dev)
+    want = [_serve_wave(direct, [pn])[0] for pn in _wave()]
+    server, loop = serve_background(gpt2_engine(dev))
+    try:
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        got = []
+        for p, n in _wave():
+            req = urllib.request.Request(
+                url + "/generate", json.dumps({"prompt": p, "max_new_tokens": n}).encode(),
+                {"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                got.append(json.loads(r.read())["tokens"])
+        with urllib.request.urlopen(url + "/health", timeout=30) as r:
+            health = json.loads(r.read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        loop.shutdown()
+    if got != want or health["status"] != "ok":
+        fail(f"reference [HTTP]: tokens {got} vs the engine's {want}, health {health}")
+    print(f"  reference [HTTP]: {len(got)} requests through serve_background on the card give "
+          f"the card engine's tokens; /health ok", flush=True)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3516,7 +4050,7 @@ def main() -> int:
 
     print("kernel phases:", flush=True)
     kernels = [
-        phase_int8_matmul(gen, dev, steps=(16, 1)),
+        phase_int8_matmul(gen, dev, steps=(16, 1, HARD_SLOTS)),
         phase_decode_attention(gen, dev),
         phase_prefill_attention(gen, dev),
         phase_argmax(gen, dev),
@@ -3570,19 +4104,19 @@ def main() -> int:
 
     by_path = {}
     run("tinyllama_serve", "s8", phase_serve_llama, weights)
-    lap("TinyLlama serve (8 layers, weights included)")
+    lap(f"TinyLlama serve ({L_CUT_LAYERS} layers, weights included)")
     run("tinyllama_paged_serve", "s8", phase_serve_llama, weights, paged=True)
-    lap("TinyLlama paged serve (8 layers)")
+    lap(f"TinyLlama paged serve ({L_CUT_LAYERS} layers)")
     run("tinyllama_bf16_serve", "bf16", phase_serve_llama, weights, kv="bf16")
-    lap("TinyLlama bf16 serve (8 layers)")
+    lap(f"TinyLlama bf16 serve ({L_CUT_LAYERS} layers)")
     run("tinyllama_bf16_paged_serve", "bf16", phase_serve_llama, weights, paged=True,
         kv="bf16")
-    lap("TinyLlama bf16 paged serve (8 layers)")
+    lap(f"TinyLlama bf16 paged serve ({L_CUT_LAYERS} layers)")
     run("tinyllama_int4_serve", "u4", phase_serve_llama, weights, kv="int4")
-    lap("TinyLlama int4 serve (8 layers)")
+    lap(f"TinyLlama int4 serve ({L_CUT_LAYERS} layers)")
     run("tinyllama_append_serve", "head-major append", phase_serve_llama, weights,
         head_major_append=True)
-    lap("TinyLlama head-major append serve (8 layers)")
+    lap(f"TinyLlama head-major append serve ({L_CUT_LAYERS} layers)")
     del weights
     run("gpt2_serve", "s8", phase_serve)
     lap("GPT-2 serve")
@@ -3596,8 +4130,14 @@ def main() -> int:
     lap("GPT-2 bf16 paged serve")
     run("gpt2_int4_kv_serve", "u4-deferred", phase_serve_int4_kv)
     lap("GPT-2 int4 KV deferred serve")
+    # The GPT-2 phases' weights are still cached here.
+    run("gpt2_hard_serve", "s8", phase_serve_hard)
+    lap("GPT-2 hard config (cap 1024, sampled, 96 slots)")
     run("qwen_bf16_serve", "bf16", phase_serve_qwen)
-    lap("Qwen2.5-1.5B bf16 serve (14 layers, weights included)")
+    lap(f"Qwen2.5-1.5B bf16 serve ({Q_SERVE_LAYERS} layers, weights included)")
+    torch.cuda.empty_cache()
+    phase_sampling(dev)
+    lap("the device sampler")
     print("generate phases:", flush=True)
     for quantize in (None, "int4"):
         run(f"gpt2_generate_{quantize or 'f32'}", None, phase_generate, quantize)
@@ -3637,6 +4177,9 @@ def main() -> int:
     phase_reference_llama(dev)
     phase_reference_generate(dev)
     lap("references (flat, paged, Generator)")
+    phase_reference_serving(dev)
+    lap("references (sampling, full-bucket lm_head, chunks, prefixes, LoRA, speculative, "
+        "drains, HTTP)")
 
     print(f"sanitizer: {json.dumps(sanitizer)}", flush=True)
     print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in secs.items()})}", flush=True)

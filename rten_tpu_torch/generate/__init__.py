@@ -6,4 +6,6 @@ from .filter import (  # noqa: F401
 )
 from .generator import Generator, GeneratorConfig, GeneratorError  # noqa: F401
 from .metrics import Metrics  # noqa: F401
-from .sampler import ArgMaxSampler, MultinomialSampler, Sampler  # noqa: F401
+from .sampler import (  # noqa: F401
+    ArgMaxSampler, DeviceSampler, MultinomialSampler, Sampler,
+)

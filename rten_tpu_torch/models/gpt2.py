@@ -23,11 +23,14 @@ H*D]`` or ``[paged_blocks, H, block_size, D]`` (scale pools
 ``step_t`` input and per-layer recent windows ``recent.N.{key,value}``
 ``[slots, H, recent, D]`` in ``recent_dtype`` (f32 by default) with their
 ``recent_present.N.*`` outputs: decode steps keep their rows there and the
-engine commits them once per dispatch. The builder issues the same sequence
-of builder calls as the JAX package's ``build_graph_static_cache`` on each
+engine commits them once per dispatch. ``gather_last`` gathers one row per
+slot (``last_pos``) before the lm_head; without it the lm_head runs over
+every row of the bucket. ``lora_rank`` adds multi-LoRA serving: stacked
+adapters ``lora.N.{attn.c_attn,attn.c_proj}.{A,B}`` and a ``slot_adapter``
+input that selects one per slot. The builder issues the same sequence of
+builder calls as the JAX package's ``build_graph_static_cache`` on each
 branch, so both graphs have the same node ids, names and constants for the
-same weights. LoRA and the full-bucket lm_head raise
-``NotImplementedError`` naming the ROADMAP.md item that lifts them.
+same weights.
 """
 
 from __future__ import annotations
@@ -165,14 +168,19 @@ def build_graph_static_cache(
     [slots, T], block_table [slots, capacity // block_size] (paged graphs),
     past_key_values.N.{key,value} (the module docstring lists the layouts)
     and, with ``kv_quant``, past_key_values.N.{key,value}_scale, last_pos
-    [slots]. Outputs: logits [slots, 1, V], the updated caches present.N.*,
-    and next_token [slots, 1] (greedy, on device).
+    [slots] (``gather_last``), slot_adapter [slots] and the stacked
+    adapters lora.N.{target}.A [n_adapters, k_in, lora_rank] and .B
+    [n_adapters, lora_rank, k_out] (``lora_rank``). Outputs: logits
+    [slots, 1, V] (``gather_last``) or [slots, T, V], the updated caches
+    present.N.*, and next_token [slots, 1] or [slots, T] (greedy, on
+    device).
 
-    Supported: ``gather_last=True``, ``kv_quant=True`` with ``kv_bits`` 8
-    or 4 or ``kv_quant=False`` with ``kv_dtype`` None (f32), Float or
-    BFloat16, with or without ``kernel_append`` (8 bits or unquantized, not
+    Supported: ``kv_quant=True`` with ``kv_bits`` 8 or 4 or
+    ``kv_quant=False`` with ``kv_dtype`` None (f32), Float or BFloat16,
+    with or without ``kernel_append`` (8 bits or unquantized, not
     deferred), ``paged_blocks`` (8 bits or unquantized, not deferred) and
-    ``deferred_kv`` (head-major caches).
+    ``deferred_kv`` (head-major caches); each with or without
+    ``gather_last`` and ``lora_rank``.
     """
     if paged_blocks:
         if deferred_kv or (kv_quant and kv_bits != 8):
@@ -190,12 +198,6 @@ def build_graph_static_cache(
             "kernel_append (in-kernel cache append) is incompatible with "
             "deferred_kv and int4 caches"
         )
-    if lora_rank or n_adapters:
-        raise NotImplementedError("multi-LoRA serving: ROADMAP.md queue 1 item 9")
-    if not gather_last:
-        raise NotImplementedError(
-            "full-bucket lm_head (gather_last=False): ROADMAP.md queue 1 item 10"
-        )
     b = GraphBuilder()
     E, H, D = cfg.n_embd, cfg.n_head, cfg.head_dim
 
@@ -212,6 +214,26 @@ def build_graph_static_cache(
         if paged_blocks else None
     )
     step_t = b.input("step_t", DataType.Int32, (1,)) if deferred_kv else None
+    if lora_rank and n_adapters < 1:
+        raise ValueError("lora_rank > 0 requires n_adapters >= 1")
+    # Multi-LoRA: each adapted matmul adds x @ A[a] @ B[a] for its slot's
+    # adapter a (alpha / r folded into B by the caller), so one batch can
+    # mix adapters.
+    slot_adapter = (
+        b.input("slot_adapter", DataType.Int32, ("slots",)) if lora_rank else None
+    )
+
+    def lora(y, x_in, layer, target, k_in, k_out):
+        if not lora_rank:
+            return y
+        a_stack = b.input(f"lora.{layer}.{target}.A", DataType.Float,
+                          (n_adapters, k_in, lora_rank))
+        b_stack = b.input(f"lora.{layer}.{target}.B", DataType.Float,
+                          (n_adapters, lora_rank, k_out))
+        a_sel = b.op("Gather", [a_stack, slot_adapter])  # [slots, k_in, r]
+        b_sel = b.op("Gather", [b_stack, slot_adapter])  # [slots, r, k_out]
+        xa = b.op("Einsum", [x_in, a_sel], {"equation": "bse,ber->bsr"})
+        return y + b.op("Einsum", [xa, b_sel], {"equation": "bsr,bro->bso"})
 
     x = b.op("Gather", [w("transformer.wte.weight"), ids])
     x = x + b.op("Gather", [w("transformer.wpe.weight"), pos])
@@ -244,6 +266,7 @@ def build_graph_static_cache(
             "MatMulAdd", [h, w(f"{p}.attn.c_attn.weight"), w(f"{p}.attn.c_attn.bias")],
             name=f"{p}.attn.c_attn",
         )
+        qkv = lora(qkv, h, str(i), "attn.c_attn", E, 3 * E)
         q, k, v = b.op("Split", [qkv], {"axis": -1, "num_outputs": 3}, n_outputs=3)
         if deferred_kv:
             rdt = recent_dtype or DataType.Float
@@ -307,6 +330,7 @@ def build_graph_static_cache(
             [attn, w(f"{p}.attn.c_proj.weight"), w(f"{p}.attn.c_proj.bias")],
             name=f"{p}.attn.c_proj",
         )
+        proj = lora(proj, attn, str(i), "attn.c_proj", E, E)
         x = x + proj
         h2 = layer_norm(x, f"{p}.ln_2")
         fc = b.op(
@@ -321,14 +345,16 @@ def build_graph_static_cache(
         x = x + mlp
 
     x = layer_norm(x, "transformer.ln_f")
-    # Serving prefill needs only the prompt-final position's logits: gather
-    # one row per slot before the lm_head; decode steps feed last_pos = 0.
-    last_pos = b.input("last_pos", DataType.Int32, ("slots",))
-    idx3 = b.op(
-        "Reshape",
-        [last_pos, b.constant("last_pos_shape", np.array([0, 1, 1], np.int64))],
-    )
-    x = b.op("GatherND", [x, idx3], {"batch_dims": 1})  # [slots,1,E]
+    if gather_last:
+        # Serving prefill needs only the prompt-final position's logits:
+        # gather one row per slot before the lm_head; decode steps feed
+        # last_pos = 0.
+        last_pos = b.input("last_pos", DataType.Int32, ("slots",))
+        idx3 = b.op(
+            "Reshape",
+            [last_pos, b.constant("last_pos_shape", np.array([0, 1, 1], np.int64))],
+        )
+        x = b.op("GatherND", [x, idx3], {"batch_dims": 1})  # [slots,1,E]
     lm_w = b.constant(
         "lm_head.weight_t",
         np.ascontiguousarray(weights["transformer.wte.weight"].T, np.float32),

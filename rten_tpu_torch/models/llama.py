@@ -28,12 +28,12 @@ positions ``past_lens + s``. The supported branches:
   ``block_table`` input ``[slots, capacity // block_size]`` int32;
 * ``attention_bias`` (Qwen2), ``tie_word_embeddings`` (the lm_head reads
   the embedding table) and ``sliding_window`` (Mistral) on each;
-* ``gather_last=True``: the lm_head runs on one gathered row per slot.
+* ``gather_last=True``: the lm_head runs on one gathered row per slot;
+  without it, over every row of the bucket.
 
 The builder issues the same sequence of builder calls as the JAX package's
 ``build_graph_static_cache`` on each of those branches, so both graphs have
-the same node ids, names and constants for the same weights. Every other
-option raises ``NotImplementedError`` naming the ROADMAP.md item.
+the same node ids, names and constants for the same weights.
 
 Weight naming follows HF ``LlamaForCausalLM.state_dict()``:
 ``model.embed_tokens.weight``, ``model.layers.N.self_attn.{q,k,v,o}_proj``,
@@ -101,8 +101,8 @@ def build_graph_static_cache(
     past_lens; kept for the engine's IO), block_table [slots,
     capacity // block_size] (paged graphs), the caches
     past_key_values.N.{key,value}[_scale], last_pos [slots]. Outputs:
-    logits [slots, 1, V], present.N.*, next_token [slots, 1] (on-device
-    argmax)."""
+    logits [slots, 1, V] (``gather_last``) or [slots, T, V], present.N.*,
+    next_token [slots, 1] or [slots, T] (on-device argmax)."""
     if paged_blocks:
         if deferred_kv or (kv_quant and kv_bits != 8):
             raise ValueError(
@@ -118,10 +118,6 @@ def build_graph_static_cache(
         raise ValueError(
             "kernel_append (in-kernel cache append) is incompatible with "
             "deferred_kv and int4 caches"
-        )
-    if not gather_last:
-        raise NotImplementedError(
-            "full-bucket lm_head (gather_last=False): ROADMAP.md queue 1 item 10"
         )
     b = GraphBuilder()
     Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -292,14 +288,15 @@ def build_graph_static_cache(
         x = block_tail(x, attn, p)
 
     x = rms(x, "model.norm.weight")
-    # Only the prompt-final row's logits are consumed at admission; gather
-    # it before the lm_head (decode steps feed last_pos = 0).
-    last_pos = b.input("last_pos", DataType.Int32, ("slots",))
-    idx3 = b.op(
-        "Reshape",
-        [last_pos, b.constant("last_pos_shape", np.array([0, 1, 1], np.int64))],
-    )
-    x = b.op("GatherND", [x, idx3], {"batch_dims": 1})
+    if gather_last:
+        # Only the prompt-final row's logits are consumed at admission;
+        # gather it before the lm_head (decode steps feed last_pos = 0).
+        last_pos = b.input("last_pos", DataType.Int32, ("slots",))
+        idx3 = b.op(
+            "Reshape",
+            [last_pos, b.constant("last_pos_shape", np.array([0, 1, 1], np.int64))],
+        )
+        x = b.op("GatherND", [x, idx3], {"batch_dims": 1})
     lm_name = (
         "model.embed_tokens.weight" if cfg.tie_word_embeddings else "lm_head.weight"
     )

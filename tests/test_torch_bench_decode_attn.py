@@ -21,6 +21,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from rten_tpu_torch.tools import bench_decode_attn as tb
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 TOOL = pathlib.Path(__file__).resolve().parents[1] / "tools" / "bench_decode_attn.py"
 

@@ -17,6 +17,7 @@ from rten_tpu_torch.model import Model
 from rten_tpu_torch.models import gpt2
 from rten_tpu_torch.quantize_pass import quantize_dynamic
 from rten_tpu_torch.serving import ContinuousBatchingEngine
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 CFG = gpt2.GPT2Config(vocab_size=512, n_positions=128, n_embd=128, n_layer=2, n_head=2)
 # name: builder options

@@ -40,6 +40,7 @@ from rten_tpu_torch.quantize_pass import pack_int4_weight as tpack
 from rten_tpu_torch.quantize_pass import quantize_dynamic as tquant8
 from rten_tpu_torch.quantize_pass import quantize_weight_only_int4 as tquant4
 from rten_tpu_torch.serving import ContinuousBatchingEngine as TEngine
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 SMALL = dict(vocab_size=512, n_positions=128, n_embd=128, n_layer=2, n_head=2)
 BUCKET = 8
@@ -319,9 +320,11 @@ def test_int4_serve_graph_token_exact(k):
 
 
 def test_engine_refuses_the_generator_graph():
-    """The Generator's graph has no on-device next_token and no last_pos:
-    the engine still refuses it, naming ROADMAP item 10."""
-    tm, _ = _models(None, _weights(sharpen=1.0))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TEngine(tm, n_layer=2, n_head=2, head_dim=64, slots=2, capacity=64,
+    """The Generator's graph has growing caches ([B, H, past_seq, D]): the
+    engine refuses it with the JAX engine's ValueError (a slot cache needs
+    concrete trailing dims)."""
+    tm, jm = _models(None, _weights(sharpen=1.0))
+    for cls, model in ((TEngine, tm), (JEngine, jm)):
+        with pytest.raises(ValueError, match="concrete trailing"):
+            cls(model, n_layer=2, n_head=2, head_dim=64, slots=2, capacity=64,
                 prefill_bucket=8, greedy_on_device=True)

@@ -184,15 +184,22 @@ def test_load_numpy_constants_checks(bad):
     dict(gather_last=False),
 ])
 def test_builder_branches_off_the_slice_raise(kwargs):
-    """What the slice still does not build raises, naming its ROADMAP.md
-    item: LoRA and the full-bucket lm_head, on every cache form (f32/bf16
-    and head-major caches and pools are built: tests/test_torch_kv_dtypes.py;
-    int4 and deferred KV: tests/test_torch_int4_kv.py,
-    tests/test_torch_deferred_kv.py)."""
+    """Branches an earlier slice refused, now built as the JAX package
+    builds them: LoRA (stacked adapters, slot_adapter, Einsum) and the
+    full-bucket lm_head, on int4, deferred, f32 and int8 cat caches: the
+    same nodes, names, shapes and constants as the JAX graph."""
     cfg = tgpt2.GPT2Config(**SMALL)
     opts = {**MAIN_PATH, **kwargs}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tgpt2.build_graph_static_cache(cfg, tgpt2.random_weights(cfg), **opts)
+    w = tgpt2.random_weights(cfg)
+    tg = tgpt2.build_graph_static_cache(cfg, w, **opts)
+    jg = jgpt2.build_graph_static_cache(jgpt2.GPT2Config(**SMALL), w, **opts)
+    assert [(nid, tg.node_name(nid), getattr(n, "op_type", None), getattr(n, "shape", None))
+            for nid, n in sorted(tg.nodes.items())] == [
+        (nid, jg.node_name(nid), getattr(n, "op_type", None), getattr(n, "shape", None))
+        for nid, n in sorted(jg.nodes.items())]
+    assert _constants(tg).keys() == _constants(jg).keys()
+    assert (tg.find_node("slot_adapter") is not None) == bool(opts.get("lora_rank"))
+    assert (tg.find_node("last_pos") is not None) == opts["gather_last"]
 
 
 def test_dtype_map_matches_jax():

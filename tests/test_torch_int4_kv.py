@@ -35,6 +35,7 @@ from rten_tpu_torch.models import gpt2 as tgpt2
 from rten_tpu_torch.models import llama as tllama
 from rten_tpu_torch.quantize_pass import quantize_dynamic as tquantize
 from rten_tpu_torch.serving import ContinuousBatchingEngine as TEngine
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 B, HQ, HKV, D, CAP = 3, 4, 2, 64, 64
 

@@ -42,6 +42,7 @@ from rten_tpu_torch.models import gpt2 as tgpt2
 from rten_tpu_torch.models import llama as tllama
 from rten_tpu_torch.quantize_pass import quantize_dynamic as tquantize
 from rten_tpu_torch.serving import ContinuousBatchingEngine as TEngine
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 BF16 = np.dtype(ml_dtypes.bfloat16)
 DTYPES = {"f32": np.dtype(np.float32), "bf16": BF16}

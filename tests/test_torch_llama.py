@@ -36,6 +36,7 @@ from rten_tpu_torch.optimize import optimize_graph as toptimize
 from rten_tpu_torch.quantize_pass import quantize_dynamic as tquantize
 from rten_tpu_torch.serving import ContinuousBatchingEngine as TEngine
 from rten_tpu_torch.weights import load_numpy_constants
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 SMALL = dict(vocab_size=512, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
              num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=128)
@@ -348,18 +349,24 @@ def test_rotary_clamps_like_jax_indexing():
     (dict(kv_quant=True, gather_last=False), 10),
 ])
 def test_builder_options_off_the_slice_raise(kwargs, item):
-    """What the slice still does not build raises, naming its ROADMAP.md
-    item: the full-bucket lm_head, on every cache form (f32/bf16 caches and
-    pools are built: tests/test_torch_kv_dtypes.py; int4 and deferred KV:
-    tests/test_torch_int4_kv.py, tests/test_torch_deferred_kv.py)."""
+    """The full-bucket lm_head, refused until ROADMAP.md queue 1 item
+    ``item`` lifted it, now built as the JAX package builds it on every
+    cache form: the same nodes, names and shapes as the JAX graph, no
+    last_pos input."""
     from rten_tpu_torch.dtypes import DataType
 
-    kwargs = {k: DataType[v.name] if isinstance(v, JDataType) else v for k, v in kwargs.items()}
+    assert item == 10
+    tkw = {k: DataType[v.name] if isinstance(v, JDataType) else v for k, v in kwargs.items()}
     cfg = tllama.LlamaConfig(**SMALL)
-    opts = dict(capacity=CAP, gather_last=True)
-    opts.update(kwargs)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 item {item}"):
-        tllama.build_graph_static_cache(cfg, tllama.random_weights(cfg), **opts)
+    w = tllama.random_weights(cfg)
+    tg = tllama.build_graph_static_cache(cfg, w, **{"capacity": CAP, **tkw})
+    jg = jllama.build_graph_static_cache(jllama.LlamaConfig(**SMALL), w,
+                                         **{"capacity": CAP, **kwargs})
+    assert [(nid, tg.node_name(nid), getattr(n, "op_type", None), getattr(n, "shape", None))
+            for nid, n in sorted(tg.nodes.items())] == [
+        (nid, jg.node_name(nid), getattr(n, "op_type", None), getattr(n, "shape", None))
+        for nid, n in sorted(jg.nodes.items())]
+    assert tg.find_node("last_pos") is None
 
 
 def test_model_needs_a_card_or_an_explicit_cpu(monkeypatch):

@@ -1851,3 +1851,158 @@ def test_heads_tf32_kernel(card, H, Hkv, S, D, window):
     torch.cuda.synchronize()
     _check_prefill_form(pre, torch.float32, D, 1)
     assert (got - want).abs().max().item() <= 1e-4
+
+
+# --- the rest of the serving stack on the card ---------------------------------
+
+SAMPLERS = [dict(temperature=0.7), dict(top_k=5), dict(top_p=0.8),
+            dict(temperature=0.9, top_k=10, top_p=0.9)]
+
+
+def _near_top_p(ds, x, eps=1e-6):
+    """Tokens whose exclusive cumulative probability lies within eps of
+    top_p (the devices sum the top-p test in different orders)."""
+    from rten_tpu_torch.generate.sampler import DeviceSampler
+
+    if ds.top_p is None:
+        return torch.zeros(x.shape, dtype=torch.bool)
+    pre = DeviceSampler(temperature=ds.temperature, top_k=ds.top_k).transform(x)
+    sx, order = torch.sort(pre, dim=-1, descending=True)
+    probs = torch.softmax(sx.double(), dim=-1)  # as the sampler sums them
+    near = ((torch.cumsum(probs, dim=-1) - probs) - ds.top_p).abs() < eps
+    return torch.zeros_like(near).scatter(-1, order, near).cpu()
+
+
+@pytest.mark.parametrize("spec", SAMPLERS)
+def test_device_sampler_on_card_matches_cpu(card, spec):
+    """transform on the card against the CPU on the same logits: the masks
+    equal (but for top-p boundary tokens), the kept values within 1 ulp;
+    sample() fed the same Gumbel noise picks the same tokens; drawn from a
+    generator on the card, every token is a kept one."""
+    from rten_tpu_torch.generate.sampler import DeviceSampler
+
+    ds = DeviceSampler(seed=3, **spec)
+    g = _gen(len(str(spec)))
+    logits = torch.randn(8, 512, generator=g) * 3
+    cpu, dev = ds.transform(logits), ds.transform(logits.to(card)).cpu()
+    near = _near_top_p(ds, logits) | _near_top_p(ds, logits.to(card))
+    assert not ((torch.isinf(cpu) != torch.isinf(dev)) & ~near).any()
+    both = ~torch.isinf(cpu) & ~torch.isinf(dev)
+    ulps = (cpu[both].view(torch.int32).long() - dev[both].view(torch.int32).long()).abs()
+    assert int(ulps.max()) <= 1
+    u = torch.rand(8, 512, generator=g).clamp_min(torch.finfo(torch.float32).tiny)
+    noise = -torch.log(-torch.log(u))
+    want, _ = ds.sample(logits, None, noise=noise)
+    got, _ = ds.sample(logits.to(card), None, noise=noise.to(card))
+    assert torch.equal(got.cpu(), want)
+    gen = ds.init_generator(card)
+    for _ in range(4):
+        toks, gen = ds.sample(logits.to(card), gen)
+        assert not torch.isinf(dev.gather(1, toks.long().cpu()[:, None])).any()
+
+
+def _small_gpt2(device, **build):
+    from rten_tpu_torch.model import Model
+    from rten_tpu_torch.models import gpt2
+    from rten_tpu_torch.quantize_pass import quantize_dynamic
+
+    cfg = gpt2.GPT2Config(vocab_size=512, n_positions=128, n_embd=128, n_layer=2, n_head=2)
+    graph = gpt2.build_graph_static_cache(cfg, gpt2.random_weights(cfg, seed=0), capacity=64,
+                                          kv_quant=True, kernel_append=True,
+                                          gather_last=True, **build)
+    quantize_dynamic(graph)
+    return Model(graph, device=device)
+
+
+def _serve_small(model, prompts, **kw):
+    from rten_tpu_torch.serving import ContinuousBatchingEngine
+
+    eng = ContinuousBatchingEngine(model, n_layer=2, n_head=2, head_dim=64, slots=3,
+                                   capacity=64, prefill_bucket=8, greedy_on_device=True,
+                                   steps_per_dispatch=4, **kw)
+    reqs = [eng.submit(p, max_new_tokens=n) for p, n in prompts]
+    eng.run()
+    return eng, [r.generated for r in reqs]
+
+
+def _small_prompts(n=6, prefix=()):
+    rng = np.random.default_rng(4)
+    return [(list(prefix) + rng.integers(0, 512, int(rng.integers(2, 12))).tolist(),
+             int(rng.integers(3, 20))) for _ in range(n)]
+
+
+@pytest.mark.parametrize("mode", ["drains", "pipeline", "sampled_drains", "sampled_pipeline"])
+def test_drains_and_pipelining_match_the_serial_card_engine(card, mode):
+    """2 dispatches a drain and pipeline_dispatch on the card give the tokens
+    of the serial card engine (greedy, and sampled from the same seed);
+    nothing is left in flight."""
+    from rten_tpu_torch.generate.sampler import DeviceSampler
+
+    model = _small_gpt2(card)
+    kw = {}
+    if mode.startswith("sampled"):
+        kw = dict(device_sampler=DeviceSampler(temperature=0.8, top_k=20, seed=5))
+    _, want = _serve_small(model, _small_prompts(), **kw)
+    mode_kw = (dict(dispatches_per_drain=2) if mode.endswith("drains")
+               else dict(pipeline_dispatch=True))
+    eng, got = _serve_small(model, _small_prompts(), **kw, **mode_kw)
+    if mode_kw.get("pipeline_dispatch") and kw:
+        # A pipelined dispatch may draw where a serial one does not (the
+        # tail), so only the greedy modes and the drained one are exact.
+        assert [len(t) for t in got] == [len(t) for t in want]
+    else:
+        assert got == want
+    assert not eng.has_pending_results() and not eng.has_work()
+
+
+def test_paged_prefix_returns_every_block(card):
+    """A shared prefix on paged cat pools on the card: the tokens of the
+    same engine on the CPU; the prefix's blocks stay reserved while it is
+    set, and clearing it returns every block but 0 to the pool."""
+    prefix = list(range(5, 24))  # one full block of 16 and a boundary block
+    toks = {}
+    for device in (card, torch.device("cpu")):
+        model = _small_gpt2(device, paged_blocks=8, block_size=16)
+        from rten_tpu_torch.serving import ContinuousBatchingEngine
+
+        eng = ContinuousBatchingEngine(model, n_layer=2, n_head=2, head_dim=64, slots=3,
+                                       capacity=64, prefill_bucket=8, greedy_on_device=True,
+                                       steps_per_dispatch=4)
+        eng.set_shared_prefix(prefix)
+        assert eng._prefix_nblocks == 2 and len(eng._free_blocks) == eng.n_blocks - 3
+        reqs = [eng.submit(prefix + p[:6], max_new_tokens=min(n, 12))
+                for p, n in _small_prompts(5)]
+        eng.run()
+        toks[device.type] = [r.generated for r in reqs]
+        assert len(eng._free_blocks) == eng.n_blocks - 3
+        eng.restart()  # the prefix is written into the zeroed pool again
+        eng.set_shared_prefix([])
+        assert sorted(eng._free_blocks) == list(range(1, eng.n_blocks))
+    assert toks["cuda"] == toks["cpu"]
+
+
+@pytest.mark.parametrize("tf32", [False, True])
+def test_lora_einsum_is_full_f32_whatever_tf32(card, tf32):
+    """The Einsum op (LoRA's x @ A[slot]) on the card is full f32 whether
+    or not the caller allows TF32, and leaves the caller's setting as it
+    was; with TF32 allowed, a bare torch.einsum is measurably less exact,
+    so the check would see TF32."""
+    from rten_tpu_torch.ops.registry import get_op
+
+    g = _gen(11)
+    x = torch.randn(3, 8, 768, generator=g)
+    a = torch.randn(3, 768, 16, generator=g)
+    want = torch.einsum("bse,ber->bsr", x.double(), a.double())
+    einsum = get_op("Einsum").lower
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        got = einsum(None, [x.to(card), a.to(card)], {"equation": "bse,ber->bsr"})
+        assert torch.backends.cuda.matmul.allow_tf32 == tf32
+        bare = torch.einsum("bse,ber->bsr", x.to(card), a.to(card))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    scale = want.abs().max()
+    assert ((got.cpu().double() - want).abs().max() / scale) < 1e-6
+    if tf32:
+        assert ((bare.cpu().double() - want).abs().max() / scale) > 1e-5

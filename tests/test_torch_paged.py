@@ -33,6 +33,7 @@ from rten_tpu_torch.models import llama as tllama
 from rten_tpu_torch.ops import attention as tatt
 from rten_tpu_torch.quantize_pass import quantize_dynamic as tquantize
 from rten_tpu_torch.serving import ContinuousBatchingEngine as TEngine
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _t(x):
@@ -505,5 +506,10 @@ def test_paged_engine_checks():
     eng = _port_engine("llama_s8_head_major", 10)
     assert eng.paged and eng.block_size == PBS and eng.max_blocks == CAP // PBS
     assert [tuple(c.shape) for c in eng.caches[:2]] == [(10, 2, PBS, 64), (10, 2, 1, PBS)]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9"):
-        eng.set_shared_prefix([1, 2, 3])
+    # A shared prefix shorter than a block: one template block, held until
+    # the prefix is cleared (as the JAX engine holds it).
+    eng.set_shared_prefix([1, 2, 3])
+    assert eng._prefix_shared == [] and eng._prefix_tmpl == 1 and eng._prefix_nblocks == 1
+    assert len(eng._free_blocks) == eng.n_blocks - 2
+    eng.set_shared_prefix([])
+    assert sorted(eng._free_blocks) == list(range(1, eng.n_blocks))

@@ -21,6 +21,7 @@ from rten_tpu_torch.models import gpt2 as tgpt2
 from rten_tpu_torch.quantize_pass import quantize_dynamic as tquantize
 from rten_tpu_torch.serving import ContinuousBatchingEngine as TEngine
 from rten_tpu_torch.serving import QueueFull
+from torch_one_thread import one_torch_thread  # noqa: F401 (autouse)
 
 SMALL = dict(vocab_size=512, n_positions=128, n_embd=128, n_layer=2, n_head=2)
 SLOTS, CAP, BUCKET = 3, 64, 8
@@ -47,9 +48,9 @@ def _models(weights):
 
 
 def _engine(cls, model, k, **kw):
+    kw = {"greedy_on_device": True, **kw}
     return cls(model, n_layer=SMALL["n_layer"], n_head=SMALL["n_head"], head_dim=64,
-               slots=SLOTS, capacity=CAP, prefill_bucket=BUCKET,
-               greedy_on_device=True, steps_per_dispatch=k, **kw)
+               slots=SLOTS, capacity=CAP, prefill_bucket=BUCKET, steps_per_dispatch=k, **kw)
 
 
 # --- the model: one admission forward, then three decode steps --------------
@@ -175,13 +176,34 @@ def test_engine_cancel_queue_full_and_timeouts():
     dict(chunked_prefill=True),
     dict(pipeline_dispatch=True),
     dict(dispatches_per_drain=2),
-    dict(device_sampler=object()),
+    dict(device_sampler="temperature 0.8, top-k 20, seed 0"),
     dict(greedy_on_device=False),
 ])
 def test_engine_options_off_the_slice_raise(kwargs):
-    tm, _ = _models(_weights())
-    opts = dict(n_layer=2, n_head=2, head_dim=64, slots=SLOTS, capacity=CAP,
-                prefill_bucket=BUCKET, greedy_on_device=True)
-    opts.update(kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TEngine(tm, **opts)
+    """Options an earlier slice refused, now served as the JAX engine serves
+    them (tests/test_torch_chunked.py and tests/test_torch_sampling.py hold
+    each token for token against it): pipelined dispatch, 2 dispatches a
+    drain and host sampling (greedy_on_device=False, one step a dispatch)
+    give the serial greedy engine's tokens; chunked prefill (its chunks move the per-tensor
+    activation scale) and a device sampler serve every request its tokens,
+    all in the vocabulary."""
+    from rten_tpu_torch.generate.sampler import DeviceSampler
+
+    tg = tgpt2.build_graph_static_cache(tgpt2.GPT2Config(**SMALL), _weights(10.0), **MAIN_PATH)
+    tquantize(tg)
+    tm = TModel(tg, device="cpu")
+    opts = dict(kwargs)
+    if "device_sampler" in opts:
+        opts["device_sampler"] = DeviceSampler(temperature=0.8, top_k=20, seed=0)
+    # Host sampling steps one token a dispatch: the serial engine at k 1.
+    k = 1 if kwargs.get("greedy_on_device") is False else 4
+    _, want, _ = _serve(TEngine, tm, k)
+    eng = _engine(TEngine, tm, 4, **opts)
+    rng = np.random.default_rng(0)
+    reqs = [eng.submit(rng.integers(0, SMALL["vocab_size"], int(rng.integers(3, 12))).tolist(),
+                       max_new_tokens=int(rng.integers(3, 14))) for _ in range(5)]
+    eng.run()
+    assert all(r.done and len(r.generated) == r.max_new_tokens for r in reqs)
+    assert all(0 <= t < SMALL["vocab_size"] for r in reqs for t in r.generated)
+    if not ("device_sampler" in kwargs or "chunked_prefill" in kwargs):
+        assert [r.generated for r in reqs] == [r.generated for r in want]
