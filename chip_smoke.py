@@ -53,7 +53,7 @@ Run from the repository root:  python3 chip_smoke.py
    its stream form at every decode step and tiled at every admission, mha
    never on CUDA cores, decode_mha's fold never on CUDA cores, GPT-2's bf16
    paged admissions on the 3xTF32 per-head kernel):
-   - TinyLlama-1.1B's shape at full width, its depth cut to 4 of 22 layers
+   - TinyLlama-1.1B's shape at full width, its depth cut to 2 of 22 layers
      (random weights from seed 0), int8 weights, int8 head-major KV caches;
    - the same TinyLlama weights on paged int8 head-major pools (41 blocks
      of 64 rows: 40 usable, 3 per request, so at most 13 requests run and
@@ -63,7 +63,7 @@ Run from the repository root:  python3 chip_smoke.py
      the same 41-block pool);
    - GPT-2 on the int4 weight-only graph (``bench.py``'s
      RTEN_BENCH_QUANT=int4: int4 weights, int8 cat KV);
-   - TinyLlama's shape again, the same 4 layers, on bf16 head-major
+   - TinyLlama's shape again, the same 2 layers, on bf16 head-major
      caches, then on paged bf16 head-major pools, then on int4 head-major
      caches (kv_bits=4), then on int8 head-major caches with the attention
      nodes marked ``rten_kernel_append`` (no builder emits it; decode steps
@@ -74,7 +74,7 @@ Run from the repository root:  python3 chip_smoke.py
      head-major KV caches, deferred KV with bf16 recent windows (the fold's
      window mode at decode steps, the per-head form on int4 caches at
      admissions, the windows committed once per dispatch);
-   - Qwen2.5-1.5B's published shape at full width, 8 of its 28 layers
+   - Qwen2.5-1.5B's published shape at full width, 4 of its 28 layers
      (random weights from seed 0, int8 weights) on bf16 cat caches: D 128,
      group 6 through prefill_mha_cat and decode_mha_append_cat;
    each behind the engine with 16 slots, cap 256, prefill bucket 128, 8
@@ -112,6 +112,17 @@ Run from the repository root:  python3 chip_smoke.py
    sampler (phase_sampling): its filters on the card against the CPU, top-k
    1 and temperature 1e-6 against the greedy engine, seed determinism with
    drains and pipelining, and 2^16 draws against their probabilities.
+
+7. Loading phases: GPT-2 124M's published layout as a
+   hand-written module (tests/gpt2_onnx.py, weights from seed 0) exported
+   to ONNX and loaded by ``Model.load_file`` onto the card
+   (``phase_load_onnx``: the optimizer's graph equal to the CPU's, 12
+   Attention nodes; 4 prompts of 128 tokens in f32 against the module's
+   forward, mha 12 a forward; int8 against the port's CPU run, 49
+   int8_matmul_dequant a forward); then the CLI in this process
+   (``phase_cli``): the GPT-2 serving graph saved as .rtpu and served by
+   ``--serve``, its tokens equal to the in-process engine's, and the
+   timing mode on the ONNX file with ``--quantize int8`` and ``int4``.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Exits nonzero, printing
@@ -588,8 +599,9 @@ def phase_prefill_attention(gen, dev):
 L_LAYERS, L_H, L_HKV, L_D, L_VOCAB, L_SLOTS = 22, 32, 4, 64, 32000, 16
 # The depth of the TinyLlama serve phases (flat, paged, bf16, int4), cut to
 # keep the whole run near half its time limit (8 until the hard config's
-# phases came in); the kernel phases keep all 22 layers.
-L_CUT_LAYERS = 4
+# phases came in, 4 until the loading phases did); the kernel phases keep
+# all 22 layers.
+L_CUT_LAYERS = 2
 
 
 def _head_major_caches(gen, dev, B, quant):
@@ -1138,9 +1150,9 @@ FLOAT_KV = {"bf16": torch.bfloat16, "f32": torch.float32}
 # tied embeddings, no sliding window; its serve phase's slots.
 Q_LAYERS, Q_H, Q_HKV, Q_D, Q_VOCAB, Q_SLOTS = 28, 12, 2, 128, 151936, 16
 # The depth of its serve phase, cut to keep the whole run near half its
-# time limit (14 until the hard config's phases came in); its kernel phases
-# keep all 28 layers.
-Q_SERVE_LAYERS = 8
+# time limit (14 until the hard config's phases came in, 8 until the
+# loading phases did); its kernel phases keep all 28 layers.
+Q_SERVE_LAYERS = 4
 QWEN = dict(vocab_size=Q_VOCAB, hidden_size=1536, intermediate_size=8960,
             num_attention_heads=Q_H, num_key_value_heads=Q_HKV,
             max_position_embeddings=131072, rms_norm_eps=1e-6, rope_theta=1e6,
@@ -3846,6 +3858,265 @@ def card_vs_cpu(dev, tag, make_engine, drive):
     return card
 
 
+# --- loading model files: an exported GPT-2 124M, and the CLI ------------------
+
+
+ONNX_BATCH, ONNX_T = 4, 128
+
+
+def _gpt2_onnx(n_layer=12):
+    """The shared GPT-2-shaped module (tests/gpt2_onnx.py) at GPT-2 124M's
+    published layout (``n_layer`` of its 12 layers), weights from seed 0,
+    exported to ONNX under build/ (opset 17, dynamic batch and sequence
+    axes). Returns (module, path, export seconds)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import gpt2_onnx
+
+    t0 = time.perf_counter()
+    module = gpt2_onnx.GPT2Module(gpt2_onnx.GPT2Shape(n_layer=n_layer), seed=0)
+    d = os.path.join(ROOT, "build", "load_onnx")
+    os.makedirs(d, exist_ok=True)
+    path = gpt2_onnx.export(module, os.path.join(d, f"gpt2_124m_{n_layer}.onnx"))
+    return module, path, time.perf_counter() - t0
+
+
+def _forward_times(model, feed, iters=5):
+    """(busy ms, wall ms) per forward of model.run(feed): the card's busy
+    time from torch.profiler, the wall time from CUDA events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model.run(feed)
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        model.run(feed)
+    t1.record()
+    torch.cuda.synchronize()
+    wall = t0.elapsed_time(t1) / iters
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            model.run(feed)
+        torch.cuda.synchronize()
+    busy = sum(t for _, _, t in device_events(prof)) / 1e3 / iters
+    return busy, wall
+
+
+def phase_load_onnx(dev, n_layer=12):
+    """GPT-2 124M exported to ONNX from a hand-written module
+    (tests/gpt2_onnx.py), loaded by ``Model.load_file`` onto the card and
+    optimized there: 12 Attention nodes, no Softmax, and the same operator
+    list as the port's optimizer gives on the CPU. A batch of 4 prompts of
+    128 tokens in f32: logits within 1e-3 of max|logit| of the module's own
+    forward on the card (TF32 off), mha 12 launches a forward, none on CUDA
+    cores. Then ``quantize_dynamic`` (with the int8 prepack, which pads the
+    50257-wide lm_head to 51200; ``cli.quantize_model``): 49
+    int8_matmul_dequant launches a forward, all tiled (512 rows), and, on
+    one prompt, logits within 5e-2 of max|logit| of the port's CPU run of
+    the same quantized graph. The counters are zeroed just before the two
+    forwards and read just after. ``n_layer`` cuts the depth (the card
+    tests); the counts scale with it."""
+    from rten_tpu_torch.cli import quantize_model
+    from rten_tpu_torch.formats.onnx import ExternalDataLoader, parse_model
+    from rten_tpu_torch.model import Model, ModelOptions, graph_from_onnx
+    from rten_tpu_torch.optimize import optimize_graph
+
+    tag = f"GPT-2 124M from ONNX ({n_layer} layers)"
+    mm_calls = 4 * n_layer + 1
+    module, path, export_s = _gpt2_onnx(n_layer)
+    t0 = time.perf_counter()
+    proto = parse_model(memoryview(np.memmap(path, dtype=np.uint8, mode="r")))
+    graph = graph_from_onnx(proto.graph, ExternalDataLoader(os.path.dirname(path)))
+    parse_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_ops = [op.op_type for _, op in optimize_graph(graph).operators()]
+    optimize_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = Model.load_file(path, device=dev)
+    load_s = time.perf_counter() - t0
+    ops = [op.op_type for _, op in model.graph.operators()]
+    if ops != cpu_ops:
+        fail(f"{tag}: the card's optimized graph differs from the CPU optimizer's")
+    if ops.count("Attention") != n_layer or "Softmax" in ops:
+        fail(f"{tag}: {ops.count('Attention')} Attention nodes, Softmax left: {'Softmax' in ops}")
+    print(f"  {tag}: export {export_s:.1f} s ({os.path.getsize(path) / 1e6:.0f} MB); parse "
+          f"{parse_s:.2f} s, optimize {optimize_s:.2f} s on the CPU; Model.load_file on the "
+          f"card {load_s:.2f} s; {len(ops)} operators: {json.dumps(sorted(set(ops)))}",
+          flush=True)
+
+    ids = np.random.default_rng(0).integers(0, VOCAB, (ONNX_BATCH, ONNX_T)).astype(np.int32)
+    feed = {"input_ids": ids}
+    model.run(feed)  # uploads the weights
+    torch.cuda.synchronize()
+    for fn in counters().values():
+        fn.launches = 0
+    logits = model.run(feed)[0]
+    torch.cuda.synchronize()
+    f32 = {k: fn.launches for k, fn in counters().items()}
+    with torch.no_grad():
+        want = module.to(dev)(torch.from_numpy(ids).long().to(dev))
+    err = (logits - want).abs().max().item() / want.abs().max().item()
+    module.cpu()
+    if not torch.isfinite(logits).all() or err > 1e-3:
+        fail(f"{tag}: f32 logits {err:.3e} of max|logit| from the module's forward")
+    if f32["mha"] != n_layer or f32["mha_cuda_core"] or f32["int8_matmul_dequant"]:
+        fail(f"{tag}: f32 forward launched {json.dumps(f32)}")
+    busy, wall = _forward_times(model, feed)
+    print(f"  {tag} f32 [{ONNX_BATCH}, {ONNX_T}]: logits {err:.3e} of max|logit| from the "
+          f"module's forward; mha {f32['mha']} launches, {f32['mha_cuda_core']} on CUDA cores; "
+          f"busy {busy:.3f} ms, wall {wall:.3f} ms a forward", flush=True)
+
+    t0 = time.perf_counter()
+    quantize_model(model, "int8")
+    quantize_s = time.perf_counter() - t0
+    model.run(feed)
+    torch.cuda.synchronize()
+    n0 = {k: fn.launches for k, fn in counters().items()}
+    model.run(feed)
+    torch.cuda.synchronize()
+    int8 = {k: fn.launches - n0[k] for k, fn in counters().items()}
+    want8 = {"mha": n_layer, "int8_matmul_dequant": mm_calls,
+             "int8_matmul_dequant_tiled": mm_calls}
+    for k, n in int8.items():
+        if n != want8.get(k, 0):
+            fail(f"{tag} int8: {k} launched {n} times a forward, expected {want8.get(k, 0)}")
+    launches = {k: f32[k] + int8[k] for k in f32}
+    one = {"input_ids": ids[:1]}
+    got = model.run(one)[0].cpu()
+    cpu = Model(model.graph, ModelOptions(optimize=False), device="cpu").run(one)[0]
+    err8 = (got - cpu).abs().max().item() / cpu.abs().max().item()
+    if not torch.isfinite(got).all() or err8 > 5e-2:
+        fail(f"{tag} int8: logits {err8:.3e} of max|logit| from the CPU run")
+    busy8, wall8 = _forward_times(model, feed)
+    print(f"  {tag} int8: quantize {quantize_s:.2f} s; logits [1, {ONNX_T}] {err8:.3e} of "
+          f"max|logit| from the port's CPU run; busy {busy8:.3f} ms, wall {wall8:.3f} ms a "
+          f"forward [{ONNX_BATCH}, {ONNX_T}]", flush=True)
+    print(f"  load_onnx launches [{tag}]: {json.dumps(launches)}", flush=True)
+    return launches, path
+
+
+def phase_cli(dev, onnx_path, n_layer=12):
+    """The CLI (``rten_tpu_torch.cli.main``, what ``python -m
+    rten_tpu_torch`` runs) in this process, so the launch counters hold its
+    kernels: the GPT-2 124M serving graph of the serve phases (int8 weights,
+    int8 cat KV) saved with ``Model.save`` as .rtpu and served by
+    ``--serve`` (16 slots, prefill bucket 128, 8 steps a dispatch) from a
+    thread; 4 prompts of 128 tokens, 32 new tokens each, one request at a
+    time over HTTP, must give the in-process engine's greedy tokens for the
+    same prompts one at a time; the kernels launch as the served forwards
+    say (``/stats``). Then the timing mode on the exported ONNX file,
+    ``-n 3 --quantize int8`` and ``--quantize int4`` at [4, 128]: 49 int8
+    (row 1) or int4 (row 9) launches and 12 mha a forward. ``n_layer`` cuts
+    the depth of both graphs (the card tests; ``onnx_path`` then holds as
+    many layers)."""
+    import contextlib
+    import io
+    import socket
+    import threading
+    import urllib.request
+
+    from rten_tpu_torch import cli
+    from rten_tpu_torch.serving import ContinuousBatchingEngine
+
+    tag = f"CLI ({n_layer} layers)"
+    mm_calls = 4 * n_layer + 1
+    model = build_model(n_layer, CAP, dev)
+    path = os.path.join(ROOT, "build", "load_onnx", f"gpt2_124m_serve_{n_layer}.rtpu")
+    t0 = time.perf_counter()
+    model.save(path)
+    print(f"  {tag}: saved the serving graph in {time.perf_counter() - t0:.2f} s "
+          f"({os.path.getsize(path) / 1e6:.0f} MB)", flush=True)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    threading.Thread(target=cli.main, daemon=True, args=(
+        [path, "--serve", str(port), "--slots", "16", "--prefill-bucket", "128",
+         "--steps-per-dispatch", "8", "-q"],)).start()
+    url = f"http://127.0.0.1:{port}"
+
+    def call(route, payload=None):
+        data = None if payload is None else json.dumps(payload).encode()
+        req = urllib.request.Request(url + route, data=data,
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return json.loads(r.read())
+
+    deadline = time.time() + 300
+    while True:
+        try:
+            call("/health")
+            break
+        except Exception as e:  # the server is still loading
+            if time.time() > deadline:
+                fail(f"{tag}: the server never answered: {e}")
+            time.sleep(0.5)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, VOCAB, PROMPT).tolist() for _ in range(4)]
+    call("/generate", {"prompt": prompts[0], "max_new_tokens": 2})  # uploads the weights
+    steps0 = call("/stats")["decode_steps"]
+    torch.cuda.synchronize()
+    for fn in counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    got = [call("/generate", {"prompt": p, "max_new_tokens": 32})["tokens"] for p in prompts]
+    serve_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    served = {k: fn.launches for k, fn in counters().items()}
+    steps, adm = call("/stats")["decode_steps"] - steps0, len(prompts)
+    want = {"int8_matmul_dequant": mm_calls * (steps + adm),
+            "int8_matmul_dequant_stream": mm_calls * steps + adm,
+            "int8_matmul_dequant_tiled": (mm_calls - 1) * adm,
+            "decode_mha_append_cat": n_layer * steps, "prefill_mha_cat": n_layer * adm,
+            "argmax_lastdim": steps + adm}
+    for k, n in served.items():
+        if n != want.get(k, 0):
+            fail(f"{tag} --serve: {k} launched {n} times, expected {want.get(k, 0)}")
+    engine = ContinuousBatchingEngine(model, n_layer=n_layer, n_head=H, head_dim=D, slots=16,
+                                      capacity=CAP, prefill_bucket=128, greedy_on_device=True,
+                                      steps_per_dispatch=8)
+    engine.submit(prompts[0], max_new_tokens=2)
+    engine.run()
+    ref = []
+    for p in prompts:
+        r = engine.submit(p, max_new_tokens=32)
+        engine.run()
+        ref.append(r.generated)
+    if got != ref or any(len(t) != 32 for t in got):
+        fail(f"{tag} --serve: the server's tokens differ from the in-process engine's")
+    print(f"  {tag} --serve: {len(prompts)} requests of {PROMPT} tokens, 32 new each, one at a "
+          f"time in {serve_s:.3f} s ({steps} decode steps, {adm} admissions), tokens equal to "
+          f"the in-process engine's", flush=True)
+    del engine, model
+    torch.cuda.empty_cache()
+
+    launches = dict(served)
+    for q in ("int8", "int4"):
+        argv = [onnx_path, "-n", "3", "--quantize", q, "--size", f"batch={ONNX_BATCH}",
+                "--size", f"seq={ONNX_T}", "--range", f"0:{VOCAB}"]
+        n0 = {k: fn.launches for k, fn in counters().items()}
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        secs = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        ran = {k: fn.launches - n0[k] for k, fn in counters().items()}
+        mm = "int8_matmul_dequant" if q == "int8" else "int4_matmul"
+        if (rc != 0 or ran[mm] != mm_calls * 3 or ran["mha"] != n_layer * 3
+                or ran["mha_cuda_core"]):
+            fail(f"{tag} --quantize {q}: rc {rc}, launches {json.dumps(ran)}")
+        for line in out.getvalue().splitlines():
+            print(f"  {tag} --quantize {q} | {line}", flush=True)
+        print(f"  {tag} --quantize {q}: {secs:.1f} s in all; {ran[mm]} {mm} and {ran['mha']} "
+              f"mha launches over 3 forwards", flush=True)
+        for k in launches:
+            launches[k] += ran[k]
+    print(f"  cli launches [{tag}]: {json.dumps(launches)}", flush=True)
+    os.remove(path)
+    return launches
+
+
+
 def phase_reference_serving(dev):
     """The rest of the serving stack, the card against the CPU (the plain
     versions), each at the small configs (GPT-2: 2 layers, E 128, H 2,
@@ -4142,6 +4413,16 @@ def main() -> int:
     for quantize in (None, "int4"):
         run(f"gpt2_generate_{quantize or 'f32'}", None, phase_generate, quantize)
     lap("GPT-2 generate (f32, int4)")
+    print("loading phases:", flush=True)
+    torch.cuda.empty_cache()
+    by_path["gpt2_onnx_load"], onnx_path = phase_load_onnx(dev)
+    path_kv["gpt2_onnx_load"] = None
+    lap("GPT-2 124M from ONNX (export, load, f32 and int8 forwards)")
+    run("gpt2_cli", "s8", phase_cli, onnx_path)
+    os.remove(onnx_path)
+    lap("the CLI (--serve, --quantize int8 and int4)")
+    for phase in list(secs)[-2:]:
+        print(f"  {phase}: {secs[phase]:.1f} s", flush=True)
     # A row's launches: its counter over the paths that serve from its KV
     # cache type (every path for the kernels that read no KV cache). A
     # wrapper's bf16-part tensor-core launches are its launches less those of

@@ -92,11 +92,18 @@ from ..kernels.flash_attention import (
     decode_mha_append_cat, heads_to_cat, mha, mha_plain, pack_int4, paged_attention,
     paged_gather_cat, paged_gather_scales, paged_targets, prefill_mha_cat, quantize_rows,
 )
-from .registry import OpError, get_input, opt_input, register
+from .registry import OpError, as_tensor, get_input, opt_input, register
 
 
 def _todo(what: str, item: int):
     raise NotImplementedError(f"{what}: ROADMAP.md queue 1 item {item}")
+
+
+def _opt_tensor(ctx, inputs, i):
+    """Optional input ``i`` as a tensor on the device (a mask the executor
+    computed on the host arrives as a numpy array), or None."""
+    x = opt_input(inputs, i)
+    return None if x is None else as_tensor(ctx, x)
 
 
 def _attend(q, k, v, mask=None, *, scale=None, causal=False, softcap=0.0):
@@ -114,12 +121,9 @@ def _attention(ctx, inputs, attrs):
     [B,Hq,Tq,D] or [B,Tq,Hq*D], K/V likewise; optional attn_mask (bool, True
     keeps, or additive float); past_key/past_value in front of K/V. Outputs
     Y (+ present_key, present_value)."""
-    q = get_input(inputs, 0, "query")
-    k = get_input(inputs, 1, "key")
-    v = get_input(inputs, 2, "value")
-    mask = opt_input(inputs, 3)
-    past_k = opt_input(inputs, 4)
-    past_v = opt_input(inputs, 5)
+    q, k, v = (as_tensor(ctx, get_input(inputs, i, n))
+               for i, n in ((0, "query"), (1, "key"), (2, "value")))
+    mask, past_k, past_v = (_opt_tensor(ctx, inputs, i) for i in (3, 4, 5))
 
     three_d = q.ndim == 3
     if three_d:
@@ -156,14 +160,9 @@ def _multi_head_attention(ctx, inputs, attrs):
     (or packed QKV [B,Tq,H,3,D] when key is absent), key/value [B,Tk,H*D]
     or pre-split [B,H,Tk,D]; optional bias [3*H*D], key_padding_mask,
     attention_bias, past_key/past_value."""
-    query = get_input(inputs, 0, "query")
-    key = opt_input(inputs, 1)
-    value = opt_input(inputs, 2)
-    bias = opt_input(inputs, 3)
-    key_padding_mask = opt_input(inputs, 4)
-    attention_bias = opt_input(inputs, 5)
-    past_k = opt_input(inputs, 6)
-    past_v = opt_input(inputs, 7)
+    query = as_tensor(ctx, get_input(inputs, 0, "query"))
+    key, value, bias, key_padding_mask, attention_bias, past_k, past_v = (
+        _opt_tensor(ctx, inputs, i) for i in range(1, 8))
     n_heads = attrs.get("num_heads")
     if n_heads is None:
         raise OpError("MultiHeadAttention requires num_heads")

@@ -1,14 +1,20 @@
 """MatMul family (the port of ``rten_tpu/ops/matmul.py``): MatMul,
-MatMulAdd, MatMulIntegerToFloat and MatMulNBits.
+MatMulAdd, FusedMatMul, Gemm, MatMulInteger, MatMulIntegerToFloat and
+MatMulNBits.
 
-* MatMul / MatMulAdd: the JAX package leaves f32 products to XLA at HIGHEST
-  precision; here they are ``torch.matmul`` in full f32 (TF32 is off for
-  matmuls unless a caller turns it on).
+* MatMul / MatMulAdd / FusedMatMul / Gemm: the JAX package leaves f32
+  products to XLA at HIGHEST precision; here they are ``torch.matmul`` in
+  full f32 (TF32 is off for matmuls unless a caller turns it on).
+* MatMulInteger (``matmul.py:71-129``): the zero-point-corrected integer
+  product in int32. cuBLAS has no int32 matmul, so the product is taken in
+  f64, which holds every u8/s8 product sum below 2^53 exactly, on both
+  devices.
 * MatMulIntegerToFloat (``matmul.py:132-178``), inputs (a, b, a_scale,
-  b_scale, a_zero_point, b_zero_point, bias, b_colsums): routed to the int8
-  kernel (``rten_tpu_torch/kernels/int8_matmul.py``), sliced back to the
-  logical width ``rten_orig_n`` when the prepack padded N, then the bias is
-  added.
+  b_scale, a_zero_point, b_zero_point, bias, b_colsums): a 2-D weight is
+  routed to the int8 kernel (``rten_tpu_torch/kernels/int8_matmul.py``),
+  sliced back to the logical width ``rten_orig_n`` when the prepack padded
+  N, then the bias is added; a batched weight takes the JAX package's own
+  non-kernel route, the exact integer product times the scales.
 * MatMulNBits (``matmul.py:181-232``), inputs (a, packed nibbles
   [N, nb, bs/2], scales, zero points): routed to the int4 kernel
   (``rten_tpu_torch/kernels/int4_matmul.py``, where ``dequant_nbits``
@@ -39,6 +45,66 @@ def _matmul_add(ctx, inputs, attrs):
     return torch.matmul(a, b) + bias
 
 
+@register("FusedMatMul")
+def _fused_matmul(ctx, inputs, attrs):
+    """Optimizer-produced MatMul with a folded scalar multiplier (rten
+    src/ops/matmul.rs:457 FusedMatMul{alpha})."""
+    a = as_tensor(ctx, get_input(inputs, 0, "a"))
+    b = as_tensor(ctx, get_input(inputs, 1, "b"))
+    return torch.matmul(a, b) * attrs.get("alpha", 1.0)
+
+
+@register("Gemm")
+def _gemm(ctx, inputs, attrs):
+    a = as_tensor(ctx, get_input(inputs, 0, "a"))
+    b = as_tensor(ctx, get_input(inputs, 1, "b"))
+    c = opt_input(inputs, 2)
+    alpha = attrs.get("alpha", 1.0)
+    beta = attrs.get("beta", 1.0)
+    if attrs.get("transA", 0):
+        a = a.transpose(-1, -2)
+    if attrs.get("transB", 0):
+        b = b.transpose(-1, -2)
+    out = torch.matmul(a, b)
+    if alpha != 1.0:
+        out = out * alpha
+    if c is not None and beta != 0.0:
+        out = out + beta * as_tensor(ctx, c)
+    return out
+
+
+def int_matmul(a, b, a_zp=None, b_zp=None, b_colsums=None) -> torch.Tensor:
+    """(A - zp_a) . (B - zp_b) in int32, in the JAX package's expanded form
+    ``A.B - zp_a * colsums(B) - zp_b * rowsums(A) + K * zp_a * zp_b``; a
+    per-row ``zp_a`` is a vector over A's rows. The products are exact."""
+    k = a.shape[-1]
+    prod = torch.matmul(a.to(torch.float64), b.to(torch.float64)).round().to(torch.int32)
+    a32 = a.to(torch.int32)
+    azp = bzp = None
+    if a_zp is not None:
+        azp = a_zp.to(torch.int32)
+        if azp.ndim == 1:
+            azp = azp[:, None]
+        col_sums = (b_colsums.to(torch.int32).reshape(1, b.shape[-1]) if b_colsums is not None
+                    else b.to(torch.int32).sum(dim=-2, keepdim=True, dtype=torch.int32))
+        prod = prod - azp * col_sums
+    if b_zp is not None:
+        bzp = b_zp.to(torch.int32)
+        prod = prod - a32.sum(dim=-1, keepdim=True, dtype=torch.int32) * bzp
+    if azp is not None and bzp is not None:
+        prod = prod + k * azp * bzp
+    return prod
+
+
+@register("MatMulInteger")
+def _matmul_integer(ctx, inputs, attrs):
+    a = as_tensor(ctx, get_input(inputs, 0, "a"))
+    b = as_tensor(ctx, get_input(inputs, 1, "b"))
+    a_zp, b_zp = (None if opt_input(inputs, i) is None else as_tensor(ctx, inputs[i])
+                  for i in (2, 3))
+    return int_matmul(a, b, a_zp, b_zp)
+
+
 @register("MatMulIntegerToFloat")
 def _matmul_integer_to_float(ctx, inputs, attrs):
     a = as_tensor(ctx, get_input(inputs, 0, "a"))
@@ -50,18 +116,16 @@ def _matmul_integer_to_float(ctx, inputs, attrs):
     bias = opt_input(inputs, 6)
     b_colsums = opt_input(inputs, 7)
     orig_n = attrs.get("rten_orig_n")
+    a_zp, b_zp, b_colsums = (None if v is None else as_tensor(ctx, v)
+                             for v in (a_zp, b_zp, b_colsums))
     if b.ndim != 2:
-        raise NotImplementedError(
-            "batched MatMulIntegerToFloat weights: ROADMAP.md queue 1 item 12"
-        )
-    lead = a.shape[:-1]
-    a2 = a.reshape(-1, a.shape[-1])
-    out = int8_matmul_dequant(
-        a2, b, a_scale, b_scale,
-        None if a_zp is None else as_tensor(ctx, a_zp),
-        None if b_zp is None else as_tensor(ctx, b_zp),
-        None if b_colsums is None else as_tensor(ctx, b_colsums),
-    ).reshape(*lead, b.shape[-1])
+        out = int_matmul(a, b, a_zp, b_zp, b_colsums).to(torch.float32) * (
+            a_scale.to(torch.float32) * b_scale.to(torch.float32))
+    else:
+        lead = a.shape[:-1]
+        out = int8_matmul_dequant(
+            a.reshape(-1, a.shape[-1]), b, a_scale, b_scale, a_zp, b_zp, b_colsums,
+        ).reshape(*lead, b.shape[-1])
     if orig_n is not None and out.shape[-1] != orig_n:
         out = out[..., :orig_n]
     if bias is not None:

@@ -1,4 +1,8 @@
-"""DynamicQuantizeLinear (the port of ``rten_tpu/ops/quantize.py:75-96``).
+"""QuantizeLinear, DequantizeLinear and DynamicQuantizeLinear (the port of
+``rten_tpu/ops/quantize.py``). Scales and zero points are per tensor, per
+axis or blockwise (``block_size``); rounding is half to even.
+
+DynamicQuantizeLinear (``quantize.py:75-96``):
 
 One per-tensor u8 scale and zero point over the whole activation, rows of
 idle serving slots included; rounding is half-to-even (``torch.round``),
@@ -14,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .registry import as_tensor, get_input, register
+from .registry import as_tensor, get_input, opt_input, register
 
 
 _INV_QRANGE = float(np.float32(1.0) / np.float32(255.0))  # exact in f32
@@ -40,3 +44,55 @@ def dynamic_quantize(x: torch.Tensor):
 @register("DynamicQuantizeLinear")
 def _dynamic_quantize_linear(ctx, inputs, attrs):
     return dynamic_quantize(as_tensor(ctx, get_input(inputs, 0)))
+
+
+def _qparam(p: torch.Tensor, x_shape, axis: int, block_size: int) -> torch.Tensor:
+    """A scale or zero point shaped to broadcast over x: a scalar, a vector
+    along ``axis``, or blocks of ``block_size`` along it."""
+    if p.ndim == 0 or p.numel() == 1:
+        return p.reshape(())
+    if block_size:
+        p = torch.repeat_interleave(p, block_size, dim=axis)
+        return p.narrow(axis, 0, x_shape[axis])
+    shape = [1] * len(x_shape)
+    shape[axis] = p.numel()
+    return p.reshape(shape)
+
+
+_INT_RANGE = {torch.uint8: (0, 255), torch.int8: (-128, 127), torch.int32: (-2**31, 2**31 - 1)}
+
+
+@register("QuantizeLinear")
+def _quantize_linear(ctx, inputs, attrs):
+    x = as_tensor(ctx, get_input(inputs, 0))
+    scale = as_tensor(ctx, get_input(inputs, 1, "scale"))
+    zp = opt_input(inputs, 2)
+    axis = attrs.get("axis", 1)
+    if axis < 0:
+        axis += x.ndim
+    block_size = attrs.get("block_size", 0)
+    s = _qparam(scale, x.shape, axis, block_size)
+    out_dtype = torch.uint8
+    q = torch.round(x / s)
+    if zp is not None:
+        zp = as_tensor(ctx, zp)
+        out_dtype = zp.dtype
+        q = q + _qparam(zp, x.shape, axis, block_size).to(torch.int32)
+    lo, hi = _INT_RANGE[out_dtype]
+    return torch.clamp(q, lo, hi).to(out_dtype)
+
+
+@register("DequantizeLinear")
+def _dequantize_linear(ctx, inputs, attrs):
+    x = as_tensor(ctx, get_input(inputs, 0))
+    scale = as_tensor(ctx, get_input(inputs, 1, "scale"))
+    zp = opt_input(inputs, 2)
+    axis = attrs.get("axis", 1)
+    if axis < 0:
+        axis += x.ndim
+    block_size = attrs.get("block_size", 0)
+    s = _qparam(scale, x.shape, axis, block_size)
+    xi = x.to(torch.int32)
+    if zp is not None:
+        xi = xi - _qparam(as_tensor(ctx, zp), x.shape, axis, block_size).to(torch.int32)
+    return xi.to(s.dtype) * s

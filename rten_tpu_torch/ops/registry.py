@@ -55,9 +55,14 @@ def register(name: str, inplace: Tuple[int, ...] = ()):
 
 
 def get_op(name: str) -> OpDef:
+    """The lowering of ``name``; an operator the port does not register yet
+    (If, Conv, Resize, ...) raises ``NotImplementedError``: a graph holding
+    one loads, and fails when it runs that op."""
     op = REGISTRY.get(name)
     if op is None:
-        raise OpError(f"operator '{name}' is not registered")
+        raise NotImplementedError(
+            f"operator '{name}' is not ported yet: ROADMAP.md queue 1 item 12"
+        )
     return op
 
 

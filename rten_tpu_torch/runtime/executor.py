@@ -18,18 +18,29 @@ new rows straight into the cache tensors it is given and returns them as
 its ``present.*`` outputs. ``run(..., donate=ids)`` allows that for the
 listed inputs; any other input an op would write in place is copied first,
 so a caller's tensor is never changed behind its back.
+
+Host values: the JAX executor evaluates an op eagerly, at trace time, when
+none of its inputs is traced (shape chains such as Shape -> Gather ->
+Concat -> Reshape), so their results are concrete for the ops that need
+static values. The port does the same: an op whose inputs are all host
+values (numpy arrays: shape results and the constants the JAX package
+keeps concrete, those ``is_weight_constant`` does not count as weights)
+runs on the CPU and its results stay numpy arrays on the host. A reshape
+target then never reads a card tensor back.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
+import warnings
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..dtypes import narrow_array
-from ..ir.graph import Constant, Graph, NodeId, Operator
+from ..ir.graph import Constant, Graph, NodeId, Operator, is_weight_constant
 from .. import ops  # noqa: F401  (importing the package registers the lowerings)
 from ..ops.registry import REGISTRY, OpError, get_op
 
@@ -50,6 +61,8 @@ def resolve_device(device=None) -> torch.device:
 def _device_resident(node: Constant) -> bool:
     """Weights, scales, colsums and any float constant live on the device;
     small integer constants (shapes, axes) stay on the host."""
+    if node.array.dtype.kind in "OUS":  # strings never leave the host
+        return False
     return node.array.size >= 16 or node.array.dtype.kind == "f"
 
 
@@ -58,10 +71,15 @@ def to_tensor(value, device: torch.device) -> torch.Tensor:
     numpy bfloat16 array, ``ml_dtypes``' type, keeps its bits)."""
     if isinstance(value, torch.Tensor):
         return value.to(device)
-    arr = np.ascontiguousarray(narrow_array(np.asarray(value)))
-    if arr.dtype.name == "bfloat16":
-        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
-    return torch.from_numpy(arr).to(device)
+    arr = narrow_array(np.asarray(value))
+    arr = np.ascontiguousarray(arr).reshape(arr.shape)  # which keeps a 0-d array 0-d
+    bf16 = arr.dtype.name == "bfloat16"
+    with warnings.catch_warnings():
+        # A loaded model's constants are read-only memory maps; no lowering
+        # writes to a constant.
+        warnings.filterwarnings("ignore", "The given NumPy array is not writable")
+        t = torch.from_numpy(arr.view(np.int16) if bf16 else arr)
+    return (t.view(torch.bfloat16) if bf16 else t).to(device)
 
 
 @dataclasses.dataclass
@@ -74,10 +92,24 @@ class RunConfig:
 class TraceContext:
     """Per-run context handed to op lowerings: the device and the config."""
 
-    def __init__(self, executor: "Executor", config: RunConfig):
+    def __init__(self, executor: "Executor", config: RunConfig, device=None):
         self.executor = executor
         self.config = config
-        self.device = executor.device
+        self.device = executor.device if device is None else device
+
+
+_CPU = torch.device("cpu")
+
+
+def _to_host(value, device: torch.device):
+    """A host-evaluated op's result as a numpy array (narrowed as the JAX
+    package's int32/f32 values are); bfloat16, which numpy has no type for,
+    moves to ``device`` as a tensor instead."""
+    if isinstance(value, torch.Tensor):
+        if value.dtype == torch.bfloat16:
+            return value.to(device)
+        return narrow_array(value.numpy())
+    return value
 
 
 class Executor:
@@ -88,14 +120,19 @@ class Executor:
         self.device = resolve_device(device)
         self._weights: Optional[Dict[NodeId, torch.Tensor]] = None
         self._constants: Optional[Dict[NodeId, np.ndarray]] = None
+        self._concrete: Optional[set] = None
         self._plans: Dict[Tuple, List[NodeId]] = {}
-        # Graph inputs some op writes in place (KV caches).
-        self._inplace_ids = set()
-        for _, op in graph.operators():
+        self._inplace_ids = self._find_inplace_ids()
+
+    def _find_inplace_ids(self) -> set:
+        """The graph inputs some op writes in place (KV caches)."""
+        ids = set()
+        for _, op in self.graph.operators():
             opdef = REGISTRY.get(op.op_type)
             for i in (opdef.inplace if opdef else ()):
                 if i < len(op.inputs) and op.inputs[i] is not None:
-                    self._inplace_ids.add(op.inputs[i])
+                    ids.add(op.inputs[i])
+        return ids
 
     def _weight_args(self) -> Dict[NodeId, torch.Tensor]:
         """Device-resident constants, moved once (rten WeightCache analog),
@@ -117,11 +154,24 @@ class Executor:
             }
         return self._constants
 
+    def _concrete_ids(self) -> set:
+        """The constants the JAX package keeps concrete under jit (every
+        constant but the weights it passes as arguments)."""
+        if self._concrete is None:
+            self._concrete = {
+                nid for nid, node in self.graph.nodes.items()
+                if isinstance(node, Constant) and not is_weight_constant(node)
+            }
+        return self._concrete
+
     def invalidate_weights(self) -> None:
-        """Drop the cached constants and their device copies (after
-        constants were replaced)."""
+        """Drop the cached constants, their device copies and the plans
+        (after a pass replaced constants or rewrote operators)."""
         self._weights = None
         self._constants = None
+        self._concrete = None
+        self._plans = {}
+        self._inplace_ids = self._find_inplace_ids()
 
     def _plan(self, env_ids, output_ids) -> List[NodeId]:
         key = (frozenset(env_ids), tuple(output_ids))
@@ -138,27 +188,46 @@ class Executor:
         env: Dict[NodeId, Any],
         output_ids: Sequence[NodeId],
         allow_missing: bool = False,
+        profiler=None,
     ) -> List[Any]:
-        """Walk the plan, running each op's lowering; returns output values."""
+        """Walk the plan, running each op's lowering; returns output values.
+        An op whose inputs are all host values runs on the CPU and gives
+        host values (see the module's docstring). With ``profiler`` the
+        device is synchronized after each op and its wall time recorded."""
         g = self.graph
         ctx = TraceContext(self, self.config)
+        host_ctx = TraceContext(self, self.config, device=_CPU)
         consts = self._host_constants()
+        concrete = self._concrete_ids()
         fed = [nid for nid in env if nid not in consts]
         for nid, arr in consts.items():
             env.setdefault(nid, arr)
         for op_id in self._plan(fed, output_ids):
             op = g.nodes[op_id]
             assert isinstance(op, Operator)
-            ins = [env.get(i) if i is not None else None for i in op.inputs]
+            host_ins = [None if i is None else consts[i] if i in concrete else env.get(i)
+                        for i in op.inputs]
+            on_host = all(v is None or isinstance(v, np.ndarray) for v in host_ins)
+            ins = host_ins if on_host else [
+                env.get(i) if i is not None else None for i in op.inputs]
             op_def = get_op(op.op_type)
             attrs = dict(op.attrs)
             attrs["__n_outputs__"] = len(op.outputs)
+            t0 = time.perf_counter() if profiler is not None else 0.0
             try:
-                result = op_def.lower(ctx, ins, attrs)
+                result = op_def.lower(host_ctx if on_host else ctx, ins, attrs)
             except OpError as e:
                 raise OpError(f"{op.op_type} '{g.node_name(op_id)}': {e}") from e
             if not isinstance(result, tuple):
                 result = (result,)
+            if on_host:
+                result = tuple(_to_host(r, self.device) for r in result)
+            if profiler is not None:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                profiler.add(op.op_type, g.node_name(op_id),
+                             [tuple(v.shape) for v in ins if v is not None],
+                             time.perf_counter() - t0)
             if len(result) < len(op.outputs):
                 raise OpError(
                     f"{op.op_type} returned {len(result)} outputs, "
@@ -196,7 +265,23 @@ class Executor:
                     and t is val):
                 t = t.clone()
             env[nid] = t
-        return self.trace(env, list(output_ids))
+        return [to_tensor(v, self.device)
+                for v in self.trace(env, list(output_ids))]
+
+    def profile_run(
+        self, inputs: Dict[NodeId, Any], output_ids: Sequence[NodeId]
+    ):
+        """A run that times each op, the device synchronized after it:
+        (outputs, Profiler), for the CLI's ``--profile``."""
+        from .profiler import Profiler
+
+        prof = Profiler()
+        env: Dict[NodeId, Any] = dict(self._weight_args())
+        for nid, val in inputs.items():
+            t = to_tensor(val, self.device)
+            env[nid] = t.clone() if nid in self._inplace_ids and t is val else t
+        outs = self.trace(env, list(output_ids), profiler=prof)
+        return [to_tensor(v, self.device) for v in outs], prof
 
     def partial_run(
         self, inputs: Dict[NodeId, Any], output_ids: Sequence[NodeId]

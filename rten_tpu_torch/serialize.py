@@ -1,8 +1,10 @@
-"""safetensors read and write in numpy (the port of
-``rten_tpu/serialize.py``'s safetensors part, used by the Generator's
-sessions): an 8-byte little-endian header length, a JSON header, then the
-raw little-endian buffers. bfloat16, which numpy has no type for, is not
-supported here.
+"""Tensor files in numpy (the port of ``rten_tpu/serialize.py``): .npy,
+.npz and safetensors, read and write. safetensors is an 8-byte
+little-endian header length, a JSON header, then the raw little-endian
+buffers. Used by the Generator's saved state, the ``.rtpu`` model format and
+the CLI's ``--inputs``/``--check-outputs``/``--save-outputs``. bfloat16,
+which numpy has no type for, needs ``ml_dtypes`` (imported only for a BF16
+tensor).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ _ST_DTYPES = {
     "BOOL": np.dtype("bool"),
 }
 _NP_TO_ST = {dt.name: name for name, dt in _ST_DTYPES.items()}
+_NP_TO_ST["bfloat16"] = "BF16"
 
 
 def read_safetensors(path: Union[str, os.PathLike]) -> Dict[str, np.ndarray]:
@@ -41,7 +44,12 @@ def read_safetensors(path: Union[str, os.PathLike]) -> Dict[str, np.ndarray]:
     for name, info in header.items():
         if name == "__metadata__":
             continue
-        dt = _ST_DTYPES.get(info["dtype"])
+        if info["dtype"] == "BF16":
+            import ml_dtypes
+
+            dt = np.dtype(ml_dtypes.bfloat16)
+        else:
+            dt = _ST_DTYPES.get(info["dtype"])
         if dt is None:
             raise ValueError(f"unsupported safetensors dtype {info['dtype']}")
         start, end = info["data_offsets"]
@@ -59,7 +67,9 @@ def write_safetensors(
     offset = 0
     blobs = []
     for name, arr in tensors.items():
-        arr = np.ascontiguousarray(arr)
+        # np.ascontiguousarray makes a 0-d array 1-d; the header keeps the
+        # tensor's own shape.
+        arr = np.ascontiguousarray(arr).reshape(np.shape(arr))
         if arr.dtype.byteorder == ">":
             arr = arr.astype(arr.dtype.newbyteorder("<"))
         st_dtype = _NP_TO_ST.get(arr.dtype.name)
@@ -82,3 +92,30 @@ def write_safetensors(
         f.write(hjson)
         for raw in blobs:
             f.write(raw)
+
+
+def read_tensors(path: Union[str, os.PathLike]) -> Dict[str, np.ndarray]:
+    """Sniff .npy/.npz/.safetensors by magic and load; a .npy holds one
+    tensor, named "0"."""
+    path = os.fspath(path)
+    with open(path, "rb") as f:
+        magic = f.read(8)
+    if magic[:6] == b"\x93NUMPY":
+        return {"0": np.load(path)}
+    if magic[:2] == b"PK":
+        with np.load(path) as z:
+            return {k: z[k] for k in z.files}
+    return read_safetensors(path)
+
+
+def write_tensors(path: Union[str, os.PathLike], tensors: Dict[str, np.ndarray]):
+    """.npy (one tensor), .npz, or safetensors for any other extension."""
+    path = os.fspath(path)
+    if path.endswith(".npy"):
+        if len(tensors) != 1:
+            raise ValueError(".npy holds exactly one tensor")
+        np.save(path, next(iter(tensors.values())))
+    elif path.endswith(".npz"):
+        np.savez(path, **tensors)
+    else:
+        write_safetensors(path, tensors)

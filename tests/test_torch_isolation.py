@@ -40,7 +40,14 @@ def test_import_pulls_in_no_jax():
         "from rten_tpu_torch.generate import Generator, MultinomialSampler, TopP\n"
         "from rten_tpu_torch.models.gpt2 import build_graph, load\n"
         "from rten_tpu_torch.quantize_pass import quantize_weight_only_int4\n"
-        "from rten_tpu_torch.serialize import read_safetensors, write_safetensors\n"
+        "from rten_tpu_torch.serialize import read_safetensors, read_tensors, write_tensors\n"
+        "from rten_tpu_torch.model import LoadError, Model\n"
+        "from rten_tpu_torch.cli import main, quantize_model\n"
+        "from rten_tpu_torch.formats.rten import load_rten, save_rten\n"
+        "from rten_tpu_torch.formats.rtpu import load_model_graph, save_model\n"
+        "from rten_tpu_torch.shape_inference import infer_shapes, infer_shapes_and_values\n"
+        "from rten_tpu_torch.optimize import FUSIONS, optimize_graph\n"
+        "from rten_tpu_torch.runtime.profiler import Profiler\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'rten_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok', len([m for m in sys.modules if m.startswith('rten_tpu_torch')]))\n"
@@ -49,6 +56,35 @@ def test_import_pulls_in_no_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert r.stdout.startswith("ok")
+
+
+def test_loads_an_onnx_file_without_flatbuffers_ml_dtypes_or_onnx(tmp_path):
+    """The card machine has no flatbuffers, ml_dtypes or onnx: with the
+    three blocked from import, the package imports whole and
+    ``Model.load_file`` loads and runs an ONNX file of f32 tensors."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import gpt2_onnx
+
+    shape = gpt2_onnx.GPT2Shape(vocab_size=64, n_positions=16, n_embd=32, n_layer=1, n_head=2)
+    path = gpt2_onnx.export(gpt2_onnx.GPT2Module(shape), tmp_path / "m.onnx", seq=4)
+    code = (
+        "import sys\n"
+        "for name in ('flatbuffers', 'ml_dtypes', 'onnx'):\n"
+        "    sys.modules[name] = None\n"
+        "import importlib, pkgutil, numpy as np\n"
+        "import rten_tpu_torch\n"
+        "for m in pkgutil.walk_packages(rten_tpu_torch.__path__, 'rten_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from rten_tpu_torch.model import Model\n"
+        f"m = Model.load_file({str(path)!r}, device='cpu')\n"
+        "out = m.run({'input_ids': np.array([[1, 2, 3]], np.int32)})[0]\n"
+        "assert out.shape == (1, 3, 64), out.shape\n"
+        "print('ok')\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], env=_no_card_env(), cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
 
 
 def test_sources_import_nothing_of_jax():

@@ -21,8 +21,11 @@ import types
 import pytest
 
 PORT = pathlib.Path(__file__).resolve().parents[1] / "rten_tpu_torch"
-MODULES = sorted(f"rten_tpu_torch.{p.parent.name}.{p.stem}"
-                 for sub in ("kernels", "ops", "tools") for p in (PORT / sub).glob("*.py"))
+MODULES = sorted(
+    [f"rten_tpu_torch.{p.parent.name}.{p.stem}"
+     for sub in ("kernels", "ops", "tools", "formats", "runtime") for p in (PORT / sub).glob("*.py")]
+    + [f"rten_tpu_torch.{m}" for m in ("cli", "model", "optimize", "shape_inference",
+                                       "serialize")])
 
 
 def _functions(module):
@@ -64,6 +67,8 @@ def unresolved(module):
 def test_the_port_has_modules_to_check():
     assert "rten_tpu_torch.kernels.flash_attention" in MODULES
     assert "rten_tpu_torch.tools.bench_decode_attn" in MODULES
+    assert {"rten_tpu_torch.formats.rten", "rten_tpu_torch.cli",
+            "rten_tpu_torch.ops.layout"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("name", MODULES)

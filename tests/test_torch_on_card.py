@@ -2006,3 +2006,80 @@ def test_lora_einsum_is_full_f32_whatever_tf32(card, tf32):
     assert ((got.cpu().double() - want).abs().max() / scale) < 1e-6
     if tf32:
         assert ((bare.cpu().double() - want).abs().max() / scale) > 1e-5
+
+
+# --- loading model files: the two chip_smoke phases at 2 layers ---------------
+
+
+def test_load_onnx_on_card(card):
+    """chip_smoke.phase_load_onnx at 2 of GPT-2 124M's layers: the exported
+    module loaded onto the card, the optimizer's operator list equal to the
+    CPU's, f32 logits within 1e-3 of the module's forward, mha 2 launches a
+    forward, none on CUDA cores, int8 9 launches a forward (all tiled) and
+    logits within 5e-2 of the CPU run."""
+    import os
+
+    import chip_smoke
+
+    launches, path = chip_smoke.phase_load_onnx(card, n_layer=2)
+    os.remove(path)
+    assert launches["mha"] == 4 and launches["int8_matmul_dequant"] == 9
+
+
+def test_cli_on_card(card):
+    """chip_smoke.phase_cli at 2 layers: --serve's tokens equal the
+    in-process engine's, the served kernels launch as the forwards say, and
+    the timing modes run the int8 and int4 kernels 9 times a forward."""
+    import os
+
+    import chip_smoke
+
+    _, path, _ = chip_smoke._gpt2_onnx(2)
+    launches = chip_smoke.phase_cli(card, path, n_layer=2)
+    os.remove(path)
+    assert launches["int4_matmul"] == 27 and launches["prefill_mha_cat"] == 2 * 4
+
+
+def _f32_rms_norm(x, scale, dims, epsilon):
+    """RMSNorm in f32 throughout, the form the f64 one replaced."""
+    ms = torch.square(x).mean(dim=dims, keepdim=True)
+    out = x * torch.rsqrt(ms + epsilon)
+    return out if scale is None else out * scale
+
+
+@pytest.mark.parametrize("width", ["small D 64", "TinyLlama 2 layers"])
+@pytest.mark.parametrize("arith", ["f64", "f32"])
+def test_int4_tie_flips(card, width, arith, monkeypatch, capsys):
+    """ROADMAP fault 5: the int4 Llama engine held against the CPU forward
+    by forward (chip_smoke.int4_engine_lockstep), with the RMSNorm and SiLU
+    lowerings in f64 rounded once (the port's) or in f32 (their earlier form);
+    prints the flips (codes one step apart at a rounding tie) and whether the
+    free-running tokens part. The small model is the sharpened D 64 Llama of
+    test_int4_llama_engine_on_card_matches_cpu; the other TinyLlama's
+    published width at 2 layers (random weights from seed 0)."""
+    import chip_smoke
+    from rten_tpu_torch.ops import norm, registry
+
+    if arith == "f32":
+        monkeypatch.setattr(norm, "rms_norm", _f32_rms_norm)
+        monkeypatch.setitem(registry.REGISTRY, "Silu", registry.OpDef(
+            "Silu", lambda ctx, inputs, attrs: inputs[0] * torch.sigmoid(inputs[0])))
+    if width == "small D 64":
+        small = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
+                     num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=128)
+        n_head = 4
+
+        def make(device):
+            return chip_smoke.build_llama(2, 64, device, sharpen=2.0, kv="int4", **small)[0]
+    else:
+        n_head = 32
+
+        def make(device):
+            return chip_smoke.build_llama(2, 64, device, kv="int4")[0]
+
+    toks, flips = chip_smoke.int4_engine_lockstep(card, make, n_head, f"{width}, {arith}", 64)
+    parted = sum(a != b for a, b in zip(toks["cuda"], toks["cpu"]))
+    with capsys.disabled():
+        print(f"\nfault 5 [{width}, {arith}]: {len(flips)} flips {flips[:4]}; {parted} of "
+              f"{len(toks['cpu'])} requests' tokens parted", flush=True)
+    assert toks["cuda"] == toks["cpu"] or flips
