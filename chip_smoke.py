@@ -123,11 +123,24 @@ Run from the repository root:  python3 chip_smoke.py
    (``phase_cli``): the GPT-2 serving graph saved as .rtpu and served by
    ``--serve``, its tokens equal to the in-process engine's, and the
    timing mode on the ONNX file with ``--quantize int8`` and ``int4``.
+8. Vision phases: ResNet-50 (tests/torch_models.resnet50, weights from
+   seed 0) exported to ONNX and loaded onto the card by
+   ``Model.load_file``, batch 16 at 224 x 224 in f32 (logits against the
+   module's f64 forward), int8 with the default ``quantize_dynamic`` (row
+   1 once a forward, the classifier) and with ``RTEN_QUANT_CONV=all`` (48
+   ConvIntegerToFloat, each one row-1 launch), the int8 forms held to the
+   JAX package's criteria against the module's forward; row 1 timed at
+   the classifier's and conv1's im2col shapes (``phase_resnet50``); every
+   vision op as a one-node graph against the CPU, the f32 conv's precision
+   with cuDNN's TF32 flag on, and prefer_bf16 (``phase_vision_ops``); row
+   1 at K and N that are not multiples of 4 (``phase_int8_any_kn``).
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Exits nonzero, printing
 no result, when there is no CUDA device or any phase fails. TF32 is off for
-matmuls and cuDNN, so every f32 product on the card is full f32.
+matmuls and cuDNN, so every f32 product on the card is full f32, but in the
+vision phases, which run the port with cuDNN's TF32 flag at PyTorch's
+default (on): the port's f32 convs must not depend on it.
 """
 
 from __future__ import annotations
@@ -206,13 +219,14 @@ def timed(fn, iters: int = 20, warmup: int = 3, *, nbytes: float):
     device events). wall: CUDA events around iters back-to-back
     calls; where the card finishes a call before the host has launched the
     next, this is the host's launch rate, not the kernel's time. Where the
-    profiler records no device time, device is None. ``nbytes``: the bytes
-    one fn() must move at least (its inputs read once, its outputs written
-    once). The profiler has dropped events of a window and has read a
-    window short before: a window with fewer than iters times one call's
-    events, or whose device time is below the call's byte floor
-    (``byte_floor_ms``; none for an L2-warm call), is profiled again, and
-    the run fails if every attempt falls short."""
+    profiler records no device time in any window, device is None.
+    ``nbytes``: the bytes one fn() must move at least (its inputs read
+    once, its outputs written once). The profiler has dropped events of a
+    window, and all of them, and has read a window short before: a window
+    with no events or fewer than iters times one call's, or whose device
+    time is below the call's byte floor (``byte_floor_ms``; none for an
+    L2-warm call), is profiled again, and the run fails if every attempt
+    that recorded events falls short."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -228,6 +242,7 @@ def timed(fn, iters: int = 20, warmup: int = 3, *, nbytes: float):
     wall = t0.elapsed_time(t1) / iters
     floor = byte_floor_ms(nbytes)
     # One call's device events, then iters calls'.
+    recorded = False
     for attempt in range(PROFILE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CUDA]) as one:
             fn()
@@ -240,7 +255,8 @@ def timed(fn, iters: int = 20, warmup: int = 3, *, nbytes: float):
         events = device_events(prof)
         busy, count = sum(t for _, _, t in events), sum(c for _, c, _ in events)
         device = busy / iters / 1e3 if busy > 0 else None
-        if 0 < count < per_call * iters:
+        recorded = recorded or count > 0
+        if count == 0 or count < per_call * iters:
             print(f"  (the profiler recorded {count} of {per_call * iters} device events: "
                   f"profiling again)", flush=True)
         elif floor is not None and device is not None and device < floor:
@@ -248,6 +264,8 @@ def timed(fn, iters: int = 20, warmup: int = 3, *, nbytes: float):
                   f"{nbytes / 1e6:.1f} MB: profiling again)", flush=True)
         else:
             return device, wall
+    if not recorded:
+        return None, wall
     fail(f"the profiler dropped device events, or read below the byte floor "
          f"({'none' if floor is None else f'{floor:.4f} ms'}), in {PROFILE_ATTEMPTS} windows "
          f"running")
@@ -341,6 +359,52 @@ LLAMA_INT8 = [(2048, 2048, 44), (2048, 256, 44), (2048, 5632, 44), (5632, 2048, 
               (2048, 32768, 1)]
 
 
+def _int8_case(gen, dev, M, K, N, tag, time_it=True):
+    """int8_matmul_dequant at [M, K] x [K, N] (u8 activations with a zero
+    point, per-column scales and column sums) against its plain version:
+    equal bits, the same bits on a second call, the form int8_form names.
+    With ``time_it``, the kernel, plain and ``_int_mm`` times and the bound
+    (a dict for the kernels line)."""
+    from rten_tpu_torch.kernels.common import sm_count
+    from rten_tpu_torch.kernels.int8_matmul import (
+        int8_form, int8_matmul_dequant, int8_matmul_dequant_plain, int8_split_plan,
+    )
+
+    a = torch.randint(0, 256, (M, K), generator=gen, dtype=torch.uint8).to(dev)
+    b = torch.randint(-127, 128, (K, N), generator=gen, dtype=torch.int8).to(dev)
+    sa = torch.tensor(0.02, device=dev)
+    sb = (torch.rand(N, generator=gen) * 1e-3 + 1e-4).to(dev)
+    zp = torch.tensor(131, dtype=torch.uint8, device=dev)
+    cs = b.to(torch.int32).sum(0, keepdim=True).to(torch.int32)
+    form = int8_form(M)
+    before = getattr(int8_matmul_dequant, f"{form}_launches")
+    got = int8_matmul_dequant(a, b, sa, sb, zp, None, cs)
+    again = int8_matmul_dequant(a, b, sa, sb, zp, None, cs)
+    want = int8_matmul_dequant_plain(a, b, sa, sb, zp, None, cs)
+    torch.cuda.synchronize()
+    if (got.shape != (M, N) or not torch.equal(got, want) or not torch.equal(got, again)
+            or getattr(int8_matmul_dequant, f"{form}_launches") != before + 2):
+        fail(f"int8_matmul_dequant [{tag}] M={M} K={K} N={N}: not equal to its plain version, "
+             f"two calls differ, or not the {form} form")
+    if not time_it:
+        return form
+    nbytes = M * K + K * N + 8 * N + 4 * M * N
+    k_ms = timed(lambda: int8_matmul_dequant(a, b, sa, sb, zp, None, cs), iters=10,
+                 nbytes=nbytes)
+    p_ms = timed(lambda: int8_matmul_dequant_plain(a, b, sa, sb, zp, None, cs), iters=3,
+                 warmup=1, nbytes=nbytes)
+    lib = int_mm_ms(a, b)
+    bms, by = bound_ms(nbytes, 2.0 * M * N * K, INT8_OPS_PER_S)
+    splits = int8_split_plan(M, N, K, sm_count(0))[0]
+    pad = f" (M padded to {INT_MM_MIN_ROWS})" if M <= 16 else ""
+    print(f"  int8_matmul [{tag}] M={M} K={K} N={N} ({form}, {splits} "
+          f"split{'s' if splits > 1 else ''}): kernel {fmt(k_ms)}, plain {fmt(p_ms)}, "
+          f"_int_mm{pad} {'refused' if lib is None else fmt(lib)}, bound {bms:.4f} ms ({by}); "
+          f"equal to the plain version, two calls bit-identical", flush=True)
+    return {"unit": f"{tag}: M {M}, K {K}, N {N}", "form": form, "max_abs_err": 0.0,
+            **time_keys(k_ms, p_ms, lib), "bound_ms": bms, "bound_by": by}
+
+
 def phase_int8_matmul(gen, dev, decode=GPT2_INT8, slots=SLOTS, tag="GPT-2", steps=()):
     """int8_matmul_dequant (rten_tpu_torch/csrc/int8_matmul.cu) over one
     decode step's calls at ``slots`` rows and at each of ``steps`` (GPT-2:
@@ -352,68 +416,32 @@ def phase_int8_matmul(gen, dev, decode=GPT2_INT8, slots=SLOTS, tag="GPT-2", step
     its form and split count printed beside its times. Returns the step at
     ``slots`` as the row, the other steps and the admission (the four
     per-layer shapes x layers) as ``other_shapes``."""
-    from rten_tpu_torch.kernels.common import sm_count
-    from rten_tpu_torch.kernels.int8_matmul import (
-        int8_form, int8_matmul_dequant, int8_matmul_dequant_plain, int8_split_plan,
-    )
+    from rten_tpu_torch.kernels.int8_matmul import int8_form
 
     admission = slots * PROMPT
     calls = [(M, K, N, n) for M in (slots, *steps) for K, N, n in decode]
     calls += [(admission, K, N, n) for K, N, n in decode[:-1]]
-    per_shape = []
-    for M, K, N, n in calls:
-        a = torch.randint(0, 256, (M, K), generator=gen, dtype=torch.uint8).to(dev)
-        b = torch.randint(-127, 128, (K, N), generator=gen, dtype=torch.int8).to(dev)
-        sa = torch.tensor(0.02, device=dev)
-        sb = (torch.rand(N, generator=gen) * 1e-3 + 1e-4).to(dev)
-        zp = torch.tensor(131, dtype=torch.uint8, device=dev)
-        cs = b.to(torch.int32).sum(0, keepdim=True).to(torch.int32)
-        form = int8_form(M)
-        before = getattr(int8_matmul_dequant, f"{form}_launches")
-        got = int8_matmul_dequant(a, b, sa, sb, zp, None, cs)
-        again = int8_matmul_dequant(a, b, sa, sb, zp, None, cs)
-        want = int8_matmul_dequant_plain(a, b, sa, sb, zp, None, cs)
-        torch.cuda.synchronize()
-        # The integer part is exact and the f32 epilogue rounds as the plain
-        # version's: equal bits.
-        if (not torch.equal(got, want) or not torch.equal(got, again)
-                or getattr(int8_matmul_dequant, f"{form}_launches") != before + 2):
-            fail(f"int8_matmul_dequant M={M} K={K} N={N}: max err "
-                 f"{(got - want).abs().max().item()}, two calls differ, or not the {form} form")
-        splits = int8_split_plan(M, N, K, sm_count(0))[0]
-        lib = int_mm_ms(a, b)
-        nbytes = M * K + K * N + 8 * N + 4 * M * N
-        k_ms = timed(lambda: int8_matmul_dequant(a, b, sa, sb, zp, None, cs), iters=10,
-                     nbytes=nbytes)
-        p_ms = timed(lambda: int8_matmul_dequant_plain(a, b, sa, sb, zp, None, cs), iters=3,
-                     warmup=1, nbytes=nbytes)
-        bms, by = bound_ms(nbytes, 2.0 * M * N * K, INT8_OPS_PER_S)
-        per_shape.append((M, K, N, k_ms, p_ms, lib, bms, by, n))
-        pad = f" (M padded to {INT_MM_MIN_ROWS})" if M <= 16 else ""
-        print(f"  int8_matmul [{tag}] M={M} K={K} N={N} ({form}, {splits} "
-              f"split{'s' if splits > 1 else ''}): kernel {fmt(k_ms)}, plain {fmt(p_ms)}, "
-              f"_int_mm{pad} {'refused' if lib is None else fmt(lib)}, bound {bms:.4f} ms "
-              f"({by}); equal to the plain version, two calls bit-identical", flush=True)
-        del a, b, got, again, want
+    per_shape = [(M, K, N, n, _int8_case(gen, dev, M, K, N, tag)) for M, K, N, n in calls]
+
+    step_shapes = [(K, N) for K, N, _ in decode]
 
     def unit(M, what):
-        rows = [s for s in per_shape if s[0] == M and (M == admission or s[1:3] in
-                                                       [(K, N) for K, N, _ in decode])]
+        rows = [(r, n) for m, K, N, n, r in per_shape
+                if m == M and (M == admission or (K, N) in step_shapes)]
 
-        def tot(i, wall=False):
-            return sum((s[i][1] if wall else ms_of(s[i])) * s[8] for s in rows)
+        def tot(key):
+            return sum(r[key] * n for r, n in rows)
 
-        lib_tot = None if any(s[5] is None for s in rows) else (tot(5), tot(5, True))
-        bound = sum(s[6] * s[8] for s in rows)
-        bytes_bound = sum(s[6] * s[8] for s in rows if s[7] == "bytes")
-        r = {"unit": what, "form": int8_form(M), "max_abs_err": 0.0, "ms": tot(3),
-             "plain_ms": tot(4), "bound_ms": bound,
+        lib = None if any(r["library_ms"] is None for r, _ in rows) else tot("library_ms")
+        bound = tot("bound_ms")
+        bytes_bound = sum(r["bound_ms"] * n for r, n in rows if r["bound_by"] == "bytes")
+        r = {"unit": what, "form": int8_form(M), "max_abs_err": 0.0, "ms": tot("ms"),
+             "plain_ms": tot("plain_ms"), "bound_ms": bound,
              "bound_by": "bytes" if 2 * bytes_bound >= bound else "operations",
-             "library_ms": None if lib_tot is None else lib_tot[0],
-             "wall_ms": tot(3, True), "plain_wall_ms": tot(4, True),
-             "library_wall_ms": None if lib_tot is None else lib_tot[1]}
+             "library_ms": lib, "wall_ms": tot("wall_ms"), "plain_wall_ms": tot("plain_wall_ms"),
+             "library_wall_ms": None if lib is None else tot("library_wall_ms")}
         print(f"  int8_matmul [{tag}] {what} ({r['form']}): kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f}, _int_mm {r['library_ms'] if lib_tot is None else f'{lib_tot[0]:.4f}'}, "
+              f"{r['plain_ms']:.4f}, _int_mm {lib if lib is None else f'{lib:.4f}'}, "
               f"bound {bound:.4f} ms", flush=True)
         return r
 
@@ -4116,6 +4144,421 @@ def phase_cli(dev, onnx_path, n_layer=12):
     return launches
 
 
+# --- vision: ResNet-50 from ONNX, the vision op families, row 1 at any K and N --------
+
+
+# Row 1 at K and N that are not multiples of 4 (the wrapper widens them,
+# kernels/int8_matmul.py:pad_operands): the MNIST and resnet_tiny
+# classifiers' N 10, ResNet-50 conv1's im2col K 147 (3 x 7 x 7), K 2.
+ODD_KN = ((147, 64), (2048, 10), (147, 10), (2, 12), (2, 1))
+
+
+def phase_int8_any_kn(gen, dev):
+    """int8_matmul_dequant at every form (M 1, 96, 4096) and each of ODD_KN,
+    bit-identical to its plain version."""
+    seen = []
+    for M in (1, 96, 4096):
+        for K, N in ODD_KN:
+            seen.append(f"M {M} K {K} N {N} {_int8_case(gen, dev, M, K, N, 'odd K, N', False)}")
+    print(f"  int8_matmul at K, N not multiples of 4: {len(seen)} cases equal to the plain "
+          f"version bit for bit: {'; '.join(seen)}", flush=True)
+
+
+RESNET_BATCH, RESNET_HW = 16, 224
+RESNET_FORWARDS = 3  # timed forwards, then profiled ones, a variant
+
+
+def _resnet50_onnx():
+    """tests/torch_models.resnet50() (He et al. 2015, 1000 classes), weights
+    from torch.manual_seed(0), exported at 1 x 3 x 224 x 224 with a
+    dynamic batch under build/resnet50 (opset 17, no ``onnx`` package).
+    Returns (module, path, export seconds)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from onnx_export_util import export_onnx
+    from torch_models import resnet50
+
+    t0 = time.perf_counter()
+    torch.manual_seed(0)
+    module = resnet50().eval()
+    d = os.path.join(ROOT, "build", "resnet50")
+    os.makedirs(d, exist_ok=True)
+    path = export_onnx(module, torch.randn(1, 3, RESNET_HW, RESNET_HW),
+                       os.path.join(d, "resnet50.onnx"), ["image"], ["logits"],
+                       dynamic_axes={"image": {0: "batch"}, "logits": {0: "batch"}})
+    return module, path, time.perf_counter() - t0
+
+
+def _int8_criteria(tag, got, want):
+    """The JAX package's criteria for a quantized ResNet
+    (tests/test_models_e2e.py): top-1 equal to the module's on every image
+    and a correlation above 0.99; and, as the random weights' classifier
+    bias makes the top-1 the same class for every image, the logits less
+    their batch mean (what depends on the image) correlated above 0.95."""
+    got, want = got.double(), want.double()
+    top = bool((got.argmax(-1) == want.argmax(-1)).all())
+    corr = torch.corrcoef(torch.stack([got.flatten(), want.flatten()]))[0, 1].item()
+    g, w = got - got.mean(0), want - want.mean(0)
+    centered = torch.corrcoef(torch.stack([g.flatten(), w.flatten()]))[0, 1].item()
+    if not torch.isfinite(got).all() or not top or corr <= 0.99 or centered <= 0.95:
+        fail(f"{tag}: top-1 equal {top}, correlation {corr:.6f}, image-dependent part "
+             f"{centered:.6f}")
+    return f"top-1 equal to the module's on all {got.shape[0]} images, correlation {corr:.6f} " \
+           f"(the image-dependent part {centered:.6f})"
+
+
+def phase_resnet50(dev):
+    """ResNet-50 int8 at batch 16, 224 x 224 (BASELINE.md's second headline
+    config; ``tools/bench_models.py:bench_resnet50``'s path) through the
+    user's entry points: exported from tests/torch_models.resnet50() to
+    ONNX, ``Model.load_file`` onto the card (optimized there), then
+
+    * f32: logits of the first 2 images within 1e-4 of max|logit| of the
+      module's own forward on the CPU in f64 (the port convolves f32 in
+      f64 on the card: no TF32), no kernel launched;
+    * int8 with the default ``quantize_dynamic``: the convs stay f32 and
+      the 2048 x 1000 classifier becomes MatMulIntegerToFloat, row 1's
+      stream form once a forward;
+    * int8 with ``RTEN_QUANT_CONV=all``: every conv of group 1 with C·k >=
+      128 and O >= 64 becomes DynamicQuantizeLinear + ConvIntegerToFloat,
+      whose im2col product is one row-1 launch (conv1: M 200704, K 147,
+      widened to 148 by im2col), plus the classifier's;
+
+    both int8 forms meeting ``_int8_criteria`` against the module's forward
+    on the card (TF32 off). The port runs with cuDNN's TF32 flag at
+    PyTorch's default (on), which no run may change. Launch counters are
+    zeroed just before each variant's forward and read just after; busy
+    and wall ms a forward (``_forward_times``). Row 1 is also held against
+    its plain version, bit for bit, at every im2col shape the all-convs
+    forward gives it (``_conv_im2col_shapes``), and timed at the
+    classifier's shape and at conv1's im2col shape. Returns ({path: launches}, [row-1 dicts])."""
+    from rten_tpu_torch.model import Model
+    from rten_tpu_torch.quantize_pass import quantize_dynamic
+
+    module, path, export_s = _resnet50_onnx()
+    x = np.random.default_rng(0).normal(0, 1, (RESNET_BATCH, 3, RESNET_HW, RESNET_HW)) \
+        .astype(np.float32)
+    feed = {"image": x}
+    with torch.no_grad():
+        xd = torch.from_numpy(x).to(dev)
+        want = module.to(dev)(xd).cpu()
+
+        class _Module:  # the module's forward as a model.run for _forward_times
+            def run(self, _):
+                return module(xd)
+
+        # The same network in cuDNN's f32 (TF32 off, as this script sets it):
+        # what a scoped flag would give the port's convs, beside its f64.
+        module_busy, module_wall = _forward_times(_Module(), None, RESNET_FORWARDS)
+        del xd
+        ref64 = module.cpu().double()(torch.from_numpy(x[:2]).double())
+    module.float()
+    tf32_default = True  # PyTorch's default for cuDNN convs
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = tf32_default
+    launches, rows, lines = {}, [], []
+
+    def forward(model, variant, want_mm):
+        model.run(feed)  # uploads the weights
+        torch.cuda.synchronize()
+        for fn in counters().values():
+            fn.launches = 0
+        logits = model.run(feed)[0]
+        torch.cuda.synchronize()
+        ran = {k: fn.launches for k, fn in counters().items()}
+        for k, n in ran.items():
+            if n != want_mm.get(k, 0):
+                fail(f"ResNet-50 {variant}: {k} launched {n} times a forward, expected "
+                     f"{want_mm.get(k, 0)}")
+        launches[f"resnet50_{variant}"] = ran
+        busy, wall = _forward_times(model, feed, RESNET_FORWARDS)
+        if (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) != \
+                (tf32_default, flags[1]):
+            fail(f"ResNet-50 {variant}: the run changed PyTorch's TF32 flags")
+        return logits.cpu(), busy, wall
+
+    t0 = time.perf_counter()
+    model = Model.load_file(path, device=dev)
+    load_s = time.perf_counter() - t0
+    ops = [op.op_type for _, op in model.graph.operators()]
+    logits, busy, wall = forward(model, "f32", {})
+    err = (logits[:2].double() - ref64).abs().max().item() / ref64.abs().max().item()
+    if logits.shape != (RESNET_BATCH, 1000) or not torch.isfinite(logits).all() or err > 1e-4:
+        fail(f"ResNet-50 f32: logits {tuple(logits.shape)}, {err:.3e} of max|logit| from the "
+             f"module's f64 forward")
+    lines.append(f"f32: logits [2 images] {err:.3e} of max|logit| from the module's f64 "
+                 f"forward on the CPU; busy {busy:.3f} ms, wall {wall:.3f} ms a forward")
+
+    t0 = time.perf_counter()
+    quantize_dynamic(model.graph)
+    model.executor.invalidate_weights()
+    quantize_s = time.perf_counter() - t0
+    want_mm = {"int8_matmul_dequant": 1, "int8_matmul_dequant_stream": 1}
+    logits, busy, wall = forward(model, "int8", want_mm)
+    lines.append(f"int8 (default quantize_dynamic, quantize {quantize_s:.2f} s): "
+                 f"{_int8_criteria('ResNet-50 int8', logits, want)}; busy {busy:.3f} ms, wall "
+                 f"{wall:.3f} ms a forward")
+    del model
+
+    saved = os.environ.get("RTEN_QUANT_CONV")
+    os.environ["RTEN_QUANT_CONV"] = "all"
+    try:
+        model = Model.load_file(path, device=dev)
+        t0 = time.perf_counter()
+        quantize_dynamic(model.graph)
+        model.executor.invalidate_weights()
+        quantize_all_s = time.perf_counter() - t0
+    finally:
+        if saved is None:
+            del os.environ["RTEN_QUANT_CONV"]
+        else:
+            os.environ["RTEN_QUANT_CONV"] = saved
+    n_q = sum(op.op_type == "ConvIntegerToFloat" for _, op in model.graph.operators())
+    # Every quantized conv's im2col has at least batch x 7 x 7 = 784 rows
+    # (tiled); the classifier's 16 (stream).
+    want_all = {"int8_matmul_dequant": n_q + 1, "int8_matmul_dequant_tiled": n_q,
+                "int8_matmul_dequant_stream": 1}
+    logits, busy, wall = forward(model, "int8_all_convs", want_all)
+    lines.append(f"int8, RTEN_QUANT_CONV=all ({n_q} ConvIntegerToFloat, quantize "
+                 f"{quantize_all_s:.2f} s): {_int8_criteria('ResNet-50 int8 all convs', logits, want)}"
+                 f"; busy {busy:.3f} ms, wall {wall:.3f} ms a forward")
+    conv_shapes = _conv_im2col_shapes(model.graph)
+    del model
+    torch.backends.cudnn.allow_tf32 = flags[0]
+    os.remove(path)
+    print(f"  ResNet-50 [{RESNET_BATCH}, 3, {RESNET_HW}, {RESNET_HW}]: export {export_s:.1f} s, "
+          f"Model.load_file on the card {load_s:.2f} s; {len(ops)} operators: "
+          f"{json.dumps(sorted(set(ops)))}; the module's own forward (cuDNN f32, TF32 off): "
+          f"busy {module_busy:.3f} ms, wall {module_wall:.3f} ms", flush=True)
+    for line in lines:
+        print(f"  ResNet-50 {line}", flush=True)
+    for variant, n in launches.items():
+        print(f"  resnet50 launches [{variant}]: int8_matmul_dequant "
+              f"{n['int8_matmul_dequant']} (stream {n['int8_matmul_dequant_stream']}, rows "
+              f"{n['int8_matmul_dequant_rows']}, tiled {n['int8_matmul_dequant_tiled']})",
+              flush=True)
+    gen = torch.Generator().manual_seed(17)
+    if sum(conv_shapes.values()) != n_q:
+        fail(f"ResNet-50 int8 all convs: im2col shapes of {sum(conv_shapes.values())} of the "
+             f"{n_q} ConvIntegerToFloat inferred")
+    for M, K, N in conv_shapes:
+        _int8_case(gen, dev, M, K, N, "ResNet-50 conv im2col", time_it=False)
+    print(f"  int8_matmul at every im2col shape of the all-convs forward, equal to the plain "
+          f"version bit for bit: {len(conv_shapes)} shapes (M, K, N) x convs: "
+          f"{'; '.join(f'{m} {k} {n} x{c}' for (m, k, n), c in conv_shapes.items())}",
+          flush=True)
+    rows.append(_int8_case(gen, dev, RESNET_BATCH, 2048, 1000, "ResNet-50 classifier"))
+    rows.append(_int8_case(gen, dev, RESNET_BATCH * 112 * 112, 148, 64,
+                           "ResNet-50 conv1 im2col (RTEN_QUANT_CONV=all)"))
+    return launches, rows
+
+
+def _conv_im2col_shapes(graph):
+    """{(M, K, N): convs} of the row-1 launches the ConvIntegerToFloat of
+    ``graph`` make at batch RESNET_BATCH, from the port's shape inference:
+    M = batch x output positions, K = C·k widened to a multiple of 4 as
+    im2col gives it, N = output channels."""
+    from rten_tpu_torch.shape_inference import infer_shapes
+
+    info = infer_shapes(graph, {"image": (RESNET_BATCH, 3, RESNET_HW, RESNET_HW)})
+    shapes = {}
+    for _, op in graph.operators():
+        if op.op_type != "ConvIntegerToFloat":
+            continue
+        out = info.get(op.outputs[0], (None, None))[1]
+        w = graph.nodes[op.inputs[1]].array.shape
+        if out is None or not all(isinstance(d, int) for d in out):
+            continue
+        key = (int(np.prod(out)) // out[1], -(-int(np.prod(w[1:])) // 4) * 4, w[0])
+        shapes[key] = shapes.get(key, 0) + 1
+    return shapes
+
+
+def _vision_cases(gen):
+    """(tag, op, inputs, attrs, exact) one-node graphs of every op of the
+    vision families; an input is a tensor (a graph input) or ("const",
+    array) (a graph constant)."""
+    def f32(*shape):
+        return torch.rand(shape, generator=gen) * 6 - 3
+
+    def u8(*shape):
+        return torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8)
+
+    def s8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8)
+
+    def const(a, dtype=np.float32):
+        return ("const", np.asarray(a, dtype))
+
+    x, xp = f32(2, 16, 20, 20), f32(2, 8, 17, 18)
+    grid = torch.rand((2, 9, 11, 2), generator=gen) * 2.6 - 1.3
+    return [
+        ("conv2d, pads 0/1/2/0, bias", "Conv", [x, f32(32, 16, 3, 3), f32(32)],
+         {"pads": [0, 1, 2, 0]}, False),
+        ("conv2d, SAME_UPPER k2 s2, group 4", "Conv", [x, f32(32, 4, 2, 2)],
+         {"auto_pad": "SAME_UPPER", "strides": [2, 2], "group": 4}, False),
+        ("conv2d depthwise, dilation 2", "Conv", [x, f32(16, 1, 3, 3), f32(16)],
+         {"group": 16, "dilations": [2, 2], "pads": [2, 2, 2, 2]}, False),
+        ("conv1d", "Conv", [f32(2, 8, 31), f32(12, 8, 5)], {"strides": [2], "pads": [2, 1]},
+         False),
+        ("conv3d", "Conv", [f32(1, 4, 6, 7, 8), f32(6, 4, 3, 3, 3), f32(6)],
+         {"pads": [1, 1, 0, 1, 1, 1]}, False),
+        ("ConvInteger, zero points, pads", "ConvInteger",
+         [u8(2, 8, 12, 12), s8(16, 8, 3, 3), const(131, np.uint8), const(3, np.int8)],
+         {"pads": [1, 1, 1, 1]}, True),
+        ("ConvIntegerToFloat K 147 N 10 (row 1 widened)", "ConvIntegerToFloat",
+         [u8(2, 3, 30, 30), s8(10, 3, 7, 7), const(0.02), f32(10).abs() * 1e-2,
+          const(128, np.uint8), None, f32(10)], {"strides": [2, 2], "pads": [3, 3, 3, 3]}, True),
+        ("ConvTranspose s2, output_padding, group 2", "ConvTranspose",
+         [xp, f32(8, 3, 3, 3), f32(6)],
+         {"strides": [2, 2], "output_padding": [1, 0], "pads": [1, 0, 1, 2], "group": 2}, False),
+        ("ConvTranspose 1d", "ConvTranspose", [f32(2, 4, 15), f32(4, 5, 4)],
+         {"strides": [3], "pads": [1, 2]}, False),
+        ("MaxPool k3 s2 p1", "MaxPool", [xp], {"kernel_shape": [3, 3], "strides": [2, 2],
+                                               "pads": [1, 1, 1, 1]}, True),
+        ("MaxPool ceil, dilation 2", "MaxPool", [xp],
+         {"kernel_shape": [2, 3], "strides": [2, 2], "dilations": [2, 2], "ceil_mode": 1}, True),
+        ("MaxPool int8", "MaxPool", [s8(2, 4, 9, 9)],
+         {"kernel_shape": [3, 3], "strides": [2, 2], "pads": [1, 0, 1, 1], "ceil_mode": 1}, True),
+        ("AveragePool ceil", "AveragePool", [xp],
+         {"kernel_shape": [3, 3], "strides": [2, 2], "ceil_mode": 1, "pads": [1, 1, 0, 0]},
+         False),
+        ("AveragePool count_include_pad, 3-D", "AveragePool", [f32(1, 3, 6, 7, 8)],
+         {"kernel_shape": [3, 3, 2], "pads": [1, 1, 1, 1, 1, 0], "count_include_pad": 1}, False),
+        ("GlobalAveragePool", "GlobalAveragePool", [xp], {}, False),
+        ("GlobalMaxPool", "GlobalMaxPool", [xp], {}, True),
+        ("Resize linear half_pixel x2", "Resize",
+         [xp, const(np.zeros(0)), const([1, 1, 2.0, 2.0])], {"mode": "linear"}, False),
+        ("Resize cubic align_corners exclude_outside, sizes", "Resize",
+         [xp, const(np.zeros(0)), None, const([2, 8, 25, 9], np.int64)],
+         {"mode": "cubic", "coordinate_transformation_mode": "align_corners",
+          "exclude_outside": 1}, False),
+        ("Resize nearest asymmetric round_prefer_ceil", "Resize",
+         [xp, const(np.zeros(0)), const([1, 1, 1.5, 0.5])],
+         {"mode": "nearest", "coordinate_transformation_mode": "asymmetric",
+          "nearest_mode": "round_prefer_ceil"}, True),
+        ("Resize uint8 linear", "Resize", [u8(1, 3, 10, 10), const(np.zeros(0)),
+                                           const([1, 1, 1.7, 2.3])], {"mode": "linear"}, True),
+        ("Upsample nearest", "Upsample", [xp, const([1, 1, 2.0, 3.0])], {"mode": "nearest"},
+         True),
+        ("GridSample bilinear reflection", "GridSample", [xp, grid],
+         {"padding_mode": "reflection"}, False),
+        ("GridSample nearest zeros align_corners", "GridSample", [xp, grid],
+         {"mode": "nearest", "align_corners": 1}, True),
+        ("GridSample bilinear border align_corners", "GridSample", [xp, grid],
+         {"padding_mode": "border", "align_corners": 1}, False),
+    ]
+
+
+def _one_node(op, inputs, attrs, run_config=None):
+    """A one-node graph and its feed (tensors become inputs)."""
+    from rten_tpu_torch.dtypes import DataType
+    from rten_tpu_torch.ir.builder import GraphBuilder
+
+    b = GraphBuilder()
+    ins, feed = [], {}
+    for i, v in enumerate(inputs):
+        if v is None:
+            ins.append(None)
+        elif isinstance(v, tuple):
+            ins.append(b.constant(f"c{i}", v[1]))
+        else:
+            arr = v.numpy()
+            ins.append(b.input(f"x{i}", DataType.from_np(arr.dtype), arr.shape))
+            feed[f"x{i}"] = arr
+    b.output(b.op(op, ins, attrs, output_names=["y"]))
+    return b.finish(), feed
+
+
+def phase_vision_ops(dev):
+    """Every op of the vision families (Conv 1-D to 3-D with groups,
+    dilations and pads that differ on the two sides, ConvInteger,
+    ConvIntegerToFloat through row 1 at K 147 and N 10, ConvTranspose,
+    MaxPool, AveragePool, the global pools, Resize, Upsample, GridSample)
+    as one-node graphs on the card against the port's CPU run of the same
+    graph: integer results, max pools and nearest resizes and samples
+    equal, the rest within 1e-5 of max|out| (the f32 convs: f64 on the
+    card, oneDNN's f32 on the CPU). Then the precision of f32 convs with
+    cuDNN's TF32 flag on (PyTorch's default): a conv of K 576 within 1e-6
+    of max|out| of its f64 value, where cuDNN's own f32 conv under the same
+    flag reads TF32's error; and ``RunConfig(prefer_bf16=True)``: Conv,
+    MatMul and Einsum through one bf16 pass, within bf16's rounding of the
+    f64 product of the bf16-rounded operands. No run changes the TF32
+    flags."""
+    from rten_tpu_torch.model import Model, ModelOptions
+    from rten_tpu_torch.runtime.executor import RunConfig
+
+    gen = torch.Generator().manual_seed(23)
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    worst = {}
+    for tag, op, inputs, attrs, exact in _vision_cases(gen):
+        graph, feed = _one_node(op, inputs, attrs)
+        got = Model(graph, ModelOptions(optimize=False), device=dev).run(feed, ["y"])[0]
+        want = Model(graph, ModelOptions(optimize=False), device="cpu").run(feed, ["y"])[0]
+        got = got.cpu()
+        if got.shape != want.shape or got.dtype != want.dtype:
+            fail(f"vision op [{tag}]: {tuple(got.shape)} {got.dtype} on the card, "
+                 f"{tuple(want.shape)} {want.dtype} on the CPU")
+        if exact:
+            if not torch.equal(got, want):
+                fail(f"vision op [{tag}]: the card's result differs from the CPU's")
+            worst[tag] = 0.0
+        else:
+            err = (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+            if not torch.isfinite(got).all() or err > 1e-5:
+                fail(f"vision op [{tag}]: {err:.3e} of max|out| from the CPU's")
+            worst[tag] = err
+    print(f"  vision ops, card against CPU ({len(worst)} one-node graphs): "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in worst.items()})}", flush=True)
+
+    x = torch.rand((4, 64, 28, 28), generator=gen) * 2 - 1
+    w = (torch.rand((64, 64, 3, 3), generator=gen) * 2 - 1) * 0.05
+    graph, feed = _one_node("Conv", [x, ("const", w.numpy())], {"pads": [1, 1, 1, 1]})
+    ref = torch.nn.functional.conv2d(x.double().to(dev), w.double().to(dev), padding=1)
+    scale = ref.abs().max().item()
+    got = Model(graph, ModelOptions(optimize=False), device=dev).run(feed, ["y"])[0]
+    port_err = (got.double() - ref).abs().max().item() / scale
+    cudnn = torch.nn.functional.conv2d(x.to(dev), w.to(dev), padding=1)
+    tf32_err = (cudnn.double() - ref).abs().max().item() / scale
+    if port_err > 1e-6:
+        fail(f"f32 Conv on the card: {port_err:.3e} of max|out| from f64 (TF32?)")
+    msg = [f"f32 Conv K 576 with cuDNN's TF32 flag on: the port {port_err:.3e} of max|out| "
+           f"from f64, cuDNN's f32 conv {tf32_err:.3e}"]
+
+    a = torch.rand((64, 256), generator=gen) * 2 - 1
+    bm = torch.rand((256, 96), generator=gen) * 2 - 1
+    bf = RunConfig(prefer_bf16=True)
+    for tag, op, inputs, attrs, ref_fn in (
+            ("Conv", "Conv", [x, ("const", w.numpy())], {"pads": [1, 1, 1, 1]},
+             lambda p, q: torch.nn.functional.conv2d(p, q, padding=1)),
+            ("MatMul", "MatMul", [a, ("const", bm.numpy())], {}, torch.matmul),
+            ("Einsum", "Einsum", [a, bm], {"equation": "ik,kj->ij"}, torch.matmul)):
+        graph, feed = _one_node(op, inputs, attrs)
+        got = Model(graph, ModelOptions(optimize=False, run_config=bf), device=dev) \
+            .run(feed, ["y"])[0]
+        p, q = (torch.as_tensor(v[1] if isinstance(v, tuple) else v) for v in inputs)
+        ref = ref_fn(p.bfloat16().double().to(dev), q.bfloat16().double().to(dev))
+        full = ref_fn(p.double().to(dev), q.double().to(dev))
+        scale = full.abs().max().item()
+        err_bf = (got.double() - ref).abs().max().item() / scale
+        err_full = (got.double() - full).abs().max().item() / scale
+        # One bf16 pass: every value on bf16's grid, nearly all the bf16
+        # rounding of the exact product of the bf16-rounded operands.
+        on_grid = torch.equal(got, got.bfloat16().float())
+        same = (got == ref.to(torch.bfloat16).float()).double().mean().item()
+        if got.dtype != torch.float32 or not on_grid or same < 0.99 or err_bf > 2 ** -8:
+            fail(f"prefer_bf16 {tag}: {got.dtype}, on bf16's grid {on_grid}, {same:.4f} equal to "
+                 f"the rounded bf16 product, {err_bf:.3e} of max|out| from it")
+        msg.append(f"prefer_bf16 {tag}: f32 values on bf16's grid, {same:.4f} of them the "
+                   f"rounded f64 product of the bf16 operands ({err_bf:.3e} of max|out|), "
+                   f"{err_full:.3e} of max|out| from the f32 operands' product")
+    if (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) != \
+            (True, flags[1]):
+        fail("a vision op changed PyTorch's TF32 flags")
+    torch.backends.cudnn.allow_tf32 = flags[0]
+    for line in msg:
+        print(f"  {line}", flush=True)
+
 
 def phase_reference_serving(dev):
     """The rest of the serving stack, the card against the CPU (the plain
@@ -4421,7 +4864,17 @@ def main() -> int:
     run("gpt2_cli", "s8", phase_cli, onnx_path)
     os.remove(onnx_path)
     lap("the CLI (--serve, --quantize int8 and int4)")
-    for phase in list(secs)[-2:]:
+    print("vision phases:", flush=True)
+    torch.cuda.empty_cache()
+    resnet_launches, kernels[0]["resnet50"] = phase_resnet50(dev)
+    for path, n in resnet_launches.items():
+        by_path[path], path_kv[path] = n, None
+    lap("ResNet-50 from ONNX (export, load; f32, int8, int8 all convs at batch 16)")
+    torch.cuda.empty_cache()
+    phase_vision_ops(dev)
+    phase_int8_any_kn(gen, dev)
+    lap("vision ops card against CPU; int8_matmul_dequant at any K and N")
+    for phase in list(secs)[-4:]:
         print(f"  {phase}: {secs[phase]:.1f} s", flush=True)
     # A row's launches: its counter over the paths that serve from its KV
     # cache type (every path for the kernels that read no KV cache). A
@@ -4455,9 +4908,11 @@ def main() -> int:
     sanitizer = phase_sanitizer(out_dir)
     lap("compute-sanitizer (racecheck, memcheck)")
     phase_reference(dev)
+    lap("references (GPT-2: small engines, full width)")
     phase_reference_llama(dev)
+    lap("references (Llama: small engines, full widths)")
     phase_reference_generate(dev)
-    lap("references (flat, paged, Generator)")
+    lap("references (Generator)")
     phase_reference_serving(dev)
     lap("references (sampling, full-bucket lm_head, chunks, prefixes, LoRA, speculative, "
         "drains, HTTP)")

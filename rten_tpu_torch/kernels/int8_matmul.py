@@ -6,7 +6,8 @@ Replaces ``rten_tpu/kernels/int8_matmul.py:int8_matmul_dequant``:
     C = ((A - zp_a) . (B - zp_b)) * scale_a * scale_b
 
 with A [M, K] u8 or s8 (u8 is shifted to s8 as ``a ^ 0x80``, ``zp - 128``),
-B [K, N] s8 (prepacked), per-tensor or per-row ``scale_a``/``zp_a``,
+B [K, N] s8 (prepacked; any K and N, widened to multiples of 4 by
+``pad_operands`` where they are not), per-tensor or per-row ``scale_a``/``zp_a``,
 per-tensor or per-column ``scale_b``/``zp_b``, and optional precomputed
 int32 column sums of B (``MatMulIntegerToFloat`` input 7). The kernels'
 source note says what bounds them on the H100 and how they are built.
@@ -96,6 +97,39 @@ def _vec(name, v, n, dtype, device):
     return t, 1
 
 
+def pad_operands(a, b, a_zp, b_scale, b_zp, b_colsums):
+    """The operands widened to K and N multiples of 4, as the kernel takes
+    them (the reference kernel pads both before its ``pallas_call``): a's
+    new columns hold a's zero point (0 without one), b's new rows and
+    columns are 0, and a per-column ``b_scale``, ``b_zp`` or ``b_colsums``
+    gains columns of 1, 0 and 0. Every padded k then adds
+    (zp_a - zp_a) * (0 - zp_b) = 0 and a zero weight row adds nothing to
+    the column sums, so the product over the first N columns is the same
+    integer. A zero point must lie in a's dtype, as ONNX has it."""
+    M, K = a.shape
+    N = b.shape[1]
+    dk, dn = -K % 4, -N % 4
+    if dk:
+        fill = (torch.zeros((), dtype=a.dtype, device=a.device) if a_zp is None
+                else torch.as_tensor(a_zp, device=a.device).to(a.dtype))
+        fill = fill.reshape(-1, 1) if fill.numel() > 1 else fill.reshape(1, 1)
+        a = torch.cat([a, fill.expand(M, dk)], dim=1)
+        b = torch.cat([b, b.new_zeros(dk, N)], dim=0)
+    if dn:
+        b = torch.cat([b, b.new_zeros(b.shape[0], dn)], dim=1)
+
+        def widen(v, fill, per_column=False):
+            t = torch.as_tensor(v, device=a.device)
+            if t.numel() != N or (N == 1 and not per_column):
+                return v  # a scalar holds for every column
+            return torch.cat([t.reshape(-1), t.new_full((dn,), fill)])
+
+        b_scale = widen(b_scale, 1)
+        b_zp = None if b_zp is None else widen(b_zp, 0)
+        b_colsums = None if b_colsums is None else widen(b_colsums, 0, per_column=True)
+    return a, b, b_scale, b_zp, b_colsums
+
+
 def int8_form(M: int) -> str:
     """The kernel ``int8_matmul_dequant`` launches for M rows: "stream"
     (M <= 16), "rows" (16 < M <= 128) or "tiled" (M > 128)."""
@@ -168,8 +202,13 @@ def int8_matmul_dequant(a, b, a_scale, b_scale, a_zp=None, b_zp=None,
     check_cuda_tensor("b", b, torch.int8, device)
     M, K = a.shape
     N = b.shape[1]
-    if K < 1 or K % 4 or N % 4 or a.data_ptr() % 4 or b.data_ptr() % 4:
-        raise ValueError("K (at least 4) and N must be multiples of 4 with 4-byte-aligned data")
+    if K < 1 or N < 1:
+        raise ValueError(f"K and N must be at least 1, got {K} and {N}")
+    if K % 4 or N % 4:
+        a, b, b_scale, b_zp, b_colsums = pad_operands(a, b, a_zp, b_scale, b_zp, b_colsums)
+        return int8_matmul_dequant(a, b, a_scale, b_scale, a_zp, b_zp, b_colsums)[:, :N]
+    if a.data_ptr() % 4 or b.data_ptr() % 4:
+        raise ValueError("a and b must have 4-byte-aligned data")
     sa, sa_stride = _vec("a_scale", a_scale, M, torch.float32, device)
     sb, sb_stride = _vec("b_scale", b_scale, N, torch.float32, device)
     keep = [sa, sb]

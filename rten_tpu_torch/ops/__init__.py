@@ -6,12 +6,16 @@ from .registry import OpError, REGISTRY, get_op, register  # noqa: F401
 # Import op modules for their registration side effects.
 from . import (  # noqa: F401
     attention,
+    conv,
     einsum,
     elementwise,
     gather,
+    grid_sample,
     layout,
     matmul,
     norm,
+    pool,
     quantize,
     reduce,
+    resize,
 )

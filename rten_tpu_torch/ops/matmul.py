@@ -4,7 +4,10 @@ MatMulNBits.
 
 * MatMul / MatMulAdd / FusedMatMul / Gemm: the JAX package leaves f32
   products to XLA at HIGHEST precision; here they are ``torch.matmul`` in
-  full f32 (TF32 is off for matmuls unless a caller turns it on).
+  full f32 (TF32 is off for matmuls unless a caller turns it on). Under
+  ``RunConfig.prefer_bf16`` (the JAX package's DEFAULT precision) f32
+  operands on the card take one bf16 pass, widened back to f32 (``contract``,
+  the precision rule Conv and Einsum share).
 * MatMulInteger (``matmul.py:71-129``): the zero-point-corrected integer
   product in int32. cuBLAS has no int32 matmul, so the product is taken in
   f64, which holds every u8/s8 product sum below 2^53 exactly, on both
@@ -30,10 +33,30 @@ from ..kernels.int8_matmul import int8_matmul_dequant
 from .registry import OpError, as_tensor, get_input, opt_input, register
 
 
+def contract(ctx, fn, *args: torch.Tensor, full=torch.float64, honour_bf16: bool = True):
+    """``fn(*args)``, a float contraction, under the port's one precision
+    rule. f32 operands on the card take one bf16 pass under
+    ``RunConfig.prefer_bf16`` where the JAX op honours it (``honour_bf16``),
+    else run in ``full``: f64 gives full f32 products whatever the TF32
+    flags, and f32 suits cuBLAS matmuls, whose TF32 flag is off unless a
+    caller turns it on. A result in another dtype is rounded back to f32.
+    Anything else (the CPU, other dtypes) runs as it is."""
+    if args[0].device.type != "cuda" or any(a.dtype != torch.float32 for a in args):
+        return fn(*args)
+    run = torch.bfloat16 if honour_bf16 and ctx is not None and ctx.config.prefer_bf16 else full
+    if run == torch.float32:
+        return fn(*args)
+    return fn(*(a.to(run) for a in args)).to(torch.float32)
+
+
+def _mm(ctx, a, b):
+    return contract(ctx, torch.matmul, a, b, full=torch.float32)
+
+
 @register("MatMul")
 def _matmul(ctx, inputs, attrs):
     a = as_tensor(ctx, get_input(inputs, 0, "a"))
-    return torch.matmul(a, as_tensor(ctx, get_input(inputs, 1, "b")))
+    return _mm(ctx, a, as_tensor(ctx, get_input(inputs, 1, "b")))
 
 
 @register("MatMulAdd")
@@ -42,7 +65,7 @@ def _matmul_add(ctx, inputs, attrs):
     a = as_tensor(ctx, get_input(inputs, 0, "a"))
     b = as_tensor(ctx, get_input(inputs, 1, "b"))
     bias = as_tensor(ctx, get_input(inputs, 2, "bias"))
-    return torch.matmul(a, b) + bias
+    return _mm(ctx, a, b) + bias
 
 
 @register("FusedMatMul")
@@ -51,7 +74,7 @@ def _fused_matmul(ctx, inputs, attrs):
     src/ops/matmul.rs:457 FusedMatMul{alpha})."""
     a = as_tensor(ctx, get_input(inputs, 0, "a"))
     b = as_tensor(ctx, get_input(inputs, 1, "b"))
-    return torch.matmul(a, b) * attrs.get("alpha", 1.0)
+    return _mm(ctx, a, b) * attrs.get("alpha", 1.0)
 
 
 @register("Gemm")
@@ -65,7 +88,7 @@ def _gemm(ctx, inputs, attrs):
         a = a.transpose(-1, -2)
     if attrs.get("transB", 0):
         b = b.transpose(-1, -2)
-    out = torch.matmul(a, b)
+    out = _mm(ctx, a, b)
     if alpha != 1.0:
         out = out * alpha
     if c is not None and beta != 0.0:

@@ -21,6 +21,12 @@ kernel) as the executor walks the plan.
 caches of QuantizedKVAttention); the executor copies such an input first
 unless the caller donated it, which keeps a caller's tensor unchanged as
 JAX's immutable arrays would.
+
+``static`` names the input positions a lowering reads with
+``static_value`` (Resize's scales and sizes): where such an input is a
+small graph constant, one the JAX package keeps concrete under jit, the
+executor hands the lowering its numpy array even though a float constant
+otherwise lives on the device.
 """
 
 from __future__ import annotations
@@ -41,14 +47,16 @@ class OpDef:
     name: str
     lower: Callable
     inplace: Tuple[int, ...] = ()
+    static: Tuple[int, ...] = ()
 
 
 REGISTRY: Dict[str, OpDef] = {}
 
 
-def register(name: str, inplace: Tuple[int, ...] = ()):
+def register(name: str, inplace: Tuple[int, ...] = (), static: Tuple[int, ...] = ()):
     def deco(fn):
-        REGISTRY[name] = OpDef(name=name, lower=fn, inplace=tuple(inplace))
+        REGISTRY[name] = OpDef(name=name, lower=fn, inplace=tuple(inplace),
+                               static=tuple(static))
         return fn
 
     return deco
@@ -56,7 +64,7 @@ def register(name: str, inplace: Tuple[int, ...] = ()):
 
 def get_op(name: str) -> OpDef:
     """The lowering of ``name``; an operator the port does not register yet
-    (If, Conv, Resize, ...) raises ``NotImplementedError``: a graph holding
+    (If, Loop, LSTM, ...) raises ``NotImplementedError``: a graph holding
     one loads, and fails when it runs that op."""
     op = REGISTRY.get(name)
     if op is None:

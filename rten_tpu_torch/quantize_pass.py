@@ -1,5 +1,5 @@
-"""Quantization passes over the IR (the port of ``rten_tpu/quantize_pass.py``,
-matmul part): dynamic int8 and weight-only int4.
+"""Quantization passes over the IR (the port of ``rten_tpu/quantize_pass.py``):
+dynamic int8 and weight-only int4.
 
 Rewrites every MatMul/MatMulAdd/Gemm(activation, constant_weight) into
 
@@ -10,18 +10,22 @@ Rewrites every MatMul/MatMulAdd/Gemm(activation, constant_weight) into
 which the executor lowers onto the int8 kernel
 (``rten_tpu_torch/kernels/int8_matmul.py``); ``quantize_weight_only_int4``
 rewrites the same matmuls into MatMulNBits (+ a bias Add) on the int4
-kernel (``rten_tpu_torch/kernels/int4_matmul.py``). numpy only: the
+kernel (``rten_tpu_torch/kernels/int4_matmul.py``). Convolutions become
+DynamicQuantizeLinear + ConvIntegerToFloat (s8 per-output-channel
+weights) only where ``RTEN_QUANT_CONV`` asks for it (``_maybe_quantize_conv``:
+the JAX package's switch and its default, ``none``). numpy only: the
 rewritten graphs, packed bytes included, are identical to the ones the JAX
 package's passes produce.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
 
 import numpy as np
 
-from .ir.graph import Constant, Graph
+from .ir.graph import Constant, Graph, Operator
 
 
 def quantize_weight_per_col(w: np.ndarray):
@@ -29,6 +33,15 @@ def quantize_weight_per_col(w: np.ndarray):
     absmax = np.max(np.abs(w), axis=0)
     scales = np.where(absmax > 0, absmax / 127.0, 1.0).astype(np.float32)
     q = np.clip(np.round(w / scales[None, :]), -127, 127).astype(np.int8)
+    return q, scales
+
+
+def quantize_conv_weight(w: np.ndarray):
+    """f32 [O, C, *k] -> (s8 same shape, f32 scales [O]). Symmetric."""
+    absmax = np.max(np.abs(w.reshape(w.shape[0], -1)), axis=1)
+    scales = np.where(absmax > 0, absmax / 127.0, 1.0).astype(np.float32)
+    shape = (-1,) + (1,) * (w.ndim - 1)
+    q = np.clip(np.round(w / scales.reshape(shape)), -127, 127).astype(np.int8)
     return q, scales
 
 
@@ -64,17 +77,23 @@ def quantize_dynamic(
     g: Graph,
     min_elements: int = 32 * 32,
     skip_names: Optional[set] = None,
+    quantize_conv: bool = True,
 ) -> Graph:
-    """Rewrite eligible float matmuls to the quantized form, in place.
+    """Rewrite eligible float matmuls (and convs) to the quantized form,
+    in place.
 
     ``min_elements`` skips tiny weights where quantization overhead wins.
-    Convolutions are left as they are (ROADMAP.md queue 1 item 12).
+    A Conv is rewritten only where ``quantize_conv`` and ``RTEN_QUANT_CONV``
+    allow (``_maybe_quantize_conv``).
     """
     skip_names = skip_names or set()
     # Cache: one quantized copy per weight constant, shared by consumers.
     quantized: Dict[tuple, tuple] = {}
 
     for nid, op in list(g.operators()):
+        if quantize_conv and op.op_type == "Conv":
+            _maybe_quantize_conv(g, nid, op, min_elements, skip_names)
+            continue
         found = _constant_weight(g, op, min_elements, skip_names)
         if found is None:
             continue
@@ -165,3 +184,52 @@ def quantize_weight_only_int4(
             op.inputs = [act_id, pk_id, sc_id]
             op.attrs = attrs
     return g
+
+
+def _maybe_quantize_conv(g: Graph, nid, op: Operator, min_elements, skip_names):
+    """Conv(x, const_w [O, C, *k], bias?) -> DynamicQuantizeLinear +
+    ConvIntegerToFloat: u8 dynamic activations x s8 per-output-channel
+    symmetric weights (rten src/ops/conv.rs:479, fused :552).
+
+    ``RTEN_QUANT_CONV`` picks the convs, as in the JAX package: ``none``
+    (the default: every conv stays f32), ``1x1`` (1x1 convs of stride 1)
+    or ``all``; in both, only convs of group 1 with C·k >= 128 and O >= 64
+    and at least ``min_elements`` weights."""
+    if op.name in skip_names or op.attrs.get("group", 1) != 1:
+        return
+    if len(op.inputs) < 2 or op.inputs[1] is None:
+        return
+    w_node = g.nodes.get(op.inputs[1])
+    if not isinstance(w_node, Constant):
+        return
+    w = w_node.array
+    if w.dtype != np.float32 or w.size < min_elements:
+        return
+    mode = os.environ.get("RTEN_QUANT_CONV", "none")
+    if mode not in ("1x1", "all"):
+        return
+    O = w.shape[0]
+    K = int(np.prod(w.shape[1:]))
+    if K < 128 or O < 64:
+        return
+    spatial = int(np.prod(w.shape[2:])) > 1
+    if mode != "all" and (
+        spatial
+        or any(int(s) != 1 for s in op.attrs.get("strides", [1]))
+    ):
+        return
+    q, scales = quantize_conv_weight(w)
+    wq_id = g.add_constant((w_node.name or "w") + ".q8", q)
+    ws_id = g.add_constant((w_node.name or "w") + ".scales", scales)
+    act_id = op.inputs[0]
+    bias_id = op.inputs[2] if len(op.inputs) > 2 else None
+    aq_id = g.add_value(f"{g.node_name(nid)}.act_q")
+    as_id = g.add_value(f"{g.node_name(nid)}.act_scale")
+    azp_id = g.add_value(f"{g.node_name(nid)}.act_zp")
+    g.add_op(
+        "DynamicQuantizeLinear", [act_id], [aq_id, as_id, azp_id],
+        name=f"{op.name or g.node_name(nid)}.dql",
+    )
+    op.op_type = "ConvIntegerToFloat"
+    op.inputs = [aq_id, wq_id, as_id, ws_id, azp_id, None, bias_id]
+    # attrs (strides, pads, dilations, group) carry over unchanged.

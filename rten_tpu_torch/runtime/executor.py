@@ -84,9 +84,21 @@ def to_tensor(value, device: torch.device) -> torch.Tensor:
 
 @dataclasses.dataclass
 class RunConfig:
-    """Run options (analog of rten RunOptions). The slice needs none: a
-    kernel wrapper launches its CUDA kernel for CUDA tensors and runs its
-    plain version for CPU tensors, so no flag selects kernels."""
+    """Run options (analog of rten RunOptions). A kernel wrapper launches
+    its CUDA kernel for CUDA tensors and runs its plain version for CPU
+    tensors, so no flag selects kernels (the JAX package's ``use_pallas_*``
+    fields have no counterpart).
+
+    ``prefer_bf16``: f32 MatMul, Gemm, FusedMatMul, MatMulAdd, Einsum and
+    Conv operands on the card go through one bf16 pass (cuBLAS and cuDNN
+    accumulate in f32; the results are widened back to f32), as the JAX
+    package's DEFAULT precision runs them on the TPU. bf16 rather than
+    TF32: it rounds the operands as the TPU's pass does, and PyTorch
+    chooses TF32 only through process-wide flags, which a run must not
+    touch. Without it the products are full f32. On the CPU both are f32,
+    as the JAX package computes there."""
+
+    prefer_bf16: bool = False
 
 
 class TraceContext:
@@ -119,6 +131,8 @@ class Executor:
         self.config = config or RunConfig()
         self.device = resolve_device(device)
         self._weights: Optional[Dict[NodeId, torch.Tensor]] = None
+        self._weight_ids: set = set()
+        self._derived: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
         self._constants: Optional[Dict[NodeId, np.ndarray]] = None
         self._concrete: Optional[set] = None
         self._plans: Dict[Tuple, List[NodeId]] = {}
@@ -144,7 +158,22 @@ class Executor:
                 for nid, node in self.graph.nodes.items()
                 if isinstance(node, Constant) and _device_resident(node)
             }
+            self._weight_ids = {id(t) for t in self._weights.values()}
         return self._weights
+
+    def derived_weight(self, w: torch.Tensor, tag, make) -> torch.Tensor:
+        """``make()``, a layout of the device weight ``w`` that an op
+        derives (``tag`` names it), made once and kept until
+        ``invalidate_weights``; for a tensor that is not one of the
+        executor's weights, made anew on every call."""
+        key = (id(w), tag)
+        hit = self._derived.get(key)
+        if hit is not None and hit[0] is w:
+            return hit[1]
+        out = make()
+        if id(w) in self._weight_ids:
+            self._derived[key] = (w, out)
+        return out
 
     def _host_constants(self) -> Dict[NodeId, np.ndarray]:
         if self._constants is None:
@@ -168,6 +197,8 @@ class Executor:
         """Drop the cached constants, their device copies and the plans
         (after a pass replaced constants or rewrote operators)."""
         self._weights = None
+        self._weight_ids = set()
+        self._derived = {}
         self._constants = None
         self._concrete = None
         self._plans = {}
@@ -205,12 +236,13 @@ class Executor:
         for op_id in self._plan(fed, output_ids):
             op = g.nodes[op_id]
             assert isinstance(op, Operator)
+            op_def = get_op(op.op_type)
             host_ins = [None if i is None else consts[i] if i in concrete else env.get(i)
                         for i in op.inputs]
             on_host = all(v is None or isinstance(v, np.ndarray) for v in host_ins)
             ins = host_ins if on_host else [
-                env.get(i) if i is not None else None for i in op.inputs]
-            op_def = get_op(op.op_type)
+                host_ins[k] if k in op_def.static else env.get(i) if i is not None else None
+                for k, i in enumerate(op.inputs)]
             attrs = dict(op.attrs)
             attrs["__n_outputs__"] = len(op.outputs)
             t0 = time.perf_counter() if profiler is not None else 0.0

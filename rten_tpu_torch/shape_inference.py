@@ -84,7 +84,7 @@ _UNARY = (
     "Reciprocal Relu Round Sigmoid Sign Sin Sinh Softplus Sqrt Swish Tan "
     "Tanh Softmax LogSoftmax SafeSoftmax Dropout LpNormalization "
     "QuickGelu GeluMicrosoft Silu Trilu CumSum ReverseSequence IsInf IsNaN "
-    "FastGelu GridSample ScatterElements Scatter ScatterND GatherElements "
+    "FastGelu ScatterElements Scatter ScatterND GatherElements "
     "RotaryEmbedding RotaryEmbeddingMS"
 ).split()
 
@@ -206,23 +206,37 @@ def _r_conv(op, ins, g=None):
 
 @rule("MaxPool", "AveragePool")
 def _r_pool(op, ins, g=None):
+    """The ops' own arithmetic (``ops/pool.py``): ``auto_pad``, dilations
+    and the right pad ``ceil_mode`` widens. The JAX package's rule reads
+    neither ``auto_pad`` nor dilations."""
     dx, x = ins[0]
     if x is None:
         return [(dx, None)]
     n_sp = len(x) - 2
     kernel = op.attrs.get("kernel_shape")
-    strides = op.attrs.get("strides", kernel)
-    pads = op.attrs.get("pads", [0] * (2 * n_sp))
     if kernel is None:
         return [(dx, None)]
-    ceil_mode = op.attrs.get("ceil_mode", 0)
+    strides = op.attrs.get("strides", [1] * n_sp)
+    dilations = op.attrs.get("dilations", [1] * n_sp)
+    pads = op.attrs.get("pads", [0] * (2 * n_sp))
+    auto_pad = op.attrs.get("auto_pad", "NOTSET")
+    if isinstance(auto_pad, bytes):
+        auto_pad = auto_pad.decode()
     sp = []
     for i, d in enumerate(x[2:]):
         if not isinstance(d, int):
             sp.append(None)
             continue
-        total = d + pads[i] + pads[i + n_sp] - kernel[i]
-        sp.append(-(-total // strides[i]) + 1 if ceil_mode else total // strides[i] + 1)
+        eff_k = (kernel[i] - 1) * dilations[i] + 1
+        if auto_pad in ("SAME_UPPER", "SAME_LOWER"):
+            total = max(0, (-(-d // strides[i]) - 1) * strides[i] + eff_k - d)
+        elif auto_pad == "VALID":
+            total = 0
+        else:
+            total = pads[i] + pads[i + n_sp]
+        span = d + total - eff_k
+        sp.append(-(-span // strides[i]) + 1 if op.attrs.get("ceil_mode", 0)
+                  else span // strides[i] + 1)
     return [(dx, (x[0], x[1]) + tuple(sp))]
 
 
@@ -696,6 +710,9 @@ def _r_conv_t(op, ins, g=None):
     pads = op.attrs.get("pads", [0] * 2 * n_sp)
     dil = op.attrs.get("dilations", [1] * n_sp)
     outp = op.attrs.get("output_padding", [0] * n_sp)
+    if op.attrs.get("output_shape") is not None:
+        # The op derives its pads from it (the JAX package's rule does not).
+        return [(dx, (x[0], c_out) + tuple(int(d) for d in op.attrs["output_shape"][:n_sp]))]
     sp = []
     for i, d in enumerate(x[2:]):
         k = w[2 + i]
@@ -705,6 +722,16 @@ def _r_conv_t(op, ins, g=None):
         sp.append((d - 1) * strides[i] - pads[i] - pads[i + n_sp]
                   + (k - 1) * dil[i] + 1 + outp[i])
     return [(dx, (x[0], c_out) + tuple(sp))]
+
+
+@rule("GridSample")
+def _r_grid_sample(op, ins, g=None):
+    """[N, C, Ho, Wo] from x [N, C, H, W] and grid [N, Ho, Wo, 2]; the JAX
+    package's rule gives x's shape."""
+    (dx, x), (_, grid) = ins[0], ins[1]
+    if x is None or grid is None or len(x) != 4 or len(grid) != 4:
+        return [(dx, None)]
+    return [(dx, (x[0], x[1], grid[1], grid[2]))]
 
 
 @rule("LSTM")

@@ -424,11 +424,13 @@ def timed(fn, *args, iters=30):
     return _clock(device, run) / iters * 1e3, out
 
 
-def timed_chained(fn, q, *rest, iters=400):
+def timed_chained(fn, q, *rest, iters=400, short=8, repeats=3):
     """Serialized per-call latency in microseconds: call i + 1's q is
-    ``q + 1e-9 * o`` of call i's output o. Loops of 8 and ``iters`` calls,
-    the fastest of three walls each, differenced so that fixed costs
-    cancel; each link also launches the update."""
+    ``q + 1e-9 * o`` of call i's output o. Loops of ``short`` and ``iters``
+    calls, timed in turn ``repeats`` times, the fastest wall of each
+    length differenced so that fixed costs cancel; each link also launches
+    the update. Interleaving the two lengths puts a stretch of load from
+    other processes on both alike rather than on one."""
 
     def chain(n):
         x = q
@@ -436,12 +438,14 @@ def timed_chained(fn, q, *rest, iters=400):
             x = x + 1e-9 * fn(x, *rest).reshape(x.shape)
         return x
 
-    chain(8)
+    chain(short)
     chain(iters)
     _sync(q.device)
-    ws = min(_clock(q.device, lambda: chain(8)) for _ in range(3))
-    wl = min(_clock(q.device, lambda: chain(iters)) for _ in range(3))
-    return (wl - ws) / (iters - 8) * 1e3
+    ws, wl = [], []
+    for _ in range(repeats):
+        ws.append(_clock(q.device, lambda: chain(short)))
+        wl.append(_clock(q.device, lambda: chain(iters)))
+    return (min(wl) - min(ws)) / (iters - short) * 1e3
 
 
 def main(argv=None):
@@ -459,8 +463,11 @@ def main(argv=None):
         raise RuntimeError("no CUDA device: run on the card, or pass --device cpu")
     device = torch.device(args.device)
     where = "cuda" if device.type == "cuda" else "cpu"
-    # The plain versions on the CPU are slow: shorter loops there.
-    iters, chain = (30, 400) if where == "cuda" else (3, 24)
+    # The plain versions on the CPU are slow: shorter loops there, but
+    # chains 46 calls apart, timed in turn five times, so that another
+    # process's load cannot make the long chain read faster than the short.
+    iters, chain = (30, dict(iters=400)) if where == "cuda" else (
+        3, dict(iters=48, short=2, repeats=5))
     B, H, cap, D = args.slots, args.heads, args.cap, args.d
 
     rng = np.random.default_rng(0)
@@ -502,28 +509,28 @@ def main(argv=None):
     t, got = timed(lambda *a: bd_decode(*a, scale=scale), q, ktb, vb, lens, iters=iters)
     line("blockdiag bf16 (K^T)", t, kv_mb / 2, " eff", err(got, ref))
 
-    t = timed_chained(lambda x, *r: decode_mha(x, *r, scale=scale), q, k, v, lens, iters=chain)
+    t = timed_chained(lambda x, *r: decode_mha(x, *r, scale=scale), q, k, v, lens, **chain)
     line("CHAINED current kernel", t)
     kb16 = k.to(torch.bfloat16)
     t = timed_chained(lambda x, *r: decode_mha(x, *r, scale=scale), q, kb16, vb, lens,
-                      iters=chain)
+                      **chain)
     line("CHAINED bf16-KV kernel", t, kv_mb / 2, " eff")
 
     def floor_fn(x, k, v, lens):
         return dma_floor(x, k, v, lens)[:, None].expand(B, H, 1, D)
 
-    line("CHAINED DMA floor", timed_chained(floor_fn, q, k, v, lens, iters=chain))
-    t = timed_chained(lambda x, *r: bd_decode(x, *r, scale=scale), q, kt, v, lens, iters=chain)
+    line("CHAINED DMA floor", timed_chained(floor_fn, q, k, v, lens, **chain))
+    t = timed_chained(lambda x, *r: bd_decode(x, *r, scale=scale), q, kt, v, lens, **chain)
     line("CHAINED blockdiag (K^T)", t)
-    t = timed_chained(lambda x, *r: bd_decode(x, *r, scale=scale), q, ktb, vb, lens, iters=chain)
+    t = timed_chained(lambda x, *r: bd_decode(x, *r, scale=scale), q, ktb, vb, lens, **chain)
     line("CHAINED blockdiag bf16", t, kv_mb / 2, " eff")
 
     t, got = timed(lambda *a: nt_decode(*a, scale=scale), q, k, v, lens, iters=iters)
     line("NT natural-layout kernel", t, err=err(got, ref))
-    t = timed_chained(lambda x, *r: nt_decode(x, *r, scale=scale), q, k, v, lens, iters=chain)
+    t = timed_chained(lambda x, *r: nt_decode(x, *r, scale=scale), q, k, v, lens, **chain)
     line("CHAINED NT natural", t)
     t = timed_chained(lambda x, *r: nt_decode(x, *r, scale=scale), q, kb16, vb, lens,
-                      iters=chain)
+                      **chain)
     line("CHAINED NT bf16", t, kv_mb / 2, " eff")
     return res
 

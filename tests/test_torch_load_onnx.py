@@ -179,12 +179,12 @@ def test_unoptimized_load_runs_the_exporter_ops(gpt2_file):
 
 
 def test_unported_op_loads_and_raises_when_run(tmp_path):
-    """A graph holding an op the port does not register (Conv) loads,
-    constants folded around it; running it names ROADMAP.md queue 1 item
-    12."""
-    conv = torch.nn.Sequential(torch.nn.Conv2d(1, 2, 3), torch.nn.ReLU())
-    path = export_onnx(conv, torch.randn(1, 1, 5, 5), str(tmp_path / "conv.onnx"), ["x"], ["y"])
+    """A graph holding an op the port does not register (LSTM, queue 1
+    item 12.3) loads, constants folded around it; running it names
+    ROADMAP.md queue 1 item 12."""
+    lstm = torch.nn.LSTM(4, 3)
+    path = export_onnx(lstm, torch.randn(5, 1, 4), str(tmp_path / "lstm.onnx"), ["x"], ["y"])
     tm = TModel.load_file(path, device="cpu")
-    assert "Conv" in _ops(tm)
+    assert "LSTM" in _ops(tm)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 12"):
-        tm.run({"x": np.zeros((1, 1, 5, 5), np.float32)})
+        tm.run({"x": np.zeros((5, 1, 4), np.float32)})

@@ -2083,3 +2083,156 @@ def test_int4_tie_flips(card, width, arith, monkeypatch, capsys):
         print(f"\nfault 5 [{width}, {arith}]: {len(flips)} flips {flips[:4]}; {parted} of "
               f"{len(toks['cpu'])} requests' tokens parted", flush=True)
     assert toks["cuda"] == toks["cpu"] or flips
+
+
+# --- vision: row 1 at any K and N, f32 convs, the vision ops, ResNet, MNIST ----
+
+
+@pytest.mark.parametrize("M", [1, 96, 4096])
+@pytest.mark.parametrize("K,N", [(147, 64), (2048, 10), (147, 10), (2, 12), (2, 1), (5, 7)])
+@pytest.mark.parametrize("zp", ["u8_colsums", "s8_both"])
+def test_int8_matmul_any_k_n(card, M, K, N, zp):
+    """int8_matmul_dequant at K and N that are not multiples of 4 (the
+    MNIST and resnet_tiny classifiers' N 10, ResNet-50 conv1's im2col K
+    147, K 2), in each form: widened by ``pad_operands`` (a's zero point in
+    the new columns, zero weight rows and columns), the [M, N] output equal
+    to the plain version's bit for bit, with per-row zero points and
+    per-column weight zero points too."""
+    g = _gen(M + 3 * K + 7 * N)
+    b = torch.randint(-127, 128, (K, N), generator=g, dtype=torch.int8)
+    sb = torch.rand(N, generator=g) * 1e-3 + 1e-4
+    if zp == "s8_both":
+        a = torch.randint(-128, 128, (M, K), generator=g, dtype=torch.int8)
+        azp = torch.randint(-3, 4, (M,), generator=g, dtype=torch.int8)
+        bzp = torch.randint(-2, 3, (N,), generator=g, dtype=torch.int32)
+        sa, cs = torch.rand(M, generator=g) * 0.01 + 0.01, None
+    else:
+        a = torch.randint(0, 256, (M, K), generator=g, dtype=torch.uint8)
+        azp, bzp, sa = torch.tensor(131, dtype=torch.uint8), None, torch.tensor(0.02)
+        cs = b.to(torch.int32).sum(0, keepdim=True).to(torch.int32)
+    args = [t if t is None else t.to(card) for t in (a, b, sa, sb, azp, bzp, cs)]
+    form = tmm.int8_form(M)
+    before = getattr(tmm.int8_matmul_dequant, f"{form}_launches")
+    got = tmm.int8_matmul_dequant(*args)
+    want = tmm.int8_matmul_dequant_plain(*args)
+    torch.cuda.synchronize()
+    assert getattr(tmm.int8_matmul_dequant, f"{form}_launches") == before + 1
+    assert got.shape == (M, N) and torch.equal(got, want)
+
+
+def _one_node_on(device, op, inputs, attrs, run_config=None):
+    import chip_smoke
+    from rten_tpu_torch.model import Model, ModelOptions
+
+    graph, feed = chip_smoke._one_node(op, inputs, attrs)
+    opts = ModelOptions(optimize=False, **({} if run_config is None else
+                                            {"run_config": run_config}))
+    return Model(graph, opts, device=device).run(feed, ["y"])[0]
+
+
+@pytest.mark.parametrize("shape,w_shape,attrs", [
+    ((4, 64, 28, 28), (64, 64, 3, 3), {"pads": [1, 1, 1, 1]}),
+    ((2, 32, 15, 16), (48, 16, 3, 3), {"group": 2, "strides": [2, 2], "pads": [0, 1, 1, 0]}),
+    ((2, 16, 40), (32, 16, 7), {"dilations": [2], "pads": [3, 3]}),
+])
+def test_f32_conv_is_full_f32_with_tf32_on(card, shape, w_shape, attrs):
+    """With cuDNN's TF32 flag on (PyTorch's default), the port's f32 Conv
+    stays within 1e-6 of max|out| of its f64 value (cuDNN's f32 conv under
+    the same flag runs TF32, ~1e-3), and the run leaves the flag as it
+    was."""
+    import torch.nn.functional as F
+
+    g = _gen(shape[1])
+    x = torch.rand(shape, generator=g) * 2 - 1
+    w = (torch.rand(w_shape, generator=g) * 2 - 1) * 0.05
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = _one_node_on(card, "Conv", [x, ("const", w.numpy())], attrs)
+        assert torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    conv = {3: F.conv1d, 4: F.conv2d}[len(shape)]
+    pads = attrs.get("pads")
+    n = len(shape) - 2
+    xp = F.pad(x.double(), [p for i in reversed(range(n)) for p in (pads[i], pads[i + n])])
+    want = conv(xp, w.double(), None, attrs.get("strides", 1), 0, attrs.get("dilations", 1),
+                attrs.get("group", 1))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert (got.cpu().double() - want).abs().max() / want.abs().max() < 1e-6
+
+
+def test_vision_ops_on_card(card):
+    """chip_smoke.phase_vision_ops: every vision op as a one-node graph on
+    the card against the port's CPU run, the f32 conv's precision with the
+    TF32 flag on, and prefer_bf16's one bf16 pass for Conv, MatMul and
+    Einsum."""
+    import chip_smoke
+
+    chip_smoke.phase_vision_ops(card)
+
+
+@pytest.fixture(scope="module")
+def resnet_tiny_onnx(tmp_path_factory):
+    from onnx_export_util import export_onnx
+    from torch_models import resnet_tiny
+
+    torch.manual_seed(0)
+    module = resnet_tiny().eval()
+    path = str(tmp_path_factory.mktemp("resnet") / "resnet_tiny.onnx")
+    export_onnx(module, torch.randn(1, 3, 64, 64), path, ["image"], ["logits"],
+                dynamic_axes={"image": {0: "batch"}, "logits": {0: "batch"}})
+    return module, path
+
+
+@pytest.mark.parametrize("quant", [None, "none", "all"])
+def test_resnet_tiny_on_card(card, resnet_tiny_onnx, monkeypatch, quant):
+    """resnet_tiny from ONNX on the card and on the CPU, f32 and int8
+    (RTEN_QUANT_CONV none or all): the card's logits within 1e-5 (f32) or
+    5e-2 (int8: an activation may round to the neighbouring u8 code on one
+    device) of max|logit| of the CPU's, and row 1 launched once a forward
+    for the classifier plus once per quantized conv."""
+    from rten_tpu_torch.model import Model
+    from rten_tpu_torch.quantize_pass import quantize_dynamic
+
+    module, path = resnet_tiny_onnx
+    if quant is not None:
+        monkeypatch.setenv("RTEN_QUANT_CONV", quant)
+    x = np.random.default_rng(1).normal(0, 1, (4, 3, 64, 64)).astype(np.float32)
+    outs, convs = {}, 0
+    for device in (card, "cpu"):
+        model = Model.load_file(path, device=device)
+        if quant is not None:
+            quantize_dynamic(model.graph)
+            model.executor.invalidate_weights()
+        convs = sum(op.op_type == "ConvIntegerToFloat" for _, op in model.graph.operators())
+        before = tmm.int8_matmul_dequant.launches
+        outs[str(device)] = model.run({"image": x})[0].cpu()
+        if device is card:
+            torch.cuda.synchronize()
+            assert tmm.int8_matmul_dequant.launches - before == (
+                0 if quant is None else 1 + convs)
+    assert convs == (14 if quant == "all" else 0)
+    got, want = outs[str(card)], outs["cpu"]
+    tol = 1e-5 if quant is None else 5e-2
+    assert (got - want).abs().max() / want.abs().max() < tol
+
+
+@pytest.mark.parametrize("arch", ["mlp", "cnn"])
+def test_mnist_int8_on_card(card, arch):
+    """models/mnist.load on the card, int8: the classifier's N of 10 runs
+    row 1 (widened to 12), 2 launches a forward, logits within 5e-2 of
+    max|logit| of the CPU's; f32 within 1e-5."""
+    from rten_tpu_torch.models import mnist
+
+    x = np.random.default_rng(2).normal(0, 0.3, (32, 1, 28, 28)).astype(np.float32)
+    if arch == "mlp":
+        x = x.reshape(32, 784)
+    for quantize, tol in ((None, 1e-5), ("int8", 5e-2)):
+        before = tmm.int8_matmul_dequant.launches
+        got = mnist.load(arch, quantize=quantize, device=card).run({"image": x})[0].cpu()
+        torch.cuda.synchronize()
+        ran = tmm.int8_matmul_dequant.launches - before
+        want = mnist.load(arch, quantize=quantize, device="cpu").run({"image": x})[0]
+        assert ran == (0 if quantize is None else (2 if arch == "mlp" else 1))
+        assert got.shape == (32, 10)
+        assert (got - want).abs().max() / want.abs().max() < tol
