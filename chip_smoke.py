@@ -134,6 +134,19 @@ Run from the repository root:  python3 chip_smoke.py
    vision op as a one-node graph against the CPU, the f32 conv's precision
    with cuDNN's TF32 flag on, and prefer_bf16 (``phase_vision_ops``); row
    1 at K and N that are not multiples of 4 (``phase_int8_any_kn``).
+9. Encoder-decoder phases: Whisper-tiny at its published widths
+   (``phase_whisper``; tests/whisper_weights.py from seed 0): 30 s of
+   seeded 16 kHz audio through the STFT mel front end graph on the card,
+   ``WhisperModel.encode`` and a greedy ``Generator`` of 64 tokens after
+   the start-of-transcript prompt, every mha call (4 an encode at [1, 6,
+   1500, 64], 8 in the 32-row prefill) held against mha_plain within
+   1e-4, the mel and the logits held against the port's CPU run; the
+   front end's, the encode's and cross_kv's device ms, TTFT, decode tok/s,
+   host wall against busy per step, and mha timed at the encoder's shape.
+   Then the Optimum-style merged decoder (tests/merged_decoder_model.py:
+   an ONNX If on use_cache_branch, cross caches made on the first run)
+   exported, loaded onto the card and driven by the Generator: the torch
+   module's own greedy tokens (``phase_merged_decoder``).
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Exits nonzero, printing
@@ -3423,16 +3436,47 @@ def _folded_plain(q, k, v, lens, k_scale=None, v_scale=None, *, scale=None, wind
                                            k_new=k_new, v_new=v_new)[0]
 
 
+def _mha_f64(q, k, v, mask=None, *, scale=None, causal=False, softcap=0.0):
+    """mha_plain's arithmetic in f64 (no GQA): the exact answer both the
+    kernel and its f32 plain version are held against for the record."""
+    Tq, Tk, D = q.shape[2], k.shape[2], q.shape[3]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.double(), k.double()) * (
+        1.0 / float(np.sqrt(D)) if scale is None else scale)
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    if mask is not None:
+        s = s + mask.double()
+    if causal:
+        band = (torch.arange(Tk, device=q.device)[None]
+                <= torch.arange(Tq, device=q.device)[:, None] + Tk - Tq)
+        s = torch.where(band, s, -1e300)
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1), v.double())
+
+
+def _mha_live_rows(q, k, v, mask=None, *, causal=False, **_):
+    """[Tq] bool: the rows of an mha call with a column to attend (the
+    kernel gives 0 on the others, its plain version the mean of V)."""
+    Tq, Tk = q.shape[2], k.shape[2]
+    admitted = torch.ones(Tq, Tk, dtype=torch.bool, device=q.device)
+    if causal:
+        admitted &= (torch.arange(Tk, device=q.device)[None]
+                     <= torch.arange(Tq, device=q.device)[:, None] + Tk - Tq)
+    if mask is not None:
+        admitted &= mask.expand(Tq, Tk) > -1e29
+    return admitted.any(-1)
+
+
 @contextlib.contextmanager
-def hold_calls(tol=HELD_TOL):
+def hold_calls(tol=HELD_TOL, mha_tol=None):
     """Within the block, every call of an attention kernel wrapper on card
     tensors (decode_mha's two forms, the cat append, the head-major append,
-    prefill_mha_cat, paged_decode_mha) also runs the kernel's plain version
-    on clones of the same inputs: the outputs within ``tol`` of each other,
-    every tensor the two write (caches, scales, windows) equal (s8 scales
-    within rtol 5e-6). Yields
-    {kernel: [max abs error of each call]}; fails on the first call out of
-    bound."""
+    prefill_mha_cat, paged_decode_mha; with ``mha_tol``, mha too) also runs
+    the kernel's plain version on clones of the same inputs: the outputs
+    within ``tol`` of each other, every tensor the two write (caches,
+    scales, windows) equal (s8 scales within rtol 5e-6). An mha call is
+    held within ``mha_tol`` on the rows with a column to attend and must
+    give 0 on the others. Yields {kernel: [max abs error of each call]};
+    fails on the first call out of bound."""
     from rten_tpu_torch.kernels import flash_attention as fa
 
     plain = {"decode_mha_folded": _folded_plain, "decode_mha_heads": fa.decode_mha_plain,
@@ -3442,9 +3486,27 @@ def hold_calls(tol=HELD_TOL):
              "paged_decode_mha": fa.paged_decode_mha_plain}
     errs = {}
 
+    def held_mha(kernel, args, kw):
+        got = kernel(*args, **kw)
+        want = fa.mha_plain(*args, **kw)
+        live = _mha_live_rows(*args, **kw)
+        err = (got.float() - want.float())[:, :, live].abs().max().item()
+        errs.setdefault("mha", []).append(err)
+        exact = _mha_f64(*args, **kw)[:, :, live]
+        errs.setdefault("mha_f64", []).append(
+            [(t.double()[:, :, live] - exact).abs().max().item() for t in (got, want)])
+        errs.setdefault("mha_first_call", (args, kw))
+        if not err <= mha_tol or not (got[:, :, ~live] == 0).all():
+            fail(f"mha call {len(errs['mha'])} {tuple(args[0].shape)} over "
+                 f"{tuple(args[1].shape)}: max err {err} > {mha_tol} against mha_plain, or a "
+                 f"row with no column to attend is not 0")
+        return got
+
     def held(name, kernel, args, kw):
         if not isinstance(args[0], torch.Tensor) or args[0].device.type != "cuda":
             return kernel(*args, **kw)
+        if name == "mha":
+            return kernel(*args, **kw) if mha_tol is None else held_mha(kernel, args, kw)
 
         def clone(x):
             return x.clone() if isinstance(x, torch.Tensor) else x
@@ -4560,6 +4622,289 @@ def phase_vision_ops(dev):
         print(f"  {line}", flush=True)
 
 
+# --- Whisper-tiny and the merged encoder-decoder --------------------------------------
+
+WHISPER_SAMPLES = 480000  # 30 s of 16 kHz audio: mel [1, 80, 3000], 1500 encoder positions
+# <|startoftranscript|> <|en|> <|transcribe|> <|notimestamps|> in Whisper's vocabulary
+WHISPER_PROMPT = [50258, 50259, 50359, 50363]
+WHISPER_NEW = 64
+WHISPER_SHARPEN = 3.0  # tests/whisper_weights.py: greedy tokens then vary with the context
+WHISPER_MHA_TOL = HELD_TOL  # row 5's bound on the card (3xTF32: see phase_whisper)
+WHISPER_MEL_TOL = 1e-4
+WHISPER_LOGIT_TOL = 5e-2
+
+
+def _whisper_audio(seed=0):
+    """30 s of seeded audio: noise under a modulated 220 Hz tone and a 1 kHz one."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(WHISPER_SAMPLES, dtype=np.float64) / 16000
+    audio = (0.05 * rng.standard_normal(WHISPER_SAMPLES)
+             + 0.3 * np.sin(2 * np.pi * 220 * t) * (1 + np.sin(2 * np.pi * 3 * t)) / 2
+             + 0.1 * np.sin(2 * np.pi * 1000 * t))
+    return audio.astype(np.float32)[None]
+
+
+class _Replay:
+    """A sampler that feeds the given tokens and records the argmax of the
+    logits it is handed."""
+
+    def __init__(self, tokens):
+        self.tokens, self.argmax = list(tokens), []
+
+    def sample(self, logits):
+        self.argmax.append(int(np.argmax(logits[0])))
+        return np.array([self.tokens[len(self.argmax) - 1]], np.int32)
+
+
+def _whisper_greedy(model, mel, n, sampler=None):
+    """``WhisperModel.generator`` (its default config: bucket 32, at most
+    448 positions) for n tokens: (tokens, the logits row of each step: the
+    prefill's, then one after each token, the Generator)."""
+    from rten_tpu_torch.generate import GeneratorConfig
+
+    cfg = GeneratorConfig(bucket_size=32, max_seq_len=model.cfg.max_target_positions)
+    if sampler is not None:
+        cfg.sampler = sampler
+    gen = model.generator(mel, [WHISPER_PROMPT], cfg)
+    rows, toks = [gen._pending_logits.copy()], []
+    for _ in range(n):
+        toks.append(int(next(gen)))
+        rows.append(gen._pending_logits.copy())
+    return toks, rows, gen
+
+
+def phase_whisper(dev, gen_t):
+    """Whisper-tiny at its published widths (``WhisperConfig()``: 80 mels,
+    d_model 384, 4 + 4 layers, 6 heads, vocab 51865, 1500 source and 448
+    target positions; tests/whisper_weights.py from seed 0, projections
+    sharpened x3) through the user's entry points: 30 s of seeded 16 kHz
+    audio through ``build_mel_frontend`` (STFT on the card) into mel [1, 80,
+    3000], ``WhisperModel.encode`` and a greedy ``Generator`` of 64 tokens
+    after the 4-token start-of-transcript prompt (the default bucket of 32:
+    the prefill is 32 rows). After a warm-up transcription the counters are
+    zeroed, the transcription runs with every mha call held against
+    mha_plain (within row 5's 1e-4 on the rows with a column to attend, 0
+    on the others; both also against f64, printed: the kernel's 3xTF32
+    operands carry 22 bits, so its error grows with the scores' terms), and
+    the counters are read: mha 4 an encode at [1, 6, 1500, 64],
+    and 8 in the prefill (causal self-attention at 32 rows, cross-attention
+    over 1500), nothing else. The card's mel is held against the port's CPU
+    run of the same graph (within 1e-4 of max|mel|), and its logits, step by
+    step, against the port's CPU run at the same full width (within 5e-2 of
+    max|logit|): the greedy tokens equal, or where they part the CPU's top
+    two closer than that (then the card replays the CPU's tokens, so each
+    step's inputs agree, and the gap is printed). Then the device ms of the
+    mel front end, the encode and cross_kv, TTFT, decode tok/s, host wall
+    against busy time per decode step, and row 5 timed at the encoder's
+    shape. Returns (launches, the timed case)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rten_tpu_torch.generate import Generator, GeneratorConfig
+    from rten_tpu_torch.model import Model
+    from rten_tpu_torch.models import whisper
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import whisper_weights
+
+    tag = "Whisper-tiny"
+    cfg = whisper.WhisperConfig()
+    t0 = time.perf_counter()
+    weights = whisper_weights.random_weights(cfg, seed=0, sharpen=WHISPER_SHARPEN)
+    audio = _whisper_audio()
+    front = Model(whisper.build_mel_frontend(WHISPER_SAMPLES), device=dev)
+    model = whisper.WhisperModel(cfg, weights, device=dev)
+    mel = front.run({"audio": audio})[0]
+    _whisper_greedy(model, mel, 2)  # uploads the weights
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+
+    for fn in counters().values():
+        fn.launches = 0
+    with hold_calls(mha_tol=WHISPER_MHA_TOL) as held:
+        mel = front.run({"audio": audio})[0]
+        toks, rows, g = _whisper_greedy(model, mel, WHISPER_NEW)
+        torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters().items()}
+    want = {"mha": cfg.encoder_layers + 2 * cfg.decoder_layers}
+    for k, n in launches.items():
+        if n != want.get(k, 0):
+            fail(f"{tag}: {k} launched {n} times, expected {want.get(k, 0)}")
+    errs = held.get("mha", [])
+    if len(errs) != want["mha"]:
+        fail(f"{tag}: {len(errs)} mha calls held, {want['mha']} launched")
+    if mel.shape != (1, cfg.n_mels, WHISPER_SAMPLES // 160) or not torch.isfinite(mel).all():
+        fail(f"{tag}: mel {tuple(mel.shape)}, finite: {bool(torch.isfinite(mel).all())}")
+
+    t0 = time.perf_counter()
+    cpu_front = Model(front.graph, device="cpu")
+    mel_cpu = cpu_front.run({"audio": audio})[0]
+    mel_err = (mel.cpu() - mel_cpu).abs().max().item() / mel_cpu.abs().max().item()
+    if not mel_err <= WHISPER_MEL_TOL:
+        fail(f"{tag}: mel {mel_err:.3e} of max|mel| from the CPU's")
+    cpu = whisper.WhisperModel(cfg, weights, device="cpu")
+    toks_cpu, rows_cpu, _ = _whisper_greedy(cpu, mel_cpu, WHISPER_NEW)
+    cpu_s = time.perf_counter() - t0
+    if toks != toks_cpu:  # the card replays the CPU's tokens: each step's inputs agree
+        replay = _Replay(toks_cpu)
+        _, rows, _ = _whisper_greedy(model, mel, WHISPER_NEW, replay)
+        card_tokens = replay.argmax + [int(np.argmax(rows[-1][0]))]
+    else:
+        card_tokens = toks + [int(np.argmax(rows[-1][0]))]
+    cpu_tokens = toks_cpu + [int(np.argmax(rows_cpu[-1][0]))]
+    worst, gaps = 0.0, []
+    for step, (lg, lc) in enumerate(zip(rows, rows_cpu)):
+        scale = np.abs(lc).max()
+        if lg.shape != (1, cfg.vocab_size) or not np.isfinite(lg).all():
+            fail(f"{tag}: step {step} logits {lg.shape}, finite: {np.isfinite(lg).all()}")
+        err = np.abs(lg - lc).max() / scale
+        worst = max(worst, err)
+        if err > WHISPER_LOGIT_TOL:
+            fail(f"{tag}: step {step}: logits {err:.3e} of max|logit| from the CPU's")
+        if card_tokens[step] != cpu_tokens[step]:
+            top2 = np.sort(lc[0])[-2:]
+            gaps.append((step, float((top2[1] - top2[0]) / scale)))
+            if top2[1] - top2[0] > WHISPER_LOGIT_TOL * scale:
+                fail(f"{tag}: step {step}: token {card_tokens[step]} on the card, "
+                     f"{cpu_tokens[step]} on the CPU, top-2 gap {gaps[-1][1]:.3e} of max|logit|")
+    print(f"  {tag}: weights, audio, models and a warm-up {build_s:.1f} s; mel "
+          f"{tuple(mel.shape)} {mel_err:.3e} of max|mel| from the CPU's; {WHISPER_NEW} greedy "
+          f"tokens {'equal to' if toks == toks_cpu else 'parted from'} the CPU's "
+          f"({len(set(toks))} distinct; first 16: {toks[:16]}), parted at "
+          f"{json.dumps(gaps)} (step, the CPU's top-2 gap of max|logit|); logits at most "
+          f"{worst:.3e} of max|logit| from the CPU's over {len(rows)} steps; the CPU run "
+          f"{cpu_s:.1f} s", flush=True)
+    print(f"  {tag}: mha {launches['mha']} launches a transcription ({cfg.encoder_layers} an "
+          f"encode at [1, {cfg.heads}, 1500, {cfg.head_dim}], {2 * cfg.decoder_layers} in the "
+          f"32-row prefill), each held against mha_plain: max abs err {max(errs):.3e} (bound "
+          f"{WHISPER_MHA_TOL:g}; by call {json.dumps([float(f'{e:.3e}') for e in errs])}); "
+          f"against f64, kernel and plain by call "
+          f"{json.dumps([[float(f'{e:.3e}') for e in p] for p in held['mha_f64']])}",
+          flush=True)
+    del cpu, cpu_front
+
+    # Row 5's error from f64 at the encoder's first call with its keys cut
+    # to 23 whole tiles or padded to 24 (is it the tail tile of 28?), and
+    # on randn inputs of the same shape at two scales.
+    from rten_tpu_torch.kernels.flash_attention import mha
+
+    (q, k, v, *_), kw = held["mha_first_call"]
+    cases = {"keys 1472": (q, k[:, :, :1472], v[:, :, :1472]), "keys 1500": (q, k, v),
+             "keys 1536": (q, torch.cat([k, k[:, :, :36]], 2), torch.cat([v, v[:, :, :36]], 2))}
+    g = torch.Generator().manual_seed(1)
+    for scale in (1.0, 3.0):
+        cases[f"randn x{scale:g}"] = tuple(
+            scale * torch.randn(q.shape, generator=g).to(dev) for _ in range(3))
+    tail = {name: float(f"{(mha(*t).double() - _mha_f64(*t)).abs().max().item():.3e}")
+            for name, t in cases.items()}
+    print(f"  {tag}: row 5 from f64 at [1, {cfg.heads}, {cfg.max_source_positions}, "
+          f"{cfg.head_dim}] (the encoder's first call, its keys cut or padded; randn): "
+          f"{json.dumps(tail)}", flush=True)
+    del held, cases
+
+    # Times: the front end, the encode, cross_kv (busy and wall a run), then
+    # the Generator's TTFT and decode rate, and a profiled 16 tokens.
+    enc = model.encoder.run({"mel": mel})[0]
+    times = {name: _forward_times(m, feed) for name, m, feed in (
+        ("mel front end", front, {"audio": audio}), ("encode", model.encoder, {"mel": mel}),
+        ("cross_kv", model.cross_kv, {"encoder_hidden_states": enc}))}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mel = front.run({"audio": audio})[0]
+    gen = model.generator(mel, [WHISPER_PROMPT])
+    first = next(gen)
+    audio_to_first = time.perf_counter() - t0
+    gen.generate(WHISPER_NEW - 1)
+    torch.cuda.synchronize()
+    m = gen.metrics
+    wall_step = sum(m.step_times_s[1:]) / len(m.step_times_s[1:])
+    cross, _ = model.encode(mel)
+    cfg16 = GeneratorConfig(bucket_size=32, max_seq_len=cfg.max_target_positions,
+                            constant_inputs=cross)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        Generator(model.decoder, [WHISPER_PROMPT], cfg16).generate(16)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    busy = sum(t for _, _, t in device_events(prof)) / 1e3
+    print(f"  {tag} times: " + "; ".join(
+        f"{name} busy {b:.3f} ms, wall {w:.3f} ms" for name, (b, w) in times.items())
+        + f"; TTFT {m.ttft_s() * 1e3:.3f} ms (the 32-row prefill), audio to first token "
+        f"{audio_to_first * 1e3:.3f} ms (front end, encode, cross_kv, prefill; token {first}); "
+        f"decode {m.tokens_per_sec():.1f} tok/s (host wall per step {wall_step * 1e3:.3f} ms); "
+        f"profiled 16 tokens: busy {busy:.3f} ms in {prof_wall * 1e3:.3f} ms wall, busy per "
+        f"forward {busy / 17:.3f} ms over its 17 forwards, the prefill included "
+        f"({busy / 17 / (wall_step * 1e3):.3f} of the unprofiled wall per step)", flush=True)
+    del model, front, weights
+    torch.cuda.empty_cache()
+    case = _mha_case(gen_t, dev, "Whisper-tiny's encoder, B 1, H 6, T 1500, D 64, not causal",
+                     1, cfg.heads, cfg.heads, 1500, 1500, False, 0.0, 0, cfg.encoder_layers)
+    case["launches_per_transcription"] = launches["mha"]
+    case["held_max_abs_err"] = max(errs)
+    return launches, case
+
+
+def phase_merged_decoder(dev):
+    """The Optimum-style merged decoder of tests/merged_decoder_model.py (an
+    ONNX If on use_cache_branch, growing decoder caches, encoder caches made
+    on the first run only) exported with torch into build/merged_decoder/,
+    loaded by ``Model.load_file`` onto the card and driven by the port's
+    ``Generator`` (use_cache_branch a static input, the cross caches kept
+    on the card): its greedy tokens equal the torch module's own greedy
+    decode on the card, for two prompts. Returns the launches (counters
+    zeroed just before the Generator, read just after)."""
+    from rten_tpu_torch.generate import Generator, GeneratorConfig
+    from rten_tpu_torch.model import Model
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import merged_decoder_model
+
+    tag = "merged decoder"
+    d = os.path.join(ROOT, "build", "merged_decoder")
+    os.makedirs(d, exist_ok=True)
+    t0 = time.perf_counter()
+    module = merged_decoder_model.export_merged_decoder(os.path.join(d, "merged.onnx"))
+    model = Model.load_file(os.path.join(d, "merged.onnx"), device=dev)
+    load_s = time.perf_counter() - t0
+    ops = [op.op_type for _, op in model.graph.operators()]
+    if "If" not in ops:
+        fail(f"{tag}: no If in the loaded graph")
+    module = module.to(dev)
+    H, D = module.layers[0].H, module.layers[0].D
+    launches = {k: 0 for k in counters()}
+    for seed, prompt, n_new in ((3, [1, 7, 2], 12), (4, [4, 9], 10)):
+        enc = torch.randn(1, 5, module.layers[0].E,
+                          generator=torch.Generator().manual_seed(seed)).to(dev)
+        z = torch.zeros(1, H, 0, D, device=dev)
+        caches, ids, want = [z] * 8, torch.tensor([prompt], device=dev), []
+        with torch.no_grad():
+            for step in range(n_new):
+                out = module(ids, enc, torch.tensor(step > 0), *caches)
+                if step == 0:
+                    cross = [out[3], out[4], out[7], out[8]]
+                caches = [out[1], out[2], cross[0], cross[1], out[5], out[6], cross[2], cross[3]]
+                want.append(int(torch.argmax(out[0][0, -1])))
+                ids = torch.tensor([[want[-1]]], device=dev)
+        for fn in counters().values():
+            fn.launches = 0
+        gen = Generator(model, prompt, GeneratorConfig(
+            max_seq_len=64, constant_inputs={"encoder_hidden_states": enc}))
+        got = [int(t) for t in gen.generate(n_new)[0]]
+        torch.cuda.synchronize()
+        for k, fn in counters().items():
+            launches[k] += fn.launches
+        if got != want:
+            fail(f"{tag}: prompt {prompt}: the port's tokens {got}, the module's {want}")
+        cross = [(t.device.type, tuple(t.shape)) for t in gen._cross.values()]
+        if len(cross) != 4 or any(d != "cuda" or shape[2] != 5 for d, shape in cross):
+            fail(f"{tag}: cross caches {cross}")
+    print(f"  {tag}: export and Model.load_file {load_s:.1f} s ({len(ops)} operators, "
+          f"{ops.count('If')} If); greedy tokens equal to the module's on the card for 2 "
+          f"prompts (last: {got}); launches {json.dumps({k: n for k, n in launches.items() if n})}",
+          flush=True)
+    del model, module
+    return launches
+
+
 def phase_reference_serving(dev):
     """The rest of the serving stack, the card against the CPU (the plain
     versions), each at the small configs (GPT-2: 2 layers, E 128, H 2,
@@ -4874,7 +5219,18 @@ def main() -> int:
     phase_vision_ops(dev)
     phase_int8_any_kn(gen, dev)
     lap("vision ops card against CPU; int8_matmul_dequant at any K and N")
-    for phase in list(secs)[-4:]:
+    print("encoder-decoder phases:", flush=True)
+    torch.cuda.empty_cache()
+    by_path["whisper_tiny"], whisper_case = phase_whisper(dev, gen)
+    path_kv["whisper_tiny"] = None
+    mha_row = next(k for k in kernels if k["name"] == "mha")
+    mha_row["whisper"] = whisper_case
+    mha_row["max_abs_err"] = max(mha_row["max_abs_err"], whisper_case["max_abs_err"],
+                                 whisper_case["held_max_abs_err"])
+    lap("Whisper-tiny (mel front end, encode, 64 greedy tokens; the CPU reference)")
+    by_path["merged_decoder"], path_kv["merged_decoder"] = phase_merged_decoder(dev), None
+    lap("the merged encoder-decoder from ONNX through the Generator")
+    for phase in list(secs)[-6:]:
         print(f"  {phase}: {secs[phase]:.1f} s", flush=True)
     # A row's launches: its counter over the paths that serve from its KV
     # cache type (every path for the kernels that read no KV cache). A

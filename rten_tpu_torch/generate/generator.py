@@ -15,9 +15,12 @@ The caches stay on the model's device as torch tensors; the padding and the
 append are ``torch.nn.functional.pad`` and ``torch.cat`` there. Per step
 the host sees only the [B, V] logits row, for filtering and sampling.
 
-Merged encoder-decoder exports (cross-attention ``encoder`` caches, a
-``use_cache_branch`` input) raise ``NotImplementedError``: they need ONNX
-loading with ``If`` subgraphs (ROADMAP.md queue 1 item 12).
+Encoder-decoder models (rten generator.rs:891-915): cross-attention caches
+(``past_key_values.N.encoder.*``) are fed empty ([B, H, 0, D] on the
+model's device) on the first run, which computes them; their presents are
+kept and fed back unchanged afterwards, and never fetched again. A merged
+Optimum decoder's ``use_cache_branch`` flag is fed as a static input, a
+host value its ``If`` reads without a device sync.
 """
 
 from __future__ import annotations
@@ -36,7 +39,9 @@ from .metrics import Metrics
 from .sampler import ArgMaxSampler, Sampler
 
 # (pattern, present-name template, is_encoder) triples; rten
-# generator.rs:267-322 KVCachePair table.
+# generator.rs:267-322 KVCachePair table. ``encoder`` entries are the
+# cross-attention caches of merged encoder-decoder exports: computed on the
+# first run, frozen afterwards (generator.rs:891-915).
 _KV_PATTERNS = [
     (
         re.compile(r"^past_key_values\.(\d+)\.(decoder|encoder)\.(key|value)$"),
@@ -77,7 +82,7 @@ class GeneratorConfig:
     logits_name: str = "logits"
     cache_position_name: str = "cache_position"
     use_cache_flag_name: str = "use_cache_branch"
-    # Extra constant inputs fed every step.
+    # Extra constant inputs fed every step (e.g. encoder_hidden_states).
     constant_inputs: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
@@ -108,6 +113,7 @@ class Generator:
 
         self._discover_io()
         self._cache: List[torch.Tensor] = []  # on the model's device, [B, H, t, D]
+        self._cross: Dict[str, torch.Tensor] = {}  # frozen cross-attention KV by name
         self._cache_len = 0
         self._mask: Optional[np.ndarray] = None  # host [B, t] int32
         self._generated: List[np.ndarray] = []
@@ -122,7 +128,8 @@ class Generator:
 
     def _discover_io(self):
         g = self.model.graph
-        self.kv: List[KvEntry] = []
+        self.kv: List[KvEntry] = []         # self-attention (growing)
+        self.cross_kv: List[KvEntry] = []   # cross-attention (frozen)
         self.input_names = set(self.model.input_names())
         out_names = set(self.model.output_names())
         for nid in g.input_ids:
@@ -130,23 +137,14 @@ class Generator:
             for pat, present, is_encoder in _KV_PATTERNS:
                 m = pat.match(name)
                 if m:
-                    if is_encoder(m):
-                        raise NotImplementedError(
-                            f"cross-attention cache {name} (merged encoder-decoder "
-                            f"exports): ROADMAP.md queue 1 item 12"
-                        )
                     out_name = present(m)
                     if out_name not in out_names:
                         raise GeneratorError(
                             f"KV input {name} has no matching output {out_name}"
                         )
-                    self.kv.append(KvEntry(name, out_name, getattr(g.nodes[nid], "shape", None)))
+                    entry = KvEntry(name, out_name, getattr(g.nodes[nid], "shape", None))
+                    (self.cross_kv if is_encoder(m) else self.kv).append(entry)
                     break
-        if self.config.use_cache_flag_name in self.input_names:
-            raise NotImplementedError(
-                f"'{self.config.use_cache_flag_name}' input (merged Optimum decoders "
-                f"with If subgraphs): ROADMAP.md queue 1 item 12"
-            )
         if self.config.input_ids_name not in self.input_names:
             raise GeneratorError(
                 f"model has no '{self.config.input_ids_name}' input; "
@@ -155,6 +153,9 @@ class Generator:
         self.has_mask = self.config.attention_mask_name in self.input_names
         self.has_positions = self.config.position_ids_name in self.input_names
         self.has_cache_position = self.config.cache_position_name in self.input_names
+        # Merged Optimum decoders: use_cache_branch = 0 on the first run, 1
+        # after (rten generator.rs:645-650).
+        self.has_use_cache_flag = self.config.use_cache_flag_name in self.input_names
         if not self.has_mask and self.config.bucket_size != 1:
             # Without an attention_mask input bucket padding cannot be
             # masked out of the cache: exact shapes, as the reference runs.
@@ -186,8 +187,9 @@ class Generator:
 
     # -- steps ---------------------------------------------------------------
 
-    def _run(self, input_ids, mask, positions, past: List[torch.Tensor]):
+    def _run(self, input_ids, mask, positions, past: List[torch.Tensor], first_run: bool):
         feed: Dict[str, Any] = {self.config.input_ids_name: input_ids}
+        static_names: List[str] = []
         if self.has_mask:
             feed[self.config.attention_mask_name] = mask
         if self.has_positions:
@@ -198,12 +200,29 @@ class Generator:
             feed[self.config.cache_position_name] = np.asarray(
                 positions, np.int32
             ).reshape(-1)[-input_ids.shape[1]:]
+        if self.has_use_cache_flag:
+            feed[self.config.use_cache_flag_name] = np.bool_(not first_run)
+            static_names.append(self.config.use_cache_flag_name)
         for e, p in zip(self.kv, past):
             feed[e.input_name] = p
+        for e in self.cross_kv:
+            if first_run:
+                H, D = self._kv_dims(e)
+                feed[e.input_name] = torch.zeros((self.batch, H, 0, D), dtype=torch.float32,
+                                                 device=self.model.device)
+            else:
+                feed[e.input_name] = self._cross[e.input_name]
         feed.update(self.config.constant_inputs)
+        # The cross-attention presents are fetched on the first run only;
+        # later runs' (empty, in Optimum exports) are never asked for.
         want = [self.logits_name] + [e.output_name for e in self.kv]
-        outs = self.model.run(feed, want)
-        return outs[0], outs[1:]
+        if first_run:
+            want += [e.output_name for e in self.cross_kv]
+        outs = self.model.run(feed, want, static_inputs=static_names)
+        n_kv = len(self.kv)
+        if first_run and self.cross_kv:
+            self._cross = {e.input_name: t for e, t in zip(self.cross_kv, outs[1 + n_kv:])}
+        return outs[0], outs[1:1 + n_kv]
 
     def _logits_row(self, logits) -> np.ndarray:
         return logits[:, -1].to(torch.float32).cpu().numpy()
@@ -219,7 +238,7 @@ class Generator:
         for e in self.kv:
             H, D = self._kv_dims(e)
             past.append(torch.zeros((B, H, 0, D), dtype=torch.float32, device=self.model.device))
-        logits, presents = self._run(ids, mask, positions, past)
+        logits, presents = self._run(ids, mask, positions, past, first_run=True)
         self._cache = list(presents)
         self._cache_len = cap
         self._mask = mask
@@ -246,7 +265,7 @@ class Generator:
         mask = np.pad(self._mask, ((0, 0), (0, kv_pad)))
         mask = np.concatenate([mask, np.ones((B, 1), np.int32)], 1)
         positions = self._mask.sum(axis=1, dtype=np.int32)[:, None]
-        logits, presents = self._run(tokens[:, None], mask, positions, past)
+        logits, presents = self._run(tokens[:, None], mask, positions, past, first_run=False)
         # The new token's KV sits at index cap of each present; keep the
         # cache contiguous at logical length t + 1.
         self._cache = [torch.cat([c, p[:, :, cap:cap + 1]], dim=2)
@@ -281,6 +300,8 @@ class Generator:
         safetensors file, so a conversation resumes without a new
         prefill."""
         tensors = {f"cache.{i}": c.cpu().numpy() for i, c in enumerate(self._cache)}
+        for i, e in enumerate(self.cross_kv):
+            tensors[f"cross.{i}"] = self._cross[e.input_name].cpu().numpy()
         tensors["mask"] = self._mask
         tensors["generated"] = (
             np.stack(self._generated, 1)
@@ -295,6 +316,8 @@ class Generator:
         data = read_safetensors(path)
         self._cache = [torch.from_numpy(np.array(data[f"cache.{i}"])).to(self.model.device)
                        for i in range(len(self.kv))]
+        self._cross = {e.input_name: torch.from_numpy(np.array(data[f"cross.{i}"]))
+                       .to(self.model.device) for i, e in enumerate(self.cross_kv)}
         self._cache_len = self._cache[0].shape[2] if self.kv else 0
         self._mask = np.array(data["mask"])
         gen = np.array(data["generated"])

@@ -278,6 +278,7 @@ def _rows16(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0 and all((st * el) % 16 == 0 for st in t.stride()[:-1])
 
 
+@_holdable
 def mha(q, k, v, mask=None, *, scale: Optional[float] = None, causal: bool = False,
         softcap: float = 0.0):
     """Flash attention, the kernels of ``csrc/mha.cu`` (replace

@@ -10,8 +10,9 @@ other. An ONNX graph is optimized on load (``optimize.optimize_graph``);
 
 A model runs by name on one device: the CUDA card unless the caller
 passes ``device="cpu"``, where every kernel runs its plain PyTorch
-version. A graph that holds an op the port does not register yet (If,
-Conv, Resize, ...) loads; running that op raises ``NotImplementedError``.
+version. A graph that holds an op the port does not register yet (the
+random ops, MoE, the contrib ops, ...) loads; running that op raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -359,11 +360,12 @@ class Model:
         outputs: Optional[Sequence[str]] = None,
         static_inputs: Sequence[str] = (),
     ) -> List[torch.Tensor]:
-        """Run with name-keyed inputs (numpy arrays or tensors); returns
-        tensors on the model's device. Tensor inputs are never modified.
-        ``static_inputs`` (the names the JAX package specializes its
-        compiled trace on) is accepted and ignored: eager execution needs no
-        specialization."""
+        """Run with name-keyed inputs (numpy arrays or tensors; a sequence
+        input as a list of them); returns tensors on the model's device.
+        Tensor inputs are never modified. ``static_inputs`` (the names the
+        JAX package specializes its compiled trace on) stay numpy arrays on
+        the host, so an op that reads one (an If on ``use_cache_branch``)
+        reads it without a device sync."""
         feed = {}
         for name, val in inputs.items():
             nid = self.graph.find_node(name)
@@ -379,7 +381,8 @@ class Model:
                 if nid is None:
                     raise KeyError(f"model has no value named '{name}'")
                 out_ids.append(nid)
-        return self.executor.run(feed, out_ids)
+        static = [self.graph.find_node(n) for n in static_inputs]
+        return self.executor.run(feed, out_ids, static=[n for n in static if n is not None])
 
     def run_one(self, input_value):
         """Single unnamed input -> single output convenience."""

@@ -6,16 +6,21 @@ from .registry import OpError, REGISTRY, get_op, register  # noqa: F401
 # Import op modules for their registration side effects.
 from . import (  # noqa: F401
     attention,
+    control_flow,
     conv,
     einsum,
     elementwise,
+    fft,
     gather,
     grid_sample,
     layout,
     matmul,
+    nms,
     norm,
     pool,
     quantize,
     reduce,
     resize,
+    rnn,
+    sequence,
 )

@@ -62,14 +62,30 @@ def register(name: str, inplace: Tuple[int, ...] = (), static: Tuple[int, ...] =
     return deco
 
 
+# The ROADMAP.md queue 1 item that ports each op family the JAX package
+# registers and the port does not yet.
+_ROADMAP_ITEM = {
+    **dict.fromkeys(("RandomNormal", "RandomNormalLike", "RandomUniform",
+                     "RandomUniformLike", "Multinomial"), "12.4"),
+    "MoE": "12.5",
+    **dict.fromkeys(("GatherElements", "Scatter", "ScatterElements", "ScatterND",
+                     "RotaryEmbedding", "RotaryEmbeddingMS"), "12.6"),
+    **dict.fromkeys(("BiasGelu", "FastGelu", "GeluMicrosoft", "QuickGelu",
+                     "SimplifiedLayerNormalization", "SkipLayerNormalization",
+                     "SkipSimplifiedLayerNormalization"), "12.9"),
+}
+
+
 def get_op(name: str) -> OpDef:
     """The lowering of ``name``; an operator the port does not register yet
-    (If, Loop, LSTM, ...) raises ``NotImplementedError``: a graph holding
-    one loads, and fails when it runs that op."""
+    (the random ops, MoE, the contrib ops, ...) raises
+    ``NotImplementedError`` naming the ROADMAP item that ports it: a graph
+    holding one loads, and fails when it runs that op."""
     op = REGISTRY.get(name)
     if op is None:
         raise NotImplementedError(
-            f"operator '{name}' is not ported yet: ROADMAP.md queue 1 item 12"
+            f"operator '{name}' is not ported yet: ROADMAP.md queue 1 item "
+            f"{_ROADMAP_ITEM.get(name, '12')}"
         )
     return op
 
@@ -88,6 +104,14 @@ def static_value(x, what: str = "input") -> np.ndarray:
             f"not supported)"
         )
     return np.asarray(x)
+
+
+def host_value(x) -> np.ndarray:
+    """``x`` as a numpy array on the host: a host value as it is, a tensor
+    read back (one device-to-host copy for a card tensor). For the ops
+    whose control or output shape depends on a value (If, Loop, sequence
+    positions, NonMaxSuppression)."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def as_tensor(ctx, x) -> torch.Tensor:

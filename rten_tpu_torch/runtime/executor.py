@@ -27,6 +27,16 @@ values (numpy arrays: shape results and the constants the JAX package
 keeps concrete, those ``is_weight_constant`` does not count as weights)
 runs on the CPU and its results stay numpy arrays on the host. A reshape
 target then never reads a card tensor back.
+
+Control flow: If and Loop run their subgraphs through
+``TraceContext.run_subgraph`` on the executor's device, whatever the
+placement of their own inputs (an If whose only input is a host flag still
+runs its branch on the card); inside a subgraph the host rule holds as
+above. A subgraph resolves the values it captures by name from the scopes
+of the graphs that enclose it (rten CaptureEnv, src/graph.rs:1165-1181):
+``trace`` publishes every named value of a graph that holds control flow.
+Sequence values (Python lists of values) pass through ``env`` as they are;
+a list of host values is itself a host value.
 """
 
 from __future__ import annotations
@@ -102,12 +112,38 @@ class RunConfig:
 
 
 class TraceContext:
-    """Per-run context handed to op lowerings: the device and the config."""
+    """Per-run context handed to op lowerings: the device, the config and
+    the capture scopes of the graphs being walked (innermost last)."""
 
-    def __init__(self, executor: "Executor", config: RunConfig, device=None):
+    def __init__(self, executor: "Executor", config: RunConfig, device=None,
+                 scopes: Optional[List[Dict[str, Any]]] = None):
         self.executor = executor
         self.config = config
         self.device = executor.device if device is None else device
+        self.scopes: List[Dict[str, Any]] = [] if scopes is None else scopes
+
+    def lookup_capture(self, name: str):
+        for scope in reversed(self.scopes):
+            if name in scope:
+                return scope[name]
+        return None
+
+    def run_subgraph(self, subgraph: Graph, inputs: Sequence[Any]) -> List[Any]:
+        """Run a control-flow subgraph on the executor's device: ``inputs``
+        bound to its inputs in order, its captures resolved by name from
+        the enclosing scopes. Returns its output values."""
+        sub = self.executor.sub_executor(subgraph)
+        env: Dict[NodeId, Any] = dict(sub._weight_args())
+        for nid, val in zip(subgraph.input_ids, inputs):
+            env[nid] = val
+        for name in subgraph.captures:
+            v = self.lookup_capture(name)
+            if v is None:
+                raise OpError(f"unresolved capture '{name}' in subgraph")
+            nid = subgraph.find_node(name)
+            if nid is not None:
+                env[nid] = v
+        return sub.trace(env, subgraph.output_ids, scopes=self.scopes)
 
 
 _CPU = torch.device("cpu")
@@ -115,13 +151,24 @@ _CPU = torch.device("cpu")
 
 def _to_host(value, device: torch.device):
     """A host-evaluated op's result as a numpy array (narrowed as the JAX
-    package's int32/f32 values are); bfloat16, which numpy has no type for,
-    moves to ``device`` as a tensor instead."""
+    package's int32/f32 values are), a sequence element by element;
+    bfloat16, which numpy has no type for, moves to ``device`` as a tensor
+    instead."""
     if isinstance(value, torch.Tensor):
         if value.dtype == torch.bfloat16:
             return value.to(device)
         return narrow_array(value.numpy())
+    if isinstance(value, list):
+        return [_to_host(v, device) for v in value]
     return value
+
+
+def _on_device(value, device: torch.device):
+    """A run's value as the caller gets it: a tensor on ``device``, a
+    sequence as a list of them."""
+    if isinstance(value, list):
+        return [_on_device(v, device) for v in value]
+    return to_tensor(value, device)
 
 
 class Executor:
@@ -137,6 +184,22 @@ class Executor:
         self._concrete: Optional[set] = None
         self._plans: Dict[Tuple, List[NodeId]] = {}
         self._inplace_ids = self._find_inplace_ids()
+        self._control_ids = self._find_control_ids()
+        self._subs: Dict[int, "Executor"] = {}
+
+    def _find_control_ids(self) -> set:
+        """The operators that hold subgraphs (If, Loop)."""
+        return {nid for nid, op in self.graph.operators() if op.subgraphs()}
+
+    def sub_executor(self, subgraph: Graph) -> "Executor":
+        """The executor of one of this graph's control-flow subgraphs (or of
+        theirs), made once: its weights move to the device once and its
+        plans are kept."""
+        sub = self._subs.get(id(subgraph))
+        if sub is None or sub.graph is not subgraph:
+            sub = Executor(subgraph, self.config, device=self.device)
+            self._subs[id(subgraph)] = sub
+        return sub
 
     def _find_inplace_ids(self) -> set:
         """The graph inputs some op writes in place (KV caches)."""
@@ -203,6 +266,8 @@ class Executor:
         self._concrete = None
         self._plans = {}
         self._inplace_ids = self._find_inplace_ids()
+        self._control_ids = self._find_control_ids()
+        self._subs = {}
 
     def _plan(self, env_ids, output_ids) -> List[NodeId]:
         key = (frozenset(env_ids), tuple(output_ids))
@@ -220,85 +285,124 @@ class Executor:
         output_ids: Sequence[NodeId],
         allow_missing: bool = False,
         profiler=None,
+        scopes: Optional[List[Dict[str, Any]]] = None,
     ) -> List[Any]:
         """Walk the plan, running each op's lowering; returns output values.
         An op whose inputs are all host values runs on the CPU and gives
-        host values (see the module's docstring). With ``profiler`` the
-        device is synchronized after each op and its wall time recorded."""
+        host values (see the module's docstring); an op with subgraphs runs
+        on the device. ``scopes``: the capture scopes of the enclosing
+        graphs, for a subgraph. With ``profiler`` the device is
+        synchronized after each op and its wall time recorded."""
         g = self.graph
-        ctx = TraceContext(self, self.config)
-        host_ctx = TraceContext(self, self.config, device=_CPU)
+        scopes = [] if scopes is None else scopes
+        ctx = TraceContext(self, self.config, scopes=scopes)
+        host_ctx = TraceContext(self, self.config, device=_CPU, scopes=scopes)
         consts = self._host_constants()
         concrete = self._concrete_ids()
         fed = [nid for nid in env if nid not in consts]
         for nid, arr in consts.items():
             env.setdefault(nid, arr)
-        for op_id in self._plan(fed, output_ids):
-            op = g.nodes[op_id]
-            assert isinstance(op, Operator)
-            op_def = get_op(op.op_type)
-            host_ins = [None if i is None else consts[i] if i in concrete else env.get(i)
-                        for i in op.inputs]
-            on_host = all(v is None or isinstance(v, np.ndarray) for v in host_ins)
-            ins = host_ins if on_host else [
-                host_ins[k] if k in op_def.static else env.get(i) if i is not None else None
-                for k, i in enumerate(op.inputs)]
-            attrs = dict(op.attrs)
-            attrs["__n_outputs__"] = len(op.outputs)
-            t0 = time.perf_counter() if profiler is not None else 0.0
-            try:
-                result = op_def.lower(host_ctx if on_host else ctx, ins, attrs)
-            except OpError as e:
-                raise OpError(f"{op.op_type} '{g.node_name(op_id)}': {e}") from e
-            if not isinstance(result, tuple):
-                result = (result,)
-            if on_host:
-                result = tuple(_to_host(r, self.device) for r in result)
-            if profiler is not None:
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-                profiler.add(op.op_type, g.node_name(op_id),
-                             [tuple(v.shape) for v in ins if v is not None],
-                             time.perf_counter() - t0)
-            if len(result) < len(op.outputs):
-                raise OpError(
-                    f"{op.op_type} returned {len(result)} outputs, "
-                    f"node declares {len(op.outputs)}"
-                )
-            for out_id, val in zip(op.outputs, result):
-                env[out_id] = val
-        outs = []
-        for oid in output_ids:
-            if oid not in env:
-                if allow_missing:
-                    outs.append(None)
-                    continue
-                raise OpError(f"output {g.node_name(oid)} was not computed")
-            outs.append(env[oid])
-        return outs
+        # Named values, published for the subgraphs of this graph's control
+        # flow (none when it holds none).
+        scope: Optional[Dict[str, Any]] = None
+        if self._control_ids:
+            scope = {}
+            for nid, val in env.items():
+                name = getattr(g.nodes.get(nid), "name", None)
+                if name:
+                    scope[name] = consts[nid] if nid in concrete else val
+            scopes.append(scope)
+        try:
+            for op_id in self._plan(fed, output_ids):
+                op = g.nodes[op_id]
+                assert isinstance(op, Operator)
+                op_def = get_op(op.op_type)
+                host_ins = [None if i is None else consts[i] if i in concrete else env.get(i)
+                            for i in op.inputs]
+                control = op_id in self._control_ids
+                on_host = not control and all(
+                    v is None or isinstance(v, np.ndarray)
+                    or (isinstance(v, list) and all(isinstance(x, np.ndarray) for x in v))
+                    for v in host_ins)
+                ins = host_ins if on_host or control else [
+                    host_ins[k] if k in op_def.static else env.get(i) if i is not None else None
+                    for k, i in enumerate(op.inputs)]
+                attrs = dict(op.attrs)
+                attrs["__n_outputs__"] = len(op.outputs)
+                t0 = time.perf_counter() if profiler is not None else 0.0
+                try:
+                    result = op_def.lower(host_ctx if on_host else ctx, ins, attrs)
+                except OpError as e:
+                    raise OpError(f"{op.op_type} '{g.node_name(op_id)}': {e}") from e
+                if not isinstance(result, tuple):
+                    result = (result,)
+                if on_host:
+                    result = tuple(_to_host(r, self.device) for r in result)
+                if profiler is not None:
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    profiler.add(op.op_type, g.node_name(op_id),
+                                 [tuple(v.shape) for v in ins if hasattr(v, "shape")],
+                                 time.perf_counter() - t0)
+                if len(result) < len(op.outputs):
+                    raise OpError(
+                        f"{op.op_type} returned {len(result)} outputs, "
+                        f"node declares {len(op.outputs)}"
+                    )
+                for out_id, val in zip(op.outputs, result):
+                    env[out_id] = val
+                    if scope is not None:
+                        name = getattr(g.nodes[out_id], "name", None)
+                        if name:
+                            scope[name] = val
+            outs = []
+            for oid in output_ids:
+                if oid not in env:
+                    if allow_missing:
+                        outs.append(None)
+                        continue
+                    raise OpError(f"output {g.node_name(oid)} was not computed")
+                outs.append(env[oid])
+            return outs
+        finally:
+            if scope is not None:
+                scopes.pop()
 
     def run(
         self,
         inputs: Dict[NodeId, Any],
         output_ids: Sequence[NodeId],
         donate: Sequence[NodeId] = (),
+        static: Sequence[NodeId] = (),
     ) -> List[torch.Tensor]:
         """Run the graph on the executor's device.
 
-        ``inputs`` are numpy arrays or tensors; ``donate`` lists the inputs
-        (KV caches) that ops may update in place — the JAX engine's buffer
-        donation. Returns tensors on the device.
-        """
-        donated = set(donate)
+        ``inputs`` are numpy arrays or tensors (a sequence input: a list of
+        them); ``donate`` lists the inputs (KV caches) that ops may update
+        in place — the JAX engine's buffer donation; ``static`` the inputs
+        that stay numpy arrays on the host (the JAX package specializes its
+        trace on them: an If's flag is then read without a device sync).
+        Returns tensors on the device (a sequence output: a list)."""
         env: Dict[NodeId, Any] = dict(self._weight_args())
+        env.update(self._feed(inputs, set(donate), set(static)))
+        return [_on_device(v, self.device) for v in self.trace(env, list(output_ids))]
+
+    def _feed(self, inputs: Dict[NodeId, Any], donated: set, static: set) -> Dict[NodeId, Any]:
+        """The env entries of a run's inputs: tensors on the device (a
+        caller's tensor that an op would write in place, and that the
+        caller did not donate, copied first), numpy for ``static``."""
+        feed = {}
         for nid, val in inputs.items():
-            t = to_tensor(val, self.device)
-            if (nid in self._inplace_ids and nid not in donated
-                    and t is val):
-                t = t.clone()
-            env[nid] = t
-        return [to_tensor(v, self.device)
-                for v in self.trace(env, list(output_ids))]
+            if nid in static:
+                feed[nid] = narrow_array(np.asarray(val))
+            elif isinstance(val, (list, tuple)):
+                feed[nid] = [to_tensor(v, self.device) for v in val]
+            else:
+                t = to_tensor(val, self.device)
+                if nid in self._inplace_ids and nid not in donated and t is val:
+                    t = t.clone()
+                feed[nid] = t
+        return feed
 
     def profile_run(
         self, inputs: Dict[NodeId, Any], output_ids: Sequence[NodeId]
@@ -309,25 +413,26 @@ class Executor:
 
         prof = Profiler()
         env: Dict[NodeId, Any] = dict(self._weight_args())
-        for nid, val in inputs.items():
-            t = to_tensor(val, self.device)
-            env[nid] = t.clone() if nid in self._inplace_ids and t is val else t
+        env.update(self._feed(inputs, set(), set()))
         outs = self.trace(env, list(output_ids), profiler=prof)
-        return [to_tensor(v, self.device) for v in outs], prof
+        return [_on_device(v, self.device) for v in outs], prof
 
     def partial_run(
         self, inputs: Dict[NodeId, Any], output_ids: Sequence[NodeId]
     ) -> List[Tuple[NodeId, Any]]:
         """Evaluate whatever subset of `output_ids` is reachable from the
         constants and ``inputs`` (rten partial_run, src/graph.rs:1335-1384);
-        used for constant propagation at load time. Results are numpy."""
+        used for constant propagation at load time. Results are numpy; a
+        sequence value is left out (None), as no constant holds one."""
         env: Dict[NodeId, Any] = {
             nid: to_tensor(v, self.device) for nid, v in inputs.items()
         }
         outs = self.trace(env, list(output_ids), allow_missing=True)
         result = []
         for oid, v in zip(output_ids, outs):
-            if isinstance(v, torch.Tensor):
+            if isinstance(v, list):
+                v = None
+            elif isinstance(v, torch.Tensor):
                 v = v.detach().cpu().numpy()
             elif v is not None:
                 v = np.asarray(v)

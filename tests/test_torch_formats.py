@@ -188,12 +188,27 @@ def test_port_rtpu_keeps_the_graph_it_saved(gpt2_path, tmp_path):
 
 
 def test_if_graph_loads_and_names_its_roadmap_item(tmp_path):
-    """The port loads an If graph; running it raises NotImplementedError."""
+    """The port loads an If graph the JAX package saved and runs it (both
+    branches, JAX's answers); a graph with an op still unported
+    (RandomUniform) loads, and running it raises NotImplementedError naming
+    its ROADMAP item."""
     path = str(tmp_path / "if.rtpu")
     _model("jax", "if", None).save(path)
-    m = _load("port", path)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 12"):
-        m.run({"cond": np.array(True), "x": np.ones(2, np.float32)})
+    m, jm = _load("port", path), _load("jax", path)
+    x = np.float32([1.5, -2.0])
+    for cond in (True, False):
+        feed = {"cond": np.array(cond), "x": x}
+        got = m.run(feed)[0].numpy()
+        np.testing.assert_array_equal(got, np.asarray(jm.run(feed, jit=False)[0]))
+        np.testing.assert_array_equal(got, x * (2 if cond else 3))
+    g = TGraph()
+    y = g.add_value("y", TDataType.Float, (2,))
+    g.add_op("RandomUniform", [], [y], {"shape": [2]})
+    g.output_ids = [y]
+    path = str(tmp_path / "random.rtpu")
+    TModel(g, TOptions(optimize=False), device="cpu").save(path)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 12.4"):
+        _load("port", path).run({})
 
 
 # --- malformed files: the cases of tests/test_malformed_models.py ------------

@@ -250,16 +250,36 @@ def test_safetensors_round_trip_matches_jax(tmp_path):
             np.testing.assert_array_equal(back[k], t[k])
 
 
-def _graph_with_inputs(names):
-    from rten_tpu_torch.dtypes import DataType
-    from rten_tpu_torch.ir.builder import GraphBuilder
+V_SMALL = 32
+BONUS = 7  # the first run's token where the graph reads use_cache_branch
 
-    b = GraphBuilder()
-    ids = b.input("input_ids", DataType.Int32, ("batch", "seq"))
-    extra = [b.input(n, DataType.Float, ("batch", 2, "past", 4)) for n in names]
-    outs = [b.op("Cast", [ids], {"to": DataType.Float}, output_names=["logits"])]
-    outs += [b.op("Mul", [x, x], output_names=[n.replace("past_key_values", "present")])
-             for x, n in zip(extra, names)]
+
+def _graph_with_inputs(names, GB, DT):
+    """input_ids plus the inputs ``names``: logits = 10 * onehot(3 * id + 1
+    mod V) at every position, and where ``use_cache_branch`` is an input,
+    100 * onehot(BONUS) added while it is False (the first run); each
+    ``past_key_values.*`` input grows by the ids' rows ([B, 2, S, 4]) into
+    its ``present.*`` output."""
+    b = GB()
+    ids = b.input("input_ids", DT.Int32, ("batch", "seq"))
+    table = np.zeros((V_SMALL, V_SMALL), np.float32)
+    table[np.arange(V_SMALL), (3 * np.arange(V_SMALL) + 1) % V_SMALL] = 10.0
+    logits = b.op("Gather", [b.constant("table", table), ids], {"axis": 0})
+    if "use_cache_branch" in names:
+        flag = b.input("use_cache_branch", DT.Bool, ())
+        first = b.op("Cast", [b.op("Not", [flag])], {"to": DT.Float})
+        bonus = np.zeros(V_SMALL, np.float32)
+        bonus[BONUS] = 100.0
+        logits = b.op("Add", [logits, b.op("Mul", [first, b.constant("bonus", bonus)])])
+    outs = [b.op("Identity", [logits], output_names=["logits"])]
+    row = b.op("Mul", [b.op("Unsqueeze", [b.op("Cast", [ids], {"to": DT.Float}),
+                                           b.constant("axes", np.int32([1, 3]))]),
+                       b.constant("ones", np.ones((1, 2, 1, 4), np.float32))])
+    for n in names:
+        if n.startswith("past_key_values"):
+            past = b.input(n, DT.Float, ("batch", 2, "past", 4))
+            outs.append(b.op("Concat", [past, row], {"axis": 2},
+                             output_names=[n.replace("past_key_values", "present")]))
     b.output(*outs)
     return b.finish()
 
@@ -268,13 +288,35 @@ def _graph_with_inputs(names):
     ["past_key_values.0.decoder.key", "past_key_values.0.encoder.key"],
     ["use_cache_branch"],
 ])
-def test_generator_encoder_decoder_graphs_raise(names):
-    """Cross-attention caches and the merged decoder's use_cache_branch
-    need ONNX loading with If subgraphs: NotImplementedError naming
-    ROADMAP item 12."""
-    model = TModel(_graph_with_inputs(names), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TGenerator(model, [1, 2, 3])
+def test_generator_encoder_decoder_graphs_run(names):
+    """Cross-attention caches and a merged decoder's use_cache_branch run
+    through the Generator, the same tokens as the JAX Generator's: the
+    cross cache made on the first run (from an empty one) and kept, the
+    decoder cache grown a row a step, the flag False on the first run
+    only."""
+    from rten_tpu.dtypes import DataType as JDataType
+    from rten_tpu.ir.builder import GraphBuilder as JBuilder
+    from rten_tpu_torch.dtypes import DataType as TDataType
+    from rten_tpu_torch.ir.builder import GraphBuilder as TBuilder
+
+    prompt = np.array([[1, 2, 3], [4, 5, 6]], np.int32)
+    gen = TGenerator(TModel(_graph_with_inputs(names, TBuilder, TDataType), device="cpu"),
+                     prompt)
+    got = gen.generate(5)
+    want = JGenerator(JModel(_graph_with_inputs(names, JBuilder, JDataType)), prompt).generate(5)
+    np.testing.assert_array_equal(got, want)
+    first = np.full(2, BONUS) if "use_cache_branch" in names else (3 * prompt[:, -1] + 1) % V_SMALL
+    chain = [first]
+    for _ in range(4):
+        chain.append((3 * chain[-1] + 1) % V_SMALL)
+    np.testing.assert_array_equal(got, np.stack(chain, 1))
+    if "use_cache_branch" in names:
+        assert gen.kv == [] and gen.cross_kv == []
+        return
+    assert [e.input_name for e in gen.cross_kv] == ["past_key_values.0.encoder.key"]
+    cross = gen._cross["past_key_values.0.encoder.key"]
+    np.testing.assert_array_equal(cross.numpy()[:, 0, :, 0], prompt.astype(np.float32))
+    assert tuple(gen._cache[0].shape) == (2, 2, 3 + 5, 4)  # the prompt, a row a token
 
 
 def test_model_run_accepts_static_inputs():

@@ -178,13 +178,17 @@ def test_unoptimized_load_runs_the_exporter_ops(gpt2_file):
     _close(tm.run({"input_ids": ids})[0].numpy(), np.asarray(jm.run({"input_ids": ids})[0]))
 
 
+class _Noisy(torch.nn.Module):
+    def forward(self, x):
+        return torch.relu(x) + torch.rand_like(x)
+
+
 def test_unported_op_loads_and_raises_when_run(tmp_path):
-    """A graph holding an op the port does not register (LSTM, queue 1
-    item 12.3) loads, constants folded around it; running it names
-    ROADMAP.md queue 1 item 12."""
-    lstm = torch.nn.LSTM(4, 3)
-    path = export_onnx(lstm, torch.randn(5, 1, 4), str(tmp_path / "lstm.onnx"), ["x"], ["y"])
+    """A graph holding an op the port does not register yet
+    (RandomUniformLike, queue 1 item 12.4) loads, constants folded around
+    it; running it names ROADMAP.md queue 1 item 12.4."""
+    path = export_onnx(_Noisy(), torch.randn(5, 4), str(tmp_path / "noisy.onnx"), ["x"], ["y"])
     tm = TModel.load_file(path, device="cpu")
-    assert "LSTM" in _ops(tm)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 12"):
-        tm.run({"x": np.zeros((5, 1, 4), np.float32)})
+    assert "RandomUniformLike" in _ops(tm)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 12.4"):
+        tm.run({"x": np.zeros((5, 4), np.float32)})
