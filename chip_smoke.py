@@ -3,7 +3,9 @@
 Run from the repository root:  python3 chip_smoke.py
 
 1. Builds every CUDA kernel of the port from ``rten_tpu_torch/csrc`` (one
-   nvcc per source, in parallel) and prints the build time.
+   nvcc per source, in parallel, in the background: each phase's first
+   launch of a kernel waits for its own library) and prints, at the end,
+   when each library was ready.
 2. Kernel phases: each kernel against its plain PyTorch version on the same
    inputs on the card, then the times of the kernel, the plain version and
    one PyTorch library call computing the same function (a yardstick only;
@@ -1192,8 +1194,10 @@ FLOAT_KV = {"bf16": torch.bfloat16, "f32": torch.float32}
 Q_LAYERS, Q_H, Q_HKV, Q_D, Q_VOCAB, Q_SLOTS = 28, 12, 2, 128, 151936, 16
 # The depth of its serve phase, cut to keep the whole run near half its
 # time limit (14 until the hard config's phases came in, 8 until the
-# loading phases did); its kernel phases keep all 28 layers.
-Q_SERVE_LAYERS = 4
+# loading phases did, 4 until the genai, MoE and registry phases did; at 2
+# it shares the Qwen
+# reference's weights); its kernel phases keep all 28 layers.
+Q_SERVE_LAYERS = 2
 QWEN = dict(vocab_size=Q_VOCAB, hidden_size=1536, intermediate_size=8960,
             num_attention_heads=Q_H, num_key_value_heads=Q_HKV,
             max_position_embeddings=131072, rms_norm_eps=1e-6, rope_theta=1e6,
@@ -2387,12 +2391,12 @@ _WEIGHTS = {}
 
 
 def random_weights(module, cfg):
-    """``module.random_weights(cfg, seed=0)`` (GPT-2 or Llama), kept until a
-    call for another configuration: a reference check builds the same model
-    on the CPU and then on the card."""
+    """``module.random_weights(cfg, seed=0)`` (GPT-2 or Llama), kept for the
+    run (a few GB of host memory): a reference check builds the same model
+    on the CPU and then on the card, and the TinyLlama and Qwen references
+    take the serve phases' weights."""
     key = (module.__name__, repr(cfg))
     if key not in _WEIGHTS:
-        _WEIGHTS.clear()
         _WEIGHTS[key] = module.random_weights(cfg, seed=0)
     return _WEIGHTS[key]
 
@@ -2760,7 +2764,7 @@ def tinyllama_weights():
     from rten_tpu_torch.models import llama
 
     t0 = time.perf_counter()
-    weights = llama.random_weights(llama.LlamaConfig(num_hidden_layers=L_CUT_LAYERS), seed=0)
+    weights = random_weights(llama, llama.LlamaConfig(num_hidden_layers=L_CUT_LAYERS))
     print(f"  TinyLlama random weights (seed 0): {time.perf_counter() - t0:.1f} s", flush=True)
     return weights
 
@@ -3437,9 +3441,12 @@ def _folded_plain(q, k, v, lens, k_scale=None, v_scale=None, *, scale=None, wind
 
 
 def _mha_f64(q, k, v, mask=None, *, scale=None, causal=False, softcap=0.0):
-    """mha_plain's arithmetic in f64 (no GQA): the exact answer both the
-    kernel and its f32 plain version are held against for the record."""
+    """mha_plain's arithmetic in f64 (query head h reads KV head h // group):
+    the exact answer both the kernel and its f32 plain version are held
+    against for the record."""
     Tq, Tk, D = q.shape[2], k.shape[2], q.shape[3]
+    if q.shape[1] != k.shape[1]:
+        k, v = (t.repeat_interleave(q.shape[1] // k.shape[1], dim=1) for t in (k, v))
     s = torch.einsum("bhqd,bhkd->bhqk", q.double(), k.double()) * (
         1.0 / float(np.sqrt(D)) if scale is None else scale)
     if softcap:
@@ -4511,8 +4518,9 @@ def _vision_cases(gen):
     ]
 
 
-def _one_node(op, inputs, attrs, run_config=None):
-    """A one-node graph and its feed (tensors become inputs)."""
+def _one_node(op, inputs, attrs, n_out=1):
+    """A one-node graph and its feed (tensors become inputs, (name, array)
+    pairs constants), its output "y" (with ``n_out`` > 1: y0, y1, ...)."""
     from rten_tpu_torch.dtypes import DataType
     from rten_tpu_torch.ir.builder import GraphBuilder
 
@@ -4527,7 +4535,9 @@ def _one_node(op, inputs, attrs, run_config=None):
             arr = v.numpy()
             ins.append(b.input(f"x{i}", DataType.from_np(arr.dtype), arr.shape))
             feed[f"x{i}"] = arr
-    b.output(b.op(op, ins, attrs, output_names=["y"]))
+    names = ["y"] if n_out == 1 else [f"y{i}" for i in range(n_out)]
+    outs = b.op(op, ins, attrs, n_outputs=n_out, output_names=names)
+    b.output(*(outs if n_out > 1 else (outs,)))
     return b.finish(), feed
 
 
@@ -4629,7 +4639,8 @@ WHISPER_SAMPLES = 480000  # 30 s of 16 kHz audio: mel [1, 80, 3000], 1500 encode
 WHISPER_PROMPT = [50258, 50259, 50359, 50363]
 WHISPER_NEW = 64
 WHISPER_SHARPEN = 3.0  # tests/whisper_weights.py: greedy tokens then vary with the context
-WHISPER_MHA_TOL = HELD_TOL  # row 5's bound on the card (3xTF32: see phase_whisper)
+WHISPER_MHA_TOL = 2e-5  # each held mha call against mha_plain (6xTF32 scores: phase_whisper)
+WHISPER_F64_RATIO = 1.5  # the kernel's largest error from f64 over mha_plain's, at most
 WHISPER_MEL_TOL = 1e-4
 WHISPER_LOGIT_TOL = 5e-2
 
@@ -4683,10 +4694,10 @@ def phase_whisper(dev, gen_t):
     after the 4-token start-of-transcript prompt (the default bucket of 32:
     the prefill is 32 rows). After a warm-up transcription the counters are
     zeroed, the transcription runs with every mha call held against
-    mha_plain (within row 5's 1e-4 on the rows with a column to attend, 0
-    on the others; both also against f64, printed: the kernel's 3xTF32
-    operands carry 22 bits, so its error grows with the scores' terms), and
-    the counters are read: mha 4 an encode at [1, 6, 1500, 64],
+    mha_plain (within 2e-5 on the rows with a column to attend, 0 on the
+    others; both also against f64: over the encoder's calls the kernel's
+    largest error at most 1.5x mha_plain's, which its 6xTF32 score product
+    reaches and 3xTF32's 22 bits did not), and the counters are read: mha 4 an encode at [1, 6, 1500, 64],
     and 8 in the prefill (causal self-attention at 32 rows, cross-attention
     over 1500), nothing else. The card's mel is held against the port's CPU
     run of the same graph (within 1e-4 of max|mel|), and its logits, step by
@@ -4780,6 +4791,11 @@ def phase_whisper(dev, gen_t):
           f"against f64, kernel and plain by call "
           f"{json.dumps([[float(f'{e:.3e}') for e in p] for p in held['mha_f64']])}",
           flush=True)
+    enc_f64 = held["mha_f64"][:cfg.encoder_layers]
+    kernel_f64, plain_f64 = (max(p[i] for p in enc_f64) for i in (0, 1))
+    if not kernel_f64 <= WHISPER_F64_RATIO * plain_f64:
+        fail(f"{tag}: over the encoder's calls the kernel lands {kernel_f64:.3e} from f64, "
+             f"more than {WHISPER_F64_RATIO:g}x mha_plain's {plain_f64:.3e}")
     del cpu, cpu_front
 
     # Row 5's error from f64 at the encoder's first call with its keys cut
@@ -5068,6 +5084,547 @@ def phase_reference_serving(dev):
           f"the card engine's tokens; /health ok", flush=True)
 
 
+# --- the onnxruntime-genai int4 path, MoE, the contrib/rotary/scatter/random ops ---
+
+
+GENAI_LAYERS = 22          # TinyLlama-1.1B's depth: the path runs at full depth
+GENAI_CUT = 2              # layers of the card-against-CPU check (full width)
+GENAI_PROMPT, GENAI_NEW = 128, 32
+GENAI_CHECK_STEPS = 16
+GENAI_LOGIT_TOL = 1e-4     # of max|logit|, card against the port's CPU run
+
+
+def _genai_export(n_layer, dev):
+    """tests/ort_genai_llama.py's module at TinyLlama-1.1B's published widths
+    (``n_layer`` of its 22 layers; weights from seed 0, drawn and quantized
+    on the card), exported under build/ort_genai/. Returns (path, weights
+    seconds, export seconds)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import dataclasses
+
+    import ort_genai_llama as og
+
+    t0 = time.perf_counter()
+    module = og.GenaiLlama(dataclasses.replace(og.GenaiShape(), num_hidden_layers=n_layer),
+                           seed=0, device=dev)
+    torch.cuda.synchronize()
+    weights_s = time.perf_counter() - t0
+    d = os.path.join(ROOT, "build", "ort_genai")
+    os.makedirs(d, exist_ok=True)
+    t0 = time.perf_counter()
+    path = og.export(module, os.path.join(d, f"tinyllama_int4_{n_layer}.onnx"))
+    return path, weights_s, time.perf_counter() - t0
+
+
+def _genai_greedy(model, prompt, n):
+    """The Generator at bucket 1 for n tokens: (tokens, the logits row of the
+    prompt and of each step, the Generator)."""
+    from rten_tpu_torch.generate import Generator, GeneratorConfig
+
+    gen = Generator(model, prompt, GeneratorConfig(bucket_size=1, max_seq_len=2048))
+    rows, toks = [gen._pending_logits.copy()], []
+    for _ in range(n):
+        toks.append(int(next(gen)))
+        rows.append(gen._pending_logits.copy())
+    return toks, rows, gen
+
+
+GENAI_INT4 = ((2048, 2560), (2048, 2048), (2048, 5632), (2048, 5632), (5632, 2048))
+GENAI_LM_HEAD = (2048, 32000)
+
+
+def _genai_int4_case(gen, dev, M):
+    """int4_matmul at one genai layer's five MatMulNBits shapes (packed QKV,
+    o_proj, gate, up, down) and the lm_head, with u8 zero points, at M
+    rows: within 1e-4 of max|out| of the plain version; the times of the
+    six calls beside the bound (one product's operations at the bf16
+    rate, or the bytes) and torch.matmul on the dequantized f32 weights."""
+    from rten_tpu_torch.kernels.int4_matmul import (
+        dequant_nbits, int4_matmul, int4_matmul_plain, unpack_zero_points,
+    )
+
+    shapes = list(GENAI_INT4) + [GENAI_LM_HEAD]
+    ws = [_int4_weights(gen, dev, K, N, zp=True) for K, N in shapes]
+    xs = [torch.randn(M, K, generator=gen).to(dev) for K, _ in shapes]
+    err = 0.0
+    for (K, N), (p, s, z), x in zip(shapes, ws, xs):
+        got = int4_matmul(x, p, s, z, K=K, N=N, block_size=32)
+        want = int4_matmul_plain(x, p.reshape(N, -1), s, unpack_zero_points(z, N, K // 32),
+                                 K=K, N=N, block_size=32)
+        torch.cuda.synchronize()
+        err = max(err, (got - want).abs().max().item() / want.abs().max().item())
+    if not err <= 1e-4:
+        fail(f"int4_matmul at the genai shapes, M {M}: {err:.3e} of max|out| > 1e-4")
+    nbytes = sum(K * N // 2 + 4 * N * (K // 32) + N * (K // 64) + 4 * M * (K + N)
+                 for K, N in shapes)
+    deq = [dequant_nbits(p, s, z, K=K, N=N, block_size=32).T.contiguous()
+           for (K, N), (p, s, z) in zip(shapes, ws)]
+    k_ms = timed(lambda: [int4_matmul(x, p, s, z, K=K, N=N, block_size=32)
+                          for (K, N), (p, s, z), x in zip(shapes, ws, xs)], iters=10,
+                 nbytes=nbytes)
+    p_ms = timed(lambda: [int4_matmul_plain(x, p.reshape(N, -1), s,
+                                            unpack_zero_points(z, N, K // 32), K=K, N=N,
+                                            block_size=32)
+                          for (K, N), (p, s, z), x in zip(shapes, ws, xs)], iters=3, warmup=1,
+                 nbytes=nbytes)
+    lib = timed(lambda: [torch.matmul(x, d) for x, d in zip(xs, deq)], iters=10,
+                nbytes=sum(4 * (K * N + M * (K + N)) for K, N in shapes))
+    bms, by = bound_ms(nbytes, sum(2.0 * M * K * N for K, N in shapes), BF16_FLOPS_PER_S)
+    print(f"  int4_matmul at the genai layer's 5 shapes and the lm_head, u8 zero points, M "
+          f"{M}: max err {err:.3e} of max|out|; kernel {fmt(k_ms)}, plain {fmt(p_ms)}, "
+          f"torch.matmul on f32 weights {fmt(lib)}, bound {bms:.4f} ms ({by})", flush=True)
+    return {"unit": f"one TinyLlama genai layer's 5 MatMulNBits and the lm_head, u8 zero "
+                    f"points, M = {M}", "max_abs_err": err, **time_keys(k_ms, p_ms, lib),
+            "bound_ms": bms, "bound_by": by}
+
+
+def phase_ort_genai(dev, gen_t):
+    """The onnxruntime-genai int4 layout (tests/ort_genai_llama.py) at
+    TinyLlama-1.1B's published widths and full depth (22 layers, E 2048, 32
+    query heads over 4 KV heads, D 64, FFN 5632, vocabulary 32000; RTN int4
+    at block 32 with u8 zero points, packed QKV, f32 activations), exported
+    to ONNX, loaded by ``Model.load_file`` onto the card and driven by the
+    port's ``Generator`` at bucket 1: a prompt of 128 tokens, 32 greedy
+    tokens. The seconds of weights, export, parse, optimize and load_file.
+    After a warm-up the counters are zeroed, the Generator runs with every
+    mha call held against mha_plain (``HELD_TOL``) and the counters are
+    read: int4_matmul once per MatMulNBits node of the loaded graph per
+    forward (the prompt's and the 32 steps'), mha 22 (one per layer at the
+    prompt; decode steps go to mha_plain), nothing else. Then TTFT and
+    decode tok/s from the Generator's Metrics of an unheld run, and busy
+    per forward (torch.profiler, CUDA activity) against host wall per
+    forward. Then the same export cut to 2 layers at full width on the card
+    and through the port's CPU run of the same file: logits within 1e-4 of
+    max|logit| at the prompt and each of 16 steps, the tokens equal, at
+    least 4 of them distinct. Then rows 9 and 5 timed at this path's shapes
+    (``_genai_int4_case`` at M 1 and 128; mha at the prompt's 22 calls).
+    Returns (launches, {row: the timed cases})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rten_tpu_torch.formats.onnx import ExternalDataLoader, parse_model
+    from rten_tpu_torch.generate import Generator, GeneratorConfig
+    from rten_tpu_torch.model import Model, graph_from_onnx
+    from rten_tpu_torch.optimize import optimize_graph
+
+    tag = f"TinyLlama-1.1B int4 (genai layout) from ONNX, {GENAI_LAYERS} layers"
+    path, weights_s, export_s = _genai_export(GENAI_LAYERS, dev)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proto = parse_model(memoryview(np.memmap(path, dtype=np.uint8, mode="r")))
+    graph = graph_from_onnx(proto.graph, ExternalDataLoader(os.path.dirname(path)))
+    parse_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_ops = [op.op_type for _, op in optimize_graph(graph).operators()]
+    optimize_s = time.perf_counter() - t0
+    del proto, graph
+    t0 = time.perf_counter()
+    model = Model.load_file(path, device=dev)
+    load_s = time.perf_counter() - t0
+    ops = [op.op_type for _, op in model.graph.operators()]
+    n_nbits = ops.count("MatMulNBits")
+    if ops != cpu_ops or ops.count("GroupQueryAttention") != GENAI_LAYERS or n_nbits != (
+            5 * GENAI_LAYERS + 1):
+        fail(f"{tag}: {ops.count('GroupQueryAttention')} GroupQueryAttention and {n_nbits} "
+             f"MatMulNBits nodes, the CPU optimizer's list the same: {ops == cpu_ops}")
+    print(f"  {tag}: weights {weights_s:.1f} s (on the card), export {export_s:.1f} s "
+          f"({os.path.getsize(path) / 1e6:.0f} MB), parse {parse_s:.1f} s, optimize "
+          f"{optimize_s:.1f} s on the CPU, Model.load_file on the card {load_s:.1f} s; "
+          f"{len(ops)} operators: {json.dumps(sorted(set(ops)))}", flush=True)
+
+    prompt = np.random.default_rng(0).integers(0, 32000, (1, GENAI_PROMPT))
+    _genai_greedy(model, prompt, 2)  # uploads the weights
+    torch.cuda.synchronize()
+    for fn in counters().values():
+        fn.launches = 0
+    with hold_calls(mha_tol=HELD_TOL) as held:
+        toks, _, _ = _genai_greedy(model, prompt, GENAI_NEW)
+        torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters().items()}
+    forwards = 1 + GENAI_NEW
+    want = {"int4_matmul": n_nbits * forwards, "mha": GENAI_LAYERS,
+            "int4_matmul_stream": n_nbits * GENAI_NEW, "int4_matmul_tiled": n_nbits}
+    for k, n in launches.items():
+        if n != want.get(k, 0):
+            fail(f"{tag}: {k} launched {n} times, expected {want.get(k, 0)}")
+    errs = held.get("mha", [])
+    if len(errs) != GENAI_LAYERS:
+        fail(f"{tag}: {len(errs)} mha calls held, {GENAI_LAYERS} launched")
+    f64 = held["mha_f64"]
+
+    gen = Generator(model, prompt, GeneratorConfig(bucket_size=1, max_seq_len=2048))
+    gen.generate(GENAI_NEW)
+    torch.cuda.synchronize()
+    m = gen.metrics
+    wall_step = sum(m.step_times_s[1:]) / len(m.step_times_s[1:])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        Generator(model, prompt, GeneratorConfig(bucket_size=1, max_seq_len=2048)).generate(16)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    busy = sum(t for _, _, t in device_events(prof)) / 1e3
+    print(f"  {tag}: {GENAI_NEW} greedy tokens after {GENAI_PROMPT} ({len(set(toks))} distinct; "
+          f"first 16: {toks[:16]}); int4_matmul {launches['int4_matmul']} launches ({n_nbits} a "
+          f"forward x {forwards}: tiled {launches['int4_matmul_tiled']} at M {GENAI_PROMPT}, "
+          f"stream {launches['int4_matmul_stream']} at M 1), mha {launches['mha']} (one a layer "
+          f"at the prompt, causal, GQA 32/4, f32), each held against mha_plain: max abs err "
+          f"{max(errs):.3e} (bound {HELD_TOL:g}); from f64, kernel {max(e[0] for e in f64):.3e}, "
+          f"plain {max(e[1] for e in f64):.3e}", flush=True)
+    print(f"  {tag}: TTFT {m.ttft_s() * 1e3:.3f} ms (the {GENAI_PROMPT}-token prompt), decode "
+          f"{m.tokens_per_sec():.1f} tok/s (host wall per step {wall_step * 1e3:.3f} ms); "
+          f"profiled 16 tokens: busy {busy:.3f} ms in {prof_wall * 1e3:.3f} ms wall, busy per "
+          f"forward {busy / 17:.3f} ms over 17 forwards (the prompt's included), host wall per "
+          f"forward {prof_wall * 1e3 / 17:.3f} ms", flush=True)
+    del model, gen
+    torch.cuda.empty_cache()
+
+    cut = f"the same layout cut to {GENAI_CUT} layers"
+    path2, _, _ = _genai_export(GENAI_CUT, dev)
+    card = Model.load_file(path2, device=dev)
+    toks, rows, _ = _genai_greedy(card, prompt, GENAI_CHECK_STEPS)
+    t0 = time.perf_counter()
+    cpu = Model.load_file(path2, device="cpu")
+    toks_cpu, rows_cpu, _ = _genai_greedy(cpu, prompt, GENAI_CHECK_STEPS)
+    cpu_s = time.perf_counter() - t0
+    worst = 0.0
+    for step, (lg, lc) in enumerate(zip(rows, rows_cpu)):
+        if lg.shape != (1, 32000) or not np.isfinite(lg).all():
+            fail(f"{tag}, {cut}: step {step} logits {lg.shape}, finite {np.isfinite(lg).all()}")
+        err = np.abs(lg - lc).max() / np.abs(lc).max()
+        worst = max(worst, err)
+        if err > GENAI_LOGIT_TOL:
+            fail(f"{tag}, {cut}: step {step}: logits {err:.3e} of max|logit| from the CPU's")
+    if toks != toks_cpu or len(set(toks)) < 4:
+        fail(f"{tag}, {cut}: tokens {toks} on the card, {toks_cpu} on the CPU")
+    print(f"  {tag}, {cut}: the card against the port's CPU run of the same file: logits at "
+          f"most {worst:.3e} of max|logit| over the prompt and {GENAI_CHECK_STEPS} steps, the "
+          f"{GENAI_CHECK_STEPS} tokens equal ({len(set(toks))} distinct: {toks}); the CPU run "
+          f"{cpu_s:.1f} s", flush=True)
+    os.remove(path)
+    os.remove(path2)
+    del card, cpu
+    torch.cuda.empty_cache()
+    cases = {"int4_matmul": [_genai_int4_case(gen_t, dev, M) for M in (1, GENAI_PROMPT)],
+             "mha": _mha_case(gen_t, dev, "the genai prompt: B 1, H 32 over 4, T 128, causal",
+                              1, 32, 4, GENAI_PROMPT, GENAI_PROMPT, True, 0.0, 0, GENAI_LAYERS)}
+    cases["mha"]["held_max_abs_err"] = max(errs)
+    return launches, cases
+
+
+MIXTRAL = dict(vocab_size=32000, n_positions=4096, n_embd=4096, n_layer=1, n_head=32,
+               n_experts=8, top_k=2, ffn_dim=14336)
+MOE_TOKENS = 16
+MOE_TOL = 1e-5  # of max|logit|, card against the port's CPU run
+
+
+def _mixtral_weights(cfg, dev):
+    """``models/moe.random_weights``' names and shapes, the normal draws
+    made on the card from a seeded generator and brought back as numpy
+    (numpy's draws of 1.6e9 values take about 40 s of host time), scaled
+    by 0.02; norms at 1, biases at 0."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    E, F, X = cfg.n_embd, cfg.ffn_dim, cfg.n_experts
+
+    def n(*shape):
+        return (torch.randn(shape, generator=gen, device=dev) * 0.02).cpu().numpy()
+
+    w = {"wte.weight": n(cfg.vocab_size, E), "wpe.weight": n(cfg.n_positions, E),
+         "ln_f.weight": np.ones(E, np.float32), "ln_f.bias": np.zeros(E, np.float32)}
+    for i in range(cfg.n_layer):
+        p = f"h.{i}"
+        w.update({f"{p}.ln_1.weight": np.ones(E, np.float32),
+                  f"{p}.ln_1.bias": np.zeros(E, np.float32),
+                  f"{p}.attn.c_attn.weight": n(E, 3 * E),
+                  f"{p}.attn.c_attn.bias": np.zeros(3 * E, np.float32),
+                  f"{p}.attn.c_proj.weight": n(E, E),
+                  f"{p}.attn.c_proj.bias": np.zeros(E, np.float32),
+                  f"{p}.ln_2.weight": np.ones(E, np.float32),
+                  f"{p}.ln_2.bias": np.zeros(E, np.float32),
+                  f"{p}.moe.router_w": n(E, X), f"{p}.moe.w_up": n(X, E, 2 * F),
+                  f"{p}.moe.w_down": n(X, F, E)})
+    torch.cuda.empty_cache()
+    return w
+
+
+def phase_moe(dev):
+    """``models/moe.py`` at Mixtral-8x7B's published widths (n_embd 4096, 32
+    heads, 8 experts, top 2, ffn 14336 per expert, vocabulary 32000), cut to
+    1 layer (32 layers of f32 experts would take about 180 GB, the card has
+    80) and n_positions 4096: 16 tokens through dense and capacity dispatch
+    on the card against the port's CPU run of the same graph, logits within
+    1e-5 of max|logit|; busy and wall per forward. The expert products run
+    in f32 (f64 on the card, whatever the TF32 flags). The weights are
+    drawn on the card (``_mixtral_weights``), not by ``random_weights``,
+    whose numpy draws the tier-1 tests use at small widths. Returns the
+    launches of the two card forwards (counters zeroed just before)."""
+    from rten_tpu_torch.model import Model, ModelOptions
+    from rten_tpu_torch.models import moe
+
+    cfg = moe.MoEConfig(**MIXTRAL)
+    tag = "Mixtral-8x7B widths, 1 layer (MoE)"
+    t0 = time.perf_counter()
+    graph = moe.build_graph(cfg, _mixtral_weights(cfg, dev))
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(1)
+    feed = {"input_ids": rng.integers(0, cfg.vocab_size, (1, MOE_TOKENS)).astype(np.int32),
+            "attention_mask": np.ones((1, MOE_TOKENS), np.int32),
+            "position_ids": np.arange(MOE_TOKENS, dtype=np.int32)[None],
+            "past_key_values.0.key": np.zeros((1, cfg.n_head, 0, cfg.head_dim), np.float32),
+            "past_key_values.0.value": np.zeros((1, cfg.n_head, 0, cfg.head_dim), np.float32)}
+    launches = {k: 0 for k in counters()}
+    out = []
+    card = Model(graph, ModelOptions(optimize=False), device=dev)
+    cpu = Model(graph, ModelOptions(optimize=False), device="cpu")
+    for dispatch in ("dense", "capacity"):  # the op reads its attributes at each run
+        for _, op in graph.operators():
+            if op.op_type == "MoE":
+                op.attrs["dispatch"] = dispatch
+        card.run(feed)  # uploads the weights (the first time)
+        torch.cuda.synchronize()
+        for fn in counters().values():
+            fn.launches = 0
+        got = card.run(feed, ["logits"])[0]
+        torch.cuda.synchronize()
+        for k, fn in counters().items():
+            launches[k] += fn.launches
+        busy, wall = _forward_times(card, feed, iters=3)
+        got = got.cpu()
+        t0 = time.perf_counter()
+        want = cpu.run(feed, ["logits"])[0]
+        cpu_s = time.perf_counter() - t0
+        err = (got - want).abs().max().item() / want.abs().max().item()
+        if got.shape != (1, MOE_TOKENS, cfg.vocab_size) or not torch.isfinite(got).all() \
+                or err > MOE_TOL:
+            fail(f"{tag} {dispatch}: logits {tuple(got.shape)} {err:.3e} of max|logit| from "
+                 f"the CPU's")
+        out.append(f"{dispatch}: logits {err:.3e} of max|logit| from the CPU's, busy "
+                   f"{busy:.3f} ms, wall {wall:.3f} ms a forward (CPU {cpu_s:.1f} s)")
+    del card, cpu, graph
+    torch.cuda.empty_cache()
+    if launches["mha"] != 2 or sum(launches.values()) - launches["mha"]:
+        fail(f"{tag}: launches {json.dumps(launches)}, expected mha 2 (one a forward)")
+    print(f"  {tag}: graph {build_s:.1f} s; {MOE_TOKENS} tokens; " + "; ".join(out)
+          + "; mha 1 a forward", flush=True)
+    return launches
+
+
+def _gqa_cases(gen):
+    """The ORT form of GroupQueryAttention at each branch of the JAX
+    lowering, as (tag, inputs, attrs): B 2, 16 new rows, 8 query heads over
+    2 KV heads, D 64, rotary tables of 256 rows."""
+    B, S, Hq, Hkv, Dh, P = 2, 16, 8, 2, 64, 32
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen)
+
+    ang = torch.rand(256, Dh // 2, generator=gen) * 6.3
+    rope = [("cos", torch.cos(ang).numpy()), ("sin", torch.sin(ang).numpy())]
+    q, k, v = r(B, S, Hq * Dh), r(B, S, Hkv * Dh), r(B, S, Hkv * Dh)
+    pk, pv = r(B, Hkv, P, Dh), r(B, Hkv, P, Dh)
+    big_k, big_v = r(B, Hkv, 64, Dh), r(B, Hkv, 64, Dh)
+    packed = torch.cat([q, k, v], -1)
+    base = {"num_heads": Hq, "kv_num_heads": Hkv, "do_rotary": 1}
+    pos = ("pos", (torch.arange(S)[None] * 3 + 5).repeat(B, 1).to(torch.int32).numpy())
+    seq_const = ("seqlens_k", np.full(B, P + S - 1, np.int32))
+    buf_const = ("seqlens_k", np.full(B, 20 + S - 1, np.int32))
+    return [
+        ("packed QKV", [packed, None, None, pk, pv, None, None, *rope], base),
+        ("separate, past concatenated", [q, k, v, pk, pv, None, None, *rope], base),
+        ("position ids", [q, k, v, pk, pv, None, None, *rope, pos], base),
+        ("attention bias", [q, k, v, pk, pv, None, None, *rope, None, r(B, 1, S, P + S)], base),
+        ("head sinks", [q, k, v, pk, pv, None, None, *rope, None, None, r(Hq)], base),
+        ("softcap", [q, k, v, pk, pv, None, None, *rope], {**base, "softcap": 8.0}),
+        ("window", [q, k, v, pk, pv, None, None, *rope], {**base, "local_window_size": 24}),
+        ("seqlens_k constant, past exact", [q, k, v, pk, pv, seq_const, None, *rope], base),
+        ("seqlens_k constant, shared buffer", [q, k, v, big_k, big_v, buf_const, None, *rope],
+         base),
+        ("no past", [q, k, v, None, None, None, None, *rope], base),
+    ]
+
+
+def _registry_cases(gen):
+    """(tag, op, inputs, attrs, n_outputs, exact) one-node cases of every op
+    of the contrib, rotary, gather and scatter and MoE families."""
+    def r(*shape):
+        return torch.randn(*shape, generator=gen)
+
+    def ri(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int32)
+
+    x, b = r(4, 16, 256), r(256)
+    cases = [("BiasGelu", "BiasGelu", [x, b], {}, 1, False),
+             ("FastGelu", "FastGelu", [x, b], {}, 1, False),
+             ("FastGelu, no bias", "FastGelu", [x], {}, 1, False),
+             ("GeluMicrosoft", "GeluMicrosoft", [x], {}, 1, False),
+             ("QuickGelu", "QuickGelu", [x], {"alpha": 1.5}, 1, False),
+             ("SimplifiedLayerNormalization", "SimplifiedLayerNormalization",
+              [x, ("w", (r(256) + 1).numpy())], {"epsilon": 1e-6}, 1, False),
+             ("SkipLayerNormalization", "SkipLayerNormalization",
+              [x, r(4, 16, 256), ("g", (r(256) + 1).numpy()), ("b", r(256).numpy()),
+               ("bias", r(256).numpy())], {}, 4, False),
+             ("SkipSimplifiedLayerNormalization", "SkipSimplifiedLayerNormalization",
+              [x, r(4, 16, 256), ("g", (r(256) + 1).numpy())], {}, 4, False),
+             ("RotaryEmbedding 4-D, half", "RotaryEmbedding",
+              [r(2, 4, 16, 64), ("cos", r(64, 32).numpy()), ("sin", r(64, 32).numpy()),
+               ri(0, 64, 2, 16)], {}, 1, False),
+             ("RotaryEmbedding 3-D, interleaved, partial", "RotaryEmbedding",
+              [r(2, 16, 4 * 64), ("cos", r(64, 16).numpy()), ("sin", r(64, 16).numpy()),
+               ri(0, 64, 16)], {"num_heads": 4, "interleaved": 1}, 1, False),
+             ("RotaryEmbeddingMS, full-dim caches", "RotaryEmbeddingMS",
+              [r(2, 4, 16, 64), ("cos", r(64, 64).numpy()), ("sin", r(64, 64).numpy())],
+              {"rotary_embedding_dim": 64}, 1, False),
+             ("GatherElements, negative and out of range", "GatherElements",
+              [r(6, 40), ri(-8, 8, 6, 25)], {"axis": 0}, 1, True)]
+    for bd in (0, 1, 2):
+        data = r(3, 4, 5, 6)
+        idx = ri(-5, 5, *((3, 4)[:bd] + (7, 2)))
+        cases.append((f"GatherND batch_dims {bd}", "GatherND", [data, idx], {"batch_dims": bd},
+                      1, True))
+    for red in ("none", "add", "mul", "max", "min"):
+        upd = r(64, 8)
+        idx = ri(-6, 6, 64, 8)  # many duplicates along axis 0 of 5 rows
+        cases.append((f"ScatterElements {red}, duplicates", "ScatterElements",
+                      [r(5, 8), idx, upd], {"axis": 0, "reduction": red}, 1, red == "none"))
+        cases.append((f"ScatterND {red}, duplicates", "ScatterND",
+                      [r(4, 6, 8), ri(-4, 4, 50, 2), r(50, 8)], {"reduction": red}, 1,
+                      red == "none"))
+        cases.append((f"ScatterElements {red} int32", "ScatterElements",
+                      [ri(-9, 9, 5, 8), ri(-5, 5, 40, 8), ri(-9, 9, 40, 8)],
+                      {"axis": 0, "reduction": red}, 1, True))
+    cases.append(("Scatter (alias)", "Scatter", [r(5, 8), ri(0, 5, 9, 8), r(9, 8)],
+                  {"axis": 0}, 1, True))
+    X, E, F = 4, 64, 32
+    for dispatch, act in (("dense", "swiglu"), ("capacity", "gelu"), ("capacity", "silu")):
+        Fu = 2 * F if act == "swiglu" else F
+        cases.append((f"MoE {dispatch} {act}", "MoE",
+                      [r(2, 9, E), ("rw", r(E, X).numpy()), ("up", r(X, E, Fu).numpy()),
+                       ("down", r(X, F, E).numpy()), ("bu", r(X, Fu).numpy()),
+                       ("bd", r(X, E).numpy())],
+                      {"top_k": 2, "activation": act, "dispatch": dispatch,
+                       "capacity_factor": 0.75}, 1, False))
+    return cases
+
+
+REGISTRY_TOL = 1e-6  # of max|out|, card against CPU (float results)
+RANDOM_N = 2 ** 20
+
+
+def _random_checks(dev):
+    """The random ops on the card: two runs of one executor differ, two
+    executors at one seed draw the same, a ``seed`` attribute draws the same
+    every run, the moments of 2^20 draws within 5 sigma of the
+    distribution's, and Multinomial's frequencies against softmax of its
+    logits by a chi-square test at p > 1e-4."""
+    from scipy.stats import chi2
+
+    from rten_tpu_torch.model import Model, ModelOptions
+    from rten_tpu_torch.runtime.executor import RunConfig
+
+    def model(op, inputs, attrs, seed=0):
+        graph, feed = _one_node(op, inputs, attrs)
+        opts = ModelOptions(optimize=False, run_config=RunConfig(seed=seed))
+        return Model(graph, opts, device=dev), feed
+
+    n = RANDOM_N
+    report = {}
+    like = torch.zeros(n)
+    for op, inputs, attrs, mean, var, mu4 in (
+            ("RandomNormal", [], {"shape": [n], "mean": 1.5, "scale": 2.0}, 1.5, 4.0, 3 * 16.0),
+            ("RandomNormalLike", [like], {"mean": -1.0, "scale": 0.5}, -1.0, 0.25, 3 * 0.0625),
+            ("RandomUniform", [], {"shape": [n], "low": -2.0, "high": 4.0}, 1.0, 3.0,
+             6.0 ** 4 / 80),
+            ("RandomUniformLike", [like], {"low": 0.0, "high": 1.0}, 0.5, 1 / 12, 1 / 80)):
+        m, feed = model(op, inputs, attrs, seed=7)
+        a, b = (m.run(feed)[0] for _ in range(2))
+        c = model(op, inputs, attrs, seed=7)[0].run(feed)[0]
+        s = model(op, inputs, {**attrs, "seed": 3.0})[0]
+        s1, s2 = s.run(feed)[0], s.run(feed)[0]
+        if a.device.type != "cuda" or torch.equal(a, b) or not torch.equal(a, c) \
+                or not torch.equal(s1, s2):
+            fail(f"{op}: on {a.device}, two runs differ {not torch.equal(a, b)}, one seed's "
+                 f"executors agree {torch.equal(a, c)}, the seed attribute pins the draw "
+                 f"{torch.equal(s1, s2)}")
+        x = a.double()
+        z_mean = (x.mean().item() - mean) / (var / n) ** 0.5
+        z_var = (x.var().item() - var) / ((mu4 - var ** 2) / n) ** 0.5
+        if abs(z_mean) > 5 or abs(z_var) > 5:
+            fail(f"{op}: mean {z_mean:.2f} sigma, variance {z_var:.2f} sigma from the "
+                 f"distribution's")
+        report[op] = [round(z_mean, 2), round(z_var, 2)]
+    logits = torch.tensor([[0.0, 1.0, 2.0, -1.0, 0.5, 3.0, -2.0, 1.5],
+                           [2.0, 2.0, 0.0, 0.0, -1.0, 1.0, 0.5, 0.0]])
+    m, feed = model("Multinomial", [logits], {"sample_size": n // 8})
+    draws = m.run(feed)[0]
+    if draws.dtype != torch.int32 or draws.shape != (2, n // 8):
+        fail(f"Multinomial: {draws.dtype} {tuple(draws.shape)}")
+    ps = []
+    for row in range(2):
+        counts = torch.bincount(draws[row].long().cpu(), minlength=8).double()
+        expect = torch.softmax(logits[row].double(), -1) * counts.sum()
+        ps.append(float(chi2.sf(((counts - expect) ** 2 / expect).sum().item(), 7)))
+    if min(ps) <= 1e-4:
+        fail(f"Multinomial: chi-square p {ps}")
+    report["Multinomial chi-square p"] = [float(f"{p:.3g}") for p in ps]
+    return report
+
+
+def phase_registry_ops(dev):
+    """Every op of the contrib, rotary, gather, scatter, MoE and random
+    families as a one-node graph on the
+    card against the port's CPU run of the same graph: the gathers and
+    scatters with reduction "none" (duplicates included) and every integer
+    result exactly, the rest within 1e-6 of max|out|; the ORT form of
+    GroupQueryAttention at each branch (packed QKV, position ids, attention
+    bias, head sinks, softcap, window, seqlens_k as a constant over an exact
+    past and over a shared buffer, no past) within ``HELD_TOL``; the random
+    ops' seed rules and statistics on the card (``_random_checks``).
+    Returns the launches of the GroupQueryAttention cases (row 5 where the
+    mask is at most 2-D)."""
+    from rten_tpu_torch.model import Model, ModelOptions
+
+    gen = torch.Generator().manual_seed(19)
+    worst = {}
+    for tag, op, inputs, attrs, n_out, exact in _registry_cases(gen):
+        graph, feed = _one_node(op, inputs, attrs, n_out)
+        outs = ["y"] if n_out == 1 else [f"y{i}" for i in range(n_out)]
+        got = Model(graph, ModelOptions(optimize=False), device=dev).run(feed, outs)
+        want = Model(graph, ModelOptions(optimize=False), device="cpu").run(feed, outs)
+        for g, w in zip(got, want):
+            if g.device.type != "cuda" or g.shape != w.shape or g.dtype != w.dtype:
+                fail(f"{tag}: {g.device} {tuple(g.shape)} {g.dtype} against {tuple(w.shape)} "
+                     f"{w.dtype}")
+            g = g.cpu()
+            if exact or not w.is_floating_point():
+                if not torch.equal(torch.nan_to_num(g.double(), 7.5),
+                                   torch.nan_to_num(w.double(), 7.5)):
+                    fail(f"{tag}: the card's result is not the CPU's")
+                worst[tag] = 0.0
+                continue
+            scale = max(w.abs().max().item(), 1e-30)
+            err = (g - w).abs().max().item() / scale
+            worst[tag] = max(worst.get(tag, 0.0), err)
+            if not err <= REGISTRY_TOL:
+                fail(f"{tag}: {err:.3e} of max|out| from the CPU's")
+    for fn in counters().values():
+        fn.launches = 0
+    for tag, inputs, attrs in _gqa_cases(gen):
+        graph, feed = _one_node("GroupQueryAttention", inputs, attrs, 3)
+        outs = ["y0", "y1", "y2"]
+        got = Model(graph, ModelOptions(optimize=False), device=dev).run(feed, outs)
+        want = Model(graph, ModelOptions(optimize=False), device="cpu").run(feed, outs)
+        err = max((g.cpu() - w).abs().max().item() for g, w in zip(got, want))
+        worst[f"GroupQueryAttention, {tag}"] = err
+        if not err <= HELD_TOL or any(g.device.type != "cuda" for g in got):
+            fail(f"GroupQueryAttention, {tag}: {err:.3e} from the CPU's (bound {HELD_TOL:g})")
+    launches = {k: fn.launches for k, fn in counters().items()}
+    random = _random_checks(dev)
+    print(f"  registry ops, card against CPU (largest error of max|out|; 0: equal): "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in worst.items()})}", flush=True)
+    print(f"  random ops on the card: every seed rule held; moments (mean, variance) in "
+          f"sigma and Multinomial's chi-square p: {json.dumps(random)}; GroupQueryAttention "
+          f"cases' launches: mha {launches['mha']}", flush=True)
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5086,20 +5643,15 @@ def main() -> int:
 
     from rten_tpu_torch.kernels import _build
 
-    t0 = time.perf_counter()
-    libs = _build.build_all()
-    print(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.1f} s "
-          f"({_build.build_dir()}); nvcc seconds by library: "
-          f"{json.dumps({k: round(v, 1) for k, v in _build.BUILD_SECONDS.items()})}", flush=True)
+    # Every kernel compiles in the background; each phase's first launch
+    # waits for its own library only.
+    _build.start_build()
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "ptxas.txt"), "w") as f:
-        for lib in libs:
-            f.write(f"=== {lib} ===\n{_build.ptxas_report(lib)}\n")
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
-    secs = {"build and start": time.perf_counter() - t_start}
+    secs = {"start": time.perf_counter() - t_start}
     last = [time.perf_counter()]  # the end of the last phase
 
     def lap(phase):
@@ -5230,7 +5782,24 @@ def main() -> int:
     lap("Whisper-tiny (mel front end, encode, 64 greedy tokens; the CPU reference)")
     by_path["merged_decoder"], path_kv["merged_decoder"] = phase_merged_decoder(dev), None
     lap("the merged encoder-decoder from ONNX through the Generator")
-    for phase in list(secs)[-6:]:
+    print("genai, MoE and registry phases:", flush=True)
+    torch.cuda.empty_cache()
+    by_path["ort_genai"], genai_cases = phase_ort_genai(dev, gen)
+    path_kv["ort_genai"] = None
+    int4_row = next(k for k in kernels if k["name"] == "int4_matmul")
+    int4_row["ort_genai"] = genai_cases["int4_matmul"]
+    mha_row["ort_genai"] = genai_cases["mha"]
+    mha_row["max_abs_err"] = max(mha_row["max_abs_err"], genai_cases["mha"]["max_abs_err"],
+                                 genai_cases["mha"]["held_max_abs_err"])
+    lap("TinyLlama-1.1B int4 in the onnxruntime-genai layout from ONNX (22 layers; the "
+        "2-layer card against CPU check)")
+    torch.cuda.empty_cache()
+    by_path["moe"], path_kv["moe"] = phase_moe(dev), None
+    lap("Mixtral-8x7B widths, 1 layer, dense and capacity MoE")
+    torch.cuda.empty_cache()
+    by_path["registry_ops"], path_kv["registry_ops"] = phase_registry_ops(dev), None
+    lap("the registry's new ops card against CPU, the random ops")
+    for phase in list(secs)[-9:]:
         print(f"  {phase}: {secs[phase]:.1f} s", flush=True)
     # A row's launches: its counter over the paths that serve from its KV
     # cache type (every path for the kernels that read no KV cache). A
@@ -5273,6 +5842,13 @@ def main() -> int:
     lap("references (sampling, full-bucket lm_head, chunks, prefixes, LoRA, speculative, "
         "drains, HTTP)")
 
+    libs = _build.build_all()
+    print(f"build: {len(libs)} libraries, in the background from the start "
+          f"({_build.build_dir()}); seconds from the start to each nvcc's end: "
+          f"{json.dumps({k: round(v, 1) for k, v in _build.BUILD_SECONDS.items()})}", flush=True)
+    with open(os.path.join(out_dir, "ptxas.txt"), "w") as f:
+        for lib in libs:
+            f.write(f"=== {lib} ===\n{_build.ptxas_report(lib)}\n")
     print(f"sanitizer: {json.dumps(sanitizer)}", flush=True)
     print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in secs.items()})}", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s (build included)", flush=True)

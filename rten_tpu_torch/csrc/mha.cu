@@ -32,10 +32,20 @@
 //   three TF32 products a k8 step cost the tensor cores what six bf16 ones
 //   a k16 step do (the same issue slots), but take two parts an operand,
 //   not three, so fewer split instructions, registers and shared memory.
-//   Against mha_plain (f32 CUDA-core sums) the result stays within 3.3e-6
-//   at the smoke test's four f32 cases (PERF.md, row 5, on the card); one
-//   TF32 pass (about 3 decimal digits) misses the tests' 1e-4
-//   (tests/test_torch_mha_tc.py models both).
+//   The tensor cores' f32 sums do not round to nearest (modelled as
+//   truncation in tests/test_torch_mha_tc.py, which matches the card): a
+//   term added to a much larger running sum loses its low bits, the same
+//   way each time, so the sums are kept short. S = Q K^T: each 8-dim
+//   step's big.big from zero, added to the score by an f32 add, and the
+//   small terms in an accumulator of their own, added after the last step.
+//   O = P V: each key tile's products for an 8-column tile of O from zero,
+//   added to O by f32 adds.
+//   Summed into one running accumulator (the earlier design), the products
+//   of Whisper-tiny's encoder (1500 keys) landed 4.5e-6 from f64 against f32
+//   sums' 5.0e-7 (NVIDIA H100 80GB HBM3, 700 W; PERF.md, row 5). One TF32
+//   pass (about 3 decimal digits) misses the tests' 1e-4;
+//   tests/test_torch_mha_tc.py models the kernel's arithmetic, truncation
+//   included.
 // The softmax runs in base 2: p = 2^(s log2(e) - m log2(e)) on ex2.approx
 // (relative error near 2^-22), the scale, softcap and mask applied to s
 // first, in the reference's order.
@@ -308,6 +318,10 @@ __global__ void __launch_bounds__(128) mha_tc_kernel(
       // S = Q K^T in 3xTF32, 8 dims a step. Q's fragment from ldmatrix of
       // the f32 words (lane: row g / g + 8, dim t / t + 4), split here; K's
       // parts (keys g of two n-tiles, dims t and t + 4) from the planes.
+      // The small terms go to slo, added after the last step.
+      float slo[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) slo[n][0] = slo[n][1] = slo[n][2] = slo[n][3] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < DP / 8; ++kk) {
         uint32_t qa[4], qbig[4], qsml[4];
@@ -321,10 +335,15 @@ __global__ void __launch_bounds__(128) mha_tc_kernel(
           uint32_t kbig[4], ksml[4];
           ldsm_x4(kbig, tk + off);
           ldsm_x4(ksml, sk + off);
-          mma_3xtf32(sacc[n], qbig, qsml, kbig[0], kbig[1], ksml[0], ksml[1]);
-          mma_3xtf32(sacc[n + 1], qbig, qsml, kbig[2], kbig[3], ksml[2], ksml[3]);
+          mma_3xtf32_apart(sacc[n], slo[n], qbig, qsml, kbig[0], kbig[1], ksml[0], ksml[1]);
+          mma_3xtf32_apart(sacc[n + 1], slo[n + 1], qbig, qsml, kbig[2], kbig[3], ksml[2],
+                           ksml[3]);
         }
       }
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sacc[n][e] += slo[n][e];
     } else {
       // S = Q K^T in bf16, 16 dims a step.
 #pragma unroll
@@ -410,22 +429,32 @@ __global__ void __launch_bounds__(128) mha_tc_kernel(
       // O += P V in 3xTF32, 8 keys a step in the order 2t, 2t + 1 of the
       // score accumulator: a0 = P[g][2t], a1 = P[g + 8][2t], a2 = P[g][2t +
       // 1], a3 = P[g + 8][2t + 1]; V's B fragment rows 2t, 2t + 1, column g,
-      // from both planes.
+      // from both planes. Each 8-column tile of O takes this key tile's
+      // products in an accumulator from zero, added to O by f32 adds (summed
+      // into O itself, every tile's products would lose bits against the
+      // whole row's sum so far).
+      uint32_t pbig[NT][4], psml[NT][4];
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
-        if (n * 8 > kw) continue;
         const uint32_t pa[4] = {__float_as_uint(sacc[n][0]), __float_as_uint(sacc[n][2]),
                                 __float_as_uint(sacc[n][1]), __float_as_uint(sacc[n][3])};
-        uint32_t pbig[4], psml[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) split_tf32(pa[i], pbig[i], psml[i]);
-        const int off = (n * 8 + 2 * t) * P + g;
-        const float* vr = reinterpret_cast<const float*>(tv) + off;
-        const float* vs = reinterpret_cast<const float*>(sv) + off;
+        for (int i = 0; i < 4; ++i) split_tf32(pa[i], pbig[n][i], psml[n][i]);
+      }
 #pragma unroll
-        for (int j = 0; j < DT; ++j)
-          mma_3xtf32(o[j], pbig, psml, __float_as_uint(vr[j * 8]), __float_as_uint(vr[P + j * 8]),
-                     __float_as_uint(vs[j * 8]), __float_as_uint(vs[P + j * 8]));
+      for (int j = 0; j < DT; ++j) {
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          if (n * 8 > kw) continue;
+          const int off = (n * 8 + 2 * t) * P + g + j * 8;
+          const float* vr = reinterpret_cast<const float*>(tv) + off;
+          const float* vs = reinterpret_cast<const float*>(sv) + off;
+          mma_3xtf32(acc, pbig[n], psml[n], __float_as_uint(vr[0]), __float_as_uint(vr[P]),
+                     __float_as_uint(vs[0]), __float_as_uint(vs[P]));
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[j][e] += acc[e];
       }
     } else {
       // O += bf16(P) V, 16 keys a step: the score accumulators of n-tiles

@@ -4,6 +4,12 @@
 // significant bits) and small = cvt.rna.tf32(x - big) (x - big is exact in
 // f32), about 22 bits together, and a product is big.big + big.small +
 // small.big (the small.small term, 2^-22 of it, is dropped).
+//
+// The tensor cores' f32 sums do not round to nearest: a term added to a
+// much larger running sum loses its low bits, the same way each time
+// (mha.cu's note). mma_3xtf32_apart
+// keeps the small terms in an accumulator of their own and takes each
+// step's big.big from zero, added to the running sum by an f32 add.
 
 #pragma once
 
@@ -27,6 +33,20 @@ __device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& big, uint32_t& 
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(__uint_as_float(x)));
   const float rest = __uint_as_float(x) - __uint_as_float(big);
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(rest));
+}
+
+// hi += a_big.b_big, taken from zero and added by an f32 add, and lo +=
+// a_big.b_small + a_small.b_big.
+__device__ __forceinline__ void mma_3xtf32_apart(float (&hi)[4], float (&lo)[4],
+                                                 const uint32_t (&ab)[4],
+                                                 const uint32_t (&as)[4], uint32_t bb0,
+                                                 uint32_t bb1, uint32_t bs0, uint32_t bs1) {
+  mma_tf32(lo, as, bb0, bb1);
+  mma_tf32(lo, ab, bs0, bs1);
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(t, ab, bb0, bb1);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) hi[i] += t[i];
 }
 
 // c += a . b in 3xTF32: a_big.b_big + a_big.b_small + a_small.b_big, the

@@ -10,9 +10,9 @@ other. An ONNX graph is optimized on load (``optimize.optimize_graph``);
 
 A model runs by name on one device: the CUDA card unless the caller
 passes ``device="cpu"``, where every kernel runs its plain PyTorch
-version. A graph that holds an op the port does not register yet (the
-random ops, MoE, the contrib ops, ...) loads; running that op raises
-``NotImplementedError``.
+version. The port registers every operator the JAX package registers; a
+graph that holds an op neither registers loads, and running that op raises
+``OpError``.
 """
 
 from __future__ import annotations

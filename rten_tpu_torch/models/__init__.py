@@ -1,3 +1,3 @@
 """Model zoo: architectures built directly in the engine IR."""
 
-from . import gpt2, llama, mnist, whisper  # noqa: F401
+from . import gpt2, llama, mnist, moe, whisper  # noqa: F401

@@ -6,6 +6,7 @@ from .registry import OpError, REGISTRY, get_op, register  # noqa: F401
 # Import op modules for their registration side effects.
 from . import (  # noqa: F401
     attention,
+    contrib,
     control_flow,
     conv,
     einsum,
@@ -15,10 +16,12 @@ from . import (  # noqa: F401
     grid_sample,
     layout,
     matmul,
+    moe,
     nms,
     norm,
     pool,
     quantize,
+    random,
     reduce,
     resize,
     rnn,

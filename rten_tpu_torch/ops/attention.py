@@ -79,12 +79,24 @@ writes do, the last writer winning (``paged_targets``).
 
 The caches (and the deferred windows) are updated in place and returned as
 the present outputs (the executor copies them first unless the caller
-donated them). Every other
-branch raises ``NotImplementedError`` naming the ROADMAP.md item.
+donated them). On head-major f32/bf16 caches, softcap, an attention bias or
+head sinks take the explicit-mask path over the whole cache
+(``mha_plain``, or ``sdpa_with_sink``; ``attention.py:641-662``); the cat
+and paged forms refuse them, as the reference does.
+
+GroupQueryAttention without ``rten_past_lens`` is the ONNX (ORT) form of
+onnxruntime-genai exports (``attention.py:380-468, 678-715``): packed or
+separate QKV, the past length from a host ``seqlens_k`` or else the past's
+own length, rotary at position_ids or past_len + s, the past concatenated
+(or a preallocated buffer updated), and ``_attend`` under a causal, tail or
+explicit mask (window, attention bias, head sinks). RotaryEmbedding and
+RotaryEmbeddingMS (``attention.py:977-1011``) rotate 3-D or 4-D inputs
+through ``rotary``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..kernels.flash_attention import (
@@ -93,10 +105,6 @@ from ..kernels.flash_attention import (
     paged_gather_cat, paged_gather_scales, paged_targets, prefill_mha_cat, quantize_rows,
 )
 from .registry import OpError, as_tensor, get_input, opt_input, register
-
-
-def _todo(what: str, item: int):
-    raise NotImplementedError(f"{what}: ROADMAP.md queue 1 item {item}")
 
 
 def _opt_tensor(ctx, inputs, i):
@@ -236,12 +244,15 @@ def rotary(x, cos_cache, sin_cache, position_ids, interleaved: bool):
     return torch.cat([rotated, x_pass], dim=-1) if x_pass.shape[-1] else rotated
 
 
-def _rotate_qk(q4, k4, cos_cache, sin_cache, lens, attrs):
-    """Rotate q and k [B,H,S,D] at positions lens[b] + s."""
+def _positions(starts, S: int) -> torch.Tensor:
+    """Positions [B, S] of a chunk of S rows at per-slot starts [B]."""
+    return starts.to(torch.int64)[:, None] + torch.arange(S, device=starts.device)[None]
+
+
+def _rotate_qk(q4, k4, cos_cache, sin_cache, pos, attrs):
+    """Rotate q and k [B,H,S,D] at positions ``pos`` [B, S]."""
     if cos_cache is None or sin_cache is None:
         raise OpError("do_rotary requires cos/sin caches")
-    S = q4.shape[2]
-    pos = lens.to(torch.int64)[:, None] + torch.arange(S, device=lens.device)[None]
     interleaved = bool(attrs.get("rotary_interleaved", 0))
     return (rotary(q4, cos_cache, sin_cache, pos, interleaved),
             rotary(k4, cos_cache, sin_cache, pos, interleaved))
@@ -399,7 +410,7 @@ def _quantized_kv_attention(ctx, inputs, attrs):
     k4 = cat_to_heads(k, kv_heads)
     v4 = cat_to_heads(v, kv_heads)
     if attrs.get("do_rotary", 0):
-        q4, k4 = _rotate_qk(q4, k4, inputs[-2], inputs[-1], lens, attrs)
+        q4, k4 = _rotate_qk(q4, k4, inputs[-2], inputs[-1], _positions(lens, S), attrs)
 
     if window and deferred:
         raise OpError(_DEFERRED_WINDOW)
@@ -475,72 +486,165 @@ def _quantized_kv_attention(ctx, inputs, attrs):
     return (heads_to_cat(out), new_kc, new_k_s, new_vc, new_v_s)
 
 
-@register("GroupQueryAttention", inplace=(3, 4, 9, 10))
+def sdpa_with_sink(q, k, v, mask, *, scale=None, softcap: float = 0.0, sink):
+    """Attention with per-head sink logits (GPT-OSS style), the JAX
+    package's ``_sdpa_with_sink``: exp(sink) joins the softmax denominator,
+    as a key every row sees with value 0. q [B,Hq,Tq,D], k/v [B,Hkv,Tk,D],
+    an additive mask broadcasting to [B,Hq,Tq,Tk], sink [Hq]."""
+    B, Hq, Tq, D = q.shape
+    Hkv = k.shape[1]
+    if scale is None:
+        scale = 1.0 / float(np.sqrt(D))
+    if Hq != Hkv:
+        k = k.repeat_interleave(Hq // Hkv, dim=1)
+        v = v.repeat_interleave(Hq // Hkv, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    if mask is not None:
+        s = s + mask.float()
+    sink = sink.float().reshape(1, Hq, 1, 1)
+    m = torch.maximum(s.amax(dim=-1, keepdim=True), sink)
+    p = torch.exp(s - m)
+    denom = p.sum(dim=-1, keepdim=True) + torch.exp(sink - m)
+    return (torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / denom).to(q.dtype)
+
+
+def _split_qkv(ctx, query, key, value, n_heads, kv_heads):
+    """q, k, v as [B, H, S, D] views: from the three inputs, or from packed
+    QKV [B, S, (Hq + 2 Hkv) * D] when key and value are absent."""
+    if key is None:
+        D = query.shape[-1] // (n_heads + 2 * kv_heads)
+        qd, kd = n_heads * D, (n_heads + kv_heads) * D
+        return (cat_to_heads(query[..., :qd], n_heads),
+                cat_to_heads(query[..., qd:kd], kv_heads),
+                cat_to_heads(query[..., kd:], kv_heads))
+    if value is None:
+        raise OpError("GroupQueryAttention: key without value")
+    return (cat_to_heads(query, n_heads), cat_to_heads(as_tensor(ctx, key), kv_heads),
+            cat_to_heads(as_tensor(ctx, value), kv_heads))
+
+
+@register("GroupQueryAttention", inplace=(3, 4, 9, 10), static=(5,))
 def _group_query_attention(ctx, inputs, attrs):
-    """The ``rten_past_lens`` serving form: query/key/value [B,S,H*D] f32,
-    past_key/past_value f32 or bf16 caches or pools (the module docstring
-    lists the layouts), seqlens_k [B] per-slot PAST lengths, cos/sin tables
-    (inputs 7, 8) with ``do_rotary``, the block table (input 9) with
-    ``rten_paged``, the recent windows and step_t (inputs 9-11) with
-    ``rten_recent_kv``. Outputs: out [B,S,H*D] and the updated caches (and,
-    deferred, the windows)."""
-    query = get_input(inputs, 0, "query")
-    key = opt_input(inputs, 1)
-    value = opt_input(inputs, 2)
-    past_k = opt_input(inputs, 3)
-    past_v = opt_input(inputs, 4)
-    seqlens_k = opt_input(inputs, 5)
+    """MS contrib GroupQueryAttention (rten contrib.rs:424), the JAX
+    package's lowering (``attention.py:380-715``): query [B,S,Hq*D] (or
+    packed QKV [B,S,(Hq+2Hkv)*D] when key and value are absent),
+    key/value [B,S,Hkv*D], past_key/past_value, seqlens_k, the
+    total_sequence_length (not read), cos/sin tables (inputs 7, 8) with
+    ``do_rotary``; in the ORT form and the ``rten_past_lens`` head-major
+    and cat forms position_ids, attention_bias and head sinks (inputs
+    9-11).
+
+    ``rten_past_lens`` (the serving engine's graphs): seqlens_k [B] holds
+    per-slot PAST lengths and the caches are the module docstring's
+    layouts, with the block table as input 9 (``rten_paged``) or the
+    recent windows and step_t as inputs 9-11 (``rten_recent_kv``).
+    Softcap, bias or sinks on head-major caches take the explicit-mask
+    path (``attention.py:641-662``); the cat and paged forms refuse them.
+
+    The ORT form: the past length is seqlens_k + 1 - S (ORT's seqlens_k is
+    total_len - 1) where seqlens_k is a host value (a constant, or an input
+    fed as static: the JAX package's concrete value), else the past's own
+    length (the JAX package's tracer; the port never syncs the card to read
+    it). A past of exactly that length is concatenated in front; otherwise
+    the rows update the buffer at that offset (clamped as
+    ``dynamic_update_slice`` clamps). Rotary at position_ids or past_len +
+    s. Attention goes through ``_attend``: an explicit mask (causal, the
+    window, the written length, plus the bias) when a window, bias or
+    sinks are given (sinks through ``sdpa_with_sink``), the tail mask with
+    ``causal`` for a buffer longer than the written length, else causal
+    alone."""
+    query = as_tensor(ctx, get_input(inputs, 0, "query"))
+    key, value, past_k, past_v, seqlens_k = (opt_input(inputs, i) for i in range(1, 6))
     n_heads = attrs.get("num_heads")
     kv_heads = attrs.get("kv_num_heads")
     if n_heads is None or kv_heads is None:
         raise OpError("GroupQueryAttention requires num_heads and kv_num_heads")
     paged = bool(attrs.get("rten_paged", 0))
-    deferred = bool(attrs.get("rten_recent_kv", 0)) and not paged
-    if not attrs.get("rten_past_lens", 0):
-        _todo("ONNX (ORT-compatible) GroupQueryAttention", 12)
-    if not deferred and (attrs.get("softcap", 0.0) or (not paged and any(
-            opt_input(inputs, i) is not None for i in (9, 10, 11)))):
-        _todo("GroupQueryAttention with softcap, position ids, bias or sinks", 12)
-    if key is None or value is None:
-        _todo("packed QKV GroupQueryAttention", 12)
-    if seqlens_k is None or past_k is None or past_v is None:
-        raise OpError("rten_past_lens requires seqlens_k and the caches")
+    deferred = bool(attrs.get("rten_recent_kv", 0))
+    scale = attrs.get("scale")
+    softcap = attrs.get("softcap", 0.0)
+    lws = int(attrs.get("local_window_size", -1))
+    window = lws if lws > 0 else 0
+    n_out = attrs.get("__n_outputs__", 1)
+    pos_ids = bias = sink = None
+    if not deferred and not paged:
+        pos_ids, bias, sink = (_opt_tensor(ctx, inputs, i) for i in (9, 10, 11))
+    extras = bool(softcap) or bias is not None or sink is not None
+
+    B, S = query.shape[:2]
+    q4, k4, v4 = _split_qkv(ctx, query, key, value, n_heads, kv_heads)
+    cos_cache, sin_cache = opt_input(inputs, 7), opt_input(inputs, 8)
+
+    if attrs.get("rten_past_lens", 0):
+        if seqlens_k is None or past_k is None or past_v is None:
+            raise OpError("rten_past_lens requires seqlens_k and the caches")
+        lens = as_tensor(ctx, seqlens_k).to(torch.int32).reshape(B)
+        if attrs.get("do_rotary", 0):
+            pos = (_positions(lens, S) if pos_ids is None
+                   else pos_ids.to(torch.int64).reshape(B, -1).expand(B, S))
+            q4, k4 = _rotate_qk(q4, k4, cos_cache, sin_cache, pos, attrs)
+        return _serving_attention(inputs, attrs, q4, k4, v4, past_k, past_v, lens, scale,
+                                  window, extras, bias, sink, softcap, paged, deferred,
+                                  n_out)
+
+    # The ORT form.
+    past_len = 0
+    if past_k is not None and past_k.shape[2] > 0:
+        if isinstance(seqlens_k, np.ndarray):
+            past_len = int(seqlens_k.reshape(-1)[0]) + 1 - S
+        else:
+            past_len = past_k.shape[2]
+    if attrs.get("do_rotary", 0):
+        pos = (torch.arange(S, device=q4.device)[None].expand(B, S) + past_len
+               if pos_ids is None else pos_ids.to(torch.int64).reshape(B, -1).expand(B, S))
+        q4, k4 = _rotate_qk(q4, k4, cos_cache, sin_cache, pos, attrs)
+    if past_k is not None and past_k.shape[2] > 0:
+        past_k, past_v = as_tensor(ctx, past_k), as_tensor(ctx, past_v)
+        if past_len == past_k.shape[2]:
+            k4, v4 = torch.cat([past_k, k4], dim=2), torch.cat([past_v, v4], dim=2)
+        else:
+            start = min(max(past_len, 0), past_k.shape[2] - S)
+            k4, v4 = (torch.cat([p[:, :, :start], x.to(p.dtype), p[:, :, start + S:]], dim=2)
+                      for p, x in ((past_k, k4), (past_v, v4)))
+    total = past_len + S
+    cap = k4.shape[2]
+    dev = q4.device
+    if window or bias is not None or sink is not None:
+        col = torch.arange(cap, device=dev)[None, :]
+        qpos = past_len + torch.arange(S, device=dev)[:, None]
+        valid = (col <= qpos) & (col < total)
+        if window:
+            valid &= col > qpos - window
+        mask = torch.where(valid, 0.0, NEG_INF)
+        if bias is not None:
+            mask = mask + bias.float()
+        if sink is not None:
+            out = sdpa_with_sink(q4, k4, v4, mask, scale=scale, softcap=softcap, sink=sink)
+        else:
+            out = _attend(q4, k4, v4, mask, scale=scale, softcap=softcap)
+    elif cap > total:
+        mask = torch.where(torch.arange(cap, device=dev) < total, 0.0, NEG_INF)[None, :]
+        out = _attend(q4, k4, v4, mask.expand(S, cap), scale=scale, causal=True,
+                      softcap=softcap)
+    else:
+        out = _attend(q4, k4, v4, None, scale=scale, causal=True, softcap=softcap)
+    out = heads_to_cat(out)
+    return (out, k4, v4) if n_out >= 3 else out
+
+
+def _serving_attention(inputs, attrs, q4, k4, v4, past_k, past_v, lens, scale, window,
+                       extras, bias, sink, softcap, paged, deferred, n_out):
+    """GroupQueryAttention's ``rten_past_lens`` branches, q4/k4/v4 rotated."""
     if past_k.dtype not in (torch.float32, torch.bfloat16) or past_k.ndim not in (3, 4):
         raise OpError(f"rten_past_lens caches must be [B, Hkv, cap, D] or [B, cap, Hkv*D] "
                       f"float32 or bfloat16, got {past_k.dtype} {tuple(past_k.shape)}")
-    lws = int(attrs.get("local_window_size", -1))
-    window = lws if lws > 0 else 0
-
-    B = query.shape[0]
-    lens = seqlens_k.to(torch.int32).reshape(B)
-    q4 = cat_to_heads(query, n_heads)
-    k4 = cat_to_heads(key, kv_heads)
-    v4 = cat_to_heads(value, kv_heads)
-    if attrs.get("do_rotary", 0):
-        q4, k4 = _rotate_qk(q4, k4, opt_input(inputs, 7), opt_input(inputs, 8),
-                            lens, attrs)
-    scale = attrs.get("scale")
-    S = q4.shape[2]
-    kernel_append = S == 1 and bool(attrs.get("rten_kernel_append", 0))
-    n_out = attrs.get("__n_outputs__", 1)
-    if deferred:
-        if window:
-            raise OpError(_DEFERRED_WINDOW)
-        if attrs.get("softcap", 0.0):
-            raise OpError("rten_recent_kv (deferred KV) does not support softcap; "
-                          "build the serving graph with deferred_kv=False")
-        recent_k, recent_v, t, lens0 = _deferred_step(inputs, 9, lens)
-        if S == 1:
-            out, rk, rv = decode_attention_deferred(
-                q4, past_k, past_v, lens0, scale=scale, recent_k=recent_k,
-                recent_v=recent_v, t=t, k_new=k4, v_new=v4,
-            )
-            return (heads_to_cat(out), past_k, past_v, rk, rv)[:n_out]
-        k_all = slot_kv_update(past_k, k4, lens)
-        v_all = slot_kv_update(past_v, v4, lens)
-        out = heads_to_cat(decode_mha(q4, k_all, v_all, lens, scale=scale))
-        return (out, k_all, v_all, recent_k, recent_v)[:n_out]
+    B, kv_heads, S = q4.shape[0], k4.shape[1], q4.shape[2]
+    kernel_append = S == 1 and bool(attrs.get("rten_kernel_append", 0)) and not extras
     if paged:
+        if softcap:
+            raise OpError("rten_paged does not support softcap")
         bt = _block_table(inputs, 9)
         if past_k.ndim == 3:  # cat pools [NB, BS, Hkv*D]
             if kernel_append:
@@ -563,7 +667,26 @@ def _group_query_attention(ctx, inputs, attrs):
             v_all = paged_kv_update(past_v, v4, lens, bt, t)
             out = heads_to_cat(paged_attention(q4, k_all, v_all, lens, bt, scale=scale,
                                                window=window))
+    elif deferred:
+        if window:
+            raise OpError(_DEFERRED_WINDOW)
+        if softcap:
+            raise OpError("rten_recent_kv (deferred KV) does not support softcap; "
+                          "build the serving graph with deferred_kv=False")
+        recent_k, recent_v, t, lens0 = _deferred_step(inputs, 9, lens)
+        if S == 1:
+            out, rk, rv = decode_attention_deferred(
+                q4, past_k, past_v, lens0, scale=scale, recent_k=recent_k,
+                recent_v=recent_v, t=t, k_new=k4, v_new=v4,
+            )
+            return (heads_to_cat(out), past_k, past_v, rk, rv)[:n_out]
+        k_all = slot_kv_update(past_k, k4, lens)
+        v_all = slot_kv_update(past_v, v4, lens)
+        out = heads_to_cat(decode_mha(q4, k_all, v_all, lens, scale=scale))
+        return (out, k_all, v_all, recent_k, recent_v)[:n_out]
     elif past_k.ndim == 3:  # cat caches [B, cap, Hkv*D]
+        if extras:
+            raise OpError("cat-layout KV caches do not support softcap/bias/sink")
         if kernel_append:
             out, k_all, v_all = decode_mha_append_cat(
                 q4, past_k, past_v, lens, k_new=k4, v_new=v4, scale=scale, window=window,
@@ -580,7 +703,57 @@ def _group_query_attention(ctx, inputs, attrs):
     else:
         k_all = slot_kv_update(past_k, k4, lens)
         v_all = slot_kv_update(past_v, v4, lens)
-        out = heads_to_cat(decode_mha(q4, k_all, v_all, lens, scale=scale, window=window))
-    if n_out >= 3:
-        return (out, k_all, v_all)
-    return out
+        if extras:
+            # The decode kernels take no softcap, bias or sinks: the
+            # explicit mask over the whole cache (``attention.py:641-662``).
+            cap = past_k.shape[2]
+            j = torch.arange(cap, device=q4.device)[None, None, None, :]
+            qpos = _positions(lens, S)[:, None, :, None]
+            valid = j <= qpos
+            if window:
+                valid &= j > qpos - window
+            mask = torch.where(valid, 0.0, NEG_INF)
+            if bias is not None:
+                mask = mask + bias.float()
+            if sink is not None:
+                out = sdpa_with_sink(q4, k_all, v_all, mask, scale=scale, softcap=softcap,
+                                     sink=sink)
+            else:
+                out = mha_plain(q4, k_all, v_all, mask, scale=scale, softcap=softcap)
+            out = heads_to_cat(out)
+        else:
+            out = heads_to_cat(decode_mha(q4, k_all, v_all, lens, scale=scale, window=window))
+    return (out, k_all, v_all) if n_out >= 3 else out
+
+
+def _rotary_embedding(ctx, inputs, attrs):
+    """ONNX RotaryEmbedding and its MS contrib sibling, as the JAX package
+    lowers both (``attention.py:977-1011``): inputs x ([B,H,S,D], or
+    [B,S,H*D] with ``num_heads``), cos_cache, sin_cache, position_ids
+    (optional; [B,S] or [S], positions 0..S-1 when absent). Caches given at
+    the full ``rotary_embedding_dim`` are cut to its first half."""
+    x = as_tensor(ctx, get_input(inputs, 0))
+    cos_cache = as_tensor(ctx, get_input(inputs, 1, "cos_cache"))
+    sin_cache = as_tensor(ctx, get_input(inputs, 2, "sin_cache"))
+    position_ids = _opt_tensor(ctx, inputs, 3)
+    interleaved = bool(attrs.get("interleaved", attrs.get("rotary_interleaved", 0)))
+    three_d = x.ndim == 3
+    if three_d:
+        n_heads = attrs.get("num_heads", 0)
+        if not n_heads:
+            raise OpError("RotaryEmbedding with 3D input requires num_heads")
+        x = cat_to_heads(x, n_heads)
+    B, _, S, _ = x.shape
+    if position_ids is None:
+        pos = torch.arange(S, device=x.device)[None].expand(B, S)
+    else:
+        pos = position_ids.reshape(-1, position_ids.shape[-1]).expand(B, S)
+    rot_dim = attrs.get("rotary_embedding_dim", 0)
+    if rot_dim and cos_cache.shape[-1] == rot_dim:
+        cos_cache, sin_cache = cos_cache[..., :rot_dim // 2], sin_cache[..., :rot_dim // 2]
+    out = rotary(x, cos_cache, sin_cache, pos, interleaved)
+    return heads_to_cat(out) if three_d else out
+
+
+register("RotaryEmbedding")(_rotary_embedding)
+register("RotaryEmbeddingMS")(_rotary_embedding)

@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels.int4_matmul import int4_matmul
+from ..kernels.int4_matmul import int4_matmul, unpack_zero_points
 from ..kernels.int8_matmul import int8_matmul_dequant
 from .registry import OpError, as_tensor, get_input, opt_input, register
 
@@ -168,8 +168,12 @@ def _matmul_nbits(ctx, inputs, attrs):
     bits = attrs.get("bits", 4)
     if bits != 4:
         raise OpError(f"MatMulNBits: only bits=4 supported (got {bits})")
-    return int4_matmul(
-        a, b_packed, scales, None if zero_points is None else as_tensor(ctx, zero_points),
-        K=attrs["K"], N=attrs["N"], block_size=attrs.get("block_size", 32),
-    )
+    K, N, bs = attrs["K"], attrs["N"], attrs.get("block_size", 32)
+    if zero_points is not None:
+        # u8 zero points unpacked to int32 [N, nb] once a weight (six small
+        # ops a call otherwise, on every decode step).
+        zp = as_tensor(ctx, zero_points)
+        zero_points = ctx.executor.derived_weight(
+            zp, "zero_points", lambda: unpack_zero_points(zp, N, -(-K // bs)))
+    return int4_matmul(a, b_packed, scales, zero_points, K=K, N=N, block_size=bs)
 

@@ -62,31 +62,15 @@ def register(name: str, inplace: Tuple[int, ...] = (), static: Tuple[int, ...] =
     return deco
 
 
-# The ROADMAP.md queue 1 item that ports each op family the JAX package
-# registers and the port does not yet.
-_ROADMAP_ITEM = {
-    **dict.fromkeys(("RandomNormal", "RandomNormalLike", "RandomUniform",
-                     "RandomUniformLike", "Multinomial"), "12.4"),
-    "MoE": "12.5",
-    **dict.fromkeys(("GatherElements", "Scatter", "ScatterElements", "ScatterND",
-                     "RotaryEmbedding", "RotaryEmbeddingMS"), "12.6"),
-    **dict.fromkeys(("BiasGelu", "FastGelu", "GeluMicrosoft", "QuickGelu",
-                     "SimplifiedLayerNormalization", "SkipLayerNormalization",
-                     "SkipSimplifiedLayerNormalization"), "12.9"),
-}
-
-
 def get_op(name: str) -> OpDef:
-    """The lowering of ``name``; an operator the port does not register yet
-    (the random ops, MoE, the contrib ops, ...) raises
-    ``NotImplementedError`` naming the ROADMAP item that ports it: a graph
-    holding one loads, and fails when it runs that op."""
+    """The lowering of ``name``. The port registers every operator the JAX
+    package registers, so an unknown name is one neither package runs:
+    ``OpError``, as the JAX package raises it. A graph holding one loads,
+    and fails when it runs that op."""
     op = REGISTRY.get(name)
     if op is None:
-        raise NotImplementedError(
-            f"operator '{name}' is not ported yet: ROADMAP.md queue 1 item "
-            f"{_ROADMAP_ITEM.get(name, '12')}"
-        )
+        raise OpError(f"operator '{name}' is not registered (by this port or by the "
+                      f"JAX package)")
     return op
 
 

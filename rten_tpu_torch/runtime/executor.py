@@ -37,6 +37,16 @@ of the graphs that enclose it (rten CaptureEnv, src/graph.rs:1165-1181):
 ``trace`` publishes every named value of a graph that holds control flow.
 Sequence values (Python lists of values) pass through ``env`` as they are;
 a list of host values is itself a host value.
+
+Random ops (``ops.random.RANDOM_OPS``) run on the executor's device too,
+though they may have no input at all. Each draw takes a ``torch.Generator``
+on that device from ``TraceContext.next_rng``: seeded from
+``RunConfig.seed``, the run's number and the draw's counter within the run
+(the JAX package's ``fold_in`` of the run counter and of the draw counter,
+``rten_tpu/runtime/executor.py:83-87, 276-283``). The run number advances
+only in a graph holding an unseeded random op (``_find_fresh_rng``), so
+such an op draws anew on every run and a graph whose random ops all carry
+a ``seed`` attribute draws the same values every run.
 """
 
 from __future__ import annotations
@@ -52,6 +62,7 @@ import torch
 from ..dtypes import narrow_array
 from ..ir.graph import Constant, Graph, NodeId, Operator, is_weight_constant
 from .. import ops  # noqa: F401  (importing the package registers the lowerings)
+from ..ops.random import RANDOM_OPS, seeded_generator
 from ..ops.registry import REGISTRY, OpError, get_op
 
 
@@ -106,21 +117,44 @@ class RunConfig:
     TF32: it rounds the operands as the TPU's pass does, and PyTorch
     chooses TF32 only through process-wide flags, which a run must not
     touch. Without it the products are full f32. On the CPU both are f32,
-    as the JAX package computes there."""
+    as the JAX package computes there.
+
+    ``seed``: the seed of the random ops' draws (those without a ``seed``
+    attribute of their own)."""
 
     prefer_bf16: bool = False
+    seed: int = 0
+
+
+class RngSupply:
+    """The generators of one run's random draws: the n-th draw of run r
+    seeds its generator from (seed, r, n)."""
+
+    def __init__(self, seed: int, run: int):
+        self.seed, self.run, self.counter = seed, run, 0
+
+    def next(self, device) -> torch.Generator:
+        self.counter += 1
+        key = np.random.SeedSequence([self.seed % 2**64, self.run, self.counter])
+        return seeded_generator(int(key.generate_state(1, np.uint64)[0]), device)
 
 
 class TraceContext:
     """Per-run context handed to op lowerings: the device, the config and
-    the capture scopes of the graphs being walked (innermost last)."""
+    the capture scopes of the graphs being walked (innermost last) and the
+    run's supply of random generators."""
 
-    def __init__(self, executor: "Executor", config: RunConfig, device=None,
-                 scopes: Optional[List[Dict[str, Any]]] = None):
+    def __init__(self, executor: "Executor", config: RunConfig, rng: RngSupply,
+                 device=None, scopes: Optional[List[Dict[str, Any]]] = None):
         self.executor = executor
         self.config = config
+        self.rng = rng
         self.device = executor.device if device is None else device
         self.scopes: List[Dict[str, Any]] = [] if scopes is None else scopes
+
+    def next_rng(self) -> torch.Generator:
+        """A generator on this context's device for the run's next draw."""
+        return self.rng.next(self.device)
 
     def lookup_capture(self, name: str):
         for scope in reversed(self.scopes):
@@ -143,7 +177,7 @@ class TraceContext:
             nid = subgraph.find_node(name)
             if nid is not None:
                 env[nid] = v
-        return sub.trace(env, subgraph.output_ids, scopes=self.scopes)
+        return sub.trace(env, subgraph.output_ids, scopes=self.scopes, rng=self.rng)
 
 
 _CPU = torch.device("cpu")
@@ -185,7 +219,22 @@ class Executor:
         self._plans: Dict[Tuple, List[NodeId]] = {}
         self._inplace_ids = self._find_inplace_ids()
         self._control_ids = self._find_control_ids()
+        self._fresh_rng = self._find_fresh_rng()
         self._subs: Dict[int, "Executor"] = {}
+        self._run_counter = 0
+
+    def _find_fresh_rng(self) -> bool:
+        """True if the graph holds a random op without a ``seed``
+        attribute: such an op draws anew on every run."""
+        return any(op.op_type in RANDOM_OPS and op.attrs.get("seed") is None
+                   for _, op in self.graph.operators())
+
+    def _next_rng(self) -> RngSupply:
+        """The random generators of a new run."""
+        if self._fresh_rng:
+            self._run_counter += 1
+            return RngSupply(self.config.seed, self._run_counter)
+        return RngSupply(self.config.seed, 0)
 
     def _find_control_ids(self) -> set:
         """The operators that hold subgraphs (If, Loop)."""
@@ -267,6 +316,7 @@ class Executor:
         self._plans = {}
         self._inplace_ids = self._find_inplace_ids()
         self._control_ids = self._find_control_ids()
+        self._fresh_rng = self._find_fresh_rng()
         self._subs = {}
 
     def _plan(self, env_ids, output_ids) -> List[NodeId]:
@@ -286,17 +336,20 @@ class Executor:
         allow_missing: bool = False,
         profiler=None,
         scopes: Optional[List[Dict[str, Any]]] = None,
+        rng: Optional[RngSupply] = None,
     ) -> List[Any]:
         """Walk the plan, running each op's lowering; returns output values.
         An op whose inputs are all host values runs on the CPU and gives
         host values (see the module's docstring); an op with subgraphs runs
         on the device. ``scopes``: the capture scopes of the enclosing
-        graphs, for a subgraph. With ``profiler`` the device is
-        synchronized after each op and its wall time recorded."""
+        graphs, for a subgraph; ``rng``: the run's random generators. With
+        ``profiler`` the device is synchronized after each op and its wall
+        time recorded."""
         g = self.graph
         scopes = [] if scopes is None else scopes
-        ctx = TraceContext(self, self.config, scopes=scopes)
-        host_ctx = TraceContext(self, self.config, device=_CPU, scopes=scopes)
+        rng = RngSupply(self.config.seed, 0) if rng is None else rng
+        ctx = TraceContext(self, self.config, rng, scopes=scopes)
+        host_ctx = TraceContext(self, self.config, rng, device=_CPU, scopes=scopes)
         consts = self._host_constants()
         concrete = self._concrete_ids()
         fed = [nid for nid in env if nid not in consts]
@@ -320,7 +373,7 @@ class Executor:
                 host_ins = [None if i is None else consts[i] if i in concrete else env.get(i)
                             for i in op.inputs]
                 control = op_id in self._control_ids
-                on_host = not control and all(
+                on_host = not control and op.op_type not in RANDOM_OPS and all(
                     v is None or isinstance(v, np.ndarray)
                     or (isinstance(v, list) and all(isinstance(x, np.ndarray) for x in v))
                     for v in host_ins)
@@ -385,7 +438,8 @@ class Executor:
         Returns tensors on the device (a sequence output: a list)."""
         env: Dict[NodeId, Any] = dict(self._weight_args())
         env.update(self._feed(inputs, set(donate), set(static)))
-        return [_on_device(v, self.device) for v in self.trace(env, list(output_ids))]
+        outs = self.trace(env, list(output_ids), rng=self._next_rng())
+        return [_on_device(v, self.device) for v in outs]
 
     def _feed(self, inputs: Dict[NodeId, Any], donated: set, static: set) -> Dict[NodeId, Any]:
         """The env entries of a run's inputs: tensors on the device (a
@@ -414,7 +468,7 @@ class Executor:
         prof = Profiler()
         env: Dict[NodeId, Any] = dict(self._weight_args())
         env.update(self._feed(inputs, set(), set()))
-        outs = self.trace(env, list(output_ids), profiler=prof)
+        outs = self.trace(env, list(output_ids), profiler=prof, rng=self._next_rng())
         return [_on_device(v, self.device) for v in outs], prof
 
     def partial_run(

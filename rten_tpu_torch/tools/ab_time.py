@@ -20,6 +20,11 @@ copy builds only the libraries its cases launch. Cases:
 * ``vpu``: the tool's ``vpu_attn`` at its shape (slots 32, H 12, cap 256,
   D 64), at slots 128 and at slots 8 (the keys split over blocks), one
   call a unit; SDPA with the same mask beside it.
+* ``mha``: ``mha`` (row 5) in f32 at the Generator's GPT-2 prefill (B 1, H
+  12, T 128 with 37 left-pad columns, and T 1024, causal, D 64; 12 calls a
+  unit) and at Whisper-tiny's encoder ([1, 6, 1500, 64], not causal; 4
+  calls), each copy's largest error from f64 beside the plain version's
+  (on randn inputs, and at Whisper's shape on randn x 3 too).
 
 Device time per unit from ``chip_smoke.timed`` (torch.profiler, CUDA
 activity), one JSON line per case with the card's name and power limit.
@@ -42,7 +47,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 HEADS_LIBS = {"this": ("decode_mha_wide_heads", "decode_mha_wide_heads_f32"),
               "other": ("decode_mha_wide", "decode_mha_wide_heads", "decode_mha_wide_heads_f32")}
 LIBS = {"heads": HEADS_LIBS, "prefill": HEADS_LIBS,
-        "vpu": {"this": ("bench_decode_attn",), "other": ("bench_decode_attn",)}}
+        "vpu": {"this": ("bench_decode_attn",), "other": ("bench_decode_attn",)},
+        "mha": {"this": ("mha",), "other": ("mha",)}}
 
 
 def _restrict(build, names):
@@ -192,6 +198,50 @@ def case_vpu(this, other, dev, timed, ms_of):
     return rows
 
 
+def case_mha(this, other, dev, timed, ms_of):
+    from chip_smoke import _mha_f64  # noqa: E402
+
+    rows = []
+    for tag, H, T, causal, pad, calls, scales in (
+            ("T 128", 12, 128, True, 37, 12, (1.0,)), ("T 1024", 12, 1024, True, 0, 12, (1.0,)),
+            ("Whisper encoder", 6, 1500, False, 0, 4, (1.0, 3.0))):
+        D = 64
+        gen = torch.Generator().manual_seed(T)
+        m = torch.where(torch.arange(T, device=dev) < pad, -1e30, 0.0)[None] if pad else None
+        idx = torch.arange(T)
+        pairs = (((idx[None] <= idx[:, None]) | (not causal)) & (idx[None] >= pad)).sum().item()
+        nbytes = calls * 4 * 4 * H * T * D
+        res = {"case": "mha", "shape": tag, "unit": f"{calls} calls, [1, {H}, {T}, {D}], f32, "
+               f"{'causal' if causal else 'not causal'}", "bound_ops_ms": calls * 4.0 * H
+               * pairs * D / 495e12 * 1e3}
+        live = slice(pad, None) if pad else slice(None)
+        for sc in scales:
+            q, k, v = (sc * torch.randn(1, H, T, D, generator=gen).to(dev) for _ in "qkv")
+            exact = _mha_f64(q, k, v, m, causal=causal)[:, :, live]
+            want = this.mha_plain(q, k, v, m, causal=causal)
+            for name, fa in (("other", other), ("this", this), ("plain", None)):
+                got = want if fa is None else fa.mha(q, k, v, m, causal=causal)
+                torch.cuda.synchronize()
+                res[f"{name}_f64_err_x{sc:g}"] = (got.double()[:, :, live] - exact).abs().max().item()
+                if fa is not None:
+                    res[f"{name}_plain_err_x{sc:g}"] = (got - want)[:, :, live].abs().max().item()
+        layers = [tuple(torch.randn(1, H, T, D, generator=gen).to(dev) for _ in "kv")
+                  for _ in range(calls)]
+        for turn, (name, fa) in enumerate((("other", other), ("this", this), ("this", this),
+                                           ("other", other))):
+            t = timed(lambda: [fa.mha(q, kk, vv, m, causal=causal) for kk, vv in layers],
+                      iters=10, nbytes=nbytes)
+            res[f"{name}_ms_{turn}"] = ms_of(t)
+        t = timed(lambda: [this.mha_plain(q, kk, vv, m, causal=causal) for kk, vv in layers],
+                  iters=3, warmup=1, nbytes=nbytes)
+        res["plain_ms"] = ms_of(t)
+        rows.append(res)
+        print(json.dumps(res), flush=True)
+        del layers
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python3 -m rten_tpu_torch.tools.ab_time")
     ap.add_argument("other", help="a directory holding another copy of rten_tpu_torch/")
@@ -222,6 +272,8 @@ def main(argv=None):
         case_prefill(fa, ofa, dev, timed, ms_of)
     if "vpu" in cases:
         case_vpu(tb, otb, dev, timed, ms_of)
+    if "mha" in cases:
+        case_mha(fa, ofa, dev, timed, ms_of)
 
 
 if __name__ == "__main__":

@@ -189,9 +189,9 @@ def test_port_rtpu_keeps_the_graph_it_saved(gpt2_path, tmp_path):
 
 def test_if_graph_loads_and_names_its_roadmap_item(tmp_path):
     """The port loads an If graph the JAX package saved and runs it (both
-    branches, JAX's answers); a graph with an op still unported
-    (RandomUniform) loads, and running it raises NotImplementedError naming
-    its ROADMAP item."""
+    branches, JAX's answers); a saved graph holding a random op
+    (RandomUniform, which the port once refused) loads, and each run draws
+    anew in [0, 1), the same as the JAX package on its own file."""
     path = str(tmp_path / "if.rtpu")
     _model("jax", "if", None).save(path)
     m, jm = _load("port", path), _load("jax", path)
@@ -207,8 +207,12 @@ def test_if_graph_loads_and_names_its_roadmap_item(tmp_path):
     g.output_ids = [y]
     path = str(tmp_path / "random.rtpu")
     TModel(g, TOptions(optimize=False), device="cpu").save(path)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 12.4"):
-        _load("port", path).run({})
+    m = _load("port", path)
+    a, b = (m.run({})[0].numpy() for _ in range(2))
+    want = np.asarray(_load("jax", path).run({})[0])
+    for x in (a, b, want):
+        assert x.shape == (2,) and x.dtype == np.float32 and ((x >= 0) & (x < 1)).all()
+    assert not np.array_equal(a, b)
 
 
 # --- malformed files: the cases of tests/test_malformed_models.py ------------

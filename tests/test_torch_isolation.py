@@ -48,6 +48,13 @@ def test_import_pulls_in_no_jax():
         "from rten_tpu_torch.shape_inference import infer_shapes, infer_shapes_and_values\n"
         "from rten_tpu_torch.optimize import FUSIONS, optimize_graph\n"
         "from rten_tpu_torch.runtime.profiler import Profiler\n"
+        "from rten_tpu_torch.ops.contrib import _skip_simplified_layer_norm\n"
+        "from rten_tpu_torch.ops.gather import scatter\n"
+        "from rten_tpu_torch.ops.random import RANDOM_OPS, seeded_generator\n"
+        "from rten_tpu_torch.ops.moe import _moe\n"
+        "from rten_tpu_torch.ops.attention import sdpa_with_sink\n"
+        "from rten_tpu_torch.models.moe import MoEConfig, build_graph, random_weights\n"
+        "from rten_tpu_torch.runtime.executor import RngSupply\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'rten_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok', len([m for m in sys.modules if m.startswith('rten_tpu_torch')]))\n"

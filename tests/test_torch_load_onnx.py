@@ -184,11 +184,14 @@ class _Noisy(torch.nn.Module):
 
 
 def test_unported_op_loads_and_raises_when_run(tmp_path):
-    """A graph holding an op the port does not register yet
-    (RandomUniformLike, queue 1 item 12.4) loads, constants folded around
-    it; running it names ROADMAP.md queue 1 item 12.4."""
+    """A graph holding a random op (RandomUniformLike, which the port once
+    refused) loads with the op left unfolded, as the JAX package leaves it;
+    each run gives relu(x) plus a fresh draw in [0, 1)."""
     path = export_onnx(_Noisy(), torch.randn(5, 4), str(tmp_path / "noisy.onnx"), ["x"], ["y"])
-    tm = TModel.load_file(path, device="cpu")
-    assert "RandomUniformLike" in _ops(tm)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 12.4"):
-        tm.run({"x": np.zeros((5, 4), np.float32)})
+    tm, jm = _both(path)
+    assert "RandomUniformLike" in _ops(tm) and _ops(tm) == _ops(jm)
+    x = np.random.default_rng(0).standard_normal((5, 4)).astype(np.float32)
+    a, b = (tm.run({"x": x})[0].numpy() - np.maximum(x, 0) for _ in range(2))
+    for d in (a, b):
+        assert ((d >= 0) & (d < 1)).all()
+    assert not np.array_equal(a, b)

@@ -5,15 +5,24 @@ Every f32 operand of both products is split into TF32 parts, big =
 cvt.rna.tf32(x) (11 significant bits: the low 13 bits rounded off, ties
 away from zero, emulated here on the bit patterns) and small = the same
 rounding of x - big, and a product is big.big + big.small + small.big
-with f32 sums (3xTF32). The model walks the keys in the kernel's tiles of
-32 (each of KW warps taking its own 32 keys of a KW x 32-key tile and the
+(3xTF32). Each tensor-core step is modelled as exact products summed and
+rounded toward zero once (``_mma``); the kernel keeps such sums short: in
+S = Q K^T each 8-dim step's big.big starts from zero and is added to the
+score in f32, the small terms summed apart and added last (``mm3_apart``);
+in O = P V each key tile's products start from zero and are added to O in
+f32 (``mm3_tile``). The model walks the keys in the kernel's tiles of 32
+(each of KW warps taking its own 32 keys of a KW x 32-key tile and the
 warps' states merged in order at the end), with the kernel's online
 softmax in base 2 and its guards (p = 0 while the running max is at most
 NEG_INF / 2; a row with no column comes out 0). It is held against the JAX
 package's ``mha_pallas`` in interpret mode within 1e-5, over softcap, GQA,
 a left-pad mask and causal attention with Tq != Tk, and fully masked rows
 come out 0 in both. One TF32 pass, at the same shapes, lands past the
-card tests' 1e-4, which is why the kernel takes three.
+card tests' 1e-4, which is why the kernel takes three; and over Whisper's
+1500 keys, one running sum for each product (the earlier design, which an
+NVIDIA H100 80GB HBM3 at 700 W measured 4.5e-6 from f64 against f32 sums'
+5.0e-7) lands many times further from f64 than the short sums do, which
+is why it keeps them short.
 """
 
 import numpy as np
@@ -21,9 +30,11 @@ import pytest
 import torch
 
 from rten_tpu.kernels.flash_attention import mha_pallas
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
+LOG2E_F32 = float(np.float32(LOG2E))
 BK = 32  # keys a warp scores a tile, f32 (csrc/mha.cu, TcShape)
 
 
@@ -40,11 +51,44 @@ def parts(x):
     return big, tf32(x - big)
 
 
-def mm3(a, b):
-    """a @ b in 3xTF32 (f32 sums), the small terms first."""
-    ab, asm = parts(a)
-    bb, bsm = parts(b)
-    return (asm @ bb + ab @ bsm) + ab @ bb
+def rz(x):
+    """f64 -> f32 rounded toward zero."""
+    b = x.double().contiguous().view(torch.int64)
+    return ((b >> 29) << 29).view(torch.float64).float()
+
+
+def _mma(c, a, b):
+    """One m16n8k8 step as modelled here: c + a . b over 8 dims with exact
+    products, rounded toward zero once."""
+    return rz(c.double() + a.double() @ b.double())
+
+
+def _k8(a, b):
+    return [(a[..., i:i + 8], b[..., i:i + 8, :]) for i in range(0, a.shape[-1], 8)]
+
+
+def mm3_apart(a, b):
+    """The kernel's score product: per 8-dim step, big.big from zero added
+    in f32, the small terms into an accumulator of their own, added last."""
+    hi = torch.zeros(a.shape[:-1] + (b.shape[-1],))
+    lo = torch.zeros_like(hi)
+    for x, y in _k8(a, b):
+        xb, xs = parts(x)
+        yb, ys = parts(y)
+        lo = _mma(_mma(lo, xs, yb), xb, ys)
+        hi = hi + _mma(torch.zeros_like(hi), xb, yb)
+    return hi + lo
+
+
+def mm3_tile(a, b):
+    """The kernel's value product of one key tile: the three terms of every
+    8-key step into one accumulator from zero (the caller adds it to O)."""
+    t = torch.zeros(a.shape[:-1] + (b.shape[-1],))
+    for x, y in _k8(a, b):
+        xb, xs = parts(x)
+        yb, ys = parts(y)
+        t = _mma(_mma(_mma(t, xs, yb), xb, ys), xb, yb)
+    return t
 
 
 def mm1(a, b):
@@ -52,7 +96,27 @@ def mm1(a, b):
     return tf32(a) @ tf32(b)
 
 
-def model(q, k, v, mask, *, causal, softcap, kw=1, mm=mm3):
+def pv_tile(p, v, o):
+    """O (already scaled by alpha) plus the key tile's value product."""
+    return o + mm3_tile(p, v)
+
+
+def mm3_running(a, b, c=None):
+    """The earlier 3xTF32: every step's three terms straight into one running
+    accumulator c (zero when None)."""
+    c = torch.zeros(a.shape[:-1] + (b.shape[-1],)) if c is None else c
+    for x, y in _k8(a, b):
+        xb, xs = parts(x)
+        yb, ys = parts(y)
+        c = _mma(_mma(_mma(c, xs, yb), xb, ys), xb, yb)
+    return c
+
+
+def pv_running(p, v, o):
+    return mm3_running(p, v, o)
+
+
+def model(q, k, v, mask, *, causal, softcap, kw=1, mm_s=mm3_apart, pv=pv_tile):
     """The kernel's arithmetic on f32 tensors q [B,Hq,Tq,D], k/v
     [B,Hkv,Tk,D], an additive mask broadcasting to [Tq, Tk] or None."""
     B, Hq, Tq, D = q.shape
@@ -72,7 +136,7 @@ def model(q, k, v, mask, *, causal, softcap, kw=1, mm=mm3):
             if k0 >= Tk:
                 continue
             k1 = min(Tk, k0 + BK)
-            s = mm(q, k[:, :, k0:k1].transpose(-1, -2)) * scale
+            s = mm_s(q, k[:, :, k0:k1].transpose(-1, -2)) * scale
             if softcap:
                 s = softcap * torch.tanh(s / softcap)
             if full is not None:
@@ -85,9 +149,12 @@ def model(q, k, v, mask, *, causal, softcap, kw=1, mm=mm3):
             empty = m_new <= NEG_INF / 2
             alpha = torch.where(m <= NEG_INF / 2, torch.tensor(0.0),
                                 torch.exp2((m - m_new) * LOG2E))
-            p = torch.where(empty, torch.tensor(0.0), torch.exp2(s * LOG2E - m_new * LOG2E))
+            # fmaf(s, LOG2E, -m LOG2E): the product exact, one rounding.
+            mb = (m_new * LOG2E).double()
+            p = torch.where(empty, torch.tensor(0.0),
+                            torch.exp2((s.double() * LOG2E_F32 - mb).float()))
             st[w] = [m_new, l * alpha + p.sum(-1, keepdim=True),
-                     o * alpha + mm(p, v[:, :, k0:k1])]
+                     pv(p, v[:, :, k0:k1], o * alpha)]
     m, l, o = st[0]
     for mw, lw, ow in st[1:]:  # the warps' states merged in warp order
         mn = torch.maximum(m, mw)
@@ -164,7 +231,27 @@ def test_one_tf32_pass_is_not_enough():
     want = np.asarray(mha_pallas(q, k, v, m, causal=True, interpret=True))
     args = [torch.from_numpy(x) for x in (q, k, v, m)]
     live = _live(40, 40, True, m)
-    one = model(*args, causal=True, softcap=0.0, mm=mm1).numpy()
+    one = model(*args, causal=True, softcap=0.0, mm_s=mm1,
+                pv=lambda p, v, o: o + mm1(p, v)).numpy()
     three = model(*args, causal=True, softcap=0.0).numpy()
     assert np.abs(one[:, :, live] - want[:, :, live]).max() > 1e-4
     assert np.abs(three[:, :, live] - want[:, :, live]).max() <= 1e-5
+
+
+def test_short_sums_reach_f32_over_whisper_keys():
+    """Whisper-tiny's encoder keys (1500, D 64, not causal; 32 query rows of
+    one head, randn): the kernel's short sums land within 1.5x of the f32
+    plain version's error from f64 and within 2e-5 of it; the earlier running
+    sums land further than 1.5x (the card: 4.5e-6 against 5.0e-7)."""
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 1, n, 64, generator=g) for n in (32, 1500, 1500))
+    d = [t.double() for t in (q, k, v)]
+    exact = torch.softmax(d[0] @ d[1].transpose(-1, -2) / 8, -1) @ d[2]
+    plain = torch.softmax(q @ k.transpose(-1, -2) / 8, -1) @ v
+    short = model(q, k, v, None, causal=False, softcap=0.0)
+    running = model(q, k, v, None, causal=False, softcap=0.0, mm_s=mm3_running, pv=pv_running)
+    err = {n: (t.double() - exact).abs().max().item()
+           for n, t in (("plain", plain), ("short", short), ("running", running))}
+    assert err["short"] <= 1.5 * err["plain"], err
+    assert (short - plain).abs().max().item() <= 2e-5
+    assert err["running"] > 1.5 * err["plain"], err

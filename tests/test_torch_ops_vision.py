@@ -362,7 +362,7 @@ def test_every_op_of_the_families_is_held():
     assert family - {p.values[0] for p in CASES} == set()
     assert family - set(treg.REGISTRY) == set()
     for name in family:
-        treg.get_op(name)  # raises NotImplementedError for an op not ported
+        treg.get_op(name)  # raises OpError for an op not registered
 
 
 def test_conv_integer_to_float_lays_out_a_constant_weight_once():
