@@ -149,6 +149,19 @@ Run from the repository root:  python3 chip_smoke.py
    an ONNX If on use_cache_branch, cross caches made on the first run)
    exported, loaded onto the card and driven by the Generator: the torch
    module's own greedy tokens (``phase_merged_decoder``).
+10. Text and host-library phases: text in, text out at GPT-2 124M's full
+   width in int8 (``phase_text_generate``): tests/torch_tokenizer_spec.py's
+   50257-entry byte-level BPE loaded by ``Tokenizer.from_file`` on its
+   native core (built with g++ at first use; its encode equal to the Python
+   core's on the prompt and on 1 MB of text, both cores' MB/s), a prompt
+   string through ``gpt2.load(quantize="int8")``, the ``Generator`` (bucket
+   128, greedy) and ``TextDecoder.wrap``, 64 tokens streamed (row 1 49 a
+   forward, row 5 12 at the prefill; TTFT, tok/s and the decoder's share of
+   the host wall). Then ``phase_host_libs``: every ``functional`` helper on
+   the card against the CPU (``arg_max`` through row 4), CTC greedy and
+   beam decoding of log-probs from ``functional.log_softmax`` on the card,
+   ``normalize_image`` on the card, and the native contour tracing and NMS
+   against their Python cores on the host.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Exits nonzero, printing
@@ -5625,6 +5638,294 @@ def phase_registry_ops(dev):
     return launches
 
 
+def _spec_module():
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_tokenizer_spec
+
+    return torch_tokenizer_spec
+
+
+def _encode_rate(tok, text):
+    """(ids, MB/s) of one encode of ``text``."""
+    t0 = time.perf_counter()
+    ids = tok.encode(text).ids
+    return ids, len(text.encode()) / (time.perf_counter() - t0) / 1e6
+
+
+def phase_text_generate(dev):
+    """Text in, text out at GPT-2 124M's full width in int8, through the
+    user's entry points (``examples/generate_text.py``'s path):
+    ``Tokenizer.from_file`` of tests/torch_tokenizer_spec.py's 50257-entry
+    byte-level BPE (written to a temporary file), its native core built and
+    asserted, ``gpt2.load(quantize="int8")`` (weights from seed 0), a
+    ``Generator`` (bucket 128, greedy) and ``TextDecoder.wrap`` streaming 64
+    tokens. The native encode equals the Python encode on the prompt and on
+    about 1 MB of text (each core's first, cold-cache encode and a second one
+    timed); after a warm-up every launch counter is zeroed, the text streamed
+    and the counters read: row 1 49 a forward (the prefill's 128 rows on its
+    rows form, each step's one row on its stream form), row 5 12 at the
+    prefill, nothing else. The streamed pieces join to a prefix of
+    ``tok.decode`` of the tokens, equal to it unless that ends in U+FFFD.
+    Row 1 is then held bit for bit against its plain version at the
+    prefill's 128 rows (each step's one row is held in the kernel phases).
+    Prints TTFT, decode tok/s, the cores' MB/s and TextDecoder's host time a
+    token and its share of the streaming loop's host wall (each push decodes
+    the whole sequence, so the share grows with the length); then a profiled
+    run of 16 streamed tokens gives the card's busy time per forward."""
+    import itertools
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from rten_tpu_torch.generate import Generator, GeneratorConfig, TextDecoder
+    from rten_tpu_torch.kernels.int8_matmul import int8_form
+    from rten_tpu_torch.models import gpt2
+    from rten_tpu_torch.text import Tokenizer
+
+    spec_mod = _spec_module()
+    tag = "GPT-2 text generate int8"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        path = spec_mod.write_spec(os.path.join(d, "tokenizer.json"), seed=0)
+        spec_s = time.perf_counter() - t0
+        tok = Tokenizer.from_file(path)
+        native_s = time.perf_counter() - t0 - spec_s
+        tok_py = Tokenizer.from_file(path, native=False)
+    if tok.core != "native" or tok_py.core != "python" or tok.vocab_size != VOCAB:
+        fail(f"{tag}: tokenizer cores {tok.core}/{tok_py.core}, vocabulary {tok.vocab_size}")
+    prompt = spec_mod.PROMPT
+    ids = tok.encode(prompt).ids
+    if ids != tok_py.encode(prompt).ids or len(ids) != len(prompt.split()) + 2:
+        fail(f"{tag}: the prompt encodes to {ids} (native) and {tok_py.encode(prompt).ids}")
+    text = spec_mod.corpus(1_000_000, seed=0)
+    rates = {}
+    for core, t in (("native", tok), ("python", tok_py)):
+        first, cold = _encode_rate(t, text)
+        again, warm = _encode_rate(t, text)
+        rates[core] = (first, cold, warm)
+        if again != first:
+            fail(f"{tag}: two {core} encodes of the corpus differ")
+    if rates["native"][0] != rates["python"][0]:
+        fail(f"{tag}: the native encode of the corpus is not the Python encode")
+    n_bytes = len(text.encode())
+    print(f"  tokenizer [{tag}]: spec {spec_s:.2f} s, native core built and loaded "
+          f"{native_s:.2f} s; prompt {len(ids)} tokens (native == python); {n_bytes} bytes "
+          f"-> {len(rates['native'][0])} tokens, native == python; encode MB/s, first "
+          f"(cold cache) / second: native {rates['native'][1]:.3f} / {rates['native'][2]:.3f}, "
+          f"python {rates['python'][1]:.3f} / {rates['python'][2]:.3f}", flush=True)
+
+    t0 = time.perf_counter()
+    cfg = gpt2.GPT2Config()
+    model = gpt2.load(cfg, random_weights(gpt2, cfg), quantize="int8", device=dev)
+    gcfg = GeneratorConfig(bucket_size=GEN_BUCKET)
+    Generator(model, [ids], gcfg).generate(2)
+    torch.cuda.synchronize()
+    print(f"  build and warm-up [{tag}]: {time.perf_counter() - t0:.1f} s", flush=True)
+    for fn in counters().values():
+        fn.launches = 0
+    gen = Generator(model, [ids], gcfg)
+    decoder = TextDecoder(tok)
+    step_s, push_s = [], []
+
+    def tokens():
+        for _ in range(GEN_NEW):
+            t = time.perf_counter()
+            tid = next(gen)
+            step_s.append(time.perf_counter() - t)
+            t = time.perf_counter()
+            yield tid
+            push_s.append(time.perf_counter() - t)  # the decoder's push of tid
+
+    pieces = list(decoder.wrap(tokens()))
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters().items()}
+    forwards = 1 + gen.metrics.generated_tokens
+    prefill_form, step_form = int8_form(GEN_BUCKET), int8_form(1)
+    want = {"mha": 12, "int8_matmul_dequant": 49 * forwards,
+            f"int8_matmul_dequant_{prefill_form}": 49,
+            f"int8_matmul_dequant_{step_form}": 49 * (forwards - 1)}
+    for k, n in launches.items():
+        if n != want.get(k, 0):
+            fail(f"{tag}: {k} launched {n} times, expected {want.get(k, 0)}")
+    generated = decoder.ids
+    streamed, full = "".join(pieces), tok.decode(generated)
+    if len(generated) != GEN_NEW or not all(0 <= t < VOCAB for t in generated):
+        fail(f"{tag}: {len(generated)} tokens, in range: {all(0 <= t < VOCAB for t in generated)}")
+    if not full.startswith(streamed) or (streamed != full and not full.endswith("�")):
+        fail(f"{tag}: the streamed text {streamed!r} is not the decoded {full!r}")
+    m = gen.metrics
+    push_ms = [s * 1e3 for s in push_s]
+    share = sum(push_s) / (sum(push_s) + sum(step_s))
+    q = GEN_NEW // 4
+    print(f"  text generate [{tag}]: a {len(ids)}-token prompt (bucket {GEN_BUCKET}) -> "
+          f"{GEN_NEW} tokens streamed as {len(pieces)} pieces, {len(streamed)} characters; "
+          f"TTFT {m.ttft_s() * 1e3:.3f} ms, decode {m.tokens_per_sec():.1f} tok/s (host wall "
+          f"per step {statistics.mean(step_s[1:]) * 1e3:.3f} ms); TextDecoder host time per "
+          f"token {statistics.mean(push_ms):.4f} ms (first {q} tokens "
+          f"{statistics.mean(push_ms[:q]):.4f}, last {q} {statistics.mean(push_ms[-q:]):.4f}), "
+          f"{share:.4f} of the streaming loop's host wall", flush=True)
+    print(f"  streamed text [{tag}]: {json.dumps(streamed[:160])}", flush=True)
+    print(f"  text generate launches [{tag}]: {json.dumps(launches)}", flush=True)
+    held = torch.Generator().manual_seed(20)
+    forms = {_int8_case(held, dev, GEN_BUCKET, K, VOCAB if N == NP else N, tag, time_it=False)
+             for K, N, _ in GPT2_INT8}
+    print(f"  row 1 at the prefill's {GEN_BUCKET} rows, the 5 GPT-2 shapes (lm_head N "
+          f"{VOCAB}): equal to its plain version bit for bit, {sorted(forms)} form", flush=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        profiled = Generator(model, [ids], gcfg)
+        "".join(TextDecoder(tok).wrap(itertools.islice(profiled, 16)))
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t
+    busy = sum(t for _, _, t in device_events(prof)) / 1e3
+    print(f"  profiled 16 streamed tokens [{tag}]: device busy {busy:.3f} ms in "
+          f"{prof_wall * 1e3:.3f} ms wall, busy per forward {busy / 17:.3f} ms over its 17 "
+          f"forwards, the prefill included ({busy / 17 / (statistics.mean(step_s[1:]) * 1e3):.3f} "
+          f"of the unprofiled wall per step)", flush=True)
+    del model
+    return launches
+
+
+HOST_LIBS_TOL = 1e-5
+
+
+def _functional_cases(gen):
+    """(tag, helper name, args, kwargs, exact): seeded inputs for every
+    ``functional`` helper, at small sizes and at a greedy head's [16, 50257]."""
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).numpy()
+
+    x, w8, b8 = rn(3, 8), rn(8), rn(8)
+    img, ker = rn(1, 3, 33, 41), rn(4, 3, 3, 3)
+    boxes = np.concatenate([rn(1, 40, 2, scale=20) + 20, rn(1, 40, 2, scale=20) + 60], -1)
+    q = rn(2, 3, 4, scale=3)
+    qs, qz = np.asarray([0.05, 0.1, 0.2], np.float32), np.asarray([3, 128, 250], np.uint8)
+    head = rn(16, VOCAB, scale=4)
+    return [
+        ("softmax", "softmax", (head,), {}, False),
+        ("log_softmax", "log_softmax", (head,), {}, False),
+        ("gelu", "gelu", (x,), {}, False),
+        ("gelu tanh", "gelu", (x,), {"approximate": "tanh"}, False),
+        ("silu", "silu", (x,), {}, False),
+        ("erf", "erf", (x,), {}, False),
+        ("sigmoid", "sigmoid", (x,), {}, False),
+        ("layer_norm", "layer_norm", (x, w8, b8), {}, False),
+        ("rms_norm", "rms_norm", (x, w8), {}, False),
+        ("matmul", "matmul", (rn(2, 64, 96), rn(96, 80)), {}, False),
+        ("conv2d", "conv2d", (img, ker, b8[:4]), {"strides": (2, 1), "pads": (1, 0, 1, 2)},
+         False),
+        ("resize nearest", "resize", (img, [1, 3, 66, 20]), {}, True),
+        ("resize linear", "resize", (img, [1, 3, 50, 60]), {"mode": "linear"}, False),
+        ("top_k", "top_k", (head, 5), {}, True),
+        ("arg_max [16, 50257]", "arg_max", (head,), {}, True),
+        ("arg_max axis 0", "arg_max", (x,), {"axis": 0, "keepdims": True}, True),
+        ("non_max_suppression", "non_max_suppression",
+         (boxes.astype(np.float32), rn(1, 3, 40) ** 2, 10, 0.4, 0.1), {}, True),
+        ("pad", "pad", (x, [1, 2, 0, 3]), {"value": 1.5}, True),
+        ("pad reflect", "pad", (x, [0, 2, 1, 3]), {"mode": "reflect"}, True),
+        ("quantize_linear", "quantize_linear", (q, qs, qz), {}, True),
+        ("dequantize_linear", "dequantize_linear", (qz.reshape(1, 3, 1), qs, qz), {}, False),
+    ]
+
+
+def phase_host_libs(dev):
+    """The host libraries' card paths against the port's CPU runs, from the
+    same seeded inputs: every ``functional`` helper (exact where the result
+    is an index or an integer, else within ``HOST_LIBS_TOL`` of max|out|),
+    ``arg_max`` on f32 over the last axis through row 4 (a greedy head's
+    [16, 50257]); CTC greedy and beam decoding (width 8, 3 best) of log-probs
+    made by ``functional.log_softmax`` on the card ([200, 32], greedy's
+    arg-max through row 4) against the CPU's (the same labels, scores within
+    1e-5 relative); ``normalize_image`` of a 3 x 224 x 224 image on the card.
+    Every launch counter is zeroed before and read after; row 4 must launch
+    once for each f32 last-axis arg-max. Then row 4 is held against its plain
+    version at these shapes (not counted), and the native host geometry
+    (contours of a 512 x 512 mask, NMS of 2000 boxes) against its Python
+    core, with both times."""
+    from rten_tpu_torch import ctc, functional, imageproc
+    from rten_tpu_torch.kernels.argmax import argmax_lastdim, argmax_plain
+
+    gen = torch.Generator().manual_seed(20)
+    cases = _functional_cases(gen)
+    logits = (torch.randn(200, 32, generator=gen) * 3).numpy()
+    image = torch.rand(3, 224, 224, generator=gen).numpy()
+    mean, std = [0.485, 0.456, 0.406], [0.229, 0.224, 0.225]
+    for fn in counters().values():
+        fn.launches = 0
+    worst = {}
+    t0 = time.perf_counter()
+    card = {tag: getattr(functional, name)(*args, **kw, device=dev)
+            for tag, name, args, kw, _ in cases}
+    logp = functional.log_softmax(logits, device=dev)
+    greedy, beams = ctc.ctc_greedy_decode(logp), ctc.ctc_beam_search_decode(logp, 8, 3)
+    norm = imageproc.normalize_image(torch.from_numpy(image).to(dev), mean, std)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters().items()}
+    want = {"argmax_lastdim": 2}  # the greedy head's arg_max and CTC greedy's
+    for k, n in launches.items():
+        if n != want.get(k, 0):
+            fail(f"host libraries: {k} launched {n} times, expected {want.get(k, 0)}")
+    for tag, name, args, kw, exact in cases:
+        got = card[tag] if isinstance(card[tag], tuple) else (card[tag],)
+        ref = getattr(functional, name)(*args, **kw, device="cpu")
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        for g, w in zip(got, ref):
+            if g.device.type != "cuda" or g.shape != w.shape or g.dtype != w.dtype:
+                fail(f"functional {tag}: {g.device} {tuple(g.shape)} {g.dtype} against "
+                     f"{tuple(w.shape)} {w.dtype}")
+            g = g.cpu()
+            if exact:
+                if not torch.equal(g, w):
+                    fail(f"functional {tag}: the card's result is not the CPU's")
+                worst[tag] = 0.0
+                continue
+            err = (g - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+            worst[tag] = max(worst.get(tag, 0.0), err)
+            if not err <= HOST_LIBS_TOL:
+                fail(f"functional {tag}: {err:.3e} of max|out| from the CPU's")
+    logp_cpu = functional.log_softmax(logits, device="cpu")
+    for got, ref in zip([greedy, *beams], [ctc.ctc_greedy_decode(logp_cpu),
+                                          *ctc.ctc_beam_search_decode(logp_cpu, 8, 3)]):
+        if got.labels != ref.labels or abs(got.score - ref.score) > 1e-5 * abs(ref.score):
+            fail(f"CTC on the card: {got} against the CPU's {ref}")
+    norm_ref = imageproc.normalize_image(image, mean, std, device="cpu")
+    norm_err = (norm.cpu() - norm_ref).abs().max().item()
+    if norm.device.type != "cuda" or not norm_err <= 1e-6:
+        fail(f"normalize_image on the card: {norm_err:.3e} from the CPU's")
+    head = torch.from_numpy(cases[0][2][0]).to(dev)
+    for x in (head, logp):
+        got, ref = argmax_lastdim(x), argmax_plain(x)
+        if not torch.equal(got, ref):
+            fail(f"argmax_lastdim {tuple(x.shape)} disagrees with its plain version")
+    rng = np.random.default_rng(20)
+    mask = (rng.random((512, 512)) > 0.7).astype(np.uint8)
+    tl = rng.random((2000, 2)) * 500
+    boxes = np.concatenate([tl, tl + rng.random((2000, 2)) * 60 + 1], 1).astype(np.float32)
+    scores = rng.random(2000).astype(np.float32)
+    geo = {}
+    for native in (True, False):
+        t = time.perf_counter()
+        contours = imageproc.find_contours(mask, native=native)
+        c_s = time.perf_counter() - t
+        t = time.perf_counter()
+        kept = imageproc.nms_boxes(boxes, scores, 0.45, 0.1, 300, native=native)
+        geo[native] = (contours, kept, c_s, time.perf_counter() - t)
+    if geo[True][1] != geo[False][1] or len(geo[True][0]) != len(geo[False][0]) or not all(
+            np.array_equal(a, b) for a, b in zip(geo[True][0], geo[False][0])):
+        fail("imageproc: the native contours or NMS differ from the Python core's")
+    print(f"  host libraries, card against CPU (largest error of max|out|; 0: equal): "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in worst.items()})}; CTC greedy "
+          f"{len(greedy.labels)} labels, score {greedy.score:.4f}, beams equal; "
+          f"normalize_image {norm_err:.2e}; the card's calls {card_s:.3f} s; launches "
+          f"{json.dumps({k: n for k, n in launches.items() if n})}", flush=True)
+    print(f"  host geometry: contours of a 512 x 512 mask ({len(geo[True][0])} contours) "
+          f"native {geo[True][2] * 1e3:.2f} ms, python {geo[False][2] * 1e3:.2f} ms; NMS of "
+          f"2000 boxes ({len(geo[True][1])} kept) native {geo[True][3] * 1e3:.3f} ms, python "
+          f"{geo[False][3] * 1e3:.2f} ms (host wall)", flush=True)
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5799,7 +6100,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["registry_ops"], path_kv["registry_ops"] = phase_registry_ops(dev), None
     lap("the registry's new ops card against CPU, the random ops")
-    for phase in list(secs)[-9:]:
+    print("text and host-library phases:", flush=True)
+    torch.cuda.empty_cache()
+    by_path["gpt2_text_generate"], path_kv["gpt2_text_generate"] = phase_text_generate(dev), None
+    lap("GPT-2 124M int8 text in, text out (tokenizer, Generator, TextDecoder)")
+    by_path["host_libs"], path_kv["host_libs"] = phase_host_libs(dev), None
+    lap("functional, CTC and imageproc card against CPU")
+    for phase in list(secs)[-11:]:
         print(f"  {phase}: {secs[phase]:.1f} s", flush=True)
     # A row's launches: its counter over the paths that serve from its KV
     # cache type (every path for the kernels that read no KV cache). A

@@ -1,5 +1,6 @@
 """The port stands alone: ``rten_tpu_torch`` and ``chip_smoke.py`` import
-nothing of JAX or of the JAX package, the entry points refuse to run
+nothing of JAX or of the JAX package (nor ``regex``; the host libraries run
+without ``regex``, PIL and ``tokenizers``), the entry points refuse to run
 without a card unless the caller asks for the CPU, and the smoke test
 fails (printing no result) where there is no card."""
 
@@ -55,6 +56,13 @@ def test_import_pulls_in_no_jax():
         "from rten_tpu_torch.ops.attention import sdpa_with_sink\n"
         "from rten_tpu_torch.models.moe import MoEConfig, build_graph, random_weights\n"
         "from rten_tpu_torch.runtime.executor import RngSupply\n"
+        "from rten_tpu_torch.text import Tokenizer\n"
+        "from rten_tpu_torch.generate import TextDecoder\n"
+        "from rten_tpu_torch.native import NativeBpe, get_lib\n"
+        "from rten_tpu_torch.ctc import ctc_greedy_decode\n"
+        "from rten_tpu_torch.imageproc import find_contours, nms_boxes\n"
+        "from rten_tpu_torch.imageio import image_to_tensor\n"
+        "from rten_tpu_torch.functional import arg_max\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'rten_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok', len([m for m in sys.modules if m.startswith('rten_tpu_torch')]))\n"
@@ -63,6 +71,56 @@ def test_import_pulls_in_no_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert r.stdout.startswith("ok")
+
+
+def test_host_libraries_run_without_regex_pil_or_tokenizers():
+    """The card machine is not promised ``regex``, PIL or ``tokenizers``:
+    with the three blocked from import, the package imports whole, and the
+    tokenizer (native and Python cores), the text decoder, imageproc, CTC
+    and the functional helpers run on the CPU."""
+    code = (
+        "import sys\n"
+        "for name in ('regex', 'PIL', 'tokenizers'):\n"
+        "    sys.modules[name] = None\n"
+        "import importlib, pkgutil, numpy as np\n"
+        "import rten_tpu_torch\n"
+        "for m in pkgutil.walk_packages(rten_tpu_torch.__path__, 'rten_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from rten_tpu_torch.text import Tokenizer\n"
+        "from rten_tpu_torch.text.tokenizer import bytes_to_unicode\n"
+        "from rten_tpu_torch.generate import TextDecoder\n"
+        "from rten_tpu_torch import ctc, functional, imageproc\n"
+        "vocab = {c: i for i, c in enumerate(bytes_to_unicode().values())}\n"
+        "vocab['Ġh'] = 256\n"
+        "spec = {'model': {'type': 'BPE', 'vocab': vocab, 'merges': ['Ġ h']},\n"
+        "        'pre_tokenizer': {'type': 'ByteLevel', 'add_prefix_space': False},\n"
+        "        'decoder': {'type': 'ByteLevel'}}\n"
+        "text = 'ok hi, café 12'\n"
+        "ids = [Tokenizer(spec, native=n).encode(text).ids for n in (True, False)]\n"
+        "assert ids[0] == ids[1] and 256 in ids[0], ids\n"
+        "assert ''.join(TextDecoder(Tokenizer(spec)).wrap(ids[0])) == text\n"
+        "mask = np.zeros((6, 6), np.uint8); mask[1:4, 1:4] = 1\n"
+        "assert len(imageproc.find_contours(mask)) == 1\n"
+        "logp = functional.log_softmax(np.eye(4, dtype=np.float32) * 5, device='cpu')\n"
+        "assert ctc.ctc_greedy_decode(logp).labels == [1, 2, 3]\n"
+        "assert all(sys.modules[n] is None for n in ('regex', 'PIL', 'tokenizers'))\n"
+        "print('ok')\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], env=_no_card_env(), cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def test_sources_import_no_regex():
+    """The port writes tokenizer patterns for the standard ``re``
+    (``text/pattern.py``): no source of the package or of the smoke test
+    imports the third-party ``regex``."""
+    forbidden = re.compile(r"^\s*(import|from)\s+regex(\.|\s|$)", re.M)
+    files = sorted((ROOT / "rten_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert ROOT / "rten_tpu_torch" / "text" / "tokenizer.py" in files
+    for f in files:
+        assert not forbidden.search(f.read_text()), f"{f} imports regex"
 
 
 def test_loads_an_onnx_file_without_flatbuffers_ml_dtypes_or_onnx(tmp_path):

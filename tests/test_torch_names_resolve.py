@@ -1,5 +1,6 @@
-"""Every global name that a function of the port's kernel wrappers, ops and
-tools loads resolves in its module or in builtins.
+"""Every global name that a function of the port's kernel wrappers, ops,
+tools and host libraries (text, native, generate, ctc, imageproc,
+imageio, functional) loads resolves in its module or in builtins.
 
 The CPU tests run the wrappers' plain versions, never their CUDA launch
 paths, so a helper deleted from a module (as a clean-up once deleted
@@ -23,9 +24,11 @@ import pytest
 PORT = pathlib.Path(__file__).resolve().parents[1] / "rten_tpu_torch"
 MODULES = sorted(
     [f"rten_tpu_torch.{p.parent.name}.{p.stem}"
-     for sub in ("kernels", "ops", "tools", "formats", "runtime") for p in (PORT / sub).glob("*.py")]
+     for sub in ("kernels", "ops", "tools", "formats", "runtime", "text", "native", "generate")
+     for p in (PORT / sub).glob("*.py")]
     + [f"rten_tpu_torch.{m}" for m in ("cli", "model", "optimize", "shape_inference",
-                                       "serialize")])
+                                       "serialize", "ctc", "imageproc", "imageio",
+                                       "functional")])
 
 
 def _functions(module):
@@ -69,6 +72,10 @@ def test_the_port_has_modules_to_check():
     assert "rten_tpu_torch.tools.bench_decode_attn" in MODULES
     assert {"rten_tpu_torch.formats.rten", "rten_tpu_torch.cli",
             "rten_tpu_torch.ops.layout"} <= set(MODULES)
+    assert {"rten_tpu_torch.text.tokenizer", "rten_tpu_torch.text.pattern",
+            "rten_tpu_torch.native.__init__", "rten_tpu_torch.generate.text_decoder",
+            "rten_tpu_torch.ctc", "rten_tpu_torch.imageproc", "rten_tpu_torch.imageio",
+            "rten_tpu_torch.functional"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("name", MODULES)
