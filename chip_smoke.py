@@ -162,6 +162,16 @@ Run from the repository root:  python3 chip_smoke.py
    beam decoding of log-probs from ``functional.log_softmax`` on the card,
    ``normalize_image`` on the card, and the native contour tracing and NMS
    against their Python cores on the host.
+11. The tensor-parallel serve phase (``phase_tensor_parallel``, after
+   ``gpt2_serve``): rows 1-4 held at a rank's shapes (row 1 in every form,
+   the row-parallel products in its int32 mode, bit for bit; rows 2 and 3
+   at 6 heads; row 4 on a [16, 25152] vocabulary shard), then two ranks
+   (``python3 chip_smoke.py --tp-rank R STORE OUT``, gloo, both on the one
+   card, group and parent waits bounded) serve GPT-2 124M int8 cut by the
+   derived plan over MeshConfig(1, 2) as ``gpt2_serve`` serves it: both
+   ranks' tokens must equal that phase's, request for request; each rank's
+   launches by row and form, its collectives a forward and their host ms,
+   and rank 0's TTFT, tok/s, host wall and busy a forward are printed.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Exits nonzero, printing
@@ -183,6 +193,7 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -213,7 +224,7 @@ def device_events(prof):
     try:
         totals = {}
         for e in prof.profiler.kineto_results.events():
-            if e.device_type() != DeviceType.CUDA or (
+            if e.device_type() != DeviceType.CUDA or PRIME_KERNEL in e.name() or (
                     hasattr(e, "is_user_annotation") and e.is_user_annotation()):
                 continue
             ns = e.duration_ns() if hasattr(e, "duration_ns") else e.duration_us() * 1e3
@@ -223,7 +234,73 @@ def device_events(prof):
         return [(name, c, t) for name, (c, t) in totals.items()]
     except AttributeError:
         return [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                and PRIME_KERNEL not in e.key]
+
+
+def event_counts(prof):
+    """{name: (events, of them of zero duration)} of the card's work in a
+    stopped profile, zero-duration events included (``device_events``
+    leaves them out): what a short window is printed as beside a full one."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    try:
+        events = list(prof.profiler.kineto_results.events())
+    except AttributeError:
+        return out
+    for e in events:
+        if e.device_type() != DeviceType.CUDA or PRIME_KERNEL in e.name() or (
+                hasattr(e, "is_user_annotation") and e.is_user_annotation()):
+            continue
+        ns = e.duration_ns() if hasattr(e, "duration_ns") else e.duration_us() * 1e3
+        c, z = out.get(e.name(), (0, 0))
+        out[e.name()] = (c + 1, z + int(ns <= 0))
+    return out
+
+
+def timeline(prof, h0, calls=(), h1=None):
+    """A stopped profile on the host's clock, in ms from ``h0``
+    (``time.time_ns()`` on entering it): the trace's start, each call's
+    launch and the window's end on the host, the spin kernels of the
+    prime recorded, and the card's first and last four other events (name,
+    start, duration)."""
+    from torch.autograd import DeviceType
+
+    res = prof.profiler.kineto_results
+    evs = sorted((e for e in res.events() if e.device_type() == DeviceType.CUDA),
+                 key=lambda e: e.start_ns())
+    primes = sum(PRIME_KERNEL in e.name() for e in evs)
+    evs = [e for e in evs if PRIME_KERNEL not in e.name()]
+    ms = lambda t: round((t - h0) / 1e6, 3)  # noqa: E731
+    brief = [(e.name()[:40], ms(e.start_ns()), round(e.duration_ns() / 1e3, 1))
+             for e in (evs if len(evs) <= 8 else evs[:4] + evs[-4:])]
+    return {"trace_start": ms(res.trace_start_ns()), "calls": [ms(t) for t in calls],
+            "end": None if h1 is None else ms(h1), "primes": primes, "n": len(evs),
+            "events": brief}
+
+
+# A profile loses the card's events of the first launches made in it
+# (ROADMAP fault 8): a window's first call went unrecorded, whole or in
+# part, while every later call was recorded, and idling 20 ms in the
+# profile before the work did not help. So each profile first launches
+# spin kernels for at least PROFILE_PRIME_MS of the host's time and waits
+# for them: they take the loss in the work's place, and ``device_events``
+# leaves them out.
+PROFILE_PRIME_MS = 5.0
+PRIME_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel
+
+
+@contextlib.contextmanager
+def card_profile():
+    """torch.profiler over the card's activity, primed (PROFILE_PRIME_MS)."""
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < PROFILE_PRIME_MS / 1e3:
+            for _ in range(64):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+        yield prof
 
 
 PROFILE_ATTEMPTS = 8  # profiled windows a timing may take before it fails
@@ -255,8 +332,6 @@ def timed(fn, iters: int = 20, warmup: int = 3, *, nbytes: float):
     time is below the call's byte floor (``byte_floor_ms``; none for an
     L2-warm call), is profiled again, and the run fails if every attempt
     that recorded events falls short."""
-    from torch.profiler import ProfilerActivity, profile
-
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -272,21 +347,31 @@ def timed(fn, iters: int = 20, warmup: int = 3, *, nbytes: float):
     # One call's device events, then iters calls'.
     recorded = False
     for attempt in range(PROFILE_ATTEMPTS):
-        with profile(activities=[ProfilerActivity.CUDA]) as one:
+        h_one = time.time_ns()
+        with card_profile() as one:
             fn()
             torch.cuda.synchronize()
         per_call = sum(c for _, c, _ in device_events(one))
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        h0 = time.time_ns()
+        with card_profile() as prof:
+            calls = []
             for _ in range(iters):
+                calls.append(time.time_ns())
                 fn()
             torch.cuda.synchronize()
+            h1 = time.time_ns()
         events = device_events(prof)
         busy, count = sum(t for _, _, t in events), sum(c for _, c, _ in events)
         device = busy / iters / 1e3 if busy > 0 else None
         recorded = recorded or count > 0
         if count == 0 or count < per_call * iters:
             print(f"  (the profiler recorded {count} of {per_call * iters} device events: "
-                  f"profiling again)", flush=True)
+                  f"profiling again; one call's events {json.dumps(event_counts(one))}, the "
+                  f"window's {json.dumps(event_counts(prof))}, as (events, of zero "
+                  f"duration); timelines, ms from entering the profile: one call "
+                  f"{json.dumps(timeline(one, h_one))}, the window "
+                  f"{json.dumps(timeline(prof, h0, calls, h1))})",
+                  flush=True)
         elif floor is not None and device is not None and device < floor:
             print(f"  (device time {device:.4f} ms is below the byte floor {floor:.4f} ms of "
                   f"{nbytes / 1e6:.1f} MB: profiling again)", flush=True)
@@ -387,12 +472,14 @@ LLAMA_INT8 = [(2048, 2048, 44), (2048, 256, 44), (2048, 5632, 44), (5632, 2048, 
               (2048, 32768, 1)]
 
 
-def _int8_case(gen, dev, M, K, N, tag, time_it=True):
+def _int8_case(gen, dev, M, K, N, tag, time_it=True, int32=False):
     """int8_matmul_dequant at [M, K] x [K, N] (u8 activations with a zero
     point, per-column scales and column sums) against its plain version:
-    equal bits, the same bits on a second call, the form int8_form names.
-    With ``time_it``, the kernel, plain and ``_int_mm`` times and the bound
-    (a dict for the kernels line)."""
+    equal bits, the same bits on a second call, the form int8_form names
+    (``int32``: the int32 mode, the corrected accumulator a row-parallel
+    rank all-reduces, its counter moving too). With ``time_it``, the
+    kernel, plain and ``_int_mm`` times and the bound (a dict for the
+    kernels line)."""
     from rten_tpu_torch.kernels.common import sm_count
     from rten_tpu_torch.kernels.int8_matmul import (
         int8_form, int8_matmul_dequant, int8_matmul_dequant_plain, int8_split_plan,
@@ -406,30 +493,37 @@ def _int8_case(gen, dev, M, K, N, tag, time_it=True):
     cs = b.to(torch.int32).sum(0, keepdim=True).to(torch.int32)
     form = int8_form(M)
     before = getattr(int8_matmul_dequant, f"{form}_launches")
-    got = int8_matmul_dequant(a, b, sa, sb, zp, None, cs)
-    again = int8_matmul_dequant(a, b, sa, sb, zp, None, cs)
-    want = int8_matmul_dequant_plain(a, b, sa, sb, zp, None, cs)
+    before32 = int8_matmul_dequant.int32_launches
+    got = int8_matmul_dequant(a, b, sa, sb, zp, None, cs, out_int32=int32)
+    again = int8_matmul_dequant(a, b, sa, sb, zp, None, cs, out_int32=int32)
+    want = int8_matmul_dequant_plain(a, b, sa, sb, zp, None, cs, out_int32=int32)
     torch.cuda.synchronize()
     if (got.shape != (M, N) or not torch.equal(got, want) or not torch.equal(got, again)
-            or getattr(int8_matmul_dequant, f"{form}_launches") != before + 2):
-        fail(f"int8_matmul_dequant [{tag}] M={M} K={K} N={N}: not equal to its plain version, "
-             f"two calls differ, or not the {form} form")
+            or getattr(int8_matmul_dequant, f"{form}_launches") != before + 2
+            or int8_matmul_dequant.int32_launches != before32 + 2 * int32):
+        fail(f"int8_matmul_dequant [{tag}] M={M} K={K} N={N}{' int32' if int32 else ''}: not "
+             f"equal to its plain version, two calls differ, or not the {form} form")
+    if int32 and not torch.equal((got.float() * sa) * sb,
+                                 int8_matmul_dequant(a, b, sa, sb, zp, None, cs)):
+        fail(f"int8_matmul_dequant [{tag}] M={M} K={K} N={N}: the int32 mode scaled is not the "
+             f"f32 output")
     if not time_it:
         return form
     nbytes = M * K + K * N + 8 * N + 4 * M * N
-    k_ms = timed(lambda: int8_matmul_dequant(a, b, sa, sb, zp, None, cs), iters=10,
-                 nbytes=nbytes)
-    p_ms = timed(lambda: int8_matmul_dequant_plain(a, b, sa, sb, zp, None, cs), iters=3,
-                 warmup=1, nbytes=nbytes)
+    k_ms = timed(lambda: int8_matmul_dequant(a, b, sa, sb, zp, None, cs, out_int32=int32),
+                 iters=10, nbytes=nbytes)
+    p_ms = timed(lambda: int8_matmul_dequant_plain(a, b, sa, sb, zp, None, cs, out_int32=int32),
+                 iters=3, warmup=1, nbytes=nbytes)
     lib = int_mm_ms(a, b)
     bms, by = bound_ms(nbytes, 2.0 * M * N * K, INT8_OPS_PER_S)
     splits = int8_split_plan(M, N, K, sm_count(0))[0]
     pad = f" (M padded to {INT_MM_MIN_ROWS})" if M <= 16 else ""
-    print(f"  int8_matmul [{tag}] M={M} K={K} N={N} ({form}, {splits} "
+    print(f"  int8_matmul [{tag}] M={M} K={K} N={N}{' int32 mode' if int32 else ''} ({form}, {splits} "
           f"split{'s' if splits > 1 else ''}): kernel {fmt(k_ms)}, plain {fmt(p_ms)}, "
           f"_int_mm{pad} {'refused' if lib is None else fmt(lib)}, bound {bms:.4f} ms ({by}); "
           f"equal to the plain version, two calls bit-identical", flush=True)
-    return {"unit": f"{tag}: M {M}, K {K}, N {N}", "form": form, "max_abs_err": 0.0,
+    return {"unit": f"{tag}: M {M}, K {K}, N {N}{', int32 mode' if int32 else ''}",
+            "form": form, "int32_mode": int32, "max_abs_err": 0.0,
             **time_keys(k_ms, p_ms, lib), "bound_ms": bms, "bound_by": by}
 
 
@@ -513,12 +607,15 @@ def _sdpa_inputs(q, kc, vc, ks, vs, lens, S):
     return kf, vf, j <= qpos
 
 
-def _decode_append_case(gen, dev, B, cap, lo, hi, unit):
+def _decode_append_case(gen, dev, B, cap, lo, hi, unit, heads=H, plan_kv_heads=None):
     """decode_mha_append_cat at B slots over cap-row cat caches, the slots'
     lengths drawn from [lo, hi) but for four edges (an empty cache, 31, the
     last row, past cap): one call against its plain version (the output
     within 1e-3, the s8 caches equal, the scales within 5e-6), then timed
-    over 12 layers' caches, as one decode step reads them."""
+    over 12 layers' caches, as one decode step reads them. ``heads``: a
+    tensor-parallel rank's share of GPT-2's 12, whose calls plan their
+    splits for ``plan_kv_heads`` (the unsharded 12), as the rank does."""
+    H = heads  # noqa: N806 (the global H, the unsharded count, elsewhere)
     from rten_tpu_torch.kernels.flash_attention import (
         decode_mha_append_cat, decode_mha_append_cat_plain,
     )
@@ -532,11 +629,12 @@ def _decode_append_case(gen, dev, B, cap, lo, hi, unit):
     kc, vc, ks, vs = _caches(gen, dev, B, H, cap)
     k1 = [t.clone() for t in (kc, vc, ks, vs)]
     k2 = [t.clone() for t in (kc, vc, ks, vs)]
-    got = decode_mha_append_cat(q, *k1[:2], lens, *k1[2:], k_new=kn, v_new=vn)
+    got = decode_mha_append_cat(q, *k1[:2], lens, *k1[2:], k_new=kn, v_new=vn,
+                                 plan_kv_heads=plan_kv_heads)
     want = decode_mha_append_cat_plain(q, *k2[:2], lens, *k2[2:], k_new=kn, v_new=vn)
     torch.cuda.synchronize()
     err = (got[0] - want[0]).abs().max().item()
-    tag = f"decode_mha_append_cat B={B} cap={cap}"
+    tag = f"decode_mha_append_cat B={B} H={H} cap={cap}"
     if not err <= 1e-3:  # summation order differs
         fail(f"{tag} out: max err {err} > 1e-3")
     for i, name in ((1, "kc"), (2, "vc")):
@@ -552,7 +650,8 @@ def _decode_append_case(gen, dev, B, cap, lo, hi, unit):
     read = lens.clamp(max=cap - 1).long().sum().item()
     per_call_bytes = (4 * B * H * D * 2 + 4 * B * H * D * 2 + 4 * B
                       + 2 * read * H * (D + 4) + 2 * B * H * (D + 4))
-    k_ms = timed(lambda: [decode_mha_append_cat(q, c[0], c[1], lens, c[2], c[3], k_new=kn, v_new=vn)
+    k_ms = timed(lambda: [decode_mha_append_cat(q, c[0], c[1], lens, c[2], c[3], k_new=kn, v_new=vn,
+                                                 plan_kv_heads=plan_kv_heads)
                           for c in layers], iters=10, nbytes=12 * per_call_bytes)
     p_ms = timed(lambda: [decode_mha_append_cat_plain(q, c[0], c[1], lens, c[2], c[3], k_new=kn, v_new=vn)
                           for c in layers], iters=3, warmup=1, nbytes=12 * per_call_bytes)
@@ -562,7 +661,7 @@ def _decode_append_case(gen, dev, B, cap, lo, hi, unit):
                 nbytes=12 * sdpa_bytes(q, read + B, H, D, 4))
     per_call_ops = 4.0 * (read + B) * H * D
     bms, by = bound_ms(12 * per_call_bytes, 12 * per_call_ops, attn_peak("s8"))
-    splits = split_plan(B, H, cap)
+    splits = split_plan(B, plan_kv_heads or H, cap)
     print(f"  {tag} x12 (lens {lo}-{hi - 1} and the edges; splits {splits[0]} of {splits[1]} "
           f"columns): max err {err:.2e}, caches equal; kernel {fmt(k_ms)}, plain {fmt(p_ms)}, "
           f"sdpa {fmt(lib)}, bound {bms:.4f} ms ({by})", flush=True)
@@ -590,11 +689,13 @@ def phase_decode_attention(gen, dev):
     }
 
 
-def _prefill_cat_case(gen, dev, B, cap, unit):
+def _prefill_cat_case(gen, dev, B, cap, unit, heads=H):
     """prefill_mha_cat over an admission of B x 128 tokens on cap-row cat
     caches: at lens 0 and at random offsets (lens + 128 <= cap) against
     its plain version (within 1e-3), then timed at lens 0 (one call, x12
-    for the admission's layers)."""
+    for the admission's layers). ``heads``: a tensor-parallel rank's share
+    of GPT-2's 12."""
+    H, E = heads, heads * D  # noqa: N806 (the globals: the unsharded counts)
     from rten_tpu_torch.kernels.flash_attention import prefill_mha_cat, prefill_mha_cat_plain
 
     # q as the op hands it over: a head-major view of a [B, S, 3E] qkv.
@@ -602,7 +703,7 @@ def _prefill_cat_case(gen, dev, B, cap, unit):
     q = qkv[..., :E].reshape(B, PROMPT, H, D).permute(0, 2, 1, 3)
     lens = torch.zeros(B, dtype=torch.int32, device=dev)
     kc, vc, ks, vs = _caches(gen, dev, B, H, cap)
-    tag = f"prefill_mha_cat B={B} cap={cap}"
+    tag = f"prefill_mha_cat B={B} H={H} cap={cap}"
     err = (prefill_mha_cat(q, kc, vc, lens, ks, vs)
            - prefill_mha_cat_plain(q, kc, vc, lens, ks, vs)).abs().max().item()
     if not err <= 1e-3:
@@ -2480,7 +2581,7 @@ def counters():
            for form in int4_matmul.FORMS},
         **{f"int8_matmul_dequant_{form}": FormCounter(int8_matmul.int8_matmul_dequant,
                                                       f"{form}_launches")
-           for form in int8_matmul.FORMS},
+           for form in (*int8_matmul.FORMS, "int32")},
         "mha_cuda_core": FormCounter(flash_attention.mha, "cuda_core_launches"),
         "paged_decode_mha": flash_attention.paged_decode_mha,
         "decode_mha_append_cat_paged": flash_attention.decode_mha_append_cat_paged,
@@ -2488,9 +2589,10 @@ def counters():
     }
 
 
-def serve(engine, prompts, budgets, vocab, want_per_forward, tag):
+def serve(engine, prompts, budgets, vocab, want_per_forward, tag, on_zero=None):
     """Serve one warm-up request (the first forward uploads the weights),
-    then zero every launch counter, serve the requests, read the counters:
+    then zero every launch counter (and call ``on_zero``), serve the
+    requests, read the counters:
     each must equal ``want_per_forward(decode steps, admissions)`` (0 for
     the kernels this path does not run), and every kernel the path runs
     must have launched. Returns (requests, wall seconds, forwards,
@@ -2505,6 +2607,8 @@ def serve(engine, prompts, budgets, vocab, want_per_forward, tag):
     torch.cuda.reset_peak_memory_stats()
     for fn in counters().values():
         fn.launches = 0
+    if on_zero is not None:
+        on_zero()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     reqs = [engine.submit(p, max_new_tokens=n) for p, n in zip(prompts, budgets)]
@@ -2548,6 +2652,18 @@ def check_pool(engine, tag):
     if sorted(engine._free_blocks) != list(range(1, engine.n_blocks)) or engine.block_table.any():
         fail(f"{tag}: {len(engine._free_blocks)} of {engine.n_blocks - 1} blocks free at the end")
     print(f"  pool [{tag}]: all {engine.n_blocks - 1} usable blocks free at the end", flush=True)
+
+
+# Each GPT-2 serve phase's tokens and numbers by tag, for the tensor-parallel
+# phase to hold its own against.
+SERVE_TOKENS, SERVE_NUMBERS = {}, {}
+
+
+def serve_numbers(reqs, elapsed, forwards):
+    """TTFT p50, tok/s and host wall per forward of a served wave."""
+    toks = sum(len(r.generated) for r in reqs)
+    return {"ttft_p50_ms": statistics.median(r.ttft_s for r in reqs) * 1e3,
+            "tok_per_s": toks / elapsed, "wall_ms_per_forward": elapsed / forwards * 1e3}
 
 
 # The paged serve phases' pool: 40 usable blocks of 64 rows. A request of
@@ -2595,8 +2711,11 @@ def phase_serve(dev, paged=False, kv="s8"):
             "argmax_lastdim": steps + adm,
         }
     tag = "GPT-2" + ("" if kv == "s8" else f" {kv}") + (" paged" if paged else "")
-    _, elapsed, forwards, launches = serve(engine, prompts, budgets, VOCAB, want, tag)
-    profile_wave(engine, prompts[:16], elapsed / forwards)
+    reqs, elapsed, forwards, launches = serve(engine, prompts, budgets, VOCAB, want, tag)
+    SERVE_TOKENS[tag] = [r.generated for r in reqs]
+    SERVE_NUMBERS[tag] = serve_numbers(reqs, elapsed, forwards)
+    SERVE_NUMBERS[tag]["busy_ms_per_forward"] = (
+        profile_wave(engine, prompts[:16], elapsed / forwards) or (None,))[0]
     check_pool(engine, tag)
     return launches
 
@@ -2667,6 +2786,208 @@ def phase_serve_int4_kv(dev):
     return launches
 
 
+# The tensor-parallel serve phase: GPT-2 124M int8 over two ranks on one
+# card. Each rank's shapes: 6 of the 12 heads, c_attn N 1152 (its heads of
+# q, k and v), c_fc N 1536, the row-parallel c_proj at K 384 and 1536, and
+# 25152 of the lm_head's 50304 padded columns.
+TP_RANKS = 2
+TP_GROUP_TIMEOUT_S = 120   # every collective of a rank's group
+TP_WAIT_S = 300            # the parent's wait for both ranks
+NP_TP = -(-VOCAB // 128) * 128  # the int8 prepack's padded lm_head: 50304 columns
+TP_HEADS, TP_VOCAB_SHARD = H // TP_RANKS, NP_TP // TP_RANKS
+TP_INT8 = [(768, 3 * E // TP_RANKS, 12, False), (E // TP_RANKS, 768, 12, True),
+           (768, 4 * E // TP_RANKS, 12, False), (4 * E // TP_RANKS, 768, 12, True),
+           (768, TP_VOCAB_SHARD, 1, False)]
+
+
+def tp_kernel_holds(gen, dev):
+    """Rows 1-4 at a rank's shapes against their plain versions: row 1 in
+    every form (stream at the 16 slots of a decode step, rows at 120,
+    tiled at an admission's 2048 rows), in the f32 mode for the column-
+    parallel products and the int32 mode for the row-parallel ones, bit for
+    bit; rows 2 and 3 at 6 heads within their tolerances; row 4 on a
+    rank's vocabulary shard. Returns {row name: [other_shapes entries]}."""
+    slots = 16
+    step = [_int8_case(gen, dev, slots, K, N, f"GPT-2 TP rank{' int32' if i32 else ''}",
+                       int32=i32) | {"calls": n} for K, N, n, i32 in TP_INT8]
+    adm = [_int8_case(gen, dev, slots * PROMPT, K, N, "GPT-2 TP rank admission", int32=i32)
+           | {"calls": n} for K, N, n, i32 in TP_INT8[:-1]]
+    for K, N, _, i32 in TP_INT8[:-1]:  # the rows form, untimed
+        _int8_case(gen, dev, SLOTS, K, N, "GPT-2 TP rank, rows form", time_it=False, int32=i32)
+
+    def unit(rows, what):
+        tot = {k: sum(r[k] * r["calls"] for r in rows)
+               for k in ("ms", "plain_ms", "bound_ms", "wall_ms", "plain_wall_ms")}
+        libs = [r["library_ms"] for r in rows]
+        lib = None if None in libs else sum(l * r["calls"] for l, r in zip(libs, rows))
+        by_bytes = sum(r["bound_ms"] * r["calls"] for r in rows if r["bound_by"] == "bytes")
+        return {"unit": what, "form": rows[0]["form"], "max_abs_err": 0.0, **tot,
+                "bound_by": "bytes" if 2 * by_bytes >= tot["bound_ms"] else "operations",
+                "library_ms": lib, "int32_mode_calls": sum(r["calls"] for r in rows
+                                                           if r["int32_mode"]),
+                "calls": [r["unit"] for r in rows]}
+
+    holds = {"int8_matmul_dequant": [
+        unit(step, f"one decode step of a tensor-parallel rank (MeshConfig(1, {TP_RANKS})) at "
+                   f"slots {slots}: 49 calls, 24 of them in the int32 mode"),
+        unit(adm, f"one admission of a tensor-parallel rank at M {slots * PROMPT}: 48 calls, "
+                  f"24 in the int32 mode")]}
+    holds["decode_mha_append_cat"] = [_decode_append_case(
+        gen, dev, slots, CAP, 128, 192, f"one decode step of a tensor-parallel rank: "
+        f"{TP_HEADS} heads, slots {slots}, cap {CAP}: 12 calls", heads=TP_HEADS, plan_kv_heads=H)]
+    holds["prefill_mha_cat"] = [_prefill_cat_case(
+        gen, dev, slots, CAP, f"one admission of a tensor-parallel rank: {TP_HEADS} heads, "
+        f"{slots} x {PROMPT} tokens: 12 calls", heads=TP_HEADS)]
+    arg = phase_argmax(gen, dev, slots, TP_VOCAB_SHARD, TP_VOCAB_SHARD)
+    holds["argmax_lastdim"] = [{k: arg[k] for k in (
+        "unit", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "wall_ms", "plain_wall_ms", "library_wall_ms")}]
+    holds["argmax_lastdim"][0]["unit"] += " (a tensor-parallel rank's vocabulary shard)"
+    torch.cuda.empty_cache()
+    return holds
+
+
+def tp_want(steps, adm):
+    """A rank's launches on the served wave: every product on the int8
+    kernel (the 24 row-parallel ones in the int32 mode), the attention
+    kernels at 6 heads, and the sharded arg-max's local argmax."""
+    return {
+        "int8_matmul_dequant": 49 * (steps + adm),
+        "int8_matmul_dequant_stream": 49 * steps + adm,
+        "int8_matmul_dequant_tiled": 48 * adm,
+        "int8_matmul_dequant_int32": 24 * (steps + adm),
+        "decode_mha_append_cat": 12 * steps,
+        "prefill_mha_cat": 12 * adm,
+        "argmax_lastdim": steps + adm,
+    }
+
+
+def tp_rank(rank, store, out_path):
+    """One rank of the tensor-parallel phase (``chip_smoke.py --tp-rank R
+    STORE OUT``): gloo, named explicitly (NCCL refuses two ranks of one
+    communicator on one card), rendezvous through the file ``STORE``, the
+    group's timeout finite; the main path's graph (GPT-2 124M,
+    build_graph_static_cache(kv_quant, kernel_append, gather_last),
+    quantize_dynamic, the int8 prepack), cut by the derived plan over
+    MeshConfig(1, 2), served by the engine as ``phase_serve`` serves it (the
+    warm-up request, then its 24 requests), then one profiled wave. Writes
+    its tokens, launches, collectives and numbers to ``OUT`` as JSON."""
+    from rten_tpu_torch.ops import collective
+    from rten_tpu_torch.parallel import (
+        MeshConfig, init_distributed, make_mesh, shard_constants_by_plan, tp_weight_shardings,
+    )
+    from rten_tpu_torch.serving import ContinuousBatchingEngine
+
+    t0 = time.perf_counter()
+    init_distributed(backend="gloo", init_method=f"file://{store}", world_size=TP_RANKS,
+                     rank=rank, timeout=TP_GROUP_TIMEOUT_S)
+    dev = torch.device("cuda:0")
+    mesh = make_mesh(MeshConfig(1, TP_RANKS), device=dev)
+    model = build_model(12, CAP, dev)
+    params = shard_constants_by_plan(model.graph, mesh, tp_weight_shardings(model.graph, mesh))
+    roles = params.model.roles
+    engine = ContinuousBatchingEngine(
+        model, n_layer=12, n_head=H, head_dim=D, slots=16, capacity=CAP,
+        prefill_bucket=128, greedy_on_device=True, steps_per_dispatch=8, params=params,
+    )
+    cache = [list(shape) for shape, _ in engine._cache_alloc[:4]]
+    print(f"  rank {rank}: {sum(r == 'col' for r in roles.values())} column- and "
+          f"{sum(r == 'row' for r in roles.values())} row-parallel products, caches "
+          f"{cache}, ready in {time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, VOCAB, PROMPT).tolist() for _ in range(24)]
+    budgets = [int(rng.integers(16, 49)) for _ in range(24)]
+    reqs, elapsed, forwards, launches = serve(engine, prompts, budgets, VOCAB, tp_want,
+                                              f"GPT-2 TP rank {rank}",
+                                              on_zero=collective.reset_stats)
+    coll = {k: list(v) for k, v in collective.STATS.items()}
+    numbers = serve_numbers(reqs, elapsed, forwards)
+    busy = profile_wave(engine, prompts[:16], elapsed / forwards)
+    numbers["busy_ms_per_forward"] = None if busy is None else busy[0]
+    json.dump({"tokens": [r.generated for r in reqs], "launches": launches,
+               "collectives": coll, "forwards": forwards, "numbers": numbers,
+               "roles": sorted(roles.values())}, open(out_path, "w"))
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_tensor_parallel(dev, gen):
+    """GPT-2 124M int8 served tensor-parallel over two ranks on this one
+    card (``tp_rank``), after rows 1-4 are held at a rank's shapes
+    (``tp_kernel_holds``). Both ranks' tokens must equal the unsharded
+    ``gpt2_serve`` phase's on the card, request for request (the int8
+    forward of a rank is bit-equal to the unsharded one: the int32
+    partials are all-reduced before the dequantisation). Prints each rank's
+    launches by row and form, the collectives a forward and their host ms,
+    and rank 0's TTFT, tok/s, host wall and busy per forward beside the
+    unsharded phase's. Returns (rank 0's launches, the holds)."""
+    import tempfile
+
+    want = SERVE_TOKENS.get("GPT-2")
+    if want is None:
+        fail("tensor-parallel phase: the unsharded gpt2_serve phase's tokens are missing")
+    holds = tp_kernel_holds(gen, dev)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=os.environ.get("TMPDIR")) as tmp:
+        store = os.path.join(tmp, "store")
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(TP_RANKS)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r), store, outs[r]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(TP_RANKS)]
+        logs = []
+        deadline = time.perf_counter() + TP_WAIT_S
+        try:
+            for p in procs:
+                try:
+                    logs.append(p.communicate(timeout=max(1.0, deadline - time.perf_counter()))[0])
+                except subprocess.TimeoutExpired:
+                    logs.append("(no end within the wait)")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            print(log.rstrip(), flush=True)
+            if p.returncode != 0:
+                fail(f"tensor-parallel rank {r} failed (rc {p.returncode}):\n{log[-3000:]}")
+        res = [json.load(open(o)) for o in outs]
+    for r, out in enumerate(res):
+        if out["tokens"] != want:
+            bad = [i for i, (a, b) in enumerate(zip(out["tokens"], want)) if a != b]
+            fail(f"tensor-parallel rank {r}: requests {bad} differ from the unsharded engine's "
+                 f"tokens")
+        per_fwd = {k: {"calls": c / out["forwards"], "host_ms": t / out["forwards"] * 1e3}
+                   for k, (c, t) in out["collectives"].items()}
+        out["collectives_per_forward"] = per_fwd
+        by_form = {f: out["launches"][f"int8_matmul_dequant_{f}"]
+                   for f in ("stream", "rows", "tiled", "int32")}
+        print(f"  TP rank {r}: tokens equal to the unsharded engine's, all 24 requests; "
+              f"launches: int8_matmul_dequant {out['launches']['int8_matmul_dequant']} "
+              f"(by form {json.dumps(by_form)}), decode_mha_append_cat "
+              f"{out['launches']['decode_mha_append_cat']}, prefill_mha_cat "
+              f"{out['launches']['prefill_mha_cat']}, argmax_lastdim "
+              f"{out['launches']['argmax_lastdim']}; collectives a forward "
+              f"{json.dumps({k: {q: round(v, 4) for q, v in d.items()} for k, d in per_fwd.items()})}",
+              flush=True)
+    base = SERVE_NUMBERS.get("GPT-2", {})
+    tp = res[0]["numbers"]
+    coll_ms = sum(d["host_ms"] for d in res[0]["collectives_per_forward"].values())
+    print(f"  TP rank 0 vs unsharded gpt2_serve: TTFT p50 {tp['ttft_p50_ms']:.1f} ms vs "
+          f"{base.get('ttft_p50_ms', float('nan')):.1f}, {tp['tok_per_s']:.1f} vs "
+          f"{base.get('tok_per_s', float('nan')):.1f} tok/s, host wall per forward "
+          f"{tp['wall_ms_per_forward']:.3f} vs {base.get('wall_ms_per_forward', float('nan')):.3f} "
+          f"ms, busy per forward {tp['busy_ms_per_forward']} vs "
+          f"{base.get('busy_ms_per_forward')} ms; the collectives' host ms a forward "
+          f"{coll_ms:.3f}", flush=True)
+    print(f"  TP numbers: {json.dumps({'rank0': tp, 'unsharded': base, 'collectives_host_ms_per_forward': coll_ms, 'collectives_per_forward': res[0]['collectives_per_forward']})}",
+          flush=True)
+    return res[0]["launches"], holds
+
+
 def generator_prompt(vocab=VOCAB, T=GEN_PROMPT, B=1, seed=0):
     return np.random.default_rng(seed).integers(0, vocab, (B, T))
 
@@ -2681,8 +3002,6 @@ def phase_generate(dev, quantize):
     nothing else. TTFT and decode tok/s from the Generator's Metrics; then
     a profiled run of 16 tokens gives the card's busy time per step against
     the host's wall time per step."""
-    from torch.profiler import ProfilerActivity, profile
-
     from rten_tpu_torch.generate import Generator, GeneratorConfig
     from rten_tpu_torch.models import gpt2
 
@@ -2713,7 +3032,7 @@ def phase_generate(dev, quantize):
         fail(f"{tag}: tokens {toks.shape}, in range: {((toks >= 0) & (toks < VOCAB)).all()}")
     m = gen.metrics
     wall_step = sum(m.step_times_s[1:]) / len(m.step_times_s[1:])
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with card_profile() as prof:
         t0 = time.perf_counter()
         Generator(model, prompt, cfg).generate(16)
         torch.cuda.synchronize()
@@ -2860,12 +3179,10 @@ def profiled_run(engine, prompts, new_tokens):
     read; a CPU trace of every op cost minutes to stop and summarize).
     Returns (device busy ms, profiled wall ms, decode steps, admissions,
     device events)."""
-    from torch.profiler import ProfilerActivity, profile
-
     reqs = [engine.submit(p, max_new_tokens=new_tokens) for p in prompts]
     steps0 = engine.steps
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with card_profile() as prof:
         t0 = time.perf_counter()
         engine.run()
         torch.cuda.synchronize()
@@ -3993,7 +4310,6 @@ def _gpt2_onnx(n_layer=12):
 def _forward_times(model, feed, iters=5):
     """(busy ms, wall ms) per forward of model.run(feed): the card's busy
     time from torch.profiler, the wall time from CUDA events."""
-    from torch.profiler import ProfilerActivity, profile
 
     model.run(feed)
     torch.cuda.synchronize()
@@ -4004,7 +4320,7 @@ def _forward_times(model, feed, iters=5):
     t1.record()
     torch.cuda.synchronize()
     wall = t0.elapsed_time(t1) / iters
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with card_profile() as prof:
         for _ in range(iters):
             model.run(feed)
         torch.cuda.synchronize()
@@ -4721,8 +5037,6 @@ def phase_whisper(dev, gen_t):
     mel front end, the encode and cross_kv, TTFT, decode tok/s, host wall
     against busy time per decode step, and row 5 timed at the encoder's
     shape. Returns (launches, the timed case)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from rten_tpu_torch.generate import Generator, GeneratorConfig
     from rten_tpu_torch.model import Model
     from rten_tpu_torch.models import whisper
@@ -4849,7 +5163,7 @@ def phase_whisper(dev, gen_t):
     cross, _ = model.encode(mel)
     cfg16 = GeneratorConfig(bucket_size=32, max_seq_len=cfg.max_target_positions,
                             constant_inputs=cross)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with card_profile() as prof:
         t0 = time.perf_counter()
         Generator(model.decoder, [WHISPER_PROMPT], cfg16).generate(16)
         torch.cuda.synchronize()
@@ -5212,8 +5526,6 @@ def phase_ort_genai(dev, gen_t):
     least 4 of them distinct. Then rows 9 and 5 timed at this path's shapes
     (``_genai_int4_case`` at M 1 and 128; mha at the prompt's 22 calls).
     Returns (launches, {row: the timed cases})."""
-    from torch.profiler import ProfilerActivity, profile
-
     from rten_tpu_torch.formats.onnx import ExternalDataLoader, parse_model
     from rten_tpu_torch.generate import Generator, GeneratorConfig
     from rten_tpu_torch.model import Model, graph_from_onnx
@@ -5269,7 +5581,7 @@ def phase_ort_genai(dev, gen_t):
     torch.cuda.synchronize()
     m = gen.metrics
     wall_step = sum(m.step_times_s[1:]) / len(m.step_times_s[1:])
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with card_profile() as prof:
         t0 = time.perf_counter()
         Generator(model, prompt, GeneratorConfig(bucket_size=1, max_seq_len=2048)).generate(16)
         torch.cuda.synchronize()
@@ -5675,7 +5987,6 @@ def phase_text_generate(dev):
     import itertools
     import tempfile
 
-    from torch.profiler import ProfilerActivity, profile
 
     from rten_tpu_torch.generate import Generator, GeneratorConfig, TextDecoder
     from rten_tpu_torch.kernels.int8_matmul import int8_form
@@ -5771,7 +6082,7 @@ def phase_text_generate(dev):
              for K, N, _ in GPT2_INT8}
     print(f"  row 1 at the prefill's {GEN_BUCKET} rows, the 5 GPT-2 shapes (lm_head N "
           f"{VOCAB}): equal to its plain version bit for bit, {sorted(forms)} form", flush=True)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with card_profile() as prof:
         t = time.perf_counter()
         profiled = Generator(model, [ids], gcfg)
         "".join(TextDecoder(tok).wrap(itertools.islice(profiled, 16)))
@@ -6032,6 +6343,14 @@ def main() -> int:
     del weights
     run("gpt2_serve", "s8", phase_serve)
     lap("GPT-2 serve")
+    torch.cuda.empty_cache()
+    by_path["gpt2_tp_serve"], tp_holds = phase_tensor_parallel(dev, gen)
+    path_kv["gpt2_tp_serve"] = "s8"
+    for k in kernels:
+        for held in tp_holds.get(k["name"], ()):
+            k.setdefault("other_shapes", []).append(held)
+            k["max_abs_err"] = max(k["max_abs_err"], held["max_abs_err"])
+    lap("GPT-2 tensor-parallel serve (2 ranks on the card, gloo; rows 1-4 at a rank's shapes)")
     run("gpt2_paged_serve", "s8", phase_serve, paged=True)
     lap("GPT-2 paged serve")
     run("gpt2_int4_serve", "s8", phase_serve_int4)
@@ -6106,7 +6425,7 @@ def main() -> int:
     lap("GPT-2 124M int8 text in, text out (tokenizer, Generator, TextDecoder)")
     by_path["host_libs"], path_kv["host_libs"] = phase_host_libs(dev), None
     lap("functional, CTC and imageproc card against CPU")
-    for phase in list(secs)[-11:]:
+    for phase in list(secs)[-12:]:
         print(f"  {phase}: {secs[phase]:.1f} s", flush=True)
     # A row's launches: its counter over the paths that serve from its KV
     # cache type (every path for the kernels that read no KV cache). A
@@ -6134,6 +6453,8 @@ def main() -> int:
             k["launches_by_form"] = {f: sum(n[f"int8_matmul_dequant_{f}"]
                                             for n in by_path.values())
                                      for f in ("stream", "rows", "tiled")}
+            k["int32_mode_launches"] = sum(n["int8_matmul_dequant_int32"]
+                                           for n in by_path.values())
         if k["name"] == "mha":
             k["cuda_core_launches"] = sum(n["mha_cuda_core"] for n in by_path.values())
     print("reference phases:", flush=True)
@@ -6174,4 +6495,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp-rank"]:
+        tp_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        sys.exit(0)
     sys.exit(main())

@@ -71,6 +71,12 @@
 //   that the permuted ldmatrix.trans rows fall in eight bank groups. K is
 //   split (at most four ways) only where the tiles fill less than half the
 //   card (TinyLlama's k/v projections at M 2048).
+// The int32 mode (out_i32): every form stops before the scales and writes
+// the zero-point-corrected int32 accumulator (the value the f32 epilogue
+// would scale) in place of the f32 output. A K-sharded (row-parallel)
+// product sums these exact partials across ranks before it dequantizes, so
+// the sharded forward is bit-equal to the unsharded one.
+//
 // Every form masks the ragged edges (M, N, K; K and N multiples of 4, rows
 // that are no multiple of 16 bytes through 4-byte copies). No atomics on
 // the data: outputs are written once, so two calls give the same bits.
@@ -178,6 +184,7 @@ struct Epi {
   int bzp_kind, bzp_stride;
   const int32_t* colsums;
   int a_u8;
+  int out_i32;  // the int32 mode: write the corrected accumulator, no scales
   __device__ __forceinline__ bool has_azp() const { return azp_kind != ZP_NONE || a_u8; }
   __device__ __forceinline__ bool has_bzp() const { return bzp_kind != ZP_NONE; }
   __device__ __forceinline__ int zpa(int m) const {
@@ -234,7 +241,8 @@ __device__ __forceinline__ void split_terms(int (&v)[4], const Epi& e, const Col
 
 // The whole sum's last term and the f32 epilogue, in the TPU kernel's
 // order: v - zp_a * colsums (given ones), then ((float)v * s_a) * s_b; four
-// columns n .. n + 3 of row m as one 16-byte store.
+// columns n .. n + 3 of row m as one 16-byte store. In the int32 mode the
+// corrected v itself is stored (``out`` then holds int32).
 __device__ __forceinline__ void store_out(float* out, int N, const Epi& e, const Cols& c,
                                           const Row& r, int m, int n, int (&v)[4]) {
   float o[4];
@@ -242,6 +250,11 @@ __device__ __forceinline__ void store_out(float* out, int N, const Epi& e, const
   for (int j = 0; j < 4; ++j) {
     if (e.has_azp() && e.colsums) v[j] -= r.zpa * c.cs[j];
     o[j] = (float)v[j] * r.sa * c.sb[j];
+  }
+  if (e.out_i32) {
+    *reinterpret_cast<int4*>(reinterpret_cast<int32_t*>(out) + (long long)m * N + n) =
+        make_int4(v[0], v[1], v[2], v[3]);
+    return;
   }
   *reinterpret_cast<float4*>(out + (long long)m * N + n) = make_float4(o[0], o[1], o[2], o[3]);
 }
@@ -744,7 +757,8 @@ cudaError_t launch_tiled(dim3 grid, cudaStream_t st, const Args& x) {
 // wrapper sends M > 128). a [M, K] u8 (a_u8) or s8, b [K, N] s8, both
 // row-major, 4-byte aligned, K and N multiples of 4; sa/sb f32 with stride
 // 0 (per tensor) or 1; azp/bzp of kind 0 none, 1 u8, 2 s8, 3 int32, stride
-// 0 or 1; colsums int32 [N] or null; out [M, N] f32. K is split into
+// 0 or 1; colsums int32 [N] or null; out [M, N] f32, or with out_i32 the
+// corrected int32 accumulator [M, N] (no scales applied). K is split into
 // ``splits`` chunks of ``kchunk`` (a multiple of 64; int8_split_plan);
 // with splits > 1, ``ws`` holds splits * M * N int32 and ``count`` one
 // counter a column tile (0 on entry and on return). Forms 0 and 1 run
@@ -754,7 +768,7 @@ extern "C" int rten_int8_matmul_dequant(
     int form, const void* a, int a_u8, const void* b, int M, int N, int K, const void* sa,
     int sa_stride, const void* sb, int sb_stride, const void* azp, int azp_kind, int azp_stride,
     const void* bzp, int bzp_kind, int bzp_stride, const void* colsums, void* out, void* ws,
-    void* count, int kchunk, int splits, int grid_x, void* stream) {
+    void* count, int kchunk, int splits, int grid_x, int out_i32, void* stream) {
   if (M < 1 || N < 1 || K < 1 || K % 4 || N % 4 || splits < 1 || kchunk < 64 || kchunk % 64 ||
       (long long)(splits - 1) * kchunk >= K || (long long)splits * kchunk < K ||
       (splits > 1 && (!ws || !count)) || reinterpret_cast<uintptr_t>(a) % 4 ||
@@ -763,7 +777,7 @@ extern "C" int rten_int8_matmul_dequant(
   const auto al16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   const Epi e{(const float*)sa, sa_stride, (const float*)sb, sb_stride,
               azp, azp_kind, azp_stride, bzp, bzp_kind, bzp_stride,
-              (const int32_t*)colsums, a_u8};
+              (const int32_t*)colsums, a_u8, out_i32};
   const Args x{(const uint8_t*)a, (const int8_t*)b, M, N, K, e, (float*)out, (int32_t*)ws,
                (unsigned*)count, kchunk, splits, K % 16 == 0 && al16(a), N % 16 == 0 && al16(b)};
   const bool rs = bzp_kind != ZP_NONE;

@@ -102,8 +102,12 @@ class Generator:
     or python ints when B == 1)."""
 
     def __init__(self, model, prompt_ids, config: Optional[GeneratorConfig] = None):
-        self.model = model
         self.config = config or GeneratorConfig()
+        # Sharded weights (``parallel.shard_constants(...).by_name()``) carry
+        # the rank's model, whose graph they belong to: it runs in place of
+        # ``model``.
+        model = getattr(self.config.constant_inputs, "model", None) or model
+        self.model = model
         self.metrics = Metrics()
 
         prompt = np.asarray(prompt_ids, np.int32)

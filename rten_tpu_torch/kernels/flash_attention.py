@@ -539,11 +539,14 @@ def _split_workspace(device, stream: int, units: int, floats: int):
     return count, ws
 
 
-def _split_args(device, stream: int, B: int, H: int, Hkv: int, D: int, cap: int):
+def _split_args(device, stream: int, B: int, H: int, Hkv: int, D: int, cap: int,
+                plan_kv_heads: Optional[int] = None):
     """(splits, chunk, workspace pointer, counters pointer) of a call; no
     workspace with one split. ``H``: the query rows of a slot (heads, times
-    S for the fold's S > 1 rows)."""
-    splits, chunk = decode_split_plan(B * Hkv, cap, sm_count(device.index))
+    S for the fold's S > 1 rows). ``plan_kv_heads``: plan as for that many
+    kv heads (a tensor-parallel rank's call plans as the unsharded call
+    does, so each head's columns split, and sum, the same way)."""
+    splits, chunk = decode_split_plan(B * (plan_kv_heads or Hkv), cap, sm_count(device.index))
     if splits == 1:
         return splits, chunk, None, None
     count, ws = _split_workspace(device, stream, B * Hkv, B * H * splits * (D + 2))
@@ -551,11 +554,12 @@ def _split_args(device, stream: int, B: int, H: int, Hkv: int, D: int, cap: int)
 
 
 def decode_mha_append_cat_plain(q, kc, vc, lens, k_scale=None, v_scale=None, *,
-                                k_new, v_new, scale=None, window: int = 0):
+                                k_new, v_new, scale=None, window: int = 0,
+                                plan_kv_heads: Optional[int] = None):
     """Plain version of ``decode_mha_append_cat`` (same contract): write the
     new rows in place at the clamped row (s8 caches: quantized, with their
     scales; f32/bf16 caches: rounded to the cache dtype), attend in f32
-    over the cache values."""
+    over the cache values (``plan_kv_heads`` is the kernel's alone)."""
     B, Hkv = k_new.shape[0], k_new.shape[1]
     cap = kc.shape[1]
     lens = lens.reshape(B)
@@ -609,7 +613,8 @@ def _check_common(q, kc, vc, lens, k_scale, v_scale, Hkv):
 @_holdable
 def decode_mha_append_cat(q, kc, vc, lens, k_scale=None, v_scale=None, *,
                           k_new, v_new, scale: Optional[float] = None,
-                          window: int = 0, block_table=None):
+                          window: int = 0, block_table=None,
+                          plan_kv_heads: Optional[int] = None):
     """Decode attention + in-place append on cat-layout caches (S == 1).
 
     q [B,H,1,D] f32; kc/vc [B,cap,Hkv*D] holding rows < lens[b]: s8 with
@@ -622,7 +627,9 @@ def decode_mha_append_cat(q, kc, vc, lens, k_scale=None, v_scale=None, *,
 
     With ``block_table`` [B, MB] int32, kc/vc are block pools
     [NB, BS, Hkv*D] and the scales pools [NB, Hkv, 1, BS]
-    (``decode_mha_append_cat_paged``).
+    (``decode_mha_append_cat_paged``). ``plan_kv_heads``: split the
+    columns as a call of that many kv heads would (``_split_args``), which
+    keeps a tensor-parallel rank's sums in the unsharded order.
     """
     if block_table is not None:
         return decode_mha_append_cat_paged(
@@ -646,7 +653,8 @@ def decode_mha_append_cat(q, kc, vc, lens, k_scale=None, v_scale=None, *,
     strides = (cap * HkvD, HkvD)
     out = _launch_append(q, kc, vc, (cap * HkvD, D, HkvD), k_scale, v_scale,
                          (Hkv * cap, cap, 1), lens, k_new, v_new, kind, D, cap, scale,
-                         window, _vec16(kc, D, strides) & _vec16(vc, D, strides))
+                         window, _vec16(kc, D, strides) & _vec16(vc, D, strides),
+                         plan_kv_heads)
     decode_mha_append_cat.launches += 1
     return (out, kc, vc, k_scale, v_scale) if k_scale is not None else (out, kc, vc)
 
@@ -655,7 +663,7 @@ decode_mha_append_cat.launches = 0
 
 
 def _launch_append(q, kc, vc, kv_strides, k_scale, v_scale, sc_strides, lens, k_new,
-                   v_new, kind, D, cap, scale, window, vec):
+                   v_new, kind, D, cap, scale, window, vec, plan_kv_heads=None):
     """The append on caches of either layout, addressed through (slot, kv
     head, row) strides -> out [B,1,H*D]: the split fold
     ``rten_decode_append_split`` (csrc/decode_append*.cu,
@@ -674,7 +682,7 @@ def _launch_append(q, kc, vc, kv_strides, k_scale, v_scale, sc_strides, lens, k_
             v_new.data_ptr(), v_new.stride(0), v_new.stride(1),
             kc.data_ptr(), vc.data_ptr(), *kv_strides, _ptr(k_scale), _ptr(v_scale), *sc_strides,
             lens.data_ptr(), out.data_ptr(), B, H, Hkv, D, cap, int(window), float(scale), vec)
-    split = _split_args(q.device, stream, B, H, Hkv, D, cap)
+    split = _split_args(q.device, stream, B, H, Hkv, D, cap, plan_kv_heads)
     fn = _append_lib(kc.dtype).rten_decode_append_split
     err = fn(kind, *args, *split, stream)
     if err:

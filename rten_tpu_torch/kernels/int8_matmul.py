@@ -22,6 +22,13 @@ kernel with up to eight m16 tiles of activations) and "tiled" (M > 128: a
 shapes alone (no host sync); its workspace and arrival counters are kept
 per device and stream (``common.split_workspace``). Every form's output is
 bit-identical to the plain version's.
+
+The int32 mode (``out_int32=True``), in every form: the kernel stops before
+the scales and returns the zero-point-corrected int32 accumulator [M, N]
+(its own counter, ``int32_launches``, besides the form's). A row-parallel
+(K-sharded) product all-reduces it across ranks and then dequantizes, which
+keeps a sharded int8 forward bit-equal to the unsharded one
+(``rten_tpu_torch/parallel/partition.py``).
 """
 
 from __future__ import annotations
@@ -53,7 +60,7 @@ _ZP_KIND = {torch.uint8: 1, torch.int8: 2, torch.int32: 3}
 
 
 def int8_matmul_dequant_plain(a, b, a_scale, b_scale, a_zp=None, b_zp=None,
-                              b_colsums=None):
+                              b_colsums=None, out_int32=False):
     """Plain version (the JAX package's ``int8_matmul_dequant_xla``):
     subtract the zero points, take the exact integer product, scale.
 
@@ -61,7 +68,8 @@ def int8_matmul_dequant_plain(a, b, a_scale, b_scale, a_zp=None, b_zp=None,
     (``u8_to_s8_shift``). The product runs in float64, which holds every
     partial sum of s8 x s8 over K < 2**37 exactly, so the integer part is
     exact on any device; ``b_colsums`` is accepted for the kernel's
-    signature and not needed.
+    signature and not needed. ``out_int32``: the exact integer product as
+    int32, no scales applied.
     """
     if a.dtype == torch.uint8:
         zp = torch.zeros((), dtype=torch.uint8, device=a.device) if a_zp is None else a_zp
@@ -75,6 +83,8 @@ def int8_matmul_dequant_plain(a, b, a_scale, b_scale, a_zp=None, b_zp=None,
         bzp = torch.as_tensor(b_zp, device=a.device).to(torch.float64)
         b64 = b64 - (bzp[None, :] if bzp.ndim else bzp)
     acc = a64 @ b64
+    if out_int32:
+        return acc.round().to(torch.int32)
     sa = torch.as_tensor(a_scale, dtype=torch.float32, device=a.device)
     sb = torch.as_tensor(b_scale, dtype=torch.float32, device=a.device)
     if sa.ndim == 1:
@@ -186,12 +196,13 @@ def int8_split_plan(M: int, N: int, K: int, sms: int = SMS) -> Tuple[int, int, i
 
 
 def int8_matmul_dequant(a, b, a_scale, b_scale, a_zp=None, b_zp=None,
-                        b_colsums=None):
-    """a [M, K] (u8|s8) x b [K, N] s8 -> f32 [M, N]; see the module doc."""
+                        b_colsums=None, out_int32=False):
+    """a [M, K] (u8|s8) x b [K, N] s8 -> f32 [M, N] (int32 with
+    ``out_int32``); see the module doc."""
     dev = kernel_device(a, b)
     if dev == "cpu":
         return int8_matmul_dequant_plain(
-            a, b, a_scale, b_scale, a_zp, b_zp, b_colsums
+            a, b, a_scale, b_scale, a_zp, b_zp, b_colsums, out_int32
         )
     device = a.device
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
@@ -206,7 +217,8 @@ def int8_matmul_dequant(a, b, a_scale, b_scale, a_zp=None, b_zp=None,
         raise ValueError(f"K and N must be at least 1, got {K} and {N}")
     if K % 4 or N % 4:
         a, b, b_scale, b_zp, b_colsums = pad_operands(a, b, a_zp, b_scale, b_zp, b_colsums)
-        return int8_matmul_dequant(a, b, a_scale, b_scale, a_zp, b_zp, b_colsums)[:, :N]
+        return int8_matmul_dequant(a, b, a_scale, b_scale, a_zp, b_zp, b_colsums,
+                                   out_int32)[:, :N]
     if a.data_ptr() % 4 or b.data_ptr() % 4:
         raise ValueError("a and b must have 4-byte-aligned data")
     sa, sa_stride = _vec("a_scale", a_scale, M, torch.float32, device)
@@ -233,7 +245,8 @@ def int8_matmul_dequant(a, b, a_scale, b_scale, a_zp=None, b_zp=None,
         if cs.numel() != N:
             raise ValueError(f"b_colsums: expected {N} values, got {tuple(cs.shape)}")
         cs_ptr = cs.data_ptr()
-    out = torch.empty((M, N), dtype=torch.float32, device=device)
+    out = torch.empty((M, N), dtype=torch.int32 if out_int32 else torch.float32,
+                      device=device)
     if M == 0 or N == 0:
         return out
     form = int8_form(M)
@@ -247,11 +260,13 @@ def int8_matmul_dequant(a, b, a_scale, b_scale, a_zp=None, b_zp=None,
         FORMS.index(form), a.data_ptr(), int(a.dtype == torch.uint8), b.data_ptr(), M, N, K,
         sa.data_ptr(), sa_stride, sb.data_ptr(), sb_stride,
         azp_ptr, azp_kind, azp_stride, bzp_ptr, bzp_kind, bzp_stride,
-        cs_ptr, out.data_ptr(), ws_ptr, count_ptr, kchunk, splits, grid_x, stream,
+        cs_ptr, out.data_ptr(), ws_ptr, count_ptr, kchunk, splits, grid_x, int(out_int32),
+        stream,
     )
     if err:
         raise RuntimeError(f"int8_matmul_dequant ({form}) launch failed: CUDA error {err}")
     int8_matmul_dequant.launches += 1
+    int8_matmul_dequant.int32_launches += int(out_int32)
     setattr(int8_matmul_dequant, f"{form}_launches",
             getattr(int8_matmul_dequant, f"{form}_launches") + 1)
     del keep
@@ -263,6 +278,7 @@ int8_matmul_dequant.launches = 0
 int8_matmul_dequant.stream_launches = 0
 int8_matmul_dequant.rows_launches = 0
 int8_matmul_dequant.tiled_launches = 0
+int8_matmul_dequant.int32_launches = 0  # of them, the int32 mode's
 
 
 def _lib():
@@ -271,6 +287,6 @@ def _lib():
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [I, P, I, P, I, I, I, P, I, P, I, P, I, I, P, I, I, P, P, P, P,
-                       I, I, I, P]
+                       I, I, I, I, P]
         fn.restype = I
     return lib

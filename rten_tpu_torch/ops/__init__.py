@@ -6,6 +6,7 @@ from .registry import OpError, REGISTRY, get_op, register  # noqa: F401
 # Import op modules for their registration side effects.
 from . import (  # noqa: F401
     attention,
+    collective,
     contrib,
     control_flow,
     conv,

@@ -123,6 +123,25 @@ def _attend(q, k, v, mask=None, *, scale=None, causal=False, softcap=0.0):
     return mha_plain(q, k, v, mask, scale=scale, causal=causal, softcap=softcap)
 
 
+def _sp_causal_mask(q, k, add_mask, group_key):
+    """The causal mask of a sequence-parallel prefill's attention
+    (``rten_sp_group``, set by ``rten_tpu_torch/parallel/partition.py``): q
+    holds this rank's tokens, the rank-th of the group's equal chunks, and
+    K/V every rank's (all-gathered) behind the past; query i of rank r sits
+    at past + r * Tq + i."""
+    import torch.distributed as dist
+
+    from .collective import group_of
+
+    group = group_of(group_key)
+    Tq, Tk = q.shape[2], k.shape[2]
+    past = Tk - Tq * dist.get_world_size(group)
+    q_pos = past + dist.get_rank(group) * Tq + torch.arange(Tq, device=q.device)[:, None]
+    allowed = torch.arange(Tk, device=q.device)[None, :] <= q_pos
+    cm = torch.where(allowed, 0.0, NEG_INF)
+    return cm if add_mask is None else add_mask + cm
+
+
 @register("Attention")
 def _attention(ctx, inputs, attrs):
     """ONNX opset-23 Attention (rten src/ops/attention.rs:645): Q
@@ -153,8 +172,11 @@ def _attention(ctx, inputs, attrs):
         # Fold leading unit dims: the kernel takes a 2-D mask.
         while add_mask.ndim > 2 and add_mask.shape[0] == 1:
             add_mask = add_mask[0]
-    out = _attend(q, k, v, add_mask, scale=attrs.get("scale"),
-                  causal=bool(attrs.get("is_causal", 0)), softcap=attrs.get("softcap", 0.0))
+    causal = bool(attrs.get("is_causal", 0))
+    if causal and attrs.get("rten_sp_group") is not None:
+        add_mask, causal = _sp_causal_mask(q, k, add_mask, attrs["rten_sp_group"]), False
+    out = _attend(q, k, v, add_mask, scale=attrs.get("scale"), causal=causal,
+                  softcap=attrs.get("softcap", 0.0))
     if three_d:
         out = heads_to_cat(out)
     if attrs.get("__n_outputs__", 1) >= 3:
@@ -447,9 +469,14 @@ def _quantized_kv_attention(ctx, inputs, attrs):
         if bits != 8:
             raise OpError("rten_kernel_append supports bits=8 only")
         append = decode_mha_append if past_k_q8.ndim == 4 else decode_mha_append_cat
+        # A tensor-parallel rank's op carries the unsharded kv head count
+        # (rten_tpu_torch/parallel/partition.py): the kernel splits as the
+        # unsharded call does, so every head sums in the same order.
+        plan = attrs.get("rten_plan_kv_heads")
         out, nk, nv, nks, nvs = append(
             q4, past_k_q8, past_v_q8, lens, k_scales, v_scales,
             k_new=k4, v_new=v4, scale=scale, window=window,
+            **({"plan_kv_heads": plan} if plan is not None and past_k_q8.ndim == 3 else {}),
         )
         # The cat append's out arrives in cat layout [B, 1, H*D] == merged heads.
         return (heads_to_cat(out) if out.ndim == 4 else out, nk, nks, nv, nvs)

@@ -17,7 +17,11 @@ MatMulNBits.
   routed to the int8 kernel (``rten_tpu_torch/kernels/int8_matmul.py``),
   sliced back to the logical width ``rten_orig_n`` when the prepack padded
   N, then the bias is added; a batched weight takes the JAX package's own
-  non-kernel route, the exact integer product times the scales.
+  non-kernel route, the exact integer product times the scales. With the
+  attribute ``rten_int32_out`` (set only by the tensor-parallel partition,
+  ``rten_tpu_torch/parallel/partition.py``, on a row-parallel product) the
+  op returns the zero-point-corrected int32 accumulator, the kernel's int32
+  mode: scales and bias are applied after the all-reduce.
 * MatMulNBits (``matmul.py:181-232``), inputs (a, packed nibbles
   [N, nb, bs/2], scales, zero points): routed to the int4 kernel
   (``rten_tpu_torch/kernels/int4_matmul.py``, where ``dequant_nbits``
@@ -141,6 +145,16 @@ def _matmul_integer_to_float(ctx, inputs, attrs):
     orig_n = attrs.get("rten_orig_n")
     a_zp, b_zp, b_colsums = (None if v is None else as_tensor(ctx, v)
                              for v in (a_zp, b_zp, b_colsums))
+    if attrs.get("rten_int32_out"):
+        if b.ndim != 2:
+            out = int_matmul(a, b, a_zp, b_zp, b_colsums)
+        else:
+            lead = a.shape[:-1]
+            out = int8_matmul_dequant(
+                a.reshape(-1, a.shape[-1]), b, a_scale, b_scale, a_zp, b_zp, b_colsums,
+                out_int32=True,
+            ).reshape(*lead, b.shape[-1])
+        return out if orig_n is None else out[..., :orig_n]
     if b.ndim != 2:
         out = int_matmul(a, b, a_zp, b_zp, b_colsums).to(torch.float32) * (
             a_scale.to(torch.float32) * b_scale.to(torch.float32))

@@ -22,6 +22,13 @@ attrs: top_k (default 2), activation ('gelu' | 'silu' | 'swiglu'),
   slots; slots go to (token, choice) assignments in token-major order and
   an assignment past its expert's capacity is dropped (contributes zero).
 
+Expert parallelism (``rten_tpu_torch/parallel/partition.py``): a rank's
+op holds the experts ``rten_expert_offset`` .. + X_local of the X the
+router scores; routing, the gates and (capacity
+dispatch) C and the token-major drop order are the global ones, the rank
+runs its own experts only, and the partial combine is summed over the ranks
+by the ``AllReduce`` the partition puts after the op.
+
 The router and the expert products run in f32 whatever the process-wide
 TF32 flags say (``contract`` in f64 on the card); no lowering reads or sets
 those flags.
@@ -64,7 +71,9 @@ def _moe(ctx, inputs, attrs):
     b_down = None if b_down is None else as_tensor(ctx, b_down).to(torch.float32)
     top_k = int(attrs.get("top_k", 2))
     act = _activation(attrs.get("activation", "gelu"))
-    X = w_up.shape[0]
+    X = router_w.shape[1]
+    lo = int(attrs.get("rten_expert_offset", 0))
+    mine = slice(lo, lo + w_up.shape[0])  # the experts this op holds
     if top_k > X:
         raise OpError(f"top_k {top_k} exceeds n_experts {X}")
 
@@ -86,7 +95,7 @@ def _moe(ctx, inputs, attrs):
         pos = torch.cumsum(oh_e, dim=0) * oh_e - 1.0
         keep = (pos >= 0) & (pos < C)
         oh_c = F.one_hot(pos.clamp(0, C - 1).to(torch.int64), C).to(torch.float32)
-        oh_c = (oh_c * keep[..., None]).reshape(N, k, X, C)
+        oh_c = (oh_c * keep[..., None]).reshape(N, k, X, C)[:, :, mine]
         disp = oh_c.sum(dim=1)                                          # [N, X, C]
         comb = (gate_vals.reshape(N, k)[:, :, None, None] * oh_c).sum(dim=1)
         xd = _einsum(ctx, "nxc,nd->xcd", disp, xf.reshape(N, E))        # [X, C, E]
@@ -99,6 +108,7 @@ def _moe(ctx, inputs, attrs):
         return _einsum(ctx, "nxc,xce->ne", comb, y).reshape(B, T, E).to(x.dtype)
 
     gates = (gate_vals[..., None] * F.one_hot(top_idx, X).to(torch.float32)).sum(dim=2)
+    gates = gates[..., mine]
     h = _einsum(ctx, "bte,xef->xbtf", xf, w_up)
     if b_up is not None:
         h = h + b_up[:, None, None, :]

@@ -24,13 +24,15 @@ from .registry import as_tensor, get_input, opt_input, register
 _INV_QRANGE = float(np.float32(1.0) / np.float32(255.0))  # exact in f32
 
 
-def dynamic_quantize(x: torch.Tensor):
+def dynamic_quantize(x: torch.Tensor, bounds=None):
     """Per-tensor u8 dynamic quantization (ONNX DynamicQuantizeLinear).
 
     Returns (y u8, scale f32 0-d, zero_point u8 0-d), all on x's device.
+    ``bounds``: the (min, max) of the whole tensor where ``x`` is one
+    rank's shard of it (``ops/collective.py``); x's own by default.
     """
     qmin, qmax = 0.0, 255.0
-    lo, hi = torch.aminmax(x)
+    lo, hi = torch.aminmax(x) if bounds is None else bounds
     x_min = torch.clamp(lo, max=0.0)
     x_max = torch.clamp(hi, min=0.0)
     scale = (x_max - x_min) * _INV_QRANGE

@@ -145,7 +145,19 @@ class ContinuousBatchingEngine:
         pipeline_dispatch: bool = False,
         chunked_prefill: bool = False,
         max_queue: Optional[int] = None,
+        params: Optional[Dict[int, torch.Tensor]] = None,
     ):
+        """``params``: weights of the rank's graph from
+        ``parallel.shard_constants`` / ``shard_constants_by_plan``, making
+        the engine tensor-parallel: it runs the rank's model they carry
+        (``params.model``: local head counts, sliced weights, collectives)
+        in place of ``model``, its caches allocated at the local head count
+        from that graph's declared shapes, and feeds them to every forward.
+        Every rank runs the same engine calls; the greedy token (a
+        ``ShardedArgMax``) and the device sampler's draw (from the gathered
+        logits, the same generator state on every rank) are the same on
+        every rank. ``n_head`` stays the global count."""
+        model = getattr(params, "model", None) or model
         self.model = model
         self.executor = model.executor
         self.device = model.device
@@ -240,7 +252,7 @@ class ContinuousBatchingEngine:
 
         # Extra inputs fed to every forward ({node id: device tensor}): the
         # per-slot adapter ids and the stacked adapters of a LoRA graph.
-        self.params: Dict[int, torch.Tensor] = {}
+        self.params: Dict[int, torch.Tensor] = dict(params or {})
         self._adapter_nid = self.g.find_node("slot_adapter")
         self.lora_input_ids = {
             self.g.node_name(n): n for n in self.g.input_ids

@@ -63,6 +63,10 @@ def test_import_pulls_in_no_jax():
         "from rten_tpu_torch.imageproc import find_contours, nms_boxes\n"
         "from rten_tpu_torch.imageio import image_to_tensor\n"
         "from rten_tpu_torch.functional import arg_max\n"
+        "from rten_tpu_torch.parallel import PipelineRunner, make_mesh, shard_model\n"
+        "from rten_tpu_torch.parallel.partition import partition_graph\n"
+        "from rten_tpu_torch.parallel.ring import ring_attention\n"
+        "from rten_tpu_torch.ops.collective import sharded_argmax\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'rten_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok', len([m for m in sys.modules if m.startswith('rten_tpu_torch')]))\n"
@@ -71,6 +75,32 @@ def test_import_pulls_in_no_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert r.stdout.startswith("ok")
+
+
+def test_parallel_modules_import_alone():
+    """The multi-device modules (``parallel/``, the collectives) each
+    import in a fresh interpreter with neither ``jax`` nor ``rten_tpu``
+    loaded, and the multi-process tests' rank helper imports neither."""
+    mods = ["rten_tpu_torch.parallel", "rten_tpu_torch.parallel.distributed",
+            "rten_tpu_torch.parallel.mesh", "rten_tpu_torch.parallel.sharding",
+            "rten_tpu_torch.parallel.partition", "rten_tpu_torch.parallel.pipeline",
+            "rten_tpu_torch.parallel.ring", "rten_tpu_torch.ops.collective"]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'rten_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], env=_no_card_env(), cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+    for f in sorted((ROOT / "rten_tpu_torch" / "parallel").glob("*.py")) + [
+            ROOT / "rten_tpu_torch" / "ops" / "collective.py",
+            ROOT / "tests" / "torch_parallel_worker.py"]:
+        assert not FORBIDDEN.search(f.read_text()), f"{f} imports jax or rten_tpu"
 
 
 def test_host_libraries_run_without_regex_pil_or_tokenizers():

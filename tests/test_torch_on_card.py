@@ -85,6 +85,64 @@ def test_int8_matmul_kernel(card, M, K, N, zp):
     assert torch.equal(got, want) and torch.equal(got, again)
 
 
+@pytest.mark.parametrize("M,K,N", [(1, 384, 768), (16, 384, 768), (16, 1536, 768),
+                                   (17, 384, 768), (120, 1536, 768), (129, 384, 768),
+                                   (2048, 1536, 768), (16, 2048, 256), (40, 100, 36)])
+@pytest.mark.parametrize("zp", ["u8_colsums", "u8", "s8_both"])
+def test_int8_matmul_int32_mode(card, M, K, N, zp):
+    """The int32 mode (a row-parallel rank's product: the corrected int32
+    accumulator, no scales) in every form, split K included, against the
+    plain version bit for bit; scaled as the epilogue scales it, it is the
+    f32 mode's output; the form's and the int32 counters move."""
+    g = _gen(M * 5 + N)
+    b = torch.randint(-127, 128, (K, N), generator=g, dtype=torch.int8)
+    sb = torch.rand(N, generator=g) * 1e-3 + 1e-4
+    if zp == "s8_both":
+        a = torch.randint(-128, 128, (M, K), generator=g, dtype=torch.int8)
+        azp = torch.randint(-3, 4, (M,), generator=g, dtype=torch.int32)
+        bzp = torch.randint(-2, 3, (N,), generator=g, dtype=torch.int32)
+        sa = torch.rand(M, generator=g) * 0.01 + 0.01
+        cs = None
+    else:
+        a = torch.randint(0, 256, (M, K), generator=g, dtype=torch.uint8)
+        azp, bzp, sa = torch.tensor(131, dtype=torch.uint8), None, torch.tensor(0.02)
+        cs = b.to(torch.int32).sum(0, keepdim=True).to(torch.int32) if zp == "u8_colsums" else None
+    args = [t if t is None else t.to(card) for t in (a, b, sa, sb, azp, bzp, cs)]
+    form = tmm.int8_form(M)
+    before = getattr(tmm.int8_matmul_dequant, f"{form}_launches")
+    before32 = tmm.int8_matmul_dequant.int32_launches
+    got = tmm.int8_matmul_dequant(*args, out_int32=True)
+    want = tmm.int8_matmul_dequant_plain(*args, out_int32=True)
+    f32 = tmm.int8_matmul_dequant(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.shape == (M, N)
+    assert torch.equal(got, want)
+    sa_, sb_ = args[2], args[3]
+    scaled = got.float() * (sa_[:, None] if sa_.ndim else sa_) * sb_
+    assert torch.equal(scaled, f32)
+    assert getattr(tmm.int8_matmul_dequant, f"{form}_launches") == before + 2
+    assert tmm.int8_matmul_dequant.int32_launches == before32 + 1
+
+
+def test_tensor_parallel_wave_two_ranks_on_one_card(card, tmp_path):
+    """Two gloo ranks on this one card (NCCL refuses two ranks of one
+    communicator on a card) serve the main path's int8 graph tensor-
+    parallel (``tests/torch_parallel_worker.py``): every rank's greedy
+    tokens equal the unsharded engine's on the same card, and each rank ran
+    the int8 kernel's int32 mode and the argmax kernel."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).parent))
+    from torch_parallel_worker import run_ranks
+
+    outs = run_ranks(tmp_path, 2, (1, 2), ["card_wave"], timeout=300, device="cuda:0")
+    for out in outs["card_wave"]:
+        assert np.array_equal(out["tokens"], out["plain"])
+        assert (out["tokens"] >= 0).sum() > 20
+        assert int(out["int32_launches"]) > 0 and int(out["argmax_launches"]) > 0
+
+
 def test_argmax_kernel(card):
     """The split argmax against its plain version at a ragged slice and at
     the three serve shapes ([120, 50257] through the padded lm_head's
@@ -1461,6 +1519,24 @@ def test_timed_fails_below_the_byte_floor(card):
     assert device is not None and device > 0 and wall > 0
     with pytest.raises(SystemExit):  # a floor of about 0.3 s for a microsecond's add
         chip_smoke.timed(lambda: x.add_(1), iters=3, warmup=1, nbytes=1e12)
+
+
+def test_card_profile_counts_every_launch_but_its_primes(card):
+    """``chip_smoke.card_profile`` launches its spin kernels first (a
+    profile loses the events of its first launches, ROADMAP fault 8);
+    window after window, ``device_events`` counts every launch of the
+    window's own and none of the primes."""
+    import chip_smoke
+
+    x = torch.zeros(1024, device=card)
+    for _ in range(40):
+        with chip_smoke.card_profile() as prof:
+            for _ in range(5):
+                x.add_(1)
+            torch.cuda.synchronize()
+        events = chip_smoke.device_events(prof)
+        assert sum(c for _, c, _ in events) == 5
+        assert not any(chip_smoke.PRIME_KERNEL in name for name, _, _ in events)
 
 
 def test_tinyllama_bf16_reference_repeats(card, capsys):
